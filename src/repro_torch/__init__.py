@@ -1,0 +1,28 @@
+"""FreeKV on PyTorch + CUDA: the port of the JAX package ``repro``.
+
+The module layout mirrors ``repro`` (``configs``, ``kernels``, ``models``,
+``core``, ``serving``, ``data``, ``launch``) so each function has a
+counterpart of the same name. This package imports ``torch``, ``numpy`` and
+the standard library only; it never imports ``jax`` or ``repro``.
+
+Entry points take an explicit ``device`` whose default is ``"cuda"``; on a
+machine without a card that default raises (``resolve_device``) instead of
+carrying on on the CPU. Pass ``device="cpu"`` to run the plain PyTorch
+versions of the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """``device`` as a ``torch.device``; raises when CUDA is asked for and
+    there is no card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain PyTorch versions")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev

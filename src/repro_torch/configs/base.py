@@ -1,0 +1,158 @@
+"""Config dataclasses for architectures and FreeKV (own copy of the reference
+``repro/configs/base.py``, cut to what the port serves).
+
+Layer structure is ``prelude + pattern * n_periods``, each layer a
+``(mixer, ffn)`` pair, exactly as in the reference; the port runs the layers
+as a flat Python loop (``ArchConfig.layers``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+# mixer kinds
+ATTN = "attn"
+ATTN_LOCAL = "attn_local"
+MAMBA = "mamba"
+MLSTM = "mlstm"
+SLSTM = "slstm"
+# ffn kinds
+DENSE = "dense"
+MOE = "moe"
+NONE = "none"
+
+Layer = Tuple[str, str]
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str
+    source: str
+
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+
+    prelude: Tuple[Layer, ...] = ()
+    pattern: Tuple[Layer, ...] = ((ATTN, DENSE),)
+    n_periods: int = 0               # 0 -> (n_layers - len(prelude)) / len(pattern)
+
+    d_head: int = 0                  # 0 -> d_model // n_heads
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    act: str = "silu"                # silu | gelu
+    gated_mlp: bool = True
+    rope_theta: float = 10000.0
+    rope_fraction: float = 1.0
+    sliding_window: int = 4096
+    attn_logit_softcap: Optional[float] = None
+    final_logit_softcap: Optional[float] = None
+    post_block_norm: bool = False
+    tie_embeddings: bool = False
+    attn_scale: Optional[float] = None
+
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    moe_top_k: int = 0
+    d_expert: int = 0
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    frontend: Optional[str] = None
+    n_frontend_tokens: int = 0
+
+    max_position_embeddings: int = 1 << 20
+
+    def __post_init__(self):
+        if self.d_head == 0:
+            object.__setattr__(self, "d_head", self.d_model // self.n_heads)
+        if self.n_periods == 0:
+            body = self.n_layers - len(self.prelude)
+            assert body % len(self.pattern) == 0, (
+                f"{self.name}: {body} layers not divisible by pattern "
+                f"{len(self.pattern)}")
+            object.__setattr__(self, "n_periods", body // len(self.pattern))
+        assert len(self.prelude) + len(self.pattern) * self.n_periods == self.n_layers
+
+    @property
+    def group_size(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+    @property
+    def layers(self) -> Tuple[Layer, ...]:
+        return self.prelude + self.pattern * self.n_periods
+
+    def padded_vocab(self, multiple: int = 512) -> int:
+        return ((self.vocab_size + multiple - 1) // multiple) * multiple
+
+
+@dataclass(frozen=True)
+class FreeKVConfig:
+    """The FreeKV runtime knobs the port serves (reference
+    ``repro/configs/base.py:191``). The kernels are chosen by the tensors'
+    device, so there is no ``use_kernels`` flag: CUDA tensors launch the
+    hand-written kernels, CPU tensors take their plain PyTorch versions."""
+    method: str = "freekv"      # freekv | arkvale | full
+    retriever: str = ""         # alias for method; wins when given
+    page_size: int = 32
+    budget: int = 2048          # tokens resident on the device
+    n_sink: int = 128
+    n_window: int = 128
+    tau: float = 0.8            # correction threshold
+    group_pool: str = "mean_softmax"  # MeanS (paper) | max_softmax | mean_qk | max_qk
+    offload: str = "sim"        # sim (pool on the card) | host (pinned host pool)
+    recall_overlap: bool = True  # staged recall on a side stream
+    kv_quant: str = "none"      # only "none" is ported
+    pool_pad_pages: int = 1
+
+    def __post_init__(self):
+        if self.retriever:
+            object.__setattr__(self, "method", self.retriever)
+        p = self.page_size
+        if self.n_sink % p or self.n_window % p:
+            raise ValueError(
+                f"n_sink={self.n_sink} and n_window={self.n_window} must be "
+                f"multiples of page_size={p}: the paged-attention kernel "
+                "reads the sink, window and selected regions as whole pages")
+        if self.offload not in ("sim", "host"):
+            raise ValueError(f"offload must be 'sim' or 'host', got {self.offload!r}")
+        if self.kv_quant != "none":
+            raise NotImplementedError(
+                "kv_quant != 'none' is not ported yet (ROADMAP queue 1, item 8)")
+
+
+def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:
+    """Reduced variant of the same family for CPU smoke tests (same rule as
+    the reference, restricted to the dense archs the port registers)."""
+    pat = cfg.pattern
+    if len(pat) > 2:
+        chosen, order = {}, []
+        for m, f in pat:
+            if m not in chosen:
+                chosen[m] = f
+                order.append(m)
+            elif f == MOE:
+                chosen[m] = f
+        pat = tuple((m, chosen[m]) for m in order[:2])
+    prelude = cfg.prelude[:1]
+    n_layers = len(prelude) + len(pat)
+    d_model = min(cfg.d_model, 256)
+    n_heads = 4
+    n_kv = max(1, min(cfg.n_kv_heads, 2))
+    changes = dict(
+        n_layers=n_layers, d_model=d_model, n_heads=n_heads, n_kv_heads=n_kv,
+        d_head=d_model // n_heads, d_ff=max(cfg.d_ff and 512, 0) if cfg.d_ff else 0,
+        vocab_size=min(cfg.vocab_size, 1024), prelude=prelude, pattern=pat,
+        n_periods=1, sliding_window=64,
+        n_encoder_layers=min(cfg.n_encoder_layers, 2),
+        n_frontend_tokens=min(cfg.n_frontend_tokens, 16) if cfg.n_frontend_tokens else 0,
+        max_position_embeddings=1 << 16,
+    )
+    if cfg.n_experts:
+        changes.update(n_experts=4, moe_top_k=min(cfg.moe_top_k, 2),
+                       n_shared_experts=min(cfg.n_shared_experts, 1),
+                       d_expert=128 if cfg.d_expert else 0)
+    return dataclasses.replace(cfg, name=cfg.name + "-smoke", **changes)

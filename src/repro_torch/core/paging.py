@@ -1,0 +1,149 @@
+"""KV paging and the paper's hybrid layouts (reference ``repro/core/paging.py``).
+
+The pool uses the **HND** layout ``(B, n_pages, kv, 2, p, d)``: the K+V block
+of one (KV head, page) is contiguous, the recall's transfer unit. The device
+rings use **NHD** ``(B, n, kv, d)``, so a decode append needs no transpose;
+the NHD->HND transpose happens once per completed page.
+
+State updates are IN PLACE (the port's counterpart of the reference's buffer
+donation): ``append_token`` writes the rings, the pool and the summaries of
+the dict it is given and returns that same dict. With ``offload="host"`` the
+pool is pinned host memory (``core/offload``) and every pool write is a
+``copy_(..., non_blocking=True)`` from a card-side block on the current
+stream; nothing reads the host pool except the ``recall_gather`` kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, FreeKVConfig
+from repro_torch.core import offload
+
+
+def state_dims(cfg: ArchConfig, fkv: FreeKVConfig, max_len: int):
+    p = fkv.page_size
+    n_pages = -(-max_len // p)
+    m = fkv.pool_pad_pages
+    n_pages = -(-n_pages // m) * m
+    n_sink = fkv.n_sink
+    n_win = fkv.n_window + p          # ring slack so a completing page is present
+    n_sel = max(1, (fkv.budget - fkv.n_sink - fkv.n_window) // p)
+    return p, n_pages, n_sink, n_win, n_sel
+
+
+def init_kv_state(cfg: ArchConfig, fkv: FreeKVConfig, batch: int, max_len: int,
+                  dtype=torch.bfloat16, device="cuda"):
+    """Per-layer FreeKV decode state (fp pool only)."""
+    from repro_torch import resolve_device
+    dev = resolve_device(device)
+    p, n_pages, n_sink, n_win, n_sel = state_dims(cfg, fkv, max_len)
+    kv, d, H = cfg.n_kv_heads, cfg.d_head, cfg.n_heads
+
+    def z(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    return {
+        "pool": offload.alloc_pool((batch, n_pages, kv, 2, p, d), dtype, fkv, dev),
+        "summ": z(batch, n_pages, kv, 2, d),
+        "sink_k": z(batch, n_sink, kv, d),
+        "sink_v": z(batch, n_sink, kv, d),
+        "win_k": z(batch, n_win, kv, d),
+        "win_v": z(batch, n_win, kv, d),
+        "win_pos": torch.full((batch, n_win), -1, dtype=torch.int32, device=dev),
+        "sel_k": z(batch, kv, n_sel, p, d),
+        "sel_v": z(batch, kv, n_sel, p, d),
+        "sel_idx": torch.full((batch, kv, n_sel), -1, dtype=torch.int32, device=dev),
+        "qprev": z(batch, H, d),
+        "length": torch.zeros((batch,), dtype=torch.int32, device=dev),
+    }
+
+
+def nhd_pages_to_hnd(k_pages, v_pages):
+    """(B, n, p, kv, d) K and V -> pool block (B, n, kv, 2, p, d) (HND)."""
+    return torch.stack([k_pages.transpose(2, 3), v_pages.transpose(2, 3)], dim=3)
+
+
+def _write_pool(pool, rows, pages, blocks):
+    """pool[rows[i], pages[i]...] = blocks[i] for a card-side ``blocks``:
+    one non-blocking copy per row into a (possibly pinned host) pool."""
+    for i, (b, pg) in enumerate(zip(rows, pages)):
+        dst = pool[b, pg] if isinstance(pg, int) else pool[b, pg.start:pg.stop]
+        dst.copy_(blocks[i], non_blocking=True)
+
+
+def prefill_fill_pool(state, k, v, length):
+    """Insert a prefill's K/V (B, T, kv, d) into pool + summaries + sink + ring.
+
+    ``length`` (B,) is the per-row valid length (rows share T, left-padded).
+    The pool write is one bulk device-to-host copy per row."""
+    B, T, kv, d = k.shape
+    n_sink = state["sink_k"].shape[1]
+    n_win = state["win_k"].shape[1]
+    if T < max(n_sink, n_win):
+        raise ValueError(f"a {T}-token prompt is shorter than the sink ({n_sink}) "
+                         f"or the window ring ({n_win})")
+    pool = state["pool"]
+    p = pool.shape[4]
+    n_full = T // p
+    kp = k[:, : n_full * p].reshape(B, n_full, p, kv, d)
+    vp = v[:, : n_full * p].reshape(B, n_full, p, kv, d)
+    hnd = nhd_pages_to_hnd(kp, vp).to(pool.dtype).contiguous()
+    _write_pool(pool, range(B), [slice(0, n_full)] * B, hnd)
+    summ = torch.stack([kp.amin(dim=2), kp.amax(dim=2)], dim=3)   # (B,n,kv,2,d)
+    state["summ"][:, :n_full] = summ.to(state["summ"].dtype)
+
+    dt = state["win_k"].dtype
+    state["sink_k"].copy_(k[:, :n_sink].to(dt))
+    state["sink_v"].copy_(v[:, :n_sink].to(dt))
+    # ring layout: the token at absolute position t lives in slot t % n_win
+    tail = torch.arange(T - n_win, T, device=k.device)
+    slots = tail % n_win
+    state["win_k"].zero_()
+    state["win_v"].zero_()
+    state["win_k"][:, slots] = k[:, T - n_win:T].to(dt)
+    state["win_v"][:, slots] = v[:, T - n_win:T].to(dt)
+    state["win_pos"].fill_(-1)
+    state["win_pos"][:, slots] = tail.to(torch.int32)[None].expand(B, n_win)
+    state["length"] = torch.as_tensor(length, dtype=torch.int32,
+                                      device=k.device).expand(B).clone()
+    return state
+
+
+def append_token(state, k_new, v_new, length_host=None):
+    """Append one token's K/V (B, kv, d); offload a page where one completes.
+
+    ``length_host`` is a CPU copy of ``state["length"]`` (the engine keeps
+    one so the decode step needs no device read); without it the lengths
+    are read back here. Rows whose page completes this step write their
+    ``(kv, 2, p, d)`` block to the pool and their min/max summary; the other
+    rows write nothing. Updates ``state`` in place and returns it."""
+    B, n_win, kv, d = state["win_k"].shape
+    pool = state["pool"]
+    p = pool.shape[4]
+    pos = state["length"]                          # (B,) position of the new token
+    dev = pos.device
+    slot = (pos % n_win).long()
+    bidx = torch.arange(B, device=dev)
+    state["win_k"][bidx, slot] = k_new.to(state["win_k"].dtype)
+    state["win_v"][bidx, slot] = v_new.to(state["win_v"].dtype)
+    state["win_pos"][bidx, slot] = pos
+    state["length"] = pos + 1
+
+    if length_host is None:
+        length_host = pos.cpu()
+    new_len = [int(x) + 1 for x in length_host]
+    rows = [b for b in range(B) if new_len[b] % p == 0]
+    if not rows:
+        return state
+    pages = [new_len[b] // p - 1 for b in rows]
+    # the completed page's tokens, gathered from the ring
+    tok_pos = torch.tensor(pages, device=dev)[:, None] * p + torch.arange(p, device=dev)
+    tok_slot = tok_pos % n_win                                     # (R, p)
+    ridx = torch.tensor(rows, device=dev)
+    pk = state["win_k"][ridx[:, None], tok_slot]                   # (R, p, kv, d)
+    pv = state["win_v"][ridx[:, None], tok_slot]
+    hnd = torch.stack([pk.transpose(1, 2), pv.transpose(1, 2)], dim=2)   # (R,kv,2,p,d)
+    _write_pool(pool, rows, pages, hnd.to(pool.dtype).contiguous())
+    summ = torch.stack([pk.amin(dim=1), pk.amax(dim=1)], dim=2)    # (R,kv,2,d)
+    state["summ"][ridx, torch.tensor(pages, device=dev)] = summ.to(state["summ"].dtype)
+    return state

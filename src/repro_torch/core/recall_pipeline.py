@@ -1,0 +1,152 @@
+"""Overlapped double-buffered recall (§4), reference
+``repro/core/recall_pipeline.py:56-150``.
+
+Each decode step's transfer splits into
+  * reuse: newly selected pages already in the previous buffer (no bytes),
+  * a correction top-up on the critical path: corrected heads' pages that
+    are not resident, and
+  * a staged recall of everything else, which becomes the next step's
+    buffer.
+
+On the card the staged recall runs on a side CUDA stream — the card's form
+of the paper's double buffer. Its rules: the side stream waits on the main
+stream before it launches (completed pool pages are written on the main
+stream); tensors that cross streams get ``record_stream``; the staged output
+is a fresh tensor that never aliases the buffer this step's attention reads;
+and the next step waits on ``PipelinedRecall.ready`` before it reads the
+staged buffer (``FreeKVRetriever`` keeps the event in the layer state). On
+the CPU there are no streams and the same code runs in order.
+
+Guarantee, bit for bit: ``staged == fresh`` and
+``use == where(corr, fresh, stale)``.
+"""
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from repro_torch.core import recall
+
+
+def match_resident(new_idx, prev_idx):
+    """Which newly selected pages already sit in the previous buffer.
+
+    new_idx/prev_idx (B, kv, n_sel) int32, -1 invalid -> (hit bool, src
+    int32): for a hit, ``src`` is the page's position in the previous
+    buffer. ``argmax`` over the int-cast match gives the first match, as
+    ``jnp.argmax`` of a boolean does."""
+    eq = ((new_idx[..., :, None] == prev_idx[..., None, :])
+          & (new_idx >= 0)[..., :, None] & (prev_idx >= 0)[..., None, :])
+    hit = eq.any(dim=-1)
+    src = torch.argmax(eq.to(torch.int32), dim=-1).to(torch.int32)
+    return hit, src
+
+
+def _take_pages(buf, src):
+    """Gather buffer pages (B, kv, n_sel, p, d) at per-slot positions src."""
+    index = src.long()[..., None, None].expand(*src.shape, *buf.shape[3:])
+    return torch.gather(buf, 2, index)
+
+
+@dataclass
+class PipelinedRecall:
+    """One decode step's transfer plan and results."""
+    use_k: torch.Tensor       # buffer this step's attention reads
+    use_v: torch.Tensor
+    use_idx: torch.Tensor
+    staged_k: torch.Tensor    # next step's buffer == fresh recall, bit-exact
+    staged_v: torch.Tensor
+    topup_blocks: torch.Tensor   # (B,) critical-path (kv-head, page) fetches
+    staged_blocks: torch.Tensor  # (B,) overlapped fetches
+    reused_blocks: torch.Tensor  # (B,) buffer hits
+    ready: Optional[object] = None  # CUDA event: staged buffer written
+
+
+# One side stream per device for the whole process: the caching allocator
+# keeps its blocks per stream, so a fresh stream every step would miss the
+# cache and call cudaMalloc on every staged recall.
+_SIDE_STREAMS = {}
+
+
+def side_stream(device):
+    """The staged-recall stream of ``device``."""
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device=device)
+    return _SIDE_STREAMS[device]
+
+
+class RecallExecutor:
+    """Double-buffered recall over one ``recall_fn(pool, idx) -> (k, v)``."""
+
+    def __init__(self, recall_fn=None):
+        self.recall_fn = recall_fn or recall.recall_pages
+
+    def recall(self, pool, idx):
+        """Full blocking recall (prefill and the synchronous path)."""
+        return self.recall_fn(pool, idx)
+
+    def step(self, pool, new_idx, prev_idx, prev_k, prev_v, need) -> PipelinedRecall:
+        """Plan and run one overlapped step. ``need`` (B, kv) bool marks the
+        heads whose fresh pages THIS step's attention must see."""
+        dt = prev_k.dtype
+        hit, src = match_resident(new_idx, prev_idx)
+        reused_k = _take_pages(prev_k, src)
+        reused_v = _take_pages(prev_v, src)
+        valid = new_idx >= 0
+        need3 = need[:, :, None]
+        hit5 = hit[..., None, None]
+        need5 = need3[..., None, None]
+        neg = torch.full_like(new_idx, -1)
+
+        # critical path: corrected heads' non-resident pages only
+        topup_idx = torch.where(need3 & ~hit & valid, new_idx, neg)
+        tk, tv = self.recall_fn(pool, topup_idx)
+        tk, tv = tk.to(dt), tv.to(dt)
+        # overlapped: everything else that is fresh and non-resident
+        stage_idx = torch.where(~need3 & ~hit & valid, new_idx, neg)
+
+        ready = None
+        if new_idx.is_cuda:
+            main = torch.cuda.current_stream(new_idx.device)
+            side = side_stream(new_idx.device)
+            side.wait_stream(main)
+            for t in (stage_idx, reused_k, reused_v, tk, tv, hit5, need5):
+                t.record_stream(side)
+            if pool.is_cuda:
+                pool.record_stream(side)
+            ctx = torch.cuda.stream(side)
+        else:
+            ctx = contextlib.nullcontext()
+        with ctx:
+            sk, sv = self.recall_fn(pool, stage_idx)
+            fresh_k = torch.where(hit5, reused_k, torch.where(need5, tk, sk.to(dt)))
+            fresh_v = torch.where(hit5, reused_v, torch.where(need5, tv, sv.to(dt)))
+        if new_idx.is_cuda:
+            fresh_k.record_stream(main)
+            fresh_v.record_stream(main)
+            ready = torch.cuda.Event()
+            ready.record(side)
+
+        # for need heads fresh == where(hit, reused, topup): computed here on
+        # the main stream so attention never waits for the staged recall
+        use_k = torch.where(need5, torch.where(hit5, reused_k, tk), prev_k)
+        use_v = torch.where(need5, torch.where(hit5, reused_v, tv), prev_v)
+        use_idx = torch.where(need3, new_idx, prev_idx)
+        return PipelinedRecall(
+            use_k=use_k, use_v=use_v, use_idx=use_idx,
+            staged_k=fresh_k, staged_v=fresh_v,
+            topup_blocks=(topup_idx >= 0).sum(dim=(1, 2)),
+            staged_blocks=(stage_idx >= 0).sum(dim=(1, 2)),
+            reused_blocks=hit.sum(dim=(1, 2)),
+            ready=ready)
+
+
+def wait_staged(state):
+    """Make the current stream wait for the staged buffer of the previous
+    step (no-op on the CPU or when nothing is in flight)."""
+    ev = state.pop("sel_ready", None)
+    if ev is not None:
+        torch.cuda.current_stream(state["sel_k"].device).wait_event(ev)

@@ -1,0 +1,109 @@
+"""Where a decode step's time goes on the card: the main path's shapes
+(llama31-8b at full width, B=4, 8192-token needle prompts, FreeKV defaults,
+recall_overlap=True, pool in pinned host memory), seeded random bf16
+weights, ``torch.profiler`` over a few ``serve_step`` calls after warm-up.
+
+    PYTHONPATH=src python -m repro_torch.launch.decode_profile [--steps 4]
+
+Prints one JSON line: host wall ms per step, device-busy ms per step (sum of
+kernel and copy time on the card), the busy share, the top kernels by device
+time, the top host-side ops by self CPU time, and the count of host-device
+synchronisations. Needs a card; exits non-zero without one.
+"""
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+# the main path's shapes (chip_smoke.py phase 4)
+ARCH, CONTEXT, BATCH, WARMUP = "llama31-8b", 8192, 4, 3
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome trace of the profiled steps here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("decode_profile: needs a CUDA device", file=sys.stderr)
+        return 1
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.models.model import init_params, prefill, serve_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = get_config(ARCH)
+    fkv = FreeKVConfig(offload="host")
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    stream = needle_stream(cfg.vocab_size, CONTEXT, fkv.page_size, seed=0)
+    toks = torch.from_numpy(np.stack([next(stream).tokens for _ in range(BATCH)]))
+    toks = toks.long().to(dev)
+    max_len = CONTEXT + 64 + WARMUP + args.steps
+    logits, state = prefill(cfg, fkv, params, {"tokens": toks}, max_len,
+                            state_dtype=torch.bfloat16)
+
+    def step(logits, state):
+        cur = torch.argmax(logits, dim=-1)[:, None]
+        return serve_step(cfg, fkv, params, state, cur)
+
+    for _ in range(WARMUP):
+        logits, state = step(logits, state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        logits, state = step(logits, state)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.steps):
+            logits, state = step(logits, state)
+        torch.cuda.synchronize()
+    if args.trace_out:
+        prof.export_chrome_trace(args.trace_out)
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+    # device-side rows only (kernels, copies): an aten op's row repeats the
+    # device time of the kernels it launched
+    dev_events = [e for e in events
+                  if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in dev_events) / 1e3 / args.steps
+    top_dev = sorted(dev_events, key=dev_us, reverse=True)[:15]
+    top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:15]
+    syncs = {e.key: e.count // args.steps for e in events
+             if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                          "cudaMemcpyAsync", "cudaEventSynchronize", "cudaLaunchKernel",
+                          "cudaStreamWaitEvent", "cudaPointerGetAttributes")}
+    out = {
+        "device": torch.cuda.get_device_name(0), "arch": cfg.name, "batch": BATCH,
+        "context": CONTEXT, "offload": fkv.offload, "steps": args.steps,
+        "wall_ms_per_step_unprofiled": wall_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "device_busy_share": busy_ms / wall_ms if wall_ms else None,
+        "cpu_ops_per_step": sum(e.count for e in events
+                                if e.key.startswith("aten::")) // args.steps,
+        "runtime_calls_per_step": syncs,
+        "top_device_ms_per_step": [(e.key[:80], dev_us(e) / 1e3 / args.steps, e.count // args.steps)
+                                   for e in top_dev],
+        "top_self_cpu_ms_per_step": [(e.key[:80], e.self_cpu_time_total / 1e3 / args.steps,
+                                      e.count // args.steps) for e in top_cpu],
+    }
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

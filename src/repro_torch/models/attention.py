@@ -1,0 +1,107 @@
+"""GQA attention for prefill (reference ``repro/models/attention.py``).
+
+Prefill attention stays plain PyTorch, as the reference computes it outside
+Pallas: ``attention_dense`` for small products and the flash-style
+``attention_chunked`` (running max/sum over KV chunks of 512) beyond
+``2048 * 2048`` query-key pairs, so an 8192-token prompt never materialises
+its full score matrix. Decode attention is ``core/retrieval._attend``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import apply_rope, softcap
+
+NEG_INF = -1e30
+
+
+def qkv_proj(cfg: ArchConfig, p, x, positions, rope=True):
+    """x: (B,T,d) -> q (B,T,H,dh), k/v (B,T,Hkv,dh); RoPE applied to q,k."""
+    B, T, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, T, cfg.n_heads, cfg.d_head)
+    k = (x @ p["wk"]).reshape(B, T, cfg.n_kv_heads, cfg.d_head)
+    v = (x @ p["wv"]).reshape(B, T, cfg.n_kv_heads, cfg.d_head)
+    if rope:
+        q = apply_rope(cfg, q, positions)
+        k = apply_rope(cfg, k, positions)
+    return q, k, v
+
+
+def out_proj(cfg: ArchConfig, p, o):
+    B, T = o.shape[:2]
+    return o.reshape(B, T, cfg.n_heads * cfg.d_head) @ p["wo"]
+
+
+def _scale(cfg: ArchConfig):
+    return cfg.attn_scale if cfg.attn_scale is not None else 1.0 / (cfg.d_head ** 0.5)
+
+
+def _mask_bias(pos_q, pos_k, causal=True, window=None):
+    """(B,Tq),(B,Tk) -> additive bias (B,1,Tq,Tk); pos_k < 0 marks invalid."""
+    dq = pos_q[:, :, None]
+    dk = pos_k[:, None, :]
+    ok = dk >= 0
+    if causal:
+        ok = ok & (dk <= dq)
+    if window is not None:
+        ok = ok & (dk > dq - window)
+    zero = torch.zeros((), dtype=torch.float32, device=pos_q.device)
+    return torch.where(ok, zero, torch.full_like(zero, NEG_INF))[:, None, :, :]
+
+
+def attention_dense(cfg: ArchConfig, q, k, v, pos_q, pos_k, causal=True, window=None):
+    """q:(B,Tq,H,dh) k,v:(B,Tk,Hkv,dh) -> (B,Tq,H,dh)."""
+    B, Tq, H, dh = q.shape
+    G = cfg.group_size
+    qg = q.reshape(B, Tq, cfg.n_kv_heads, G, dh)
+    s = torch.einsum("btkgd,bskd->bkgts", qg, k).float() * _scale(cfg)
+    s = softcap(s, cfg.attn_logit_softcap)
+    s = s + _mask_bias(pos_q, pos_k, causal, window)[:, :, None, :, :]
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgts,bskd->btkgd", w.to(v.dtype), v)
+    return o.reshape(B, Tq, H, dh)
+
+
+def attention_chunked(cfg: ArchConfig, q, k, v, pos_q, pos_k, causal=True,
+                      window=None, chunk=512):
+    """Flash-style attention: a loop over KV chunks with running (max, sum);
+    peak memory O(Tq * chunk) instead of O(Tq * Tk)."""
+    B, Tq, H, dh = q.shape
+    Tk = k.shape[1]
+    if Tk % chunk:
+        pad = chunk - Tk % chunk
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        pos_k = torch.nn.functional.pad(pos_k, (0, pad), value=-1)
+        Tk += pad
+    G = cfg.group_size
+    kv = cfg.n_kv_heads
+    # (B, kv, G, Tq, dh), made contiguous once for every chunk's product
+    qg = (q.reshape(B, Tq, kv, G, dh).float() * _scale(cfg)).permute(0, 2, 3, 1, 4).contiguous()
+    m = torch.full((B, kv, G, Tq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, kv, G, Tq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, kv, G, Tq, dh), dtype=torch.float32, device=q.device)
+    for c0 in range(0, Tk, chunk):
+        kc = k[:, c0:c0 + chunk].float()
+        vc = v[:, c0:c0 + chunk].float()
+        s = torch.einsum("bkgtd,bskd->bkgts", qg, kc)
+        s = softcap(s, cfg.attn_logit_softcap)
+        s = s + _mask_bias(pos_q, pos_k[:, c0:c0 + chunk], causal, window)[:, :, None]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        del s
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgts,bskd->bkgtd", p, vc)
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, dh).to(q.dtype)
+
+
+def attention_auto(cfg: ArchConfig, q, k, v, pos_q, pos_k, causal=True, window=None):
+    # the dense path only for small products; longer prompts take the
+    # chunked path so the scores never materialise (reference :133)
+    if q.shape[1] * k.shape[1] <= 2048 * 2048:
+        return attention_dense(cfg, q, k, v, pos_q, pos_k, causal, window)
+    return attention_chunked(cfg, q, k, v, pos_q, pos_k, causal, window)

@@ -1,0 +1,220 @@
+"""Model assembly for attention + dense-FFN decoder stacks (reference
+``repro/models/model.py``), with the serving entry points:
+
+  init_params(cfg, seed, device, dtype)            -> params
+  params_from_jax(cfg, np_params, device, dtype)    -> params
+  prefill(cfg, fkv, params, batch, max_len)         -> (logits_last, state)
+  serve_step(cfg, fkv, params, state, tokens)       -> (logits, state[, stats])
+
+Params are nested dicts of tensors, dense weights in the ``x @ W``
+orientation ``(d_in, d_out)``: ``{"embed": {"tok", "head"?}, "final_norm":
+{"w"}, "layers": [{"norm1", "mixer": {wq, wk, wv, wo}, "norm2", "ffn":
+{up, gate, down}}, ...]}`` with one entry per layer in ``cfg.layers`` order.
+The reference's ``lax.scan`` over stacked periods becomes a Python loop over
+layers; the decode state is ``{"layers": [per-layer state], "pos": (B,)
+int32 on the device, "pos_host": (B,) int32 on the CPU}`` and ``serve_step``
+updates it in place (the port's counterpart of buffer donation).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ATTN, DENSE, ArchConfig, FreeKVConfig
+from repro_torch.core.retrieval import make_retriever
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+
+# per-step retrieval statistics the engine aggregates (reference model.py:774)
+DECODE_STAT_KEYS = ("corrected", "kv_heads", "sync_pages", "async_pages",
+                    "reused_pages", "sim_sum", "sim_cnt", "sel_pages",
+                    "spec_hit_pages", "churn_pages")
+
+
+def check_supported(cfg: ArchConfig):
+    for mixer, ffn in cfg.layers:
+        if mixer != ATTN or ffn != DENSE:
+            raise NotImplementedError(
+                f"{cfg.name}: layer ({mixer}, {ffn}) is not ported yet; the port "
+                "serves attention + dense-FFN stacks (ROADMAP queue 1, item 14)")
+    if cfg.is_encoder_decoder or cfg.frontend is not None or cfg.post_block_norm:
+        raise NotImplementedError(f"{cfg.name}: not ported yet (ROADMAP queue 1, item 14)")
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+def _norm(cfg, d, dtype, dev):
+    p = {"w": torch.ones((d,), dtype=dtype, device=dev)}
+    if cfg.norm == "layernorm":
+        p["b"] = torch.zeros((d,), dtype=dtype, device=dev)
+    return p
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device="cuda", dtype=torch.float32):
+    """Random parameters from a seeded ``torch.Generator`` on ``device``:
+    normal(0, 1/d_in) dense weights as in the reference's init (not the same
+    numbers: those come from ``params_from_jax``)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def normal(shape, std):
+        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+        return w.mul_(std).to(dtype)
+
+    def dense(d_in, d_out):
+        return normal((d_in, d_out), 1.0 / math.sqrt(d_in))
+
+    d, dh, vp = cfg.d_model, cfg.d_head, cfg.padded_vocab()
+    embed = {"tok": normal((vp, d), 1.0 / math.sqrt(d))}
+    if not cfg.tie_embeddings:
+        embed["head"] = dense(d, vp)
+    layers = []
+    for _ in cfg.layers:
+        mlp = {"up": dense(d, cfg.d_ff), "down": dense(cfg.d_ff, d)}
+        if cfg.gated_mlp:
+            mlp["gate"] = dense(d, cfg.d_ff)
+        layers.append({
+            "norm1": _norm(cfg, d, dtype, dev),
+            "mixer": {"wq": dense(d, cfg.n_heads * dh), "wk": dense(d, cfg.n_kv_heads * dh),
+                      "wv": dense(d, cfg.n_kv_heads * dh), "wo": dense(cfg.n_heads * dh, d)},
+            "norm2": _norm(cfg, d, dtype, dev),
+            "ffn": mlp,
+        })
+    return {"embed": embed, "final_norm": _norm(cfg, d, dtype, dev), "layers": layers}
+
+
+def params_from_jax(cfg: ArchConfig, np_params, device="cuda", dtype=None):
+    """The port's params from the reference's ``init_params`` pytree given as
+    numpy arrays (``jax.tree.map(np.asarray, params)``).
+
+    Stacked ``pattern`` leaves of shape (n_periods, ...) are split per layer
+    in ``cfg.layers`` order; dense weights keep the ``x @ W`` orientation
+    (d_in, d_out) — nothing is transposed. ``dtype`` None keeps each leaf's."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        arr = np.asarray(tree)
+        if arr.dtype.name == "bfloat16":          # ml_dtypes: exact via float32
+            t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(arr, copy=True))
+        return t.to(device=dev, dtype=dtype or t.dtype)
+
+    def index(tree, i):
+        if isinstance(tree, dict):
+            return {k: index(v, i) for k, v in tree.items()}
+        return tree[i]
+
+    layers = [conv(lp) for lp in np_params["prelude"]]
+    for i in range(cfg.n_periods):
+        for stacked in np_params["pattern"]:
+            layers.append(conv(index(stacked, i)))
+    return {"embed": conv(np_params["embed"]), "final_norm": conv(np_params["final_norm"]),
+            "layers": layers}
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+def _ffn(cfg, lp, x):
+    return x + L.apply_mlp(cfg, lp["ffn"], L.apply_norm(cfg, lp["norm2"], x))
+
+
+def init_decode_state(cfg: ArchConfig, fkv: FreeKVConfig, batch_size: int,
+                      max_len: int, dtype=torch.bfloat16, device="cuda"):
+    check_supported(cfg)
+    dev = resolve_device(device)
+    r = make_retriever(cfg, fkv)
+    return {"layers": [r.init_state(batch_size, max_len, dtype, dev) for _ in cfg.layers],
+            "pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
+            "pos_host": torch.zeros((batch_size,), dtype=torch.int32)}
+
+
+@torch.no_grad()
+def prefill(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, max_len: int,
+            state_dtype=torch.bfloat16):
+    """batch {"tokens": (B, T) on the params' device} -> (last-position
+    logits (B, padded_vocab), decode state). Each layer's retriever state is
+    built right after the layer runs, so only one layer's K/V is alive."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    x = L.embed_tokens(cfg, params["embed"], tokens)
+    B, T = tokens.shape
+    dev = x.device
+    positions = torch.arange(T, device=dev)[None].expand(B, T)
+    retr = make_retriever(cfg, fkv)
+    states = []
+    for lp in params["layers"]:
+        h = L.apply_norm(cfg, lp["norm1"], x)
+        q, k, v = attn.qkv_proj(cfg, lp["mixer"], h, positions)
+        o = attn.attention_auto(cfg, q, k, v, positions, positions, causal=True)
+        x = x + attn.out_proj(cfg, lp["mixer"], o)
+        x = _ffn(cfg, lp, x)
+        st = retr.init_state(B, max_len, state_dtype, dev)
+        states.append(retr.prefill(st, k, v, q[:, -1].contiguous()))
+        del q, k, v, o, h
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    logits = L.lm_logits(cfg, params["embed"], x[:, -1])
+    state = {"layers": states,
+             "pos": torch.full((B,), T, dtype=torch.int32, device=dev),
+             "pos_host": torch.full((B,), T, dtype=torch.int32)}
+    return logits, state
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+def _info_stats(info, B, dev):
+    f = torch.float32
+    z = torch.zeros((B,), dtype=torch.int64, device=dev)
+    return {"corrected": info["corrected"].sum(dim=1).to(f),
+            "kv_heads": torch.full((B,), info["corrected"].shape[1], dtype=f, device=dev),
+            "sync_pages": info["sync_pages"].to(f),
+            "async_pages": info["async_pages"].to(f),
+            "reused_pages": info.get("reused_pages", z).to(f),
+            "sim_sum": info["similarity"].sum(dim=1).to(f),
+            "sim_cnt": torch.full((B,), info["similarity"].shape[1], dtype=f, device=dev),
+            "sel_pages": info.get("sel_pages", z).to(f),
+            "spec_hit_pages": info.get("spec_hit_pages", z).to(f),
+            "churn_pages": info.get("churn_pages", z).to(f)}
+
+
+@torch.no_grad()
+def serve_step(cfg: ArchConfig, fkv: FreeKVConfig, params, state, tokens,
+               collect_stats=False):
+    """tokens (B, 1) -> (logits (B, padded_vocab), state[, stats]). One decode
+    step through every layer; ``state`` is updated in place and returned."""
+    x = L.embed_tokens(cfg, params["embed"], tokens)
+    B = x.shape[0]
+    dev = x.device
+    pos = state["pos"]
+    pos_host = state["pos_host"]
+    retr = make_retriever(cfg, fkv)
+    stats = {k: torch.zeros((B,), dtype=torch.float32, device=dev) for k in DECODE_STAT_KEYS}
+    for i, lp in enumerate(params["layers"]):
+        h = L.apply_norm(cfg, lp["norm1"], x)
+        q, k, v = attn.qkv_proj(cfg, lp["mixer"], h, pos[:, None])
+        o, st, info = retr.decode(state["layers"][i], q[:, 0].contiguous(),
+                                  k[:, 0], v[:, 0], length_host=pos_host)
+        state["layers"][i] = st
+        x = x + attn.out_proj(cfg, lp["mixer"], o[:, None])
+        x = _ffn(cfg, lp, x)
+        if collect_stats:
+            s = _info_stats(info, B, dev)
+            stats = {key: stats[key] + s[key] for key in stats}
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    logits = L.lm_logits(cfg, params["embed"], x[:, -1])
+    state["pos"] = pos + 1
+    state["pos_host"] = pos_host + 1
+    if collect_stats:
+        return logits, state, stats
+    return logits, state

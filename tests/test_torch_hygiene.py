@@ -1,0 +1,99 @@
+"""Package rules of the PyTorch port: it imports neither ``jax`` nor the JAX
+package ``repro``; its entry points default to the card and raise without
+one; and a CUDA request never falls back to the plain kernel versions."""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.configs import get_config
+from repro_torch.configs.base import FreeKVConfig
+from repro_torch.kernels import build, ops
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif (isinstance(node, ast.Call) and getattr(node.func, "id", "") == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_reference(path):
+    assert path.exists()
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "flax", "optax"}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
+    from repro_torch.core.retrieval import make_retriever
+    from repro_torch.models import model
+    from repro_torch.serving.engine import ServeEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("granite-3-8b-smoke")
+    fkv = FreeKVConfig(page_size=8, budget=64, n_sink=8, n_window=8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        repro_torch.resolve_device()
+    with pytest.raises(RuntimeError, match="cuda"):
+        model.init_params(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        model.init_decode_state(cfg, fkv, 1, 64)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_retriever(cfg, fkv).init_state(1, 64)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServeEngine(cfg, fkv, {}, max_len=64, batch_size=1, scheduler="static")
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "granite-3-8b-smoke", "--scheduler", "static"])
+
+
+def test_cuda_request_without_built_library_raises(monkeypatch):
+    """A tensor treated as a CUDA tensor with no compiler and no library
+    raises; the plain version is never taken in its place."""
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "BUILD_DIR", Path("/nonexistent-freekv-build"))
+    monkeypatch.setattr(build, "nvcc_path", lambda: None)
+    monkeypatch.setattr(ops, "_on_cuda", lambda t: True)
+    q = torch.randn(1, 1, 2, 16)
+    kp = torch.randn(1, 1, 2, 8, 16)
+    pos = torch.arange(16, dtype=torch.int32).reshape(1, 1, 2, 8)
+    cur = torch.tensor([15], dtype=torch.int32)
+    calls = [
+        lambda: ops.paged_attention(q, kp, kp, pos, cur, scale=0.25),
+        lambda: ops.page_scores(q, torch.randn(1, 3, 1, 2, 16), scale=0.25),
+        lambda: ops.recall_gather(torch.randn(1, 3, 1, 2, 8, 16),
+                                  torch.zeros((1, 1, 2), dtype=torch.int32)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+    assert (ops.paged_attention.launches, ops.page_scores.launches,
+            ops.recall_gather.launches) == (0, 0, 0)
+
+
+def test_other_devices_raise():
+    m = torch.empty((1, 1, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.page_scores(m, torch.empty((1, 3, 1, 2, 16), device="meta"), scale=0.25)
+
+
+def test_dispatch_has_no_try_fallback():
+    """``kernels/ops.py`` holds no ``try``: a failing kernel surfaces."""
+    tree = ast.parse((ROOT / "src" / "repro_torch" / "kernels" / "ops.py").read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_sink_and_window_must_be_whole_pages():
+    with pytest.raises(ValueError, match="multiples of page_size"):
+        FreeKVConfig(page_size=32, n_sink=48)

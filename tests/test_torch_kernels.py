@@ -1,0 +1,154 @@
+"""The port's plain kernel versions (``repro_torch.kernels.ref``, what
+``repro_torch.kernels.ops`` runs on CPU tensors) against the reference's jnp
+oracles and its Pallas kernels in interpret mode, at the sweep shapes of
+``tests/test_kernels.py``. Inputs come from numpy; tolerances are
+``test_kernels._tol``: 2e-5 at float32, 5e-2 at bfloat16, exact for gathers.
+
+The CUDA kernels themselves are held against the same plain versions on the
+card by ``chip_smoke.py`` and by ``tests/test_torch_cuda.py``."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops, ref
+
+torch.set_float32_matmul_precision("highest")
+
+DTYPES = [("float32", jnp.float32, torch.float32),
+          ("bfloat16", jnp.bfloat16, torch.bfloat16)]
+
+
+def _tol(name):
+    return dict(atol=5e-2, rtol=5e-2) if name == "bfloat16" else dict(atol=2e-5, rtol=2e-5)
+
+
+def _pair(a, jdt, tdt):
+    """The same values as a jnp array and a torch tensor of the given dtype."""
+    j = jnp.asarray(a).astype(jdt)
+    t = torch.from_numpy(np.array(j.astype(jnp.float32))).to(tdt)
+    return j, t
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=lambda d: d[0])
+@pytest.mark.parametrize("B,kv,G,N,p,d", [
+    (1, 1, 1, 2, 8, 128), (2, 3, 4, 6, 32, 128), (1, 2, 8, 4, 16, 64),
+    (3, 4, 2, 5, 32, 256),
+])
+def test_paged_attention_ref(B, kv, G, N, p, d, dt):
+    name, jdt, tdt = dt
+    rng = np.random.default_rng(0)
+    jq, tq = _pair(rng.standard_normal((B, kv, G, d)), jdt, tdt)
+    jk, tk = _pair(rng.standard_normal((B, kv, N, p, d)), jdt, tdt)
+    jv, tv = _pair(rng.standard_normal((B, kv, N, p, d)), jdt, tdt)
+    pos = rng.integers(-1, N * p, (B, kv, N, p)).astype(np.int32)
+    cur = np.full((B,), N * p - 3, np.int32)        # some positions past cur
+    scale = 1.0 / d ** 0.5
+    o = ops.paged_attention(tq, tk, tv, torch.from_numpy(pos), torch.from_numpy(cur),
+                            scale=scale)
+    assert o.dtype == tdt and o.shape == (B, kv, G, d)
+    o_ref = jref.paged_attention_ref(jq, jk, jv, jnp.asarray(pos), jnp.asarray(cur), scale)
+    o_pallas = jops.paged_attention(jq, jk, jv, jnp.asarray(pos), jnp.asarray(cur),
+                                    scale=scale, interpret=True)
+    np.testing.assert_allclose(_np(o), _np(o_ref), **_tol(name))
+    np.testing.assert_allclose(_np(o), _np(o_pallas), **_tol(name))
+
+
+def test_paged_attention_ref_softcap():
+    B, kv, G, N, p, d = 2, 2, 2, 4, 16, 128
+    rng = np.random.default_rng(1)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, kv, G, d), (B, kv, N, p, d), (B, kv, N, p, d)))
+    pos = rng.integers(-1, 60, (B, kv, N, p)).astype(np.int32)
+    cur = np.full((B,), 64, np.int32)
+    o = ref.paged_attention_ref(*map(torch.from_numpy, (q, k, v, pos, cur)), 0.1,
+                                softcap=20.0)
+    o_ref = jref.paged_attention_ref(*map(jnp.asarray, (q, k, v, pos, cur)), 0.1,
+                                     softcap=20.0)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=2e-5)
+
+
+def test_paged_attention_ref_all_masked_partition():
+    """A page set whose every lane is masked gets the reference's uniform
+    weights (softmax over -1e30), and a masked page next to valid ones adds
+    nothing: exp(-1e30 - m) == 0 (the sentinels are -1e30, never -inf)."""
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((1, 1, 2, 32)).astype(np.float32)
+    k = rng.standard_normal((1, 1, 3, 8, 32)).astype(np.float32)
+    v = rng.standard_normal((1, 1, 3, 8, 32)).astype(np.float32)
+    pos = np.arange(24, dtype=np.int32).reshape(1, 1, 3, 8)
+    pos[:, :, 1] = -1
+    cur = np.array([23], np.int32)
+    o = ref.paged_attention_ref(*map(torch.from_numpy, (q, k, v, pos, cur)), 0.2)
+    keep = [0, 2]
+    o_sub = ref.paged_attention_ref(*map(torch.from_numpy, (
+        q, k[:, :, keep].copy(), v[:, :, keep].copy(), pos[:, :, keep].copy(), cur)), 0.2)
+    assert torch.isfinite(o).all()
+    np.testing.assert_allclose(o.numpy(), o_sub.numpy(), atol=2e-6)
+    none = np.full_like(pos, -1)
+    o_none = ref.paged_attention_ref(*map(torch.from_numpy, (q, k, v, none, cur)), 0.2)
+    np.testing.assert_allclose(o_none.numpy()[0, 0],
+                               np.broadcast_to(v.reshape(24, 32).mean(0), (2, 32)),
+                               atol=2e-6)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=lambda d: d[0])
+@pytest.mark.parametrize("B,kv,G,d,N", [
+    (1, 1, 1, 128, 4), (2, 3, 4, 128, 8), (2, 2, 5, 64, 256),
+])
+def test_page_scores_ref(B, kv, G, d, N, dt):
+    name, jdt, tdt = dt
+    rng = np.random.default_rng(3)
+    raw = rng.standard_normal((B, N, kv, 2, d))
+    summ = np.stack([raw.min(axis=3), raw.max(axis=3)], axis=3)
+    jq, tq = _pair(rng.standard_normal((B, kv, G, d)), jdt, tdt)
+    js, ts = _pair(summ, jdt, tdt)
+    s = ops.page_scores(tq, ts, scale=0.088)
+    assert s.dtype == torch.float32 and s.shape == (B, kv, G, N)
+    np.testing.assert_allclose(s.numpy(), _np(jref.page_scores_ref(jq, js, 0.088)),
+                               **_tol(name))
+    np.testing.assert_allclose(s.numpy(), _np(jops.page_scores(jq, js, scale=0.088,
+                                                               interpret=True)),
+                               **_tol(name))
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=lambda d: d[0])
+@pytest.mark.parametrize("B,n_pages,kv,p,d,n_sel", [
+    (1, 4, 1, 8, 128, 2), (2, 16, 3, 32, 128, 5), (2, 8, 2, 16, 64, 8),
+])
+def test_recall_gather_ref(B, n_pages, kv, p, d, n_sel, dt):
+    name, jdt, tdt = dt
+    rng = np.random.default_rng(4)
+    jpool, tpool = _pair(rng.standard_normal((B, n_pages, kv, 2, p, d)), jdt, tdt)
+    idx = rng.integers(-1, n_pages, (B, kv, n_sel)).astype(np.int32)
+    idx[0, 0, 0] = -1
+    k, v = ops.recall_gather(tpool, torch.from_numpy(idx))
+    assert k.dtype == tdt and k.shape == (B, kv, n_sel, p, d)
+    wants = [jref.recall_gather_ref(jpool, jnp.asarray(idx))]
+    if name == "float32":       # a byte copy: one dtype suffices for the slow interpreter
+        wants.append(jops.recall_gather(jpool, jnp.asarray(idx), interpret=True))
+    for jk_, jv_ in wants:
+        np.testing.assert_array_equal(_np(k), _np(jk_))
+        np.testing.assert_array_equal(_np(v), _np(jv_))
+    assert not k[0, 0, 0].any() and not v[0, 0, 0].any()
+
+
+def test_cpu_dispatch_counts_no_launch():
+    """CPU tensors take the plain versions; only a kernel launch counts."""
+    ops.reset_launches()
+    q = torch.randn(1, 1, 2, 16)
+    kp = torch.randn(1, 1, 2, 8, 16)
+    pos = torch.arange(16, dtype=torch.int32).reshape(1, 1, 2, 8)
+    ops.paged_attention(q, kp, kp, pos, torch.tensor([15], dtype=torch.int32), scale=0.25)
+    ops.page_scores(q, torch.randn(1, 3, 1, 2, 16), scale=0.25)
+    ops.recall_gather(torch.randn(1, 3, 1, 2, 8, 16), torch.zeros((1, 1, 2), dtype=torch.int32))
+    assert (ops.paged_attention.launches, ops.page_scores.launches,
+            ops.recall_gather.launches) == (0, 0, 0)
