@@ -11,8 +11,8 @@ Phases, each fatal on failure (nothing is caught):
   3. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes (B=4, kv=8, G=4, d=128, p=32, n_sel=56,
      L=2080, the pages of an 8192-token context), in bfloat16 and float32,
-     with the tolerances of tests/test_kernels.py (5e-2 / 2e-5; the gather
-     exact, from a device pool and from a pinned host pool); times of the
+     with the tolerances of TOL (the gather exact, from a device pool and
+     from a pinned host pool); device times of the
      kernel, its plain version and one PyTorch call that computes the same
      function (a yardstick the port never calls), beside the bound.
   4. main path: ServeEngine(scheduler="static") serving llama31-8b at full
@@ -40,7 +40,15 @@ HBM_BPS = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12}
 PCIE_BPS = 64e9
 L2_BYTES = 50 * 2 ** 20
-TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+# a kernel against its plain version on the same inputs, by OUTPUT dtype. The
+# two compute in float32 and differ only in summation order; a bfloat16
+# output is that result rounded once, so the two may land one bf16 step
+# apart: rtol 2**-6 is two steps of bf16's 8-bit significand, and atol 1e-4
+# is under 0.3% of paged_attention's typical output (~0.036 at L=2080).
+# tests/test_kernels.py's 5e-2 is for bfloat16 against JAX's oracle, a
+# different computation, and is not used here.
+TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+       torch.bfloat16: dict(atol=1e-4, rtol=2 ** -6)}
 
 
 def require(cond, msg):
@@ -78,8 +86,9 @@ def time_ms(fn, args_list, iters=50):
         torch.cuda.synchronize()
     dev_us = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA)
-    # the profiler gave no device rows: CUDA events are the fallback
-    return (dev_us / 1e3 / iters if dev_us > 0 else call_ms), call_ms
+    require(dev_us > 0, "torch.profiler recorded no device time: the card's "
+            "kernel times cannot be measured")
+    return dev_us / 1e3 / iters, call_ms
 
 
 def copies_for(nbytes):
@@ -116,8 +125,9 @@ def check_paged_attention(ops, ref, dev, gen):
         want = ref.paged_attention_ref(q, k, v, pos, cur, scale)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        require(torch.allclose(got.float(), want.float(), atol=TOL[dt], rtol=TOL[dt]),
-                f"paged_attention {dt}: max |err| {err}")
+        require(torch.allclose(got.float(), want.float(), **TOL[dt]),
+                f"paged_attention {dt}: max |err| {err} (max |want| "
+                f"{want.float().abs().max().item()}), tolerance {TOL[dt]}")
         out[dt] = err
     # timing at bf16, the main path's dtype
     dt = torch.bfloat16
@@ -167,14 +177,15 @@ def check_page_scores(ops, ref, dev, gen):
         return q, summ
 
     scale = 1.0 / math.sqrt(D)
+    tol = TOL[torch.float32]          # the output is float32 for either input dtype
     for dt in (torch.float32, torch.bfloat16):
         q, summ = inputs(dt)
         got = ops.page_scores(q, summ, scale=scale)
         want = ref.page_scores_ref(q, summ, scale)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        require(torch.allclose(got, want, atol=TOL[dt], rtol=TOL[dt]),
-                f"page_scores {dt}: max |err| {err}")
+        require(torch.allclose(got, want, **tol),
+                f"page_scores {dt}: max |err| {err}, tolerance {tol}")
         out[dt] = err
     dt = torch.bfloat16
     args = [inputs(dt) for _ in range(copies_for(B * N_PAGES * KV * 2 * D * 2))]
@@ -194,7 +205,7 @@ def check_page_scores(ops, ref, dev, gen):
             "bound_ms": 1e3 * max(byts / HBM_BPS, flops / PEAK_OPS[dt]),
             "bound_by": "bytes" if byts / HBM_BPS >= flops / PEAK_OPS[dt] else "operations",
             "max_abs_err": out[torch.bfloat16], "max_abs_err_fp32": out[torch.float32],
-            "tol": TOL[torch.bfloat16], "tol_fp32": TOL[torch.float32],
+            "tol": tol, "tol_fp32": tol,
             "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "library_call": "2x torch.matmul"}
 

@@ -16,6 +16,29 @@ constexpr int kBFloat16 = 1;
 // so a fully masked region drops out of every online-softmax merge
 constexpr float kNegInf = -1e30f;
 
+// Makes `device` current for the scope of an entry point and puts the
+// caller's device back on exit, so a launch never changes the current device
+// under PyTorch. Costs one cudaGetDevice when the device is already current.
+class DeviceGuard {
+ public:
+  explicit DeviceGuard(int device) {
+    err_ = cudaGetDevice(&prev_);
+    if (err_ == cudaSuccess && prev_ != device) {
+      err_ = cudaSetDevice(device);
+      switched_ = err_ == cudaSuccess;
+    }
+  }
+  ~DeviceGuard() {
+    if (switched_) cudaSetDevice(prev_);
+  }
+  cudaError_t error() const { return err_; }
+
+ private:
+  int prev_ = 0;
+  bool switched_ = false;
+  cudaError_t err_;
+};
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 

@@ -79,8 +79,8 @@ extern "C" int freekv_page_scores(const void* q, const void* summ, void* out, in
                                   void* stream) {
   using namespace freekv;
   if (G < 1 || G > kMaxG || d < 1 || d > kMaxD || N < 1) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   const dim3 grid((N + kTilePages - 1) / kTilePages, kv, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)

@@ -253,8 +253,8 @@ extern "C" int freekv_paged_attention(const void* q, const void* k, const void* 
       n_split < 1 || n_split > kMaxSplit || pages_per_split < 1 ||
       (long long)pages_per_split * n_split < N)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
     launch<float>(q, k, v, pos, cur, part_m, part_l, part_acc, out, B, kv, G, N, p, d,

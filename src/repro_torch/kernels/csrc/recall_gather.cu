@@ -72,8 +72,8 @@ extern "C" int freekv_recall_gather(const void* pool_dev, const void* idx, void*
   if ((reinterpret_cast<uintptr_t>(pool_dev) | reinterpret_cast<uintptr_t>(k_out) |
        reinterpret_cast<uintptr_t>(v_out)) % 16)
     return cudaErrorMisalignedAddress;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   recall_gather_kernel<<<dim3(n_sel, kv, B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(pool_dev), static_cast<const int32_t*>(idx),
       static_cast<uint4*>(k_out), static_cast<uint4*>(v_out), n_pages, kv, n_sel,
@@ -83,12 +83,14 @@ extern "C" int freekv_recall_gather(const void* pool_dev, const void* idx, void*
 
 // The address at which the device may dereference `ptr`: the pointer itself
 // for device memory, the mapped address for pinned host memory. Fails for
-// pageable host memory, which the device cannot read.
+// pageable host memory, which the device cannot read. The wrapper resolves a
+// pool once and keeps the result (ops._pool_pointer).
 extern "C" int freekv_device_pointer(const void* ptr, int device, void** out) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  using namespace freekv;
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   cudaPointerAttributes attr;
-  err = cudaPointerGetAttributes(&attr, ptr);
+  cudaError_t err = cudaPointerGetAttributes(&attr, ptr);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return err;

@@ -156,6 +156,24 @@ def device_pointer(t: torch.Tensor, device) -> ctypes.c_void_p:
     return out
 
 
+def _pool_pointer(pool: torch.Tensor, device) -> ctypes.c_void_p:
+    """The address at which ``device`` reads ``pool``. A device pool is read
+    at its own address; a pinned host pool is resolved by ``device_pointer``
+    once and the result is kept on the tensor (keyed by its address and the
+    device), so a decode step queries the driver for no launch."""
+    if pool.device == device:
+        return _ptr(pool)
+    _require(pool.device.type == "cpu",
+             f"pool on {pool.device} must be on {device} or in pinned host memory")
+    key = (pool.data_ptr(), device.index)
+    kept = getattr(pool, "_freekv_mapped", None)
+    if kept is None or kept[0] != key:
+        _require(pool.is_pinned(), "a host pool must be in pinned memory")
+        kept = (key, device_pointer(pool, device))
+        pool._freekv_mapped = kept
+    return kept[1]
+
+
 def recall_gather(pool, idx):
     """pool (B,n_pages,kv,2,p,d) HND; idx (B,kv,n_sel) int32 (-1 pad) -> k, v
     each (B,kv,n_sel,p,d) in the pool's dtype, on idx's device.
@@ -167,8 +185,6 @@ def recall_gather(pool, idx):
     dev = idx.device
     _check_cuda(dev, idx)
     _require(pool.is_contiguous(), "pool must be contiguous")
-    _require(pool.device == dev or (pool.device.type == "cpu" and pool.is_pinned()),
-             f"pool on {pool.device} must be on {dev} or in pinned host memory")
     _require(idx.dtype == torch.int32, "idx must be int32")
     B, n_pages, kv, two, p, d = pool.shape
     n_sel = idx.shape[2]
@@ -176,7 +192,7 @@ def recall_gather(pool, idx):
     half = p * d * pool.element_size()
     _require(half % 16 == 0, "recall_gather: p * d * itemsize must be a multiple of 16")
     lib = build.load("recall_gather")
-    src = device_pointer(pool, dev)
+    src = _pool_pointer(pool, dev)
     k = torch.empty((B, kv, n_sel, p, d), dtype=pool.dtype, device=dev)
     v = torch.empty_like(k)
     rc = lib.freekv_recall_gather(src, _ptr(idx), _ptr(k), _ptr(v), B, n_pages,

@@ -6,8 +6,9 @@
 
 Same flags and defaults as the reference CLI where the feature is ported;
 ``--device``, ``--offload``, ``--dtype`` and ``--seed`` are the port's own.
-Only ``--scheduler static`` serves: the continuous scheduler is not ported
-yet and raises. Weights are random, made from ``--seed``.
+Only ``--scheduler static`` (the default here, unlike the reference) serves:
+the continuous scheduler is not ported yet and raises. Weights are random,
+made from ``--seed``.
 """
 import argparse
 
@@ -38,7 +39,7 @@ def main(argv=None):
     ap.add_argument("--tau", type=float, default=0.8)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--scheduler", choices=("continuous", "static"),
-                    default="continuous")
+                    default="static")
     ap.add_argument("--prefill-bucket", type=int, default=64)
     ap.add_argument("--no-overlap", action="store_true",
                     help="disable the overlapped recall pipeline")

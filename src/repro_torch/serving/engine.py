@@ -56,7 +56,7 @@ class ServeEngine:
                  max_len: int, batch_size: int,
                  sampler: SamplerConfig = SamplerConfig(),
                  state_dtype=torch.float32,
-                 scheduler: str = "continuous",
+                 scheduler: str = "static",
                  device="cuda"):
         if scheduler == "continuous":
             raise NotImplementedError(

@@ -12,7 +12,10 @@ from repro_torch.kernels import ops, ref
 
 
 def _tol(dtype):
-    return dict(atol=5e-2, rtol=5e-2) if dtype == torch.bfloat16 else dict(atol=2e-5, rtol=2e-5)
+    """Kernel against its plain version, by output dtype: both compute in
+    float32, so a bfloat16 output may differ by a bf16 step or two (rtol
+    2**-6), never by more; float32 outputs only by summation order."""
+    return dict(atol=1e-4, rtol=2 ** -6) if dtype == torch.bfloat16 else dict(atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.cuda
@@ -37,7 +40,7 @@ def test_cuda_kernels_match_plain(dtype):
     summ = torch.sort(torch.randn(B, 40, kv, 2, d, generator=g, device=dev), dim=3).values
     summ = summ.to(dtype)
     torch.testing.assert_close(ops.page_scores(q, summ, scale=0.09),
-                               ref.page_scores_ref(q, summ, 0.09), **tol)
+                               ref.page_scores_ref(q, summ, 0.09), **_tol(torch.float32))
     pool = torch.randn(B, 40, kv, 2, p, d, generator=g, device=dev).to(dtype)
     idx = torch.randint(-1, 40, (B, kv, 9), generator=g, device=dev, dtype=torch.int32)
     for src in (pool, pool.cpu().pin_memory()):
@@ -45,6 +48,26 @@ def test_cuda_kernels_match_plain(dtype):
         want = ref.recall_gather_ref(pool, idx)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_host_pool_resolved_once(monkeypatch):
+    """A pinned host pool's mapped address is looked up on its first gather
+    only, and no launch changes the current device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    dev = torch.device("cuda", 0)
+    pool = torch.randn(1, 5, 2, 2, 8, 64).to(torch.bfloat16).pin_memory()
+    idx = torch.tensor([[[0, 4, -1], [2, 2, 1]]], dtype=torch.int32, device=dev)
+    calls = []
+    real = ops.device_pointer
+    monkeypatch.setattr(ops, "device_pointer", lambda t, d: calls.append(1) or real(t, d))
+    before = torch.cuda.current_device()
+    for _ in range(3):
+        got = ops.recall_gather(pool, idx)
+    assert len(calls) == 1 and torch.cuda.current_device() == before
+    for a, b in zip(got, ref.recall_gather_ref(pool.to(dev), idx)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
