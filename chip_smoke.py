@@ -6,22 +6,27 @@
 Phases, each fatal on failure (nothing is caught):
   1. device: the card's name and power limit from nvidia-smi; exits non-zero
      without CUDA.
-  2. build: every CUDA kernel from the sources in this checkout, one nvcc per
-     source, in parallel.
+  2. build: all six CUDA kernels from the sources in this checkout, one nvcc
+     per source, in parallel.
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the main path's shapes (B=4, kv=8, G=4, d=128, p=32, n_sel=56,
-     L=2080, the pages of an 8192-token context), in bfloat16 and float32,
-     with the tolerances of TOL (the gather exact, from a device pool and
-     from a pinned host pool); device times of the
-     kernel, its plain version and one PyTorch call that computes the same
-     function (a yardstick the port never calls), beside the bound.
+     the main path's shapes (B=4, kv=8, G=4, H=32, d=128, p=32, n_sel=56,
+     L=2080, T=8192, the pages of an 8192-token context), in bfloat16 and
+     float32, with the tolerances of TOL: the gathers (recall_gather, and
+     recall_gather_quant at int8 and int4) exact from a device pool and from
+     a pinned host pool, page_summary exact, flash_prefill within TOL plus a
+     sliding-window case and a softcap case; device times of the kernel, its
+     plain version and one PyTorch call that computes the same function (a
+     yardstick the port never calls), beside the bound.
   4. main path: ServeEngine(scheduler="static") serving llama31-8b at full
      width (32 layers, seeded random bf16 weights) with FreeKV defaults,
      recall_overlap=True and the KV pool in pinned host memory: 4 requests
-     of 8192-token needle prompts, 32 greedy tokens each. Every kernel's
-     launch count is zeroed just before and read just after; each must rise.
+     of 8192-token needle prompts, 40 greedy tokens each (so a page
+     completes during decode), first with kv_quant="none", then with
+     kv_quant="int8". Every kernel's launch count is zeroed just before each
+     run and read just after; each kernel the run takes must rise.
   5. kernel path == plain path: granite-3-8b-smoke at float32 gives the same
-     greedy tokens on the card (kernels) and on the CPU (plain versions).
+     greedy tokens on the card (kernels) and on the CPU (plain versions),
+     under kv_quant none, int8 and int4.
 Then one JSON line with the kernels' numbers and, last, the ok line.
 """
 import argparse
@@ -105,9 +110,10 @@ def nbytes(*ts):
 B, KV, G, D, P, N_SEL = 4, 8, 4, 128, 32, 56
 N_SINK, N_WIN = 128, 128 + 32
 L = N_SINK + N_WIN + N_SEL * P            # 2080
-CONTEXT, NEW_TOKENS = 8192, 32
+CONTEXT, NEW_TOKENS = 8192, 40            # 40: the 32nd decode step completes a page
 MAX_LEN = CONTEXT + 2 * NEW_TOKENS
-N_PAGES = -(-MAX_LEN // P)                # 258
+N_PAGES = -(-MAX_LEN // P)                # 259
+H = KV * G                                # 32 query heads
 
 
 def check_paged_attention(ops, ref, dev, gen):
@@ -252,16 +258,146 @@ def check_recall_gather(ops, ref, dev, gen):
             "library_ms": lib_ms, "library_call": "advanced indexing on a device pool"}
 
 
+def check_recall_gather_quant(ops, ref, dev, gen):
+    from repro_torch.quant.quantizers import quantize_block
+    errs = []
+    for bits, group in ((8, 0), (4, 0), (8, 32), (4, 16)):
+        pool_f = torch.randn(B, N_PAGES, KV, 2, P, D, generator=gen, device=dev)
+        pool_f[:, 3] = 0                              # zero pages: scale 1
+        pool, scales = quantize_block(pool_f, bits, group)
+        idx = torch.randint(-2, N_PAGES, (B, KV, N_SEL), generator=gen, device=dev,
+                            dtype=torch.int32)        # -1 and -2 lanes
+        for dt in (torch.float32, torch.bfloat16):
+            want = ref.recall_gather_quant_ref(pool, scales, idx, bits, dt)
+            for src, ssrc in ((pool, scales), (pool.cpu().pin_memory(), scales.cpu().pin_memory())):
+                got = ops.recall_gather_quant(src, ssrc, idx, bits=bits, out_dtype=dt)
+                torch.cuda.synchronize()
+                for a, b in zip(got, want):
+                    err = (a.float() - b.float()).abs().max().item()
+                    require(a.dtype == dt and torch.equal(a, b),
+                            f"recall_gather_quant int{bits} g{group} {dt} from {src.device}: "
+                            f"not bit-exact (max |err| {err})")
+                    errs.append(err)
+    # timing at the main path's settings (group 0, bf16 out), every lane
+    # valid, distinct pages, from the pinned host pool
+    idx = torch.stack([torch.randperm(N_PAGES, generator=gen, device=dev)[:N_SEL]
+                       for _ in range(B * KV)]).reshape(B, KV, N_SEL).to(torch.int32)
+    dt = torch.bfloat16
+    row = {}
+    for bits in (8, 4):
+        pool, scales = quantize_block(torch.randn(B, N_PAGES, KV, 2, P, D, generator=gen,
+                                                  device=dev), bits, 0)
+        host = (pool.cpu().pin_memory(), scales.cpu().pin_memory(), idx)
+        fn = lambda p_, s_, i_: ops.recall_gather_quant(p_, s_, i_, bits=bits, out_dtype=dt)
+        ms_host, call_ms = time_ms(fn, [host])
+        ms_dev, _ = time_ms(fn, [(pool, scales, idx)])
+        plain_ms, _ = time_ms(lambda p_, s_, i_: ref.recall_gather_quant_ref(p_, s_, i_, bits, dt),
+                              [(pool, scales, idx)], iters=10)
+        valid = int((idx >= 0).sum())
+        moved = valid * (2 * P * D * bits // 8 + 2 * scales.shape[-1] * 4)
+        written = 2 * B * KV * N_SEL * P * D * 2
+        row[bits] = {"ms": ms_host, "call_ms": call_ms, "device_pool_ms": ms_dev,
+                     "plain_ms": plain_ms, "moved_bytes": moved,
+                     "bound_ms": 1e3 * max(moved / PCIE_BPS, (written + nbytes(idx)) / HBM_BPS),
+                     "device_pool_bound_ms": 1e3 * (moved + written + nbytes(idx)) / HBM_BPS}
+    r8 = row[8]
+    return {"name": "recall_gather_quant",
+            "shape": f"pool({B},{N_PAGES},{KV},2,{P},{D}*bits/8) int8, scales({B},{N_PAGES},{KV},2,1) "
+                     f"idx({B},{KV},{N_SEL}) -> bf16",
+            "bound_bytes": r8["moved_bytes"], "bound_ops": 0, "bound_ms": r8["bound_ms"],
+            "bound_by": "bytes", "bound_link": "PCIe for the pinned host pool",
+            "max_abs_err": max(errs), "tol": 0.0,
+            "kernel_ms": r8["ms"], "kernel_call_ms": r8["call_ms"], "plain_ms": r8["plain_ms"],
+            "device_pool_ms": r8["device_pool_ms"],
+            "device_pool_bound_ms": r8["device_pool_bound_ms"],
+            "int4": row[4], "library_ms": None,
+            "library_call": "none: no single PyTorch call gathers and dequantizes"}
+
+
+def check_page_summary(ops, ref, dev, gen):
+    for dt in (torch.float32, torch.bfloat16):
+        for T, extra in ((CONTEXT, 40), (P, 0)):   # a prefill prefix view; one decode page
+            full = torch.randn(B, T + extra, KV, D, generator=gen, device=dev).to(dt)
+            k = full[:, :T]
+            got = ops.page_summary(k, page_size=P)
+            want = ref.page_summary_ref(k, P)
+            torch.cuda.synchronize()
+            require(got.dtype == dt and torch.equal(got, want),
+                    f"page_summary {dt} T={T}: not exact (max |err| "
+                    f"{(got.float() - want.float()).abs().max().item()})")
+    dt = torch.bfloat16
+    args = [(torch.randn(B, CONTEXT, KV, D, generator=gen, device=dev).to(dt),)
+            for _ in range(copies_for(B * CONTEXT * KV * D * 2))]
+    ms, call_ms = time_ms(lambda k: ops.page_summary(k, page_size=P), args)
+    plain_ms, _ = time_ms(lambda k: ref.page_summary_ref(k, P), args, iters=10)
+    lib_ms, _ = time_ms(lambda k: torch.aminmax(k.view(B, CONTEXT // P, P, KV, D), dim=2), args)
+    byts = nbytes(args[0][0]) + B * (CONTEXT // P) * KV * 2 * D * 2
+    return {"name": "page_summary", "shape": f"k({B},{CONTEXT},{KV},{D}) -> ({B},{CONTEXT // P},{KV},2,{D})",
+            "bound_bytes": byts, "bound_ops": 0, "bound_ms": 1e3 * byts / HBM_BPS,
+            "bound_by": "bytes", "max_abs_err": 0.0, "tol": 0.0,
+            "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_call": "torch.aminmax over the page axis"}
+
+
+def _prefill_inputs(gen, dev, dt, b, h, kv, t, d):
+    """q, k, v as the model hands them over: (b, t, heads, d) tensors seen
+    as (b, heads, t, d) views."""
+    q = torch.randn(b, t, h, d, generator=gen, device=dev).to(dt).transpose(1, 2)
+    k = torch.randn(b, t, kv, d, generator=gen, device=dev).to(dt).transpose(1, 2)
+    v = torch.randn(b, t, kv, d, generator=gen, device=dev).to(dt).transpose(1, 2)
+    return q, k, v
+
+
+def check_flash_prefill(ops, ref, dev, gen):
+    errs = {}
+    cases = [  # (name, B, H, kv, T, d, window, softcap)
+        ("main", B, H, KV, CONTEXT, D, None, None),
+        ("window", 1, 8, 2, 1000, D, 256, None),
+        ("softcap", 2, 4, 2, 777, 64, None, 30.0),
+    ]
+    for name, b, h, kv, t, d, window, cap in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = _prefill_inputs(gen, dev, dt, b, h, kv, t, d)
+            scale = 1.0 / math.sqrt(d)
+            got = ops.flash_prefill(q, k, v, scale=scale, causal=True, window=window, softcap=cap)
+            want = ref.flash_prefill_ref(q, k, v, scale, True, window, cap)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            require(got.dtype == dt and torch.allclose(got.float(), want.float(), **TOL[dt]),
+                    f"flash_prefill {name} {dt}: max |err| {err} (max |want| "
+                    f"{want.float().abs().max().item()}), tolerance {TOL[dt]}")
+            errs[(name, dt)] = err
+            del q, k, v, got, want
+    dt = torch.bfloat16
+    scale = 1.0 / math.sqrt(D)
+    args = [_prefill_inputs(gen, dev, dt, B, H, KV, CONTEXT, D)]
+    ms, call_ms = time_ms(lambda q, k, v: ops.flash_prefill(q, k, v, scale=scale), args, iters=3)
+    plain_ms, _ = time_ms(lambda q, k, v: ref.flash_prefill_ref(q, k, v, scale), args, iters=1)
+    sdpa_args = [tuple(x.contiguous() for x in args[0])]
+    lib_ms, _ = time_ms(lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale, enable_gqa=True), sdpa_args, iters=10)
+    q, k, v = args[0]
+    byts = nbytes(q, k, v, q)
+    flops = 4 * B * H * D * (CONTEXT * (CONTEXT + 1) // 2)   # QK^T and PV over the causal pairs
+    return {"name": "flash_prefill", "shape": f"q({B},{H},{CONTEXT},{D}) kv({B},{KV},{CONTEXT},{D}) causal",
+            "bound_bytes": byts, "bound_ops": flops,
+            "bound_ms": 1e3 * max(byts / HBM_BPS, flops / PEAK_OPS[dt]),
+            "bound_by": "bytes" if byts / HBM_BPS >= flops / PEAK_OPS[dt] else "operations",
+            "max_abs_err": errs[("main", torch.bfloat16)],
+            "max_abs_err_fp32": errs[("main", torch.float32)],
+            "max_abs_err_cases": {f"{n} {str(t).split('.')[-1]}": e for (n, t), e in errs.items()},
+            "tol": TOL[torch.bfloat16], "tol_fp32": TOL[torch.float32],
+            "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms,
+            "library_call": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"}
+
+
 # ---------------------------------------------------------------------------
 # phase 4 and 5
 # ---------------------------------------------------------------------------
-def main_path(dev, ops):
+def llama_params(dev):
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import FreeKVConfig
-    from repro_torch.data.synthetic import needle_stream
     from repro_torch.models.model import init_params
-    from repro_torch.serving.engine import Request, ServeEngine
-
     cfg = get_config("llama31-8b")
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
@@ -269,7 +405,25 @@ def main_path(dev, ops):
     log(f"[main] llama31-8b params on the card: "
         f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B in "
         f"{time.perf_counter() - t0:.1f} s")
-    fkv = FreeKVConfig(offload="host")
+    return cfg, params
+
+
+# the kernels each main-path run must launch (recall_gather reads the fp
+# pool, recall_gather_quant the quantized one)
+RUN_KERNELS = {
+    "none": ("paged_attention", "page_scores", "recall_gather", "page_summary", "flash_prefill"),
+    "int8": ("paged_attention", "page_scores", "recall_gather_quant", "page_summary",
+             "flash_prefill"),
+}
+
+
+def main_path(dev, ops, cfg, params, kv_quant):
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.quant.accounting import page_block_bytes
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    fkv = FreeKVConfig(offload="host", kv_quant=kv_quant)
     stream = needle_stream(cfg.vocab_size, CONTEXT, fkv.page_size, seed=0)
     reqs = [Request(uid=i, tokens=next(stream).tokens, max_new_tokens=NEW_TOKENS)
             for i in range(B)]
@@ -280,27 +434,31 @@ def main_path(dev, ops):
     t0 = time.perf_counter()
     outs = eng.generate(reqs)
     wall = time.perf_counter() - t0
-    launches = {"paged_attention": ops.paged_attention.launches,
-                "page_scores": ops.page_scores.launches,
-                "recall_gather": ops.recall_gather.launches}
-    require(eng.last_logits_finite, "non-finite logits on the main path")
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    require(eng.last_logits_finite, f"non-finite logits on the main path ({kv_quant})")
     for o in outs:
         require(len(o.tokens) == NEW_TOKENS, f"request {o.uid}: {len(o.tokens)} tokens")
         require(all(0 <= t < cfg.vocab_size for t in o.tokens), f"request {o.uid}: bad token")
-    for name, n in launches.items():
-        require(n > 0, f"{name} was never launched on the main path")
+    for name in RUN_KERNELS[kv_quant]:
+        require(launches[name] > 0, f"{name} was never launched on the main path ({kv_quant})")
+    # prefill summarises once per layer; more means a page completed (and
+    # was quantized and summarised) during decode
+    require(launches["page_summary"] > cfg.n_layers,
+            f"no page completed during decode ({kv_quant}): page_summary launched "
+            f"{launches['page_summary']} times for {cfg.n_layers} layers")
     steps = max(outs[0].steps, 1)
-    info = {"arch": cfg.name, "requests": B, "prompt_tokens": CONTEXT,
+    info = {"arch": cfg.name, "kv_quant": kv_quant, "requests": B, "prompt_tokens": CONTEXT,
             "tokens_per_request": [len(o.tokens) for o in outs],
             "prefill_s": outs[0].prefill_s, "decode_ms_per_step": 1e3 * outs[0].decode_s / steps,
             "decode_steps": steps, "wall_s": wall,
+            "bytes_per_recalled_page": page_block_bytes(fkv, cfg.d_head, itemsize=2),
             "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
             "correction_rate": outs[0].stats.get("correction_rate"),
             "spec_hit_rate": outs[0].stats.get("spec_hit_rate"),
             "launches": launches,
             "launches_per_decode_step": {k: v / steps for k, v in launches.items()},
             "first_tokens": outs[0].tokens[:8]}
-    del eng, params
+    del eng, outs
     torch.cuda.empty_cache()
     return info, launches
 
@@ -316,7 +474,7 @@ def _leaves(tree):
         yield tree
 
 
-def kernel_vs_plain_end_to_end(dev):
+def kernel_vs_plain_end_to_end(dev, kv_quant):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import FreeKVConfig
     from repro_torch.data.synthetic import needle_stream
@@ -324,7 +482,8 @@ def kernel_vs_plain_end_to_end(dev):
     from repro_torch.serving.engine import Request, ServeEngine
 
     cfg = get_config("granite-3-8b-smoke")
-    fkv = FreeKVConfig(page_size=8, budget=64, n_sink=8, n_window=8, offload="host")
+    fkv = FreeKVConfig(page_size=8, budget=64, n_sink=8, n_window=8, offload="host",
+                       kv_quant=kv_quant)
     params_gpu = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
     params_cpu = _tree_map(lambda t: t.cpu(), params_gpu)
     stream = needle_stream(cfg.vocab_size, 256, 8, seed=3)
@@ -338,7 +497,7 @@ def kernel_vs_plain_end_to_end(dev):
                              for i, t in enumerate(prompts)])
         toks[where] = [o.tokens for o in outs]
     require(toks["cuda"] == toks["cpu"],
-            f"greedy tokens differ: card {toks['cuda']} vs cpu {toks['cpu']}")
+            f"greedy tokens differ ({kv_quant}): card {toks['cuda']} vs cpu {toks['cpu']}")
     return toks["cuda"]
 
 
@@ -357,6 +516,12 @@ KERNEL_META = {
                     "src/repro/kernels/page_scores.py:36"),
     "recall_gather": ("src/repro_torch/kernels/csrc/recall_gather.cu",
                       "src/repro/kernels/recall_gather.py:228"),
+    "recall_gather_quant": ("src/repro_torch/kernels/csrc/recall_gather_quant.cu",
+                            "src/repro/kernels/recall_gather.py:185"),
+    "page_summary": ("src/repro_torch/kernels/csrc/page_summary.cu",
+                     "src/repro/kernels/page_summary.py:19"),
+    "flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
+                      "src/repro/kernels/flash_prefill.py:73"),
 }
 
 
@@ -396,22 +561,39 @@ def main():
 
     # phase 3: kernels
     gen = torch.Generator(device=dev).manual_seed(0)
-    kernels = [check_paged_attention(ops, ref, dev, gen),
-               check_page_scores(ops, ref, dev, gen),
-               check_recall_gather(ops, ref, dev, gen)]
-    for k in kernels:
+    checks = {"paged_attention": check_paged_attention, "page_scores": check_page_scores,
+              "recall_gather": check_recall_gather,
+              "recall_gather_quant": check_recall_gather_quant,
+              "page_summary": check_page_summary, "flash_prefill": check_flash_prefill}
+    require(set(checks) == set(build.SOURCES), "a kernel has no check")
+    kernels = []
+    for name in build.SOURCES:
+        t0 = time.perf_counter()
+        k = checks[name](ops, ref, dev, gen)
+        kernels.append(k)
+        lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"[kernel] {k['name']}: max|err| {k['max_abs_err']:.3g} | "
             f"{k['kernel_ms']:.4f} ms vs bound {k['bound_ms']:.4f} ms | plain "
-            f"{k['plain_ms']:.4f} ms | library {k['library_ms']:.4f} ms")
+            f"{k['plain_ms']:.4f} ms | library {lib} | {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
 
     launches = {k["name"]: None for k in kernels}
     if not args.kernels_only:
-        # phase 4: main path at full width
-        info, launches = main_path(dev, ops)
-        log("[main] " + json.dumps(info))
+        # phase 4: main path at full width, fp pool then int8 pool
+        cfg, params = llama_params(dev)
+        launches = {k["name"]: 0 for k in kernels}
+        for kv_quant in ("none", "int8"):
+            info, run = main_path(dev, ops, cfg, params, kv_quant)
+            log("[main] " + json.dumps(info))
+            for name, n in run.items():
+                launches[name] += n
+        del params
+        torch.cuda.empty_cache()
         # phase 5: kernel path == plain path
-        toks = kernel_vs_plain_end_to_end(dev)
-        log(f"[equal] granite-3-8b-smoke fp32: card == cpu greedy tokens, e.g. {toks[0][:8]}")
+        for kv_quant in ("none", "int8", "int4"):
+            toks = kernel_vs_plain_end_to_end(dev, kv_quant)
+            log(f"[equal] granite-3-8b-smoke fp32 kv_quant={kv_quant}: card == cpu greedy "
+                f"tokens, e.g. {toks[0][:8]}")
 
     line = []
     for k in kernels:

@@ -11,6 +11,8 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+from repro_torch.quant.quantizers import quant_bits
+
 # mixer kinds
 ATTN = "attn"
 ATTN_LOCAL = "attn_local"
@@ -105,7 +107,11 @@ class FreeKVConfig:
     group_pool: str = "mean_softmax"  # MeanS (paper) | max_softmax | mean_qk | max_qk
     offload: str = "sim"        # sim (pool on the card) | host (pinned host pool)
     recall_overlap: bool = True  # staged recall on a side stream
-    kv_quant: str = "none"      # only "none" is ported
+    # quantized host tier (``repro_torch/quant``): the pool holds int8 or
+    # packed int4 with float32 scales per (page, KV head, K|V half, channel
+    # group); pages quantize at offload and dequantize inside the recall
+    kv_quant: str = "none"      # none | int8 | int4
+    quant_group_size: int = 0   # channels per scale; 0 = one scale per page half
     pool_pad_pages: int = 1
 
     def __post_init__(self):
@@ -119,9 +125,13 @@ class FreeKVConfig:
                 "reads the sink, window and selected regions as whole pages")
         if self.offload not in ("sim", "host"):
             raise ValueError(f"offload must be 'sim' or 'host', got {self.offload!r}")
-        if self.kv_quant != "none":
-            raise NotImplementedError(
-                "kv_quant != 'none' is not ported yet (ROADMAP queue 1, item 8)")
+        if self.kv_quant not in ("none", "int8", "int4"):
+            raise ValueError(f"kv_quant must be none, int8 or int4, got {self.kv_quant!r}")
+
+    @property
+    def quant_bits(self) -> int:
+        """Bits per stored pool element (0 = unquantized)."""
+        return quant_bits(self.kv_quant)
 
 
 def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:

@@ -5,19 +5,33 @@ of one (KV head, page) is contiguous, the recall's transfer unit. The device
 rings use **NHD** ``(B, n, kv, d)``, so a decode append needs no transpose;
 the NHD->HND transpose happens once per completed page.
 
+With the quantized host tier (``fkv.kv_quant`` int8 or int4,
+``repro_torch/quant``) the pool holds int8 (int4 packed two to a byte) and a
+``pool_scale`` tensor holds the float32 scales; a page is quantized where
+the NHD->HND transpose already happens (page completion in
+``append_token``, the bulk insert in ``prefill_fill_pool``), on the card,
+before its copy to the pool. Summaries come from the keys before
+quantization, through ``ops.page_summary``. The quantization parameters are
+read off the state itself (``quant_info``).
+
 State updates are IN PLACE (the port's counterpart of the reference's buffer
 donation): ``append_token`` writes the rings, the pool and the summaries of
 the dict it is given and returns that same dict. With ``offload="host"`` the
-pool is pinned host memory (``core/offload``) and every pool write is a
-``copy_(..., non_blocking=True)`` from a card-side block on the current
-stream; nothing reads the host pool except the ``recall_gather`` kernel.
+pool and its scales are pinned host memory (``core/offload``) and every pool
+write is a ``copy_(..., non_blocking=True)`` from a card-side block on the
+current stream; nothing reads the host pool except the ``recall_gather`` and
+``recall_gather_quant`` kernels.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, FreeKVConfig
 from repro_torch.core import offload
+from repro_torch.kernels import ops
+from repro_torch.quant import quantizers as qz
 
 
 def state_dims(cfg: ArchConfig, fkv: FreeKVConfig, max_len: int):
@@ -31,9 +45,54 @@ def state_dims(cfg: ArchConfig, fkv: FreeKVConfig, max_len: int):
     return p, n_pages, n_sink, n_win, n_sel
 
 
+def quant_info(state):
+    """(bits, group_size) of a quantized-pool state, or None for an fp pool
+    (reference ``paging.py:54``): a packed int4 pool is half the channel
+    width of the rings, and the scales' group count fixes the group size."""
+    if "pool_scale" not in state:
+        return None
+    d = state["win_k"].shape[-1]
+    bits = 8 if state["pool"].shape[-1] == d else 4
+    return bits, d // state["pool_scale"].shape[-1]
+
+
+class QuantPool(NamedTuple):
+    """The quantized pool as the recall sees it: the packed pages, their
+    scales, the bit width and the dtype the recalled pages take (the
+    device-side buffers')."""
+    pool: torch.Tensor
+    scale: torch.Tensor
+    bits: int
+    out_dtype: torch.dtype
+
+
+def pool_view(state):
+    """What the recall gathers from: the fp pool, or a ``QuantPool`` under
+    the quantized tier (the reference's ``(pool, pool_scale)`` pair, which
+    the retriever unpacks the same way)."""
+    qi = quant_info(state)
+    if qi is None:
+        return state["pool"]
+    return QuantPool(state["pool"], state["pool_scale"], qi[0], state["sel_k"].dtype)
+
+
+def state_bytes(state) -> int:
+    """Physical bytes of every tensor of a decode state (any nesting of dicts
+    and lists): the packed payload at its packed width, the scales included."""
+    if isinstance(state, dict):
+        return sum(state_bytes(v) for v in state.values())
+    if isinstance(state, (list, tuple)):
+        return sum(state_bytes(v) for v in state)
+    if isinstance(state, torch.Tensor):
+        return state.numel() * state.element_size()
+    return 0
+
+
 def init_kv_state(cfg: ArchConfig, fkv: FreeKVConfig, batch: int, max_len: int,
                   dtype=torch.bfloat16, device="cuda"):
-    """Per-layer FreeKV decode state (fp pool only)."""
+    """Per-layer FreeKV decode state; under ``kv_quant`` the pool is int8 of
+    width ``d * bits / 8`` with float32 ``pool_scale`` (B, n_pages, kv, 2,
+    n_groups) beside it (reference ``paging.py:76``)."""
     from repro_torch import resolve_device
     dev = resolve_device(device)
     p, n_pages, n_sink, n_win, n_sel = state_dims(cfg, fkv, max_len)
@@ -42,8 +101,17 @@ def init_kv_state(cfg: ArchConfig, fkv: FreeKVConfig, batch: int, max_len: int,
     def z(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=dev)
 
+    bits = fkv.quant_bits
+    if bits:
+        n_g = d // qz.effective_group(fkv.quant_group_size, d)
+        pool = {"pool": offload.alloc_pool((batch, n_pages, kv, 2, p, d * bits // 8),
+                                           torch.int8, fkv, dev),
+                "pool_scale": offload.alloc_pool((batch, n_pages, kv, 2, n_g),
+                                                 torch.float32, fkv, dev)}
+    else:
+        pool = {"pool": offload.alloc_pool((batch, n_pages, kv, 2, p, d), dtype, fkv, dev)}
     return {
-        "pool": offload.alloc_pool((batch, n_pages, kv, 2, p, d), dtype, fkv, dev),
+        **pool,
         "summ": z(batch, n_pages, kv, 2, d),
         "sink_k": z(batch, n_sink, kv, d),
         "sink_v": z(batch, n_sink, kv, d),
@@ -71,25 +139,38 @@ def _write_pool(pool, rows, pages, blocks):
         dst.copy_(blocks[i], non_blocking=True)
 
 
+def _offload_pages(state, rows, pages, hnd):
+    """Write card-side HND blocks ``hnd`` (R, ..., kv, 2, p, d) to the pool
+    rows ``rows`` at ``pages`` (ints, or slices of whole pages), quantized
+    first under the quantized tier, payload and scales alike."""
+    pool = state["pool"]
+    qi = quant_info(state)
+    if qi is None:
+        _write_pool(pool, rows, pages, hnd.to(pool.dtype).contiguous())
+        return
+    q, scale = qz.quantize_block(hnd, *qi)
+    _write_pool(pool, rows, pages, q.contiguous())
+    _write_pool(state["pool_scale"], rows, pages, scale.contiguous())
+
+
 def prefill_fill_pool(state, k, v, length):
     """Insert a prefill's K/V (B, T, kv, d) into pool + summaries + sink + ring.
 
     ``length`` (B,) is the per-row valid length (rows share T, left-padded).
-    The pool write is one bulk device-to-host copy per row."""
+    The pool write is one bulk device-to-host copy per row (two under the
+    quantized tier: payload and scales)."""
     B, T, kv, d = k.shape
     n_sink = state["sink_k"].shape[1]
     n_win = state["win_k"].shape[1]
     if T < max(n_sink, n_win):
         raise ValueError(f"a {T}-token prompt is shorter than the sink ({n_sink}) "
                          f"or the window ring ({n_win})")
-    pool = state["pool"]
-    p = pool.shape[4]
+    p = state["pool"].shape[4]
     n_full = T // p
     kp = k[:, : n_full * p].reshape(B, n_full, p, kv, d)
     vp = v[:, : n_full * p].reshape(B, n_full, p, kv, d)
-    hnd = nhd_pages_to_hnd(kp, vp).to(pool.dtype).contiguous()
-    _write_pool(pool, range(B), [slice(0, n_full)] * B, hnd)
-    summ = torch.stack([kp.amin(dim=2), kp.amax(dim=2)], dim=3)   # (B,n,kv,2,d)
+    _offload_pages(state, range(B), [slice(0, n_full)] * B, nhd_pages_to_hnd(kp, vp))
+    summ = ops.page_summary(k[:, : n_full * p], page_size=p)      # (B,n,kv,2,d)
     state["summ"][:, :n_full] = summ.to(state["summ"].dtype)
 
     dt = state["win_k"].dtype
@@ -118,8 +199,7 @@ def append_token(state, k_new, v_new, length_host=None):
     ``(kv, 2, p, d)`` block to the pool and their min/max summary; the other
     rows write nothing. Updates ``state`` in place and returns it."""
     B, n_win, kv, d = state["win_k"].shape
-    pool = state["pool"]
-    p = pool.shape[4]
+    p = state["pool"].shape[4]
     pos = state["length"]                          # (B,) position of the new token
     dev = pos.device
     slot = (pos % n_win).long()
@@ -143,7 +223,7 @@ def append_token(state, k_new, v_new, length_host=None):
     pk = state["win_k"][ridx[:, None], tok_slot]                   # (R, p, kv, d)
     pv = state["win_v"][ridx[:, None], tok_slot]
     hnd = torch.stack([pk.transpose(1, 2), pv.transpose(1, 2)], dim=2)   # (R,kv,2,p,d)
-    _write_pool(pool, rows, pages, hnd.to(pool.dtype).contiguous())
-    summ = torch.stack([pk.amin(dim=1), pk.amax(dim=1)], dim=2)    # (R,kv,2,d)
+    _offload_pages(state, rows, pages, hnd)
+    summ = ops.page_summary(pk, page_size=p)[:, 0]                 # (R,kv,2,d)
     state["summ"][ridx, torch.tensor(pages, device=dev)] = summ.to(state["summ"].dtype)
     return state

@@ -79,7 +79,9 @@ def side_stream(device):
 
 
 class RecallExecutor:
-    """Double-buffered recall over one ``recall_fn(pool, idx) -> (k, v)``."""
+    """Double-buffered recall over one ``recall_fn(pool, idx) -> (k, v)``;
+    ``pool`` is passed through untouched (the fp pool, or the quantized
+    tier's ``paging.QuantPool``)."""
 
     def __init__(self, recall_fn=None):
         self.recall_fn = recall_fn or recall.recall_pages
@@ -115,8 +117,10 @@ class RecallExecutor:
             side.wait_stream(main)
             for t in (stage_idx, reused_k, reused_v, tk, tv, hit5, need5):
                 t.record_stream(side)
-            if pool.is_cuda:
-                pool.record_stream(side)
+            # the fp pool, or the quantized tier's payload and scales
+            for t in (pool if isinstance(pool, tuple) else (pool,)):
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    t.record_stream(side)
             ctx = torch.cuda.stream(side)
         else:
             ctx = contextlib.nullcontext()

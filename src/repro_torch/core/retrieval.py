@@ -112,6 +112,11 @@ class FreeKVRetriever:
         return self.fkv.recall_overlap and self.speculative
 
     def _recall(self, pool, idx):
+        if isinstance(pool, tuple):                   # quantized host tier
+            # dequantization fused into the gather: the packed page and its
+            # scales cross the link, the fp page never does
+            return ops.recall_gather_quant(pool.pool, pool.scale, idx, bits=pool.bits,
+                                           out_dtype=pool.out_dtype)
         return ops.recall_gather(pool, idx)
 
     def init_state(self, batch, max_len, dtype=torch.bfloat16, device="cuda"):
@@ -127,7 +132,7 @@ class FreeKVRetriever:
         state = paging.prefill_fill_pool(state, k, v, T)
         idx, _ = selection.select_pages(self.cfg, self.fkv, q_last, state["summ"],
                                         state["length"], self._n_sel(state))
-        sk, sv = self._recall(state["pool"], idx)
+        sk, sv = self._recall(paging.pool_view(state), idx)
         state["sel_k"] = sk.to(state["sel_k"].dtype)
         state["sel_v"] = sv.to(state["sel_v"].dtype)
         state["sel_idx"] = idx
@@ -162,14 +167,14 @@ class FreeKVRetriever:
 
         ready = None
         if self._overlap():
-            pr = self.executor.step(state["pool"], new_idx, state["sel_idx"],
+            pr = self.executor.step(paging.pool_view(state), new_idx, state["sel_idx"],
                                     state["sel_k"], state["sel_v"], corr)
             use_k, use_v, use_idx = pr.use_k, pr.use_v, pr.use_idx
             new_k, new_v = pr.staged_k, pr.staged_v
             sync_pages, async_pages = pr.topup_blocks, pr.staged_blocks
             reused, ready = pr.reused_blocks, pr.ready
         else:
-            new_k, new_v = self.executor.recall(state["pool"], new_idx)
+            new_k, new_v = self.executor.recall(paging.pool_view(state), new_idx)
             new_k = new_k.to(state["sel_k"].dtype)
             new_v = new_v.to(state["sel_v"].dtype)
             if self.speculative:

@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("paged_attention", "page_scores", "recall_gather")
+SOURCES = ("paged_attention", "page_scores", "recall_gather", "recall_gather_quant",
+           "page_summary", "flash_prefill")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,6 +37,16 @@ SIGNATURES = {
     "recall_gather": {
         "freekv_recall_gather": [_P] * 4 + [_I] * 4 + [_LL, _I, _P],
         "freekv_device_pointer": [_P, _I, ctypes.POINTER(ctypes.c_void_p)],
+    },
+    "recall_gather_quant": {
+        "freekv_recall_gather_quant": [_P] * 5 + [_I] * 10 + [_P],
+    },
+    "page_summary": {
+        "freekv_page_summary": [_P] * 2 + [_I] * 5 + [_LL, _I, _I, _P],
+    },
+    "flash_prefill": {
+        "freekv_flash_prefill": [_P] * 4 + [_I] * 5 + [ctypes.POINTER(_LL), _F, _F]
+        + [_I] * 4 + [_P],
     },
 }
 

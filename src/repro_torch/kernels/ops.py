@@ -65,7 +65,7 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def reset_launches():
-    for fn in (paged_attention, page_scores, recall_gather):
+    for fn in KERNELS:
         fn.launches = 0
 
 
@@ -202,4 +202,104 @@ def recall_gather(pool, idx):
     return k, v
 
 
+def recall_gather_quant(pool, scales, idx, *, bits, out_dtype=torch.float32):
+    """pool (B,n_pages,kv,2,p,d*bits/8) int8 (int4 packed two to a byte);
+    scales (B,n_pages,kv,2,n_g) float32; idx (B,kv,n_sel) int32 (< 0 pad)
+    -> k, v each (B,kv,n_sel,p,d) in ``out_dtype``, on idx's device.
+
+    Dispatches on ``idx`` like ``recall_gather``: the pool and its scales may
+    be pinned host memory, read by the kernel over the link."""
+    if not _on_cuda(idx):
+        return ref.recall_gather_quant_ref(pool, scales, idx, bits, out_dtype)
+    dev = idx.device
+    _check_cuda(dev, idx)
+    _require(pool.is_contiguous() and scales.is_contiguous(),
+             "pool and scales must be contiguous")
+    _require(pool.dtype == torch.int8 and scales.dtype == torch.float32
+             and idx.dtype == torch.int32,
+             "recall_gather_quant takes an int8 pool, float32 scales and int32 idx")
+    _require(bits in (8, 4), f"bits must be 8 or 4, got {bits}")
+    code = _DTYPE_CODE.get(out_dtype)
+    _require(code is not None, f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    B, n_pages, kv, two, p, dp = pool.shape
+    d = dp * 8 // bits
+    n_g = scales.shape[-1]
+    n_sel = idx.shape[2]
+    _require(two == 2 and scales.shape == (B, n_pages, kv, 2, n_g)
+             and idx.shape == (B, kv, n_sel) and d % n_g == 0 and n_g <= 256,
+             "recall_gather_quant: shape mismatch")
+    _require(dp % 16 == 0, "recall_gather_quant: d * bits / 8 must be a multiple of 16")
+    lib = build.load("recall_gather_quant")
+    src, src_scales = _pool_pointer(pool, dev), _pool_pointer(scales, dev)
+    k = torch.empty((B, kv, n_sel, p, d), dtype=out_dtype, device=dev)
+    v = torch.empty_like(k)
+    rc = lib.freekv_recall_gather_quant(src, src_scales, _ptr(idx), _ptr(k), _ptr(v), B,
+                                        n_pages, kv, n_sel, p, d, n_g, bits, code,
+                                        dev.index, _stream(dev))
+    build.check(rc, "recall_gather_quant")
+    recall_gather_quant.launches += 1
+    return k, v
+
+
+def page_summary(k, *, page_size):
+    """k (B,T,kv,d) with T a whole number of pages -> (B,T/p,kv,2,d) per-page
+    min and max in k's dtype. Rows of a CUDA ``k`` may sit any 16-byte
+    multiple apart (a prefix of a longer prompt); the rest is contiguous."""
+    if not _on_cuda(k):
+        return ref.page_summary_ref(k, page_size)
+    dev = k.device
+    B, T, kv, d = k.shape
+    p = page_size
+    _require(T % p == 0 and T > 0, f"page_summary: T={T} is not a whole number of {p}-token pages")
+    _require(k.stride(3) == 1 and k.stride(2) == d and k.stride(1) == kv * d,
+             "page_summary: k must be contiguous past the batch dim")
+    code = _dtype_code(k)
+    _require((d * k.element_size()) % 16 == 0 and k.data_ptr() % 16 == 0
+             and (k.stride(0) * k.element_size()) % 16 == 0,
+             "page_summary takes 16-byte aligned rows of 16-byte multiples")
+    lib = build.load("page_summary")
+    out = torch.empty((B, T // p, kv, 2, d), dtype=k.dtype, device=dev)
+    rc = lib.freekv_page_summary(_ptr(k), _ptr(out), B, T // p, p, kv, d, k.stride(0), code,
+                                 dev.index, _stream(dev))
+    build.check(rc, "page_summary")
+    page_summary.launches += 1
+    return out
+
+
+def flash_prefill(q, k, v, *, scale, causal=True, window=None, softcap=None):
+    """q (B,H,T,d); k/v (B,kv,T,d) -> (B,H,T,d) in q's dtype, float32 inside.
+
+    CUDA inputs may be strided views (the last dim contiguous, 16-byte
+    aligned rows), e.g. the model's (B,T,H,d) tensors transposed; the output
+    is laid out like ``q``, so transposing it back is free."""
+    if not _on_cuda(q):
+        return ref.flash_prefill_ref(q, k, v, scale, causal, window, softcap)
+    dev = q.device
+    B, H, T, d = q.shape
+    kv = k.shape[1]
+    _require(k.shape == (B, kv, T, d) and v.shape == k.shape and H % kv == 0,
+             "flash_prefill: shape mismatch")
+    _require(d in (64, 128, 256), f"flash_prefill takes d_head 64, 128 or 256, got {d}")
+    for t in (q, k, v):
+        _require(t.device == dev, f"tensor on {t.device}, expected {dev}")
+        _require(t.stride(3) == 1 and t.data_ptr() % 16 == 0
+                 and all((s * t.element_size()) % 16 == 0 for s in t.stride()[:3]),
+                 "flash_prefill: the last dim must be contiguous, rows 16-byte aligned")
+    code = _dtype_code(q, k, v)
+    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                       *out.stride()[:3])
+    lib = build.load("flash_prefill")
+    rc = lib.freekv_flash_prefill(_ptr(q), _ptr(k), _ptr(v), _ptr(out), B, H, H // kv, T, d,
+                                  strides, float(scale),
+                                  float(softcap) if softcap is not None else 0.0,
+                                  int(bool(causal)), int(window or 0), code, dev.index,
+                                  _stream(dev))
+    build.check(rc, "flash_prefill")
+    flash_prefill.launches += 1
+    return out
+
+
+KERNELS = (paged_attention, page_scores, recall_gather, recall_gather_quant, page_summary,
+           flash_prefill)
 reset_launches()

@@ -9,7 +9,18 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.quant.quantizers import dequant_recall_pages
+
 NEG_INF = -1e30
+
+
+def page_summary_ref(k, page_size):
+    """k (B, T, kv, d), T a whole number of pages -> (B, T/p, kv, 2, d): the
+    min and max of each page's keys, in k's dtype (reference
+    ``kernels/ref.py:10``)."""
+    B, T, kv, d = k.shape
+    kp = k.reshape(B, T // page_size, page_size, kv, d)
+    return torch.stack([kp.amin(dim=2), kp.amax(dim=2)], dim=3)
 
 
 def page_scores_ref(q, summ, scale):
@@ -57,3 +68,42 @@ def recall_gather_ref(pool, idx):
     blk = torch.where((idx >= 0)[..., None, None, None], blk,
                       torch.zeros((), dtype=blk.dtype, device=blk.device))
     return blk[..., 0, :, :], blk[..., 1, :, :]
+
+
+def recall_gather_quant_ref(pool, scales, idx, bits, out_dtype=torch.float32):
+    """pool (B, n_pages, kv, 2, p, d_packed) int8; scales (B, n_pages, kv, 2,
+    n_g) float32; idx (B, kv, n_sel) int32, < 0 invalid -> k, v each (B, kv,
+    n_sel, p, d) in ``out_dtype`` on idx's device: ``dequant_recall_pages``
+    (``quant/quantizers.py``), the contract of the reference's fused kernel."""
+    k, v = dequant_recall_pages(pool, scales, idx, bits, out_dtype)
+    return k.to(idx.device), v.to(idx.device)
+
+
+def flash_prefill_ref(q, k, v, scale, causal=True, window=None, softcap=None):
+    """q (B, H, T, d); k/v (B, kv, T, d) -> (B, H, T, d) in q's dtype, float32
+    throughout (reference ``kernels/ref.py:76``, plus the TPU kernel's
+    softcap, applied to the scaled scores before the mask). Query rows go
+    512 at a time so the scores of a long prompt never exist whole; each
+    row's softmax is independent, so the result is the same."""
+    q_chunk = 512
+    B, H, T, d = q.shape
+    kv = k.shape[1]
+    G = H // kv
+    kf, vf = k.float(), v.float()
+    qg = q.reshape(B, kv, G, T, d)
+    ti = torch.arange(T, device=q.device)
+    out = []
+    for t0 in range(0, T, q_chunk):
+        tq = ti[t0:t0 + q_chunk, None]
+        s = torch.einsum("bkgtd,bksd->bkgts", qg[:, :, :, t0:t0 + q_chunk].float(), kf) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        ok = torch.ones((tq.shape[0], T), dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= ti[None, :] <= tq
+        if window is not None:
+            ok &= ti[None, :] > tq - window
+        s = torch.where(ok, s, torch.full((), NEG_INF, device=q.device))
+        w = torch.softmax(s, dim=-1)
+        out.append(torch.einsum("bkgts,bksd->bkgtd", w, vf))
+    return torch.cat(out, dim=3).reshape(B, H, T, d).to(q.dtype)

@@ -1,13 +1,16 @@
-"""Where a decode step's time goes on the card: the main path's shapes
-(llama31-8b at full width, B=4, 8192-token needle prompts, FreeKV defaults,
-recall_overlap=True, pool in pinned host memory), seeded random bf16
-weights, ``torch.profiler`` over a few ``serve_step`` calls after warm-up.
+"""Where the prefill's and a decode step's time go on the card: the main
+path's shapes (llama31-8b at full width, B=4, 8192-token needle prompts,
+FreeKV defaults, recall_overlap=True, pool in pinned host memory), seeded
+random bf16 weights, ``torch.profiler`` over one prefill and over a few
+``serve_step`` calls after warm-up.
 
-    PYTHONPATH=src python -m repro_torch.launch.decode_profile [--steps 4]
+    PYTHONPATH=src python -m repro_torch.launch.decode_profile [--steps 4] \
+        [--kv-quant none|int8|int4] [--quant-group-size 0]
 
-Prints one JSON line: host wall ms per step, device-busy ms per step (sum of
-kernel and copy time on the card), the busy share, the top kernels by device
-time, the top host-side ops by self CPU time, and the count of host-device
+Prints one JSON line: the prefill's wall s, device-busy s and top kernels;
+per decode step the host wall ms, device-busy ms (sum of kernel and copy
+time on the card), the busy share, the top kernels by device time, the top
+host-side ops by self CPU time, and the count of host-device
 synchronisations. Needs a card; exits non-zero without one.
 """
 import argparse
@@ -27,6 +30,10 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--trace-out", default=None,
                     help="write a Chrome trace of the profiled steps here")
+    ap.add_argument("--kv-quant", choices=("none", "int8", "int4"), default="none",
+                    help="quantized host KV tier")
+    ap.add_argument("--quant-group-size", type=int, default=0,
+                    help="channels per quantization scale (0 = one per page half)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("decode_profile: needs a CUDA device", file=sys.stderr)
@@ -43,14 +50,42 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     cfg = get_config(ARCH)
-    fkv = FreeKVConfig(offload="host")
+    fkv = FreeKVConfig(offload="host", kv_quant=args.kv_quant,
+                       quant_group_size=args.quant_group_size)
     params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
     stream = needle_stream(cfg.vocab_size, CONTEXT, fkv.page_size, seed=0)
     toks = torch.from_numpy(np.stack([next(stream).tokens for _ in range(BATCH)]))
     toks = toks.long().to(dev)
     max_len = CONTEXT + 64 + WARMUP + args.steps
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+    def device_rows(events):
+        # device-side rows only (kernels, copies): an aten op's row repeats
+        # the device time of the kernels it launched
+        return [e for e in events if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+
+    # warm-up prefill on a short prompt (builds and loads the kernels), the
+    # timed one, then one under the profiler
+    prefill(cfg, fkv, params, {"tokens": toks[:, :512]}, max_len, state_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     logits, state = prefill(cfg, fkv, params, {"tokens": toks}, max_len,
                             state_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefill(cfg, fkv, params, {"tokens": toks}, max_len, state_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+    pre_rows = device_rows(prof.key_averages())
+    prefill_out = {
+        "wall_s_unprofiled": prefill_s,
+        "device_busy_s": sum(dev_us(e) for e in pre_rows) / 1e6,
+        "top_device_s": [(e.key[:80], dev_us(e) / 1e6, e.count)
+                         for e in sorted(pre_rows, key=dev_us, reverse=True)[:12]],
+    }
+    del prof
 
     def step(logits, state):
         cur = torch.argmax(logits, dim=-1)[:, None]
@@ -72,14 +107,7 @@ def main(argv=None):
     if args.trace_out:
         prof.export_chrome_trace(args.trace_out)
     events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-
-    # device-side rows only (kernels, copies): an aten op's row repeats the
-    # device time of the kernels it launched
-    dev_events = [e for e in events
-                  if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    dev_events = device_rows(events)
     busy_ms = sum(dev_us(e) for e in dev_events) / 1e3 / args.steps
     top_dev = sorted(dev_events, key=dev_us, reverse=True)[:15]
     top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:15]
@@ -89,7 +117,8 @@ def main(argv=None):
                           "cudaStreamWaitEvent", "cudaPointerGetAttributes")}
     out = {
         "device": torch.cuda.get_device_name(0), "arch": cfg.name, "batch": BATCH,
-        "context": CONTEXT, "offload": fkv.offload, "steps": args.steps,
+        "context": CONTEXT, "offload": fkv.offload, "kv_quant": fkv.kv_quant,
+        "steps": args.steps, "prefill": prefill_out,
         "wall_ms_per_step_unprofiled": wall_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_busy_share": busy_ms / wall_ms if wall_ms else None,

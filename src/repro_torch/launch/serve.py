@@ -1,8 +1,9 @@
 """Serving launcher for the PyTorch port (reference ``repro/launch/serve.py``):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
-        --arch llama31-8b --scheduler static --context 8192 --new-tokens 32 \
-        --batch 4 --page-size 32 --budget 2048 --offload host --dtype bfloat16
+        --arch llama31-8b --scheduler static --context 8192 --new-tokens 40 \
+        --batch 4 --page-size 32 --budget 2048 --offload host --dtype bfloat16 \
+        --kv-quant int8
 
 Same flags and defaults as the reference CLI where the feature is ported;
 ``--device``, ``--offload``, ``--dtype`` and ``--seed`` are the port's own.
@@ -45,6 +46,10 @@ def main(argv=None):
                     help="disable the overlapped recall pipeline")
     ap.add_argument("--offload", choices=("sim", "host"), default="sim",
                     help="host = KV pool in pinned host memory")
+    ap.add_argument("--kv-quant", choices=("none", "int8", "int4"), default="none",
+                    help="quantized host KV tier (int8 / packed int4 + fp32 scales)")
+    ap.add_argument("--quant-group-size", type=int, default=0,
+                    help="channels per quantization scale (0 = one per page half)")
     ap.add_argument("--dtype", choices=tuple(_DTYPES), default="float32",
                     help="weights and decode state dtype")
     ap.add_argument("--seed", type=int, default=0)
@@ -56,7 +61,8 @@ def main(argv=None):
     fkv = FreeKVConfig(method=args.method, page_size=args.page_size,
                        budget=args.budget, n_sink=args.page_size * 2,
                        n_window=args.page_size * 2, tau=args.tau,
-                       recall_overlap=not args.no_overlap, offload=args.offload)
+                       recall_overlap=not args.no_overlap, offload=args.offload,
+                       kv_quant=args.kv_quant, quant_group_size=args.quant_group_size)
     eng = ServeEngine(cfg, fkv, params,
                       max_len=args.context + args.new_tokens + args.page_size
                       + args.prefill_bucket,

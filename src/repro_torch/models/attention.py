@@ -1,16 +1,20 @@
 """GQA attention for prefill (reference ``repro/models/attention.py``).
 
-Prefill attention stays plain PyTorch, as the reference computes it outside
-Pallas: ``attention_dense`` for small products and the flash-style
-``attention_chunked`` (running max/sum over KV chunks of 512) beyond
-``2048 * 2048`` query-key pairs, so an 8192-token prompt never materialises
-its full score matrix. Decode attention is ``core/retrieval._attend``.
+``attention_prefill`` is what the model's prefill calls. On the card it is
+the ``flash_prefill`` CUDA kernel (the reference registers its Pallas
+counterpart but computes prefill in jnp). On the CPU it is the reference's
+own plain computation, ``attention_auto``: ``attention_dense`` for small
+products and the flash-style ``attention_chunked`` (running max/sum over KV
+chunks of 512) beyond ``2048 * 2048`` query-key pairs, so the CPU parity
+tests keep the reference's numbers. Decode attention is
+``core/retrieval._attend``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, softcap
 
 NEG_INF = -1e30
@@ -105,3 +109,18 @@ def attention_auto(cfg: ArchConfig, q, k, v, pos_q, pos_k, causal=True, window=N
     if q.shape[1] * k.shape[1] <= 2048 * 2048:
         return attention_dense(cfg, q, k, v, pos_q, pos_k, causal, window)
     return attention_chunked(cfg, q, k, v, pos_q, pos_k, causal, window)
+
+
+def attention_prefill(cfg: ArchConfig, q, k, v, positions):
+    """Causal self-attention of a prompt: q (B,T,H,dh), k/v (B,T,Hkv,dh),
+    positions (B,T) the same for q and k -> (B,T,H,dh).
+
+    CUDA tensors go to ``ops.flash_prefill`` as transposed (B,H,T,dh) views
+    (the kernel takes strides, so nothing is copied) and the output comes
+    back in q's (B,T,H,dh) layout; CPU tensors take ``attention_auto``."""
+    if q.is_cuda:
+        o = ops.flash_prefill(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              scale=_scale(cfg), causal=True,
+                              softcap=cfg.attn_logit_softcap)
+        return o.transpose(1, 2)
+    return attention_auto(cfg, q, k, v, positions, positions, causal=True)

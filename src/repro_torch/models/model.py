@@ -156,7 +156,7 @@ def prefill(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, max_len: int,
     for lp in params["layers"]:
         h = L.apply_norm(cfg, lp["norm1"], x)
         q, k, v = attn.qkv_proj(cfg, lp["mixer"], h, positions)
-        o = attn.attention_auto(cfg, q, k, v, positions, positions, causal=True)
+        o = attn.attention_prefill(cfg, q, k, v, positions)
         x = x + attn.out_proj(cfg, lp["mixer"], o)
         x = _ffn(cfg, lp, x)
         st = retr.init_state(B, max_len, state_dtype, dev)

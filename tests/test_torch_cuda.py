@@ -123,3 +123,53 @@ def test_cuda_paged_attention_sweep(B, kv, G, N, p, d, dtype):
         got = ops.paged_attention(q, k, v, pos, cur, scale=d ** -0.5, softcap=softcap)
         want = ref.paged_attention_ref(q, k, v, pos, cur, d ** -0.5, softcap)
         torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_cuda_page_summary_and_quant_gather_exact(dtype):
+    """page_summary equal to its plain version (also on a prefix of longer
+    rows, as prefill passes it), and recall_gather_quant at int8 and int4
+    equal to its plain version from a device pool and a pinned host pool,
+    with -1 and -2 lanes, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from repro_torch.quant.quantizers import quantize_block
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(3)
+    for T, extra, p, kv, d in ((96, 8, 8, 2, 64), (64, 0, 32, 3, 128), (32, 0, 32, 1, 256)):
+        k = torch.randn(2, T + extra, kv, d, generator=g, device=dev).to(dtype)[:, :T]
+        assert torch.equal(ops.page_summary(k, page_size=p), ref.page_summary_ref(k, p))
+    for bits, group, d in ((8, 0, 128), (4, 0, 128), (8, 16, 64), (4, 8, 64)):
+        pool_f = torch.randn(2, 12, 3, 2, 8, d, generator=g, device=dev)
+        pool_f[:, 1] = 0
+        pool, sc = quantize_block(pool_f, bits, group)
+        idx = torch.randint(-2, 12, (2, 3, 5), generator=g, device=dev, dtype=torch.int32)
+        want = ref.recall_gather_quant_ref(pool, sc, idx, bits, dtype)
+        for src, ssrc in ((pool, sc), (pool.cpu().pin_memory(), sc.cpu().pin_memory())):
+            got = ops.recall_gather_quant(src, ssrc, idx, bits=bits, out_dtype=dtype)
+            for a, b in zip(got, want):
+                assert a.dtype == dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("B,H,kv,T,d,window,softcap", [
+    (1, 2, 1, 128, 128, None, None), (2, 6, 3, 256, 64, None, None),
+    (1, 4, 4, 200, 128, None, None), (1, 2, 2, 256, 64, 64, None),
+    (2, 4, 2, 77, 64, None, 20.0), (1, 2, 1, 130, 256, 50, 30.0),
+    (1, 8, 2, 1000, 128, 300, 30.0),
+])
+def test_cuda_flash_prefill_matches_plain(B, H, kv, T, d, window, softcap, dtype):
+    """flash_prefill against its plain version on the model's strided
+    (B, T, heads, d) views, T with and without a partial last block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(B, T, n, d, generator=g, device=dev).to(dtype).transpose(1, 2)
+               for n in (H, kv, kv))
+    got = ops.flash_prefill(q, k, v, scale=d ** -0.5, window=window, softcap=softcap)
+    want = ref.flash_prefill_ref(q, k, v, d ** -0.5, True, window, softcap)
+    assert got.stride() == q.stride()
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))

@@ -74,12 +74,17 @@ def test_cuda_request_without_built_library_raises(monkeypatch):
         lambda: ops.page_scores(q, torch.randn(1, 3, 1, 2, 16), scale=0.25),
         lambda: ops.recall_gather(torch.randn(1, 3, 1, 2, 8, 16),
                                   torch.zeros((1, 1, 2), dtype=torch.int32)),
+        lambda: ops.recall_gather_quant(torch.zeros((1, 3, 1, 2, 8, 16), dtype=torch.int8),
+                                        torch.ones((1, 3, 1, 2, 1)),
+                                        torch.zeros((1, 1, 2), dtype=torch.int32), bits=8),
+        lambda: ops.page_summary(torch.randn(1, 16, 2, 64), page_size=8),
+        lambda: ops.flash_prefill(torch.randn(1, 2, 8, 64), torch.randn(1, 1, 8, 64),
+                                  torch.randn(1, 1, 8, 64), scale=0.125),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()
-    assert (ops.paged_attention.launches, ops.page_scores.launches,
-            ops.recall_gather.launches) == (0, 0, 0)
+    assert [fn.launches for fn in ops.KERNELS] == [0] * 6
 
 
 def test_other_devices_raise():

@@ -141,6 +141,72 @@ def test_recall_gather_ref(B, n_pages, kv, p, d, n_sel, dt):
     assert not k[0, 0, 0].any() and not v[0, 0, 0].any()
 
 
+@pytest.mark.parametrize("dt", DTYPES, ids=lambda d: d[0])
+@pytest.mark.parametrize("B,T,kv,d,p", [
+    (1, 64, 1, 128, 8), (2, 128, 3, 128, 32), (2, 96, 2, 64, 16),
+])
+def test_page_summary_ref(B, T, kv, d, p, dt):
+    """Exact against the reference's oracle and its Pallas kernel in
+    interpret mode (``test_kernels.py::test_page_summary_sweep`` shapes)."""
+    name, jdt, tdt = dt
+    rng = np.random.default_rng(6)
+    jk, tk = _pair(rng.standard_normal((B, T, kv, d)), jdt, tdt)
+    s = ops.page_summary(tk, page_size=p)
+    assert s.dtype == tdt and s.shape == (B, T // p, kv, 2, d)
+    np.testing.assert_array_equal(_np(s), _np(jref.page_summary_ref(
+        jk.reshape(B, T // p, p, kv, d))))
+    np.testing.assert_array_equal(_np(s), _np(jops.page_summary(jk, page_size=p,
+                                                                interpret=True)))
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=lambda d: d[0])
+@pytest.mark.parametrize("B,H,kv,T,d,blk,window", [
+    (1, 2, 1, 128, 128, 64, None), (2, 6, 3, 256, 64, 128, None),
+    (1, 4, 4, 128, 128, 128, None), (1, 2, 2, 256, 64, 64, 64),
+])
+def test_flash_prefill_ref(B, H, kv, T, d, blk, window, dt):
+    """Causal, and causal with a sliding window, against the reference's
+    oracle and its Pallas kernel in interpret mode
+    (``test_kernels.py::test_flash_prefill_sweep`` and ``_window`` shapes)."""
+    name, jdt, tdt = dt
+    rng = np.random.default_rng(7)
+    jq, tq = _pair(rng.standard_normal((B, H, T, d)), jdt, tdt)
+    jk, tk = _pair(rng.standard_normal((B, kv, T, d)), jdt, tdt)
+    jv, tv = _pair(rng.standard_normal((B, kv, T, d)), jdt, tdt)
+    scale = 1.0 / d ** 0.5
+    o = ops.flash_prefill(tq, tk, tv, scale=scale, causal=True, window=window)
+    assert o.dtype == tdt and o.shape == (B, H, T, d)
+    np.testing.assert_allclose(_np(o), _np(jref.flash_prefill_ref(jq, jk, jv, scale,
+                                                                  window=window)),
+                               **_tol(name))
+    np.testing.assert_allclose(_np(o), _np(jops.flash_prefill(jq, jk, jv, scale=scale,
+                                                              window=window, blq=blk,
+                                                              blk=blk, interpret=True)),
+                               **_tol(name))
+
+
+@pytest.mark.parametrize("window", [None, 48])
+def test_flash_prefill_ref_softcap(window):
+    """The reference's oracle has no softcap; its model's ``attention_dense``
+    does (capped scores, then the causal and window mask): the port's plain
+    flash_prefill equals it at float32, on a T that is no multiple of 64."""
+    from repro.configs import get_config as jget_config
+    from repro.models import attention as jattention
+    import dataclasses
+    cfg = dataclasses.replace(jget_config("granite-3-8b-smoke"), attn_logit_softcap=20.0)
+    B, T, H, kv, d = 2, 70, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    rng = np.random.default_rng(8)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, T, H, d), (B, T, kv, d), (B, T, kv, d)))
+    pos = jnp.broadcast_to(jnp.arange(T), (B, T))
+    want = jattention.attention_dense(cfg, *map(jnp.asarray, (q, k, v)), pos, pos,
+                                      causal=True, window=window)
+    scale = 1.0 / d ** 0.5
+    o = ops.flash_prefill(*(torch.from_numpy(x).transpose(1, 2) for x in (q, k, v)),
+                          scale=scale, causal=True, window=window, softcap=20.0)
+    np.testing.assert_allclose(o.transpose(1, 2).numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
 def test_cpu_dispatch_counts_no_launch():
     """CPU tensors take the plain versions; only a kernel launch counts."""
     ops.reset_launches()
@@ -150,5 +216,9 @@ def test_cpu_dispatch_counts_no_launch():
     ops.paged_attention(q, kp, kp, pos, torch.tensor([15], dtype=torch.int32), scale=0.25)
     ops.page_scores(q, torch.randn(1, 3, 1, 2, 16), scale=0.25)
     ops.recall_gather(torch.randn(1, 3, 1, 2, 8, 16), torch.zeros((1, 1, 2), dtype=torch.int32))
-    assert (ops.paged_attention.launches, ops.page_scores.launches,
-            ops.recall_gather.launches) == (0, 0, 0)
+    ops.recall_gather_quant(torch.zeros((1, 3, 1, 2, 8, 16), dtype=torch.int8),
+                            torch.ones((1, 3, 1, 2, 1)), torch.zeros((1, 1, 2), dtype=torch.int32),
+                            bits=8)
+    ops.page_summary(torch.randn(1, 16, 1, 16), page_size=8)
+    ops.flash_prefill(q, q, q, scale=0.25)
+    assert [fn.launches for fn in ops.KERNELS] == [0] * 6

@@ -117,10 +117,13 @@ def test_static_engine_greedy_tokens_equal_reference(arch):
 
 
 def test_continuous_scheduler_not_ported():
-    """The static path is the default; asking for the continuous one raises."""
+    """The static path is the default and takes every ``kv_quant`` (the
+    quantized host tier is ported); asking for the continuous one raises."""
     cfg = get_config("granite-3-8b-smoke")
-    eng = ServeEngine(cfg, FreeKVConfig(**FKV), {}, max_len=64, batch_size=1, device="cpu")
-    assert eng.scheduler == "static"
+    for kv_quant in ("none", "int8", "int4"):
+        eng = ServeEngine(cfg, FreeKVConfig(**FKV, kv_quant=kv_quant), {}, max_len=64,
+                          batch_size=1, device="cpu")
+        assert eng.scheduler == "static"
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ServeEngine(cfg, FreeKVConfig(**FKV), {}, max_len=64, batch_size=1,
                     scheduler="continuous", device="cpu")
