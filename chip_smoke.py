@@ -6,27 +6,35 @@
 Phases, each fatal on failure (nothing is caught):
   1. device: the card's name and power limit from nvidia-smi; exits non-zero
      without CUDA.
-  2. build: all six CUDA kernels from the sources in this checkout, one nvcc
-     per source, in parallel.
+  2. build: the six CUDA sources (nine kernel entry points) from this
+     checkout, one nvcc per source, in parallel.
   3. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes (B=4, kv=8, G=4, H=32, d=128, p=32, n_sel=56,
-     L=2080, T=8192, the pages of an 8192-token context), in bfloat16 and
-     float32, with the tolerances of TOL: the gathers (recall_gather, and
-     recall_gather_quant at int8 and int4) exact from a device pool and from
-     a pinned host pool, page_summary exact, flash_prefill within TOL plus a
-     sliding-window case and a softcap case; device times of the kernel, its
-     plain version and one PyTorch call that computes the same function (a
-     yardstick the port never calls), beside the bound.
+     L=2080, T=8192, the 259 pages of an 8192-token context, C=16
+     clusters), in bfloat16 and float32, with the tolerances of TOL: the
+     gathers (recall_gather and recall_values; recall_gather_quant and
+     recall_values_quant at int8 and int4, groups 0/16/32) exact from a
+     device pool and from a pinned host pool, page_summary exact,
+     flash_prefill within TOL plus a sliding-window case and a softcap case,
+     centroid_scores within 2e-5 with empty clusters at exactly -1e30;
+     device times of the kernel, its plain version and one PyTorch call that
+     computes the same function (a yardstick the port never calls), beside
+     the bound.
   4. main path: ServeEngine(scheduler="static") serving llama31-8b at full
      width (32 layers, seeded random bf16 weights) with FreeKV defaults,
      recall_overlap=True and the KV pool in pinned host memory: 4 requests
      of 8192-token needle prompts, 40 greedy tokens each (so a page
-     completes during decode), first with kv_quant="none", then with
-     kv_quant="int8". Every kernel's launch count is zeroed just before each
-     run and read just after; each kernel the run takes must rise.
+     completes during decode), five times: method freekv with kv_quant none
+     and int8, shadowkv with none and int8, centroid with none. Every
+     kernel's launch count is zeroed just before each run and read just
+     after; each kernel the run takes must rise. ShadowKV's low-rank key
+     factorization is timed at one layer's shape.
   5. kernel path == plain path: granite-3-8b-smoke at float32 gives the same
-     greedy tokens on the card (kernels) and on the CPU (plain versions),
-     under kv_quant none, int8 and int4.
+     greedy tokens on the card (kernels) and on the CPU (plain versions):
+     freekv and shadowkv under kv_quant none, int8 and int4, centroid under
+     none and int8 with a re-center at every completed page; and the
+     centroid index kept step by step on the card equals its rebuild bit
+     for bit.
 Then one JSON line with the kernels' numbers and, last, the ok line.
 """
 import argparse
@@ -37,6 +45,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 # card data sheet (H100 SXM): HBM rate, dense bf16 tensor-core peak (the
@@ -114,6 +123,7 @@ CONTEXT, NEW_TOKENS = 8192, 40            # 40: the 32nd decode step completes a
 MAX_LEN = CONTEXT + 2 * NEW_TOKENS
 N_PAGES = -(-MAX_LEN // P)                # 259
 H = KV * G                                # 32 query heads
+N_CENT = 16                               # FreeKVConfig.centroid_count
 
 
 def check_paged_attention(ops, ref, dev, gen):
@@ -314,6 +324,157 @@ def check_recall_gather_quant(ops, ref, dev, gen):
             "library_call": "none: no single PyTorch call gathers and dequantizes"}
 
 
+def _distinct_idx(gen, dev):
+    """Every lane valid, distinct pages per (b, kv head): the bound's worst case."""
+    return torch.stack([torch.randperm(N_PAGES, generator=gen, device=dev)[:N_SEL]
+                        for _ in range(B * KV)]).reshape(B, KV, N_SEL).to(torch.int32)
+
+
+def check_recall_values(ops, ref, dev, gen):
+    errs = []
+    for dt in (torch.float32, torch.bfloat16):
+        pool = torch.randn(B, N_PAGES, KV, 2, P, D, generator=gen, device=dev).to(dt)
+        idx = torch.randint(-1, N_PAGES, (B, KV, N_SEL), generator=gen, device=dev,
+                            dtype=torch.int32)
+        want = ref.recall_values_ref(pool, idx)
+        for src in (pool, pool.cpu().pin_memory()):
+            got = ops.recall_values(src, idx)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            require(got.dtype == dt and torch.equal(got, want),
+                    f"recall_values {dt} from {src.device}: not bit-exact (max |err| {err})")
+            errs.append(err)
+    dt = torch.bfloat16
+    pool = torch.randn(B, N_PAGES, KV, 2, P, D, generator=gen, device=dev).to(dt)
+    host = pool.cpu().pin_memory()
+    idx = _distinct_idx(gen, dev)
+    valid = int((idx >= 0).sum())
+    moved = valid * P * D * 2
+    written = B * KV * N_SEL * P * D * 2
+    ms_host, call_ms = time_ms(ops.recall_values, [(host, idx)])
+    # from the device pool, selections cycled so the pages read are not L2-resident
+    dev_args = [(pool, _distinct_idx(gen, dev)) for _ in range(copies_for(moved + written))]
+    ms_dev, _ = time_ms(ops.recall_values, dev_args)
+    plain_ms, _ = time_ms(ref.recall_values_ref, dev_args)
+    bI = torch.arange(B, device=dev)[:, None, None]
+    kI = torch.arange(KV, device=dev)[None, :, None]
+    lib_ms, _ = time_ms(lambda p_, i_: p_[bI, i_.long(), kI, 1], dev_args)
+    return {"name": "recall_values",
+            "shape": f"pool({B},{N_PAGES},{KV},2,{P},{D}) idx({B},{KV},{N_SEL}) -> V only",
+            "bound_bytes": moved + written + nbytes(idx), "bound_ops": 0,
+            "bound_ms": 1e3 * max(moved / PCIE_BPS, (written + nbytes(idx)) / HBM_BPS),
+            "bound_by": "bytes", "bound_link": "PCIe for the pinned host pool",
+            "max_abs_err": max(errs), "tol": 0.0,
+            "kernel_ms": ms_host, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
+            "device_pool_ms": ms_dev,
+            "device_pool_bound_ms": 1e3 * (moved + written + nbytes(idx)) / HBM_BPS,
+            "library_ms": lib_ms, "library_call": "advanced indexing of pool[..., 1, :, :] "
+                                                  "on a device pool"}
+
+
+def check_recall_values_quant(ops, ref, dev, gen):
+    from repro_torch.quant.quantizers import quantize_block
+    errs = []
+    for bits, group in ((8, 0), (4, 0), (8, 16), (4, 16), (8, 32), (4, 32)):
+        pool_f = torch.randn(B, N_PAGES, KV, 2, P, D, generator=gen, device=dev)
+        pool_f[:, 3] = 0                              # zero pages: scale 1
+        pool, scales = quantize_block(pool_f, bits, group)
+        idx = torch.randint(-2, N_PAGES, (B, KV, N_SEL), generator=gen, device=dev,
+                            dtype=torch.int32)        # -1 and -2 lanes
+        for dt in (torch.float32, torch.bfloat16):
+            want = ref.recall_values_quant_ref(pool, scales, idx, bits, dt)
+            for src, ssrc in ((pool, scales), (pool.cpu().pin_memory(), scales.cpu().pin_memory())):
+                got = ops.recall_values_quant(src, ssrc, idx, bits=bits, out_dtype=dt)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                require(got.dtype == dt and torch.equal(got, want),
+                        f"recall_values_quant int{bits} g{group} {dt} from {src.device}: "
+                        f"not bit-exact (max |err| {err})")
+                errs.append(err)
+    idx = _distinct_idx(gen, dev)
+    dt = torch.bfloat16
+    row = {}
+    for bits in (8, 4):
+        pool, scales = quantize_block(torch.randn(B, N_PAGES, KV, 2, P, D, generator=gen,
+                                                  device=dev), bits, 0)
+        host = (pool.cpu().pin_memory(), scales.cpu().pin_memory(), idx)
+        valid = int((idx >= 0).sum())
+        moved = valid * (P * D * bits // 8 + scales.shape[-1] * 4)
+        written = B * KV * N_SEL * P * D * 2
+        fn = lambda p_, s_, i_: ops.recall_values_quant(p_, s_, i_, bits=bits, out_dtype=dt)
+        ms_host, call_ms = time_ms(fn, [host])
+        dev_args = [(pool, scales, _distinct_idx(gen, dev))
+                    for _ in range(copies_for(moved + written))]
+        ms_dev, _ = time_ms(fn, dev_args)
+        plain_ms, _ = time_ms(lambda p_, s_, i_: ref.recall_values_quant_ref(p_, s_, i_, bits, dt),
+                              dev_args, iters=10)
+        row[bits] = {"ms": ms_host, "call_ms": call_ms, "device_pool_ms": ms_dev,
+                     "plain_ms": plain_ms, "moved_bytes": moved,
+                     "bound_ms": 1e3 * max(moved / PCIE_BPS, (written + nbytes(idx)) / HBM_BPS),
+                     "device_pool_bound_ms": 1e3 * (moved + written + nbytes(idx)) / HBM_BPS}
+    r8 = row[8]
+    return {"name": "recall_values_quant",
+            "shape": f"pool({B},{N_PAGES},{KV},2,{P},{D}*bits/8) int8, "
+                     f"scales({B},{N_PAGES},{KV},2,1) idx({B},{KV},{N_SEL}) -> V only, bf16",
+            "bound_bytes": r8["moved_bytes"], "bound_ops": 0, "bound_ms": r8["bound_ms"],
+            "bound_by": "bytes", "bound_link": "PCIe for the pinned host pool",
+            "max_abs_err": max(errs), "tol": 0.0,
+            "kernel_ms": r8["ms"], "kernel_call_ms": r8["call_ms"], "plain_ms": r8["plain_ms"],
+            "device_pool_ms": r8["device_pool_ms"],
+            "device_pool_bound_ms": r8["device_pool_bound_ms"],
+            "int4": row[4], "library_ms": None,
+            "library_call": "none: no single PyTorch call gathers and dequantizes"}
+
+
+def check_centroid_scores(ops, ref, dev, gen):
+    out = {}
+
+    def inputs(dt):
+        q = torch.randn(B, KV, G, D, generator=gen, device=dev).to(dt)
+        cent = torch.sort(torch.randn(B, N_CENT, KV, 2, D, generator=gen, device=dev),
+                          dim=3).values.to(dt)
+        count = torch.randint(0, 4, (B, N_CENT, KV), generator=gen, device=dev,
+                              dtype=torch.int32)          # some empty clusters
+        return q, cent, count
+
+    scale = 1.0 / math.sqrt(D)
+    tol = TOL[torch.float32]          # the output is float32 for either input dtype
+    for dt in (torch.float32, torch.bfloat16):
+        q, cent, count = inputs(dt)
+        got = ops.centroid_scores(q, cent, count, scale=scale)
+        want = ref.centroid_scores_ref(q, cent, count, scale)
+        torch.cuda.synchronize()
+        empty = (count == 0).permute(0, 2, 1)[:, :, None, :].expand_as(got)
+        require(bool(empty.any()) and bool((got[empty] == -1e30).all()),
+                f"centroid_scores {dt}: an empty cluster does not score exactly -1e30")
+        err = (got - want).abs().max().item()
+        require(torch.allclose(got, want, **tol),
+                f"centroid_scores {dt}: max |err| {err}, tolerance {tol}")
+        out[dt] = err
+    dt = torch.bfloat16
+    args = [inputs(dt) for _ in range(copies_for(B * N_CENT * KV * 2 * D * 2))]
+    ms, call_ms = time_ms(lambda q, c, n: ops.centroid_scores(q, c, n, scale=scale), args)
+    plain_ms, _ = time_ms(lambda q, c, n: ref.centroid_scores_ref(q, c, n, scale), args, iters=10)
+    # yardstick: relu(q) @ hi^T + min(q, 0) @ lo^T, two matmuls, and the mask
+    mm_args = [(torch.relu(q), torch.clamp(q, max=0), c[..., 1, :].permute(0, 2, 3, 1),
+                c[..., 0, :].permute(0, 2, 3, 1), (n > 0).permute(0, 2, 1)[:, :, None, :])
+               for q, c, n in args]
+    lib_ms, _ = time_ms(lambda qp, qn, hi, lo, ok: torch.where(
+        ok, (torch.matmul(qp, hi) + torch.matmul(qn, lo)) * scale, -1e30), mm_args)
+    q, cent, count = args[0]
+    byts = nbytes(q, cent, count) + B * KV * G * N_CENT * 4
+    flops = 4 * B * KV * G * N_CENT * D
+    return {"name": "centroid_scores",
+            "shape": f"q({B},{KV},{G},{D}) cent({B},{N_CENT},{KV},2,{D}) count({B},{N_CENT},{KV})",
+            "bound_bytes": byts, "bound_ops": flops,
+            "bound_ms": 1e3 * max(byts / HBM_BPS, flops / PEAK_OPS[dt]),
+            "bound_by": "bytes" if byts / HBM_BPS >= flops / PEAK_OPS[dt] else "operations",
+            "max_abs_err": out[torch.bfloat16], "max_abs_err_fp32": out[torch.float32],
+            "tol": tol, "tol_fp32": tol,
+            "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_call": "2x torch.matmul + torch.where"}
+
+
 def check_page_summary(ops, ref, dev, gen):
     for dt in (torch.float32, torch.bfloat16):
         for T, extra in ((CONTEXT, 40), (P, 0)):   # a prefill prefix view; one decode page
@@ -409,21 +570,25 @@ def llama_params(dev):
 
 
 # the kernels each main-path run must launch (recall_gather reads the fp
-# pool, recall_gather_quant the quantized one)
-RUN_KERNELS = {
-    "none": ("paged_attention", "page_scores", "recall_gather", "page_summary", "flash_prefill"),
-    "int8": ("paged_attention", "page_scores", "recall_gather_quant", "page_summary",
-             "flash_prefill"),
+# pool, recall_gather_quant the quantized one; ShadowKV's decode recalls V
+# halves only; Centroid scores its cluster boxes every step)
+_COMMON = ("paged_attention", "page_scores", "page_summary", "flash_prefill")
+RUNS = {
+    ("freekv", "none"): _COMMON + ("recall_gather",),
+    ("freekv", "int8"): _COMMON + ("recall_gather_quant",),
+    ("shadowkv", "none"): _COMMON + ("recall_values",),
+    ("shadowkv", "int8"): _COMMON + ("recall_values_quant",),
+    ("centroid", "none"): _COMMON + ("centroid_scores", "recall_gather"),
 }
 
 
-def main_path(dev, ops, cfg, params, kv_quant):
+def main_path(dev, ops, cfg, params, method, kv_quant):
     from repro_torch.configs.base import FreeKVConfig
     from repro_torch.data.synthetic import needle_stream
     from repro_torch.quant.accounting import page_block_bytes
     from repro_torch.serving.engine import Request, ServeEngine
 
-    fkv = FreeKVConfig(offload="host", kv_quant=kv_quant)
+    fkv = FreeKVConfig(method=method, offload="host", kv_quant=kv_quant)
     stream = needle_stream(cfg.vocab_size, CONTEXT, fkv.page_size, seed=0)
     reqs = [Request(uid=i, tokens=next(stream).tokens, max_new_tokens=NEW_TOKENS)
             for i in range(B)]
@@ -435,32 +600,80 @@ def main_path(dev, ops, cfg, params, kv_quant):
     outs = eng.generate(reqs)
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
-    require(eng.last_logits_finite, f"non-finite logits on the main path ({kv_quant})")
+    run = f"{method}/{kv_quant}"
+    require(eng.last_logits_finite, f"non-finite logits on the main path ({run})")
     for o in outs:
         require(len(o.tokens) == NEW_TOKENS, f"request {o.uid}: {len(o.tokens)} tokens")
         require(all(0 <= t < cfg.vocab_size for t in o.tokens), f"request {o.uid}: bad token")
-    for name in RUN_KERNELS[kv_quant]:
-        require(launches[name] > 0, f"{name} was never launched on the main path ({kv_quant})")
+    for name in RUNS[(method, kv_quant)]:
+        require(launches[name] > 0, f"{name} was never launched on the main path ({run})")
     # prefill summarises once per layer; more means a page completed (and
     # was quantized and summarised) during decode
     require(launches["page_summary"] > cfg.n_layers,
-            f"no page completed during decode ({kv_quant}): page_summary launched "
+            f"no page completed during decode ({run}): page_summary launched "
             f"{launches['page_summary']} times for {cfg.n_layers} layers")
     steps = max(outs[0].steps, 1)
-    info = {"arch": cfg.name, "kv_quant": kv_quant, "requests": B, "prompt_tokens": CONTEXT,
-            "tokens_per_request": [len(o.tokens) for o in outs],
+    info = {"arch": cfg.name, "method": method, "kv_quant": kv_quant, "requests": B,
+            "prompt_tokens": CONTEXT, "tokens_per_request": [len(o.tokens) for o in outs],
             "prefill_s": outs[0].prefill_s, "decode_ms_per_step": 1e3 * outs[0].decode_s / steps,
             "decode_steps": steps, "wall_s": wall,
             "bytes_per_recalled_page": page_block_bytes(fkv, cfg.d_head, itemsize=2),
             "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
             "correction_rate": outs[0].stats.get("correction_rate"),
             "spec_hit_rate": outs[0].stats.get("spec_hit_rate"),
+            "sync_pages_per_step": outs[0].stats.get("sync_pages", 0) / steps,
             "launches": launches,
             "launches_per_decode_step": {k: v / steps for k, v in launches.items()},
             "first_tokens": outs[0].tokens[:8]}
     del eng, outs
     torch.cuda.empty_cache()
     return info, launches
+
+
+def time_low_rank_keys(dev, cfg, gen):
+    """ShadowKV's prefill factorization at one layer's shape (B x 8192 keys
+    per KV head, d 128, full rank as at llama widths): the port's
+    ``low_rank_keys`` and the other routes to the same factors, each in
+    CUDA-event ms per layer with its largest reconstruction error against
+    the keys (singular vectors differ in sign between routes; u @ w not)."""
+    from repro_torch.core.retrieval import low_rank_keys
+    k = torch.randn(B, CONTEXT, cfg.n_kv_heads, cfg.d_head, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    kf = k.transpose(1, 2).float()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def tall_svd():
+        u, s_, vt = torch.linalg.svd(kf, full_matrices=False)
+        return u * s_[..., None, :], vt
+
+    def qr_svd():
+        qm, rm = torch.linalg.qr(kf)
+        u, s_, vt = torch.linalg.svd(rm)
+        return (qm @ u) * s_[..., None, :], vt
+
+    def gram_eigh():
+        v = torch.linalg.eigh(kf.mT @ kf).eigenvectors.flip(-1)
+        return kf @ v, v.mT
+
+    # the port's route is the SVD of K with the gesvda driver
+    routes = {"port low_rank_keys": lambda: low_rank_keys(k, cfg.d_head),
+              "thin QR + SVD of R": qr_svd, "eigh of K^T K": gram_eigh,
+              "SVD of K (default driver)": tall_svd}
+    out = {}
+    for name, fn in routes.items():
+        fn()
+        torch.cuda.synchronize()
+        start.record()
+        u, w = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        out[name] = {"ms_per_layer": start.elapsed_time(stop),
+                     "max_abs_reconstruction_err": (u @ w - kf).abs().max().item()}
+    port = out["port low_rank_keys"]
+    require(port["max_abs_reconstruction_err"] < 1e-3,
+            f"low_rank_keys: full-rank reconstruction error {port['max_abs_reconstruction_err']}")
+    return {"layers": cfg.n_layers, "port_s_per_prefill": port["ms_per_layer"] * cfg.n_layers / 1e3,
+            "routes": out}
 
 
 def _leaves(tree):
@@ -474,16 +687,21 @@ def _leaves(tree):
         yield tree
 
 
-def kernel_vs_plain_end_to_end(dev, kv_quant):
-    from repro_torch.configs import get_config
+def _smoke_fkv(method, kv_quant):
     from repro_torch.configs.base import FreeKVConfig
+    # centroid: re-center at every completed page, so the re-center runs here
+    return FreeKVConfig(method=method, page_size=8, budget=64, n_sink=8, n_window=8,
+                        offload="host", kv_quant=kv_quant, centroid_refresh_interval=1)
+
+
+def kernel_vs_plain_end_to_end(dev, method, kv_quant):
+    from repro_torch.configs import get_config
     from repro_torch.data.synthetic import needle_stream
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import Request, ServeEngine
 
     cfg = get_config("granite-3-8b-smoke")
-    fkv = FreeKVConfig(page_size=8, budget=64, n_sink=8, n_window=8, offload="host",
-                       kv_quant=kv_quant)
+    fkv = _smoke_fkv(method, kv_quant)
     params_gpu = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
     params_cpu = _tree_map(lambda t: t.cpu(), params_gpu)
     stream = needle_stream(cfg.vocab_size, 256, 8, seed=3)
@@ -496,9 +714,38 @@ def kernel_vs_plain_end_to_end(dev, kv_quant):
         outs = eng.generate([Request(uid=i, tokens=t, max_new_tokens=16)
                              for i, t in enumerate(prompts)])
         toks[where] = [o.tokens for o in outs]
-    require(toks["cuda"] == toks["cpu"],
-            f"greedy tokens differ ({kv_quant}): card {toks['cuda']} vs cpu {toks['cpu']}")
+    require(toks["cuda"] == toks["cpu"], f"greedy tokens differ ({method}/{kv_quant}): "
+            f"card {toks['cuda']} vs cpu {toks['cpu']}")
     return toks["cuda"]
+
+
+def centroid_index_equals_rebuild(dev):
+    """The centroid index kept step by step on the card (granite-3-8b-smoke,
+    float32, a re-center at every completed page) equals
+    ``centroid_index.rebuild`` on the card bit for bit, in every layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import centroid_index
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.models.model import init_params, prefill, serve_step
+
+    cfg = get_config("granite-3-8b-smoke")
+    fkv = _smoke_fkv("centroid", "none")
+    params = init_params(cfg, seed=1, device=dev, dtype=torch.float32)
+    stream = needle_stream(cfg.vocab_size, 252, 8, seed=4)   # an unaligned prompt
+    toks = torch.from_numpy(np.stack([next(stream).tokens for _ in range(2)])).long().to(dev)
+    logits, state = prefill(cfg, fkv, params, {"tokens": toks}, 320, state_dtype=torch.float32)
+    recentered = 0
+    for _ in range(20):
+        before = state["layers"][0]["cent_mean"].clone()
+        logits, state = serve_step(cfg, fkv, params, state, torch.argmax(logits, -1)[:, None])
+        recentered += int(not torch.equal(before, state["layers"][0]["cent_mean"]))
+    require(recentered > 0, "the centroid index never re-centered")
+    for i, st in enumerate(state["layers"]):
+        rb = centroid_index.rebuild(st, fkv.page_size)
+        for key in ("cent", "cent_assign", "cent_count"):
+            require(torch.equal(rb[key], st[key]),
+                    f"layer {i}: the kept {key} differs from its rebuild on the card")
+    return recentered
 
 
 def _tree_map(fn, tree):
@@ -509,7 +756,7 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-KERNEL_META = {
+KERNEL_META = {   # name -> (source, the TPU kernel it replaces)
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:69"),
     "page_scores": ("src/repro_torch/kernels/csrc/page_scores.cu",
@@ -522,6 +769,13 @@ KERNEL_META = {
                      "src/repro/kernels/page_summary.py:19"),
     "flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
                       "src/repro/kernels/flash_prefill.py:73"),
+    "recall_values": ("src/repro_torch/kernels/csrc/recall_gather.cu",
+                      "src/repro/kernels/recall_gather.py:228 recall_gather(values_only=True)"),
+    "recall_values_quant": ("src/repro_torch/kernels/csrc/recall_gather_quant.cu",
+                            "src/repro/kernels/recall_gather.py:185 "
+                            "recall_gather_quant(values_only=True)"),
+    "centroid_scores": ("src/repro_torch/kernels/csrc/page_scores.cu",
+                        "src/repro/kernels/centroid_scores.py:40"),
 }
 
 
@@ -552,8 +806,8 @@ def main():
     build.build_all()
     for name in build.SOURCES:
         build.load(name)
-    log(f"[build] {len(build.SOURCES)} kernels built and loaded in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[build] {len(build.SOURCES)} sources ({len(ops.KERNELS)} kernels) built and "
+        f"loaded in {time.perf_counter() - t0:.1f} s")
     for name, out in build.BUILD_LOG.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
@@ -564,12 +818,16 @@ def main():
     checks = {"paged_attention": check_paged_attention, "page_scores": check_page_scores,
               "recall_gather": check_recall_gather,
               "recall_gather_quant": check_recall_gather_quant,
-              "page_summary": check_page_summary, "flash_prefill": check_flash_prefill}
-    require(set(checks) == set(build.SOURCES), "a kernel has no check")
+              "page_summary": check_page_summary, "flash_prefill": check_flash_prefill,
+              "recall_values": check_recall_values,
+              "recall_values_quant": check_recall_values_quant,
+              "centroid_scores": check_centroid_scores}
+    require(set(checks) == {fn.__name__ for fn in ops.KERNELS} == set(KERNEL_META),
+            "a kernel has no check")
     kernels = []
-    for name in build.SOURCES:
+    for fn in ops.KERNELS:
         t0 = time.perf_counter()
-        k = checks[name](ops, ref, dev, gen)
+        k = checks[fn.__name__](ops, ref, dev, gen)
         kernels.append(k)
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"[kernel] {k['name']}: max|err| {k['max_abs_err']:.3g} | "
@@ -579,21 +837,30 @@ def main():
 
     launches = {k["name"]: None for k in kernels}
     if not args.kernels_only:
-        # phase 4: main path at full width, fp pool then int8 pool
+        # phase 4: main path at full width, every retriever and pool tier
         cfg, params = llama_params(dev)
         launches = {k["name"]: 0 for k in kernels}
-        for kv_quant in ("none", "int8"):
-            info, run = main_path(dev, ops, cfg, params, kv_quant)
+        for method, kv_quant in RUNS:
+            t0 = time.perf_counter()
+            info, run = main_path(dev, ops, cfg, params, method, kv_quant)
+            info["run_s"] = time.perf_counter() - t0
             log("[main] " + json.dumps(info))
             for name, n in run.items():
                 launches[name] += n
         del params
         torch.cuda.empty_cache()
+        log("[main] shadowkv low-rank keys: " + json.dumps(time_low_rank_keys(dev, cfg, gen)))
         # phase 5: kernel path == plain path
-        for kv_quant in ("none", "int8", "int4"):
-            toks = kernel_vs_plain_end_to_end(dev, kv_quant)
-            log(f"[equal] granite-3-8b-smoke fp32 kv_quant={kv_quant}: card == cpu greedy "
-                f"tokens, e.g. {toks[0][:8]}")
+        for method, kv_quant in (("freekv", "none"), ("freekv", "int8"), ("freekv", "int4"),
+                                 ("shadowkv", "none"), ("shadowkv", "int8"),
+                                 ("shadowkv", "int4"), ("centroid", "none"),
+                                 ("centroid", "int8")):
+            toks = kernel_vs_plain_end_to_end(dev, method, kv_quant)
+            log(f"[equal] granite-3-8b-smoke fp32 {method} kv_quant={kv_quant}: card == cpu "
+                f"greedy tokens, e.g. {toks[0][:8]}")
+        n = centroid_index_equals_rebuild(dev)
+        log(f"[equal] granite-3-8b-smoke fp32 centroid: the index kept on the card equals "
+            f"its rebuild in every layer after 20 steps ({n} re-centers)")
 
     line = []
     for k in kernels:

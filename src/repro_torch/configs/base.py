@@ -97,7 +97,7 @@ class FreeKVConfig:
     ``repro/configs/base.py:191``). The kernels are chosen by the tensors'
     device, so there is no ``use_kernels`` flag: CUDA tensors launch the
     hand-written kernels, CPU tensors take their plain PyTorch versions."""
-    method: str = "freekv"      # freekv | arkvale | full
+    method: str = "freekv"      # freekv | arkvale | full | shadowkv | centroid
     retriever: str = ""         # alias for method; wins when given
     page_size: int = 32
     budget: int = 2048          # tokens resident on the device
@@ -112,7 +112,13 @@ class FreeKVConfig:
     # group); pages quantize at offload and dequantize inside the recall
     kv_quant: str = "none"      # none | int8 | int4
     quant_group_size: int = 0   # channels per scale; 0 = one scale per page half
+    # ShadowKV: rank of the keys' low-rank factors (capped at d_head)
+    svd_rank: int = 160
     pool_pad_pages: int = 1
+    # Centroid: clusters per (layer, KV head) over the page summaries, and
+    # the re-center cadence in completed pages (``core/centroid_index``)
+    centroid_count: int = 16
+    centroid_refresh_interval: int = 4
 
     def __post_init__(self):
         if self.retriever:

@@ -19,6 +19,10 @@ the CPU there are no streams and the same code runs in order.
 
 Guarantee, bit for bit: ``staged == fresh`` and
 ``use == where(corr, fresh, stale)``.
+
+ShadowKV's V-only variant (``step_values``) selects afresh every step, so
+everything non-resident is a critical-path fetch: it runs on the main
+stream, and only buffer hits skip the transfer.
 """
 from __future__ import annotations
 
@@ -54,10 +58,10 @@ def _take_pages(buf, src):
 @dataclass
 class PipelinedRecall:
     """One decode step's transfer plan and results."""
-    use_k: torch.Tensor       # buffer this step's attention reads
-    use_v: torch.Tensor
+    use_k: Optional[torch.Tensor]     # buffer this step's attention reads
+    use_v: torch.Tensor                 # (no K buffer for a V-only step)
     use_idx: torch.Tensor
-    staged_k: torch.Tensor    # next step's buffer == fresh recall, bit-exact
+    staged_k: Optional[torch.Tensor]  # next step's buffer == fresh recall, bit-exact
     staged_v: torch.Tensor
     topup_blocks: torch.Tensor   # (B,) critical-path (kv-head, page) fetches
     staged_blocks: torch.Tensor  # (B,) overlapped fetches
@@ -79,12 +83,14 @@ def side_stream(device):
 
 
 class RecallExecutor:
-    """Double-buffered recall over one ``recall_fn(pool, idx) -> (k, v)``;
-    ``pool`` is passed through untouched (the fp pool, or the quantized
-    tier's ``paging.QuantPool``)."""
+    """Double-buffered recall over one ``recall_fn(pool, idx) -> (k, v)``
+    and, for V-only steps, one ``values_fn(pool, idx) -> v``; ``pool`` is
+    passed through untouched (the fp pool, or the quantized tier's
+    ``paging.QuantPool``)."""
 
-    def __init__(self, recall_fn=None):
+    def __init__(self, recall_fn=None, values_fn=None):
         self.recall_fn = recall_fn or recall.recall_pages
+        self.values_fn = values_fn or recall.recall_values_only
 
     def recall(self, pool, idx):
         """Full blocking recall (prefill and the synchronous path)."""
@@ -146,6 +152,27 @@ class RecallExecutor:
             staged_blocks=(stage_idx >= 0).sum(dim=(1, 2)),
             reused_blocks=hit.sum(dim=(1, 2)),
             ready=ready)
+
+
+    def step_values(self, pool, new_idx, prev_idx, prev_v) -> PipelinedRecall:
+        """ShadowKV's V-only delta fetch against the previous buffer
+        (reference ``recall_pipeline.py:152``): pages resident in ``prev_v``
+        are reused bit-exactly, the rest are fetched on the current stream;
+        the composed buffer is both this step's and the next step's. There
+        is no K buffer (``use_k``/``staged_k`` are None) and no event."""
+        dt = prev_v.dtype
+        hit, src = match_resident(new_idx, prev_idx)
+        reused_v = _take_pages(prev_v, src)
+        fetch_idx = torch.where(~hit & (new_idx >= 0), new_idx, torch.full_like(new_idx, -1))
+        fv = self.values_fn(pool, fetch_idx).to(dt)
+        fresh_v = torch.where(hit[..., None, None], reused_v, fv)
+        return PipelinedRecall(
+            use_k=None, use_v=fresh_v, use_idx=new_idx,
+            staged_k=None, staged_v=fresh_v,
+            topup_blocks=(fetch_idx >= 0).sum(dim=(1, 2)),
+            staged_blocks=torch.zeros((new_idx.shape[0],), dtype=torch.int64,
+                                      device=new_idx.device),
+            reused_blocks=hit.sum(dim=(1, 2)))
 
 
 def wait_staged(state):

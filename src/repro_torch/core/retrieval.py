@@ -9,15 +9,17 @@ Shapes: k/v (B,T,kv,dh) post-RoPE; q (B,H,dh) one decode token. ``decode``
 updates ``state`` in place and returns it.
 
 Ported methods: ``freekv`` (speculative retrieval + correction, the paper),
-``arkvale`` (fresh selection + blocking recall every step) and ``full`` (the
-exact oracle). The others raise ``NotImplementedError``.
+``arkvale`` (fresh selection + blocking recall every step), ``shadowkv``
+(low-rank keys on the device, V-only recall), ``centroid`` (centroid-then-
+token selection inside FreeKV's machinery, ``core/centroid_index``) and
+``full`` (the exact oracle). The others raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, FreeKVConfig
-from repro_torch.core import paging, selection
+from repro_torch.core import centroid_index, paging, selection
 from repro_torch.core.correction import corrected_heads
 from repro_torch.core.recall_pipeline import (RecallExecutor, match_resident,
                                               wait_staged)
@@ -106,7 +108,7 @@ class FreeKVRetriever:
     def __init__(self, cfg: ArchConfig, fkv: FreeKVConfig, speculative: bool = True):
         self.cfg, self.fkv = cfg, fkv
         self.speculative = speculative
-        self.executor = RecallExecutor(recall_fn=self._recall)
+        self.executor = RecallExecutor(recall_fn=self._recall, values_fn=self._recall_values)
 
     def _overlap(self):
         return self.fkv.recall_overlap and self.speculative
@@ -118,6 +120,14 @@ class FreeKVRetriever:
             return ops.recall_gather_quant(pool.pool, pool.scale, idx, bits=pool.bits,
                                            out_dtype=pool.out_dtype)
         return ops.recall_gather(pool, idx)
+
+    def _recall_values(self, pool, idx):
+        """V halves only (ShadowKV): the packed V half and its V scales under
+        the quantized tier, the fp V half otherwise."""
+        if isinstance(pool, tuple):
+            return ops.recall_values_quant(pool.pool, pool.scale, idx, bits=pool.bits,
+                                           out_dtype=pool.out_dtype)
+        return ops.recall_values(pool, idx)
 
     def init_state(self, batch, max_len, dtype=torch.bfloat16, device="cuda"):
         return paging.init_kv_state(self.cfg, self.fkv, batch, max_len, dtype, device)
@@ -147,6 +157,7 @@ class FreeKVRetriever:
         cur_pos = state["length"]                  # position of the new token
         wait_staged(state)
         state = paging.append_token(state, k_new, v_new, length_host)
+        state = self._post_append(state, None if length_host is None else length_host + 1)
         B = q.shape[0]
 
         if self.speculative:
@@ -158,8 +169,7 @@ class FreeKVRetriever:
             corr = torch.ones((B, cfg.n_kv_heads), dtype=torch.bool, device=q.device)
             sim = torch.zeros((B, cfg.n_kv_heads), dtype=torch.float32, device=q.device)
 
-        new_idx, _ = selection.select_pages(cfg, fkv, q, state["summ"], state["length"],
-                                            self._n_sel(state))
+        new_idx, sel_info = self._select_indices(state, q, corr)
         n_sel = new_idx.shape[2]
         reused = torch.zeros((B,), dtype=torch.int64, device=q.device)
         sel_pages = (new_idx >= 0).sum(dim=(1, 2))
@@ -200,6 +210,151 @@ class FreeKVRetriever:
             "reused_pages": reused, "sel_pages": sel_pages,
             "spec_hit_pages": spec_hit, "churn_pages": sel_pages - spec_hit,
         }
+        info.update(sel_info)
+        return o, state, info
+
+    # -- subclass hooks (reference retrieval.py:399-411) -------------------
+    def _post_append(self, state, length_host=None):
+        """Retriever-owned index upkeep after the token append;
+        ``length_host`` is a CPU copy of the post-append lengths, or None."""
+        return state
+
+    def _select_indices(self, state, q, corr):
+        """-> (new_idx (B, kv, n_sel), extra info); ``corr`` lets a subclass
+        send corrected heads to the exact scan."""
+        new_idx, _ = selection.select_pages(self.cfg, self.fkv, q, state["summ"],
+                                            state["length"], self._n_sel(state))
+        return new_idx, {}
+
+
+class CentroidRetriever(FreeKVRetriever):
+    """Centroid-then-token selection (reference ``retrieval.py:440``): the
+    two-level index of ``core/centroid_index`` picks uncorrected heads'
+    pages from C cluster boxes and a bounded candidate set; corrected heads
+    re-select with the exact scan, so mis-clustered heads are corrected,
+    not lost. Otherwise FreeKV: speculative recall, correction, overlap."""
+
+    def __init__(self, cfg, fkv):
+        super().__init__(cfg, fkv, speculative=True)
+
+    def init_state(self, batch, max_len, dtype=torch.bfloat16, device="cuda"):
+        st = super().init_state(batch, max_len, dtype, device)
+        st.update(centroid_index.init_index(
+            batch, st["pool"].shape[1], self.fkv.centroid_count, self.cfg.n_kv_heads,
+            self.cfg.d_head, st["summ"].dtype, st["summ"].device))
+        return st
+
+    def prefill(self, state, k, v, q_last):
+        st = super().prefill(state, k, v, q_last)
+        st.update(centroid_index.build(st["summ"], st["length"], self.fkv.centroid_count,
+                                       self.fkv.page_size, st["cent"].dtype))
+        return st
+
+    def _post_append(self, state, length_host=None):
+        return centroid_index.update_on_append(state, self.fkv, length_host)
+
+    def _select_indices(self, state, q, corr):
+        exact_idx, _ = selection.select_pages(self.cfg, self.fkv, q, state["summ"],
+                                              state["length"], self._n_sel(state))
+        cent_idx, cand_idx = centroid_index.centroid_select(self.cfg, self.fkv, q, state,
+                                                            self._n_sel(state))
+        new_idx = torch.where(corr[:, :, None], exact_idx, cent_idx)
+        return new_idx, {"cand_pages": (cand_idx >= 0).sum(dim=(1, 2))}
+
+
+def low_rank_keys(k, rank):
+    """ShadowKV's key factors: k (B, T, kv, d) -> (u (B, kv, T, r') scaled
+    by the singular values, w (B, kv, r', d)), r' = min(rank, T, d), with
+    u @ w the best rank-r' approximation of each head's keys in float32
+    (the reference's ``jnp.linalg.svd``, ``retrieval.py:792``).
+
+    On the card the SVD of the tall (T, d) matrices goes to cuSOLVER's
+    batched driver for tall, thin matrices (``gesvda``): at 4 x 8 heads of
+    8192 x 128 keys it takes ~2 ms a layer where the default driver, or a
+    thin QR and the SVD of R, takes ~120 ms (``chip_smoke.py``
+    ``time_low_rank_keys``). Singular vectors are defined only up to sign,
+    so compare ``u @ w``, never ``u`` or ``w``."""
+    kf = k.transpose(1, 2).float()                                 # (B, kv, T, d)
+    tall = kf.is_cuda and kf.shape[-2] >= kf.shape[-1]
+    u, s, vt = torch.linalg.svd(kf, full_matrices=False, driver="gesvda" if tall else None)
+    r = min(rank, s.shape[-1])
+    return u[..., :r] * s[..., None, :r], vt[..., :r, :]
+
+
+class ShadowKVRetriever(FreeKVRetriever):
+    """ShadowKV-like (reference ``retrieval.py:770``): rank-r key factors
+    stay on the device and the selected pages' keys are reconstructed from
+    them; only V halves are recalled from the pool, through
+    ``RecallExecutor.step_values`` (delta against the previous buffer) or a
+    blocking V-only recall. Selection is fresh every step, no correction.
+
+    Two reference behaviours are kept on purpose: only the prefill writes
+    ``k_u``, so a page completed during decode reconstructs to zero keys if
+    it is selected; and ``rank = min(svd_rank, d_head)``, so at d_head 128
+    the factors are full-rank (``k_u`` as large as the keys themselves)."""
+
+    def __init__(self, cfg, fkv):
+        super().__init__(cfg, fkv, speculative=False)
+        self.rank = min(fkv.svd_rank, cfg.d_head)
+
+    def init_state(self, batch, max_len, dtype=torch.bfloat16, device="cuda"):
+        st = super().init_state(batch, max_len, dtype, device)
+        cfg, dev = self.cfg, st["summ"].device
+        n_tok = st["pool"].shape[1] * self.fkv.page_size
+        st["k_u"] = torch.zeros((batch, cfg.n_kv_heads, n_tok, self.rank), dtype=dtype,
+                                device=dev)
+        st["k_w"] = torch.zeros((batch, cfg.n_kv_heads, self.rank, cfg.d_head), dtype=dtype,
+                                device=dev)
+        return st
+
+    def prefill(self, state, k, v, q_last):
+        st = super().prefill(state, k, v, q_last)
+        u, w = low_rank_keys(k, self.rank)
+        st["k_u"][:, :, :u.shape[2], :u.shape[3]] = u.to(st["k_u"].dtype)
+        st["k_w"] = w.to(st["k_w"].dtype)
+        return st
+
+    def decode(self, state, q, k_new, v_new, length_host=None):
+        cfg, fkv = self.cfg, self.fkv
+        p = fkv.page_size
+        B = q.shape[0]
+        kv = cfg.n_kv_heads
+        dev = q.device
+        cur_pos = state["length"]
+        state = paging.append_token(state, k_new, v_new, length_host)
+        n_sel = self._n_sel(state)
+        idx, _ = selection.select_pages(cfg, fkv, q, state["summ"], state["length"], n_sel)
+        sel_pages = (idx >= 0).sum(dim=(1, 2))
+        spec_hit = match_resident(idx, state["sel_idx"])[0].sum(dim=(1, 2))
+        # keys: the selected pages reconstructed from the low-rank factors
+        safe = idx.clamp(0, state["pool"].shape[1] - 1).long()
+        tok = safe[..., None] * p + torch.arange(p, device=dev)
+        bI = torch.arange(B, device=dev)[:, None, None, None]
+        kI = torch.arange(kv, device=dev)[None, :, None, None]
+        u_sel = state["k_u"][bI, kI, tok]                          # (B,kv,n_sel,p,r)
+        k_rec = torch.einsum("bkspr,bkrd->bkspd", u_sel.float(), state["k_w"].float())
+        k_rec = torch.where((idx >= 0)[..., None, None], k_rec, 0.0).to(q.dtype)
+        # values: V halves only, reusing pages resident in the last buffer
+        pool = paging.pool_view(state)
+        if fkv.recall_overlap:
+            pr = self.executor.step_values(pool, idx, state["sel_idx"], state["sel_v"])
+            v_sel = pr.staged_v.to(q.dtype)
+            sync_pages = pr.topup_blocks // 2                       # V-only
+            reused = pr.reused_blocks // 2
+            state["sel_v"] = pr.staged_v
+        else:
+            v_sel = self._recall_values(pool, idx).to(q.dtype)
+            sync_pages = sel_pages // 2                             # V-only
+            reused = torch.zeros((B,), dtype=torch.int64, device=dev)
+        k_cat, v_cat, pos = _cat_regions(fkv, state, k_rec, v_sel, idx, p)
+        o = _attend(cfg, q, k_cat, v_cat, pos, cur_pos, fkv=fkv)
+        state.update(sel_idx=idx, qprev=q.to(state["qprev"].dtype))
+        zeros = torch.zeros((B,), dtype=torch.int64, device=dev)
+        info = {"corrected": torch.ones((B, kv), dtype=torch.bool, device=dev),
+                "similarity": torch.zeros((B, kv), dtype=torch.float32, device=dev),
+                "sync_pages": sync_pages, "async_pages": zeros, "reused_pages": reused,
+                "sel_pages": sel_pages, "spec_hit_pages": spec_hit,
+                "churn_pages": sel_pages - spec_hit}
         return o, state, info
 
 
@@ -257,7 +412,11 @@ def make_retriever(cfg: ArchConfig, fkv: FreeKVConfig):
         return FreeKVRetriever(cfg, fkv, speculative=False)
     if m == "full":
         return FullRetriever(cfg, fkv)
-    if m in ("infinigen", "quest", "shadowkv", "raas", "streaming", "centroid"):
+    if m == "shadowkv":
+        return ShadowKVRetriever(cfg, fkv)
+    if m == "centroid":
+        return CentroidRetriever(cfg, fkv)
+    if m in ("infinigen", "quest", "raas", "streaming"):
         raise NotImplementedError(
             f"method {m!r} is not ported yet (ROADMAP queue 1, item 9)")
     raise ValueError(f"unknown method {m!r}")

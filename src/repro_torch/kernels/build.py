@@ -33,13 +33,16 @@ SIGNATURES = {
     },
     "page_scores": {
         "freekv_page_scores": [_P] * 3 + [_I] * 5 + [_F, _I, _I, _P],
+        "freekv_centroid_scores": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P],
     },
     "recall_gather": {
         "freekv_recall_gather": [_P] * 4 + [_I] * 4 + [_LL, _I, _P],
+        "freekv_recall_values": [_P] * 3 + [_I] * 4 + [_LL, _I, _P],
         "freekv_device_pointer": [_P, _I, ctypes.POINTER(ctypes.c_void_p)],
     },
     "recall_gather_quant": {
         "freekv_recall_gather_quant": [_P] * 5 + [_I] * 10 + [_P],
+        "freekv_recall_values_quant": [_P] * 4 + [_I] * 10 + [_P],
     },
     "page_summary": {
         "freekv_page_summary": [_P] * 2 + [_I] * 5 + [_LL, _I, _I, _P],

@@ -1,10 +1,17 @@
-// Quest min-max page scoring for speculative page selection.
+// Quest min-max page scoring for speculative page selection, and the same
+// bound against the centroid retriever's cluster boxes.
 //
 // Replaces the Pallas TPU kernel repro/kernels/page_scores.py, function
 // page_scores (body _kernel):
 //   score[b, h, g, n] = scale * sum_d max(q[b,h,g,d] * lo[b,n,h,d],
 //                                         q[b,h,g,d] * hi[b,n,h,d])
 // which equals relu(q) . hi + min(q, 0) . lo because lo <= hi.
+// freekv_centroid_scores replaces repro/kernels/centroid_scores.py, function
+// centroid_scores (body _kernel): the same bound against the C cluster
+// boxes (B, C, kv, 2, d), which share the summaries' layout, with a cluster
+// of count[b, c, h] == 0 scoring exactly -1e30 (never -inf) so it cannot
+// win a candidate slot. At C = 16 it is one tile per (b, kv head): ~0.3 MB,
+// bound by its launch.
 //
 // What bounds it on an H100: bytes. The summaries (B, n_pages, kv, 2, d)
 // are read once and each element feeds G multiply-max-adds, ~2 FLOP per
@@ -31,7 +38,8 @@ constexpr int kMaxD = 256;
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 page_scores_kernel(const T* __restrict__ q, const T* __restrict__ summ,
-                   float* __restrict__ out, int kv, int G, int N, int d, float scale) {
+                   const int32_t* __restrict__ count, float* __restrict__ out, int kv, int G,
+                   int N, int d, float scale) {
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   __shared__ float q_s[kMaxG * kMaxD];
@@ -59,14 +67,43 @@ page_scores_kernel(const T* __restrict__ q, const T* __restrict__ summ,
         }
       }
     }
+    // count (B, N, kv) masks empty clusters; null for page scores
+    const bool empty = count != nullptr && count[((size_t)b * N + n) * kv + h] == 0;
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
       if (g < G) {
         const float s = warp_sum(acc[g]);
-        if (lane == 0) out[(bh * G + g) * N + n] = s * scale;
+        if (lane == 0) out[(bh * G + g) * N + n] = empty ? kNegInf : s * scale;
       }
     }
   }
+}
+
+}  // namespace
+}  // namespace freekv
+
+namespace freekv {
+namespace {
+
+int launch(const void* q, const void* summ, const void* count, void* out, int B, int kv, int G,
+           int N, int d, float scale, int dtype, int device, void* stream) {
+  if (G < 1 || G > kMaxG || d < 1 || d > kMaxD || N < 1) return cudaErrorInvalidValue;
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
+  const dim3 grid((N + kTilePages - 1) / kTilePages, kv, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* cnt = static_cast<const int32_t*>(count);
+  if (dtype == kFloat32)
+    page_scores_kernel<float><<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(summ), cnt,
+        static_cast<float*>(out), kv, G, N, d, scale);
+  else if (dtype == kBFloat16)
+    page_scores_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(summ), cnt,
+        static_cast<float*>(out), kv, G, N, d, scale);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -77,21 +114,14 @@ page_scores_kernel(const T* __restrict__ q, const T* __restrict__ summ,
 extern "C" int freekv_page_scores(const void* q, const void* summ, void* out, int B, int kv,
                                   int G, int N, int d, float scale, int dtype, int device,
                                   void* stream) {
-  using namespace freekv;
-  if (G < 1 || G > kMaxG || d < 1 || d > kMaxD || N < 1) return cudaErrorInvalidValue;
-  const DeviceGuard guard(device);
-  if (guard.error() != cudaSuccess) return guard.error();
-  const dim3 grid((N + kTilePages - 1) / kTilePages, kv, B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    page_scores_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(summ),
-        static_cast<float*>(out), kv, G, N, d, scale);
-  else if (dtype == kBFloat16)
-    page_scores_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(summ),
-        static_cast<float*>(out), kv, G, N, d, scale);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  return freekv::launch(q, summ, nullptr, out, B, kv, G, N, d, scale, dtype, device, stream);
+}
+
+// q (B, kv, G, d), cent (B, C, kv, 2, d) in the dtype given by `dtype`, count
+// (B, C, kv) int32; out (B, kv, G, C) fp32. Returns cudaGetLastError().
+extern "C" int freekv_centroid_scores(const void* q, const void* cent, const void* count,
+                                      void* out, int B, int kv, int G, int C, int d,
+                                      float scale, int dtype, int device, void* stream) {
+  if (count == nullptr) return cudaErrorInvalidValue;
+  return freekv::launch(q, cent, count, out, B, kv, G, C, d, scale, dtype, device, stream);
 }

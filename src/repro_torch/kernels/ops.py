@@ -142,6 +142,28 @@ def page_scores(q, summ, *, scale):
     return out
 
 
+def centroid_scores(q, cent, count, *, scale):
+    """q (B,kv,G,d); cent (B,C,kv,2,d) cluster boxes; count (B,C,kv) int32
+    -> (B,kv,G,C) float32, exactly -1e30 where count == 0."""
+    if not _on_cuda(q):
+        return ref.centroid_scores_ref(q, cent, count, scale)
+    dev = q.device
+    q, cent = _one_dtype(q, cent)
+    _check_cuda(dev, q, cent, count)
+    code = _dtype_code(q, cent)
+    B, kv, G, d = q.shape
+    C = cent.shape[1]
+    _require(cent.shape == (B, C, kv, 2, d) and count.shape == (B, C, kv)
+             and count.dtype == torch.int32, "centroid_scores: shape or dtype mismatch")
+    lib = build.load("page_scores")
+    out = torch.empty((B, kv, G, C), dtype=torch.float32, device=dev)
+    rc = lib.freekv_centroid_scores(_ptr(q), _ptr(cent), _ptr(count), _ptr(out), B, kv, G, C,
+                                    d, float(scale), code, dev.index, _stream(dev))
+    build.check(rc, "centroid_scores")
+    centroid_scores.launches += 1
+    return out
+
+
 def device_pointer(t: torch.Tensor, device) -> ctypes.c_void_p:
     """The address at which ``device`` may read ``t``: its own for device
     memory, the mapped one for pinned host memory; raises otherwise."""
@@ -202,6 +224,55 @@ def recall_gather(pool, idx):
     return k, v
 
 
+def recall_values(pool, idx):
+    """ShadowKV's V-only recall: pool (B,n_pages,kv,2,p,d) HND; idx
+    (B,kv,n_sel) int32 (-1 pad) -> v (B,kv,n_sel,p,d) in the pool's dtype,
+    on idx's device. Reads only the V half of each block; no K is made.
+    Dispatches on ``idx`` like ``recall_gather``."""
+    if not _on_cuda(idx):
+        return ref.recall_values_ref(pool, idx)
+    dev = idx.device
+    _check_cuda(dev, idx)
+    _require(pool.is_contiguous(), "pool must be contiguous")
+    _require(idx.dtype == torch.int32, "idx must be int32")
+    B, n_pages, kv, two, p, d = pool.shape
+    n_sel = idx.shape[2]
+    _require(two == 2 and idx.shape == (B, kv, n_sel), "recall_values: shape mismatch")
+    half = p * d * pool.element_size()
+    _require(half % 16 == 0, "recall_values: p * d * itemsize must be a multiple of 16")
+    lib = build.load("recall_gather")
+    src = _pool_pointer(pool, dev)
+    v = torch.empty((B, kv, n_sel, p, d), dtype=pool.dtype, device=dev)
+    rc = lib.freekv_recall_values(src, _ptr(idx), _ptr(v), B, n_pages, kv, n_sel, half,
+                                  dev.index, _stream(dev))
+    build.check(rc, "recall_values")
+    recall_values.launches += 1
+    return v
+
+
+def _quant_dims(pool, scales, idx, bits, out_dtype, what):
+    """Checks shared by the quantized gathers -> (dtype code, B, n_pages, kv,
+    n_sel, p, d, n_g)."""
+    _check_cuda(idx.device, idx)
+    _require(pool.is_contiguous() and scales.is_contiguous(),
+             "pool and scales must be contiguous")
+    _require(pool.dtype == torch.int8 and scales.dtype == torch.float32
+             and idx.dtype == torch.int32,
+             f"{what} takes an int8 pool, float32 scales and int32 idx")
+    _require(bits in (8, 4), f"bits must be 8 or 4, got {bits}")
+    code = _DTYPE_CODE.get(out_dtype)
+    _require(code is not None, f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    B, n_pages, kv, two, p, dp = pool.shape
+    d = dp * 8 // bits
+    n_g = scales.shape[-1]
+    n_sel = idx.shape[2]
+    _require(two == 2 and scales.shape == (B, n_pages, kv, 2, n_g)
+             and idx.shape == (B, kv, n_sel) and d % n_g == 0 and n_g <= 256,
+             f"{what}: shape mismatch")
+    _require(dp % 16 == 0, f"{what}: d * bits / 8 must be a multiple of 16")
+    return code, B, n_pages, kv, n_sel, p, d, n_g
+
+
 def recall_gather_quant(pool, scales, idx, *, bits, out_dtype=torch.float32):
     """pool (B,n_pages,kv,2,p,d*bits/8) int8 (int4 packed two to a byte);
     scales (B,n_pages,kv,2,n_g) float32; idx (B,kv,n_sel) int32 (< 0 pad)
@@ -212,23 +283,8 @@ def recall_gather_quant(pool, scales, idx, *, bits, out_dtype=torch.float32):
     if not _on_cuda(idx):
         return ref.recall_gather_quant_ref(pool, scales, idx, bits, out_dtype)
     dev = idx.device
-    _check_cuda(dev, idx)
-    _require(pool.is_contiguous() and scales.is_contiguous(),
-             "pool and scales must be contiguous")
-    _require(pool.dtype == torch.int8 and scales.dtype == torch.float32
-             and idx.dtype == torch.int32,
-             "recall_gather_quant takes an int8 pool, float32 scales and int32 idx")
-    _require(bits in (8, 4), f"bits must be 8 or 4, got {bits}")
-    code = _DTYPE_CODE.get(out_dtype)
-    _require(code is not None, f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-    B, n_pages, kv, two, p, dp = pool.shape
-    d = dp * 8 // bits
-    n_g = scales.shape[-1]
-    n_sel = idx.shape[2]
-    _require(two == 2 and scales.shape == (B, n_pages, kv, 2, n_g)
-             and idx.shape == (B, kv, n_sel) and d % n_g == 0 and n_g <= 256,
-             "recall_gather_quant: shape mismatch")
-    _require(dp % 16 == 0, "recall_gather_quant: d * bits / 8 must be a multiple of 16")
+    code, B, n_pages, kv, n_sel, p, d, n_g = _quant_dims(pool, scales, idx, bits, out_dtype,
+                                                         "recall_gather_quant")
     lib = build.load("recall_gather_quant")
     src, src_scales = _pool_pointer(pool, dev), _pool_pointer(scales, dev)
     k = torch.empty((B, kv, n_sel, p, d), dtype=out_dtype, device=dev)
@@ -239,6 +295,25 @@ def recall_gather_quant(pool, scales, idx, *, bits, out_dtype=torch.float32):
     build.check(rc, "recall_gather_quant")
     recall_gather_quant.launches += 1
     return k, v
+
+
+def recall_values_quant(pool, scales, idx, *, bits, out_dtype=torch.float32):
+    """V-only ``recall_gather_quant`` (ShadowKV on the quantized tier): the
+    V half of each packed page and its V scales -> v (B,kv,n_sel,p,d) in
+    ``out_dtype``, on idx's device."""
+    if not _on_cuda(idx):
+        return ref.recall_values_quant_ref(pool, scales, idx, bits, out_dtype)
+    dev = idx.device
+    code, B, n_pages, kv, n_sel, p, d, n_g = _quant_dims(pool, scales, idx, bits, out_dtype,
+                                                         "recall_values_quant")
+    lib = build.load("recall_gather_quant")
+    src, src_scales = _pool_pointer(pool, dev), _pool_pointer(scales, dev)
+    v = torch.empty((B, kv, n_sel, p, d), dtype=out_dtype, device=dev)
+    rc = lib.freekv_recall_values_quant(src, src_scales, _ptr(idx), _ptr(v), B, n_pages, kv,
+                                        n_sel, p, d, n_g, bits, code, dev.index, _stream(dev))
+    build.check(rc, "recall_values_quant")
+    recall_values_quant.launches += 1
+    return v
 
 
 def page_summary(k, *, page_size):
@@ -301,5 +376,5 @@ def flash_prefill(q, k, v, *, scale, causal=True, window=None, softcap=None):
 
 
 KERNELS = (paged_attention, page_scores, recall_gather, recall_gather_quant, page_summary,
-           flash_prefill)
+           flash_prefill, recall_values, recall_values_quant, centroid_scores)
 reset_launches()

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.quant.quantizers import dequant_recall_pages
+from repro_torch.quant.quantizers import dequant_recall_pages, dequant_recall_values
 
 NEG_INF = -1e30
 
@@ -32,6 +32,15 @@ def page_scores_ref(q, summ, scale):
     hi = summ[..., 1, :].float().permute(0, 2, 1, 3)[:, :, None]
     qf = q.float()[:, :, :, None, :]                               # (B,kv,G,1,d)
     return torch.maximum(qf * lo, qf * hi).sum(-1) * scale
+
+
+def centroid_scores_ref(q, cent, count, scale):
+    """q (B, kv, G, d); cent (B, C, kv, 2, d); count (B, C, kv) int32 ->
+    (B, kv, G, C) f32: the Quest bound against the cluster boxes, exactly
+    -1e30 for empty clusters (reference ``kernels/ref.py:31``)."""
+    s = page_scores_ref(q, cent, scale)
+    ok = count.permute(0, 2, 1)[:, :, None, :] > 0
+    return torch.where(ok, s, torch.full((), NEG_INF, dtype=s.dtype, device=s.device))
 
 
 def paged_attention_ref(q, k_pages, v_pages, page_pos, cur_pos, scale,
@@ -70,6 +79,21 @@ def recall_gather_ref(pool, idx):
     return blk[..., 0, :, :], blk[..., 1, :, :]
 
 
+def recall_values_ref(pool, idx):
+    """The V half of ``recall_gather_ref``: pool (B, n_pages, kv, 2, p, d);
+    idx (B, kv, n_sel) int32, -1 invalid -> v (B, kv, n_sel, p, d) in the
+    pool's dtype on idx's device, zeros for invalid lanes (the contract of
+    the reference's ``core/recall.py:31`` ``recall_values_only``)."""
+    B, n_pages, kv = pool.shape[:3]
+    idx = idx.to(pool.device)
+    safe = idx.clamp(0, n_pages - 1).long()
+    bI = torch.arange(B, device=pool.device)[:, None, None]
+    kI = torch.arange(kv, device=pool.device)[None, :, None]
+    v = pool[bI, safe, kI, 1]                                      # (B,kv,n_sel,p,d)
+    return torch.where((idx >= 0)[..., None, None], v,
+                       torch.zeros((), dtype=v.dtype, device=v.device))
+
+
 def recall_gather_quant_ref(pool, scales, idx, bits, out_dtype=torch.float32):
     """pool (B, n_pages, kv, 2, p, d_packed) int8; scales (B, n_pages, kv, 2,
     n_g) float32; idx (B, kv, n_sel) int32, < 0 invalid -> k, v each (B, kv,
@@ -77,6 +101,14 @@ def recall_gather_quant_ref(pool, scales, idx, bits, out_dtype=torch.float32):
     (``quant/quantizers.py``), the contract of the reference's fused kernel."""
     k, v = dequant_recall_pages(pool, scales, idx, bits, out_dtype)
     return k.to(idx.device), v.to(idx.device)
+
+
+def recall_values_quant_ref(pool, scales, idx, bits, out_dtype=torch.float32):
+    """The V half of ``recall_gather_quant_ref`` -> v (B, kv, n_sel, p, d) in
+    ``out_dtype`` on idx's device: ``dequant_recall_values``
+    (``quant/quantizers.py``), the contract of the reference's fused kernel
+    with ``values_only=True``."""
+    return dequant_recall_values(pool, scales, idx, bits, out_dtype).to(idx.device)
 
 
 def flash_prefill_ref(q, k, v, scale, causal=True, window=None, softcap=None):

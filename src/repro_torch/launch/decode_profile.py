@@ -5,7 +5,8 @@ random bf16 weights, ``torch.profiler`` over one prefill and over a few
 ``serve_step`` calls after warm-up.
 
     PYTHONPATH=src python -m repro_torch.launch.decode_profile [--steps 4] \
-        [--kv-quant none|int8|int4] [--quant-group-size 0]
+        [--method freekv|shadowkv|centroid] [--kv-quant none|int8|int4] \
+        [--quant-group-size 0]
 
 Prints one JSON line: the prefill's wall s, device-busy s and top kernels;
 per decode step the host wall ms, device-busy ms (sum of kernel and copy
@@ -30,6 +31,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--trace-out", default=None,
                     help="write a Chrome trace of the profiled steps here")
+    ap.add_argument("--method", default="freekv",
+                    help="retriever: freekv, arkvale, shadowkv or centroid")
     ap.add_argument("--kv-quant", choices=("none", "int8", "int4"), default="none",
                     help="quantized host KV tier")
     ap.add_argument("--quant-group-size", type=int, default=0,
@@ -50,7 +53,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     cfg = get_config(ARCH)
-    fkv = FreeKVConfig(offload="host", kv_quant=args.kv_quant,
+    fkv = FreeKVConfig(method=args.method, offload="host", kv_quant=args.kv_quant,
                        quant_group_size=args.quant_group_size)
     params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
     stream = needle_stream(cfg.vocab_size, CONTEXT, fkv.page_size, seed=0)
@@ -117,7 +120,8 @@ def main(argv=None):
                           "cudaStreamWaitEvent", "cudaPointerGetAttributes")}
     out = {
         "device": torch.cuda.get_device_name(0), "arch": cfg.name, "batch": BATCH,
-        "context": CONTEXT, "offload": fkv.offload, "kv_quant": fkv.kv_quant,
+        "context": CONTEXT, "method": fkv.method, "offload": fkv.offload,
+        "kv_quant": fkv.kv_quant,
         "steps": args.steps, "prefill": prefill_out,
         "wall_ms_per_step_unprofiled": wall_ms,
         "device_busy_ms_per_step": busy_ms,

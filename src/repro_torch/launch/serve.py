@@ -3,7 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
         --arch llama31-8b --scheduler static --context 8192 --new-tokens 40 \
         --batch 4 --page-size 32 --budget 2048 --offload host --dtype bfloat16 \
-        --kv-quant int8
+        --kv-quant int8 --method freekv
 
 Same flags and defaults as the reference CLI where the feature is ported;
 ``--device``, ``--offload``, ``--dtype`` and ``--seed`` are the port's own.
@@ -29,7 +29,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--arch", default="granite-3-8b-smoke")
-    ap.add_argument("--method", default="freekv")
+    ap.add_argument("--method", default="freekv",
+                    help="retriever: freekv, arkvale, shadowkv, centroid or full")
     ap.add_argument("--context", type=int, default=512)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--batch", type=int, default=2)

@@ -84,18 +84,34 @@ def dequant_block(q, scale, bits: int, out_dtype=torch.float32):
     return xf.reshape(*q.shape[:-2], p, d).to(out_dtype)
 
 
+def _gather_blocks(pool, scales, idx):
+    """The selected (2, p, d_packed) blocks and their (2, n_g) scales, on the
+    pool's device, with idx clamped into range (callers mask lanes < 0)."""
+    B, n_pages, kv = pool.shape[:3]
+    safe = idx.to(pool.device).clamp(0, n_pages - 1).long()
+    bI = torch.arange(B, device=pool.device)[:, None, None]
+    kI = torch.arange(kv, device=pool.device)[None, :, None]
+    return pool[bI, safe, kI], scales.to(pool.device)[bI, safe, kI]
+
+
 def dequant_recall_pages(pool, scales, idx, bits: int, out_dtype=torch.float32):
     """Quantized-pool recall: pool (B, n_pages, kv, 2, p, d_packed) int8;
     scales (B, n_pages, kv, 2, n_g) float32; idx (B, kv, n_sel) int32, < 0
     invalid -> (k, v) each (B, kv, n_sel, p, d) in ``out_dtype`` on the
     pool's device; invalid lanes are zeros."""
-    B, n_pages, kv = pool.shape[:3]
-    idx = idx.to(pool.device)
-    safe = idx.clamp(0, n_pages - 1).long()
-    bI = torch.arange(B, device=pool.device)[:, None, None]
-    kI = torch.arange(kv, device=pool.device)[None, :, None]
-    deq = dequant_block(pool[bI, safe, kI], scales.to(pool.device)[bI, safe, kI],
-                        bits, out_dtype)                       # (B,kv,n_sel,2,p,d)
-    deq = torch.where((idx >= 0)[..., None, None, None], deq,
+    blk, sc = _gather_blocks(pool, scales, idx)
+    deq = dequant_block(blk, sc, bits, out_dtype)              # (B,kv,n_sel,2,p,d)
+    deq = torch.where((idx.to(pool.device) >= 0)[..., None, None, None], deq,
                       torch.zeros((), dtype=out_dtype, device=pool.device))
     return deq[..., 0, :, :], deq[..., 1, :, :]
+
+
+def dequant_recall_values(pool, scales, idx, bits: int, out_dtype=torch.float32):
+    """ShadowKV's V-only recall from the quantized pool (reference
+    ``quantizers.py:123``): only the V half of each selected page and its V
+    scales -> v (B, kv, n_sel, p, d) in ``out_dtype`` on the pool's device;
+    invalid lanes are zeros."""
+    blk, sc = _gather_blocks(pool, scales, idx)
+    v = dequant_block(blk[..., 1:, :, :], sc[..., 1:, :], bits, out_dtype)[..., 0, :, :]
+    return torch.where((idx.to(pool.device) >= 0)[..., None, None], v,
+                       torch.zeros((), dtype=out_dtype, device=pool.device))

@@ -173,3 +173,40 @@ def test_cuda_flash_prefill_matches_plain(B, H, kv, T, d, window, softcap, dtype
     want = ref.flash_prefill_ref(q, k, v, d ** -0.5, True, window, softcap)
     assert got.stride() == q.stride()
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_cuda_values_only_gathers_and_centroid_scores(dtype):
+    """recall_values and recall_values_quant (int8 and int4, groups 0, 16
+    and 32) equal to their plain versions bit for bit from a device pool and
+    a pinned host pool, with -1 and -2 lanes; centroid_scores within 2e-5
+    (a float32 output, held as page_scores), empty clusters exactly -1e30."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from repro_torch.quant.quantizers import quantize_block
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(5)
+    pool = torch.randn(2, 40, 3, 2, 32, 128, generator=g, device=dev).to(dtype)
+    idx = torch.randint(-2, 40, (2, 3, 9), generator=g, device=dev, dtype=torch.int32)
+    want = ref.recall_values_ref(pool, idx)
+    for src in (pool, pool.cpu().pin_memory()):
+        got = ops.recall_values(src, idx)
+        assert got.dtype == dtype and torch.equal(got, want)
+    for bits, group, d in ((8, 0, 128), (4, 0, 128), (8, 16, 64), (4, 32, 64)):
+        pool_f = torch.randn(2, 12, 3, 2, 8, d, generator=g, device=dev)
+        pool_f[:, 1] = 0
+        pq, sc = quantize_block(pool_f, bits, group)
+        idx = torch.randint(-2, 12, (2, 3, 5), generator=g, device=dev, dtype=torch.int32)
+        want = ref.recall_values_quant_ref(pq, sc, idx, bits, dtype)
+        for src, ssrc in ((pq, sc), (pq.cpu().pin_memory(), sc.cpu().pin_memory())):
+            got = ops.recall_values_quant(src, ssrc, idx, bits=bits, out_dtype=dtype)
+            assert got.dtype == dtype and torch.equal(got, want)
+    q = torch.randn(2, 3, 4, 128, generator=g, device=dev).to(dtype)
+    cent = torch.sort(torch.randn(2, 16, 3, 2, 128, generator=g, device=dev), dim=3).values
+    cent = cent.to(dtype)
+    count = torch.randint(0, 3, (2, 16, 3), generator=g, device=dev, dtype=torch.int32)
+    got = ops.centroid_scores(q, cent, count, scale=0.09)
+    torch.testing.assert_close(got, ref.centroid_scores_ref(q, cent, count, 0.09),
+                               **_tol(torch.float32))
+    assert (got.permute(0, 1, 3, 2)[(count == 0).permute(0, 2, 1)] == -1e30).all()

@@ -80,11 +80,19 @@ def test_cuda_request_without_built_library_raises(monkeypatch):
         lambda: ops.page_summary(torch.randn(1, 16, 2, 64), page_size=8),
         lambda: ops.flash_prefill(torch.randn(1, 2, 8, 64), torch.randn(1, 1, 8, 64),
                                   torch.randn(1, 1, 8, 64), scale=0.125),
+        lambda: ops.recall_values(torch.randn(1, 3, 1, 2, 8, 16),
+                                  torch.zeros((1, 1, 2), dtype=torch.int32)),
+        lambda: ops.recall_values_quant(torch.zeros((1, 3, 1, 2, 8, 16), dtype=torch.int8),
+                                        torch.ones((1, 3, 1, 2, 1)),
+                                        torch.zeros((1, 1, 2), dtype=torch.int32), bits=8),
+        lambda: ops.centroid_scores(q, torch.randn(1, 4, 1, 2, 16),
+                                    torch.ones((1, 4, 1), dtype=torch.int32), scale=0.25),
     ]
+    assert len(calls) == len(ops.KERNELS)
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()
-    assert [fn.launches for fn in ops.KERNELS] == [0] * 6
+    assert [fn.launches for fn in ops.KERNELS] == [0] * 9
 
 
 def test_other_devices_raise():

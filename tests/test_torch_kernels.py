@@ -221,4 +221,10 @@ def test_cpu_dispatch_counts_no_launch():
                             bits=8)
     ops.page_summary(torch.randn(1, 16, 1, 16), page_size=8)
     ops.flash_prefill(q, q, q, scale=0.25)
-    assert [fn.launches for fn in ops.KERNELS] == [0] * 6
+    ops.recall_values(torch.randn(1, 3, 1, 2, 8, 16), torch.zeros((1, 1, 2), dtype=torch.int32))
+    ops.recall_values_quant(torch.zeros((1, 3, 1, 2, 8, 16), dtype=torch.int8),
+                            torch.ones((1, 3, 1, 2, 1)), torch.zeros((1, 1, 2), dtype=torch.int32),
+                            bits=8)
+    ops.centroid_scores(q, torch.randn(1, 4, 1, 2, 16), torch.ones((1, 4, 1), dtype=torch.int32),
+                        scale=0.25)
+    assert [fn.launches for fn in ops.KERNELS] == [0] * 9
