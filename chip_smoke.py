@@ -19,7 +19,8 @@ Phases, each fatal on failure (nothing is caught):
      centroid_scores within 2e-5 with empty clusters at exactly -1e30;
      device times of the kernel, its plain version and one PyTorch call that
      computes the same function (a yardstick the port never calls), beside
-     the bound.
+     the bound; for the two attention kernels also the yardstick's own
+     max |error| against the plain version and whether it is within TOL.
   4. main path: ServeEngine(scheduler="static") serving llama31-8b at full
      width (32 layers, seeded random bf16 weights) with FreeKV defaults,
      recall_overlap=True and the KV pool in pinned host memory: 4 requests
@@ -126,8 +127,30 @@ H = KV * G                                # 32 query heads
 N_CENT = 16                               # FreeKVConfig.centroid_count
 
 
+def _sdpa_paged_inputs(q, k, v, pos, cur):
+    """Paged attention's inputs as SDPA takes them: K/V heads expanded to the
+    G query heads and a boolean mask over the same keys."""
+    n = k.shape[2] * k.shape[3]
+    kk = k.reshape(B, KV, n, D).repeat_interleave(G, dim=1)
+    vv = v.reshape(B, KV, n, D).repeat_interleave(G, dim=1)
+    mask = ((pos >= 0) & (pos <= cur[:, None, None, None])).reshape(B, KV, 1, n)
+    return q.reshape(B, KV * G, 1, D), kk, vv, mask.repeat_interleave(G, dim=1)
+
+
+def _sdpa(q, k, v, mask, scale):
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
+
+def _library_precision(got, want, dt):
+    """The yardstick's own max |error| against the plain version, and
+    whether it lies within the TOL the kernel is held to."""
+    return {"library_max_abs_err": (got.float() - want.float()).abs().max().item(),
+            "library_within_tol": bool(torch.allclose(got.float(), want.float(), **TOL[dt]))}
+
+
 def check_paged_attention(ops, ref, dev, gen):
     out = {}
+    lib_prec = None
     for dt in (torch.float32, torch.bfloat16):
         q = torch.randn(B, KV, G, D, generator=gen, device=dev).to(dt)
         k = torch.randn(B, KV, L // P, P, D, generator=gen, device=dev).to(dt)
@@ -145,6 +168,9 @@ def check_paged_attention(ops, ref, dev, gen):
                 f"paged_attention {dt}: max |err| {err} (max |want| "
                 f"{want.float().abs().max().item()}), tolerance {TOL[dt]}")
         out[dt] = err
+        if dt == torch.bfloat16:
+            lib = _sdpa(*_sdpa_paged_inputs(q, k, v, pos, cur), scale).reshape(B, KV, G, D)
+            lib_prec = _library_precision(lib, want, dt)
     # timing at bf16, the main path's dtype
     dt = torch.bfloat16
     n = copies_for(2 * B * KV * L * D * 2)
@@ -160,16 +186,10 @@ def check_paged_attention(ops, ref, dev, gen):
     scale = 1.0 / math.sqrt(D)
     ms, call_ms = time_ms(lambda *a: ops.paged_attention(*a, scale=scale), args)
     plain_ms, _ = time_ms(lambda *a: ref.paged_attention_ref(*a, scale), args, iters=10)
-    # yardstick: SDPA with a boolean mask over the same keys (heads expanded)
-    sdpa_args = []
-    for q, k, v, pos, cur in args:
-        kk = k.reshape(B, KV, L, D).repeat_interleave(G, dim=1)
-        vv = v.reshape(B, KV, L, D).repeat_interleave(G, dim=1)
-        mask = ((pos >= 0) & (pos <= cur[:, None, None, None])).reshape(B, KV, 1, L)
-        sdpa_args.append((q.reshape(B, KV * G, 1, D), kk, vv,
-                          mask.repeat_interleave(G, dim=1)))
-    lib_ms, _ = time_ms(lambda q, k, v, m: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=m, scale=scale), sdpa_args)
+    # yardstick: SDPA with a boolean mask over the same keys, timed on inputs
+    # already expanded to the G query heads
+    sdpa_args = [_sdpa_paged_inputs(*a) for a in args]
+    lib_ms, _ = time_ms(lambda q, k, v, m: _sdpa(q, k, v, m, scale), sdpa_args)
     q, k, v, pos, cur = args[0]
     byts = nbytes(q, k, v, pos, cur, q)
     flops = 4 * B * KV * G * L * D
@@ -180,7 +200,8 @@ def check_paged_attention(ops, ref, dev, gen):
             "max_abs_err": out[torch.bfloat16], "max_abs_err_fp32": out[torch.float32],
             "tol": TOL[torch.bfloat16], "tol_fp32": TOL[torch.float32],
             "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "library_call": "scaled_dot_product_attention(bool mask)"}
+            "library_ms": lib_ms, "library_call": "scaled_dot_product_attention(bool mask)",
+            **lib_prec}
 
 
 def check_page_scores(ops, ref, dev, gen):
@@ -511,6 +532,7 @@ def _prefill_inputs(gen, dev, dt, b, h, kv, t, d):
 
 def check_flash_prefill(ops, ref, dev, gen):
     errs = {}
+    lib_prec = None
     cases = [  # (name, B, H, kv, T, d, window, softcap)
         ("main", B, H, KV, CONTEXT, D, None, None),
         ("window", 1, 8, 2, 1000, D, 256, None),
@@ -528,6 +550,12 @@ def check_flash_prefill(ops, ref, dev, gen):
                     f"flash_prefill {name} {dt}: max |err| {err} (max |want| "
                     f"{want.float().abs().max().item()}), tolerance {TOL[dt]}")
             errs[(name, dt)] = err
+            if name == "main" and dt == torch.bfloat16:
+                sdpa = torch.nn.functional.scaled_dot_product_attention(
+                    *(x.contiguous() for x in (q, k, v)), is_causal=True, scale=scale,
+                    enable_gqa=True)
+                lib_prec = _library_precision(sdpa, want, dt)
+                del sdpa
             del q, k, v, got, want
     dt = torch.bfloat16
     scale = 1.0 / math.sqrt(D)
@@ -550,7 +578,8 @@ def check_flash_prefill(ops, ref, dev, gen):
             "tol": TOL[torch.bfloat16], "tol_fp32": TOL[torch.float32],
             "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms,
-            "library_call": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"}
+            "library_call": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+            **lib_prec}
 
 
 # ---------------------------------------------------------------------------
@@ -810,7 +839,8 @@ def main():
         f"loaded in {time.perf_counter() - t0:.1f} s")
     for name, out in build.BUILD_LOG.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if ("registers" in line or "spill" in line or "error" in line.lower()
+                    or "Performance Loss" in line):
                 log(f"[build] {name}: {line.strip()}")
 
     # phase 3: kernels
@@ -830,6 +860,9 @@ def main():
         k = checks[fn.__name__](ops, ref, dev, gen)
         kernels.append(k)
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
+        if "library_max_abs_err" in k:
+            lib += (f" (its max|err| {k['library_max_abs_err']:.3g}, within TOL: "
+                    f"{k['library_within_tol']})")
         log(f"[kernel] {k['name']}: max|err| {k['max_abs_err']:.3g} | "
             f"{k['kernel_ms']:.4f} ms vs bound {k['bound_ms']:.4f} ms | plain "
             f"{k['plain_ms']:.4f} ms | library {lib} | {time.perf_counter() - t0:.1f} s")

@@ -29,7 +29,7 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 # C signatures of the entry points; every one returns a cudaError_t as int
 SIGNATURES = {
     "paged_attention": {
-        "freekv_paged_attention": [_P] * 9 + [_I] * 8 + [_F, _F, _I, _I, _P],
+        "freekv_paged_attention": [_P] * 10 + [_I] * 7 + [_F, _F, _I, _I, _P],
     },
     "page_scores": {
         "freekv_page_scores": [_P] * 3 + [_I] * 5 + [_F, _I, _I, _P],

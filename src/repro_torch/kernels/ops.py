@@ -11,6 +11,7 @@ version. Each wrapper counts its kernel launches in ``<wrapper>.launches``
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -70,16 +71,44 @@ def reset_launches():
 
 
 # ---------------------------------------------------------------------------
-MAX_SPLIT = 256        # kMaxSplit in csrc/paged_attention.cu
+MAX_SPLIT = 256          # kMaxSplit in csrc/paged_attention.cu
+MIN_PAGES_PER_SPLIT = 4  # fewer pages per block leave the kernel's ring part-empty
+BLOCKS_PER_SM = 4        # the kernel's 32 KB ring and 128 registers a thread: four blocks an SM
 
 
-def split_pages(N: int, rows: int, device) -> tuple:
-    """(pages_per_split, n_split) for paged attention: about eight blocks per
-    SM when B * kv alone is too few, so each block walks only a page or two."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    target = min(MAX_SPLIT, max(1, math.ceil(8 * sms / max(rows, 1))))
-    pps = max(1, math.ceil(N / target))
-    return pps, math.ceil(N / pps)
+def split_pages(N: int, rows: int, sms: int, blocks_per_sm: int = BLOCKS_PER_SM) -> int:
+    """Number of slices paged attention cuts each (request, KV head)'s N
+    pages into, for ``rows`` = B * kv such rows on a card of ``sms`` SMs:
+    at most ``blocks_per_sm`` blocks per SM, each slice at least
+    MIN_PAGES_PER_SPLIT pages (all N when N is fewer), at most MAX_SPLIT
+    slices. Slice s holds pages ``split_range(N, n_split, s)``."""
+    want = blocks_per_sm * sms // max(rows, 1)      # one wave: no block waits for a slot
+    return max(1, min(MAX_SPLIT, want, N // MIN_PAGES_PER_SPLIT))
+
+
+def split_range(N: int, n_split: int, s: int) -> tuple:
+    """Pages [n0, n1) of slice s, as the kernel computes them."""
+    return N * s // n_split, N * (s + 1) // n_split
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(dev, stream: int, n: int) -> torch.Tensor:
+    """Zeroed int32 counters, one per (b, kv), for paged attention's merge;
+    each launch leaves them zero again, so one buffer per device and stream
+    serves every launch (launches on one stream never overlap)."""
+    key = (dev.index, stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=dev)
+        _TICKETS[key] = buf
+    return buf
 
 
 def paged_attention(q, k_pages, v_pages, page_pos, cur_pos, *, scale,
@@ -102,21 +131,22 @@ def paged_attention(q, k_pages, v_pages, page_pos, cur_pos, *, scale,
              and page_pos.shape == (B, kv, N, p) and cur_pos.shape == (B,),
              "paged_attention: shape mismatch")
     _require(G <= 16 and d <= 256 and p <= 64 and (d * q.element_size()) % 16 == 0
-             and k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
+             and all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
              "paged_attention takes G <= 16, d <= 256 with 16-byte rows, p <= 64, "
-             "16-byte aligned K/V")
+             "16-byte aligned q/K/V")
     lib = build.load("paged_attention")
-    pps, n_split = split_pages(N, B * kv, dev)
+    n_split = split_pages(N, B * kv, _sm_count(dev.index))
     part_m = torch.empty((B, kv, n_split, G), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((B, kv, n_split, G, d), dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
+    stream = _stream(dev)
+    tickets = _tickets(dev, stream.value, B * kv)
     rc = lib.freekv_paged_attention(
         _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(page_pos), _ptr(cur_pos),
-        _ptr(part_m), _ptr(part_l), _ptr(part_acc), _ptr(out),
-        B, kv, G, N, p, d, pps, n_split, float(scale),
-        float(softcap) if softcap is not None else 0.0, code, dev.index,
-        _stream(dev))
+        _ptr(part_m), _ptr(part_l), _ptr(part_acc), _ptr(tickets), _ptr(out),
+        B, kv, G, N, p, d, n_split, float(scale),
+        float(softcap) if softcap is not None else 0.0, code, dev.index, stream)
     build.check(rc, "paged_attention")
     paged_attention.launches += 1
     return out.to(out_dtype)

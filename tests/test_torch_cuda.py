@@ -106,10 +106,17 @@ def test_cuda_staged_recall_bit_exact():
 @pytest.mark.parametrize("B,kv,G,N,p,d", [
     (1, 1, 1, 2, 8, 128), (2, 3, 4, 6, 32, 128), (1, 2, 8, 4, 16, 64),
     (3, 4, 2, 5, 32, 256), (1, 2, 4, 9, 64, 256),
+    (2, 2, 1, 1, 32, 128), (1, 3, 4, 2, 32, 128), (1, 2, 4, 23, 16, 128),
+    (1, 1, 16, 12, 8, 64), (2, 2, 8, 17, 64, 128), (1, 2, 16, 40, 16, 256),
+    (4, 8, 4, 65, 32, 128),
 ])
 def test_cuda_paged_attention_sweep(B, kv, G, N, p, d, dtype):
-    """The ``tests/test_kernels.py`` sweep shapes plus one whose staged
-    pages need more than 48 KB of shared memory (p=64, d=256)."""
+    """The ``tests/test_kernels.py`` sweep shapes, one whose pages need
+    more than 48 KB of shared memory (p=64, d=256), and the edges of the
+    split and its ring: N = 1, N below the ring's four stages, N that is no
+    multiple of a slice, G up to 16, p from 8 to 64, the main path's shape.
+    Where the pages are cut into several slices, one slice is wholly
+    masked."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     dev = torch.device("cuda", 0)
@@ -119,6 +126,10 @@ def test_cuda_paged_attention_sweep(B, kv, G, N, p, d, dtype):
     v = torch.randn(B, kv, N, p, d, generator=g, device=dev).to(dtype)
     pos = torch.randint(-1, N * p, (B, kv, N, p), generator=g, device=dev, dtype=torch.int32)
     cur = torch.full((B,), N * p - 2, dtype=torch.int32, device=dev)
+    n_split = ops.split_pages(N, B * kv, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if n_split > 1:
+        n0, n1 = ops.split_range(N, n_split, n_split // 2)
+        pos[:, :, n0:n1] = -1
     for softcap in (None, 20.0):
         got = ops.paged_attention(q, k, v, pos, cur, scale=d ** -0.5, softcap=softcap)
         want = ref.paged_attention_ref(q, k, v, pos, cur, d ** -0.5, softcap)
@@ -159,10 +170,18 @@ def test_cuda_page_summary_and_quant_gather_exact(dtype):
     (1, 4, 4, 200, 128, None, None), (1, 2, 2, 256, 64, 64, None),
     (2, 4, 2, 77, 64, None, 20.0), (1, 2, 1, 130, 256, 50, 30.0),
     (1, 8, 2, 1000, 128, 300, 30.0),
+    (1, 4, 4, 1, 128, None, None), (1, 4, 1, 63, 64, None, None),
+    (1, 8, 1, 65, 128, None, None), (2, 4, 1, 127, 64, None, None),
+    (1, 8, 1, 129, 64, None, None), (1, 2, 2, 300, 128, None, None),
+    (1, 8, 1, 200, 64, None, None), (1, 8, 2, 700, 128, 100, None),
+    (1, 4, 1, 333, 64, 77, 25.0), (2, 32, 8, 2048, 128, None, None),
 ])
 def test_cuda_flash_prefill_matches_plain(B, H, kv, T, d, window, softcap, dtype):
     """flash_prefill against its plain version on the model's strided
-    (B, T, heads, d) views, T with and without a partial last block."""
+    (B, T, heads, d) views: T with and without a partial last block (T = 1,
+    63, 65, 127, 129, 200, 300: around the 64-key tile and the 128-row query
+    block), G = 1, 4 and 8 at d 64 and 128, windows whose first key falls
+    inside a key tile, and the main path's widths."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     dev = torch.device("cuda", 0)

@@ -228,3 +228,97 @@ def test_cpu_dispatch_counts_no_launch():
     ops.centroid_scores(q, torch.randn(1, 4, 1, 2, 16), torch.ones((1, 4, 1), dtype=torch.int32),
                         scale=0.25)
     assert [fn.launches for fn in ops.KERNELS] == [0] * 9
+
+
+@pytest.mark.parametrize("sms", [1, 8, 108, 132])
+@pytest.mark.parametrize("rows", [1, 4, 32, 128, 4096])
+def test_split_pages_covers_every_page_once(rows, sms):
+    """``ops.split_pages`` (a pure function of N, B * kv and the SM count):
+    the slices of ``split_range`` tile [0, N) in order with no gap or
+    overlap, there are at most MAX_SPLIT of them, and each holds at least
+    MIN_PAGES_PER_SPLIT pages (all N when N is fewer)."""
+    for N in list(range(1, 80)) + [259, 1000, 5000]:
+        n_split = ops.split_pages(N, rows, sms)
+        assert 1 <= n_split <= min(ops.MAX_SPLIT, N)
+        bounds = [ops.split_range(N, n_split, s) for s in range(n_split)]
+        assert bounds[0][0] == 0 and bounds[-1][1] == N
+        assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+        assert min(n1 - n0 for n0, n1 in bounds) >= min(N, ops.MIN_PAGES_PER_SPLIT)
+
+
+def test_split_pages_main_path_shape():
+    """At the main path's decode (B * kv = 32 rows, 65 pages, 132 SMs) the
+    page axis goes into 16 slices of 4 or 5 pages: 512 blocks, one wave at
+    four per SM."""
+    n_split = ops.split_pages(65, 32, 132)
+    assert n_split == 16
+    assert {n1 - n0 for n0, n1 in (ops.split_range(65, 16, s) for s in range(16))} == {4, 5}
+
+
+@pytest.mark.parametrize("N,p,rows,masked", [
+    (1, 8, 1, None), (3, 16, 4, None), (9, 32, 32, 1), (65, 32, 32, 0), (23, 64, 2, 2),
+])
+def test_split_merge_equals_plain(N, p, rows, masked):
+    """The CUDA kernel's arithmetic on the CPU: per-slice online-softmax
+    partials over ``split_range`` and their log-sum-exp merge equal
+    ``paged_attention_ref``, with slice ``masked`` wholly masked (its m stays
+    -1e30 and drops out of the merge)."""
+    rng = np.random.default_rng(7)
+    B, kv, G, d = 1, 2, 4, 16
+    q = torch.from_numpy(rng.standard_normal((B, kv, G, d), dtype=np.float32))
+    k = torch.from_numpy(rng.standard_normal((B, kv, N, p, d), dtype=np.float32))
+    v = torch.from_numpy(rng.standard_normal((B, kv, N, p, d), dtype=np.float32))
+    pos = torch.from_numpy(rng.integers(-1, N * p, (B, kv, N, p)).astype(np.int32))
+    cur = torch.tensor([N * p - 3], dtype=torch.int32)
+    n_split = ops.split_pages(N, rows, 132)
+    if masked is not None:
+        masked = min(masked, n_split - 1)
+        n0, n1 = ops.split_range(N, n_split, masked)
+        pos[:, :, n0:n1] = -1
+    want = ref.paged_attention_ref(q, k, v, pos, cur, 0.25)
+    ms, ls, accs = [], [], []
+    for s in range(n_split):
+        n0, n1 = ops.split_range(N, n_split, s)
+        sc = torch.einsum("bkgd,bkld->bkgl", q, k[:, :, n0:n1].reshape(B, kv, -1, d)) * 0.25
+        ok = (pos[:, :, n0:n1].reshape(B, kv, 1, -1) >= 0) & \
+             (pos[:, :, n0:n1].reshape(B, kv, 1, -1) <= cur[:, None, None, None])
+        sc = torch.where(ok, sc, torch.full((), -1e30))
+        m = sc.amax(-1, keepdim=True)
+        e = torch.exp(sc - m)
+        ms.append(m)
+        ls.append(e.sum(-1, keepdim=True))
+        accs.append(torch.einsum("bkgl,bkld->bkgd", e, v[:, :, n0:n1].reshape(B, kv, -1, d)))
+    M = torch.stack(ms).amax(0)
+    w = [torch.exp(m - M) for m in ms]
+    L = sum(wi * li for wi, li in zip(w, ls)).clamp_min(1e-30)
+    got = sum(wi * ai for wi, ai in zip(w, accs)) / L
+    if masked is not None and n_split > 1:
+        assert float(ms[masked].max()) == float(np.float32(-1e30))
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_kernel_ablation_edits_match_sources():
+    """Every edit of ``launch/kernel_ablation.py``'s variants still finds its
+    text in the kernel sources, exactly once, so the ablation keeps
+    measuring the kernels as they are."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import kernel_ablation as ka
+    common = (build.CSRC / "common.cuh").read_text()
+    for name, variants in (("flash_prefill", ka.FLASH_VARIANTS),
+                           ("paged_attention", {k: v[0] for k, v in ka.PAGED_VARIANTS.items()})):
+        src = (build.CSRC / f"{name}.cu").read_text()
+        for vname, edits in variants.items():
+            for old, _ in edits:
+                assert src.count(old) + common.count(old) == 1, (name, vname, old)
+
+
+def test_p_split_emulation_keeps_flash_prefill_within_tol():
+    """The bf16 flash_prefill's P @ V, emulated in float32 on the CPU
+    (``launch/p_split_emulation.py``): P split into bfloat16 hi + lo keeps
+    every output within chip_smoke's bfloat16 TOL of the plain version,
+    while a single bfloat16 P does not, which is why the kernel pays for the
+    second product."""
+    from repro_torch.launch.p_split_emulation import run
+    res = run(t=256, heads=2)
+    assert res["hi+lo"][0] == 0
+    assert res["bf16"][0] > 0
