@@ -4,8 +4,9 @@
     python3 chip_smoke.py --kernels-only  # build + kernel phase only
 
 Phases, each fatal on failure (nothing is caught):
-  1. device: the card's name and power limit from nvidia-smi; exits non-zero
-     without CUDA.
+  1. device: the card's name and power limit from nvidia-smi, its PCIe link
+     (generation and width from nvidia-smi and sysfs, "not readable" where
+     the machine hides them) and NUMA node; exits non-zero without CUDA.
   2. build: the six CUDA sources (nine kernel entry points) from this
      checkout, one nvcc per source, in parallel.
   3. kernels: each kernel against its plain PyTorch version on the card at
@@ -21,6 +22,10 @@ Phases, each fatal on failure (nothing is caught):
      computes the same function (a yardstick the port never calls), beside
      the bound; for the two attention kernels also the yardstick's own
      max |error| against the plain version and whether it is within TOL.
+     The host-pool gathers are timed cycling four selections with disjoint
+     pages (the card's L2 keeps system-memory reads), beside the link's
+     ceiling: one contiguous copy_ of the same bytes from pinned memory,
+     and each logs the grid it launches from a pinned and from a device pool.
   4. main path: ServeEngine(scheduler="static") serving llama31-8b at full
      width (32 layers, seeded random bf16 weights) with FreeKV defaults,
      recall_overlap=True and the KV pool in pinned host memory: 4 requests
@@ -29,7 +34,12 @@ Phases, each fatal on failure (nothing is caught):
      and int8, shadowkv with none and int8, centroid with none. Every
      kernel's launch count is zeroed just before each run and read just
      after; each kernel the run takes must rise. ShadowKV's low-rank key
-     factorization is timed at one layer's shape.
+     factorization is timed at one layer's shape. Then, in a fresh process
+     (launch/gather_bench.py), the overlap line: 32 paged_attention (one
+     decode step's) alone and beside recall_gather on the staged-recall
+     stream; and the four gathers again at the valid share of freekv/none's
+     top-up and staged recall launches (with --kernels-only: the overlap
+     line only, after phase 3).
   5. kernel path == plain path: granite-3-8b-smoke at float32 gives the same
      greedy tokens on the card (kernels) and on the CPU (plain versions):
      freekv and shadowkv under kv_quant none, int8 and int4, centroid under
@@ -41,6 +51,7 @@ Then one JSON line with the kernels' numbers and, last, the ok line.
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -80,11 +91,13 @@ def time_ms(fn, args_list, iters=50):
     ``args_list`` (copies of the inputs, sized so the cycle exceeds L2).
 
     Device ms sums the card-side rows (kernels, copies) of a torch.profiler
-    trace of the calls: the time the card spends. Call ms is CUDA-event time
-    per call, which also holds the gaps while the host launches the next
-    call; for a kernel of a few microseconds that gap is most of it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    trace of the calls: the time the card spends (launch/gather_bench.py
+    device_ms, which runs a session again when the profiler drops its
+    device events, and fails after three such sessions). Call ms is
+    CUDA-event time per call, which also holds the gaps while the host
+    launches the next call; for a kernel of a few microseconds that gap is
+    most of it."""
+    from repro_torch.launch.gather_bench import device_ms
     for a in args_list[:2]:
         fn(*a)
     torch.cuda.synchronize()
@@ -94,16 +107,7 @@ def time_ms(fn, args_list, iters=50):
         fn(*args_list[i % len(args_list)])
     stop.record()
     torch.cuda.synchronize()
-    call_ms = start.elapsed_time(stop) / iters
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*args_list[i % len(args_list)])
-        torch.cuda.synchronize()
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-    require(dev_us > 0, "torch.profiler recorded no device time: the card's "
-            "kernel times cannot be measured")
-    return dev_us / 1e3 / iters, call_ms
+    return device_ms(fn, args_list, iters), start.elapsed_time(stop) / iters
 
 
 def copies_for(nbytes):
@@ -112,6 +116,57 @@ def copies_for(nbytes):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def link_info(dev):
+    """The card's PCIe link as nvidia-smi and sysfs report it, and its NUMA
+    node; "not readable" where neither says (a machine may hide both)."""
+    q = subprocess.run(["nvidia-smi", "--query-gpu=pcie.link.gen.current,pcie.link.width.current",
+                        "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    gen_width = [x.strip() for x in q.stdout.strip().split(",")] if q.returncode == 0 else []
+    pr = torch.cuda.get_device_properties(dev)
+    bus = f"{pr.pci_domain_id:04x}:{pr.pci_bus_id:02x}:{pr.pci_device_id:02x}.0"
+    sysfs = Path("/sys/bus/pci/devices") / bus
+
+    def read(name):
+        try:
+            return (sysfs / name).read_text().strip()
+        except OSError:
+            return "not readable"
+    return {"pci_bus": bus,
+            "nvidia_smi_gen": gen_width[0] if gen_width else "not readable",
+            "nvidia_smi_width": gen_width[1] if len(gen_width) > 1 else "not readable",
+            "sysfs_speed": read("current_link_speed"), "sysfs_width": read("current_link_width"),
+            "numa_node": read("numa_node")}
+
+
+def run_gather_bench(share):
+    """launch/gather_bench.py in a fresh process: the overlap line with
+    every lane valid, and the four gathers likewise; when phase 4 measured
+    the main path's valid shares, the gathers at both and the overlap line
+    at the staged recall's too -> its JSON line."""
+    root = Path(__file__).resolve().parent
+    shares = ["1.0"] + ([repr(v) for v in share.values()] if share else [])
+    overlap_shares = ["1.0"] + ([repr(share["staged"])] if share else [])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src")] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.gather_bench", "--shares",
+                          *shares, "--overlap-shares", *overlap_shares], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=600)
+    require(out.returncode == 0, f"gather_bench exited {out.returncode}:\n{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def host_gather_grid(ops, source, dev, halves):
+    """The grids a gather of csrc/<source>.cu launches at the main shape,
+    from a pinned host pool (and the SMs' worth that is, by the runtime's
+    occupancy) and from a device pool; ``halves`` units an item (2 for K and
+    V, 1 for V only)."""
+    bps = ops.gather_blocks_per_sm(source, dev.index)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = ops.gather_grid(halves * B * KV * N_SEL, sms, bps, True)
+    return {"host_grid_blocks": grid, "blocks_per_sm": bps, "host_sms": grid / bps,
+            "device_grid_blocks": ops.gather_grid(halves * B * KV * N_SEL, sms, bps, False)}
 
 
 # ---------------------------------------------------------------------------
@@ -262,14 +317,16 @@ def check_recall_gather(ops, ref, dev, gen):
                 require(torch.equal(a, b), f"recall_gather {dt} from {src.device}: "
                         f"not bit-exact (max |err| {err})")
                 errs.append(err)
-    # timing at bf16, every lane valid (the bound's worst case), distinct pages
+    # timing at bf16, every lane valid (the bound's worst case), from the
+    # pinned pool cycling selections with disjoint pages (no call reads a
+    # page an earlier one left in L2), beside the link's ceiling
+    from repro_torch.launch import gather_bench
     dt = torch.bfloat16
     pool = torch.randn(B, N_PAGES, KV, 2, P, D, generator=gen, device=dev).to(dt)
     host = pool.cpu().pin_memory()
-    idx = torch.stack([torch.randperm(N_PAGES, generator=gen, device=dev)[:N_SEL]
-                       for _ in range(B * KV)]).reshape(B, KV, N_SEL).to(torch.int32)
-    args = [(host, idx)]
-    ms_host, call_ms = time_ms(ops.recall_gather, args)
+    sels = gather_bench.selections(gen, dev)
+    idx = sels[0]
+    ms_host, call_ms = time_ms(ops.recall_gather, [(host, i) for i in sels])
     ms_dev, _ = time_ms(ops.recall_gather, [(pool, idx)])
     plain_ms, _ = time_ms(ref.recall_gather_ref, [(pool, idx)])
     bI = torch.arange(B, device=dev)[:, None, None]
@@ -283,6 +340,8 @@ def check_recall_gather(ops, ref, dev, gen):
     return {"name": "recall_gather", "shape": f"pool({B},{N_PAGES},{KV},2,{P},{D}) idx({B},{KV},{N_SEL})",
             "bound_bytes": byts, "bound_ops": 0, "bound_ms": bound_host, "bound_by": "bytes",
             "bound_link": "PCIe for the pinned host pool",
+            "link_ms": gather_bench.link_ms(moved, dev), "moved_bytes": moved,
+            **host_gather_grid(ops, "recall_gather", dev, 2),
             "max_abs_err": max(errs), "tol": 0.0,
             "kernel_ms": ms_host, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
             "device_pool_ms": ms_dev, "device_pool_bound_ms": 1e3 * byts / HBM_BPS,
@@ -310,17 +369,18 @@ def check_recall_gather_quant(ops, ref, dev, gen):
                             f"not bit-exact (max |err| {err})")
                     errs.append(err)
     # timing at the main path's settings (group 0, bf16 out), every lane
-    # valid, distinct pages, from the pinned host pool
-    idx = torch.stack([torch.randperm(N_PAGES, generator=gen, device=dev)[:N_SEL]
-                       for _ in range(B * KV)]).reshape(B, KV, N_SEL).to(torch.int32)
+    # valid, from the pinned host pool cycling selections with disjoint pages
+    from repro_torch.launch import gather_bench
+    sels = gather_bench.selections(gen, dev)
+    idx = sels[0]
     dt = torch.bfloat16
     row = {}
     for bits in (8, 4):
         pool, scales = quantize_block(torch.randn(B, N_PAGES, KV, 2, P, D, generator=gen,
                                                   device=dev), bits, 0)
-        host = (pool.cpu().pin_memory(), scales.cpu().pin_memory(), idx)
+        hp, hs = pool.cpu().pin_memory(), scales.cpu().pin_memory()
         fn = lambda p_, s_, i_: ops.recall_gather_quant(p_, s_, i_, bits=bits, out_dtype=dt)
-        ms_host, call_ms = time_ms(fn, [host])
+        ms_host, call_ms = time_ms(fn, [(hp, hs, i) for i in sels])
         ms_dev, _ = time_ms(fn, [(pool, scales, idx)])
         plain_ms, _ = time_ms(lambda p_, s_, i_: ref.recall_gather_quant_ref(p_, s_, i_, bits, dt),
                               [(pool, scales, idx)], iters=10)
@@ -330,9 +390,12 @@ def check_recall_gather_quant(ops, ref, dev, gen):
         row[bits] = {"ms": ms_host, "call_ms": call_ms, "device_pool_ms": ms_dev,
                      "plain_ms": plain_ms, "moved_bytes": moved,
                      "bound_ms": 1e3 * max(moved / PCIE_BPS, (written + nbytes(idx)) / HBM_BPS),
-                     "device_pool_bound_ms": 1e3 * (moved + written + nbytes(idx)) / HBM_BPS}
+                     "device_pool_bound_ms": 1e3 * (moved + written + nbytes(idx)) / HBM_BPS,
+                     "link_ms": gather_bench.link_ms(moved, dev)}
     r8 = row[8]
-    return {"name": "recall_gather_quant",
+    return {"name": "recall_gather_quant", "link_ms": r8["link_ms"],
+            "moved_bytes": r8["moved_bytes"],
+            **host_gather_grid(ops, "recall_gather_quant", dev, 2),
             "shape": f"pool({B},{N_PAGES},{KV},2,{P},{D}*bits/8) int8, scales({B},{N_PAGES},{KV},2,1) "
                      f"idx({B},{KV},{N_SEL}) -> bf16",
             "bound_bytes": r8["moved_bytes"], "bound_ops": 0, "bound_ms": r8["bound_ms"],
@@ -365,14 +428,16 @@ def check_recall_values(ops, ref, dev, gen):
             require(got.dtype == dt and torch.equal(got, want),
                     f"recall_values {dt} from {src.device}: not bit-exact (max |err| {err})")
             errs.append(err)
+    from repro_torch.launch import gather_bench
     dt = torch.bfloat16
     pool = torch.randn(B, N_PAGES, KV, 2, P, D, generator=gen, device=dev).to(dt)
     host = pool.cpu().pin_memory()
-    idx = _distinct_idx(gen, dev)
+    sels = gather_bench.selections(gen, dev)          # disjoint pages, every lane valid
+    idx = sels[0]
     valid = int((idx >= 0).sum())
     moved = valid * P * D * 2
     written = B * KV * N_SEL * P * D * 2
-    ms_host, call_ms = time_ms(ops.recall_values, [(host, idx)])
+    ms_host, call_ms = time_ms(ops.recall_values, [(host, i) for i in sels])
     # from the device pool, selections cycled so the pages read are not L2-resident
     dev_args = [(pool, _distinct_idx(gen, dev)) for _ in range(copies_for(moved + written))]
     ms_dev, _ = time_ms(ops.recall_values, dev_args)
@@ -385,6 +450,8 @@ def check_recall_values(ops, ref, dev, gen):
             "bound_bytes": moved + written + nbytes(idx), "bound_ops": 0,
             "bound_ms": 1e3 * max(moved / PCIE_BPS, (written + nbytes(idx)) / HBM_BPS),
             "bound_by": "bytes", "bound_link": "PCIe for the pinned host pool",
+            "link_ms": gather_bench.link_ms(moved, dev), "moved_bytes": moved,
+            **host_gather_grid(ops, "recall_gather", dev, 1),
             "max_abs_err": max(errs), "tol": 0.0,
             "kernel_ms": ms_host, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
             "device_pool_ms": ms_dev,
@@ -412,18 +479,20 @@ def check_recall_values_quant(ops, ref, dev, gen):
                         f"recall_values_quant int{bits} g{group} {dt} from {src.device}: "
                         f"not bit-exact (max |err| {err})")
                 errs.append(err)
-    idx = _distinct_idx(gen, dev)
+    from repro_torch.launch import gather_bench
+    sels = gather_bench.selections(gen, dev)          # disjoint pages, every lane valid
+    idx = sels[0]
     dt = torch.bfloat16
     row = {}
     for bits in (8, 4):
         pool, scales = quantize_block(torch.randn(B, N_PAGES, KV, 2, P, D, generator=gen,
                                                   device=dev), bits, 0)
-        host = (pool.cpu().pin_memory(), scales.cpu().pin_memory(), idx)
+        hp, hs = pool.cpu().pin_memory(), scales.cpu().pin_memory()
         valid = int((idx >= 0).sum())
         moved = valid * (P * D * bits // 8 + scales.shape[-1] * 4)
         written = B * KV * N_SEL * P * D * 2
         fn = lambda p_, s_, i_: ops.recall_values_quant(p_, s_, i_, bits=bits, out_dtype=dt)
-        ms_host, call_ms = time_ms(fn, [host])
+        ms_host, call_ms = time_ms(fn, [(hp, hs, i) for i in sels])
         dev_args = [(pool, scales, _distinct_idx(gen, dev))
                     for _ in range(copies_for(moved + written))]
         ms_dev, _ = time_ms(fn, dev_args)
@@ -432,9 +501,12 @@ def check_recall_values_quant(ops, ref, dev, gen):
         row[bits] = {"ms": ms_host, "call_ms": call_ms, "device_pool_ms": ms_dev,
                      "plain_ms": plain_ms, "moved_bytes": moved,
                      "bound_ms": 1e3 * max(moved / PCIE_BPS, (written + nbytes(idx)) / HBM_BPS),
-                     "device_pool_bound_ms": 1e3 * (moved + written + nbytes(idx)) / HBM_BPS}
+                     "device_pool_bound_ms": 1e3 * (moved + written + nbytes(idx)) / HBM_BPS,
+                     "link_ms": gather_bench.link_ms(moved, dev)}
     r8 = row[8]
-    return {"name": "recall_values_quant",
+    return {"name": "recall_values_quant", "link_ms": r8["link_ms"],
+            "moved_bytes": r8["moved_bytes"],
+            **host_gather_grid(ops, "recall_gather_quant", dev, 1),
             "shape": f"pool({B},{N_PAGES},{KV},2,{P},{D}*bits/8) int8, "
                      f"scales({B},{N_PAGES},{KV},2,1) idx({B},{KV},{N_SEL}) -> V only, bf16",
             "bound_bytes": r8["moved_bytes"], "bound_ops": 0, "bound_ms": r8["bound_ms"],
@@ -651,6 +723,12 @@ def main_path(dev, ops, cfg, params, method, kv_quant):
             "correction_rate": outs[0].stats.get("correction_rate"),
             "spec_hit_rate": outs[0].stats.get("spec_hit_rate"),
             "sync_pages_per_step": outs[0].stats.get("sync_pages", 0) / steps,
+            # valid lanes of the critical-path top-up and of the staged gather,
+            # each over every lane its launches carry (B x kv x n_sel a launch)
+            "topup_valid_share": sum(o.stats.get("sync_pages", 0) for o in outs)
+            / (B * steps * cfg.n_layers * KV * N_SEL),
+            "staged_valid_share": sum(o.stats.get("async_pages", 0) for o in outs)
+            / (B * steps * cfg.n_layers * KV * N_SEL),
             "launches": launches,
             "launches_per_decode_step": {k: v / steps for k, v in launches.items()},
             "first_tokens": outs[0].tokens[:8]}
@@ -829,6 +907,7 @@ def main():
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import build, ops, ref
     dev = torch.device("cuda", 0)
+    log("[device] PCIe link " + json.dumps(link_info(dev)))
 
     # phase 2: build
     t0 = time.perf_counter()
@@ -867,8 +946,16 @@ def main():
             f"{k['kernel_ms']:.4f} ms vs bound {k['bound_ms']:.4f} ms | plain "
             f"{k['plain_ms']:.4f} ms | library {lib} | {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
-
+    rows = {k["name"]: k for k in kernels}
+    for name in ("recall_gather", "recall_values", "recall_gather_quant", "recall_values_quant"):
+        k = rows[name]
+        log(f"[kernel] {name} from the pinned pool: {k['kernel_ms']:.4f} ms, the link's "
+            f"ceiling (copy_ of the same {k['moved_bytes']} B) {k['link_ms']:.4f} ms, ratio "
+            f"{k['kernel_ms'] / k['link_ms']:.3f}; grid {k['host_grid_blocks']} blocks "
+            f"({k['host_sms']:g} SMs at {k['blocks_per_sm']} an SM); "
+            f"{k['device_grid_blocks']} blocks from a device pool")
     launches = {k["name"]: None for k in kernels}
+    share = None
     if not args.kernels_only:
         # phase 4: main path at full width, every retriever and pool tier
         cfg, params = llama_params(dev)
@@ -880,9 +967,28 @@ def main():
             log("[main] " + json.dumps(info))
             for name, n in run.items():
                 launches[name] += n
+            if (method, kv_quant) == ("freekv", "none"):
+                share = {"topup": info["topup_valid_share"], "staged": info["staged_valid_share"]}
         del params
         torch.cuda.empty_cache()
+        require(all(0 <= v <= 1 for v in share.values()), f"valid shares out of range: {share}")
         log("[main] shadowkv low-rank keys: " + json.dumps(time_low_rank_keys(dev, cfg, gen)))
+    # the overlap line, and the gathers again at the valid share of freekv/none's
+    # two recall launches, in a fresh process: one whose profiler has run many
+    # sessions can lose device events and serialize the two streams
+    bench = run_gather_bench(share)
+    for s_, ovl in bench["overlap"].items():
+        log(f"[overlap] 32 paged_attention alone and beside recall_gather (valid share {s_}) "
+            "on the side stream: " + json.dumps(ovl))
+    if share is not None:
+        log(f"[kernel] gathers at freekv/none's valid share {json.dumps(share)}: "
+            + json.dumps(bench["gathers"]))
+        for name, r in bench["gathers"].items():
+            base, _, bits = name.partition(" int")
+            ms = {kind: r["by_share"][str(v)]["ms"] for kind, v in share.items()}
+            target = rows[base]["int4"] if bits == "4" else rows[base]
+            target.update(real_share=share, real_share_ms=ms)
+    if not args.kernels_only:
         # phase 5: kernel path == plain path
         for method, kv_quant in (("freekv", "none"), ("freekv", "int8"), ("freekv", "int4"),
                                  ("shadowkv", "none"), ("shadowkv", "int8"),

@@ -67,11 +67,58 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// 16 bytes through the read-only path, not kept in L1. Only for data that no
+// thread writes while the kernel runs (the host-pool gathers: see the note
+// in recall_gather.cu). Volatile, so the compiler keeps each load where the
+// source issues it: ahead of the waits that follow it.
+__device__ __forceinline__ uint4 ld_stream(const uint4* p) {
+  uint4 r;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p));
+  return r;
+}
+
+// The gathers' walk. An item is one (request, KV head, lane), numbered as
+// the flat idx; it splits into kHalves units, its K and V halves (1 for the
+// V-only gathers), so a page's halves go to two warps and come in one round
+// trip. Every warp of the grid walks: warp `walker` takes units walker,
+// walker + walkers, ... (ops.gather_items computes the same partition).
+// Their page ids come 32 at a time, one load a lane, so a run of -1 lanes
+// costs one index load, not one per lane; then fn(unit, page) runs for each
+// in order, on the whole warp.
+template <int kHalves, typename Fn>
+__device__ __forceinline__ void walk_items(const int32_t* __restrict__ idx, int n_items,
+                                           Fn&& fn) {
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int walkers = gridDim.x * warps;
+  const int walker = blockIdx.x * warps + (threadIdx.x >> 5);
+  const int n_units = n_items * kHalves;
+  for (int u0 = walker; u0 < n_units; u0 += 32 * walkers) {
+    const int mine = u0 + lane * walkers;
+    const int page = mine < n_units ? idx[mine / kHalves] : -1;
+    const int n = min(32, (n_units - u0 + walkers - 1) / walkers);
+    for (int k = 0; k < n; ++k) fn(u0 + k * walkers, __shfl_sync(0xffffffffu, page, k));
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Hopper's asynchronous copies and the shared-memory barriers that track them
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 4 bytes from global to shared memory with no register in between
+// (cp.async); this thread's copies are complete after cp_async_wait_all
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // an mbarrier expecting `count` arrivals per phase; call from one thread,

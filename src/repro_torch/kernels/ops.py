@@ -226,6 +226,55 @@ def _pool_pointer(pool: torch.Tensor, device) -> ctypes.c_void_p:
     return kept[1]
 
 
+# ---------------------------------------------------------------------------
+GATHER_WARPS = 8       # kThreads / 32 in csrc/recall_gather*.cu: each warp walks its own units
+# SMs' worth of blocks in a gather from a pinned host pool: enough warps to
+# keep the link full, and the rest of the card free for the main stream
+HOST_GATHER_SMS = 32
+
+
+def gather_grid(n_units: int, sms: int, blocks_per_sm: int, host: bool) -> int:
+    """Blocks of a gather launch over ``n_units`` units (the K and V halves
+    of each (request, KV head, lane) item, or the V halves alone) on a card
+    of ``sms`` SMs that hold ``blocks_per_sm`` of its blocks at once. Every
+    warp of the grid walks its units (``gather_items``), copying valid
+    halves and zeroing those of -1 lanes. From a pinned host pool the grid is
+    what HOST_GATHER_SMS SMs hold, so the link is kept full from a few SMs
+    and the rest of the card stays free for the main stream; from a device
+    pool, what every SM holds. Never more blocks than the units fill
+    (GATHER_WARPS a block)."""
+    _require(blocks_per_sm >= 1 and sms >= 1, "gather_grid: bad card")
+    cap = (min(HOST_GATHER_SMS, sms) if host else sms) * blocks_per_sm
+    return max(1, min(cap, -(-n_units // GATHER_WARPS)))
+
+
+def gather_items(n_units: int, n_blocks: int, block: int) -> list:
+    """The units block ``block`` of an ``n_blocks`` grid walks, as the
+    kernels' ``walk_items`` does: its warp w is walker ``block *
+    GATHER_WARPS + w`` of ``n_blocks * GATHER_WARPS``, and walker i takes
+    units i, i + walkers, ... (unit u is half u % 2 of item u // 2 in a
+    K+V gather, the V half of item u in a V-only one)."""
+    walkers = n_blocks * GATHER_WARPS
+    return [i for w in range(block * GATHER_WARPS, (block + 1) * GATHER_WARPS)
+            for i in range(w, n_units, walkers)]
+
+
+@functools.lru_cache(maxsize=None)
+def gather_blocks_per_sm(source: str, index: int) -> int:
+    """Blocks of the gathers in csrc/<source>.cu an SM holds at once (by
+    registers and shared memory), asked of the runtime once per device."""
+    lib = build.load(source)
+    out = ctypes.c_int()
+    build.check(getattr(lib, f"freekv_{source}_blocks_per_sm")(index, ctypes.byref(out)),
+                f"{source} occupancy")
+    return out.value
+
+
+def _gather_blocks(source: str, pool: torch.Tensor, dev, n_units: int) -> int:
+    return gather_grid(n_units, _sm_count(dev.index), gather_blocks_per_sm(source, dev.index),
+                       host=pool.device != dev)
+
+
 def recall_gather(pool, idx):
     """pool (B,n_pages,kv,2,p,d) HND; idx (B,kv,n_sel) int32 (-1 pad) -> k, v
     each (B,kv,n_sel,p,d) in the pool's dtype, on idx's device.
@@ -247,8 +296,9 @@ def recall_gather(pool, idx):
     src = _pool_pointer(pool, dev)
     k = torch.empty((B, kv, n_sel, p, d), dtype=pool.dtype, device=dev)
     v = torch.empty_like(k)
-    rc = lib.freekv_recall_gather(src, _ptr(idx), _ptr(k), _ptr(v), B, n_pages,
-                                  kv, n_sel, half, dev.index, _stream(dev))
+    grid = _gather_blocks("recall_gather", pool, dev, 2 * idx.numel())
+    rc = lib.freekv_recall_gather(src, _ptr(idx), _ptr(k), _ptr(v), B, n_pages, kv, n_sel,
+                                  half, grid, dev.index, _stream(dev))
     build.check(rc, "recall_gather")
     recall_gather.launches += 1
     return k, v
@@ -273,7 +323,8 @@ def recall_values(pool, idx):
     lib = build.load("recall_gather")
     src = _pool_pointer(pool, dev)
     v = torch.empty((B, kv, n_sel, p, d), dtype=pool.dtype, device=dev)
-    rc = lib.freekv_recall_values(src, _ptr(idx), _ptr(v), B, n_pages, kv, n_sel, half,
+    grid = _gather_blocks("recall_gather", pool, dev, idx.numel())
+    rc = lib.freekv_recall_values(src, _ptr(idx), _ptr(v), B, n_pages, kv, n_sel, half, grid,
                                   dev.index, _stream(dev))
     build.check(rc, "recall_values")
     recall_values.launches += 1
@@ -319,8 +370,9 @@ def recall_gather_quant(pool, scales, idx, *, bits, out_dtype=torch.float32):
     src, src_scales = _pool_pointer(pool, dev), _pool_pointer(scales, dev)
     k = torch.empty((B, kv, n_sel, p, d), dtype=out_dtype, device=dev)
     v = torch.empty_like(k)
+    grid = _gather_blocks("recall_gather_quant", pool, dev, 2 * idx.numel())
     rc = lib.freekv_recall_gather_quant(src, src_scales, _ptr(idx), _ptr(k), _ptr(v), B,
-                                        n_pages, kv, n_sel, p, d, n_g, bits, code,
+                                        n_pages, kv, n_sel, p, d, n_g, bits, code, grid,
                                         dev.index, _stream(dev))
     build.check(rc, "recall_gather_quant")
     recall_gather_quant.launches += 1
@@ -339,8 +391,10 @@ def recall_values_quant(pool, scales, idx, *, bits, out_dtype=torch.float32):
     lib = build.load("recall_gather_quant")
     src, src_scales = _pool_pointer(pool, dev), _pool_pointer(scales, dev)
     v = torch.empty((B, kv, n_sel, p, d), dtype=out_dtype, device=dev)
+    grid = _gather_blocks("recall_gather_quant", pool, dev, idx.numel())
     rc = lib.freekv_recall_values_quant(src, src_scales, _ptr(idx), _ptr(v), B, n_pages, kv,
-                                        n_sel, p, d, n_g, bits, code, dev.index, _stream(dev))
+                                        n_sel, p, d, n_g, bits, code, grid, dev.index,
+                                        _stream(dev))
     build.check(rc, "recall_values_quant")
     recall_values_quant.launches += 1
     return v

@@ -229,3 +229,90 @@ def test_cuda_values_only_gathers_and_centroid_scores(dtype):
     torch.testing.assert_close(got, ref.centroid_scores_ref(q, cent, count, 0.09),
                                **_tol(torch.float32))
     assert (got.permute(0, 1, 3, 2)[(count == 0).permute(0, 2, 1)] == -1e30).all()
+
+
+def _lanes(kind, shape, n_pages, g, dev):
+    """idx of ``shape`` with every lane -1 ("none"), one valid lane ("one"),
+    every lane valid ("all"), or a mix of valid, -1, -2 and ids past
+    n_pages, which the kernels clamp ("mixed")."""
+    if kind == "mixed":
+        return torch.randint(-2, n_pages + 3, shape, generator=g, device=dev, dtype=torch.int32)
+    idx = torch.full(shape, -1, dtype=torch.int32, device=dev)
+    if kind == "all":
+        idx = torch.randint(0, n_pages, shape, generator=g, device=dev, dtype=torch.int32)
+    elif kind == "one":
+        idx.view(-1)[idx.numel() // 2] = n_pages - 1
+    return idx
+
+
+GATHER_CASES = [   # B, n_pages, kv, p, d, n_sel, lanes
+    (1, 5, 1, 16, 64, 1, "all"), (2, 9, 3, 16, 64, 57, "none"), (1, 40, 2, 64, 256, 57, "one"),
+    (3, 7, 2, 64, 64, 1, "mixed"), (1, 300, 1, 16, 256, 9, "mixed"),
+    (4, 259, 8, 32, 128, 56, "mixed"),
+    (4, 40, 8, 16, 64, 300, "mixed"),   # 9600 items: each host-grid warp walks 32+ of them
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("B,n_pages,kv,p,d,n_sel,lanes", GATHER_CASES)
+def test_cuda_gathers_bit_exact(B, n_pages, kv, p, d, n_sel, lanes, dtype):
+    """recall_gather and recall_values from a device pool and from a pinned
+    host pool equal their plain versions bit for bit: every lane -1, one
+    valid lane, n_sel 1 and 57, B = 1, p 16 to 64, d 64 to 256, ids past
+    n_pages clamped, the main shape, and more items than the host grid's
+    warps can take 32 at a time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(6)
+    pool = torch.randn(B, n_pages, kv, 2, p, d, generator=g, device=dev).to(dtype)
+    idx = _lanes(lanes, (B, kv, n_sel), n_pages, g, dev)
+    want_k, want_v = ref.recall_gather_ref(pool, idx)
+    for src in (pool, pool.cpu().pin_memory()):
+        k, v = ops.recall_gather(src, idx)
+        assert k.dtype == dtype and torch.equal(k, want_k) and torch.equal(v, want_v)
+        assert torch.equal(ops.recall_values(src, idx), want_v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("bits,group", [(8, 0), (4, 0), (8, 16), (4, 16), (8, 32), (4, 32)])
+@pytest.mark.parametrize("B,n_pages,kv,p,d,n_sel,lanes", [GATHER_CASES[i] for i in (0, 1, 2, 3, 6)])
+def test_cuda_quant_gathers_bit_exact(B, n_pages, kv, p, d, n_sel, lanes, bits, group, dtype):
+    """recall_gather_quant and recall_values_quant (int8 and int4, groups
+    0, 16 and 32, zero pages at scale 1) from a device pool and from a
+    pinned host pool equal their plain versions bit for bit, on the lane
+    patterns and shapes of ``test_cuda_gathers_bit_exact``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from repro_torch.quant.quantizers import quantize_block
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(7)
+    pool_f = torch.randn(B, n_pages, kv, 2, p, d, generator=g, device=dev)
+    pool_f[:, 0] = 0
+    pool, sc = quantize_block(pool_f, bits, group)
+    idx = _lanes(lanes, (B, kv, n_sel), n_pages, g, dev)
+    want_k, want_v = ref.recall_gather_quant_ref(pool, sc, idx, bits, dtype)
+    for src, ssrc in ((pool, sc), (pool.cpu().pin_memory(), sc.cpu().pin_memory())):
+        k, v = ops.recall_gather_quant(src, ssrc, idx, bits=bits, out_dtype=dtype)
+        assert k.dtype == dtype and torch.equal(k, want_k) and torch.equal(v, want_v)
+        got = ops.recall_values_quant(src, ssrc, idx, bits=bits, out_dtype=dtype)
+        assert torch.equal(got, want_v)
+
+
+@pytest.mark.cuda
+def test_cuda_gather_grid_fits_the_sm_cap():
+    """From a pinned pool each gather source launches a grid that
+    HOST_GATHER_SMS SMs hold at once, by the occupancy the runtime reports
+    for its kernels; from a device pool, one the whole card holds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for source in ("recall_gather", "recall_gather_quant"):
+        bps = ops.gather_blocks_per_sm(source, dev.index)
+        assert bps >= 1
+        assert ops.gather_grid(4 * 8 * 56, sms, bps, True) <= ops.HOST_GATHER_SMS * bps
+        assert ops.gather_grid(4 * 8 * 56, sms, bps, False) <= sms * bps
+

@@ -298,18 +298,26 @@ def test_split_merge_equals_plain(N, p, rows, masked):
 
 
 def test_kernel_ablation_edits_match_sources():
-    """Every edit of ``launch/kernel_ablation.py``'s variants still finds its
-    text in the kernel sources, exactly once, so the ablation keeps
-    measuring the kernels as they are."""
+    """Every edit of ``launch/kernel_ablation.py``'s variants (the attention
+    kernels' and the two gathers') still finds its text in the kernel
+    sources, exactly once, so the ablation keeps measuring the kernels as
+    they are; every gather variant names a build its sources have."""
     from repro_torch.kernels import build
     from repro_torch.launch import kernel_ablation as ka
     common = (build.CSRC / "common.cuh").read_text()
     for name, variants in (("flash_prefill", ka.FLASH_VARIANTS),
-                           ("paged_attention", {k: v[0] for k, v in ka.PAGED_VARIANTS.items()})):
+                           ("paged_attention", {k: v[0] for k, v in ka.PAGED_VARIANTS.items()}),
+                           *ka.GATHER_BUILDS.items()):
         src = (build.CSRC / f"{name}.cu").read_text()
         for vname, edits in variants.items():
             for old, _ in edits:
                 assert src.count(old) + common.count(old) == 1, (name, vname, old)
+    for vname, (bname, grid_sms) in ka.GATHER_VARIANTS.items():
+        assert bname in ka.GATHER_BUILDS["recall_gather"], vname
+        assert grid_sms is None or 1 <= grid_sms <= ops.HOST_GATHER_SMS, vname
+    assert {n for _, n in ka.GATHER_VARIANTS.values()} >= {8, 16, 32, None}
+    assert ka.variant_grid(1792, 132, 2, 32) == ops.gather_grid(1792, 132, 2, True)
+    assert ka.variant_grid(1792, 132, 2, None) == ops.gather_grid(1792, 132, 2, False)
 
 
 def test_p_split_emulation_keeps_flash_prefill_within_tol():
@@ -322,3 +330,102 @@ def test_p_split_emulation_keeps_flash_prefill_within_tol():
     res = run(t=256, heads=2)
     assert res["hi+lo"][0] == 0
     assert res["bf16"][0] > 0
+
+
+@pytest.mark.parametrize("host", [True, False], ids=["host_pool", "device_pool"])
+@pytest.mark.parametrize("B,kv,n_sel", [(4, 8, 56), (1, 1, 1), (3, 5, 7), (2, 3, 57),
+                                        (1, 8, 1), (5, 7, 113)])
+@pytest.mark.parametrize("sms,blocks_per_sm", [(132, 2), (132, 1), (8, 3), (1, 4)])
+def test_gather_grid_walks_every_item_once(B, kv, n_sel, host, sms, blocks_per_sm):
+    """``ops.gather_grid`` and ``ops.gather_items`` (pure functions, as the
+    gathers' ``walk_items`` partitions its work): every unit (the K and V
+    halves of each (b, kv, lane) item, or the V halves alone) goes to
+    exactly one block of the grid; from a host pool the grid is what
+    HOST_GATHER_SMS SMs hold, from a device pool what the card holds, and
+    never more blocks than the units fill."""
+    for halves in (1, 2):
+        n = halves * B * kv * n_sel
+        nb = ops.gather_grid(n, sms, blocks_per_sm, host)
+        seen = sorted(i for b in range(nb) for i in ops.gather_items(n, nb, b))
+        assert seen == list(range(n))
+        cap_sms = min(ops.HOST_GATHER_SMS, sms) if host else sms
+        assert 1 <= nb <= min(cap_sms * blocks_per_sm, -(-n // ops.GATHER_WARPS))
+        if host:
+            assert nb <= ops.HOST_GATHER_SMS * blocks_per_sm
+
+
+def test_gather_grid_main_path_shape():
+    """At the main path's gather (4 x 8 x 56 = 1792 items, 3584 K and V
+    halves; 132 SMs, two blocks an SM): a pinned host pool takes
+    HOST_GATHER_SMS (32) SMs' worth of blocks; a device pool the card's 264
+    for K+V, and for the V halves alone as many as they fill (1792 / 8 warps
+    = 224); bad card numbers are refused."""
+    assert ops.HOST_GATHER_SMS == 32
+    assert ops.gather_grid(2 * 1792, 132, 2, True) == 64
+    assert ops.gather_grid(1792, 132, 2, True) == 64
+    assert ops.gather_grid(2 * 1792, 132, 1, True) == 32
+    assert ops.gather_grid(2 * 1792, 132, 2, False) == 264
+    assert ops.gather_grid(1792, 132, 2, False) == 224
+    assert ops.gather_grid(1792, 16, 2, True) == 32          # a card smaller than the cap
+    with pytest.raises(ValueError):
+        ops.gather_grid(1792, 132, 0, True)
+
+
+@pytest.mark.parametrize("n_blocks", [1, 3, 40, 64])
+def test_gather_walk_equals_plain(n_blocks):
+    """The fp gather kernels' walk on the CPU: each block's warps copy each
+    valid unit's half of the clamped (2, p, d) block (unit -> item and half,
+    item -> request, KV head) and write zeros for the units of -1 items;
+    together they give ``recall_gather_ref``'s k and v, and the V-only walk
+    ``recall_values_ref``'s v, exactly, each output half written once."""
+    rng = np.random.default_rng(11)
+    B, n_pages, kv, p, d, n_sel = 3, 9, 5, 4, 8, 7
+    pool = torch.from_numpy(rng.standard_normal((B, n_pages, kv, 2, p, d), dtype=np.float32))
+    idx = torch.from_numpy(rng.integers(-2, n_pages + 3, (B, kv, n_sel)).astype(np.int32))
+    flat_pool = pool.reshape(-1, 2, p, d)            # blocks in (b, page, h) order
+    flat_idx = idx.reshape(-1).tolist()
+    for halves in (2, 1):
+        out = torch.full((2, idx.numel(), p, d), float("nan"))   # K, V
+        written = [0] * (halves * idx.numel())
+        n_units = halves * idx.numel()
+        for blk in range(n_blocks):
+            for unit in ops.gather_items(n_units, n_blocks, blk):
+                item, half = unit // halves, (unit % 2 if halves == 2 else 1)
+                page = flat_idx[item]
+                if page >= 0:
+                    bh = item // n_sel
+                    blk_ = ((bh // kv) * n_pages + min(page, n_pages - 1)) * kv + bh % kv
+                    out[half, item] = flat_pool[blk_, half]
+                else:
+                    out[half, item] = 0.0
+                written[unit] += 1
+        assert written == [1] * n_units
+        want_k, want_v = ref.recall_gather_ref(pool, idx)
+        assert torch.equal(out[1].reshape(want_v.shape), want_v)
+        if halves == 2:
+            assert torch.equal(out[0].reshape(want_k.shape), want_k)
+        else:
+            assert torch.equal(out[1].reshape(want_v.shape), ref.recall_values_ref(pool, idx))
+
+
+@pytest.mark.parametrize("d,bits", [(64, 8), (128, 8), (96, 8), (256, 4), (128, 4), (64, 4)])
+def test_quant_chunk_scale_index(d, bits):
+    """The quantized gather's scale index, tracked across a 16-byte chunk's
+    channels with one divide a chunk (``chunk_scales`` in
+    csrc/recall_gather_quant.cu), equals ``c // g`` for every channel of
+    every chunk, for every group count that divides d."""
+    def chunk_scales(c, g):
+        gi, nxt, out = c // g, (c // g + 1) * g, []
+        for j in range(16):
+            if c + j == nxt:
+                gi, nxt = gi + 1, nxt + g
+            out.append(gi)
+        return out
+
+    dp = d * bits // 8
+    for n_g in [n for n in range(1, min(d, 256) + 1) if d % n == 0]:
+        g = d // n_g
+        for c0 in range(0, dp, 16):
+            firsts = [c0] if bits == 8 else [c0, c0 + d // 2]
+            for c in firsts:
+                assert chunk_scales(c, g) == [(c + j) // g for j in range(16)], (n_g, c)
