@@ -7,7 +7,7 @@ Phases, each fatal on failure (nothing is caught):
   1. device: the card's name and power limit from nvidia-smi, its PCIe link
      (generation and width from nvidia-smi and sysfs, "not readable" where
      the machine hides them) and NUMA node; exits non-zero without CUDA.
-  2. build: the six CUDA sources (nine kernel entry points) from this
+  2. build: the six CUDA sources (eleven kernel entry points) from this
      checkout, one nvcc per source, in parallel.
   3. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes (B=4, kv=8, G=4, H=32, d=128, p=32, n_sel=56,
@@ -18,7 +18,13 @@ Phases, each fatal on failure (nothing is caught):
      device pool and from a pinned host pool, page_summary exact,
      flash_prefill within TOL plus a sliding-window case and a softcap case,
      centroid_scores within 2e-5 with empty clusters at exactly -1e30;
-     device times of the kernel, its plain version and one PyTorch call that
+     select_pages (scores, mask, group pooling and top-k in one launch) with
+     page ids exactly equal on far-apart, forced-tie and underflow inputs in
+     every pooling mode (also at 32768 pages, where a block's scores go to a
+     workspace), tie-aware on random inputs, exact with -1 candidates, and
+     pooled scores within 2e-5; centroid_candidates with candidate ids
+     exactly equal; each also timed beside the composition it replaced (the
+     scoring kernel plus the PyTorch ops around it); device times of the kernel, its plain version and one PyTorch call that
      computes the same function (a yardstick the port never calls), beside
      the bound; for the two attention kernels also the yardstick's own
      max |error| against the plain version and whether it is within TOL.
@@ -33,7 +39,12 @@ Phases, each fatal on failure (nothing is caught):
      completes during decode), five times: method freekv with kv_quant none
      and int8, shadowkv with none and int8, centroid with none. Every
      kernel's launch count is zeroed just before each run and read just
-     after; each kernel the run takes must rise. ShadowKV's low-rank key
+     after; each kernel the run takes must rise (select_pages in every run,
+     centroid_candidates under centroid), and the scores-only entries
+     page_scores and centroid_scores must not launch. After each run a few
+     decode steps are profiled (launch/decode_profile.py profile_decode):
+     host ops and device operations a step and the device's busy share.
+     ShadowKV's low-rank key
      factorization is timed at one layer's shape. Then, in a fresh process
      (launch/gather_bench.py), the overlap line: 32 paged_attention (one
      decode step's) alone and beside recall_gather on the staged-recall
@@ -568,6 +579,149 @@ def check_centroid_scores(ops, ref, dev, gen):
             "library_ms": lib_ms, "library_call": "2x torch.matmul + torch.where"}
 
 
+SELECT_MODES = ("mean_softmax", "max_softmax", "mean_qk", "max_qk")
+N_LARGE = 32768                           # the pages of a 1M-token context: blocks' workspace
+
+
+def _select_plain_composition(ops, ref, scale, n_sel, mode):
+    """What select_pages replaces on the card: the page_scores kernel, then
+    the plain mask, group pooling, stable sort and -1 padding."""
+    def run(q, summ, length):
+        s = ops.page_scores(q, summ, scale=scale)
+        ok = ref.selectable_mask_ref(summ.shape[1], length, P, N_SINK, N_WIN)
+        pooled = ref.group_pool_ref(s, ok[:, None, :].expand(-1, q.shape[1], -1), mode)
+        return ref.top_ids(pooled, None, n_sel)
+    return run
+
+
+def check_select_pages(ops, ref, dev, gen):
+    """select_pages against its plain version: exact ids on far-apart,
+    forced-tie and underflow inputs (every pooling mode, fp32 and bf16, the
+    main shape, and bf16 MeanS at N_LARGE pages), tie-aware on random
+    inputs, exact with -1 candidates; pooled within 2e-5."""
+    from repro_torch.launch.select_bench import select_inputs, tie_aware_mismatch
+    scale = 1.0 / math.sqrt(D)
+    tol = TOL[torch.float32]
+    err = 0.0
+
+    def both(q, summ, length, mode, cand=None, n_sel=N_SEL):
+        got = ops.select_pages(q, summ, length, n_sel=n_sel, scale=scale, page_size=P,
+                               n_sink=N_SINK, n_window=N_WIN, mode=mode, cand=cand,
+                               with_pooled=True)
+        want = ref.select_pages_ref(q, summ, length, n_sel, scale, P, N_SINK, N_WIN, mode, cand)
+        torch.cuda.synchronize()
+        return got, want
+
+    cases = [(b, N_PAGES, dt, mode) for dt in (torch.float32, torch.bfloat16)
+             for mode in SELECT_MODES for b in (B,)] + [(1, N_LARGE, torch.bfloat16,
+                                                         "mean_softmax")]
+    for b, n, dt, mode in cases:
+        for kind in ("distinct", "tie", "underflow", "random"):
+            q, summ, length = select_inputs(kind, b, KV, G, D, n, N_SEL, dt, gen, dev)
+            (idx, pooled), (want_idx, want_pooled) = both(q, summ, length, mode)
+            what = f"select_pages {kind} {mode} {dt} N={n}"
+            e = (pooled - want_pooled).abs().max().item()
+            require(torch.allclose(pooled, want_pooled, **tol),
+                    f"{what}: pooled max |err| {e}, tolerance {tol}")
+            err = max(err, e)
+            if kind == "random":
+                bad = tie_aware_mismatch(idx, want_idx, want_pooled)
+                require(bad is None, f"{what}: {bad}")
+            else:
+                require(torch.equal(idx, want_idx), f"{what}: page ids differ")
+    for mode in SELECT_MODES:                     # stage 2 of centroid selection
+        q, summ, length = select_inputs("distinct", B, KV, G, D, N_PAGES, N_SEL, torch.bfloat16,
+                                        gen, dev)
+        cand = torch.stack([torch.randperm(N_PAGES, generator=gen, device=dev)[:4 * N_SEL]
+                            for _ in range(B * KV)]).reshape(B, KV, -1).to(torch.int32)
+        cand[:, :, -30:] = -1
+        (idx, _), (want_idx, _) = both(q, summ, length, mode, cand)
+        require(torch.equal(idx, want_idx), f"select_pages with candidates {mode}: ids differ")
+    # timing at bf16 MeanS, the main path's call
+    dt, mode = torch.bfloat16, "mean_softmax"
+    args = [select_inputs("random", B, KV, G, D, N_PAGES, N_SEL, dt, gen, dev)
+            for _ in range(copies_for(B * N_PAGES * KV * 2 * D * 2))]
+    ms, call_ms = time_ms(lambda q, s, n: ops.select_pages(
+        q, s, n, n_sel=N_SEL, scale=scale, page_size=P, n_sink=N_SINK, n_window=N_WIN,
+        mode=mode), args)
+    comp = _select_plain_composition(ops, ref, scale, N_SEL, mode)
+    comp_ms, comp_call_ms = time_ms(comp, args)
+    plain_ms, _ = time_ms(lambda q, s, n: ref.select_pages_ref(q, s, n, N_SEL, scale, P, N_SINK,
+                                                               N_WIN, mode), args, iters=10)
+    q, summ, length = args[0]
+    byts = nbytes(q, summ, length) + B * KV * N_SEL * 4
+    flops = 4 * B * KV * G * N_PAGES * D
+    return {"name": "select_pages",
+            "shape": f"q({B},{KV},{G},{D}) summ({B},{N_PAGES},{KV},2,{D}) n_sel {N_SEL} MeanS",
+            "bound_bytes": byts, "bound_ops": flops,
+            "bound_ms": 1e3 * max(byts / HBM_BPS, flops / PEAK_OPS[dt]),
+            "bound_by": "bytes" if byts / HBM_BPS >= flops / PEAK_OPS[dt] else "operations",
+            "max_abs_err": err, "tol": tol, "ids": "exact (tie-aware on random inputs)",
+            "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
+            "composition_ms": comp_ms, "composition_call_ms": comp_call_ms,
+            "composition": "page_scores kernel + mask, pooling, stable sort (torch)",
+            "library_ms": None, "library_call": "none: no single PyTorch call selects pages"}
+
+
+def check_centroid_candidates(ops, ref, dev, gen):
+    """centroid_candidates against its plain version: candidate ids exactly
+    equal (empty clusters, unassigned pages, fewer selectable pages than m)
+    in fp32 and bf16, at the main shape and at N_LARGE pages."""
+    scale = 1.0 / math.sqrt(D)
+    m = 4 * N_SEL
+
+    def inputs(dt, n):
+        q = torch.randn(B, KV, G, D, generator=gen, device=dev).to(dt)
+        cent = torch.sort(torch.randn(B, N_CENT, KV, 2, D, generator=gen, device=dev),
+                          dim=3).values.to(dt)
+        assign = torch.randint(-1, N_CENT, (B, n, KV), generator=gen, device=dev,
+                               dtype=torch.int32)
+        count = torch.randint(1, 5, (B, N_CENT, KV), generator=gen, device=dev, dtype=torch.int32)
+        count[:, 3] = 0                                   # an empty cluster
+        length = torch.full((B,), (n - 2) * P + 7, dtype=torch.int32, device=dev)
+        length[1] = N_SINK + N_WIN + 40 * P               # fewer selectable pages than m
+        return q, cent, count, assign, length
+
+    for dt in (torch.float32, torch.bfloat16):
+        for n in (N_PAGES, N_LARGE):
+            args = inputs(dt, n)
+            got = ops.centroid_candidates(*args, m=m, scale=scale, page_size=P, n_sink=N_SINK,
+                                          n_window=N_WIN)
+            want = ref.centroid_candidates_ref(*args, m, scale, P, N_SINK, N_WIN)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want) and bool((got[1] == -1).any()),
+                    f"centroid_candidates {dt} N={n}: candidate ids differ")
+    dt = torch.bfloat16
+    args = [inputs(dt, N_PAGES) for _ in range(4)]
+    ms, call_ms = time_ms(lambda *a: ops.centroid_candidates(
+        *a, m=m, scale=scale, page_size=P, n_sink=N_SINK, n_window=N_WIN), args)
+
+    def comp(q, cent, count, assign, length):   # centroid_scores kernel + torch ops
+        cs = ops.centroid_scores(q, cent, count, scale=scale).amax(dim=2)
+        a = assign.permute(0, 2, 1)
+        inh = torch.gather(cs, -1, torch.where(a >= 0, a, 0).long())
+        ok = (a >= 0) & ref.selectable_mask_ref(assign.shape[1], length, P, N_SINK,
+                                                N_WIN)[:, None, :]
+        return ref.top_ids(torch.where(ok, inh, -1e30), None, m)
+    comp_ms, comp_call_ms = time_ms(comp, args)
+    plain_ms, _ = time_ms(lambda *a: ref.centroid_candidates_ref(*a, m, scale, P, N_SINK, N_WIN),
+                          args, iters=10)
+    q, cent, count, assign, length = args[0]
+    byts = nbytes(q, cent, count, assign, length) + B * KV * m * 4
+    flops = 4 * B * KV * G * N_CENT * D
+    return {"name": "centroid_candidates",
+            "shape": f"q({B},{KV},{G},{D}) cent({B},{N_CENT},{KV},2,{D}) "
+                     f"assign({B},{N_PAGES},{KV}) m {m}",
+            "bound_bytes": byts, "bound_ops": flops,
+            "bound_ms": 1e3 * max(byts / HBM_BPS, flops / PEAK_OPS[dt]),
+            "bound_by": "bytes" if byts / HBM_BPS >= flops / PEAK_OPS[dt] else "operations",
+            "max_abs_err": 0.0, "tol": 0.0,
+            "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
+            "composition_ms": comp_ms, "composition_call_ms": comp_call_ms,
+            "composition": "centroid_scores kernel + amax, gather, mask, stable sort (torch)",
+            "library_ms": None, "library_call": "none: no single PyTorch call selects candidates"}
+
+
 def check_page_summary(ops, ref, dev, gen):
     for dt in (torch.float32, torch.bfloat16):
         for T, extra in ((CONTEXT, 40), (P, 0)):   # a prefill prefix view; one decode page
@@ -673,14 +827,16 @@ def llama_params(dev):
 # the kernels each main-path run must launch (recall_gather reads the fp
 # pool, recall_gather_quant the quantized one; ShadowKV's decode recalls V
 # halves only; Centroid scores its cluster boxes every step)
-_COMMON = ("paged_attention", "page_scores", "page_summary", "flash_prefill")
+_COMMON = ("paged_attention", "select_pages", "page_summary", "flash_prefill")
 RUNS = {
     ("freekv", "none"): _COMMON + ("recall_gather",),
     ("freekv", "int8"): _COMMON + ("recall_gather_quant",),
     ("shadowkv", "none"): _COMMON + ("recall_values",),
     ("shadowkv", "int8"): _COMMON + ("recall_values_quant",),
-    ("centroid", "none"): _COMMON + ("centroid_scores", "recall_gather"),
+    ("centroid", "none"): _COMMON + ("centroid_candidates", "recall_gather"),
 }
+# the scores-only entries: held in phase 3, never on the main path
+OFF_PATH = ("page_scores", "centroid_scores")
 
 
 def main_path(dev, ops, cfg, params, method, kv_quant):
@@ -708,6 +864,8 @@ def main_path(dev, ops, cfg, params, method, kv_quant):
         require(all(0 <= t < cfg.vocab_size for t in o.tokens), f"request {o.uid}: bad token")
     for name in RUNS[(method, kv_quant)]:
         require(launches[name] > 0, f"{name} was never launched on the main path ({run})")
+    for name in OFF_PATH:
+        require(launches[name] == 0, f"{name} launched on the main path ({run})")
     # prefill summarises once per layer; more means a page completed (and
     # was quantized and summarised) during decode
     require(launches["page_summary"] > cfg.n_layers,
@@ -733,6 +891,14 @@ def main_path(dev, ops, cfg, params, method, kv_quant):
             "launches_per_decode_step": {k: v / steps for k, v in launches.items()},
             "first_tokens": outs[0].tokens[:8]}
     del eng, outs
+    torch.cuda.empty_cache()
+    # host ops, device operations and busy share of a few decode steps
+    from repro_torch.launch.decode_profile import profile_decode
+    toks = torch.from_numpy(np.stack([r.tokens for r in reqs])).long().to(dev)
+    prof = profile_decode(cfg, fkv, params, toks, steps=3, with_prefill=False)
+    info["profile"] = {k: prof[k] for k in ("wall_ms_per_step_unprofiled", "cpu_ops_per_step",
+                                            "device_ops_per_step", "device_busy_ms_per_step",
+                                            "device_busy_share")}
     torch.cuda.empty_cache()
     return info, launches
 
@@ -883,6 +1049,12 @@ KERNEL_META = {   # name -> (source, the TPU kernel it replaces)
                             "recall_gather_quant(values_only=True)"),
     "centroid_scores": ("src/repro_torch/kernels/csrc/page_scores.cu",
                         "src/repro/kernels/centroid_scores.py:40"),
+    "select_pages": ("src/repro_torch/kernels/csrc/page_scores.cu",
+                     "src/repro/kernels/page_scores.py:36 page_scores, fused with "
+                     "src/repro/core/selection.py:74-112 (pooling, mask, top-k)"),
+    "centroid_candidates": ("src/repro_torch/kernels/csrc/page_scores.cu",
+                            "src/repro/kernels/centroid_scores.py:40 centroid_scores, fused "
+                            "with src/repro/core/centroid_index.py:254-287"),
 }
 
 
@@ -930,7 +1102,8 @@ def main():
               "page_summary": check_page_summary, "flash_prefill": check_flash_prefill,
               "recall_values": check_recall_values,
               "recall_values_quant": check_recall_values_quant,
-              "centroid_scores": check_centroid_scores}
+              "centroid_scores": check_centroid_scores, "select_pages": check_select_pages,
+              "centroid_candidates": check_centroid_candidates}
     require(set(checks) == {fn.__name__ for fn in ops.KERNELS} == set(KERNEL_META),
             "a kernel has no check")
     kernels = []
@@ -942,6 +1115,8 @@ def main():
         if "library_max_abs_err" in k:
             lib += (f" (its max|err| {k['library_max_abs_err']:.3g}, within TOL: "
                     f"{k['library_within_tol']})")
+        if "composition_ms" in k:
+            lib += f" | replaced composition {k['composition_ms']:.4f} ms"
         log(f"[kernel] {k['name']}: max|err| {k['max_abs_err']:.3g} | "
             f"{k['kernel_ms']:.4f} ms vs bound {k['bound_ms']:.4f} ms | plain "
             f"{k['plain_ms']:.4f} ms | library {lib} | {time.perf_counter() - t0:.1f} s")
@@ -965,6 +1140,11 @@ def main():
             info, run = main_path(dev, ops, cfg, params, method, kv_quant)
             info["run_s"] = time.perf_counter() - t0
             log("[main] " + json.dumps(info))
+            pr = info["profile"]
+            log(f"[main] {method}/{kv_quant}: prefill {info['prefill_s']:.3f} s, decode "
+                f"{info['decode_ms_per_step']:.2f} ms/step; profiled steps: "
+                f"{pr['cpu_ops_per_step']} host ops, {pr['device_ops_per_step']:.1f} device "
+                f"operations, busy share {pr['device_busy_share']:.3f} a step")
             for name, n in run.items():
                 launches[name] += n
             if (method, kv_quant) == ("freekv", "none"):

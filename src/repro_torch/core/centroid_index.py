@@ -8,10 +8,10 @@ A CTkvr-style two-level index over the page summaries:
   * each cluster carries the elementwise min/max of its member pages'
     (lo, hi) summaries, so the Quest score of a query against the cluster
     box bounds the score of every member page;
-  * selection scores the query against the C boxes (the ``centroid_scores``
-    kernel), lets pages inherit their cluster's pooled bound, keeps the top
-    ``COVER_PAGES_FACTOR * n_sel`` candidates and scores only those with
-    ``page_scores``.
+  * selection scores the query against the C boxes, lets pages inherit
+    their cluster's pooled bound and keeps the top ``COVER_PAGES_FACTOR *
+    n_sel`` candidates (the ``centroid_candidates`` kernel), then scores,
+    pools and ranks only those (``select_pages`` with candidates).
 
 Incremental maintenance equals a full ``rebuild`` from (summaries, mean
 snapshot, length) bit for bit at any time: the means change only at the
@@ -40,7 +40,6 @@ from repro_torch.configs.base import ArchConfig, FreeKVConfig
 from repro_torch.core import selection
 from repro_torch.kernels import ops
 
-NEG_INF = -1e30
 # candidate pages kept after stage 1, as a multiple of n_sel
 COVER_PAGES_FACTOR = 4
 _BIG = torch.finfo(torch.float32).max
@@ -48,10 +47,6 @@ _BIG = torch.finfo(torch.float32).max
 
 def candidate_count(n_pages: int, n_sel: int) -> int:
     return min(n_pages, COVER_PAGES_FACTOR * n_sel)
-
-
-def _scale(cfg, d):
-    return cfg.attn_scale if cfg.attn_scale is not None else 1.0 / (d ** 0.5)
 
 
 # ---------------------------------------------------------------------------
@@ -243,54 +238,20 @@ def update_on_append(state, fkv: FreeKVConfig, length_host=None):
 # ---------------------------------------------------------------------------
 # two-stage selection
 # ---------------------------------------------------------------------------
-def cluster_scores(cfg: ArchConfig, q, state):
-    """Stage 1: q (B, H, d) against the cluster boxes through the
-    ``centroid_scores`` kernel -> (B, kv, C) f32, the group max of each
-    head's bound; empty clusters score -1e30."""
-    B, H, d = q.shape
-    kv = cfg.n_kv_heads
-    s = ops.centroid_scores(q.reshape(B, kv, H // kv, d).contiguous(), state["cent"],
-                            state["cent_count"], scale=_scale(cfg, d))
-    return s.amax(dim=2)
-
-
-def candidate_pages(cl_scores, cent_assign, valid, m):
-    """Pages inherit their cluster's pooled bound; the top ``m`` selectable
-    pages per (batch, KV head), -1-padded, ties in increasing page id as
-    ``jax.lax.top_k`` gives them -> (B, kv, m) int32."""
-    a = cent_assign.permute(0, 2, 1)                                      # (B, kv, N)
-    inh = torch.gather(cl_scores, -1, torch.where(a >= 0, a, 0).long())
-    ok = (a >= 0) & valid[:, None, :]
-    inh = torch.where(ok, inh, torch.full((), NEG_INF, device=inh.device))
-    top_s, top_i = selection.top_k_lower_index_first(inh, m)
-    return torch.where(top_s > NEG_INF / 2, top_i, -1).to(torch.int32)
-
-
 def centroid_select(cfg: ArchConfig, fkv: FreeKVConfig, q, state, n_sel):
-    """Centroid-then-token selection -> (idx (B, kv, n_sel) int32 page ids,
-    -1-padded; cand_idx (B, kv, m)). Stage 2 scores only the gathered
-    candidate summaries with ``page_scores``."""
+    """Centroid-then-token selection (reference ``centroid_index.py:289``)
+    -> (idx (B, kv, n_sel) int32 page ids, -1-padded; cand_idx (B, kv, m)).
+    Stage 1 (``ops.centroid_candidates``) scores the cluster boxes and keeps
+    the top m selectable pages by their cluster's bound; stage 2
+    (``ops.select_pages`` with ``cand``) scores only those candidates'
+    summaries, read in place, and pools and ranks them."""
     B, H, d = q.shape
     kv = cfg.n_kv_heads
-    N = state["summ"].shape[1]
-    dev = q.device
-    cs = cluster_scores(cfg, q, state)
-    valid = selection.selectable_mask(cfg, fkv, N, state["length"])
-    m = candidate_count(N, n_sel)
-    cand_idx = candidate_pages(cs, state["cent_assign"], valid, m)
-    # each head's own candidates on the page axis: (B, m, kv, 2, d), made
-    # contiguous for the kernel
-    safe = cand_idx.clamp(0, N - 1).long()
-    bI = torch.arange(B, device=dev)[:, None, None]
-    kI = torch.arange(kv, device=dev)[None, :, None]
-    summ_c = state["summ"][bI, safe, kI].permute(0, 2, 1, 3, 4).contiguous()
-    scores = selection.page_scores_minmax(q, summ_c, _scale(cfg, d))     # (B, H, m)
-    pooled = selection.group_consistent_scores(cfg, scores, cand_idx >= 0, fkv.group_pool)
-    k = min(n_sel, m)
-    top_s, top_i = selection.top_k_lower_index_first(pooled, k)
-    idx = torch.gather(cand_idx, 2, top_i)
-    idx = torch.where(top_s > NEG_INF / 2, idx, -1).to(torch.int32)
-    if k < n_sel:
-        pad = torch.full(idx.shape[:-1] + (n_sel - k,), -1, dtype=torch.int32, device=dev)
-        idx = torch.cat([idx, pad], dim=-1)
+    qg = q.reshape(B, kv, H // kv, d).contiguous()
+    kw = selection.select_kwargs(cfg, fkv, d)
+    m = candidate_count(state["summ"].shape[1], n_sel)
+    cand_idx = ops.centroid_candidates(qg, state["cent"], state["cent_count"],
+                                       state["cent_assign"], state["length"], m=m, **kw)
+    idx = ops.select_pages(qg, state["summ"], state["length"], n_sel=n_sel,
+                           mode=fkv.group_pool, cand=cand_idx, **kw)
     return idx, cand_idx

@@ -141,7 +141,7 @@ class FreeKVRetriever:
         B, T = k.shape[:2]
         state = paging.prefill_fill_pool(state, k, v, T)
         idx, _ = selection.select_pages(self.cfg, self.fkv, q_last, state["summ"],
-                                        state["length"], self._n_sel(state))
+                                        state["length"], self._n_sel(state), with_pooled=False)
         sk, sv = self._recall(paging.pool_view(state), idx)
         state["sel_k"] = sk.to(state["sel_k"].dtype)
         state["sel_v"] = sv.to(state["sel_v"].dtype)
@@ -223,7 +223,8 @@ class FreeKVRetriever:
         """-> (new_idx (B, kv, n_sel), extra info); ``corr`` lets a subclass
         send corrected heads to the exact scan."""
         new_idx, _ = selection.select_pages(self.cfg, self.fkv, q, state["summ"],
-                                            state["length"], self._n_sel(state))
+                                            state["length"], self._n_sel(state),
+                                            with_pooled=False)
         return new_idx, {}
 
 
@@ -255,7 +256,8 @@ class CentroidRetriever(FreeKVRetriever):
 
     def _select_indices(self, state, q, corr):
         exact_idx, _ = selection.select_pages(self.cfg, self.fkv, q, state["summ"],
-                                              state["length"], self._n_sel(state))
+                                              state["length"], self._n_sel(state),
+                                              with_pooled=False)
         cent_idx, cand_idx = centroid_index.centroid_select(self.cfg, self.fkv, q, state,
                                                             self._n_sel(state))
         new_idx = torch.where(corr[:, :, None], exact_idx, cent_idx)
@@ -323,7 +325,8 @@ class ShadowKVRetriever(FreeKVRetriever):
         cur_pos = state["length"]
         state = paging.append_token(state, k_new, v_new, length_host)
         n_sel = self._n_sel(state)
-        idx, _ = selection.select_pages(cfg, fkv, q, state["summ"], state["length"], n_sel)
+        idx, _ = selection.select_pages(cfg, fkv, q, state["summ"], state["length"], n_sel,
+                                        with_pooled=False)
         sel_pages = (idx >= 0).sum(dim=(1, 2))
         spec_hit = match_resident(idx, state["sel_idx"])[0].sum(dim=(1, 2))
         # keys: the selected pages reconstructed from the low-rank factors

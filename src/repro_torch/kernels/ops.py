@@ -194,6 +194,119 @@ def centroid_scores(q, cent, count, *, scale):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the fused selection kernels (csrc/page_scores.cu)
+MAX_CLUSTER = 8      # kMaxCluster: the portable thread-block cluster size
+SMEM_SCORES = 8192   # kSmemScores: G * pages whose scores a block keeps in shared memory
+SMEM_KEYS = 2048     # kSmemKeys: pages a block ranks in shared memory
+POOL_MODES = ("mean_softmax", "max_softmax", "mean_qk", "max_qk")
+
+
+def select_split(N: int, rows: int, sms: int) -> int:
+    """Blocks (one cluster) a fused selection kernel gives each of ``rows``
+    (request, KV head) rows of N pages on a card of ``sms`` SMs: about one
+    wave, and more where a block's pages would not fit its shared memory;
+    at most MAX_CLUSTER and at most N. Block r takes pages
+    ``split_range(N, S, r)``."""
+    want = max(sms // max(rows, 1), -(-N // SMEM_KEYS))
+    return max(1, min(MAX_CLUSTER, N, want))
+
+
+def _opt_ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None) if t is None else _ptr(t)
+
+
+def _keys_workspace(dev, rows, S, nl):
+    """Device memory for the keys of a block whose pages exceed SMEM_KEYS."""
+    if nl <= SMEM_KEYS:
+        return None
+    return torch.empty((rows, S, 2 * nl), dtype=torch.int64, device=dev)
+
+
+def select_pages(q, summ, length, *, n_sel, scale, page_size, n_sink, n_window,
+                 mode="mean_softmax", cand=None, with_pooled=False):
+    """Quest scores, selectable mask, group pooling and top-k in one launch.
+
+    q (B,kv,G,d); summ (B,N,kv,2,d); length (B,) int32 -> idx (B,kv,n_sel)
+    int32, -1 for invalid (ties: lower page id first); with ``with_pooled``
+    also the pooled scores (B,kv,N) float32. ``cand`` (B,kv,m) int32 page
+    ids (-1 invalid) scores only those pages, read in place: idx holds
+    candidates' ids, ties break by candidate position, pooled is (B,kv,m).
+    ``mode`` is one of POOL_MODES."""
+    _require(mode in POOL_MODES, f"select_pages: unknown pooling mode {mode!r}")
+    if not _on_cuda(q):
+        idx, pooled = ref.select_pages_ref(q, summ, length, n_sel, scale, page_size, n_sink,
+                                           n_window, mode, cand)
+        return (idx, pooled) if with_pooled else idx
+    dev = q.device
+    q, summ = _one_dtype(q, summ)
+    _check_cuda(dev, q, summ, length, *(() if cand is None else (cand,)))
+    code = _dtype_code(q, summ)
+    B, kv, G, d = q.shape
+    NP = summ.shape[1]
+    N = NP if cand is None else cand.shape[2]
+    _require(summ.shape == (B, NP, kv, 2, d) and length.shape == (B,)
+             and length.dtype == torch.int32
+             and (cand is None or (cand.shape == (B, kv, N) and cand.dtype == torch.int32)),
+             "select_pages: shape or dtype mismatch")
+    _require(G <= 16 and d <= 256 and N >= 1 and n_sel >= 1 and page_size >= 1,
+             "select_pages takes G <= 16, d <= 256, at least one page and n_sel >= 1")
+    lib = build.load("page_scores")
+    S = select_split(N, B * kv, _sm_count(dev.index))
+    nl = -(-N // S)
+    ws_s = (torch.empty((B * kv, S, G, nl), dtype=torch.float32, device=dev)
+            if G * nl > SMEM_SCORES else None)
+    ws_k = _keys_workspace(dev, B * kv, S, nl)
+    idx = torch.empty((B, kv, n_sel), dtype=torch.int32, device=dev)
+    pooled = torch.empty((B, kv, N), dtype=torch.float32, device=dev) if with_pooled else None
+    rc = lib.freekv_select_pages(
+        _ptr(q), _ptr(summ), _ptr(length), _opt_ptr(cand), _ptr(idx), _opt_ptr(pooled),
+        _opt_ptr(ws_s), _opt_ptr(ws_k), B, kv, G, N, NP, d, n_sel, min(n_sel, N), S, nl,
+        page_size, n_sink, n_window, POOL_MODES.index(mode), float(scale), code, dev.index,
+        _stream(dev))
+    build.check(rc, "select_pages")
+    select_pages.launches += 1
+    return (idx, pooled) if with_pooled else idx
+
+
+def centroid_candidates(q, cent, count, cent_assign, length, *, m, scale, page_size, n_sink,
+                        n_window):
+    """Stage 1 of centroid selection in one launch: q (B,kv,G,d) against the
+    cluster boxes cent (B,C,kv,2,d) (count (B,C,kv) int32, empty clusters
+    at -1e30), the max over G; each selectable page of cent_assign (B,N,kv)
+    int32 inherits its cluster's score -> the top m page ids (B,kv,m)
+    int32, ties in increasing page id, -1-padded."""
+    if not _on_cuda(q):
+        return ref.centroid_candidates_ref(q, cent, count, cent_assign, length, m, scale,
+                                           page_size, n_sink, n_window)
+    dev = q.device
+    q, cent = _one_dtype(q, cent)
+    _check_cuda(dev, q, cent, count, cent_assign, length)
+    code = _dtype_code(q, cent)
+    B, kv, G, d = q.shape
+    C, N = cent.shape[1], cent_assign.shape[1]
+    _require(cent.shape == (B, C, kv, 2, d) and count.shape == (B, C, kv)
+             and cent_assign.shape == (B, N, kv) and length.shape == (B,)
+             and all(t.dtype == torch.int32 for t in (count, cent_assign, length)),
+             "centroid_candidates: shape or dtype mismatch")
+    _require(G <= 16 and d <= 256 and 1 <= m <= N and (G + 1) * C <= SMEM_SCORES
+             and page_size >= 1,
+             "centroid_candidates takes G <= 16, d <= 256, 1 <= m <= N pages and "
+             f"(G + 1) * C <= {SMEM_SCORES}")
+    lib = build.load("page_scores")
+    S = select_split(N, B * kv, _sm_count(dev.index))
+    nl = -(-N // S)
+    ws_k = _keys_workspace(dev, B * kv, S, nl)
+    cand = torch.empty((B, kv, m), dtype=torch.int32, device=dev)
+    rc = lib.freekv_centroid_candidates(
+        _ptr(q), _ptr(cent), _ptr(count), _ptr(cent_assign), _ptr(length), _ptr(cand),
+        _opt_ptr(ws_k), B, kv, G, C, N, d, m, S, nl, page_size, n_sink, n_window, float(scale),
+        code, dev.index, _stream(dev))
+    build.check(rc, "centroid_candidates")
+    centroid_candidates.launches += 1
+    return cand
+
+
 def device_pointer(t: torch.Tensor, device) -> ctypes.c_void_p:
     """The address at which ``device`` may read ``t``: its own for device
     memory, the mapped one for pinned host memory; raises otherwise."""
@@ -460,5 +573,6 @@ def flash_prefill(q, k, v, *, scale, causal=True, window=None, softcap=None):
 
 
 KERNELS = (paged_attention, page_scores, recall_gather, recall_gather_quant, page_summary,
-           flash_prefill, recall_values, recall_values_quant, centroid_scores)
+           flash_prefill, recall_values, recall_values_quant, centroid_scores, select_pages,
+           centroid_candidates)
 reset_launches()

@@ -43,6 +43,107 @@ def centroid_scores_ref(q, cent, count, scale):
     return torch.where(ok, s, torch.full((), NEG_INF, dtype=s.dtype, device=s.device))
 
 
+def selectable_mask_ref(n_pages, length, page_size, n_sink, n_window):
+    """(B, n_pages) bool: fully offloaded pages outside the sink and the
+    local window (those tokens are resident on the device already);
+    reference ``core/selection.py:37``."""
+    p = page_size
+    pages = torch.arange(n_pages, device=length.device)
+    first = n_sink // p
+    n_done = torch.div(length, p, rounding_mode="floor")
+    last = torch.clamp(torch.div(length - n_window, p, rounding_mode="floor"), min=first)
+    return (pages[None, :] >= first) & (pages[None, :] < torch.minimum(n_done, last)[:, None])
+
+
+def group_pool_ref(scores, ok, mode):
+    """(B, kv, G, n) per-q-head scores, ok (B, kv, n) bool -> (B, kv, n)
+    group-consistent scores (reference ``core/selection.py:49``
+    ``group_consistent_scores``): mean_softmax (MeanS), max_softmax,
+    mean_qk or max_qk."""
+    neg = torch.full((), NEG_INF, dtype=scores.dtype, device=scores.device)
+    s = torch.where(ok[:, :, None, :], scores, neg)
+    if mode.endswith("softmax"):
+        s = torch.softmax(s, dim=-1)
+        # XLA and the TPU flush subnormal results to zero; flush them here
+        # too, so pages whose probability underflows tie at exactly 0.0 and
+        # the top-k order among them is the reference's (lower id first)
+        s = torch.where(s < torch.finfo(s.dtype).tiny, torch.zeros((), dtype=s.dtype,
+                                                                   device=s.device), s)
+    pooled = s.mean(dim=2) if mode.startswith("mean") else s.amax(dim=2)
+    return torch.where(ok, pooled, neg)
+
+
+def top_k_lower_index_first(x, k):
+    """``jax.lax.top_k`` semantics: the k largest along the last axis, equal
+    values in increasing index order (a stable descending sort; ``torch.topk``
+    promises no order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def top_ids(vals, ids, n_sel):
+    """Top-k positions of vals (B, kv, n) -> their ids (B, kv, n_sel) int32:
+    ``ids`` None for the positions themselves, else gathered from ``ids``;
+    -1 where the value is <= -5e29 and -1-padded past n."""
+    k = min(n_sel, vals.shape[-1])
+    top_s, top_i = top_k_lower_index_first(vals, k)
+    if ids is not None:
+        top_i = torch.gather(ids, 2, top_i)
+    idx = torch.where(top_s > NEG_INF / 2, top_i, -1).to(torch.int32)
+    if k < n_sel:
+        pad = torch.full(idx.shape[:-1] + (n_sel - k,), -1, dtype=torch.int32,
+                         device=idx.device)
+        idx = torch.cat([idx, pad], dim=-1)
+    return idx
+
+
+def select_pages_ref(q, summ, length, n_sel, scale, page_size, n_sink, n_window, mode,
+                     cand=None):
+    """Quest scores -> selectable mask -> group pooling -> top-k page ids
+    (reference ``core/selection.py:74-112`` without ``select_top_p`` and
+    ``q_pool``). q (B, kv, G, d); summ (B, N, kv, 2, d); length (B,) int32
+    -> (idx (B, kv, n_sel) int32, -1 for invalid, pooled (B, kv, N) f32).
+
+    With ``cand`` (B, kv, m) int32 page ids, -1 invalid: stage 2 of the
+    reference's ``centroid_select`` (``core/centroid_index.py:289-330``):
+    only the candidates' summaries are scored, the mask is ``cand >= 0``,
+    ties break by candidate position, the ids are ``cand[top_i]`` and
+    pooled is (B, kv, m)."""
+    N = summ.shape[1]
+    if cand is None:
+        scores = page_scores_ref(q, summ, scale)                   # (B,kv,G,N)
+        ok = selectable_mask_ref(N, length, page_size, n_sink, n_window)
+        ok = ok[:, None, :].expand(-1, q.shape[1], -1)
+    else:
+        # each head's own candidates on the page axis: (B, m, kv, 2, d)
+        B, kv = cand.shape[:2]
+        safe = cand.clamp(0, N - 1).long()
+        bI = torch.arange(B, device=cand.device)[:, None, None]
+        kI = torch.arange(kv, device=cand.device)[None, :, None]
+        summ_c = summ[bI, safe, kI].permute(0, 2, 1, 3, 4).contiguous()
+        scores = page_scores_ref(q, summ_c, scale)                 # (B,kv,G,m)
+        ok = cand >= 0
+    pooled = group_pool_ref(scores, ok, mode)
+    return top_ids(pooled, cand, n_sel), pooled
+
+
+def centroid_candidates_ref(q, cent, count, cent_assign, length, m, scale, page_size,
+                            n_sink, n_window):
+    """Stage 1 of centroid selection (reference ``core/centroid_index.py:254-287``
+    ``cluster_scores`` + ``candidate_pages``): q (B, kv, G, d) against the
+    cluster boxes cent (B, C, kv, 2, d), empty clusters (count (B, C, kv)
+    == 0) at -1e30, the max over the G rows; each selectable page with a
+    cluster (cent_assign (B, N, kv) >= 0) inherits its cluster's score; the
+    top m, ties in increasing page id -> (B, kv, m) int32, -1-padded."""
+    cs = centroid_scores_ref(q, cent, count, scale).amax(dim=2)   # (B, kv, C)
+    a = cent_assign.permute(0, 2, 1)                               # (B, kv, N)
+    inh = torch.gather(cs, -1, torch.where(a >= 0, a, 0).long())
+    valid = selectable_mask_ref(cent_assign.shape[1], length, page_size, n_sink, n_window)
+    ok = (a >= 0) & valid[:, None, :]
+    inh = torch.where(ok, inh, torch.full((), NEG_INF, device=inh.device))
+    return top_ids(inh, None, m)
+
+
 def paged_attention_ref(q, k_pages, v_pages, page_pos, cur_pos, scale,
                         softcap=None):
     """Decode attention over per-KV-head page sets (reference

@@ -6,13 +6,19 @@ random bf16 weights, ``torch.profiler`` over one prefill and over a few
 
     PYTHONPATH=src python -m repro_torch.launch.decode_profile [--steps 4] \
         [--method freekv|shadowkv|centroid] [--kv-quant none|int8|int4] \
-        [--quant-group-size 0]
+        [--quant-group-size 0] [--main-runs]
 
 Prints one JSON line: the prefill's wall s, device-busy s and top kernels;
 per decode step the host wall ms, device-busy ms (sum of kernel and copy
-time on the card), the busy share, the top kernels by device time, the top
-host-side ops by self CPU time, and the count of host-device
-synchronisations. Needs a card; exits non-zero without one.
+time on the card), the busy share, the PyTorch ops the host dispatched and
+the device operations (kernels, copies), the top kernels by device time,
+the top host-side ops by self CPU time, and the count of host-device
+synchronisations. ``profile_decode`` gives the same for weights already on
+the card (``chip_smoke.py`` phase 4). ``--main-runs`` gives the decode's
+numbers for each of the five main-path runs on one set of weights; it uses
+only the model's public functions, so another checkout is measured with
+``PYTHONPATH=<other>/src python src/repro_torch/launch/decode_profile.py``.
+Needs a card; exits non-zero without one.
 """
 import argparse
 import json
@@ -24,6 +30,98 @@ import torch
 
 # the main path's shapes (chip_smoke.py phase 4)
 ARCH, CONTEXT, BATCH, WARMUP = "llama31-8b", 8192, 4, 3
+MAIN_RUNS = (("freekv", "none"), ("freekv", "int8"), ("shadowkv", "none"), ("shadowkv", "int8"),
+             ("centroid", "none"))
+
+
+def profile_decode(cfg, fkv, params, toks, steps=4, trace_out=None, with_prefill=True):
+    """The numbers ``main`` prints, for ``params`` already on the card and
+    prompts ``toks`` (B, T) on the card: the prefill's (when
+    ``with_prefill``) and a decode step's, as one dict."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.model import prefill, serve_step
+
+    max_len = toks.shape[1] + 64 + WARMUP + steps
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+    def device_rows(events):
+        # device-side rows only (kernels, copies): an aten op's row repeats
+        # the device time of the kernels it launched
+        return [e for e in events if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+
+    prefill_out = None
+    # warm-up prefill on a short prompt (builds and loads the kernels), the
+    # timed one, then (with_prefill) one under the profiler
+    prefill(cfg, fkv, params, {"tokens": toks[:, :512]}, max_len, state_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill(cfg, fkv, params, {"tokens": toks}, max_len,
+                            state_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if with_prefill:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prefill(cfg, fkv, params, {"tokens": toks}, max_len, state_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+        pre_rows = device_rows(prof.key_averages())
+        prefill_out = {
+            "wall_s_unprofiled": prefill_s,
+            "device_busy_s": sum(dev_us(e) for e in pre_rows) / 1e6,
+            "top_device_s": [(e.key[:80], dev_us(e) / 1e6, e.count)
+                             for e in sorted(pre_rows, key=dev_us, reverse=True)[:12]],
+        }
+        del prof
+
+    def step(logits, state):
+        cur = torch.argmax(logits, dim=-1)[:, None]
+        return serve_step(cfg, fkv, params, state, cur)
+
+    for _ in range(WARMUP):
+        logits, state = step(logits, state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, state = step(logits, state)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            logits, state = step(logits, state)
+        torch.cuda.synchronize()
+    if trace_out:
+        prof.export_chrome_trace(trace_out)
+    events = prof.key_averages()
+    dev_events = device_rows(events)
+    busy_ms = sum(dev_us(e) for e in dev_events) / 1e3 / steps
+    top_dev = sorted(dev_events, key=dev_us, reverse=True)[:15]
+    top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:15]
+    syncs = {e.key: e.count // steps for e in events
+             if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                          "cudaMemcpyAsync", "cudaEventSynchronize", "cudaLaunchKernel",
+                          "cudaLaunchKernelExC", "cudaStreamWaitEvent",
+                          "cudaPointerGetAttributes")}
+    return {
+        "device": torch.cuda.get_device_name(0), "arch": cfg.name, "batch": toks.shape[0],
+        "context": toks.shape[1], "method": fkv.method, "offload": fkv.offload,
+        "kv_quant": fkv.kv_quant,
+        "steps": steps, "prefill_s": prefill_s, "prefill": prefill_out,
+        "wall_ms_per_step_unprofiled": wall_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "device_busy_share": busy_ms / wall_ms if wall_ms else None,
+        "cpu_ops_per_step": sum(e.count for e in events
+                                if e.key.startswith("aten::")) // steps,
+        "device_ops_per_step": sum(e.count for e in dev_events) / steps,
+        "runtime_calls_per_step": syncs,
+        "top_device_ms_per_step": [(e.key[:80], dev_us(e) / 1e3 / steps, e.count // steps)
+                                   for e in top_dev],
+        "top_self_cpu_ms_per_step": [(e.key[:80], e.self_cpu_time_total / 1e3 / steps,
+                                      e.count // steps) for e in top_cpu],
+    }
 
 
 def main(argv=None):
@@ -37,18 +135,19 @@ def main(argv=None):
                     help="quantized host KV tier")
     ap.add_argument("--quant-group-size", type=int, default=0,
                     help="channels per quantization scale (0 = one per page half)")
+    ap.add_argument("--main-runs", action="store_true",
+                    help="the five runs of chip_smoke.py phase 4 (freekv none/int8, "
+                         "shadowkv none/int8, centroid none) on one set of weights, "
+                         "decode only: one JSON line each")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("decode_profile: needs a CUDA device", file=sys.stderr)
         return 1
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.configs.base import FreeKVConfig
     from repro_torch.data.synthetic import needle_stream
-    from repro_torch.models.model import init_params, prefill, serve_step
+    from repro_torch.models.model import init_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -59,82 +158,18 @@ def main(argv=None):
     stream = needle_stream(cfg.vocab_size, CONTEXT, fkv.page_size, seed=0)
     toks = torch.from_numpy(np.stack([next(stream).tokens for _ in range(BATCH)]))
     toks = toks.long().to(dev)
-    max_len = CONTEXT + 64 + WARMUP + args.steps
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-
-    def device_rows(events):
-        # device-side rows only (kernels, copies): an aten op's row repeats
-        # the device time of the kernels it launched
-        return [e for e in events if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-
-    # warm-up prefill on a short prompt (builds and loads the kernels), the
-    # timed one, then one under the profiler
-    prefill(cfg, fkv, params, {"tokens": toks[:, :512]}, max_len, state_dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, state = prefill(cfg, fkv, params, {"tokens": toks}, max_len,
-                            state_dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prefill(cfg, fkv, params, {"tokens": toks}, max_len, state_dtype=torch.bfloat16)
-        torch.cuda.synchronize()
-    pre_rows = device_rows(prof.key_averages())
-    prefill_out = {
-        "wall_s_unprofiled": prefill_s,
-        "device_busy_s": sum(dev_us(e) for e in pre_rows) / 1e6,
-        "top_device_s": [(e.key[:80], dev_us(e) / 1e6, e.count)
-                         for e in sorted(pre_rows, key=dev_us, reverse=True)[:12]],
-    }
-    del prof
-
-    def step(logits, state):
-        cur = torch.argmax(logits, dim=-1)[:, None]
-        return serve_step(cfg, fkv, params, state, cur)
-
-    for _ in range(WARMUP):
-        logits, state = step(logits, state)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(args.steps):
-        logits, state = step(logits, state)
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(args.steps):
-            logits, state = step(logits, state)
-        torch.cuda.synchronize()
-    if args.trace_out:
-        prof.export_chrome_trace(args.trace_out)
-    events = prof.key_averages()
-    dev_events = device_rows(events)
-    busy_ms = sum(dev_us(e) for e in dev_events) / 1e3 / args.steps
-    top_dev = sorted(dev_events, key=dev_us, reverse=True)[:15]
-    top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:15]
-    syncs = {e.key: e.count // args.steps for e in events
-             if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                          "cudaMemcpyAsync", "cudaEventSynchronize", "cudaLaunchKernel",
-                          "cudaStreamWaitEvent", "cudaPointerGetAttributes")}
-    out = {
-        "device": torch.cuda.get_device_name(0), "arch": cfg.name, "batch": BATCH,
-        "context": CONTEXT, "method": fkv.method, "offload": fkv.offload,
-        "kv_quant": fkv.kv_quant,
-        "steps": args.steps, "prefill": prefill_out,
-        "wall_ms_per_step_unprofiled": wall_ms,
-        "device_busy_ms_per_step": busy_ms,
-        "device_busy_share": busy_ms / wall_ms if wall_ms else None,
-        "cpu_ops_per_step": sum(e.count for e in events
-                                if e.key.startswith("aten::")) // args.steps,
-        "runtime_calls_per_step": syncs,
-        "top_device_ms_per_step": [(e.key[:80], dev_us(e) / 1e3 / args.steps, e.count // args.steps)
-                                   for e in top_dev],
-        "top_self_cpu_ms_per_step": [(e.key[:80], e.self_cpu_time_total / 1e3 / args.steps,
-                                      e.count // args.steps) for e in top_cpu],
-    }
-    print(json.dumps(out), flush=True)
+    if not args.main_runs:
+        print(json.dumps(profile_decode(cfg, fkv, params, toks, args.steps, args.trace_out)),
+              flush=True)
+        return 0
+    for method, kv_quant in MAIN_RUNS:
+        fkv = FreeKVConfig(method=method, offload="host", kv_quant=kv_quant)
+        out = profile_decode(cfg, fkv, params, toks, args.steps, with_prefill=False)
+        keep = ("method", "kv_quant", "prefill_s", "wall_ms_per_step_unprofiled",
+                "device_busy_ms_per_step", "device_busy_share", "cpu_ops_per_step",
+                "device_ops_per_step", "runtime_calls_per_step")
+        print(json.dumps({k: out[k] for k in keep}), flush=True)
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -316,3 +316,104 @@ def test_cuda_gather_grid_fits_the_sm_cap():
         assert ops.gather_grid(4 * 8 * 56, sms, bps, True) <= ops.HOST_GATHER_SMS * bps
         assert ops.gather_grid(4 * 8 * 56, sms, bps, False) <= sms * bps
 
+
+
+# ---------------------------------------------------------------------------
+# the fused selection kernels (select_pages, centroid_candidates)
+# ---------------------------------------------------------------------------
+SELECT_MODES = ["mean_softmax", "max_softmax", "mean_qk", "max_qk"]
+SEL_P, SEL_SINK, SEL_WIN = 32, 128, 160
+
+
+def select_inputs(kind, B, kv, G, d, N, n_sel, dtype, g, dev):
+    from repro_torch.launch.select_bench import select_inputs
+    return select_inputs(kind, B, kv, G, d, N, n_sel, dtype, g, dev, SEL_P, SEL_SINK, SEL_WIN)
+
+
+def _select(fn, q, summ, length, n_sel, mode, cand=None):
+    return fn(q, summ, length, n_sel, 0.09, SEL_P, SEL_SINK, SEL_WIN, mode, cand)
+
+
+def _ops_select(q, summ, length, n_sel, scale, p, sink, win, mode, cand):
+    return ops.select_pages(q, summ, length, n_sel=n_sel, scale=scale, page_size=p,
+                            n_sink=sink, n_window=win, mode=mode, cand=cand, with_pooled=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("mode", SELECT_MODES)
+@pytest.mark.parametrize("B,kv,N", [(4, 8, 259), (1, 8, 16384), (1, 2, 32768)])
+def test_cuda_select_pages_matches_plain(B, kv, N, mode, dtype):
+    """select_pages on the card against its plain version: page ids exactly
+    equal on far-apart and forced-tie inputs (ties across the cluster's
+    blocks, ties at probability 0.0), pooled within 2e-5, and tie-aware on
+    random inputs; N 259 (the main path), 16384 (a block's pages just fit
+    shared memory) and 32768 (1M tokens: the workspace in device memory)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(8)
+    G, d, n_sel = 4, 128, 56
+    for kind in ("distinct", "tie", "underflow", "random"):
+        q, summ, length = select_inputs(kind, B, kv, G, d, N, n_sel, dtype, g, dev)
+        idx, pooled = _select(_ops_select, q, summ, length, n_sel, mode)
+        want_idx, want_pooled = _select(ref.select_pages_ref, q, summ, length, n_sel, mode)
+        assert idx.dtype == torch.int32 and idx.shape == (B, kv, n_sel)
+        torch.testing.assert_close(pooled, want_pooled, atol=2e-5, rtol=2e-5)
+        if kind == "random":
+            from repro_torch.launch.select_bench import tie_aware_mismatch
+            assert tie_aware_mismatch(idx, want_idx, want_pooled) is None
+        else:
+            assert torch.equal(idx, want_idx), kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("mode", SELECT_MODES)
+def test_cuda_select_pages_candidates_match_plain(mode, dtype):
+    """select_pages with candidate ids (-1 among them, read in place) on the
+    card: ids exactly equal to the plain version's on far-apart inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(9)
+    B, kv, G, d, N, n_sel, m = 4, 8, 4, 128, 259, 56, 224
+    q, summ, length = select_inputs("distinct", B, kv, G, d, N, n_sel, dtype, g, dev)
+    cand = torch.stack([torch.randperm(N, generator=g, device=dev)[:m] for _ in range(B * kv)])
+    cand = cand.reshape(B, kv, m).to(torch.int32)
+    cand[:, :, -30:] = -1
+    cand[0, 0] = -1                                         # a row of -1 candidates only
+    idx, pooled = _select(_ops_select, q, summ, length, n_sel, mode, cand)
+    want_idx, want_pooled = _select(ref.select_pages_ref, q, summ, length, n_sel, mode, cand)
+    assert torch.equal(idx, want_idx)
+    torch.testing.assert_close(pooled, want_pooled, atol=2e-5, rtol=2e-5)
+    assert (idx[0, 0] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("N", [259, 16384])
+def test_cuda_centroid_candidates_match_plain(N, dtype):
+    """centroid_candidates on the card: candidate ids exactly equal to the
+    plain version's (pages of a cluster tie by construction and come in
+    page-id order), with empty clusters and unassigned pages."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(10)
+    B, kv, G, d, C = 4, 8, 4, 128, 16
+    q = torch.randn(B, kv, G, d, generator=g, device=dev).to(dtype)
+    cent = torch.sort(torch.randn(B, C, kv, 2, d, generator=g, device=dev), dim=3).values
+    cent = cent.to(dtype)
+    assign = torch.randint(-1, C, (B, N, kv), generator=g, device=dev, dtype=torch.int32)
+    count = torch.randint(1, 5, (B, C, kv), generator=g, device=dev, dtype=torch.int32)
+    count[:, 3] = 0
+    length = torch.full((B,), (N - 2) * SEL_P + 7, dtype=torch.int32, device=dev)
+    length[1] = SEL_SINK + SEL_WIN + 40 * SEL_P                # fewer selectable pages than m
+    for m in (224, min(N, 4000)):
+        got = ops.centroid_candidates(q, cent, count, assign, length, m=m, scale=0.09,
+                                      page_size=SEL_P, n_sink=SEL_SINK, n_window=SEL_WIN)
+        want = ref.centroid_candidates_ref(q, cent, count, assign, length, m, 0.09, SEL_P,
+                                           SEL_SINK, SEL_WIN)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        assert (got[1] == -1).any()

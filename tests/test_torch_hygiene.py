@@ -87,12 +87,20 @@ def test_cuda_request_without_built_library_raises(monkeypatch):
                                         torch.zeros((1, 1, 2), dtype=torch.int32), bits=8),
         lambda: ops.centroid_scores(q, torch.randn(1, 4, 1, 2, 16),
                                     torch.ones((1, 4, 1), dtype=torch.int32), scale=0.25),
+        lambda: ops.select_pages(q, torch.randn(1, 3, 1, 2, 16),
+                                 torch.tensor([24], dtype=torch.int32), n_sel=2, scale=0.25,
+                                 page_size=8, n_sink=0, n_window=0),
+        lambda: ops.centroid_candidates(q, torch.randn(1, 4, 1, 2, 16),
+                                        torch.ones((1, 4, 1), dtype=torch.int32),
+                                        torch.zeros((1, 3, 1), dtype=torch.int32),
+                                        torch.tensor([24], dtype=torch.int32), m=2, scale=0.25,
+                                        page_size=8, n_sink=0, n_window=0),
     ]
     assert len(calls) == len(ops.KERNELS)
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()
-    assert [fn.launches for fn in ops.KERNELS] == [0] * 9
+    assert [fn.launches for fn in ops.KERNELS] == [0] * 11
 
 
 def test_other_devices_raise():

@@ -227,7 +227,13 @@ def test_cpu_dispatch_counts_no_launch():
                             bits=8)
     ops.centroid_scores(q, torch.randn(1, 4, 1, 2, 16), torch.ones((1, 4, 1), dtype=torch.int32),
                         scale=0.25)
-    assert [fn.launches for fn in ops.KERNELS] == [0] * 9
+    length = torch.tensor([24], dtype=torch.int32)
+    ops.select_pages(q, torch.randn(1, 3, 1, 2, 16), length, n_sel=2, scale=0.25, page_size=8,
+                     n_sink=0, n_window=0)
+    ops.centroid_candidates(q, torch.randn(1, 4, 1, 2, 16), torch.ones((1, 4, 1), dtype=torch.int32),
+                            torch.zeros((1, 3, 1), dtype=torch.int32), length, m=2, scale=0.25,
+                            page_size=8, n_sink=0, n_window=0)
+    assert [fn.launches for fn in ops.KERNELS] == [0] * 11
 
 
 @pytest.mark.parametrize("sms", [1, 8, 108, 132])
