@@ -15,8 +15,11 @@ Phases, each fatal on failure (nothing is caught):
      clusters), in bfloat16 and float32, with the tolerances of TOL: the
      gathers (recall_gather and recall_values; recall_gather_quant and
      recall_values_quant at int8 and int4, groups 0/16/32) exact from a
-     device pool and from a pinned host pool, page_summary exact,
-     flash_prefill within TOL plus a sliding-window case and a softcap case,
+     device pool and from a pinned host pool, page_summary exact and
+     flash_prefill within TOL at a continuous admission's shapes (B=1,
+     T=8192 and 7168; timed at B=1, T=8192) and at the static batch's (B=4,
+     T=8192; timed beside it), flash_prefill also with a sliding-window case
+     and a softcap case,
      centroid_scores within 2e-5 with empty clusters at exactly -1e30;
      select_pages (scores, mask, group pooling and top-k in one launch) with
      page ids exactly equal on far-apart, forced-tie and underflow inputs in
@@ -32,31 +35,42 @@ Phases, each fatal on failure (nothing is caught):
      pages (the card's L2 keeps system-memory reads), beside the link's
      ceiling: one contiguous copy_ of the same bytes from pinned memory,
      and each logs the grid it launches from a pinned and from a device pool.
-  4. main path: ServeEngine(scheduler="static") serving llama31-8b at full
-     width (32 layers, seeded random bf16 weights) with FreeKV defaults,
-     recall_overlap=True and the KV pool in pinned host memory: 4 requests
-     of 8192-token needle prompts, 40 greedy tokens each (so a page
-     completes during decode), five times: method freekv with kv_quant none
-     and int8, shadowkv with none and int8, centroid with none. Every
-     kernel's launch count is zeroed just before each run and read just
-     after; each kernel the run takes must rise (select_pages in every run,
-     centroid_candidates under centroid), and the scores-only entries
-     page_scores and centroid_scores must not launch. After each run a few
-     decode steps are profiled (launch/decode_profile.py profile_decode):
-     host ops and device operations a step and the device's busy share.
-     ShadowKV's low-rank key
-     factorization is timed at one layer's shape. Then, in a fresh process
-     (launch/gather_bench.py), the overlap line: 32 paged_attention (one
-     decode step's) alone and beside recall_gather on the staged-recall
-     stream; and the four gathers again at the valid share of freekv/none's
-     top-up and staged recall launches (with --kernels-only: the overlap
-     line only, after phase 3).
+  4. main path: ServeEngine(scheduler="continuous"), the default, serving
+     llama31-8b at full width (32 layers, seeded random bf16 weights) with
+     FreeKV defaults, recall_overlap=True and the KV pool in pinned host
+     memory, over 4 slots: 8 requests of needle prompts of 8192, 6144, 4096
+     and 7168 tokens (two of each) with 40 and 16 greedy tokens in turn, so
+     slots turn over while other lanes decode and a page completes during
+     decode; five times: method freekv with kv_quant none and int8,
+     shadowkv with none and int8, centroid with none. Before them the
+     static lockstep path (freekv/none) serves the same 8 requests in two
+     left-padded batches of 4, in the same process, for the comparison. Every kernel's launch count
+     is zeroed just before each run and read just after; each kernel the
+     run takes must rise (select_pages in every run, centroid_candidates
+     under centroid), flash_prefill must launch once a layer for each
+     admitted request, page_summary more (a page completed in decode), and
+     the scores-only entries page_scores and centroid_scores must not
+     launch. Each run logs tokens and TTFT per request, decode ms a step,
+     host reads a generated token, tokens/s and peak memory. After each
+     continuous run a few eager decode steps are profiled
+     (launch/decode_profile.py profile_decode): host ops and device
+     operations a step and the device's busy share; for freekv/none also a
+     continuous window of 8 steps on the same state beside 8 steps of the
+     static engine (profile_window).
+     ShadowKV's low-rank key factorization is timed at one layer's shape.
+     Then, in a fresh process (launch/gather_bench.py), the overlap line: 32
+     paged_attention (one decode step's) alone and beside recall_gather on
+     the staged-recall stream; and the four gathers again at the valid
+     share of the continuous freekv/none run's top-up and staged recall
+     launches (with --kernels-only: the overlap line only, after phase 3).
   5. kernel path == plain path: granite-3-8b-smoke at float32 gives the same
      greedy tokens on the card (kernels) and on the CPU (plain versions):
-     freekv and shadowkv under kv_quant none, int8 and int4, centroid under
-     none and int8 with a re-center at every completed page; and the
-     centroid index kept step by step on the card equals its rebuild bit
-     for bit.
+     static, freekv and shadowkv under kv_quant none, int8 and int4,
+     centroid under none and int8 with a re-center at every completed page;
+     continuous, freekv under none and int8, shadowkv and centroid under
+     none, 5 requests of mixed lengths over 2 slots, one of them ended by an
+     eos inside a window; and the centroid index kept step by step on the
+     card equals its rebuild bit for bit.
 Then one JSON line with the kernels' numbers and, last, the ok line.
 """
 import argparse
@@ -187,6 +201,9 @@ B, KV, G, D, P, N_SEL = 4, 8, 4, 128, 32, 56
 N_SINK, N_WIN = 128, 128 + 32
 L = N_SINK + N_WIN + N_SEL * P            # 2080
 CONTEXT, NEW_TOKENS = 8192, 40            # 40: the 32nd decode step completes a page
+# the continuous runs' traffic: 8 requests over B slots (multiples of 32)
+CONT_PROMPTS = (8192, 6144, 4096, 7168) * 2
+CONT_NEW = (40, 16) * 4
 MAX_LEN = CONTEXT + 2 * NEW_TOKENS
 N_PAGES = -(-MAX_LEN // P)                # 259
 H = KV * G                                # 32 query heads
@@ -723,28 +740,41 @@ def check_centroid_candidates(ops, ref, dev, gen):
 
 
 def check_page_summary(ops, ref, dev, gen):
+    # (b, T): a continuous admission's prefill at the longest prompt and at one
+    # that is not a power of two (B=1), the static batch's prefill (B=4), and
+    # one decode page of every slot; each a prefix view of a longer tensor
+    cases = ((1, CONTEXT, 40), (1, 7168, 40), (B, CONTEXT, 40), (B, P, 0))
     for dt in (torch.float32, torch.bfloat16):
-        for T, extra in ((CONTEXT, 40), (P, 0)):   # a prefill prefix view; one decode page
-            full = torch.randn(B, T + extra, KV, D, generator=gen, device=dev).to(dt)
+        for b, T, extra in cases:
+            full = torch.randn(b, T + extra, KV, D, generator=gen, device=dev).to(dt)
             k = full[:, :T]
             got = ops.page_summary(k, page_size=P)
             want = ref.page_summary_ref(k, P)
             torch.cuda.synchronize()
             require(got.dtype == dt and torch.equal(got, want),
-                    f"page_summary {dt} T={T}: not exact (max |err| "
+                    f"page_summary {dt} B={b} T={T}: not exact (max |err| "
                     f"{(got.float() - want.float()).abs().max().item()})")
     dt = torch.bfloat16
-    args = [(torch.randn(B, CONTEXT, KV, D, generator=gen, device=dev).to(dt),)
-            for _ in range(copies_for(B * CONTEXT * KV * D * 2))]
-    ms, call_ms = time_ms(lambda k: ops.page_summary(k, page_size=P), args)
-    plain_ms, _ = time_ms(lambda k: ref.page_summary_ref(k, P), args, iters=10)
-    lib_ms, _ = time_ms(lambda k: torch.aminmax(k.view(B, CONTEXT // P, P, KV, D), dim=2), args)
-    byts = nbytes(args[0][0]) + B * (CONTEXT // P) * KV * 2 * D * 2
-    return {"name": "page_summary", "shape": f"k({B},{CONTEXT},{KV},{D}) -> ({B},{CONTEXT // P},{KV},2,{D})",
-            "bound_bytes": byts, "bound_ops": 0, "bound_ms": 1e3 * byts / HBM_BPS,
-            "bound_by": "bytes", "max_abs_err": 0.0, "tol": 0.0,
-            "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "library_call": "torch.aminmax over the page axis"}
+
+    def timed(b):
+        args = [(torch.randn(b, CONTEXT, KV, D, generator=gen, device=dev).to(dt),)
+                for _ in range(copies_for(b * CONTEXT * KV * D * 2))]
+        ms, call_ms = time_ms(lambda k: ops.page_summary(k, page_size=P), args)
+        plain_ms, _ = time_ms(lambda k: ref.page_summary_ref(k, P), args, iters=10)
+        lib_ms, _ = time_ms(lambda k: torch.aminmax(k.view(b, CONTEXT // P, P, KV, D), dim=2),
+                            args)
+        byts = nbytes(args[0][0]) + b * (CONTEXT // P) * KV * 2 * D * 2
+        return {"shape": f"k({b},{CONTEXT},{KV},{D}) -> ({b},{CONTEXT // P},{KV},2,{D})",
+                "bound_bytes": byts, "bound_ops": 0, "bound_ms": 1e3 * byts / HBM_BPS,
+                "bound_by": "bytes", "kernel_ms": ms, "kernel_call_ms": call_ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms}
+
+    # timed at a continuous admission's prefill (B=1), the main path's shape,
+    # and at the static batch's (B=4) beside it
+    return {"name": "page_summary", **timed(1), "static_batch": timed(B),
+            "max_abs_err": 0.0, "tol": 0.0,
+            "checked": [f"B={b} T={t}" for b, t, _ in cases],
+            "library_call": "torch.aminmax over the page axis"}
 
 
 def _prefill_inputs(gen, dev, dt, b, h, kv, t, d):
@@ -760,7 +790,11 @@ def check_flash_prefill(ops, ref, dev, gen):
     errs = {}
     lib_prec = None
     cases = [  # (name, B, H, kv, T, d, window, softcap)
-        ("main", B, H, KV, CONTEXT, D, None, None),
+        # a continuous admission (the main path's shape) at the longest
+        # prompt and at one that is not a power of two; the static batch
+        ("admit 8192", 1, H, KV, CONTEXT, D, None, None),
+        ("admit 7168", 1, H, KV, 7168, D, None, None),
+        ("static", B, H, KV, CONTEXT, D, None, None),
         ("window", 1, 8, 2, 1000, D, 256, None),
         ("softcap", 2, 4, 2, 777, 64, None, 30.0),
     ]
@@ -776,7 +810,7 @@ def check_flash_prefill(ops, ref, dev, gen):
                     f"flash_prefill {name} {dt}: max |err| {err} (max |want| "
                     f"{want.float().abs().max().item()}), tolerance {TOL[dt]}")
             errs[(name, dt)] = err
-            if name == "main" and dt == torch.bfloat16:
+            if name == "admit 8192" and dt == torch.bfloat16:
                 sdpa = torch.nn.functional.scaled_dot_product_attention(
                     *(x.contiguous() for x in (q, k, v)), is_causal=True, scale=scale,
                     enable_gqa=True)
@@ -785,25 +819,33 @@ def check_flash_prefill(ops, ref, dev, gen):
             del q, k, v, got, want
     dt = torch.bfloat16
     scale = 1.0 / math.sqrt(D)
-    args = [_prefill_inputs(gen, dev, dt, B, H, KV, CONTEXT, D)]
-    ms, call_ms = time_ms(lambda q, k, v: ops.flash_prefill(q, k, v, scale=scale), args, iters=3)
-    plain_ms, _ = time_ms(lambda q, k, v: ref.flash_prefill_ref(q, k, v, scale), args, iters=1)
-    sdpa_args = [tuple(x.contiguous() for x in args[0])]
-    lib_ms, _ = time_ms(lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True, scale=scale, enable_gqa=True), sdpa_args, iters=10)
-    q, k, v = args[0]
-    byts = nbytes(q, k, v, q)
-    flops = 4 * B * H * D * (CONTEXT * (CONTEXT + 1) // 2)   # QK^T and PV over the causal pairs
-    return {"name": "flash_prefill", "shape": f"q({B},{H},{CONTEXT},{D}) kv({B},{KV},{CONTEXT},{D}) causal",
-            "bound_bytes": byts, "bound_ops": flops,
-            "bound_ms": 1e3 * max(byts / HBM_BPS, flops / PEAK_OPS[dt]),
-            "bound_by": "bytes" if byts / HBM_BPS >= flops / PEAK_OPS[dt] else "operations",
-            "max_abs_err": errs[("main", torch.bfloat16)],
-            "max_abs_err_fp32": errs[("main", torch.float32)],
+
+    def timed(b):
+        args = [_prefill_inputs(gen, dev, dt, b, H, KV, CONTEXT, D)]
+        ms, call_ms = time_ms(lambda q, k, v: ops.flash_prefill(q, k, v, scale=scale), args,
+                              iters=3)
+        plain_ms, _ = time_ms(lambda q, k, v: ref.flash_prefill_ref(q, k, v, scale), args,
+                              iters=1)
+        sdpa_args = [tuple(x.contiguous() for x in args[0])]
+        lib_ms, _ = time_ms(lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, enable_gqa=True), sdpa_args, iters=10)
+        q, k, v = args[0]
+        byts = nbytes(q, k, v, q)
+        flops = 4 * b * H * D * (CONTEXT * (CONTEXT + 1) // 2)   # QK^T and PV, causal pairs
+        return {"shape": f"q({b},{H},{CONTEXT},{D}) kv({b},{KV},{CONTEXT},{D}) causal",
+                "bound_bytes": byts, "bound_ops": flops,
+                "bound_ms": 1e3 * max(byts / HBM_BPS, flops / PEAK_OPS[dt]),
+                "bound_by": "bytes" if byts / HBM_BPS >= flops / PEAK_OPS[dt] else "operations",
+                "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms}
+
+    # timed at a continuous admission (B=1), the main path's shape, and at
+    # the static batch's (B=4) beside it
+    return {"name": "flash_prefill", **timed(1), "static_batch": timed(B),
+            "max_abs_err": errs[("admit 8192", torch.bfloat16)],
+            "max_abs_err_fp32": errs[("admit 8192", torch.float32)],
             "max_abs_err_cases": {f"{n} {str(t).split('.')[-1]}": e for (n, t), e in errs.items()},
             "tol": TOL[torch.bfloat16], "tol_fp32": TOL[torch.float32],
-            "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms,
             "library_call": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
             **lib_prec}
 
@@ -839,67 +881,99 @@ RUNS = {
 OFF_PATH = ("page_scores", "centroid_scores")
 
 
-def main_path(dev, ops, cfg, params, method, kv_quant):
+def main_path(dev, ops, cfg, params, method, kv_quant, scheduler="continuous"):
     from repro_torch.configs.base import FreeKVConfig
     from repro_torch.data.synthetic import needle_stream
+    from repro_torch.obs import Observability
     from repro_torch.quant.accounting import page_block_bytes
     from repro_torch.serving.engine import Request, ServeEngine
 
     fkv = FreeKVConfig(method=method, offload="host", kv_quant=kv_quant)
-    stream = needle_stream(cfg.vocab_size, CONTEXT, fkv.page_size, seed=0)
-    reqs = [Request(uid=i, tokens=next(stream).tokens, max_new_tokens=NEW_TOKENS)
-            for i in range(B)]
+    reqs = [Request(uid=i, tokens=next(needle_stream(cfg.vocab_size, n, fkv.page_size,
+                                                     seed=i)).tokens, max_new_tokens=m)
+            for i, (n, m) in enumerate(zip(CONT_PROMPTS, CONT_NEW))]
+    # one prefill per admitted request, or per lockstep batch of B
+    prefills = len(reqs) if scheduler == "continuous" else -(-len(reqs) // B)
+    # the per-step latency histogram (no trace): decode ms a step
     eng = ServeEngine(cfg, fkv, params, max_len=MAX_LEN, batch_size=B,
-                      state_dtype=torch.bfloat16, scheduler="static", device=dev)
+                      state_dtype=torch.bfloat16, scheduler=scheduler,
+                      obs=Observability(enabled=True), device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
     t0 = time.perf_counter()
     outs = eng.generate(reqs)
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
-    run = f"{method}/{kv_quant}"
+    em = eng.last_metrics
+    run = f"{scheduler} {method}/{kv_quant}"
     require(eng.last_logits_finite, f"non-finite logits on the main path ({run})")
-    for o in outs:
-        require(len(o.tokens) == NEW_TOKENS, f"request {o.uid}: {len(o.tokens)} tokens")
+    for o, r in zip(outs, reqs):
+        require(len(o.tokens) == r.max_new_tokens, f"request {o.uid}: {len(o.tokens)} tokens")
         require(all(0 <= t < cfg.vocab_size for t in o.tokens), f"request {o.uid}: bad token")
     for name in RUNS[(method, kv_quant)]:
         require(launches[name] > 0, f"{name} was never launched on the main path ({run})")
     for name in OFF_PATH:
         require(launches[name] == 0, f"{name} launched on the main path ({run})")
-    # prefill summarises once per layer; more means a page completed (and
-    # was quantized and summarised) during decode
-    require(launches["page_summary"] > cfg.n_layers,
+    # one flash_prefill a layer for each prefill (each admitted request under
+    # the continuous scheduler, the batch under the static one); page_summary
+    # as often at prefill, and more means a page completed (and was quantized
+    # and summarised) during decode
+    require(launches["flash_prefill"] == cfg.n_layers * prefills,
+            f"flash_prefill launched {launches['flash_prefill']} times for {prefills} "
+            f"prefills of {cfg.n_layers} layers ({run})")
+    require(launches["page_summary"] > cfg.n_layers * prefills,
             f"no page completed during decode ({run}): page_summary launched "
-            f"{launches['page_summary']} times for {cfg.n_layers} layers")
-    steps = max(outs[0].steps, 1)
-    info = {"arch": cfg.name, "method": method, "kv_quant": kv_quant, "requests": B,
-            "prompt_tokens": CONTEXT, "tokens_per_request": [len(o.tokens) for o in outs],
-            "prefill_s": outs[0].prefill_s, "decode_ms_per_step": 1e3 * outs[0].decode_s / steps,
-            "decode_steps": steps, "wall_s": wall,
+            f"{launches['page_summary']} times for {prefills} prefills of {cfg.n_layers} layers")
+    steps = em.steps
+    lat = em.summary()["latency"]["decode_step_s"]
+    decode_ms = 1e3 * lat["sum"] / lat["count"]
+    # measured by either engine: from generate()'s start to the first
+    # token's arrival on the host
+    ttft = [o.metrics.ttft_s for o in outs]
+    gen_tokens = sum(len(o.tokens) for o in outs)
+    info = {"arch": cfg.name, "scheduler": scheduler, "method": method, "kv_quant": kv_quant,
+            "slots": B, "requests": len(reqs), "prompt_tokens": [len(r.tokens) for r in reqs],
+            "tokens_per_request": [len(o.tokens) for o in outs],
+            "ttft_s": ttft, "prefill_s": [o.prefill_s for o in outs],
+            "decode_ms_per_step": decode_ms, "decode_steps": steps,
+            "slot_occupancy": em.slot_occupancy,
+            "host_syncs": em.host_syncs, "host_syncs_per_token": em.host_syncs / gen_tokens,
+            "host_syncs_per_step": em.host_syncs / max(steps, 1),
+            "tokens_per_s": gen_tokens / wall, "wall_s": wall,
             "bytes_per_recalled_page": page_block_bytes(fkv, cfg.d_head, itemsize=2),
             "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
             "correction_rate": outs[0].stats.get("correction_rate"),
             "spec_hit_rate": outs[0].stats.get("spec_hit_rate"),
-            "sync_pages_per_step": outs[0].stats.get("sync_pages", 0) / steps,
-            # valid lanes of the critical-path top-up and of the staged gather,
-            # each over every lane its launches carry (B x kv x n_sel a launch)
-            "topup_valid_share": sum(o.stats.get("sync_pages", 0) for o in outs)
-            / (B * steps * cfg.n_layers * KV * N_SEL),
-            "staged_valid_share": sum(o.stats.get("async_pages", 0) for o in outs)
-            / (B * steps * cfg.n_layers * KV * N_SEL),
+            "dropped_in_flight_pages": em.dropped_pages,
             "launches": launches,
-            "launches_per_decode_step": {k: v / steps for k, v in launches.items()},
+            "launches_per_decode_step": {k: v / max(steps, 1) for k, v in launches.items()},
             "first_tokens": outs[0].tokens[:8]}
+    # valid lanes of the critical-path top-up and of the staged gather, each
+    # over every lane of the live rows' launches (kv x n_sel a row)
+    lanes = em.active_slot_steps * cfg.n_layers * KV * N_SEL
+    info["topup_valid_share"] = sum(o.stats.get("sync_pages", 0) for o in outs) / lanes
+    info["staged_valid_share"] = sum(o.stats.get("async_pages", 0) for o in outs) / lanes
     del eng, outs
     torch.cuda.empty_cache()
-    # host ops, device operations and busy share of a few decode steps
-    from repro_torch.launch.decode_profile import profile_decode
-    toks = torch.from_numpy(np.stack([r.tokens for r in reqs])).long().to(dev)
-    prof = profile_decode(cfg, fkv, params, toks, steps=3, with_prefill=False)
-    info["profile"] = {k: prof[k] for k in ("wall_ms_per_step_unprofiled", "cpu_ops_per_step",
-                                            "device_ops_per_step", "device_busy_ms_per_step",
-                                            "device_busy_share")}
-    torch.cuda.empty_cache()
+    if scheduler == "continuous":
+        # host ops, device operations and busy share of a few eager decode
+        # steps, and for freekv/none of a continuous window of 8 steps
+        from repro_torch.launch.decode_profile import profile_decode
+        stream = needle_stream(cfg.vocab_size, CONTEXT, fkv.page_size, seed=0)
+        toks = torch.from_numpy(np.stack([next(stream).tokens for _ in range(B)]))
+        window = 8 if (method, kv_quant) == ("freekv", "none") else 0
+        prof = profile_decode(cfg, fkv, params, toks.long().to(dev), steps=3,
+                              with_prefill=False, window=window)
+        info["profile"] = {k: prof[k] for k in ("wall_ms_per_step_unprofiled",
+                                                "cpu_ops_per_step", "device_ops_per_step",
+                                                "device_busy_ms_per_step", "device_busy_share")}
+        if window:
+            info["profile"]["window"] = prof["window"]
+            # the window's one read at its end is its only wait for the card
+            require(prof["window"]["host_syncs_per_step"] <= 1 / window,
+                    f"a decode window of {window} steps made the host wait for the card "
+                    f"{prof['window']['sync_calls']} times ({run})")
+        torch.cuda.empty_cache()
     return info, launches
 
 
@@ -990,6 +1064,45 @@ def kernel_vs_plain_end_to_end(dev, method, kv_quant):
     require(toks["cuda"] == toks["cpu"], f"greedy tokens differ ({method}/{kv_quant}): "
             f"card {toks['cuda']} vs cpu {toks['cpu']}")
     return toks["cuda"]
+
+
+def continuous_vs_plain(dev, method, kv_quant):
+    """The continuous scheduler on the card against the CPU: granite-3-8b-
+    smoke at float32, 5 requests of mixed lengths over 2 slots (slot
+    turnover, an idle row stepping at the end), request 2 ended by an eos
+    picked inside a window. Greedy tokens and step counts must be equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    cfg = get_config("granite-3-8b-smoke")
+    fkv = _smoke_fkv(method, kv_quant)
+    params_gpu = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    params_cpu = _tree_map(lambda t: t.cpu(), params_gpu)
+    lens, news = (256, 200, 129, 256, 184), (16, 5, 12, 9, 7)
+    prompts = [next(needle_stream(cfg.vocab_size, n, 8, seed=10 + i)).tokens
+               for i, n in enumerate(lens)]
+
+    def run(where, eos=None):
+        eng = ServeEngine(cfg, fkv, params_gpu if where == "cuda" else params_cpu,
+                          max_len=320, batch_size=2, state_dtype=torch.float32,
+                          device=dev if where == "cuda" else "cpu")
+        outs = eng.generate([Request(uid=i, tokens=t, max_new_tokens=m,
+                                     eos_token=eos if i == 2 else None)
+                             for i, (t, m) in enumerate(zip(prompts, news))])
+        require(eng.last_logits_finite, f"non-finite logits ({where} {method}/{kv_quant})")
+        return [o.tokens for o in outs], eng.last_metrics.steps, eng.last_metrics.host_syncs
+
+    # request 2's eos: the first token it makes that it had not made before,
+    # at its third token or later, so the eos is read inside a window
+    toks2 = run("cpu")[0][2]
+    eos = next(t for i, t in enumerate(toks2) if i >= 2 and t not in toks2[:i])
+    got = {where: run(where, eos) for where in ("cuda", "cpu")}
+    require(got["cuda"] == got["cpu"], f"continuous: card {got['cuda']} vs cpu {got['cpu']} "
+            f"({method}/{kv_quant})")
+    require(3 <= len(got["cuda"][0][2]) < news[2], "the eos did not end request 2 in a window")
+    return got["cuda"]
 
 
 def centroid_index_equals_rebuild(dev):
@@ -1120,6 +1233,11 @@ def main():
         log(f"[kernel] {k['name']}: max|err| {k['max_abs_err']:.3g} | "
             f"{k['kernel_ms']:.4f} ms vs bound {k['bound_ms']:.4f} ms | plain "
             f"{k['plain_ms']:.4f} ms | library {lib} | {time.perf_counter() - t0:.1f} s")
+        if "static_batch" in k:
+            sb = k["static_batch"]
+            log(f"[kernel] {k['name']} at the static batch's {sb['shape']}: "
+                f"{sb['kernel_ms']:.4f} ms vs bound {sb['bound_ms']:.4f} ms | plain "
+                f"{sb['plain_ms']:.4f} ms | library {sb['library_ms']:.4f} ms")
         torch.cuda.empty_cache()
     rows = {k["name"]: k for k in kernels}
     for name in ("recall_gather", "recall_values", "recall_gather_quant", "recall_values_quant"):
@@ -1132,23 +1250,44 @@ def main():
     launches = {k["name"]: None for k in kernels}
     share = None
     if not args.kernels_only:
-        # phase 4: main path at full width, every retriever and pool tier
+        # phase 4: main path at full width: the static path, then every
+        # retriever and pool tier through the continuous scheduler
         cfg, params = llama_params(dev)
         launches = {k["name"]: 0 for k in kernels}
-        for method, kv_quant in RUNS:
+        compare = {}
+        for scheduler, method, kv_quant in [("static", "freekv", "none")] + [
+                ("continuous", m, q) for m, q in RUNS]:
             t0 = time.perf_counter()
-            info, run = main_path(dev, ops, cfg, params, method, kv_quant)
+            info, run = main_path(dev, ops, cfg, params, method, kv_quant, scheduler)
             info["run_s"] = time.perf_counter() - t0
             log("[main] " + json.dumps(info))
-            pr = info["profile"]
-            log(f"[main] {method}/{kv_quant}: prefill {info['prefill_s']:.3f} s, decode "
-                f"{info['decode_ms_per_step']:.2f} ms/step; profiled steps: "
-                f"{pr['cpu_ops_per_step']} host ops, {pr['device_ops_per_step']:.1f} device "
-                f"operations, busy share {pr['device_busy_share']:.3f} a step")
+            log(f"[main] {scheduler} {method}/{kv_quant}: {info['requests']} requests over "
+                f"{B} slots, TTFT {min(info['ttft_s']):.3f}-{max(info['ttft_s']):.3f} s, "
+                f"decode {info['decode_ms_per_step']:.2f} ms/step over {info['decode_steps']} "
+                f"steps, {info['host_syncs_per_token']:.4f} host reads a token, "
+                f"{info['tokens_per_s']:.2f} tokens/s, peak {info['peak_device_gib']:.2f} GiB")
+            if "profile" in info:
+                pr = info["profile"]
+                log(f"[main] {method}/{kv_quant}: eager decode step {pr['cpu_ops_per_step']} host "
+                    f"ops, {pr['device_ops_per_step']:.1f} device operations, busy share "
+                    f"{pr['device_busy_share']:.3f}")
+                if "window" in pr:
+                    for what, w in (("continuous window of 8 steps", pr["window"]),
+                                    ("static engine step", pr["window"]["static_step"])):
+                        log(f"[main] {method}/{kv_quant}: {what}: "
+                            f"{w['wall_ms_per_step_unprofiled']:.2f} ms, {w['cpu_ops_per_step']} "
+                            f"host ops, {w['device_ops_per_step']:.1f} device operations, busy "
+                            f"share {w['device_busy_share']:.3f}, {w['host_syncs_per_step']:g} "
+                            f"host syncs a step (runtime calls: {w['sync_calls']})")
             for name, n in run.items():
                 launches[name] += n
             if (method, kv_quant) == ("freekv", "none"):
+                compare[scheduler] = info
                 share = {"topup": info["topup_valid_share"], "staged": info["staged_valid_share"]}
+        keys = ("decode_ms_per_step", "host_syncs_per_step", "host_syncs_per_token",
+                "tokens_per_s", "slot_occupancy")
+        log("[main] freekv/none static vs continuous: " + json.dumps(
+            {sch: {k: compare[sch][k] for k in keys} for sch in ("static", "continuous")}))
         del params
         torch.cuda.empty_cache()
         require(all(0 <= v <= 1 for v in share.values()), f"valid shares out of range: {share}")
@@ -1177,6 +1316,12 @@ def main():
             toks = kernel_vs_plain_end_to_end(dev, method, kv_quant)
             log(f"[equal] granite-3-8b-smoke fp32 {method} kv_quant={kv_quant}: card == cpu "
                 f"greedy tokens, e.g. {toks[0][:8]}")
+        for method, kv_quant in (("freekv", "none"), ("freekv", "int8"), ("shadowkv", "none"),
+                                 ("centroid", "none")):
+            toks, steps, syncs = continuous_vs_plain(dev, method, kv_quant)
+            log(f"[equal] granite-3-8b-smoke fp32 continuous {method} kv_quant={kv_quant}: card "
+                f"== cpu greedy tokens and steps ({steps} steps, {syncs} host reads), 5 requests "
+                f"over 2 slots, eos in a window, e.g. {toks[2]}")
         n = centroid_index_equals_rebuild(dev)
         log(f"[equal] granite-3-8b-smoke fp32 centroid: the index kept on the card equals "
             f"its rebuild in every layer after 20 steps ({n} re-centers)")

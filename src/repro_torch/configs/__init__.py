@@ -18,5 +18,5 @@ def get_config(name: str) -> ArchConfig:
         return reduce_for_smoke(get_config(name[: -len("-smoke")]))
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; the port serves {sorted(_MODULES)} "
-                       "(other archs: ROADMAP queue 1, item 14)")
+                       "(other archs: ROADMAP queue 1, item 9)")
     return import_module(f"repro_torch.configs.{_MODULES[name]}").CONFIG

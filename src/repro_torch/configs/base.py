@@ -119,6 +119,17 @@ class FreeKVConfig:
     # the re-center cadence in completed pages (``core/centroid_index``)
     centroid_count: int = 16
     centroid_refresh_interval: int = 4
+    # continuous scheduler (``serving/scheduler``): up to ``sync_interval``
+    # decode steps between two host reads (``models.model.decode_window``),
+    # greedy tokens picked on the card; ``sample_on_device=False`` is the
+    # synchronous reference path (one host read a step). The same tokens
+    # either way.
+    sync_interval: int = 8
+    sample_on_device: bool = True
+    # chunked prefill and priority preemption: not ported yet (ROADMAP
+    # queue 1, item 3); the engine raises when either is set
+    prefill_chunk_tokens: int = 0
+    preempt: bool = False
 
     def __post_init__(self):
         if self.retriever:

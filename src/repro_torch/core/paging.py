@@ -126,9 +126,43 @@ def init_kv_state(cfg: ArchConfig, fkv: FreeKVConfig, batch: int, max_len: int,
     }
 
 
+# ---------------------------------------------------------------------------
+# per-slot state surgery (continuous batching)
+# ---------------------------------------------------------------------------
+# The decode state's leaves carry the batch on ``axis`` (0 for the port's
+# per-layer dicts, ``pos`` and ``pos_host``). Continuous batching maps a
+# request onto a physical row by writing one row in or reading one out, in
+# place, on the card, in the pinned pool or on the CPU alike (reference
+# ``paging.py:121,130``, whose functional updates XLA lowers in place).
+def slot_write_leaf(dst, src, slot, axis=0):
+    """Write ``src``'s singleton batch row into row ``slot`` of ``dst`` in
+    place (cast to ``dst``'s dtype) and return ``dst``. A ``src`` that
+    already is that row, the same memory, is left as it is."""
+    row = dst.narrow(axis, slot, 1)
+    if (src.data_ptr() == row.data_ptr() and src.shape == row.shape
+            and src.stride() == row.stride() and src.dtype == row.dtype):
+        return dst
+    row.copy_(src)
+    return dst
+
+
+def slot_read_leaf(arr, slot, axis=0):
+    """Row ``slot`` as a singleton-batch view of ``arr`` (the inverse of
+    ``slot_write_leaf``); ``.clone()`` it for a copy."""
+    return arr.narrow(axis, slot, 1)
+
+
 def nhd_pages_to_hnd(k_pages, v_pages):
     """(B, n, p, kv, d) K and V -> pool block (B, n, kv, 2, p, d) (HND)."""
     return torch.stack([k_pages.transpose(2, 3), v_pages.transpose(2, 3)], dim=3)
+
+
+def _host_ids(vals, dev):
+    """A short host list of indices as an int64 tensor on ``dev``, without a
+    host sync: a copy from pageable memory makes the host wait for the
+    stream, one from pinned memory is queued like a kernel."""
+    t = torch.tensor(vals, dtype=torch.int64)
+    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
 
 
 def _write_pool(pool, rows, pages, blocks):
@@ -217,13 +251,14 @@ def append_token(state, k_new, v_new, length_host=None):
         return state
     pages = [new_len[b] // p - 1 for b in rows]
     # the completed page's tokens, gathered from the ring
-    tok_pos = torch.tensor(pages, device=dev)[:, None] * p + torch.arange(p, device=dev)
+    pages_d = _host_ids(pages, dev)
+    tok_pos = pages_d[:, None] * p + torch.arange(p, device=dev)
     tok_slot = tok_pos % n_win                                     # (R, p)
-    ridx = torch.tensor(rows, device=dev)
+    ridx = _host_ids(rows, dev)
     pk = state["win_k"][ridx[:, None], tok_slot]                   # (R, p, kv, d)
     pv = state["win_v"][ridx[:, None], tok_slot]
     hnd = torch.stack([pk.transpose(1, 2), pv.transpose(1, 2)], dim=2)   # (R,kv,2,p,d)
     _offload_pages(state, rows, pages, hnd)
     summ = ops.page_summary(pk, page_size=p)[:, 0]                 # (R,kv,2,d)
-    state["summ"][ridx, torch.tensor(pages, device=dev)] = summ.to(state["summ"].dtype)
+    state["summ"][ridx, pages_d] = summ.to(state["summ"].dtype)
     return state

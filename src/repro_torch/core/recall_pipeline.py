@@ -181,3 +181,42 @@ def wait_staged(state):
     ev = state.pop("sel_ready", None)
     if ev is not None:
         torch.cuda.current_stream(state["sel_k"].device).wait_event(ev)
+
+
+class RecallFlightTracker:
+    """Host-side per-slot accounting of the staged recall in flight
+    (reference ``recall_pipeline.py:174``, one device).
+
+    The staged buffer a slot carries out of step t is consumed by step t+1,
+    unless the slot turns over at the boundary (its request finished, the
+    slot was freed or refilled): then the pages in flight were streamed for
+    nothing. The continuous scheduler feeds the tracker each step, from the
+    stat blocks it reads at a sync, and invalidates a slot when it frees
+    it; the dropped total lands in ``EngineMetrics.summary()
+    ["recall_overlap"]``."""
+
+    def __init__(self):
+        self._in_flight = {}
+        self.dropped_pages = 0.0
+        self.staged_pages = 0.0
+        self.topup_pages = 0.0
+        self.reused_pages = 0.0
+
+    def note_step(self, slot: int, staged: float, topup: float = 0.0,
+                  reused: float = 0.0):
+        """One step's transfer split for ``slot``: its staged pages replace
+        (consume) what the slot had in flight."""
+        self._in_flight[slot] = staged
+        self.staged_pages += staged
+        self.topup_pages += topup
+        self.reused_pages += reused
+
+    def invalidate(self, slot: int):
+        """Slot turnover: the staged buffer is abandoned in flight."""
+        self.dropped_pages += self._in_flight.pop(slot, 0.0)
+
+    def summary(self) -> dict:
+        moved = self.staged_pages + self.topup_pages
+        return {"staged_pages": self.staged_pages, "topup_pages": self.topup_pages,
+                "reused_pages": self.reused_pages, "dropped_pages": self.dropped_pages,
+                "hidden_fraction": self.staged_pages / moved if moved else 0.0}

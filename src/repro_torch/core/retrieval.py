@@ -312,8 +312,10 @@ class ShadowKVRetriever(FreeKVRetriever):
     def prefill(self, state, k, v, q_last):
         st = super().prefill(state, k, v, q_last)
         u, w = low_rank_keys(k, self.rank)
+        # in place, zero-padded to ``rank`` when the prompt is shorter: the
+        # state may be a slot's rows (``SlotPool.claim``)
         st["k_u"][:, :, :u.shape[2], :u.shape[3]] = u.to(st["k_u"].dtype)
-        st["k_w"] = w.to(st["k_w"].dtype)
+        st["k_w"][:, :, :w.shape[2]] = w.to(st["k_w"].dtype)
         return st
 
     def decode(self, state, q, k_new, v_new, length_host=None):
@@ -421,5 +423,5 @@ def make_retriever(cfg: ArchConfig, fkv: FreeKVConfig):
         return CentroidRetriever(cfg, fkv)
     if m in ("infinigen", "quest", "raas", "streaming"):
         raise NotImplementedError(
-            f"method {m!r} is not ported yet (ROADMAP queue 1, item 9)")
+            f"method {m!r} is not ported yet (ROADMAP queue 1, item 5)")
     raise ValueError(f"unknown method {m!r}")

@@ -6,14 +6,18 @@ random bf16 weights, ``torch.profiler`` over one prefill and over a few
 
     PYTHONPATH=src python -m repro_torch.launch.decode_profile [--steps 4] \
         [--method freekv|shadowkv|centroid] [--kv-quant none|int8|int4] \
-        [--quant-group-size 0] [--main-runs]
+        [--quant-group-size 0] [--window 8] [--main-runs]
 
 Prints one JSON line: the prefill's wall s, device-busy s and top kernels;
 per decode step the host wall ms, device-busy ms (sum of kernel and copy
 time on the card), the busy share, the PyTorch ops the host dispatched and
 the device operations (kernels, copies), the top kernels by device time,
 the top host-side ops by self CPU time, and the count of host-device
-synchronisations. ``profile_decode`` gives the same for weights already on
+synchronisations; with ``--window k`` also a continuous-scheduler decode
+window of k steps on the same state, beside k steps of the static engine
+(``profile_window``: host ops, device operations, busy share and wall ms
+per step; host syncs counted from the runtime calls in the trace).
+``profile_decode`` gives the same for weights already on
 the card (``chip_smoke.py`` phase 4). ``--main-runs`` gives the decode's
 numbers for each of the five main-path runs on one set of weights; it uses
 only the model's public functions, so another checkout is measured with
@@ -24,6 +28,7 @@ import argparse
 import json
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -34,16 +39,24 @@ MAIN_RUNS = (("freekv", "none"), ("freekv", "int8"), ("shadowkv", "none"), ("sha
              ("centroid", "none"))
 
 
-def profile_decode(cfg, fkv, params, toks, steps=4, trace_out=None, with_prefill=True):
+# the runtime calls in which the host waits for the card
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+MEASURED = "decode_profile.measured"
+
+
+def profile_decode(cfg, fkv, params, toks, steps=4, trace_out=None, with_prefill=True,
+                   window=0):
     """The numbers ``main`` prints, for ``params`` already on the card and
     prompts ``toks`` (B, T) on the card: the prefill's (when
-    ``with_prefill``) and a decode step's, as one dict."""
+    ``with_prefill``) and an eager decode step's, as one dict; with
+    ``window`` > 0 also a continuous-scheduler window of that many steps,
+    on the same state, in the same process (``profile_window``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.model import prefill, serve_step
 
-    max_len = toks.shape[1] + 64 + WARMUP + steps
+    max_len = toks.shape[1] + 64 + WARMUP + steps + 6 * window
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
@@ -105,7 +118,7 @@ def profile_decode(cfg, fkv, params, toks, steps=4, trace_out=None, with_prefill
                           "cudaMemcpyAsync", "cudaEventSynchronize", "cudaLaunchKernel",
                           "cudaLaunchKernelExC", "cudaStreamWaitEvent",
                           "cudaPointerGetAttributes")}
-    return {
+    out = {
         "device": torch.cuda.get_device_name(0), "arch": cfg.name, "batch": toks.shape[0],
         "context": toks.shape[1], "method": fkv.method, "offload": fkv.offload,
         "kv_quant": fkv.kv_quant,
@@ -122,6 +135,87 @@ def profile_decode(cfg, fkv, params, toks, steps=4, trace_out=None, with_prefill
         "top_self_cpu_ms_per_step": [(e.key[:80], e.self_cpu_time_total / 1e3 / steps,
                                       e.count // steps) for e in top_cpu],
     }
+    if window:
+        out["window"] = profile_window(cfg, fkv, params, state, logits, window)
+    return out
+
+
+def profile_window(cfg, fkv, params, state, logits, k=8):
+    """A continuous-scheduler decode window on the same state, beside the
+    static engine's step, in the form of the eager step's numbers (per
+    step). ``window``: ``k`` fused steps (decode with stats, greedy pick on
+    the card, every lane live) and the one read of the token, valid and
+    stat blocks at its end, as ``serving/scheduler.py`` runs it;
+    ``static_step``: the static engine's step (decode with stats, greedy
+    pick, the tokens' read and the stats' read), ``k`` times. Host syncs
+    are counted from the runtime's synchronize calls in the trace, so one
+    hidden anywhere in the step shows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models.model import DECODE_STAT_KEYS, decode_window, serve_step
+    from repro_torch.serving.sampling import SamplerConfig
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+    B, dev = logits.shape[0], logits.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    loop = {"cur": torch.argmax(logits, dim=-1).to(torch.int32),
+            "key": torch.zeros((B, 2), **i32), "count": torch.ones((B,), **i32),
+            "limit": torch.full((B,), 1 << 30, **i32), "eos": torch.full((B,), -1, **i32),
+            "fin": torch.zeros((B,), dtype=torch.bool, device=dev)}
+    carry = {"state": state, "loop": loop, "cur": loop["cur"].long()}
+
+    def window():
+        st, lp, toks, valid, stats, finite = decode_window(
+            cfg, fkv, params, carry["state"], carry["loop"], SamplerConfig(), k)
+        blocks = [toks, valid, finite] + [stats[key] for key in DECODE_STAT_KEYS]
+        torch.cat([b.reshape(-1).to(torch.float64) for b in blocks]).cpu()   # the one read
+        carry.update(state=st, loop=lp)
+
+    def static_steps():
+        for _ in range(k):
+            lg, st, stats = serve_step(cfg, fkv, params, carry["state"],
+                                       carry["cur"][:, None], collect_stats=True)
+            carry.update(state=st, cur=torch.argmax(lg, dim=-1))
+            carry["cur"].tolist()                                            # read 1
+            torch.stack([stats[key] for key in DECODE_STAT_KEYS]).cpu()      # read 2
+
+    def measure(run):
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / k
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function(MEASURED):
+                run()
+        events = prof.key_averages()
+        # the card's rows but the measured range's own (a span, not work)
+        dev_events = [e for e in events if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+                      and e.key != MEASURED]
+        busy_ms = sum(dev_us(e) for e in dev_events) / 1e3 / k
+        # every wait of the host for the card, as the runtime saw it: a read
+        # (.cpu(), .tolist(), .item()) and a copy from pageable memory each
+        # make one stream synchronize. Only those inside the measured range
+        # count: the profiler synchronizes the card itself when it stops.
+        evs = prof.events()
+        outer = next(e for e in evs if e.name == MEASURED)
+        lo, hi = outer.time_range.start, outer.time_range.end
+        syncs = dict(Counter(e.name for e in evs
+                             if e.name in SYNC_CALLS and lo <= e.time_range.start <= hi))
+        return {"steps": k, "host_syncs_per_step": sum(syncs.values()) / k,
+                "sync_calls": syncs,
+                "wall_ms_per_step_unprofiled": wall_ms, "device_busy_ms_per_step": busy_ms,
+                "device_busy_share": busy_ms / wall_ms if wall_ms else None,
+                "cpu_ops_per_step": sum(e.count for e in events
+                                        if e.key.startswith("aten::")) // k,
+                "device_ops_per_step": sum(e.count for e in dev_events) / k}
+
+    out = measure(window)
+    out["static_step"] = measure(static_steps)
+    return out
 
 
 def main(argv=None):
@@ -135,6 +229,8 @@ def main(argv=None):
                     help="quantized host KV tier")
     ap.add_argument("--quant-group-size", type=int, default=0,
                     help="channels per quantization scale (0 = one per page half)")
+    ap.add_argument("--window", type=int, default=0,
+                    help="also profile a continuous-scheduler window of this many steps")
     ap.add_argument("--main-runs", action="store_true",
                     help="the five runs of chip_smoke.py phase 4 (freekv none/int8, "
                          "shadowkv none/int8, centroid none) on one set of weights, "
@@ -159,16 +255,17 @@ def main(argv=None):
     toks = torch.from_numpy(np.stack([next(stream).tokens for _ in range(BATCH)]))
     toks = toks.long().to(dev)
     if not args.main_runs:
-        print(json.dumps(profile_decode(cfg, fkv, params, toks, args.steps, args.trace_out)),
-              flush=True)
+        print(json.dumps(profile_decode(cfg, fkv, params, toks, args.steps, args.trace_out,
+                                        window=args.window)), flush=True)
         return 0
     for method, kv_quant in MAIN_RUNS:
         fkv = FreeKVConfig(method=method, offload="host", kv_quant=kv_quant)
-        out = profile_decode(cfg, fkv, params, toks, args.steps, with_prefill=False)
+        out = profile_decode(cfg, fkv, params, toks, args.steps, with_prefill=False,
+                             window=args.window)
         keep = ("method", "kv_quant", "prefill_s", "wall_ms_per_step_unprofiled",
                 "device_busy_ms_per_step", "device_busy_share", "cpu_ops_per_step",
-                "device_ops_per_step", "runtime_calls_per_step")
-        print(json.dumps({k: out[k] for k in keep}), flush=True)
+                "device_ops_per_step", "runtime_calls_per_step", "window")
+        print(json.dumps({k: out[k] for k in keep if k in out}), flush=True)
         torch.cuda.empty_cache()
     return 0
 

@@ -1,17 +1,21 @@
 """Serving launcher for the PyTorch port (reference ``repro/launch/serve.py``):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
-        --arch llama31-8b --scheduler static --context 8192 --new-tokens 40 \
-        --batch 4 --page-size 32 --budget 2048 --offload host --dtype bfloat16 \
-        --kv-quant int8 --method freekv
+        --arch llama31-8b --context 8192 --new-tokens 40 --batch 4 \
+        --requests 8 --page-size 32 --budget 2048 --offload host \
+        --dtype bfloat16 --kv-quant int8 --method freekv
 
-Same flags and defaults as the reference CLI where the feature is ported;
-``--device``, ``--offload``, ``--dtype`` and ``--seed`` are the port's own.
-Only ``--scheduler static`` (the default here, unlike the reference) serves:
-the continuous scheduler is not ported yet and raises. Weights are random,
-made from ``--seed``.
+Same flags and defaults as the reference CLI where the feature is ported:
+``--scheduler continuous`` (the default) serves ``--requests`` requests over
+``--batch`` slots, prompts left-padded to ``--prefill-bucket``, up to
+``--sync-interval`` decode steps per host read; ``--scheduler static`` is
+the lockstep fallback. ``--device``, ``--offload``, ``--dtype`` and
+``--seed`` are the port's own. Weights are random, made from ``--seed``.
+Prints each request's tokens and timings, then ``EngineMetrics.summary()``
+as one JSON line.
 """
 import argparse
+import json
 
 import torch
 
@@ -41,8 +45,11 @@ def main(argv=None):
     ap.add_argument("--tau", type=float, default=0.8)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--scheduler", choices=("continuous", "static"),
-                    default="static")
-    ap.add_argument("--prefill-bucket", type=int, default=64)
+                    default="continuous")
+    ap.add_argument("--prefill-bucket", type=int, default=64,
+                    help="continuous: left-pad prompts to a multiple of this")
+    ap.add_argument("--sync-interval", type=int, default=8,
+                    help="continuous: decode steps per host read")
     ap.add_argument("--no-overlap", action="store_true",
                     help="disable the overlapped recall pipeline")
     ap.add_argument("--offload", choices=("sim", "host"), default="sim",
@@ -63,14 +70,15 @@ def main(argv=None):
                        budget=args.budget, n_sink=args.page_size * 2,
                        n_window=args.page_size * 2, tau=args.tau,
                        recall_overlap=not args.no_overlap, offload=args.offload,
-                       kv_quant=args.kv_quant, quant_group_size=args.quant_group_size)
+                       kv_quant=args.kv_quant, quant_group_size=args.quant_group_size,
+                       sync_interval=args.sync_interval)
     eng = ServeEngine(cfg, fkv, params,
                       max_len=args.context + args.new_tokens + args.page_size
                       + args.prefill_bucket,
                       batch_size=args.batch,
                       sampler=SamplerConfig(temperature=args.temperature),
                       state_dtype=dtype, scheduler=args.scheduler,
-                      device=args.device)
+                      prefill_bucket=args.prefill_bucket, device=args.device)
     n_req = args.requests or args.batch
     stream = needle_stream(cfg.vocab_size, args.context, args.page_size)
     reqs = [Request(uid=i, tokens=next(stream).tokens,
@@ -81,6 +89,7 @@ def main(argv=None):
         print(f"  prefill {out.prefill_s*1e3:.1f} ms | "
               f"decode {out.decode_s/steps*1e3:.1f} ms/step | "
               f"corr_rate {out.stats.get('correction_rate', 0):.3f}")
+    print(json.dumps(eng.last_metrics.summary()))
 
 
 if __name__ == "__main__":

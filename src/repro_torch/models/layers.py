@@ -66,7 +66,9 @@ def apply_mlp(cfg: ArchConfig, p, x):
 def embed_tokens(cfg: ArchConfig, p, tokens):
     x = p["tok"][tokens]
     if cfg.name.startswith("gemma"):
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+        # a 0-dim host tensor: the scale rounds to x's dtype as before, and
+        # nothing is copied to the card (which would make the host wait)
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
 
 

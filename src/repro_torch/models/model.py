@@ -5,6 +5,8 @@
   params_from_jax(cfg, np_params, device, dtype)    -> params
   prefill(cfg, fkv, params, batch, max_len)         -> (logits_last, state)
   serve_step(cfg, fkv, params, state, tokens)       -> (logits, state[, stats])
+  serve_step_sampled(cfg, fkv, params, state, loop, sampler)
+  decode_window(cfg, fkv, params, state, loop, sampler, n_steps)
 
 Params are nested dicts of tensors, dense weights in the ``x @ W``
 orientation ``(d_in, d_out)``: ``{"embed": {"tok", "head"?}, "final_norm":
@@ -39,9 +41,9 @@ def check_supported(cfg: ArchConfig):
         if mixer != ATTN or ffn != DENSE:
             raise NotImplementedError(
                 f"{cfg.name}: layer ({mixer}, {ffn}) is not ported yet; the port "
-                "serves attention + dense-FFN stacks (ROADMAP queue 1, item 14)")
+                "serves attention + dense-FFN stacks (ROADMAP queue 1, item 9)")
     if cfg.is_encoder_decoder or cfg.frontend is not None or cfg.post_block_norm:
-        raise NotImplementedError(f"{cfg.name}: not ported yet (ROADMAP queue 1, item 14)")
+        raise NotImplementedError(f"{cfg.name}: not ported yet (ROADMAP queue 1, item 9)")
 
 
 # ---------------------------------------------------------------------------
@@ -141,10 +143,16 @@ def init_decode_state(cfg: ArchConfig, fkv: FreeKVConfig, batch_size: int,
 
 @torch.no_grad()
 def prefill(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, max_len: int,
-            state_dtype=torch.bfloat16):
+            state_dtype=torch.bfloat16, into=None):
     """batch {"tokens": (B, T) on the params' device} -> (last-position
     logits (B, padded_vocab), decode state). Each layer's retriever state is
-    built right after the layer runs, so only one layer's K/V is alive."""
+    built right after the layer runs, so only one layer's K/V is alive.
+
+    ``into`` (optional) is one empty state per layer to build into instead
+    of fresh ones: the continuous scheduler passes the rows of a slot
+    (``SlotPool.claim``), so the pool pages land in the slot's pinned rows
+    and no admission copies them. Leaves the retriever replaces come back
+    as new tensors, for ``SlotPool.insert`` to copy in."""
     check_supported(cfg)
     tokens = batch["tokens"]
     x = L.embed_tokens(cfg, params["embed"], tokens)
@@ -159,7 +167,8 @@ def prefill(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, max_len: int,
         o = attn.attention_prefill(cfg, q, k, v, positions)
         x = x + attn.out_proj(cfg, lp["mixer"], o)
         x = _ffn(cfg, lp, x)
-        st = retr.init_state(B, max_len, state_dtype, dev)
+        st = into[len(states)] if into is not None else retr.init_state(
+            B, max_len, state_dtype, dev)
         states.append(retr.prefill(st, k, v, q[:, -1].contiguous()))
         del q, k, v, o, h
     x = L.apply_norm(cfg, params["final_norm"], x)
@@ -218,3 +227,66 @@ def serve_step(cfg: ArchConfig, fkv: FreeKVConfig, params, state, tokens,
     if collect_stats:
         return logits, state, stats
     return logits, state
+
+
+# ---------------------------------------------------------------------------
+# decode window: on-card greedy sampling, several steps per host read
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def serve_step_sampled(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sampler):
+    """One fused decode step (reference ``model.py:779``): ``serve_step``,
+    sampling on the card and the finished mask; nothing is read back.
+
+    ``loop`` is the decode-loop carry on the card, one lane per slot, each
+    (B,) unless noted: ``cur`` int32 token fed to this step, ``key`` int32
+    (B, 2) per-request key lane (carried, unused by greedy sampling),
+    ``count`` int32 tokens generated so far, ``limit`` int32 the request's
+    max_new_tokens, ``eos`` int32 (-1 for none), ``fin`` bool finished or
+    empty. Finished lanes keep stepping (rows are independent) and their
+    tokens and stats are dropped by the scheduler.
+
+    Returns (state, loop, tok (B,), valid (B,), stats, finite (B,)):
+    ``valid[s]`` marks a lane live entering the step, ``finite[s]`` that its
+    logits were finite (always True for a lane that was not live)."""
+    from repro_torch.serving import sampling
+    logits, state, stats = serve_step(cfg, fkv, params, state, loop["cur"][:, None].long(),
+                                      collect_stats=True)
+    tok = sampling.sample_step(logits, sampler, loop["key"])
+    valid = ~loop["fin"]
+    count = loop["count"] + valid.to(torch.int32)
+    fin = loop["fin"] | (count >= loop["limit"]) | (tok == loop["eos"])
+    loop = dict(loop, cur=torch.where(valid, tok, loop["cur"]), count=count, fin=fin)
+    finite = torch.isfinite(logits).all(dim=-1) | ~valid
+    return state, loop, tok, valid, stats, finite
+
+
+@torch.no_grad()
+def decode_window(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sampler,
+                  n_steps: int):
+    """``n_steps`` fused decode steps with no host read (reference
+    ``model.py:816``): the tokens, valid masks and per-step stats stay on
+    the card in (n_steps, B) blocks for one read when the window ends.
+
+    The reference's ``lax.while_loop`` decides on the card when to stop
+    (every lane finished, or, with admissions queued, the first lane that
+    finishes). A Python loop that read ``fin`` every step would bring back
+    the per-step sync, so the caller fixes ``n_steps`` from its host copy
+    of the lanes: finishes by ``limit`` are known there, and for windows
+    without an eos finish the step count equals the reference's. An eos
+    finish is seen only when the window ends: the lane is masked on the
+    card from that step on (its later rows invalid), but the window runs
+    to its planned end. Returns (state, loop, toks (n, B) int32, valid
+    (n, B) bool, stats {key: (n, B) float32}, finite (B,) bool)."""
+    toks, valid = [], []
+    stats = {k: [] for k in DECODE_STAT_KEYS}
+    finite = torch.ones_like(loop["fin"])
+    for _ in range(n_steps):
+        state, loop, tok, ok, s, fin_ok = serve_step_sampled(cfg, fkv, params, state, loop,
+                                                             sampler)
+        toks.append(tok)
+        valid.append(ok)
+        for k in stats:
+            stats[k].append(s[k])
+        finite = finite & fin_ok
+    return (state, loop, torch.stack(toks), torch.stack(valid),
+            {k: torch.stack(v) for k, v in stats.items()}, finite)

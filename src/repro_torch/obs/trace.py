@@ -1,0 +1,151 @@
+"""Trace spans: Chrome-trace / Perfetto JSON for the serving loop (own copy
+of the reference ``repro/obs/trace.py``, cut to what the continuous
+scheduler records).
+
+``TraceRecorder`` buffers Trace Event Format events and returns them as
+one Chrome-trace dict with :meth:`TraceRecorder.chrome_trace`:
+
+* request-lifecycle spans: one Perfetto thread per request uid with
+  ``request/queued`` -> ``request/prefill`` -> ``request/decode`` and a
+  ``request/done`` instant, emitted at finish time from the request's
+  ``RequestMetrics`` timestamps;
+* engine spans: ``engine/decode_window`` per host sync, with the step count
+  and the bytes read back in ``args``, split into ``engine/decode_step``;
+* recall spans: the blocking top-up on the decode track and the staged
+  recall on a DMA track. Their durations are modeled from page counts at
+  ``MODEL_LINK_BW``; ``args`` carry the exact byte counts;
+* counter tracks: ``speculation`` hit and correction rates per step.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+# modeled host-to-card link rate for the recall spans' durations (the
+# reference's value; the spans' args carry the exact bytes)
+MODEL_LINK_BW = 20e9
+
+SPAN_REQUEST_QUEUED = "request/queued"
+SPAN_REQUEST_PREFILL = "request/prefill"
+SPAN_REQUEST_DECODE = "request/decode"
+SPAN_REQUEST_DONE = "request/done"
+SPAN_DECODE_WINDOW = "engine/decode_window"
+SPAN_DECODE_STEP = "engine/decode_step"
+SPAN_RECALL_TOPUP = "recall/topup"
+SPAN_RECALL_STAGED = "recall/staged"
+SPAN_RECALL_REUSE = "recall/reuse"
+
+# Perfetto pid/tid layout: one process for the engine, one for requests
+PID_ENGINE = 1
+PID_REQUESTS = 2
+TID_ENGINE = 1
+TID_DMA = 2
+
+
+class TraceRecorder:
+    """Buffers Chrome-trace events; with ``enabled=False`` every method is a
+    cheap no-op, so the recorder can be passed around unconditionally."""
+
+    def __init__(self, enabled: bool = True):
+        self.enabled = enabled
+        self.events: List[dict] = []
+        self._names: Dict[tuple, str] = {}
+        if enabled:
+            self._meta(PID_ENGINE, None, "process_name", "serve-engine")
+            self._meta(PID_ENGINE, TID_ENGINE, "thread_name", "decode")
+            self._meta(PID_ENGINE, TID_DMA, "thread_name", "recall-dma")
+            self._meta(PID_REQUESTS, None, "process_name", "requests")
+
+    @staticmethod
+    def _us(t_s: float) -> float:
+        return t_s * 1e6
+
+    def _meta(self, pid: int, tid: Optional[int], what: str, name: str):
+        ev = {"ph": "M", "pid": pid, "name": what, "args": {"name": name}}
+        if tid is not None:
+            ev["tid"] = tid
+        self.events.append(ev)
+
+    def name_request_track(self, uid: int) -> None:
+        if not self.enabled or (PID_REQUESTS, uid) in self._names:
+            return
+        self._names[(PID_REQUESTS, uid)] = f"req {uid}"
+        self._meta(PID_REQUESTS, uid, "thread_name", f"req {uid}")
+
+    # -- event emitters (ts/dur in run-relative seconds) ------------------
+    def complete(self, name: str, ts_s: float, dur_s: float, *,
+                 pid: int = PID_ENGINE, tid: int = TID_ENGINE,
+                 args: Optional[dict] = None) -> None:
+        if not self.enabled:
+            return
+        ev = {"name": name, "ph": "X", "ts": self._us(ts_s),
+              "dur": max(self._us(dur_s), 0.0), "pid": pid, "tid": tid}
+        if args:
+            ev["args"] = args
+        self.events.append(ev)
+
+    def instant(self, name: str, ts_s: float, *, pid: int = PID_ENGINE,
+                tid: int = TID_ENGINE, args: Optional[dict] = None) -> None:
+        if not self.enabled:
+            return
+        ev = {"name": name, "ph": "i", "ts": self._us(ts_s), "pid": pid,
+              "tid": tid, "s": "t"}
+        if args:
+            ev["args"] = args
+        self.events.append(ev)
+
+    def counter(self, name: str, ts_s: float, values: Dict[str, float], *,
+                pid: int = PID_ENGINE) -> None:
+        if not self.enabled:
+            return
+        self.events.append({"name": name, "ph": "C", "ts": self._us(ts_s),
+                            "pid": pid, "args": dict(values)})
+
+    # -- high-level helpers ------------------------------------------------
+    def request_lifecycle(self, rm) -> None:
+        """queued/prefill/decode spans and the done instant of a finished
+        request, from its ``RequestMetrics`` timestamps."""
+        if not self.enabled:
+            return
+        uid = rm.uid
+        self.name_request_track(uid)
+        if rm.prefill_start_t is not None:
+            self.complete(SPAN_REQUEST_QUEUED, rm.enqueue_t,
+                          rm.prefill_start_t - rm.enqueue_t, pid=PID_REQUESTS, tid=uid,
+                          args={"uid": uid, "prompt_tokens": rm.prompt_tokens})
+        if rm.prefill_start_t is not None and rm.first_token_t is not None:
+            self.complete(SPAN_REQUEST_PREFILL, rm.prefill_start_t,
+                          rm.first_token_t - rm.prefill_start_t, pid=PID_REQUESTS, tid=uid,
+                          args={"padded": rm.padded_prompt_tokens})
+        if rm.first_token_t is not None and rm.finish_t is not None:
+            self.complete(SPAN_REQUEST_DECODE, rm.first_token_t,
+                          rm.finish_t - rm.first_token_t, pid=PID_REQUESTS, tid=uid,
+                          args={"new_tokens": rm.new_tokens})
+        if rm.finish_t is not None:
+            self.instant(SPAN_REQUEST_DONE, rm.finish_t, pid=PID_REQUESTS, tid=uid,
+                         args={"uid": uid})
+
+    def recall_step(self, ts_s: float, dur_s: float, *, sync_pages: float,
+                    async_pages: float, reused_pages: float,
+                    page_block_bytes: float) -> None:
+        """One step's recall spans: the blocking top-up on the decode track,
+        the staged recall for the next step on the DMA track, durations
+        modeled as bytes / ``MODEL_LINK_BW``."""
+        if not self.enabled:
+            return
+        if sync_pages > 0:
+            b = sync_pages * page_block_bytes
+            self.complete(SPAN_RECALL_TOPUP, ts_s, min(b / MODEL_LINK_BW, dur_s),
+                          tid=TID_ENGINE, args={"pages": sync_pages, "bytes": b,
+                                                "modeled": True})
+        if async_pages > 0:
+            b = async_pages * page_block_bytes
+            self.complete(SPAN_RECALL_STAGED, ts_s, min(b / MODEL_LINK_BW, dur_s),
+                          tid=TID_DMA, args={"pages": async_pages, "bytes": b,
+                                             "modeled": True, "hidden": True})
+        if reused_pages > 0:
+            self.instant(SPAN_RECALL_REUSE, ts_s, tid=TID_DMA, args={"pages": reused_pages})
+
+    # -- export --------------------------------------------------------------
+    def chrome_trace(self) -> dict:
+        return {"traceEvents": list(self.events), "displayTimeUnit": "ms",
+                "otherData": {"producer": "repro_torch.obs.trace"}}

@@ -1,11 +1,28 @@
-"""Serving engine, static lockstep path (reference ``repro/serving/engine.py``,
-``generate`` and ``_generate_batch``).
+"""Serving engine (reference ``repro/serving/engine.py``): prefill and
+decode with any ported retriever, under two schedulers.
 
-Requests are served in batches of ``batch_size``: left-pad the prompts, run
-``prefill``, then one ``serve_step`` per generated token with host-side
-sampling, stopping each row at its token limit or eos. The continuous
-scheduler (slot pool, device decode loop, per-request sampling streams) is
-the next slice of the port (ROADMAP queue 1, item 7).
+* ``scheduler="continuous"`` (the default, as in the reference): the
+  ``serving/scheduler`` and ``serving/kv_slots`` subsystem. A fixed pool of
+  ``batch_size`` slots; each request is prefilled alone (B=1) straight into
+  a free slot's rows and joins the decode batch; a finished request's slot
+  is refilled at the next host boundary; greedy tokens are picked on the
+  card and up to ``fkv.sync_interval`` decode steps run per host read
+  (``models.model.decode_window``). ``fkv.sample_on_device=False`` is the
+  synchronous reference path, one host read a step, with the same tokens.
+* ``scheduler="static"``: the lockstep fallback. Requests are served in
+  batches of ``batch_size``: left-pad the prompts, one ``prefill``, then one
+  ``serve_step`` per generated token with host-side sampling, until the
+  batch's longest request drains; two host reads a step (the tokens and
+  the stats).
+
+Prompt lengths can be bucketed (``prefill_bucket``, continuous only): a
+prompt is left-padded to a multiple of the bucket, and the pads become
+attended context, as in the reference. The default 1 pads nothing.
+
+Not ported yet under the continuous scheduler, and refused here: sampling
+with a temperature (ROADMAP queue 1, item 4), chunked prefill and
+preemption (item 3); the prefix cache, speculative decoding and tensor
+parallelism have no switch in the port.
 """
 from __future__ import annotations
 
@@ -18,8 +35,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, FreeKVConfig
-from repro_torch.models.model import DECODE_STAT_KEYS, prefill, serve_step
-from repro_torch.serving.sampling import SamplerConfig, sample
+from repro_torch.core.recall_pipeline import RecallFlightTracker
+from repro_torch.models.model import DECODE_STAT_KEYS, decode_window, prefill, serve_step
+from repro_torch.obs import Observability
+from repro_torch.quant.accounting import page_block_bytes, page_block_bytes_dense
+from repro_torch.serving.kv_slots import SlotPool
+from repro_torch.serving.metrics import EngineMetrics, RequestMetrics
+from repro_torch.serving.sampling import SamplerConfig, sample, sample_step
+from repro_torch.serving.scheduler import ContinuousScheduler, _request_stats
 
 
 @dataclass
@@ -38,17 +61,7 @@ class Completion:
     decode_s: float
     steps: int
     stats: dict
-
-
-def _request_stats(agg) -> dict:
-    stats = dict(agg)
-    if agg["kv_heads"] > 0:
-        stats["correction_rate"] = agg["corrected"] / agg["kv_heads"]
-        stats["mean_similarity"] = (agg["sim_sum"] / agg["sim_cnt"]
-                                    if agg["sim_cnt"] else 0.0)
-    if agg.get("sel_pages", 0) > 0:
-        stats["spec_hit_rate"] = agg["spec_hit_pages"] / agg["sel_pages"]
-    return stats
+    metrics: Optional[RequestMetrics] = None
 
 
 class ServeEngine:
@@ -56,35 +69,162 @@ class ServeEngine:
                  max_len: int, batch_size: int,
                  sampler: SamplerConfig = SamplerConfig(),
                  state_dtype=torch.float32,
-                 scheduler: str = "static",
+                 scheduler: str = "continuous",
+                 prefill_bucket: int = 1,
+                 pad_token: int = 0,
+                 obs: Optional[Observability] = None,
                  device="cuda"):
-        if scheduler == "continuous":
-            raise NotImplementedError(
-                "scheduler='continuous' is not yet ported (ROADMAP queue 1, "
-                "item 7); use scheduler='static'")
-        if scheduler != "static":
+        if scheduler not in ("continuous", "static"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         self.device = resolve_device(device)
+        if scheduler == "continuous":
+            if sampler.temperature > 0:
+                raise NotImplementedError(
+                    "temperature > 0 under scheduler='continuous' needs the reference's "
+                    "per-request key streams (ROADMAP queue 1, item 4)")
+            if fkv.prefill_chunk_tokens > 0:
+                raise NotImplementedError(
+                    "prefill_chunk_tokens > 0 (chunked prefill) is not ported yet "
+                    "(ROADMAP queue 1, item 3)")
+            if fkv.preempt:
+                raise NotImplementedError(
+                    "preempt=True (priority preemption) is not ported yet "
+                    "(ROADMAP queue 1, item 3)")
         self.cfg, self.fkv, self.params = cfg, fkv, params
         self.max_len, self.batch_size = max_len, batch_size
         self.sampler = sampler
         self.state_dtype = state_dtype
         self.scheduler = scheduler
-        # whether every logit of the last generate() call was finite
+        self.prefill_bucket = max(1, prefill_bucket)
+        self.pad_token = pad_token
+        self.sync_interval = max(1, fkv.sync_interval)
+        self.sample_on_device = bool(fkv.sample_on_device)
+        self.obs = obs if obs is not None else Observability.off()
+        self._pool: Optional[SlotPool] = None
+        self.last_metrics: Optional[EngineMetrics] = None
+        # per-slot staged recall in flight, fed by the continuous scheduler
+        self.recall_tracker = RecallFlightTracker()
+        # whether every live lane's logits of the last generate() were finite
         self.last_logits_finite: Optional[bool] = None
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # ------------------------------------------------------------------
+    # scheduler backend
+    # ------------------------------------------------------------------
+    @property
+    def page_block_bytes(self) -> int:
+        """Bytes of one (KV head, page) K+V block, the recall's unit: the
+        packed unit (payload + scales) under the quantized tier."""
+        return page_block_bytes(self.fkv, self.cfg.d_head, self._itemsize)
+
+    @property
+    def _itemsize(self) -> int:
+        return torch.finfo(self.state_dtype).bits // 8
+
+    def _apply_quant_metrics(self, em: EngineMetrics):
+        em.kv_quant = self.fkv.kv_quant
+        em.page_block_bytes = self.page_block_bytes
+        em.dense_block_bytes = page_block_bytes_dense(self.fkv, self.cfg.d_head, self._itemsize)
+        em.transfer_is_dma = self.fkv.offload == "host" and self.device.type == "cuda"
+        if self._pool is not None:
+            detail = self._pool.pool_bytes_detail()
+            em.pool_bytes_physical = float(detail["physical"])
+            em.pool_bytes_dense = float(detail["dense"])
+
+    def make_slot_pool(self, num_slots: int) -> SlotPool:
+        return SlotPool(self.cfg, self.fkv, num_slots, self.max_len, self.state_dtype,
+                        self.device)
+
+    def step(self, state, tokens):
+        return serve_step(self.cfg, self.fkv, self.params, state, tokens.long(),
+                          collect_stats=True)
+
+    def decode_window(self, state, loop, n_steps: int):
+        """``n_steps`` fused decode steps without a host read; ``state`` is
+        updated in place."""
+        return decode_window(self.cfg, self.fkv, self.params, state, loop, self.sampler,
+                             n_steps)
+
+    def sample_lanes(self, logits, keys, counts):
+        """Per-slot sampling outside the window (the synchronous path)."""
+        return sample_step(logits, self.sampler, keys)
+
+    def sample_slot(self, logits, key, count: int):
+        """Token ``count`` of one request from its B=1 logits."""
+        return sample_step(logits, self.sampler, key)
+
+    def _pad_prompt(self, tokens: np.ndarray) -> np.ndarray:
+        b = self.prefill_bucket
+        padded_len = max(b, -(-len(tokens) // b) * b)
+        out = np.full((padded_len,), self.pad_token, np.int32)
+        out[padded_len - len(tokens):] = tokens
+        return out
+
+    def prefill_one(self, req: Request, pool: Optional[SlotPool] = None,
+                    slot: Optional[int] = None):
+        """Prefill one request (B=1) -> (last-token logits (1, V), B=1
+        decode state, padded prompt length). With ``pool`` and ``slot`` the
+        state is built straight into the slot's rows (``SlotPool.claim``)."""
+        padded = self._pad_prompt(np.asarray(req.tokens, np.int32))
+        if len(padded) + req.max_new_tokens > self.max_len:
+            raise ValueError(f"request {req.uid}: padded prompt {len(padded)} + "
+                             f"{req.max_new_tokens} new tokens exceeds max_len {self.max_len}")
+        batch = {"tokens": torch.from_numpy(padded[None]).long().to(self.device)}
+        into = pool.claim(slot) if pool is not None else None
+        logits, state = prefill(self.cfg, self.fkv, self.params, batch, max_len=self.max_len,
+                                state_dtype=self.state_dtype, into=into)
+        return logits, state, len(padded)
+
+    # ------------------------------------------------------------------
+    # generation
+    # ------------------------------------------------------------------
     def generate(self, requests: List[Request], seed: int = 0) -> List[Completion]:
+        if self.scheduler == "continuous":
+            return self._generate_continuous(requests, seed)
+        t0 = time.perf_counter()
+        em = EngineMetrics(num_slots=self.batch_size, scheduler="static",
+                           sample_on_device=False)
         out: List[Completion] = []
         self.last_logits_finite = True
         for i in range(0, len(requests), self.batch_size):
-            out.extend(self._generate_batch(requests[i: i + self.batch_size], seed + i))
+            out.extend(self._generate_batch(requests[i: i + self.batch_size], seed + i, em,
+                                            t0))
+        self._apply_quant_metrics(em)
+        em.wall_s = time.perf_counter() - t0
+        em.requests = [c.metrics for c in out]
+        for rm in em.requests:
+            em.record_request(rm)
+        self.last_metrics = em
         return out
 
-    def _generate_batch(self, reqs: List[Request], seed: int) -> List[Completion]:
+    def _generate_continuous(self, requests: List[Request], seed: int) -> List[Completion]:
+        if self._pool is None:
+            self._pool = self.make_slot_pool(self.batch_size)
+        else:
+            self._pool.reset_all()
+        self.recall_tracker = RecallFlightTracker()
+        sched = ContinuousScheduler(self, self._pool)
+        tracked, em = sched.run(requests, seed)
+        self._apply_quant_metrics(em)
+        self.last_metrics = em
+        self.last_logits_finite = sched.logits_finite
+        return [Completion(uid=tr.req.uid, tokens=tr.tokens, prefill_s=tr.prefill_s,
+                           decode_s=tr.decode_s, steps=max(len(tr.tokens) - 1, 0),
+                           stats=_request_stats(tr.agg), metrics=tr.metrics)
+                for tr in tracked]
+
+    # -- static lockstep fallback --------------------------------------------
+    def _generate_batch(self, reqs: List[Request], seed: int,
+                        em: EngineMetrics, t_start: float) -> List[Completion]:
+        """One lockstep batch. ``em`` counts the decode steps, the live
+        rows and the host reads, and with ``obs`` on the step times (the
+        reference's static path records none of them). Each request's
+        metrics hold its prefill start, its first token's arrival on the
+        host and its finish, in seconds from ``t_start`` (every request is
+        enqueued at 0)."""
         cfg, fkv = self.cfg, self.fkv
         B = len(reqs)
         T = max(len(r.tokens) for r in reqs)
@@ -96,6 +236,9 @@ class ServeEngine:
         batch = {"tokens": torch.from_numpy(toks).long().to(self.device)}
 
         t0 = time.perf_counter()
+        rms = [RequestMetrics(uid=r.uid, prompt_tokens=len(r.tokens),
+                              padded_prompt_tokens=T, max_new_tokens=r.max_new_tokens,
+                              prefill_start_t=t0 - t_start) for r in reqs]
         logits, state = prefill(cfg, fkv, self.params, batch, max_len=self.max_len,
                                 state_dtype=self.state_dtype)
         self._sync()
@@ -112,13 +255,18 @@ class ServeEngine:
         done = [r.max_new_tokens <= 0 for r in reqs]
         for _ in range(max_new):
             cur_host = cur.tolist()
+            em.host_syncs += 1
+            t_host = time.perf_counter() - t_start
             for i, r in enumerate(reqs):
                 if done[i]:
                     continue
                 out_toks[i].append(cur_host[i])
+                if rms[i].first_token_t is None:
+                    rms[i].first_token_t = t_host
                 if len(out_toks[i]) >= r.max_new_tokens or \
                         (r.eos_token is not None and cur_host[i] == r.eos_token):
                     done[i] = True
+                    rms[i].finish_t = t_host
             if all(done):
                 break
             ts = time.perf_counter()
@@ -129,7 +277,11 @@ class ServeEngine:
             # one device-to-host read for all the step's statistics
             stats_np = dict(zip(DECODE_STAT_KEYS, torch.stack(
                 [stats[k] for k in DECODE_STAT_KEYS]).cpu().numpy()))
+            em.host_syncs += 1
             dt = time.perf_counter() - ts
+            em.record_step(sum(not d for d in done))
+            if self.obs.enabled:
+                em.observe_decode_step(dt)
             for i in range(B):
                 if not done[i]:
                     decode_ss[i] += dt
@@ -137,7 +289,12 @@ class ServeEngine:
                         aggs[i][k] += float(stats_np[k][i])
         self._sync()
         self.last_logits_finite = self.last_logits_finite and bool(finite)
+        t_end = time.perf_counter() - t_start
+        for i, rm in enumerate(rms):
+            rm.new_tokens, rm.prefill_s, rm.decode_s = len(out_toks[i]), prefill_s, decode_ss[i]
+            if rm.finish_t is None:             # max_new_tokens <= 0
+                rm.finish_t = t_end
         return [Completion(uid=r.uid, tokens=out_toks[i], prefill_s=prefill_s,
                            decode_s=decode_ss[i], steps=max(len(out_toks[i]) - 1, 0),
-                           stats=_request_stats(aggs[i]))
+                           stats=_request_stats(aggs[i]), metrics=rms[i])
                 for i, r in enumerate(reqs)]

@@ -1,0 +1,162 @@
+"""Paged KV slot pool: maps requests onto physical batch rows (reference
+``repro/serving/kv_slots.py``, without the preemption swap).
+
+The decode state has a fixed batch: the slot count. Admission and
+completion are per-row writes, in place, with ``paging.slot_write_leaf``:
+
+  * ``claim(slot)`` empties a slot's row and hands out its per-layer views,
+    so ``models.model.prefill(into=...)`` builds the request's state
+    straight into the row: the pool pages land in the row's pinned host
+    memory and the admission copies none of them (~34 MB a layer at
+    llama31-8b's width and 8192 tokens);
+  * ``insert(src, slot)`` writes a B=1 state into the row; leaves that
+    already are the row's views (what ``claim`` gave out) are left alone,
+    so after an in-place prefill only the leaves the retriever replaced
+    (selection buffers, lengths, the centroid index) are copied;
+  * ``free(slot)`` returns the slot and marks it dirty; the reset to the
+    empty state (the pool pages aside, see ``POOL_KEYS``) is lazy (``flush_resets``, called right before a decode
+    window), so a slot refilled at the same boundary is written once.
+
+Every write first makes the current stream wait for each layer's staged
+recall (``recall_pipeline.wait_staged``): the side stream writes the
+``sel_k``/``sel_v`` tensors and reads the pool rows. Writes and reads of the
+pinned pool run on the host, so they first wait for the whole card.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Set
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import paging
+from repro_torch.core.recall_pipeline import wait_staged
+from repro_torch.models.model import init_decode_state
+from repro_torch.quant.accounting import pool_bytes_detail
+
+# the pool payload and its scales: pages past a row's length are written (at
+# page completion) before a selection can reach them, so no reset clears
+# them: the previous occupant's bytes stay instead of ~1 GB of host memset
+# per slot at llama31-8b's width
+POOL_KEYS = ("pool", "pool_scale")
+
+
+def _tensors(layer):
+    return {k: t for k, t in layer.items() if isinstance(t, torch.Tensor)}
+
+
+class SlotPool:
+    """Fixed-capacity pool of physical batch slots over one decode state
+    (``self.state``: ``{"layers": [...], "pos", "pos_host"}`` at batch
+    ``num_slots``), with the pool in pinned host memory under
+    ``fkv.offload == "host"`` as everywhere in the port."""
+
+    def __init__(self, cfg, fkv, num_slots: int, max_len: int,
+                 state_dtype=torch.float32, device="cuda"):
+        self.cfg, self.fkv = cfg, fkv
+        self.num_slots = num_slots
+        self.max_len = max_len
+        self.state_dtype = state_dtype
+        self.device = resolve_device(device)
+        self.state = init_decode_state(cfg, fkv, num_slots, max_len, state_dtype, self.device)
+        # every leaf of an empty state is one constant (zeros, or -1 for
+        # the position and page-id leaves): read them off a tiny one
+        tiny = init_decode_state(cfg, fkv, 1, fkv.page_size, state_dtype, "cpu")
+        self._fill = {k: t.flatten()[0].item() for k, t in _tensors(tiny["layers"][0]).items()}
+        self._host = self.device.type == "cuda" and any(
+            not t.is_cuda for t in _tensors(self.state["layers"][0]).values())
+        self._free: List[int] = list(range(num_slots - 1, -1, -1))
+        self._dirty: Set[int] = set()
+        self.owner: List[Optional[int]] = [None] * num_slots
+        self.allocs = 0
+
+    # -- bookkeeping -----------------------------------------------------
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    def alloc(self, owner_uid: int) -> int:
+        slot = self._free.pop()
+        assert self.owner[slot] is None, f"slot {slot} already owned by {self.owner[slot]}"
+        self._dirty.discard(slot)       # the admission overwrites the row
+        self.owner[slot] = owner_uid
+        self.allocs += 1
+        return slot
+
+    def free(self, slot: int):
+        assert self.owner[slot] is not None, f"slot {slot} already free"
+        self.owner[slot] = None
+        self._free.append(slot)
+        self._dirty.add(slot)
+
+    def pool_bytes(self) -> int:
+        """Physical host-tier bytes (packed payload + scales), all slots."""
+        return self.pool_bytes_detail()["physical"]
+
+    def pool_bytes_detail(self) -> dict:
+        """Payload, scales, physical and dense-equivalent pool bytes."""
+        return pool_bytes_detail(self.state["layers"], self.cfg.d_head,
+                                 dense_itemsize=torch.finfo(self.state_dtype).bits // 8)
+
+    # -- state surgery -----------------------------------------------------
+    def _settle(self):
+        """Order a row write or read after the work in flight: the current
+        stream waits for every layer's staged recall; with a pinned pool,
+        whose rows the host touches directly, the host waits for the card."""
+        for layer in self.state["layers"]:
+            wait_staged(layer)
+        if self._host:
+            torch.cuda.synchronize(self.device)
+
+    def _reset_row(self, slot: int):
+        """Row ``slot`` to the empty state, all but the pool pages."""
+        for layer in self.state["layers"]:
+            for k, t in _tensors(layer).items():
+                if k not in POOL_KEYS:
+                    paging.slot_read_leaf(t, slot).fill_(self._fill[k])
+        self.state["pos"][slot] = 0
+        self.state["pos_host"][slot] = 0
+
+    def flush_resets(self):
+        """Reset the slots freed since the last flush and not refilled, so
+        idle rows step from the empty state."""
+        if not self._dirty:
+            return
+        self._settle()
+        for slot in sorted(self._dirty):
+            self._reset_row(slot)
+        self._dirty.clear()
+
+    def claim(self, slot: int) -> list:
+        """Empty row ``slot`` and return its per-layer B=1 views for
+        ``prefill(into=...)``."""
+        self._settle()
+        self._reset_row(slot)
+        return [{k: paging.slot_read_leaf(t, slot) for k, t in _tensors(layer).items()}
+                for layer in self.state["layers"]]
+
+    def insert(self, src_state, slot: int):
+        """Write a B=1 decode state into row ``slot``."""
+        self._settle()
+        for dst, src in zip(self.state["layers"], src_state["layers"]):
+            for k, t in _tensors(src).items():
+                paging.slot_write_leaf(dst[k], t, slot)
+        for k in ("pos", "pos_host"):
+            paging.slot_write_leaf(self.state[k], src_state[k], slot)
+
+    def extract(self, slot: int):
+        """Row ``slot`` as a B=1 state of copies (tests, migration)."""
+        self._settle()
+        return {"layers": [{k: paging.slot_read_leaf(t, slot).clone()
+                            for k, t in _tensors(layer).items()}
+                           for layer in self.state["layers"]],
+                "pos": paging.slot_read_leaf(self.state["pos"], slot).clone(),
+                "pos_host": paging.slot_read_leaf(self.state["pos_host"], slot).clone()}
+
+    def reset_all(self):
+        self._settle()
+        for slot in range(self.num_slots):
+            self._reset_row(slot)
+        self._free = list(range(self.num_slots - 1, -1, -1))
+        self._dirty = set()
+        self.owner = [None] * self.num_slots

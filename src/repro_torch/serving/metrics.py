@@ -1,0 +1,326 @@
+"""Serving telemetry: per-request lifecycle timings and engine-level counters
+(reference ``repro/serving/metrics.py``, cut to what the ported schedulers
+fill: no prefix cache, speculative decoding, preemption, SLOs or tensor
+parallelism yet).
+
+Timestamps are ``time.perf_counter()`` values relative to the scheduler
+run's start; queue wait, TTFT and inter-token latency are properties, so
+no caller recomputes them differently. ``EngineMetrics`` is a view over a
+per-run ``obs.MetricsRegistry``: its accumulators (``em.steps``,
+``em.host_syncs``, ...) are registry counters exposed as attributes, and
+the latency and speculation histograms live beside them.
+``EngineMetrics.summary()`` is the one dict the launcher prints.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+from repro_torch.obs.registry import (COUNT_BUCKETS, LATENCY_BUCKETS, RATE_BUCKETS,
+                                      MetricsRegistry)
+
+
+@dataclass
+class RequestMetrics:
+    uid: int
+    prompt_tokens: int = 0            # raw prompt length
+    padded_prompt_tokens: int = 0     # after bucket padding
+    max_new_tokens: int = 0
+    enqueue_t: float = 0.0
+    prefill_start_t: Optional[float] = None
+    first_token_t: Optional[float] = None
+    finish_t: Optional[float] = None
+    finish_step: Optional[int] = None  # engine step index at completion
+    new_tokens: int = 0
+    prefill_s: float = 0.0
+    decode_s: float = 0.0
+    max_token_gap_s: float = 0.0      # worst observed inter-token gap
+
+    @property
+    def queue_wait_s(self) -> Optional[float]:
+        if self.prefill_start_t is None:
+            return None
+        return self.prefill_start_t - self.enqueue_t
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        if self.first_token_t is None:
+            return None
+        return self.first_token_t - self.enqueue_t
+
+    @property
+    def itl_s(self) -> Optional[float]:
+        """Mean inter-token latency after the first token."""
+        if self.finish_t is None or self.first_token_t is None or self.new_tokens < 2:
+            return None
+        return (self.finish_t - self.first_token_t) / (self.new_tokens - 1)
+
+
+def _mean(xs: List[float]) -> float:
+    return sum(xs) / len(xs) if xs else 0.0
+
+
+# attribute -> (registry metric name, cast, help); attached as properties
+# below, so ``em.steps += 1`` reads and writes the registry
+_COUNTER_ATTRS = {
+    "steps": ("engine_steps_total", int, "decode steps executed"),
+    "active_slot_steps": ("engine_active_slot_steps_total", int,
+                          "sum over steps of active slots"),
+    "sync_pages": ("recall_sync_pages_total", float,
+                   "blocking (kv-head, page) blocks on the critical path"),
+    "async_pages": ("recall_async_pages_total", float,
+                    "staged blocks hidden behind compute"),
+    "reused_pages": ("recall_reused_pages_total", float,
+                     "blocks served from the resident double buffer"),
+    "host_syncs": ("dispatch_host_syncs_total", int,
+                   "decode reads back to the host"),
+    "sync_bytes_to_host": ("dispatch_sync_bytes_to_host_total", float,
+                           "token/valid/stat blocks read at syncs"),
+    "sync_bytes_to_device": ("dispatch_sync_bytes_to_device_total", float,
+                             "loop-lane uploads at syncs"),
+    "nonsync_host_bytes": ("dispatch_nonsync_host_bytes_total", float,
+                           "decode-loop transfers BETWEEN syncs"),
+    "sel_pages": ("spec_sel_pages_total", float,
+                  "speculatively selected (kv-head, page) slots"),
+    "spec_hit_pages": ("spec_hit_pages_total", float,
+                       "selected pages already resident from the previous step"),
+    "churn_pages": ("spec_churn_pages_total", float,
+                    "pages entering the top-k selection this step"),
+    "corrected_heads": ("spec_corrected_heads_total", float,
+                        "kv heads that triggered fine-grained correction"),
+    "kv_head_steps": ("spec_kv_head_steps_total", float,
+                      "kv-head decision opportunities (heads x steps)"),
+}
+_GAUGE_ATTRS = {
+    "dropped_pages": ("recall_dropped_in_flight_pages", float,
+                      "staged blocks abandoned at slot turnover"),
+    "wall_s": ("engine_wall_seconds", float, "scheduler run wall clock"),
+}
+
+H_QUEUE_WAIT = "request_queue_wait_seconds"
+H_TTFT = "request_ttft_seconds"
+H_ITL = "request_itl_seconds"
+H_PREFILL = "request_prefill_seconds"
+H_DECODE_STEP = "engine_decode_step_seconds"
+H_TOKEN_GAP = "request_token_gap_seconds"
+H_HIT_RATE = "spec_hit_rate"
+H_CORRECTION_RATE = "spec_correction_rate"
+H_CHURN = "spec_churn_pages"
+
+
+@dataclass
+class EngineMetrics:
+    """Engine-level aggregation over one scheduler run. The accumulators
+    live in ``registry``; the fields below are the run's configuration."""
+    num_slots: int = 0
+    requests: List[RequestMetrics] = field(default_factory=list)
+    registry: MetricsRegistry = field(default_factory=MetricsRegistry)
+    page_block_bytes: int = 0         # bytes of one (kv-head, page) K+V block
+    # quantized host tier: page_block_bytes is then the packed unit
+    # (payload + fp32 scales) and dense_block_bytes the unquantized one
+    kv_quant: str = "none"
+    dense_block_bytes: int = 0
+    pool_bytes_physical: float = 0.0  # slot-pool host-tier bytes (packed)
+    pool_bytes_dense: float = 0.0     # same capacity unquantized
+    # True when the pool is pinned host memory (real host-to-card transfers)
+    transfer_is_dma: bool = False
+    scheduler: str = "continuous"
+    # decode steps per host read (models.model.decode_window); with
+    # sample_on_device nothing crosses the host boundary between reads, so
+    # nonsync_host_bytes stays 0; the synchronous path reads every step
+    sync_interval: int = 1
+    sample_on_device: bool = True
+
+    # -- recording ---------------------------------------------------------
+    def record_step(self, n_active: int):
+        self.steps += 1
+        self.active_slot_steps += n_active
+
+    def observe_decode_step(self, dt_s: float):
+        self.registry.histogram(H_DECODE_STEP, LATENCY_BUCKETS,
+                                "per-step decode latency").observe(dt_s)
+
+    def observe_token_gap(self, gap_s: float):
+        """One emitted token's gap since the request's previous token (the
+        tail a per-request mean ITL averages away)."""
+        self.registry.histogram(H_TOKEN_GAP, LATENCY_BUCKETS,
+                                "per-token inter-token gap").observe(gap_s)
+
+    def observe_speculation(self, sel: float, hit: float, churn: float,
+                            corrected: float, kv_heads: float):
+        """One slot-step of the speculation-quality histograms, from the
+        window's stat blocks read at the sync (no extra host traffic)."""
+        reg = self.registry
+        if sel > 0:
+            reg.histogram(H_HIT_RATE, RATE_BUCKETS,
+                          "per-step speculative page-hit rate").observe(hit / sel)
+            reg.histogram(H_CHURN, COUNT_BUCKETS,
+                          "pages entering top-k per step").observe(churn)
+        if kv_heads > 0:
+            reg.histogram(H_CORRECTION_RATE, RATE_BUCKETS,
+                          "per-step corrected-head fraction").observe(corrected / kv_heads)
+
+    def record_request(self, rm: RequestMetrics):
+        """Observe a finished request's latency distributions."""
+        reg = self.registry
+        reg.counter("requests_completed_total").inc()
+        reg.counter("request_tokens_generated_total").inc(rm.new_tokens)
+        if rm.queue_wait_s is not None:
+            reg.histogram(H_QUEUE_WAIT, LATENCY_BUCKETS,
+                          "enqueue -> prefill start").observe(rm.queue_wait_s)
+        if rm.ttft_s is not None:
+            reg.histogram(H_TTFT, LATENCY_BUCKETS, "enqueue -> first token").observe(rm.ttft_s)
+        if rm.itl_s is not None:
+            reg.histogram(H_ITL, LATENCY_BUCKETS, "mean inter-token latency").observe(rm.itl_s)
+        if rm.prefill_s > 0:
+            reg.histogram(H_PREFILL, LATENCY_BUCKETS, "prefill forward time").observe(rm.prefill_s)
+
+    # -- derived views -------------------------------------------------------
+    @property
+    def slot_occupancy(self) -> float:
+        total = self.steps * self.num_slots
+        return self.active_slot_steps / total if total else 0.0
+
+    @property
+    def generated_tokens(self) -> int:
+        return sum(r.new_tokens for r in self.requests)
+
+    @property
+    def tokens_per_s(self) -> float:
+        return self.generated_tokens / self.wall_s if self.wall_s else 0.0
+
+    @property
+    def exposed_transfer_bytes(self) -> float:
+        """Bytes whose transfer the decode critical path waited for."""
+        return self.sync_pages * self.page_block_bytes
+
+    @property
+    def hidden_transfer_bytes(self) -> float:
+        """Bytes streamed behind decode compute (the staged buffer)."""
+        return self.async_pages * self.page_block_bytes
+
+    @property
+    def moved_page_blocks(self) -> float:
+        """Blocks that crossed the link (reused blocks moved nothing)."""
+        return self.sync_pages + self.async_pages
+
+    @property
+    def transfer_bytes_saved(self) -> float:
+        """Bytes the quantized tier removed against a dense pool."""
+        if self.kv_quant == "none" or not self.dense_block_bytes:
+            return 0.0
+        return self.moved_page_blocks * (self.dense_block_bytes - self.page_block_bytes)
+
+    @property
+    def steps_per_sync(self) -> float:
+        """Decode steps per host read (the window depth actually reached)."""
+        return self.steps / self.host_syncs if self.host_syncs else 0.0
+
+    @property
+    def host_bytes_per_step(self) -> float:
+        total = self.sync_bytes_to_host + self.sync_bytes_to_device + self.nonsync_host_bytes
+        return total / self.steps if self.steps else 0.0
+
+    @property
+    def nonsync_bytes_per_step(self) -> float:
+        return self.nonsync_host_bytes / self.steps if self.steps else 0.0
+
+    @property
+    def hidden_fraction(self) -> float:
+        moved = self.hidden_transfer_bytes + self.exposed_transfer_bytes
+        return self.hidden_transfer_bytes / moved if moved else 0.0
+
+    @property
+    def spec_hit_rate_mean(self) -> float:
+        return self.spec_hit_pages / self.sel_pages if self.sel_pages else 0.0
+
+    @property
+    def correction_rate_mean(self) -> float:
+        return self.corrected_heads / self.kv_head_steps if self.kv_head_steps else 0.0
+
+    def _hist_summary(self, name: str, buckets) -> dict:
+        return self.registry.histogram(name, buckets).summary()
+
+    def summary(self) -> dict:
+        done = [r for r in self.requests if r.finish_t is not None]
+        return {
+            "scheduler": self.scheduler,
+            "requests": len(self.requests),
+            "completed": len(done),
+            "generated_tokens": self.generated_tokens,
+            "wall_s": self.wall_s,
+            "tokens_per_s": self.tokens_per_s,
+            "steps": self.steps,
+            "slot_occupancy": self.slot_occupancy,
+            "queue_wait_s_mean": _mean([r.queue_wait_s for r in done
+                                        if r.queue_wait_s is not None]),
+            "ttft_s_mean": _mean([r.ttft_s for r in done if r.ttft_s is not None]),
+            "itl_s_mean": _mean([r.itl_s for r in done if r.itl_s is not None]),
+            "latency": {
+                "queue_wait_s": self._hist_summary(H_QUEUE_WAIT, LATENCY_BUCKETS),
+                "ttft_s": self._hist_summary(H_TTFT, LATENCY_BUCKETS),
+                "itl_s": self._hist_summary(H_ITL, LATENCY_BUCKETS),
+                "decode_step_s": self._hist_summary(H_DECODE_STEP, LATENCY_BUCKETS),
+                "token_gap_s": self._hist_summary(H_TOKEN_GAP, LATENCY_BUCKETS),
+            },
+            "speculation": {
+                "sel_pages": self.sel_pages,
+                "spec_hit_pages": self.spec_hit_pages,
+                "churn_pages": self.churn_pages,
+                "hit_rate_mean": self.spec_hit_rate_mean,
+                "correction_rate_mean": self.correction_rate_mean,
+                "hit_rate": self._hist_summary(H_HIT_RATE, RATE_BUCKETS),
+                "correction_rate": self._hist_summary(H_CORRECTION_RATE, RATE_BUCKETS),
+                "churn": self._hist_summary(H_CHURN, COUNT_BUCKETS),
+            },
+            "recall_overlap": {
+                "hidden_bytes": self.hidden_transfer_bytes,
+                "exposed_bytes": self.exposed_transfer_bytes,
+                "hidden_fraction": self.hidden_fraction,
+                "reused_pages": self.reused_pages,
+                "dropped_in_flight_bytes": self.dropped_pages * self.page_block_bytes,
+                "transfer_is_dma": self.transfer_is_dma,
+            },
+            "dispatch": {
+                "sync_interval": self.sync_interval,
+                "sample_on_device": self.sample_on_device,
+                "host_syncs": self.host_syncs,
+                "steps_per_sync": self.steps_per_sync,
+                "sync_bytes_to_host": self.sync_bytes_to_host,
+                "sync_bytes_to_device": self.sync_bytes_to_device,
+                "nonsync_host_bytes": self.nonsync_host_bytes,
+                "nonsync_bytes_per_step": self.nonsync_bytes_per_step,
+                "host_bytes_per_step": self.host_bytes_per_step,
+            },
+            "kv_quant": {
+                "mode": self.kv_quant,
+                "page_block_bytes": self.page_block_bytes,
+                "dense_block_bytes": self.dense_block_bytes,
+                "moved_page_blocks": self.moved_page_blocks,
+                "bytes_saved": self.transfer_bytes_saved,
+                "pool_bytes_physical": self.pool_bytes_physical,
+                "pool_bytes_dense": self.pool_bytes_dense,
+                "pool_compression": (self.pool_bytes_dense / self.pool_bytes_physical
+                                     if self.pool_bytes_physical else 1.0),
+            },
+        }
+
+
+def _attach_registry_attrs():
+    """Registry counters and gauges as read/write ``EngineMetrics``
+    attributes (``em.steps += 1``)."""
+    def make(metric, cast, help, kind):
+        def fget(self):
+            return cast(getattr(self.registry, kind)(metric, help).value)
+
+        def fset(self, v):
+            getattr(self.registry, kind)(metric, help).set(float(v))
+        return property(fget, fset)
+
+    for attr, (metric, cast, help) in _COUNTER_ATTRS.items():
+        setattr(EngineMetrics, attr, make(metric, cast, help, "counter"))
+    for attr, (metric, cast, help) in _GAUGE_ATTRS.items():
+        setattr(EngineMetrics, attr, make(metric, cast, help, "gauge"))
+
+
+_attach_registry_attrs()

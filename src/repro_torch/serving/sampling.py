@@ -1,7 +1,19 @@
 """Token sampling: greedy / temperature / top-p (reference
 ``repro/serving/sampling.py``). Greedy is the exact argmax (first maximal
-index, as ``jnp.argmax``). Temperature and top-p draw from an explicit
-``torch.Generator``, so they match the reference in distribution only."""
+index, as ``jnp.argmax``).
+
+Two entry points, as in the reference:
+
+* ``sample(logits, cfg, generator)``: the static engine's batch sampler.
+  Temperature and top-p draw from an explicit ``torch.Generator``, so they
+  match the reference in distribution only.
+* ``sample_step(logits, cfg, keys)``: the per-slot sampler the continuous
+  scheduler runs on the card inside the decode window
+  (``models.model.serve_step_sampled``). Greedy only: the reference draws
+  token ``i`` of a request from ``fold_in(request_key(seed, uid), i)``, and
+  those threefry streams are not ported yet (ROADMAP queue 1, item 4), so
+  ``keys`` is carried but unused and a temperature raises.
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -34,3 +46,13 @@ def sample(logits, cfg: SamplerConfig, generator=None):
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(_filter_logits(logits, cfg), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+
+def sample_step(logits, cfg: SamplerConfig, keys=None):
+    """Per-slot sampling: logits (B, V) -> (B,) int32, on the logits'
+    device; ``keys`` (B, 2) is the per-slot key lane of the loop carry."""
+    if cfg.temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    raise NotImplementedError(
+        "sampling with temperature > 0 under the continuous scheduler needs the "
+        "reference's per-request threefry key streams (ROADMAP queue 1, item 4)")

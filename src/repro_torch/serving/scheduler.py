@@ -1,0 +1,372 @@
+"""Continuous-batching scheduler: admission queue and per-slot request
+lifecycle (reference ``repro/serving/scheduler.py``, whole-shot prefill
+only: chunked prefill and preemption are ROADMAP queue 1, item 3; the live
+service mode is item 7).
+
+Requests move QUEUED -> PREFILL -> DECODE -> DONE. Slots are refilled at
+every host boundary, so a short request's completion frees capacity for
+the next queued request instead of idling until the longest co-scheduled
+request drains (the static engine's behaviour). Finished slots stop
+contributing tokens or statistics the moment they drain.
+
+Decode runs without host reads inside a window (``fkv.sample_on_device``,
+the default): the scheduler keeps the loop carry (current tokens, key
+lane, generated counts, limits, eos ids, finished mask) on the card and
+hands it to ``backend.decode_window``, which runs the window's steps
+(decode + greedy pick on the card) and leaves the (n, B) token, valid and
+stat blocks on the card. At the window's end the host reads the blocks
+once, appends tokens, frees and refills slots, and uploads the small lane
+vectors only when one changed. Between reads nothing crosses the host
+boundary (``EngineMetrics.summary()["dispatch"]``).
+
+The window's length comes from the host copy of the lanes (``_Lanes``):
+up to ``sync_interval`` steps, ending when every lane has reached its
+limit or, with admissions queued, when the first one does; that is the
+step count of the reference's on-card loop. An eos finish is seen only
+when the window ends (``models.model.decode_window``): the lane is masked
+on the card at once, so its tokens are exact, but with admissions queued
+its slot is refilled at the window's end rather than at the eos step, and
+``em.steps`` can then differ from the reference's.
+
+``fkv.sample_on_device = False`` is the synchronous reference path: one
+decode step and one host read per iteration. Greedy tokens are the same on
+both paths and for every ``sync_interval``.
+
+The scheduler drives a backend (``ServeEngine``) exposing
+
+    prefill_one(request, pool, slot) -> (logits (1, V), B=1 state, padded_len)
+    step(state, tokens (B, 1)) -> (logits (B, V), state, stats)
+    sample_slot(logits, key, count) -> tokens (1,)
+    sample_lanes(logits, keys (B, 2), counts (B,)) -> tokens (B,)
+    decode_window(state, loop, n) -> (state, loop, toks, valid, stats, finite)
+    page_block_bytes, sync_interval, sample_on_device, obs, recall_tracker
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.model import DECODE_STAT_KEYS as _STAT_KEYS
+from repro_torch.obs.trace import SPAN_DECODE_STEP, SPAN_DECODE_WINDOW
+from repro_torch.serving.metrics import EngineMetrics, RequestMetrics
+
+# stat keys the engine-level counters accumulate (per-request aggregation
+# keeps the full tuple)
+_PAGE_KEYS = ("sync_pages", "async_pages", "reused_pages", "sel_pages",
+              "spec_hit_pages", "churn_pages")
+
+QUEUED, PREFILL, DECODE, DONE = "queued", "prefill", "decode", "done"
+
+
+@dataclass
+class _Tracked:
+    req: object                       # engine.Request
+    order: int                        # position in the submitted batch
+    metrics: RequestMetrics
+    state: str = QUEUED
+    slot: int = -1
+    tokens: List[int] = field(default_factory=list)
+    prefill_s: float = 0.0
+    decode_s: float = 0.0
+    last_tok_t: Optional[float] = None  # run-relative time of the last token
+    agg: Dict[str, float] = field(default_factory=lambda: {k: 0.0 for k in _STAT_KEYS})
+
+    def finished(self) -> bool:
+        if len(self.tokens) >= self.req.max_new_tokens:
+            return True
+        eos = self.req.eos_token
+        return bool(self.tokens) and eos is not None and self.tokens[-1] == eos
+
+
+def _request_stats(agg: Dict[str, float]) -> dict:
+    stats = dict(agg)
+    if agg["kv_heads"] > 0:
+        stats["correction_rate"] = agg["corrected"] / agg["kv_heads"]
+        stats["mean_similarity"] = agg["sim_sum"] / agg["sim_cnt"] if agg["sim_cnt"] else 0.0
+    if agg.get("sel_pages", 0) > 0:
+        stats["spec_hit_rate"] = agg["spec_hit_pages"] / agg["sel_pages"]
+    return stats
+
+
+class _Lanes:
+    """Host mirror of the decode-loop carry, one lane per slot. The card's
+    copy is uploaded again (a few (B,) vectors) only when a lane changed at
+    a boundary: admission, turnover."""
+
+    FIELDS = ("cur", "key", "count", "limit", "eos", "fin")
+
+    def __init__(self, num_slots: int, device):
+        self.device = device
+        self.cur = np.zeros(num_slots, np.int32)
+        self.key = np.zeros((num_slots, 2), np.int32)
+        self.count = np.zeros(num_slots, np.int32)
+        self.limit = np.ones(num_slots, np.int32)
+        self.eos = np.full(num_slots, -1, np.int32)
+        self.fin = np.ones(num_slots, bool)       # empty lanes are "finished"
+        self.dirty = True
+        self._dev = None
+
+    def admit(self, slot: int, tok: int, count: int, limit: int, eos: Optional[int]):
+        self.cur[slot] = tok
+        self.key[slot] = 0                        # greedy: the key lane is unused
+        self.count[slot] = count
+        self.limit[slot] = limit
+        self.eos[slot] = -1 if eos is None else eos
+        self.fin[slot] = False
+        self.dirty = True
+
+    def retire(self, slot: int):
+        self.fin[slot] = True
+        self.dirty = True
+
+    def window_len(self, k_max: int, stop_turnover: bool) -> int:
+        """Steps the reference's on-card loop runs from these lanes when no
+        eos fires: until every live lane reaches its limit, or the first
+        one does when admissions are queued, at most ``k_max``."""
+        live = ~self.fin
+        if not live.any():
+            return 0
+        left = (self.limit - self.count)[live]
+        return int(min(k_max, left.min() if stop_turnover else left.max()))
+
+    def device_loop(self, em: EngineMetrics):
+        """The loop carry on the card; uploads the lanes only when dirty."""
+        if self.dirty or self._dev is None:
+            self._dev = {f: torch.from_numpy(getattr(self, f).copy()).to(self.device)
+                         for f in self.FIELDS}
+            em.sync_bytes_to_device += sum(getattr(self, f).nbytes for f in self.FIELDS)
+            self.dirty = False
+        return dict(self._dev)
+
+    def carry_back(self, loop):
+        """Keep the window's carry on the card for the next window (the host
+        mirrors follow as the read tokens are applied)."""
+        self._dev = {f: loop[f] for f in self.FIELDS}
+
+
+class ContinuousScheduler:
+    """Drives one run of requests to completion over a fixed slot pool."""
+
+    def __init__(self, backend, pool):
+        self.backend = backend
+        self.pool = pool
+        self.logits_finite: Optional[bool] = None   # live lanes' logits, whole run
+
+    def run(self, requests, seed: int = 0):
+        """Returns (tracked records in submission order, EngineMetrics).
+        ``seed`` seeds the per-request sample streams once sampling is
+        ported (ROADMAP queue 1, item 4); greedy ignores it."""
+        backend, pool = self.backend, self.pool
+        on_device = backend.sample_on_device
+        obs = backend.obs
+        self._trace = obs.trace
+        self._page_block_bytes = backend.page_block_bytes
+        t0 = time.perf_counter()
+        self._t0 = t0
+        now = lambda: time.perf_counter() - t0  # noqa: E731
+
+        queue: deque = deque()
+        for i, r in enumerate(requests):
+            queue.append(_Tracked(req=r, order=i, metrics=RequestMetrics(
+                uid=r.uid, prompt_tokens=len(r.tokens), max_new_tokens=r.max_new_tokens,
+                enqueue_t=now())))
+
+        em = EngineMetrics(num_slots=pool.num_slots, scheduler="continuous",
+                           page_block_bytes=backend.page_block_bytes,
+                           sync_interval=backend.sync_interval if on_device else 1,
+                           sample_on_device=on_device)
+        # per-slot staged recall in flight: the buffer a slot carries out of
+        # step t is consumed by step t+1 unless the slot turns over
+        flight = backend.recall_tracker
+        active: Dict[int, _Tracked] = {}
+        lanes = _Lanes(pool.num_slots, pool.device)
+        done: List[_Tracked] = []
+        self._step_idx = 0
+        # every live lane's logits finite, kept on the card, read at the end
+        self._finite = torch.ones((), dtype=torch.bool, device=pool.device)
+
+        def finish(tr: _Tracked, slot: Optional[int]):
+            tr.state = DONE
+            tr.metrics.finish_t = now()
+            tr.metrics.finish_step = self._step_idx
+            tr.metrics.new_tokens = len(tr.tokens)
+            tr.metrics.prefill_s = tr.prefill_s
+            tr.metrics.decode_s = tr.decode_s
+            em.record_request(tr.metrics)
+            self._trace.request_lifecycle(tr.metrics)
+            done.append(tr)
+            if slot is not None:
+                flight.invalidate(slot)   # staged buffer abandoned in flight
+                pool.free(slot)
+                lanes.retire(slot)
+
+        def apply_step(stats_np, toks_np, live_slots, dt, ts):
+            """Host bookkeeping of ONE decode step (``ts``, ``dt``: its
+            run-relative start and its share of the host's time): telemetry,
+            token append, finish detection; shared by both dispatch modes."""
+            em.record_step(len(live_slots))
+            for k in _PAGE_KEYS + ("corrected_heads", "kv_head_steps"):
+                src = {"corrected_heads": "corrected", "kv_head_steps": "kv_heads"}.get(k, k)
+                setattr(em, k, getattr(em, k) + float(sum(stats_np[src][s] for s in live_slots)))
+            for s in live_slots:
+                flight.note_step(s, float(stats_np["async_pages"][s]),
+                                 float(stats_np["sync_pages"][s]),
+                                 float(stats_np["reused_pages"][s]))
+            if obs.enabled:
+                em.observe_decode_step(dt)
+                for s in live_slots:
+                    em.observe_speculation(
+                        float(stats_np["sel_pages"][s]), float(stats_np["spec_hit_pages"][s]),
+                        float(stats_np["churn_pages"][s]), float(stats_np["corrected"][s]),
+                        float(stats_np["kv_heads"][s]))
+            if self._trace.enabled:
+                self._trace_step(stats_np, live_slots, ts, dt)
+            tok_t = ts + dt
+            for s in live_slots:
+                tr = active[s]
+                tr.decode_s += dt
+                for k in _STAT_KEYS:
+                    tr.agg[k] += float(stats_np[k][s])
+                tok = int(toks_np[s])
+                tr.tokens.append(tok)
+                lanes.cur[s] = tok
+                lanes.count[s] += 1
+                if tr.last_tok_t is not None:
+                    gap = max(tok_t - tr.last_tok_t, 0.0)
+                    em.observe_token_gap(gap)
+                    tr.metrics.max_token_gap_s = max(tr.metrics.max_token_gap_s, gap)
+                tr.last_tok_t = tok_t
+                if tr.finished():
+                    del active[s]
+                    finish(tr, s)
+            self._step_idx += 1
+
+        def admit_one(tr: _Tracked):
+            """Prefill the request into a free slot and take its first token."""
+            if tr.req.max_new_tokens <= 0:
+                finish(tr, None)
+                return
+            tr.state = PREFILL
+            tr.metrics.prefill_start_t = now()
+            tp = time.perf_counter()
+            slot = pool.alloc(tr.req.uid)
+            logits1, state1, padded = backend.prefill_one(tr.req, pool, slot)
+            pool.insert(state1, slot)
+            self._finite &= torch.isfinite(logits1).all()
+            tok = int(backend.sample_slot(logits1, None, 0)[0])     # the admission's read
+            tr.prefill_s = time.perf_counter() - tp
+            tr.metrics.padded_prompt_tokens = padded
+            tr.metrics.first_token_t = now()
+            tr.last_tok_t = tr.metrics.first_token_t
+            tr.tokens.append(tok)
+            tr.state = DECODE
+            tr.slot = slot
+            if tr.finished():           # max_new_tokens == 1 or an instant eos
+                finish(tr, slot)
+            else:
+                active[slot] = tr
+                lanes.admit(slot, tok, 1, tr.req.max_new_tokens, tr.req.eos_token)
+
+        while queue or active:
+            # admission: refill freed slots at the host boundary (FIFO)
+            while queue and pool.free_count:
+                admit_one(queue.popleft())
+            if not active:
+                continue
+            pool.flush_resets()          # lazily reset freed-but-idle slots
+            if on_device:
+                self._window_steps(backend, pool, em, lanes, apply_step,
+                                   stop_turnover=bool(queue))
+            else:
+                self._sync_step(backend, pool, em, lanes, apply_step)
+
+        em.wall_s = now()
+        em.dropped_pages = flight.dropped_pages
+        self.logits_finite = bool(self._finite)
+        done.sort(key=lambda tr: tr.order)
+        em.requests = [tr.metrics for tr in done]
+        return done, em
+
+    # ------------------------------------------------------------------
+    # decode dispatch modes
+    # ------------------------------------------------------------------
+    def _trace_step(self, stats_np, live_slots, ts, dt):
+        """One decode step's spans: the step on the decode track, its recall
+        split, and the speculation counter track."""
+        tr = self._trace
+        agg = {k: float(sum(stats_np[k][s] for s in live_slots))
+               for k in ("sync_pages", "async_pages", "reused_pages", "sel_pages",
+                         "spec_hit_pages", "corrected", "kv_heads")}
+        tr.complete(SPAN_DECODE_STEP, ts, dt,
+                    args={"live_slots": len(live_slots), "sync_pages": agg["sync_pages"],
+                          "async_pages": agg["async_pages"]})
+        tr.recall_step(ts, dt, sync_pages=agg["sync_pages"], async_pages=agg["async_pages"],
+                       reused_pages=agg["reused_pages"],
+                       page_block_bytes=self._page_block_bytes)
+        tr.counter("speculation", ts, {
+            "hit_rate": agg["spec_hit_pages"] / agg["sel_pages"] if agg["sel_pages"] else 0.0,
+            "correction_rate": agg["corrected"] / agg["kv_heads"] if agg["kv_heads"] else 0.0})
+
+    @staticmethod
+    def _read(blocks: List[torch.Tensor]) -> List[np.ndarray]:
+        """One device-to-host read for several small blocks (float64 holds
+        every token id, mask and stat exactly)."""
+        flat = torch.cat([b.reshape(-1).to(torch.float64) for b in blocks]).cpu().numpy()
+        out, i = [], 0
+        for b in blocks:
+            out.append(flat[i: i + b.numel()].reshape(tuple(b.shape)))
+            i += b.numel()
+        return out
+
+    def _window_steps(self, backend, pool, em, lanes, apply_step, stop_turnover: bool):
+        """Run one window without host reads, then read its blocks once and
+        apply them step by step."""
+        n = lanes.window_len(backend.sync_interval, stop_turnover)
+        loop = lanes.device_loop(em)
+        ts = time.perf_counter()
+        ts_rel = ts - self._t0
+        state, loop, toks, valid, stats, finite = backend.decode_window(pool.state, loop, n)
+        pool.state = state
+        lanes.carry_back(loop)
+        self._finite &= finite.all()
+        toks_np, valid_np, *stat_np = self._read([toks, valid]
+                                                 + [stats[k] for k in _STAT_KEYS])
+        stats_np = dict(zip(_STAT_KEYS, stat_np))
+        dt = time.perf_counter() - ts
+        em.host_syncs += 1
+        pulled = 8 * (toks.numel() + valid.numel() + sum(stats[k].numel() for k in _STAT_KEYS))
+        em.sync_bytes_to_host += pulled
+        self._trace.complete(SPAN_DECODE_WINDOW, ts_rel, dt,
+                             args={"steps": n, "bytes_to_host": pulled})
+        per_dt = dt / max(n, 1)
+        for j in range(n):
+            live = [int(s) for s in np.nonzero(valid_np[j])[0]]
+            if live:        # rows after an eos finished every lane: nothing to apply
+                apply_step({k: stats_np[k][j] for k in _STAT_KEYS}, toks_np[j], live,
+                           per_dt, ts=ts_rel + j * per_dt)
+
+    def _sync_step(self, backend, pool, em, lanes, apply_step):
+        """Synchronous reference mode: one decode step, one host read."""
+        loop = lanes.device_loop(em)
+        ts = time.perf_counter()
+        ts_rel = ts - self._t0
+        logits, state, stats = backend.step(pool.state, loop["cur"][:, None])
+        toks = backend.sample_lanes(logits, loop["key"], loop["count"])
+        live = ~loop["fin"]
+        self._finite &= (torch.isfinite(logits).all(dim=-1) | ~live).all()
+        toks_np, *stat_np = self._read([toks] + [stats[k] for k in _STAT_KEYS])
+        stats_np = dict(zip(_STAT_KEYS, stat_np))
+        dt = time.perf_counter() - ts
+        pool.state = state
+        em.host_syncs += 1
+        em.sync_bytes_to_host += 8 * (toks.numel() + sum(stats[k].numel()
+                                                         for k in _STAT_KEYS))
+        # cur and count change every step on this path: upload them again
+        # (the per-step round trip the window removes)
+        lanes.dirty = True
+        apply_step(stats_np, toks_np, [int(s) for s in np.nonzero(~lanes.fin)[0]], dt, ts=ts_rel)

@@ -417,3 +417,160 @@ def test_cuda_centroid_candidates_match_plain(N, dtype):
                                            SEL_SINK, SEL_WIN)
         assert got.dtype == torch.int32 and torch.equal(got, want)
         assert (got[1] == -1).any()
+
+
+# ---------------------------------------------------------------------------
+# continuous scheduler on the card
+# ---------------------------------------------------------------------------
+SMOKE_FKV = dict(page_size=8, budget=64, n_sink=8, n_window=8, offload="host")
+
+
+def _smoke_requests(cfg, eos_uid=None, eos=None):
+    import numpy as np
+
+    from repro_torch.serving.engine import Request
+    lens, news = (72, 101, 56, 101, 80), (9, 4, 12, 5, 7)
+    return [Request(uid=i, tokens=np.random.default_rng(i).integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), max_new_tokens=m,
+                    eos_token=eos if i == eos_uid else None)
+            for i, (n, m) in enumerate(zip(lens, news))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,kv_quant", [("freekv", "none"), ("freekv", "int8"),
+                                             ("shadowkv", "none"), ("centroid", "none")])
+def test_cuda_continuous_tokens_equal_cpu(method, kv_quant):
+    """The continuous scheduler on the card (kernels, pinned pool, staged
+    recall on the side stream) gives the CPU's greedy tokens and step
+    counts: granite-3-8b-smoke at float32, five requests of mixed lengths
+    over two slots, one of them ended by an eos inside a window."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServeEngine
+    dev = torch.device("cuda", 0)
+    cfg = get_config("granite-3-8b-smoke")
+    fkv = FreeKVConfig(method=method, kv_quant=kv_quant, **SMOKE_FKV)
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    cpu_params = {"embed": {k: t.cpu() for k, t in params["embed"].items()},
+                  "final_norm": {k: t.cpu() for k, t in params["final_norm"].items()},
+                  "layers": [{n: {k: t.cpu() for k, t in sub.items()} for n, sub in lp.items()}
+                             for lp in params["layers"]]}
+    runs = {}
+    for where, p in (("cuda", params), ("cpu", cpu_params)):
+        eng = ServeEngine(cfg, fkv, p, max_len=128, batch_size=2, device=dev if where == "cuda"
+                          else "cpu")
+        full = eng.generate(_smoke_requests(cfg))
+        toks2 = full[2].tokens          # an eos first made at the third token or later
+        eos = next(t for i, t in enumerate(toks2) if i >= 2 and t not in toks2[:i])
+        outs = eng.generate(_smoke_requests(cfg, eos_uid=2, eos=eos))
+        runs[where] = ([o.tokens for o in full], [o.tokens for o in outs],
+                       eng.last_metrics.steps, eng.last_logits_finite)
+    assert runs["cuda"] == runs["cpu"]
+    assert runs["cuda"][3] is True
+
+
+@pytest.mark.cuda
+def test_cuda_slot_pool_round_trip_with_staged_recall_in_flight():
+    """SlotPool on the card with a pinned pool: a slot read out while its
+    staged recall is in flight on the side stream, written into another
+    slot and read back, is bit for bit the same; a state prefilled straight
+    into a slot equals one prefilled alone and inserted, page for page up
+    to its length; a freed slot resets to the empty state but for its
+    pool pages, which keep their bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.kv_slots import POOL_KEYS
+    dev = torch.device("cuda", 0)
+    cfg = get_config("granite-3-8b-smoke")
+    # tau -1: no head is corrected, so every step stages its recall
+    fkv = FreeKVConfig(method="freekv", tau=-1.0, **SMOKE_FKV)
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    eng = ServeEngine(cfg, fkv, params, max_len=128, batch_size=3, device=dev)
+    pool = eng.make_slot_pool(3)
+    assert pool.state["layers"][0]["pool"].is_pinned()
+    empty = pool.extract(1)
+    req = _smoke_requests(cfg)[0]
+    logits, st, _ = eng.prefill_one(req, pool, 0)
+    pool.insert(st, 0)
+    alone_logits, alone, _ = eng.prefill_one(req)
+    assert torch.equal(logits, alone_logits)
+    got = pool.extract(0)
+    n_full = len(req.tokens) // fkv.page_size
+    for i, layer in enumerate(alone["layers"]):
+        for k, t in layer.items():
+            want = t[:, :n_full] if k in ("pool", "pool_scale") else t
+            have = got["layers"][i][k][:, :n_full] if k in ("pool", "pool_scale") \
+                else got["layers"][i][k]
+            assert torch.equal(have.cpu(), want.cpu()), k
+    cur = torch.argmax(logits, dim=-1).expand(3)[:, None].contiguous()
+    for _ in range(4):
+        logits, pool.state, _ = eng.step(pool.state, cur)
+        cur = torch.argmax(logits, dim=-1)[:, None]
+    assert "sel_ready" in pool.state["layers"][0]          # a staged recall in flight
+    a = pool.extract(0)
+    pool.insert(a, 2)
+    b = pool.extract(2)
+    for key in ("pos", "pos_host"):
+        assert torch.equal(a[key], b[key])
+    for la, lb in zip(a["layers"], b["layers"]):
+        for k in la:
+            assert torch.equal(la[k], lb[k]), k
+    slot = pool.alloc(7)
+    before = pool.extract(slot)
+    pool.free(slot)
+    pool.flush_resets()
+    reset = pool.extract(slot)
+    for le, lb, lr in zip(empty["layers"], before["layers"], reset["layers"]):
+        for k in le:       # the pool pages keep their bytes (kv_slots.POOL_KEYS)
+            assert torch.equal(lb[k] if k in POOL_KEYS else le[k], lr[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,kv_quant", [("freekv", "none"), ("freekv", "int8"),
+                                             ("shadowkv", "none"), ("centroid", "none")])
+def test_cuda_decode_window_makes_no_host_sync(method, kv_quant):
+    """A decode window on the card never makes the host wait for it: under
+    torch.cuda.set_sync_debug_mode("error") a read back (.cpu(), .item(),
+    .tolist()), a copy from pageable host memory and a data-dependent
+    shape (nonzero, boolean indexing) each raise. Ragged rows (two requests
+    of different lengths and an idle slot at length 0), pages completing in
+    every row during the window, the staged recall in flight. The window's
+    one read comes after, as the scheduler makes it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.metrics import EngineMetrics
+    from repro_torch.serving.scheduler import _Lanes
+    dev = torch.device("cuda", 0)
+    cfg = get_config("granite-3-8b-smoke")
+    fkv = FreeKVConfig(method=method, kv_quant=kv_quant, **SMOKE_FKV)
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    eng = ServeEngine(cfg, fkv, params, max_len=128, batch_size=3, device=dev)
+    pool = eng.make_slot_pool(3)
+    lanes = _Lanes(3, dev)
+    for req in _smoke_requests(cfg)[:2]:              # 72 and 101 tokens
+        slot = pool.alloc(req.uid)
+        logits, st, _ = eng.prefill_one(req, pool, slot)
+        pool.insert(st, slot)
+        lanes.admit(slot, int(torch.argmax(logits[0])), 1, 100, None)
+    loop = lanes.device_loop(EngineMetrics())
+    state, loop, *_ = eng.decode_window(pool.state, loop, 2)     # loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, loop, toks, valid, stats, finite = eng.decode_window(state, loop, 16)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert valid[:, :2].all() and not valid[:, 2].any()
+    assert finite.all()
+    assert state["pos_host"].tolist() == state["pos"].tolist() == [72 + 18, 101 + 18, 18]

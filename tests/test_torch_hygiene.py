@@ -53,6 +53,11 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
         make_retriever(cfg, fkv).init_state(1, 64)
     with pytest.raises(RuntimeError, match="cuda"):
         ServeEngine(cfg, fkv, {}, max_len=64, batch_size=1, scheduler="static")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServeEngine(cfg, fkv, {}, max_len=64, batch_size=1)
+    from repro_torch.serving.kv_slots import SlotPool
+    with pytest.raises(RuntimeError, match="cuda"):
+        SlotPool(cfg, fkv, 2, 64)
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--arch", "granite-3-8b-smoke", "--scheduler", "static"])

@@ -19,6 +19,7 @@ from repro_torch.configs.base import FreeKVConfig
 from repro_torch.data.synthetic import needle_stream
 from repro_torch.models import model
 from repro_torch.serving.engine import Request, ServeEngine
+from repro_torch.serving.sampling import SamplerConfig
 
 torch.set_float32_matmul_precision("highest")
 FKV = dict(method="freekv", page_size=8, budget=64, n_sink=8, n_window=8, tau=0.8)
@@ -116,14 +117,32 @@ def test_static_engine_greedy_tokens_equal_reference(arch):
         assert o.stats["sync_pages"] == jo.stats["sync_pages"]
 
 
-def test_continuous_scheduler_not_ported():
-    """The static path is the default and takes every ``kv_quant`` (the
-    quantized host tier is ported); asking for the continuous one raises."""
+@pytest.mark.parametrize("kv_quant", ["none", "int8", "int4"])
+def test_static_path_takes_every_kv_quant(kv_quant):
+    """The static lockstep path takes every ``kv_quant`` (the quantized host
+    tier is ported); the continuous scheduler is the default."""
     cfg = get_config("granite-3-8b-smoke")
-    for kv_quant in ("none", "int8", "int4"):
-        eng = ServeEngine(cfg, FreeKVConfig(**FKV, kv_quant=kv_quant), {}, max_len=64,
-                          batch_size=1, device="cpu")
-        assert eng.scheduler == "static"
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ServeEngine(cfg, FreeKVConfig(**FKV), {}, max_len=64, batch_size=1,
+    fkv = FreeKVConfig(**FKV, kv_quant=kv_quant)
+    assert ServeEngine(cfg, fkv, {}, max_len=64, batch_size=1, scheduler="static",
+                       device="cpu").scheduler == "static"
+    assert ServeEngine(cfg, fkv, {}, max_len=64, batch_size=1,
+                       device="cpu").scheduler == "continuous"
+
+
+@pytest.mark.parametrize("what,kw,item", [
+    ("temperature", dict(sampler=SamplerConfig(temperature=0.7)), "item 4"),
+    ("preempt", dict(fkv=FreeKVConfig(**FKV, preempt=True)), "item 3"),
+    ("chunked prefill", dict(fkv=FreeKVConfig(**FKV, prefill_chunk_tokens=32)), "item 3"),
+])
+def test_continuous_refuses_what_is_not_ported(what, kw, item):
+    """Under the continuous scheduler, sampling with a temperature, priority
+    preemption and chunked prefill raise and name their ROADMAP items; the
+    static path still samples with a temperature."""
+    cfg = get_config("granite-3-8b-smoke")
+    args = dict(fkv=FreeKVConfig(**FKV), sampler=SamplerConfig())
+    args.update(kw)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
+        ServeEngine(cfg, args["fkv"], {}, max_len=64, batch_size=1, sampler=args["sampler"],
                     scheduler="continuous", device="cpu")
+    ServeEngine(cfg, FreeKVConfig(**FKV), {}, max_len=64, batch_size=1,
+                sampler=SamplerConfig(temperature=0.7), scheduler="static", device="cpu")
