@@ -7,7 +7,7 @@ Phases, each fatal on failure (nothing is caught):
   1. device: the card's name and power limit from nvidia-smi, its PCIe link
      (generation and width from nvidia-smi and sysfs, "not readable" where
      the machine hides them) and NUMA node; exits non-zero without CUDA.
-  2. build: the six CUDA sources (eleven kernel entry points) from this
+  2. build: the six CUDA sources (thirteen kernel entry points) from this
      checkout, one nvcc per source, in parallel.
   3. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes (B=4, kv=8, G=4, H=32, d=128, p=32, n_sel=56,
@@ -15,11 +15,18 @@ Phases, each fatal on failure (nothing is caught):
      clusters), in bfloat16 and float32, with the tolerances of TOL: the
      gathers (recall_gather and recall_values; recall_gather_quant and
      recall_values_quant at int8 and int4, groups 0/16/32) exact from a
-     device pool and from a pinned host pool, page_summary exact and
-     flash_prefill within TOL at a continuous admission's shapes (B=1,
-     T=8192 and 7168; timed at B=1, T=8192) and at the static batch's (B=4,
-     T=8192; timed beside it), flash_prefill also with a sliding-window case
-     and a softcap case,
+     device pool and from a pinned host pool, page_summary (the
+     summary-only entry) and fill_pages (summaries, HND block and scales in
+     one pass; fp, int8 and int4; the prefill into a pinned pool equal to
+     it into a device pool) exact and flash_prefill within TOL at a
+     continuous admission's shapes (B=1, T=8192 and 7168; timed at B=1,
+     T=8192) and at the static batch's (B=4, T=8192; timed beside it),
+     flash_prefill also with a sliding-window case and a softcap case;
+     complete_page exact to a device and to a pinned pool over 4 slots with
+     no row, some rows and every row completing a page (also over a ring
+     where the page wraps), a row that completes nothing byte-identical,
+     timed to the pinned pool with every row and with no row completing;
+     fill_pages and complete_page each beside the composition it replaced,
      centroid_scores within 2e-5 with empty clusters at exactly -1e30;
      select_pages (scores, mask, group pooling and top-k in one launch) with
      page ids exactly equal on far-apart, forced-tie and underflow inputs in
@@ -47,16 +54,18 @@ Phases, each fatal on failure (nothing is caught):
      left-padded batches of 4, in the same process, for the comparison. Every kernel's launch count
      is zeroed just before each run and read just after; each kernel the
      run takes must rise (select_pages in every run, centroid_candidates
-     under centroid), flash_prefill must launch once a layer for each
-     admitted request, page_summary more (a page completed in decode), and
-     the scores-only entries page_scores and centroid_scores must not
-     launch. Each run logs tokens and TTFT per request, decode ms a step,
+     under centroid), flash_prefill and fill_pages must launch once a layer
+     for each prefill, complete_page once a layer for each decode step, and
+     the scores-only and summary-only entries page_scores, centroid_scores
+     and page_summary must not launch; on the continuous path every
+     layer's pool must hold a page that only a completion in decode writes. Each run logs tokens and TTFT per request, decode ms a step,
      host reads a generated token, tokens/s and peak memory. After each
      continuous run a few eager decode steps are profiled
      (launch/decode_profile.py profile_decode): host ops and device
      operations a step and the device's busy share; for freekv/none also a
      continuous window of 8 steps on the same state beside 8 steps of the
-     static engine (profile_window).
+     static engine (profile_window), and a step in which every row
+     completes a page beside one in which none does (profile_completion).
      ShadowKV's low-rank key factorization is timed at one layer's shape.
      Then, in a fresh process (launch/gather_bench.py), the overlap line: 32
      paged_attention (one decode step's) alone and beside recall_gather on
@@ -777,6 +786,244 @@ def check_page_summary(ops, ref, dev, gen):
             "library_call": "torch.aminmax over the page axis"}
 
 
+FILL_QUANT = ((0, 0), (8, 0), (4, 0), (8, 16), (4, 32))   # (bits, quant_group_size)
+
+
+def _pool_outputs(b, n_pages, dt, bits, group, dev, pinned=False):
+    """Empty summ (b, n_pages, KV, 2, D) of dt and pool (b, n_pages, KV, 2, P,
+    dp) of dt, or int8 with float32 scales (b, n_pages, KV, 2, n_g), as
+    ``paging.init_kv_state`` lays them out; the pool and its scales on the
+    card or pinned."""
+    def alloc(shape, t):
+        x = torch.zeros(shape, dtype=t)
+        return x.pin_memory() if pinned else x.to(dev)
+    summ = torch.zeros(b, n_pages, KV, 2, D, dtype=dt, device=dev)
+    if not bits:
+        return summ, alloc((b, n_pages, KV, 2, P, D), dt), None
+    n_g = D // (group or D)
+    return (summ, alloc((b, n_pages, KV, 2, P, D * bits // 8), torch.int8),
+            alloc((b, n_pages, KV, 2, n_g), torch.float32))
+
+
+def _quant_arg(pool, scale):
+    """(bits, group) of a pool as ``quantize_block`` takes them."""
+    return (8 if pool.shape[-1] == D else 4), D // scale.shape[-1]
+
+
+def check_fill_pages(ops, ref, dev, gen):
+    """fill_pages exact against its plain version (summaries, payload and
+    scales; fp, int8 and int4; bf16 and fp32) at a continuous admission's
+    shapes (B=1, T=8192 and 7168) and the static batch's (B=4, T=8192), K
+    and V prefix views of a longer prompt, the outputs the first pages of
+    the state's; and the prefill's pool fill into a pinned pool (a staging
+    block, one copy a row) equal to it into a device pool. Timed at B=1 and
+    B=4 (fp pool, and int8 at B=1) beside its bound, its plain version, the
+    composition it replaces (stack of transposes, the quantizer, the
+    summary kernel and the summaries' write) and torch.aminmax."""
+    from repro_torch.core import paging
+    from repro_torch.quant.quantizers import quantize_block
+    cases = ((1, CONTEXT), (1, 7168), (B, CONTEXT))
+    for dt in (torch.float32, torch.bfloat16):
+        for b, T in cases:
+            k = torch.randn(b, T + 40, KV, D, generator=gen, device=dev).to(dt)[:, :T]
+            v = torch.randn(b, T + 40, KV, D, generator=gen, device=dev).to(dt)[:, :T]
+            k[:, 64:96] = 0                            # a zero page: scale 1
+            v[:, 64:96] = 0
+            n = T // P
+            for bits, group in FILL_QUANT:
+                got = _pool_outputs(b, N_PAGES, dt, bits, group, dev)
+                want = tuple(None if t is None else t.clone() for t in got)
+                ops.fill_pages(k, v, *(None if t is None else t[:, :n] for t in got))
+                ref.fill_pages_ref(k, v, *(None if t is None else t[:, :n] for t in want))
+                torch.cuda.synchronize()
+                for what, x, y in zip(("summ", "pool", "scale"), got, want):
+                    require(x is None or torch.equal(x, y),
+                            f"fill_pages {dt} int{bits or 0} g{group} B={b} T={T}: {what} "
+                            "not exact")
+                if b == 1 and T == CONTEXT:
+                    # the prefill's pool fill into a pinned pool equals it into a device one
+                    st = {}
+                    for pinned in (False, True):
+                        summ, pool, scale = _pool_outputs(1, N_PAGES, dt, bits, group, dev,
+                                                          pinned)
+                        st[pinned] = {"summ": summ, "pool": pool,
+                                      **({} if scale is None else {"pool_scale": scale}),
+                                      **{key: torch.zeros(1, N_WIN if key.startswith("win")
+                                                          else N_SINK, KV, D, dtype=dt,
+                                                          device=dev)
+                                         for key in ("sink_k", "sink_v", "win_k", "win_v")},
+                                      "win_pos": torch.zeros(1, N_WIN, dtype=torch.int32,
+                                                             device=dev)}
+                        paging.prefill_fill_pool(st[pinned], k, v, T)
+                    torch.cuda.synchronize()
+                    require(st[True]["pool"].is_pinned(), "the pinned pool is not pinned")
+                    for key, x in st[False].items():
+                        require(torch.equal(st[True][key].to(dev), x),
+                                f"fill_pages {dt} int{bits or 0}: the pinned pool's {key} "
+                                "differs from the device pool's")
+            del k, v
+    dt = torch.bfloat16
+
+    def composition(k, v, summ, pool, scale):
+        """The prefill's pool fill before fill_pages: the HND block by a
+        stack of transposes (quantized under the quantized tier), the
+        summary kernel, and the summaries' write."""
+        b, n = pool.shape[:2]
+        kp = k[:, :n * P].unflatten(1, (n, P))
+        vp = v[:, :n * P].unflatten(1, (n, P))
+        hnd = torch.stack([kp.transpose(2, 3), vp.transpose(2, 3)], dim=3)
+        if scale is None:
+            pool.copy_(hnd.to(pool.dtype).contiguous())
+        else:
+            q, sc = quantize_block(hnd, *_quant_arg(pool, scale))
+            pool.copy_(q.contiguous())
+            scale.copy_(sc.contiguous())
+        summ.copy_(ops.page_summary(k[:, :n * P], page_size=P).to(summ.dtype))
+
+    def timed(b, bits):
+        n = CONTEXT // P
+        byts = 2 * b * CONTEXT * KV * D * 2 + b * n * KV * 2 * D * 2 + b * n * KV * 2 * P * (
+            D * 2 if not bits else D * bits // 8) + (b * n * KV * 2 * 4 if bits else 0)
+        args = []
+        for _ in range(copies_for(byts)):
+            k = torch.randn(b, CONTEXT, KV, D, generator=gen, device=dev).to(dt)
+            v = torch.randn(b, CONTEXT, KV, D, generator=gen, device=dev).to(dt)
+            # the staging block of a pinned pool: exactly the filled pages
+            args.append((k, v) + _pool_outputs(b, n, dt, bits, 0, dev))
+        ms, call_ms = time_ms(ops.fill_pages, args)
+        plain_ms, _ = time_ms(ref.fill_pages_ref, args, iters=10)
+        comp_ms, comp_call_ms = time_ms(composition, args)
+        lib_ms, _ = time_ms(lambda k, *_: torch.aminmax(k.unflatten(1, (n, P)), dim=2), args)
+        return {"shape": f"k,v({b},{CONTEXT},{KV},{D}) -> block({b},{n},{KV},2,{P},{D}) "
+                         f"{'bf16' if not bits else f'int{bits}'} + summ",
+                "bound_bytes": byts, "bound_ops": 0, "bound_ms": 1e3 * byts / HBM_BPS,
+                "bound_by": "bytes", "kernel_ms": ms, "kernel_call_ms": call_ms,
+                "plain_ms": plain_ms, "composition_ms": comp_ms,
+                "composition_call_ms": comp_call_ms, "library_ms": lib_ms}
+
+    # timed at a continuous admission (B=1), the main path's shape, and at
+    # the static batch's (B=4); int8 at B=1
+    return {"name": "fill_pages", **timed(1, 0), "static_batch": timed(B, 0),
+            "int8": timed(1, 8), "max_abs_err": 0.0, "tol": 0.0,
+            "checked": [f"B={b} T={t}" for b, t in cases] + ["pinned pool via prefill_fill_pool"],
+            "composition": "stack of transposes (+ quantize_block) + page_summary kernel + "
+                           "the summaries' write",
+            "library_call": "torch.aminmax over the page axis (the summary part)"}
+
+
+def _host_branch_completion(ops, win_k, win_v, length_host, summ, pool, scale=None):
+    """What complete_page replaces: append_token's former page completion.
+    The rows that complete a page are picked on the host from a CPU
+    copy of the post-append lengths; then two pinned index uploads, two
+    advanced-index gathers from the ring, a stack of transposes, the
+    quantizer under the quantized tier, one copy a row into the pool (and
+    its scales), the summary kernel and a scatter into the summaries."""
+    from repro_torch.quant.quantizers import quantize_block
+    new_len = [int(x) for x in length_host]
+    rows = [b for b in range(len(new_len)) if new_len[b] % P == 0]
+    if not rows:
+        return
+    pages = [new_len[b] // P - 1 for b in rows]
+
+    dev = win_k.device
+
+    def ids(vals):
+        return torch.tensor(vals, dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
+    pages_d = ids(pages)
+    slot = (pages_d[:, None] * P + torch.arange(P, device=dev)) % win_k.shape[1]
+    ridx = ids(rows)
+    pk = win_k[ridx[:, None], slot]
+    pv = win_v[ridx[:, None], slot]
+    hnd = torch.stack([pk.transpose(1, 2), pv.transpose(1, 2)], dim=2)
+    if scale is None:
+        blocks, scs = hnd.to(pool.dtype).contiguous(), None
+    else:
+        blocks, scs = quantize_block(hnd, *_quant_arg(pool, scale))
+    for i, (b, pg) in enumerate(zip(rows, pages)):
+        pool[b, pg].copy_(blocks[i], non_blocking=True)
+        if scs is not None:
+            scale[b, pg].copy_(scs[i], non_blocking=True)
+    summ[ridx, pages_d] = ops.page_summary(pk, page_size=P)[:, 0].to(summ.dtype)
+
+
+def check_complete_page(ops, ref, dev, gen):
+    """complete_page exact against its plain version (summaries, payload and
+    scales; fp, int8 and int4; bf16 and fp32; a device and a pinned pool)
+    on the main path's 4 slots, with post-append lengths that complete no
+    page, pages in some rows and a page in every row, over the main path's
+    ring and a 150-slot one where a page wraps the ring's end; a row that
+    completes nothing keeps every byte of its pool, scales and summaries.
+    Timed at bf16 to the pinned pool: a step where every row completes a
+    page (beside the host-branch completion it replaced, in the same call) and one
+    where none does."""
+    lengths = ([8200, 6150, 4101, 7170], [8224, 6150, 4128, 7170], [8224, 6176, 4128, 7200])
+    for dt in (torch.float32, torch.bfloat16):
+        for n_win in (N_WIN, 150):                 # 150: page 192 wraps (slots 144..149, 0..25)
+            win_k = torch.randn(B, n_win, KV, D, generator=gen, device=dev).to(dt)
+            win_v = torch.randn(B, n_win, KV, D, generator=gen, device=dev).to(dt)
+            for bits, group in FILL_QUANT:
+                for pinned in (False, True):
+                    outs = _pool_outputs(B, N_PAGES, dt, bits, group, dev, pinned)
+                    for t in outs:                 # old bytes, to be kept or replaced
+                        if t is not None:
+                            t.copy_(torch.randint(-50, 50, t.shape, generator=gen, device=dev))
+                    for ls in lengths:
+                        length = torch.tensor(ls, dtype=torch.int32, device=dev)
+                        want = tuple(None if t is None else t.to(dev, copy=True) for t in outs)
+                        before = tuple(None if t is None else t.clone() for t in outs)
+                        ops.complete_page(win_k, win_v, length, *outs)
+                        ref.complete_page_ref(win_k, win_v, length, *want)
+                        torch.cuda.synchronize()
+                        what = f"complete_page {dt} int{bits or 0} g{group} ring {n_win} " \
+                               f"{'pinned' if pinned else 'device'} lengths {ls}"
+                        for name, x, y, x0 in zip(("summ", "pool", "scale"), outs, want, before):
+                            if x is None:
+                                continue
+                            require(torch.equal(x.to(dev), y), f"{what}: {name} not exact")
+                            for r, n in enumerate(ls):
+                                require(n % P == 0 or torch.equal(x[r], x0[r]),
+                                        f"{what}: row {r} completed nothing but its {name} "
+                                        "changed")
+                    del outs, want, before
+    dt = torch.bfloat16
+    win_k = torch.randn(B, N_WIN, KV, D, generator=gen, device=dev).to(dt)
+    win_v = torch.randn(B, N_WIN, KV, D, generator=gen, device=dev).to(dt)
+    every = torch.tensor(lengths[2], dtype=torch.int32, device=dev)
+    none = torch.tensor(lengths[0], dtype=torch.int32, device=dev)
+    host = _pool_outputs(B, N_PAGES, dt, 0, 0, dev, pinned=True)
+    device = _pool_outputs(B, N_PAGES, dt, 0, 0, dev)
+    ms, call_ms = time_ms(ops.complete_page, [(win_k, win_v, every) + host])
+    none_ms, none_call_ms = time_ms(ops.complete_page, [(win_k, win_v, none) + host])
+    dev_ms, _ = time_ms(ops.complete_page, [(win_k, win_v, every) + device])
+    plain_ms, _ = time_ms(ref.complete_page_ref, [(win_k, win_v, every) + device], iters=10)
+    every_host = every.cpu()
+    comp_ms, comp_call_ms = time_ms(
+        lambda *a: _host_branch_completion(ops, win_k, win_v, every_host, *a), [host])
+    slot = (torch.tensor([n // P - 1 for n in lengths[2]], device=dev)[:, None] * P
+            + torch.arange(P, device=dev)) % N_WIN
+    pk = win_k[torch.arange(B, device=dev)[:, None], slot]       # (B, p, kv, d)
+    lib_ms, _ = time_ms(lambda x: torch.aminmax(x, dim=1), [(pk,)])
+    link = B * KV * 2 * P * D * 2                                  # the blocks, to the host
+    on_card = 2 * B * P * KV * D * 2 + B * KV * 2 * D * 2 + nbytes(every)
+    return {"name": "complete_page",
+            "shape": f"rings({B},{N_WIN},{KV},{D}) -> pinned pool({B},{N_PAGES},{KV},2,{P},{D}), "
+                     "every row completing",
+            "bound_bytes": link + on_card, "bound_ops": 0,
+            "bound_ms": 1e3 * max(link / PCIE_BPS, on_card / HBM_BPS), "bound_by": "bytes",
+            "bound_link": "PCIe for the pinned host pool",
+            "kernel_ms": ms, "kernel_call_ms": call_ms, "device_pool_ms": dev_ms,
+            "device_pool_bound_ms": 1e3 * (link + on_card) / HBM_BPS,
+            "no_completion": {"kernel_ms": none_ms, "kernel_call_ms": none_call_ms,
+                              "bound_ms": 1e3 * nbytes(none) / HBM_BPS},
+            "plain_ms": plain_ms, "composition_ms": comp_ms, "composition_call_ms": comp_call_ms,
+            "composition": "the former host-branch completion: host pick, 2 pinned index uploads, "
+                           "ring gathers, stack, a copy_ a row, page_summary kernel, scatter",
+            "library_ms": lib_ms, "library_call": "torch.aminmax over the page's tokens "
+                                                  "(the summary part)",
+            "max_abs_err": 0.0, "tol": 0.0,
+            "checked": [f"lengths {ls}" for ls in lengths]}
+
+
 def _prefill_inputs(gen, dev, dt, b, h, kv, t, d):
     """q, k, v as the model hands them over: (b, t, heads, d) tensors seen
     as (b, heads, t, d) views."""
@@ -869,7 +1116,7 @@ def llama_params(dev):
 # the kernels each main-path run must launch (recall_gather reads the fp
 # pool, recall_gather_quant the quantized one; ShadowKV's decode recalls V
 # halves only; Centroid scores its cluster boxes every step)
-_COMMON = ("paged_attention", "select_pages", "page_summary", "flash_prefill")
+_COMMON = ("paged_attention", "select_pages", "fill_pages", "complete_page", "flash_prefill")
 RUNS = {
     ("freekv", "none"): _COMMON + ("recall_gather",),
     ("freekv", "int8"): _COMMON + ("recall_gather_quant",),
@@ -877,8 +1124,9 @@ RUNS = {
     ("shadowkv", "int8"): _COMMON + ("recall_values_quant",),
     ("centroid", "none"): _COMMON + ("centroid_candidates", "recall_gather"),
 }
-# the scores-only entries: held in phase 3, never on the main path
-OFF_PATH = ("page_scores", "centroid_scores")
+# the scores-only and summary-only entries: held in phase 3, never on the
+# main path
+OFF_PATH = ("page_scores", "centroid_scores", "page_summary")
 
 
 def main_path(dev, ops, cfg, params, method, kv_quant, scheduler="continuous"):
@@ -914,17 +1162,27 @@ def main_path(dev, ops, cfg, params, method, kv_quant, scheduler="continuous"):
         require(launches[name] > 0, f"{name} was never launched on the main path ({run})")
     for name in OFF_PATH:
         require(launches[name] == 0, f"{name} launched on the main path ({run})")
-    # one flash_prefill a layer for each prefill (each admitted request under
-    # the continuous scheduler, the batch under the static one); page_summary
-    # as often at prefill, and more means a page completed (and was quantized
-    # and summarised) during decode
-    require(launches["flash_prefill"] == cfg.n_layers * prefills,
-            f"flash_prefill launched {launches['flash_prefill']} times for {prefills} "
-            f"prefills of {cfg.n_layers} layers ({run})")
-    require(launches["page_summary"] > cfg.n_layers * prefills,
-            f"no page completed during decode ({run}): page_summary launched "
-            f"{launches['page_summary']} times for {prefills} prefills of {cfg.n_layers} layers")
+    # one flash_prefill and one fill_pages a layer for each prefill (each
+    # admitted request under the continuous scheduler, the batch under the
+    # static one); one complete_page a layer for each decode step, whatever
+    # the lengths
     steps = em.steps
+    for name, per_layer in (("flash_prefill", prefills), ("fill_pages", prefills),
+                            ("complete_page", steps)):
+        require(launches[name] == cfg.n_layers * per_layer,
+                f"{name} launched {launches[name]} times for {per_layer} "
+                f"{'decode steps' if name == 'complete_page' else 'prefills'} of "
+                f"{cfg.n_layers} layers ({run})")
+    if scheduler == "continuous":
+        # a page completed during decode: every layer's pool holds the page
+        # past the longest prompt's whole pages, which no prefill writes (a
+        # freed slot's summaries are reset, its pool pages kept)
+        torch.cuda.synchronize(dev)
+        page = max(CONT_PROMPTS) // P
+        for i, layer in enumerate(eng._pool.state["layers"]):
+            require(bool(layer["pool"][:, page].ne(0).any()),
+                    f"no page completed during decode ({run}): layer {i}'s pool page {page} "
+                    "is empty in every slot")
     lat = em.summary()["latency"]["decode_step_s"]
     decode_ms = 1e3 * lat["sum"] / lat["count"]
     # measured by either engine: from generate()'s start to the first
@@ -961,12 +1219,15 @@ def main_path(dev, ops, cfg, params, method, kv_quant, scheduler="continuous"):
         from repro_torch.launch.decode_profile import profile_decode
         stream = needle_stream(cfg.vocab_size, CONTEXT, fkv.page_size, seed=0)
         toks = torch.from_numpy(np.stack([next(stream).tokens for _ in range(B)]))
-        window = 8 if (method, kv_quant) == ("freekv", "none") else 0
+        main = (method, kv_quant) == ("freekv", "none")
+        window = 8 if main else 0
         prof = profile_decode(cfg, fkv, params, toks.long().to(dev), steps=3,
-                              with_prefill=False, window=window)
+                              with_prefill=False, window=window, completion=main)
         info["profile"] = {k: prof[k] for k in ("wall_ms_per_step_unprofiled",
                                                 "cpu_ops_per_step", "device_ops_per_step",
                                                 "device_busy_ms_per_step", "device_busy_share")}
+        if main:
+            info["profile"]["completion"] = prof["completion"]
         if window:
             info["profile"]["window"] = prof["window"]
             # the window's one read at its end is its only wait for the card
@@ -1168,6 +1429,12 @@ KERNEL_META = {   # name -> (source, the TPU kernel it replaces)
     "centroid_candidates": ("src/repro_torch/kernels/csrc/page_scores.cu",
                             "src/repro/kernels/centroid_scores.py:40 centroid_scores, fused "
                             "with src/repro/core/centroid_index.py:254-287"),
+    "fill_pages": ("src/repro_torch/kernels/csrc/page_summary.cu",
+                   "src/repro/kernels/page_summary.py:19 page_summary, fused with the pool "
+                   "fill of src/repro/core/paging.py:178-203"),
+    "complete_page": ("src/repro_torch/kernels/csrc/page_summary.cu",
+                      "src/repro/kernels/page_summary.py:19 page_summary, fused with the "
+                      "masked page completion of src/repro/core/paging.py:206-254"),
 }
 
 
@@ -1216,7 +1483,8 @@ def main():
               "recall_values": check_recall_values,
               "recall_values_quant": check_recall_values_quant,
               "centroid_scores": check_centroid_scores, "select_pages": check_select_pages,
-              "centroid_candidates": check_centroid_candidates}
+              "centroid_candidates": check_centroid_candidates, "fill_pages": check_fill_pages,
+              "complete_page": check_complete_page}
     require(set(checks) == {fn.__name__ for fn in ops.KERNELS} == set(KERNEL_META),
             "a kernel has no check")
     kernels = []
@@ -1233,11 +1501,16 @@ def main():
         log(f"[kernel] {k['name']}: max|err| {k['max_abs_err']:.3g} | "
             f"{k['kernel_ms']:.4f} ms vs bound {k['bound_ms']:.4f} ms | plain "
             f"{k['plain_ms']:.4f} ms | library {lib} | {time.perf_counter() - t0:.1f} s")
-        if "static_batch" in k:
-            sb = k["static_batch"]
-            log(f"[kernel] {k['name']} at the static batch's {sb['shape']}: "
-                f"{sb['kernel_ms']:.4f} ms vs bound {sb['bound_ms']:.4f} ms | plain "
-                f"{sb['plain_ms']:.4f} ms | library {sb['library_ms']:.4f} ms")
+        for what in ("static_batch", "int8", "no_completion"):
+            if what not in k:
+                continue
+            sb = k[what]
+            extra = "".join(f" | {label} {sb[key]:.4f} ms" for key, label in (
+                ("plain_ms", "plain"), ("library_ms", "library"),
+                ("composition_ms", "replaced composition"),
+                ("kernel_call_ms", "call")) if key in sb)
+            log(f"[kernel] {k['name']} {what} {sb.get('shape', '')}: {sb['kernel_ms']:.4f} ms "
+                f"vs bound {sb['bound_ms']:.4f} ms{extra}")
         torch.cuda.empty_cache()
     rows = {k["name"]: k for k in kernels}
     for name in ("recall_gather", "recall_values", "recall_gather_quant", "recall_values_quant"):
@@ -1271,6 +1544,9 @@ def main():
                 log(f"[main] {method}/{kv_quant}: eager decode step {pr['cpu_ops_per_step']} host "
                     f"ops, {pr['device_ops_per_step']:.1f} device operations, busy share "
                     f"{pr['device_busy_share']:.3f}")
+                if "completion" in pr:
+                    log(f"[main] {method}/{kv_quant}: eager step, no row completing a page / "
+                        "every row completing one: " + json.dumps(pr["completion"]))
                 if "window" in pr:
                     for what, w in (("continuous window of 8 steps", pr["window"]),
                                     ("static engine step", pr["window"]["static_step"])):

@@ -8,19 +8,23 @@ the NHD->HND transpose happens once per completed page.
 With the quantized host tier (``fkv.kv_quant`` int8 or int4,
 ``repro_torch/quant``) the pool holds int8 (int4 packed two to a byte) and a
 ``pool_scale`` tensor holds the float32 scales; a page is quantized where
-the NHD->HND transpose already happens (page completion in
-``append_token``, the bulk insert in ``prefill_fill_pool``), on the card,
-before its copy to the pool. Summaries come from the keys before
-quantization, through ``ops.page_summary``. The quantization parameters are
-read off the state itself (``quant_info``).
+the NHD->HND transpose already happens. Summaries come from the keys before
+quantization. Both places are one kernel that reads K and V once and writes
+the summaries, the HND block and its scales: ``ops.fill_pages`` for the
+bulk insert in ``prefill_fill_pool``, ``ops.complete_page`` for the page
+completion in ``append_token``, masked on the card by the lengths there as
+the reference's ``where`` is (no host branch, no host lengths). The
+quantization parameters are read off the state itself (``quant_info``).
 
 State updates are IN PLACE (the port's counterpart of the reference's buffer
 donation): ``append_token`` writes the rings, the pool and the summaries of
 the dict it is given and returns that same dict. With ``offload="host"`` the
-pool and its scales are pinned host memory (``core/offload``) and every pool
-write is a ``copy_(..., non_blocking=True)`` from a card-side block on the
-current stream; nothing reads the host pool except the ``recall_gather`` and
-``recall_gather_quant`` kernels.
+pool and its scales are pinned host memory (``core/offload``): the prefill
+fills a card-side block and moves it with one ``copy_(...,
+non_blocking=True)`` a row on the current stream; a decode page completion
+is written by the ``complete_page`` kernel at the pool's mapped device
+address. Nothing else reads or writes the host pool on the card but the
+``recall_gather`` and ``recall_gather_quant`` kernels.
 """
 from __future__ import annotations
 
@@ -152,60 +156,33 @@ def slot_read_leaf(arr, slot, axis=0):
     return arr.narrow(axis, slot, 1)
 
 
-def nhd_pages_to_hnd(k_pages, v_pages):
-    """(B, n, p, kv, d) K and V -> pool block (B, n, kv, 2, p, d) (HND)."""
-    return torch.stack([k_pages.transpose(2, 3), v_pages.transpose(2, 3)], dim=3)
-
-
-def _host_ids(vals, dev):
-    """A short host list of indices as an int64 tensor on ``dev``, without a
-    host sync: a copy from pageable memory makes the host wait for the
-    stream, one from pinned memory is queued like a kernel."""
-    t = torch.tensor(vals, dtype=torch.int64)
-    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
-
-
-def _write_pool(pool, rows, pages, blocks):
-    """pool[rows[i], pages[i]...] = blocks[i] for a card-side ``blocks``:
-    one non-blocking copy per row into a (possibly pinned host) pool."""
-    for i, (b, pg) in enumerate(zip(rows, pages)):
-        dst = pool[b, pg] if isinstance(pg, int) else pool[b, pg.start:pg.stop]
-        dst.copy_(blocks[i], non_blocking=True)
-
-
-def _offload_pages(state, rows, pages, hnd):
-    """Write card-side HND blocks ``hnd`` (R, ..., kv, 2, p, d) to the pool
-    rows ``rows`` at ``pages`` (ints, or slices of whole pages), quantized
-    first under the quantized tier, payload and scales alike."""
-    pool = state["pool"]
-    qi = quant_info(state)
-    if qi is None:
-        _write_pool(pool, rows, pages, hnd.to(pool.dtype).contiguous())
-        return
-    q, scale = qz.quantize_block(hnd, *qi)
-    _write_pool(pool, rows, pages, q.contiguous())
-    _write_pool(state["pool_scale"], rows, pages, scale.contiguous())
-
-
 def prefill_fill_pool(state, k, v, length):
     """Insert a prefill's K/V (B, T, kv, d) into pool + summaries + sink + ring.
 
     ``length`` (B,) is the per-row valid length (rows share T, left-padded).
-    The pool write is one bulk device-to-host copy per row (two under the
-    quantized tier: payload and scales)."""
+    The T // p whole pages go through one ``ops.fill_pages`` launch; a
+    pinned pool then takes its block with one device-to-host copy per row
+    (two under the quantized tier: payload and scales)."""
     B, T, kv, d = k.shape
     n_sink = state["sink_k"].shape[1]
     n_win = state["win_k"].shape[1]
     if T < max(n_sink, n_win):
         raise ValueError(f"a {T}-token prompt is shorter than the sink ({n_sink}) "
                          f"or the window ring ({n_win})")
-    p = state["pool"].shape[4]
-    n_full = T // p
-    kp = k[:, : n_full * p].reshape(B, n_full, p, kv, d)
-    vp = v[:, : n_full * p].reshape(B, n_full, p, kv, d)
-    _offload_pages(state, range(B), [slice(0, n_full)] * B, nhd_pages_to_hnd(kp, vp))
-    summ = ops.page_summary(k[:, : n_full * p], page_size=p)      # (B,n,kv,2,d)
-    state["summ"][:, :n_full] = summ.to(state["summ"].dtype)
+    pool, scale = state["pool"], state.get("pool_scale")
+    n_full = T // pool.shape[4]
+    if pool.device == k.device:
+        ops.fill_pages(k, v, state["summ"][:, :n_full], pool[:, :n_full],
+                       None if scale is None else scale[:, :n_full])
+    else:       # a pinned pool: fill a card-side block, moved by the copy engine
+        blk = torch.empty((B, n_full) + pool.shape[2:], dtype=pool.dtype, device=k.device)
+        sc = None if scale is None else torch.empty((B, n_full) + scale.shape[2:],
+                                                     dtype=scale.dtype, device=k.device)
+        ops.fill_pages(k, v, state["summ"][:, :n_full], blk, sc)
+        for b in range(B):
+            pool[b, :n_full].copy_(blk[b], non_blocking=True)
+            if scale is not None:
+                scale[b, :n_full].copy_(sc[b], non_blocking=True)
 
     dt = state["win_k"].dtype
     state["sink_k"].copy_(k[:, :n_sink].to(dt))
@@ -224,41 +201,23 @@ def prefill_fill_pool(state, k, v, length):
     return state
 
 
-def append_token(state, k_new, v_new, length_host=None):
+def append_token(state, k_new, v_new):
     """Append one token's K/V (B, kv, d); offload a page where one completes.
 
-    ``length_host`` is a CPU copy of ``state["length"]`` (the engine keeps
-    one so the decode step needs no device read); without it the lengths
-    are read back here. Rows whose page completes this step write their
-    ``(kv, 2, p, d)`` block to the pool and their min/max summary; the other
-    rows write nothing. Updates ``state`` in place and returns it."""
-    B, n_win, kv, d = state["win_k"].shape
-    p = state["pool"].shape[4]
+    Rows whose page completes this step write their ``(kv, 2, p, d)`` block
+    to the pool (quantized under the quantized tier) and their min/max
+    summary, in one ``ops.complete_page`` launch that reads the lengths on
+    the card; the other rows write nothing. Nothing is read back and no
+    host copy of the lengths is needed. Updates ``state`` in place and
+    returns it."""
+    B, n_win = state["win_k"].shape[:2]
     pos = state["length"]                          # (B,) position of the new token
-    dev = pos.device
     slot = (pos % n_win).long()
-    bidx = torch.arange(B, device=dev)
+    bidx = torch.arange(B, device=pos.device)
     state["win_k"][bidx, slot] = k_new.to(state["win_k"].dtype)
     state["win_v"][bidx, slot] = v_new.to(state["win_v"].dtype)
     state["win_pos"][bidx, slot] = pos
     state["length"] = pos + 1
-
-    if length_host is None:
-        length_host = pos.cpu()
-    new_len = [int(x) + 1 for x in length_host]
-    rows = [b for b in range(B) if new_len[b] % p == 0]
-    if not rows:
-        return state
-    pages = [new_len[b] // p - 1 for b in rows]
-    # the completed page's tokens, gathered from the ring
-    pages_d = _host_ids(pages, dev)
-    tok_pos = pages_d[:, None] * p + torch.arange(p, device=dev)
-    tok_slot = tok_pos % n_win                                     # (R, p)
-    ridx = _host_ids(rows, dev)
-    pk = state["win_k"][ridx[:, None], tok_slot]                   # (R, p, kv, d)
-    pv = state["win_v"][ridx[:, None], tok_slot]
-    hnd = torch.stack([pk.transpose(1, 2), pv.transpose(1, 2)], dim=2)   # (R,kv,2,p,d)
-    _offload_pages(state, rows, pages, hnd)
-    summ = ops.page_summary(pk, page_size=p)[:, 0]                 # (R,kv,2,d)
-    state["summ"][ridx, pages_d] = summ.to(state["summ"].dtype)
+    ops.complete_page(state["win_k"], state["win_v"], state["length"], state["summ"],
+                      state["pool"], state.get("pool_scale"))
     return state

@@ -151,12 +151,13 @@ class FreeKVRetriever:
 
     def decode(self, state, q, k_new, v_new, length_host=None):
         """One decode step; ``length_host`` is an optional CPU copy of
-        ``state["length"]`` (see ``paging.append_token``)."""
+        ``state["length"]``, read only by the centroid index's upkeep
+        (``centroid_index.update_on_append``)."""
         cfg, fkv = self.cfg, self.fkv
         p = fkv.page_size
         cur_pos = state["length"]                  # position of the new token
         wait_staged(state)
-        state = paging.append_token(state, k_new, v_new, length_host)
+        state = paging.append_token(state, k_new, v_new)
         state = self._post_append(state, None if length_host is None else length_host + 1)
         B = q.shape[0]
 
@@ -325,7 +326,7 @@ class ShadowKVRetriever(FreeKVRetriever):
         kv = cfg.n_kv_heads
         dev = q.device
         cur_pos = state["length"]
-        state = paging.append_token(state, k_new, v_new, length_host)
+        state = paging.append_token(state, k_new, v_new)
         n_sel = self._n_sel(state)
         idx, _ = selection.select_pages(cfg, fkv, q, state["summ"], state["length"], n_sel,
                                         with_pooled=False)

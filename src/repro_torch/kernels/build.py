@@ -50,6 +50,8 @@ SIGNATURES = {
     },
     "page_summary": {
         "freekv_page_summary": [_P] * 2 + [_I] * 5 + [_LL, _I, _I, _P],
+        "freekv_fill_pages": [_P, _P, _LL, _LL] + [_P, _LL] * 3 + [_I] * 11 + [_P],
+        "freekv_complete_page": [_P] * 3 + [_P, _LL] * 3 + [_I] * 11 + [_P],
     },
     "flash_prefill": {
         "freekv_flash_prefill": [_P] * 4 + [_I] * 5 + [ctypes.POINTER(_LL), _F, _F]

@@ -538,6 +538,119 @@ def page_summary(k, *, page_size):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the page-fill kernels (csrc/page_summary.cu)
+FILL_THREADS = 128       # threads a prefill block aims at: a few blocks an SM in one wave
+FILL_MAX_THREADS = 512   # kFillMaxThreads
+
+
+def fill_heads_per_block(kv: int, d: int, itemsize: int, threads: int) -> int:
+    """KV heads one block of the page-fill kernels covers: a head takes 2 *
+    d * itemsize / 16 threads (one 16-byte chunk of its K row and one of its
+    V row); the largest divisor of kv whose block stays within ``threads``,
+    at least one."""
+    per_head = 2 * d * itemsize // 16
+    _require(per_head <= FILL_MAX_THREADS,
+             f"the page-fill kernels take d * itemsize <= {FILL_MAX_THREADS * 8} bytes")
+    return max(h for h in range(1, kv + 1) if kv % h == 0 and (h == 1 or h * per_head <= threads))
+
+
+def _fill_outputs(summ, pool, scale, B, n, kv, d, what):
+    """Checks of the page-fill outputs -> (bits, n_g, p): summ (B, n, kv, 2,
+    d), pool (B, n, kv, 2, p, dp) and scale (B, n, kv, 2, n_g) or None, each
+    contiguous past its batch dim; the pool int8 exactly where scale is
+    given (int4 where dp = d / 2)."""
+    p, dp = pool.shape[4], pool.shape[5]
+    _require(summ.shape == (B, n, kv, 2, d) and pool.shape[:4] == (B, n, kv, 2),
+             f"{what}: shape mismatch")
+    if scale is None:
+        bits, n_g = 0, 0
+        _require(pool.dtype == summ.dtype and dp == d,
+                 f"{what}: an unquantized pool takes the summaries' dtype and width")
+    else:
+        bits = 8 if dp == d else 4
+        n_g = scale.shape[-1]
+        _require(pool.dtype == torch.int8 and scale.dtype == torch.float32 and dp * 8 // bits == d
+                 and scale.shape == (B, n, kv, 2, n_g) and n_g >= 1 and d % n_g == 0,
+                 f"{what}: a quantized pool is int8 of width d or d / 2 with float32 scales")
+    for t in (summ, pool) + (() if scale is None else (scale,)):
+        _require(t[0].is_contiguous() and t.data_ptr() % 16 == 0,
+                 f"{what}: outputs must be contiguous past the batch dim, 16-byte aligned")
+    return bits, n_g, p
+
+
+def _bs(t) -> int:
+    """Elements between the batch rows of ``t``. A lone row's stride is
+    whatever PyTorch left on a size-1 dim, so the row's size stands in."""
+    return t.stride(0) if t.shape[0] > 1 else t[0].numel()
+
+
+def fill_pages(k, v, summ, pool, scale=None):
+    """The prefill's pool fill in one pass over K and V, written in place:
+    k, v (B, T, kv, d) -> for the n = pool.shape[1] first whole pages, summ
+    (B, n, kv, 2, d) their keys' min and max in summ's dtype, pool (B, n,
+    kv, 2, p, dp) their HND blocks, in summ's dtype or, with ``scale`` (B,
+    n, kv, 2, n_g) float32, quantized to int8 (int4 packed two to a byte
+    where dp = d / 2) as ``quantize_block`` does. Every tensor may be a view
+    whose batch rows lie any 16-byte multiple apart (a prefix of a longer
+    prompt, the first pages of the state's summaries); on a CUDA device the
+    outputs must be on it too."""
+    if not _on_cuda(k):
+        return ref.fill_pages_ref(k, v, summ, pool, scale)
+    dev = k.device
+    B, T, kv, d = k.shape
+    n = pool.shape[1]
+    bits, n_g, p = _fill_outputs(summ, pool, scale, B, n, kv, d, "fill_pages")
+    _require(v.shape == k.shape and v.dtype == k.dtype and n * p <= T,
+             f"fill_pages: {n} pages of {p} need T >= {n * p} tokens of k and v alike")
+    for t in (k, v, summ, pool) + (() if scale is None else (scale,)):
+        _require(t.device == dev, f"tensor on {t.device}, expected {dev}")
+    for t in (k, v):
+        _require(t.stride(3) == 1 and t.stride(2) == d and t.stride(1) == kv * d
+                 and t.data_ptr() % 16 == 0 and (t.stride(0) * t.element_size()) % 16 == 0,
+                 "fill_pages: k and v must be contiguous past the batch dim, rows 16-byte "
+                 "aligned")
+    lib = build.load("page_summary")
+    hpb = fill_heads_per_block(kv, d, k.element_size(), FILL_THREADS)
+    rc = lib.freekv_fill_pages(
+        _ptr(k), _ptr(v), _bs(k), _bs(v), _ptr(summ), _bs(summ), _ptr(pool), _bs(pool),
+        _opt_ptr(scale), 0 if scale is None else _bs(scale), B, n, p, kv, d, n_g, bits,
+        _dtype_code(k), _dtype_code(summ), hpb, dev.index, _stream(dev))
+    build.check(rc, "fill_pages")
+    fill_pages.launches += 1
+
+
+def complete_page(win_k, win_v, length, summ, pool, scale=None):
+    """The decode's page completion, masked on the device, in place: with
+    ``length`` (B,) int32 the post-append lengths, row b whose length is a
+    whole number of pages gathers page length // p - 1 from its window rings
+    win_k / win_v (B, n_win, kv, d) (token i at slot i % n_win) and writes
+    its summary to summ[b, page] (B, n_pages, kv, 2, d), its HND block to
+    pool[b, page] (B, n_pages, kv, 2, p, dp) and its scales to scale[b,
+    page]; other rows write nothing. One launch whatever the lengths, no
+    host read, no allocation: the pool and its scales may be pinned host
+    memory, written at their mapped device addresses."""
+    if not _on_cuda(length):
+        return ref.complete_page_ref(win_k, win_v, length, summ, pool, scale)
+    dev = length.device
+    B, n_win, kv, d = win_k.shape
+    bits, n_g, p = _fill_outputs(summ, pool, scale, B, pool.shape[1], kv, d, "complete_page")
+    _check_cuda(dev, win_k, win_v, length, summ)
+    _require(win_v.shape == win_k.shape and win_v.dtype == win_k.dtype == summ.dtype
+             and length.shape == (B,) and length.dtype == torch.int32,
+             "complete_page: the rings and the summaries share a dtype; int32 lengths (B,)")
+    lib = build.load("page_summary")
+    rc = lib.freekv_complete_page(
+        _ptr(win_k), _ptr(win_v), _ptr(length), _ptr(summ), _bs(summ),
+        _pool_pointer(pool, dev), _bs(pool),
+        ctypes.c_void_p(None) if scale is None else _pool_pointer(scale, dev),
+        0 if scale is None else _bs(scale), B, n_win, pool.shape[1], p, kv, d, n_g, bits,
+        _dtype_code(win_k), fill_heads_per_block(kv, d, win_k.element_size(), 0),
+        dev.index, _stream(dev))   # one head a block: the most SMs writing over the link
+    build.check(rc, "complete_page")
+    complete_page.launches += 1
+
+
 def flash_prefill(q, k, v, *, scale, causal=True, window=None, softcap=None):
     """q (B,H,T,d); k/v (B,kv,T,d) -> (B,H,T,d) in q's dtype, float32 inside.
 
@@ -574,5 +687,5 @@ def flash_prefill(q, k, v, *, scale, causal=True, window=None, softcap=None):
 
 KERNELS = (paged_attention, page_scores, recall_gather, recall_gather_quant, page_summary,
            flash_prefill, recall_values, recall_values_quant, centroid_scores, select_pages,
-           centroid_candidates)
+           centroid_candidates, fill_pages, complete_page)
 reset_launches()

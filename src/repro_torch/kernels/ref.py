@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.quant.quantizers import dequant_recall_pages, dequant_recall_values
+from repro_torch.quant.quantizers import (dequant_recall_pages, dequant_recall_values,
+                                          quantize_block)
 
 NEG_INF = -1e30
 
@@ -21,6 +22,62 @@ def page_summary_ref(k, page_size):
     B, T, kv, d = k.shape
     kp = k.reshape(B, T // page_size, page_size, kv, d)
     return torch.stack([kp.amin(dim=2), kp.amax(dim=2)], dim=3)
+
+
+def _as_pool(hnd, pool, scale):
+    """HND blocks (..., 2, p, d) as ``pool`` stores them -> (payload, float32
+    scales or None): cast to the pool's dtype, or ``quantize_block`` where
+    the pool has scales (int4 where its rows are d / 2 bytes wide)."""
+    if scale is None:
+        return hnd.to(pool.dtype), None
+    d = hnd.shape[-1]
+    return quantize_block(hnd, 8 if pool.shape[-1] == d else 4, d // scale.shape[-1])
+
+
+def fill_pages_ref(k, v, summ, pool, scale=None):
+    """The prefill's pool fill, in place (reference ``core/paging.py:178-203``):
+    the n = pool.shape[1] first whole pages of k, v (B, T, kv, d) -> summ
+    (B, n, kv, 2, d) their keys' min and max, in summ's dtype, and pool (B,
+    n, kv, 2, p, dp) their HND blocks, in the pool's dtype or quantized with
+    float32 scale (B, n, kv, 2, n_g)."""
+    B, n, kv, _, p, _ = pool.shape
+    d = k.shape[-1]
+    kp = k[:, :n * p].reshape(B, n, p, kv, d)
+    vp = v[:, :n * p].reshape(B, n, p, kv, d)
+    summ.copy_(torch.stack([kp.amin(dim=2), kp.amax(dim=2)], dim=3))
+    blk, sc = _as_pool(torch.stack([kp.transpose(2, 3), vp.transpose(2, 3)], dim=3),
+                       pool, scale)
+    pool.copy_(blk)
+    if scale is not None:
+        scale.copy_(sc)
+
+
+def complete_page_ref(win_k, win_v, length, summ, pool, scale=None):
+    """The decode's page completion, in place, masked as the reference's
+    (``core/paging.py:228-254``): row b whose post-append length (length
+    (B,) int32) is a whole number of pages, with page = length // p - 1 <
+    n_pages, gathers that page's p tokens from its rings win_k / win_v (B,
+    n_win, kv, d) at slots (page * p + t) % n_win and writes their summary to
+    summ[b, page], their HND block to pool[b, page] (and its scales to
+    scale[b, page]); every other row writes its own old bytes back at page
+    0, a ``where`` over every row, so it changes nothing."""
+    B, n_win = win_k.shape[:2]
+    n_pages, p = pool.shape[1], pool.shape[4]
+    page = torch.div(length, p, rounding_mode="floor") - 1
+    done = (length % p == 0) & (page >= 0) & (page < n_pages)
+    tgt = torch.where(done, page, 0).long()
+    bI = torch.arange(B, device=length.device)
+    slot = (tgt[:, None] * p + torch.arange(p, device=length.device)) % n_win
+    pk = win_k[bI[:, None], slot]                                  # (B, p, kv, d)
+    pv = win_v[bI[:, None], slot]
+    blk, sc = _as_pool(torch.stack([pk.transpose(1, 2), pv.transpose(1, 2)], dim=2),
+                       pool, scale)                                # (B, kv, 2, p, dp)
+    m = done[:, None, None, None]
+    summ[bI, tgt] = torch.where(m, torch.stack([pk.amin(dim=1), pk.amax(dim=1)], dim=2)
+                                .to(summ.dtype), summ[bI, tgt])
+    pool[bI, tgt] = torch.where(m[..., None], blk, pool[bI, tgt])
+    if scale is not None:
+        scale[bI, tgt] = torch.where(m, sc, scale[bI, tgt])
 
 
 def page_scores_ref(q, summ, scale):

@@ -6,7 +6,7 @@ random bf16 weights, ``torch.profiler`` over one prefill and over a few
 
     PYTHONPATH=src python -m repro_torch.launch.decode_profile [--steps 4] \
         [--method freekv|shadowkv|centroid] [--kv-quant none|int8|int4] \
-        [--quant-group-size 0] [--window 8] [--main-runs]
+        [--quant-group-size 0] [--window 8] [--completion] [--main-runs]
 
 Prints one JSON line: the prefill's wall s, device-busy s and top kernels;
 per decode step the host wall ms, device-busy ms (sum of kernel and copy
@@ -16,7 +16,10 @@ the top host-side ops by self CPU time, and the count of host-device
 synchronisations; with ``--window k`` also a continuous-scheduler decode
 window of k steps on the same state, beside k steps of the static engine
 (``profile_window``: host ops, device operations, busy share and wall ms
-per step; host syncs counted from the runtime calls in the trace).
+per step; host syncs counted from the runtime calls in the trace); with
+``--completion`` also one eager step in which every row completes a page
+beside one in which none does (``profile_completion``: host ops, device
+operations and device-busy ms of each).
 ``profile_decode`` gives the same for weights already on
 the card (``chip_smoke.py`` phase 4). ``--main-runs`` gives the decode's
 numbers for each of the five main-path runs on one set of weights; it uses
@@ -44,22 +47,26 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchr
 MEASURED = "decode_profile.measured"
 
 
+def dev_us(e):
+    """A profiler row's own device time, in microseconds."""
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+
 def profile_decode(cfg, fkv, params, toks, steps=4, trace_out=None, with_prefill=True,
-                   window=0):
+                   window=0, completion=False):
     """The numbers ``main`` prints, for ``params`` already on the card and
     prompts ``toks`` (B, T) on the card: the prefill's (when
     ``with_prefill``) and an eager decode step's, as one dict; with
     ``window`` > 0 also a continuous-scheduler window of that many steps,
-    on the same state, in the same process (``profile_window``)."""
+    on the same state, in the same process (``profile_window``); with
+    ``completion`` then a step that completes a page in every row beside
+    one that completes none (``profile_completion``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.model import prefill, serve_step
 
-    max_len = toks.shape[1] + 64 + WARMUP + steps + 6 * window
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    max_len = toks.shape[1] + 64 + WARMUP + 2 * steps + 6 * window + 2 * fkv.page_size
 
     def device_rows(events):
         # device-side rows only (kernels, copies): an aten op's row repeats
@@ -137,6 +144,49 @@ def profile_decode(cfg, fkv, params, toks, steps=4, trace_out=None, with_prefill
     }
     if window:
         out["window"] = profile_window(cfg, fkv, params, state, logits, window)
+    if completion:
+        out["completion"] = profile_completion(cfg, fkv, params, state, logits)
+    return out
+
+
+def profile_completion(cfg, fkv, params, state, logits):
+    """One eager decode step in which no row completes a page, then (after
+    the plain steps that bring the rows to a page boundary) one in which
+    every row does, each alone under the profiler: host ops, device
+    operations and device-busy ms of the step. The rows share a length
+    (``state["pos_host"]``, read on the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.model import serve_step
+
+    p = fkv.page_size
+    carry = {"state": state, "logits": logits}
+
+    def step():
+        cur = torch.argmax(carry["logits"], dim=-1)[:, None]
+        carry["logits"], carry["state"] = serve_step(cfg, fkv, params, carry["state"], cur)
+
+    def completes():           # the next step's append takes each length L to L + 1
+        return [(int(n) + 1) % p == 0 for n in carry["state"]["pos_host"]]
+
+    def measure():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        dev = [e for e in events if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+        return {"cpu_ops": sum(e.count for e in events if e.key.startswith("aten::")),
+                "device_ops": sum(e.count for e in dev),
+                "device_busy_ms": sum(dev_us(e) for e in dev) / 1e3}
+
+    while any(completes()):
+        step()
+    out = {"non_completing": measure()}
+    while not all(completes()):
+        step()
+    out["completing"] = measure()
     return out
 
 
@@ -155,9 +205,6 @@ def profile_window(cfg, fkv, params, state, logits, k=8):
 
     from repro_torch.models.model import DECODE_STAT_KEYS, decode_window, serve_step
     from repro_torch.serving.sampling import SamplerConfig
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
 
     B, dev = logits.shape[0], logits.device
     i32 = dict(dtype=torch.int32, device=dev)
@@ -231,6 +278,9 @@ def main(argv=None):
                     help="channels per quantization scale (0 = one per page half)")
     ap.add_argument("--window", type=int, default=0,
                     help="also profile a continuous-scheduler window of this many steps")
+    ap.add_argument("--completion", action="store_true",
+                    help="also profile a step where every row completes a page beside one "
+                         "where none does")
     ap.add_argument("--main-runs", action="store_true",
                     help="the five runs of chip_smoke.py phase 4 (freekv none/int8, "
                          "shadowkv none/int8, centroid none) on one set of weights, "
@@ -256,15 +306,16 @@ def main(argv=None):
     toks = toks.long().to(dev)
     if not args.main_runs:
         print(json.dumps(profile_decode(cfg, fkv, params, toks, args.steps, args.trace_out,
-                                        window=args.window)), flush=True)
+                                        window=args.window, completion=args.completion)),
+              flush=True)
         return 0
     for method, kv_quant in MAIN_RUNS:
         fkv = FreeKVConfig(method=method, offload="host", kv_quant=kv_quant)
         out = profile_decode(cfg, fkv, params, toks, args.steps, with_prefill=False,
-                             window=args.window)
+                             window=args.window, completion=args.completion)
         keep = ("method", "kv_quant", "prefill_s", "wall_ms_per_step_unprofiled",
                 "device_busy_ms_per_step", "device_busy_share", "cpu_ops_per_step",
-                "device_ops_per_step", "runtime_calls_per_step", "window")
+                "device_ops_per_step", "runtime_calls_per_step", "window", "completion")
         print(json.dumps({k: out[k] for k in keep if k in out}), flush=True)
         torch.cuda.empty_cache()
     return 0

@@ -15,7 +15,9 @@ orientation ``(d_in, d_out)``: ``{"embed": {"tok", "head"?}, "final_norm":
 The reference's ``lax.scan`` over stacked periods becomes a Python loop over
 layers; the decode state is ``{"layers": [per-layer state], "pos": (B,)
 int32 on the device, "pos_host": (B,) int32 on the CPU}`` and ``serve_step``
-updates it in place (the port's counterpart of buffer donation).
+updates it in place (the port's counterpart of buffer donation). Only the
+centroid index's upkeep reads ``pos_host`` (``centroid_index
+.update_on_append``); the paging reads the lengths on the card.
 """
 from __future__ import annotations
 

@@ -13,7 +13,8 @@ Quantization is symmetric absmax: one scale per (page, KV head, K|V half,
 channel group), the amax taken over the page's ``p`` tokens x ``g``
 channels; ``group_size == 0`` means one scale per page half. Zero pages get
 scale 1, so they dequantize to exact zeros. Every step matches the reference
-bit for bit: ``amax / qmax`` and ``x / scale`` are true float32 divisions,
+bit for bit: ``amax / qmax`` and ``x / scale`` are true float32 divisions
+(on the card too, see ``quantize_block``),
 ``torch.round`` rounds half to even like ``jnp.round``, values are clipped
 before the cast to int8, and dequantization is ``int -> float32 * scale ->
 out_dtype``, the contract the ``recall_gather_quant`` kernel keeps too.
@@ -65,7 +66,11 @@ def quantize_block(block, bits: int, group_size: int = 0):
     n_g = d // g
     xg = block.float().reshape(*block.shape[:-2], p, n_g, g)
     amax = xg.abs().amax(dim=(-3, -1))                         # (..., 2, n_g)
-    scale = torch.where(amax > 0, amax / qmax, torch.ones((), device=amax.device))
+    # qmax as a float32 tensor: a CUDA tensor divided by a Python number is
+    # multiplied by the number's float32 reciprocal instead, which can land
+    # one ulp away from the true quotient
+    qmax_t = torch.full((), qmax, dtype=torch.float32, device=amax.device)
+    scale = torch.where(amax > 0, amax / qmax_t, torch.ones((), device=amax.device))
     q = torch.clamp(torch.round(xg / scale[..., None, :, None]), -qmax, qmax)
     q = q.to(torch.int8).reshape(*block.shape[:-2], p, d)
     if bits == 4:

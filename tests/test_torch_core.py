@@ -62,8 +62,7 @@ def test_paging_prefill_and_appends():
         kn = rng.standard_normal((B, cfg.n_kv_heads, cfg.d_head)).astype(np.float32)
         vn = rng.standard_normal(kn.shape).astype(np.float32)
         jst = jpaging.append_token(jst, jnp.asarray(kn), jnp.asarray(vn))
-        host = st["length"].clone() if t % 2 else None    # with and without the mirror
-        st = paging.append_token(st, _t(kn), _t(vn), length_host=host)
+        st = paging.append_token(st, _t(kn), _t(vn))
     assert set(st) == set(jst)
     for key in jst:
         np.testing.assert_array_equal(_n(st[key]), np.asarray(jst[key]), err_msg=key)

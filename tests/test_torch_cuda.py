@@ -574,3 +574,142 @@ def test_cuda_decode_window_makes_no_host_sync(method, kv_quant):
     assert valid[:, :2].all() and not valid[:, 2].any()
     assert finite.all()
     assert state["pos_host"].tolist() == state["pos"].tolist() == [72 + 18, 101 + 18, 18]
+
+
+# ---------------------------------------------------------------------------
+# the page-fill kernels (fill_pages, complete_page)
+# ---------------------------------------------------------------------------
+FILL_QUANT = [("none", 0), ("int8", 0), ("int8", 16), ("int4", 0), ("int4", 32)]
+
+
+def _paging_state(kv_quant, group, B, max_len, dtype, dev, offload):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.core import paging
+    cfg = get_config("llama31-8b")
+    fkv = FreeKVConfig(page_size=32, kv_quant=kv_quant, quant_group_size=group, offload=offload)
+    return cfg, paging.init_kv_state(cfg, fkv, B, max_len, dtype, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant,group", FILL_QUANT)
+@pytest.mark.parametrize("k_dtype,dtype", [(torch.float32, torch.float32),
+                                           (torch.bfloat16, torch.bfloat16),
+                                           (torch.float32, torch.bfloat16)], ids=str)
+def test_cuda_fill_pages_matches_plain(k_dtype, dtype, kv_quant, group):
+    """fill_pages equal to its plain version bit for bit: summaries, payload
+    and scales, K and V prefix views of a longer prompt, outputs the first
+    pages of longer tensors; and ``prefill_fill_pool`` into a device pool
+    and into a pinned pool (a staging block and a copy a row) equal to the
+    same on the CPU, every leaf."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from repro_torch.core import paging
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(20)
+    cfg, st = _paging_state(kv_quant, group, 2, 1100, dtype, dev, "sim")
+    kv, d = cfg.n_kv_heads, cfg.d_head
+    k = torch.randn(2, 1040, kv, d, generator=g, device=dev).to(k_dtype)[:, :1000]
+    v = torch.randn(2, 1040, kv, d, generator=g, device=dev).to(k_dtype)[:, :1000]
+    k[0, 64:96] = 0                                       # a zero page: scale 1
+    v[0, 64:96] = 0
+    n = 1000 // 32
+    outs = {}
+    for name, fn in (("kernel", ops.fill_pages), ("plain", ref.fill_pages_ref)):
+        s = {key: t.clone() for key, t in st.items() if key in ("summ", "pool", "pool_scale")}
+        fn(k, v, s["summ"][:, :n], s["pool"][:, :n],
+           s["pool_scale"][:, :n] if "pool_scale" in s else None)
+        outs[name] = s
+    torch.cuda.synchronize()
+    for key in outs["plain"]:
+        assert torch.equal(outs["kernel"][key], outs["plain"][key]), key
+    states = {}
+    for where, offload in (("device", "sim"), ("pinned", "host"), ("cpu", "host")):
+        place = dev if where != "cpu" else torch.device("cpu")
+        _, s = _paging_state(kv_quant, group, 2, 1100, dtype, place, offload)
+        states[where] = paging.prefill_fill_pool(s, k.to(place), v.to(place), 1000)
+    torch.cuda.synchronize()
+    assert states["pinned"]["pool"].is_pinned()
+    for key, want in states["cpu"].items():
+        for where in ("device", "pinned"):
+            assert torch.equal(states[where][key].cpu(), want), (where, key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offload", ["sim", "host"])
+@pytest.mark.parametrize("kv_quant,group", FILL_QUANT)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_cuda_complete_page_matches_plain(dtype, kv_quant, group, offload):
+    """complete_page equal to its plain version bit for bit, to a device and
+    to a pinned pool, on 4 rows whose post-append lengths complete no page,
+    some pages and a page in every row, over a 150-slot ring (a page wraps
+    its end); a row that completes nothing keeps every byte of its pool,
+    scales and summaries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(21)
+    cfg, st = _paging_state(kv_quant, group, 4, 1100, dtype, dev, offload)
+    kv, d = cfg.n_kv_heads, cfg.d_head
+    win_k = torch.randn(4, 150, kv, d, generator=g, device=dev).to(dtype)
+    win_v = torch.randn(4, 150, kv, d, generator=g, device=dev).to(dtype)
+    keys = [key for key in ("summ", "pool", "pool_scale") if key in st]
+    for key in keys:                                   # old bytes, to be kept or replaced
+        st[key].copy_(torch.randint(-50, 50, st[key].shape, generator=g, device=dev))
+    # page 4 of a 150-slot ring: slots 128..149, 0..9
+    for lengths in ([33, 70, 101, 5], [160, 64, 99, 1024], [160, 32, 96, 1024]):
+        length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        done = [n % 32 == 0 for n in lengths]
+        want = {key: st[key].to(dev).clone() for key in keys}
+        ref.complete_page_ref(win_k, win_v, length, *(want.get(key) for key in keys))
+        before = {key: st[key].clone() for key in keys}
+        ops.complete_page(win_k, win_v, length, *(st[key] for key in keys))
+        torch.cuda.synchronize()
+        for key in keys:
+            assert torch.equal(st[key].to(dev), want[key]), (lengths, key)
+            for b in range(4):
+                if not done[b]:
+                    assert torch.equal(st[key][b], before[key][b]), (lengths, key, b)
+    assert ops.complete_page.launches >= 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", ["none", "int8", "int4"])
+def test_cuda_append_token_makes_no_host_sync(kv_quant):
+    """A decode append in which one row completes a page, into a pinned pool:
+    under torch.cuda.set_sync_debug_mode("error") nothing makes the host
+    wait for the card (no read of the lengths, no pageable copy), and the
+    state equals the same appends on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from repro_torch.core import paging
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(22)
+    states = {}
+    _, st = _paging_state(kv_quant, 0, 3, 400, torch.bfloat16, dev, "host")
+    k = torch.randn(3, 256, 8, 128, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(3, 256, 8, 128, generator=g, device=dev).to(torch.bfloat16)
+    lengths = torch.tensor([256, 250, 286], dtype=torch.int32)
+    new = [torch.randn(2, 3, 8, 128, generator=g, device=dev).to(torch.bfloat16)
+           for _ in range(2)]
+    for where in ("cuda", "cpu"):
+        place = dev if where == "cuda" else torch.device("cpu")
+        _, s = _paging_state(kv_quant, 0, 3, 400, torch.bfloat16, place, "host")
+        s = paging.prefill_fill_pool(s, k.to(place), v.to(place), lengths.to(place))
+        if where == "cuda":
+            paging.append_token(s, new[0][0], new[0][1])        # loads the kernel
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                paging.append_token(s, new[1][0], new[1][1])    # row 2 completes page 8
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+        else:
+            for kn, vn in new:
+                paging.append_token(s, kn.cpu(), vn.cpu())
+        states[where] = s
+    assert states["cpu"]["length"].tolist() == [258, 252, 288]
+    assert states["cpu"]["pool"][2, 8].abs().sum() > 0
+    for key, want in states["cpu"].items():
+        assert torch.equal(states["cuda"][key].cpu(), want), key

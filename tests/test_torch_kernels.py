@@ -233,7 +233,12 @@ def test_cpu_dispatch_counts_no_launch():
     ops.centroid_candidates(q, torch.randn(1, 4, 1, 2, 16), torch.ones((1, 4, 1), dtype=torch.int32),
                             torch.zeros((1, 3, 1), dtype=torch.int32), length, m=2, scale=0.25,
                             page_size=8, n_sink=0, n_window=0)
-    assert [fn.launches for fn in ops.KERNELS] == [0] * 11
+    ops.fill_pages(torch.randn(1, 16, 1, 16), torch.randn(1, 16, 1, 16), torch.zeros(1, 2, 1, 2, 16),
+                   torch.zeros(1, 2, 1, 2, 8, 16))
+    ops.complete_page(torch.randn(1, 24, 1, 16), torch.randn(1, 24, 1, 16),
+                      torch.tensor([16], dtype=torch.int32), torch.zeros(1, 4, 1, 2, 16),
+                      torch.zeros(1, 4, 1, 2, 8, 16))
+    assert [fn.launches for fn in ops.KERNELS] == [0] * 13
 
 
 @pytest.mark.parametrize("sms", [1, 8, 108, 132])
