@@ -21,7 +21,11 @@ Phases, each fatal on failure (nothing is caught):
      it into a device pool) exact and flash_prefill within TOL at a
      continuous admission's shapes (B=1, T=8192 and 7168; timed at B=1,
      T=8192) and at the static batch's (B=4, T=8192; timed beside it),
-     flash_prefill also with a sliding-window case and a softcap case;
+     flash_prefill also with a sliding-window case and a softcap case, and
+     in its extension form (Tq query rows over Tk >= Tq keys, the causal
+     mask aligned bottom-right) at Tq/Tk = 2048/8192, 1000/7200, 1/4096, a
+     windowed and a softcapped case, timed at 2048/8192 beside its bound and
+     SDPA with a lower-right causal bias;
      complete_page exact to a device and to a pinned pool over 4 slots with
      no row, some rows and every row completing a page (also over a ring
      where the page wraps), a row that completes nothing byte-identical,
@@ -72,17 +76,30 @@ Phases, each fatal on failure (nothing is caught):
      the staged-recall stream; and the four gathers again at the valid
      share of the continuous freekv/none run's top-up and staged recall
      launches (with --kernels-only: the overlap line only, after phase 3).
+ 4b. the scheduler's features at full width (llama31-8b, bf16, freekv/none,
+     pinned pool), each pair the same traffic off, then on: (a) chunked
+     prefill, budget 1024: four 2048-token prompts in 4 slots, then an
+     8192-token one admitted while three decode (max token gap a request,
+     chunks, flash_prefill once a layer a chunk and fill_pages once a layer
+     a prefill, token agreement); (b) the prefix cache: four prompts sharing
+     6144 tokens over 2 slots (TTFT, prefix_hit_tokens 6144 for requests
+     1-3, the pinned copies' ms); (c) preemption: four priority-0 requests
+     in the 4 slots and a priority-1 fifth (the victim's tokens equal, swap
+     bytes in == out, the swap timed, the urgent request's TTFT).
   5. kernel path == plain path: granite-3-8b-smoke at float32 gives the same
      greedy tokens on the card (kernels) and on the CPU (plain versions):
      static, freekv and shadowkv under kv_quant none, int8 and int4,
      centroid under none and int8 with a re-center at every completed page;
      continuous, freekv under none and int8, shadowkv and centroid under
      none, 5 requests of mixed lengths over 2 slots, one of them ended by an
-     eos inside a window; and the centroid index kept step by step on the
-     card equals its rebuild bit for bit.
+     eos inside a window; freekv with chunk budgets of a page, a token and
+     10 tokens, a prefix-cache hit, and a preemption under none and int8;
+     and the centroid index kept step by step on the card equals its
+     rebuild bit for bit.
 Then one JSON line with the kernels' numbers and, last, the ok line.
 """
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -127,7 +144,9 @@ def time_ms(fn, args_list, iters=50):
     Device ms sums the card-side rows (kernels, copies) of a torch.profiler
     trace of the calls: the time the card spends (launch/gather_bench.py
     device_ms, which runs a session again when the profiler drops its
-    device events, and fails after three such sessions). Call ms is
+    device events, and after three such sessions times the calls with CUDA
+    events queued behind a spin, noted on stderr and counted in the
+    ``[timing]`` line). Call ms is
     CUDA-event time per call, which also holds the gaps while the host
     launches the next call; for a kernel of a few microseconds that gap is
     most of it."""
@@ -1089,11 +1108,73 @@ def check_flash_prefill(ops, ref, dev, gen):
     # timed at a continuous admission (B=1), the main path's shape, and at
     # the static batch's (B=4) beside it
     return {"name": "flash_prefill", **timed(1), "static_batch": timed(B),
+            "extension": check_flash_prefill_extension(ops, ref, dev, gen),
             "max_abs_err": errs[("admit 8192", torch.bfloat16)],
             "max_abs_err_fp32": errs[("admit 8192", torch.float32)],
             "max_abs_err_cases": {f"{n} {str(t).split('.')[-1]}": e for (n, t), e in errs.items()},
             "tol": TOL[torch.bfloat16], "tol_fp32": TOL[torch.float32],
             "library_call": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+            **lib_prec}
+
+
+def check_flash_prefill_extension(ops, ref, dev, gen):
+    """flash_prefill's extension form (Tq < Tk, query row i at absolute
+    position Tk - Tq + i: a chunk after the first, a prefix-cache hit's
+    suffix) against its plain version within TOL in bf16 and fp32, timed at
+    Tq=2048 over Tk=8192 beside its bound and SDPA with a lower-right causal
+    bias (``is_causal=True`` aligns top-left: another function)."""
+    from torch.nn.attention.bias import causal_lower_right
+    errs = {}
+    cases = [  # (name, B, H, kv, Tq, Tk, d, window, softcap)
+        ("2048/8192", 1, H, KV, 2048, CONTEXT, D, None, None),
+        # a ragged chunk after a page-aligned prefix-cache hit
+        ("1000/7200", 1, H, KV, 1000, 7168 + P, D, None, None),
+        ("1/4096", 1, H, KV, 1, 4096, D, None, None),
+        ("window", 1, 8, 2, 300, 1000, D, 256, None),
+        ("softcap", 2, 4, 2, 200, 777, 64, None, 30.0),
+    ]
+    for name, b, h, kv, tq, tk, d, window, cap in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            q = _prefill_inputs(gen, dev, dt, b, h, kv, tq, d)[0]
+            _, k, v = _prefill_inputs(gen, dev, dt, b, h, kv, tk, d)
+            scale = 1.0 / math.sqrt(d)
+            got = ops.flash_prefill(q, k, v, scale=scale, causal=True, window=window, softcap=cap)
+            want = ref.flash_prefill_ref(q, k, v, scale, True, window, cap)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            require(got.dtype == dt and got.shape == q.shape
+                    and torch.allclose(got.float(), want.float(), **TOL[dt]),
+                    f"flash_prefill extension {name} {dt}: max |err| {err}, tolerance {TOL[dt]}")
+            errs[f"{name} {str(dt).split('.')[-1]}"] = err
+            del q, k, v, got, want
+    dt, tq, tk = torch.bfloat16, 2048, CONTEXT
+    scale = 1.0 / math.sqrt(D)
+    args = [(_prefill_inputs(gen, dev, dt, 1, H, KV, tq, D)[0],
+             *_prefill_inputs(gen, dev, dt, 1, H, KV, tk, D)[1:])]
+    ms, call_ms = time_ms(lambda q, k, v: ops.flash_prefill(q, k, v, scale=scale), args, iters=5)
+    plain_ms, _ = time_ms(lambda q, k, v: ref.flash_prefill_ref(q, k, v, scale), args, iters=1)
+    bias = causal_lower_right(tq, tk)
+    q, k, v = args[0]
+    # the yardstick's K/V expanded to the query heads, contiguous
+    sdpa_args = [(q.contiguous(), k.repeat_interleave(G, dim=1).contiguous(),
+                  v.repeat_interleave(G, dim=1).contiguous())]
+    sdpa = lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=bias, scale=scale)
+    lib_ms, _ = time_ms(sdpa, sdpa_args, iters=10)
+    lib_prec = _library_precision(sdpa(*sdpa_args[0]), ref.flash_prefill_ref(q, k, v, scale), dt)
+    byts = nbytes(q, k, v, q)
+    off = tk - tq
+    flops = 4 * H * D * (tq * off + tq * (tq + 1) // 2)    # QK^T and PV, visible pairs
+    return {"shape": f"q(1,{H},{tq},{D}) kv(1,{KV},{tk},{D}) causal lower-right",
+            "bound_bytes": byts, "bound_ops": flops,
+            "bound_ms": 1e3 * max(byts / HBM_BPS, flops / PEAK_OPS[dt]),
+            "bound_by": "bytes" if byts / HBM_BPS >= flops / PEAK_OPS[dt] else "operations",
+            "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms,
+            "library_call": f"scaled_dot_product_attention(attn_mask=causal_lower_right({tq}, "
+                            f"{tk})), K/V expanded to {H} heads",
+            "max_abs_err": errs["2048/8192 bfloat16"],
+            "max_abs_err_fp32": errs["2048/8192 float32"], "max_abs_err_cases": errs,
             **lib_prec}
 
 
@@ -1233,9 +1314,188 @@ def main_path(dev, ops, cfg, params, method, kv_quant, scheduler="continuous"):
             # the window's one read at its end is its only wait for the card
             require(prof["window"]["host_syncs_per_step"] <= 1 / window,
                     f"a decode window of {window} steps made the host wait for the card "
-                    f"{prof['window']['sync_calls']} times ({run})")
+                    f"{prof['window']['sync_calls']} times, starting at "
+                    f"{prof['window']['sync_starts_us']} us of {prof['window']['range_us']} "
+                    f"({run})")
         torch.cuda.empty_cache()
     return info, launches
+
+
+# phase 4b: the scheduler's features at full width, each pair the same
+# traffic with the feature off and then on
+CHUNK_BUDGET = 1024
+
+
+def _feature_run(dev, ops, cfg, params, reqs, slots, max_len, label, chunk=0, preempt=False,
+                 prefix_cache_tokens=0, prefill_bucket=1):
+    """One run of freekv/none (bf16, pinned host pool) with the given
+    scheduler features; returns the engine, its completions and the
+    kernels' launch counts of the run."""
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.serving.engine import ServeEngine
+
+    fkv = FreeKVConfig(method="freekv", offload="host", prefill_chunk_tokens=chunk,
+                       preempt=preempt)
+    eng = ServeEngine(cfg, fkv, params, max_len=max_len, batch_size=slots,
+                      state_dtype=torch.bfloat16, prefill_bucket=prefill_bucket,
+                      prefix_cache_tokens=prefix_cache_tokens, device=dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    require(eng.last_logits_finite, f"non-finite logits ({label})")
+    for o, r in zip(outs, reqs):
+        require(len(o.tokens) == r.max_new_tokens and all(0 <= t < cfg.vocab_size
+                                                          for t in o.tokens),
+                f"request {o.uid}: {len(o.tokens)} tokens or one out of range ({label})")
+    em = eng.last_metrics
+    prefills = len(reqs)                     # one each; a resume prefills nothing
+    per_prefill = em.prefill_chunks if chunk else prefills
+    for name, n in (("flash_prefill", per_prefill), ("fill_pages", prefills),
+                    ("complete_page", em.steps)):
+        require(launches[name] == cfg.n_layers * n,
+                f"{name} launched {launches[name]} times, not {cfg.n_layers} x {n} ({label})")
+    for name in ("paged_attention", "select_pages", "recall_gather"):
+        require(launches[name] > 0, f"{name} never launched ({label})")
+    for name in OFF_PATH:
+        require(launches[name] == 0, f"{name} launched ({label})")
+    return eng, outs, launches, wall
+
+
+def _agreement(a, b):
+    """Per request: tokens equal position by position, and the length of
+    the common prefix."""
+    out = []
+    for x, y in zip(a, b):
+        lead = next((i for i, (s, t) in enumerate(zip(x, y)) if s != t), min(len(x), len(y)))
+        out.append({"equal": sum(s == t for s, t in zip(x, y)), "of": len(x),
+                    "common_prefix": lead})
+    return out
+
+
+def feature_pairs(dev, ops, cfg, params):
+    """Phase 4b: llama31-8b at full width, bf16, freekv/none, pinned host
+    pool; three pairs, each the same traffic with the feature off, then on:
+    (a) chunked prefill, (b) the prefix cache, (c) priority preemption."""
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.scheduler import _swap_bytes
+
+    def needle(n, seed):
+        return next(needle_stream(cfg.vocab_size, n, P, seed=seed)).tokens
+
+    res = {}
+    # (a) four 2048-token needle prompts fill the 4 slots; request 0 stops
+    # after 8 tokens, and the 8192-token request 4 takes its slot while
+    # the other three decode
+    reqs = [Request(uid=i, tokens=needle(n, 50 + i), max_new_tokens=m)
+            for i, (n, m) in enumerate(zip((2048,) * 4 + (CONTEXT,), (8, 40, 40, 40, 16)))]
+    runs = {}
+    for name, chunk in (("off", 0), ("on", CHUNK_BUDGET)):
+        eng, outs, launches, wall = _feature_run(dev, ops, cfg, params, reqs, B, MAX_LEN,
+                                                 f"chunked prefill {name}", chunk=chunk)
+        em = eng.last_metrics
+        runs[name] = {"tokens": [o.tokens for o in outs],
+                      "max_token_gap_s": [o.metrics.max_token_gap_s for o in outs],
+                      "ttft_s": [o.metrics.ttft_s for o in outs],
+                      "prefill_chunks": em.prefill_chunks,
+                      "prefill_chunk_tokens": em.prefill_chunk_tokens, "steps": em.steps,
+                      "launches": {k: launches[k] for k in ("flash_prefill", "fill_pages",
+                                                            "complete_page")},
+                      "wall_s": wall}
+        del eng, outs
+        torch.cuda.empty_cache()
+    require(runs["on"]["prefill_chunks"] == 4 * 2 + CONTEXT // CHUNK_BUDGET,
+            f"chunked prefill ran {runs['on']['prefill_chunks']} chunks")
+    res["chunked"] = {"budget": CHUNK_BUDGET, **runs,
+                      "agreement": _agreement(runs["off"]["tokens"], runs["on"]["tokens"])}
+
+    # (b) four prompts sharing a 6144-token prefix, each with its own 1024
+    # tokens, over 2 slots; a bucket of one page keeps the reused span
+    # page-aligned
+    shared = needle(6144, 60)
+    reqs = [Request(uid=i, tokens=np.concatenate([shared, needle(1024, 61 + i)]),
+                    max_new_tokens=16) for i in range(4)]
+    runs = {}
+    for name, cache in (("off", 0), ("on", 16384)):
+        eng, outs, launches, wall = _feature_run(dev, ops, cfg, params, reqs, 2, 7168 + 64,
+                                                 f"prefix cache {name}",
+                                                 prefix_cache_tokens=cache, prefill_bucket=P)
+        runs[name] = {"tokens": [o.tokens for o in outs],
+                      "ttft_s": [o.metrics.ttft_s for o in outs],
+                      "prefill_s": [o.prefill_s for o in outs],
+                      "prefix_hit_tokens": [o.metrics.prefix_hit_tokens for o in outs],
+                      "prefix_cache": eng.last_metrics.prefix_cache, "wall_s": wall}
+        if cache:
+            # a hit and an insert again, each timed to its end: request 1's
+            # prompt, cached whole by now but for its last bucket, from
+            # pinned host into fresh buffers, then those buffers' whole
+            # prompt into the trie under a new first token (card to pinned
+            # host, the allocation included)
+            seq = tuple(int(t) for t in eng._padded_prompt(reqs[1]))
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            tp, parts = eng._cache_lookup(seq)
+            kv = eng._load_prefix(parts, len(seq))
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            added = eng._cache_insert(((seq[0] + 1) % cfg.vocab_size,) + seq[1:], kv)
+            torch.cuda.synchronize(dev)
+            per_token = sum(t.numel() * t.element_size() for pair in kv for t in pair) // len(seq)
+            runs[name]["copies_timed"] = {
+                "hit": {"tokens": tp, "bytes": tp * per_token, "ms": 1e3 * (t1 - t0)},
+                "insert": {"tokens": added, "bytes": added * per_token,
+                           "ms": 1e3 * (time.perf_counter() - t1)}}
+            del kv, parts
+        del eng, outs
+        torch.cuda.empty_cache()
+    require(runs["on"]["prefix_hit_tokens"] == [0, 6144, 6144, 6144],
+            f"prefix hits {runs['on']['prefix_hit_tokens']}, not [0, 6144, 6144, 6144]")
+    res["prefix_cache"] = {**runs,
+                           "agreement": _agreement(runs["off"]["tokens"], runs["on"]["tokens"])}
+
+    # (c) four priority-0 requests fill the 4 slots; a fifth of priority 1
+    reqs = [Request(uid=i, tokens=needle(4096, 70 + i), max_new_tokens=48 if i < 4 else 16,
+                    priority=int(i == 4)) for i in range(5)]
+    runs = {}
+    for name, preempt in (("off", False), ("on", True)):
+        eng, outs, launches, wall = _feature_run(dev, ops, cfg, params, reqs, B, 4096 + 64,
+                                                 f"preemption {name}", preempt=preempt)
+        em = eng.last_metrics
+        runs[name] = {"tokens": [o.tokens for o in outs],
+                      "ttft_s": [o.metrics.ttft_s for o in outs],
+                      "preemptions": [o.metrics.preemptions for o in outs],
+                      "swap_out_bytes": em.swap_out_bytes, "swap_in_bytes": em.swap_in_bytes,
+                      "steps": em.steps, "wall_s": wall}
+        if preempt:
+            # the same swap again, timed to its end: out of slot 0, back in
+            pool = eng._pool
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            host = pool.swap_out(0)
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            pool.swap_in(host, 0)
+            torch.cuda.synchronize(dev)
+            runs[name]["swap_timed"] = {"bytes": _swap_bytes(host),
+                                        "out_ms": 1e3 * (t1 - t0),
+                                        "in_ms": 1e3 * (time.perf_counter() - t1)}
+            del host, pool
+        del eng, outs
+        torch.cuda.empty_cache()
+    on, off = runs["on"], runs["off"]
+    require(sum(on["preemptions"]) >= 1, "no request was preempted")
+    require(on["swap_in_bytes"] == on["swap_out_bytes"] > 0,
+            f"swap bytes in {on['swap_in_bytes']} != out {on['swap_out_bytes']}")
+    for i, n in enumerate(on["preemptions"]):
+        if n:
+            require(on["tokens"][i] == off["tokens"][i],
+                    f"preempted request {i}: tokens {on['tokens'][i]} != {off['tokens'][i]}")
+    res["preempt"] = {**runs, "victims": [i for i, n in enumerate(on["preemptions"]) if n],
+                      "agreement": _agreement(off["tokens"], on["tokens"])}
+    return res
 
 
 def time_low_rank_keys(dev, cfg, gen):
@@ -1364,6 +1624,73 @@ def continuous_vs_plain(dev, method, kv_quant):
             f"({method}/{kv_quant})")
     require(3 <= len(got["cuda"][0][2]) < news[2], "the eos did not end request 2 in a window")
     return got["cuda"]
+
+
+def features_vs_plain(dev):
+    """Chunked prefill, the prefix cache and preemption through the
+    continuous scheduler on the card against the CPU: granite-3-8b-smoke at
+    float32, greedy tokens (and chunk, hit and swap counts) equal; chunk
+    budgets of a page, a token and a ragged 10 tokens, a prefix-cache hit,
+    and a preemption under kv_quant none and int8, whose tokens also equal
+    a run without it."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    cfg = get_config("granite-3-8b-smoke")
+    params_gpu = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    params_cpu = _tree_map(lambda t: t.cpu(), params_gpu)
+
+    def needle(n, seed):
+        return next(needle_stream(cfg.vocab_size, n, 8, seed=seed)).tokens
+
+    chunked = [Request(uid=i, tokens=needle(n, 80 + i), max_new_tokens=m)
+               for i, (n, m) in enumerate(zip((72, 61, 64, 72, 58), (6, 5, 8, 4, 6)))]
+    shared = needle(64, 90)
+    cached = [Request(uid=i, tokens=np.concatenate(
+        [shared, np.random.default_rng(91 + i).integers(0, cfg.vocab_size, t).astype(np.int32)]),
+        max_new_tokens=6) for i, t in enumerate((16, 24, 16))]
+    urgent = [Request(uid=i, tokens=needle(n, 95 + i), max_new_tokens=10, priority=int(i == 2))
+              for i, n in enumerate((64, 96, 60))]
+    # a bucket of a page keeps the reused span at the shared 64 tokens
+    cases = [("chunk 8 (a page)", chunked, "none", dict(prefill_chunk_tokens=8), {}),
+             ("chunk 1", chunked, "none", dict(prefill_chunk_tokens=1), {}),
+             ("chunk 10", chunked, "none", dict(prefill_chunk_tokens=10), {}),
+             ("prefix-cache hit", cached, "none", {},
+              dict(prefix_cache_tokens=4096, prefill_bucket=8)),
+             ("preempt none", urgent, "none", dict(preempt=True), {}),
+             ("preempt int8", urgent, "int8", dict(preempt=True), {})]
+    out = {}
+    for name, reqs, kv_quant, fkv_kw, eng_kw in cases:
+        fkv = dataclasses.replace(_smoke_fkv("freekv", kv_quant), **fkv_kw)
+        got = {}
+        for where in ("cuda", "cpu"):
+            eng = ServeEngine(cfg, fkv, params_gpu if where == "cuda" else params_cpu,
+                              max_len=160, batch_size=2, state_dtype=torch.float32,
+                              device=dev if where == "cuda" else "cpu", **eng_kw)
+            toks = [o.tokens for o in eng.generate(reqs)]
+            em = eng.last_metrics
+            require(eng.last_logits_finite, f"non-finite logits ({where} {name})")
+            got[where] = (toks, em.prefill_chunks, [m.prefix_hit_tokens for m in em.requests],
+                          em.preemptions, em.swap_out_bytes, em.swap_in_bytes)
+        require(got["cuda"] == got["cpu"], f"{name}: card {got['cuda']} vs cpu {got['cpu']}")
+        toks, chunks, hits, pre, swap_out, swap_in = got["cuda"]
+        if fkv.prefill_chunk_tokens:
+            require(chunks > len(reqs), f"{name}: {chunks} chunks")
+        if eng_kw:
+            require(hits[1:] == [64, 64], f"{name}: prefix hits {hits}")
+        if fkv.preempt:
+            require(pre >= 1 and swap_in == swap_out > 0, f"{name}: {pre} preemptions, "
+                    f"swap bytes {swap_out} out, {swap_in} in")
+            plain = ServeEngine(cfg, dataclasses.replace(fkv, preempt=False), params_gpu,
+                                max_len=160, batch_size=2, state_dtype=torch.float32,
+                                device=dev)
+            require([o.tokens for o in plain.generate(reqs)] == toks,
+                    f"{name}: tokens differ from the run without preemption")
+        out[name] = {"chunks": chunks, "prefix_hit_tokens": hits, "preemptions": pre,
+                     "swap_bytes": swap_out, "tokens": toks[0][:8]}
+    return out
 
 
 def centroid_index_equals_rebuild(dev):
@@ -1501,7 +1828,7 @@ def main():
         log(f"[kernel] {k['name']}: max|err| {k['max_abs_err']:.3g} | "
             f"{k['kernel_ms']:.4f} ms vs bound {k['bound_ms']:.4f} ms | plain "
             f"{k['plain_ms']:.4f} ms | library {lib} | {time.perf_counter() - t0:.1f} s")
-        for what in ("static_batch", "int8", "no_completion"):
+        for what in ("static_batch", "extension", "int8", "no_completion"):
             if what not in k:
                 continue
             sb = k[what]
@@ -1513,6 +1840,10 @@ def main():
                 f"vs bound {sb['bound_ms']:.4f} ms{extra}")
         torch.cuda.empty_cache()
     rows = {k["name"]: k for k in kernels}
+    ext = rows["flash_prefill"]["extension"]
+    log(f"[kernel] flash_prefill extension max|err| by case: {json.dumps(ext['max_abs_err_cases'])}"
+        f"; SDPA lower-right max|err| {ext['library_max_abs_err']:.3g}, within TOL: "
+        f"{ext['library_within_tol']}")
     for name in ("recall_gather", "recall_values", "recall_gather_quant", "recall_values_quant"):
         k = rows[name]
         log(f"[kernel] {name} from the pinned pool: {k['kernel_ms']:.4f} ms, the link's "
@@ -1564,6 +1895,26 @@ def main():
                 "tokens_per_s", "slot_occupancy")
         log("[main] freekv/none static vs continuous: " + json.dumps(
             {sch: {k: compare[sch][k] for k in keys} for sch in ("static", "continuous")}))
+        # phase 4b: chunked prefill, the prefix cache and preemption, each
+        # off and on over the same traffic
+        t0 = time.perf_counter()
+        feats = feature_pairs(dev, ops, cfg, params)
+        log("[features] " + json.dumps(feats))
+        ch, pc, pr = feats["chunked"], feats["prefix_cache"], feats["preempt"]
+        log(f"[features] chunked prefill (budget {ch['budget']}): max token gap s off "
+            f"{ch['off']['max_token_gap_s']} on {ch['on']['max_token_gap_s']}; "
+            f"{ch['on']['prefill_chunks']} chunks; launches on "
+            f"{json.dumps(ch['on']['launches'])}; tokens equal "
+            f"{[a['equal'] for a in ch['agreement']]} of {[a['of'] for a in ch['agreement']]}")
+        log(f"[features] prefix cache: TTFT s off {pc['off']['ttft_s']} on {pc['on']['ttft_s']}; "
+            f"hits {pc['on']['prefix_hit_tokens']}; timed copies {json.dumps(pc['on']['copies_timed'])}; "
+            f"tokens equal {[a['equal'] for a in pc['agreement']]}")
+        log(f"[features] preemption: victims {pr['victims']}, priority request TTFT s off "
+            f"{pr['off']['ttft_s'][4]:.3f} on {pr['on']['ttft_s'][4]:.3f}; swap "
+            f"{pr['on']['swap_out_bytes']:.0f} B out, {pr['on']['swap_in_bytes']:.0f} B in; "
+            f"timed swap {json.dumps(pr['on']['swap_timed'])}; tokens equal "
+            f"{[a['equal'] for a in pr['agreement']]}; "
+            f"{time.perf_counter() - t0:.1f} s for the six runs")
         del params
         torch.cuda.empty_cache()
         require(all(0 <= v <= 1 for v in share.values()), f"valid shares out of range: {share}")
@@ -1598,10 +1949,16 @@ def main():
             log(f"[equal] granite-3-8b-smoke fp32 continuous {method} kv_quant={kv_quant}: card "
                 f"== cpu greedy tokens and steps ({steps} steps, {syncs} host reads), 5 requests "
                 f"over 2 slots, eos in a window, e.g. {toks[2]}")
+        for name, r in features_vs_plain(dev).items():
+            log(f"[equal] granite-3-8b-smoke fp32 continuous freekv, {name}: card == cpu greedy "
+                f"tokens and counts " + json.dumps(r))
         n = centroid_index_equals_rebuild(dev)
         log(f"[equal] granite-3-8b-smoke fp32 centroid: the index kept on the card equals "
             f"its rebuild in every layer after 20 steps ({n} re-centers)")
 
+    from repro_torch.launch.gather_bench import EVENT_TIMED
+    log(f"[timing] device times taken with CUDA events behind a spin because the profiler "
+        f"dropped three sessions' device events: {len(EVENT_TIMED)} (iters, ms) {EVENT_TIMED}")
     line = []
     for k in kernels:
         src, replaces = KERNEL_META[k["name"]]

@@ -126,8 +126,9 @@ class FreeKVConfig:
     # either way.
     sync_interval: int = 8
     sample_on_device: bool = True
-    # chunked prefill and priority preemption: not ported yet (ROADMAP
-    # queue 1, item 3); the engine raises when either is set
+    # continuous scheduler: chunked prefill's token budget a round (0 =
+    # whole-shot prefill at admission) and priority preemption with the
+    # slot's state swapped to host (``serving/scheduler``)
     prefill_chunk_tokens: int = 0
     preempt: bool = False
 

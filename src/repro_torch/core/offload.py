@@ -1,4 +1,5 @@
-"""Host offload of the KV pool (reference ``repro/core/offload.py``).
+"""Host offload of the KV pool and the preemption swap (reference
+``repro/core/offload.py``).
 
 ``offload="host"`` allocates each layer's ``pool`` (and, under the
 quantized tier, its ``pool_scale``) in pinned (page-locked) host memory,
@@ -22,3 +23,28 @@ def alloc_pool(shape, dtype, fkv: FreeKVConfig, device: torch.device):
     if fkv.offload == "host" and device.type == "cuda":
         return torch.zeros(shape, dtype=dtype, pin_memory=True)
     return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def swap_state_to_host(state):
+    """Every tensor of an extracted B=1 decode state (any nesting of dicts
+    and lists) as a CPU tensor at its stored dtype: the preemption swap-out
+    (reference ``offload.py:126``). A packed int8/int4 pool and its float32
+    scales move as stored, never dequantized, so ``SlotPool.swap_in``
+    restores the slot bit for bit. Pool leaves already in pinned host memory
+    are copied too: the freed slot's rows will be overwritten.
+
+    CUDA leaves land in pinned memory by non-blocking copies on the current
+    stream (no pageable staging, no host wait); the copies back at swap-in
+    are ordered after them on the same stream. Host leaves are copied on the
+    host, so the caller first waits for the card to finish writing them
+    (``SlotPool._settle``). Non-tensor entries are dropped."""
+    if isinstance(state, dict):
+        return {k: swap_state_to_host(v) for k, v in state.items()
+                if isinstance(v, (dict, list, torch.Tensor))}
+    if isinstance(state, list):
+        return [swap_state_to_host(v) for v in state]
+    if not state.is_cuda and not state.is_pinned():
+        return state.clone(memory_format=torch.contiguous_format)
+    out = torch.empty(state.shape, dtype=state.dtype, pin_memory=True)
+    out.copy_(state, non_blocking=True)
+    return out

@@ -215,6 +215,19 @@ class RecallFlightTracker:
         """Slot turnover: the staged buffer is abandoned in flight."""
         self.dropped_pages += self._in_flight.pop(slot, 0.0)
 
+    def suspend(self, slot: int) -> float:
+        """Preemption swap-out: the staged buffer lives in the ``sel_k`` /
+        ``sel_v`` leaves and travels to the host with the rest of the slot's
+        state, so its pages are not dropped. Returns the count for
+        ``restore``."""
+        return self._in_flight.pop(slot, 0.0)
+
+    def restore(self, slot: int, staged: float):
+        """Preemption swap-in: reattach a suspended count to the slot the
+        request resumed into."""
+        if staged:
+            self._in_flight[slot] = staged
+
     def summary(self) -> dict:
         moved = self.staged_pages + self.topup_pages
         return {"staged_pages": self.staged_pages, "topup_pages": self.topup_pages,

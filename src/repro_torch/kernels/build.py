@@ -54,7 +54,7 @@ SIGNATURES = {
         "freekv_complete_page": [_P] * 3 + [_P, _LL] * 3 + [_I] * 11 + [_P],
     },
     "flash_prefill": {
-        "freekv_flash_prefill": [_P] * 4 + [_I] * 5 + [ctypes.POINTER(_LL), _F, _F]
+        "freekv_flash_prefill": [_P] * 4 + [_I] * 6 + [ctypes.POINTER(_LL), _F, _F]
         + [_I] * 4 + [_P],
     },
 }

@@ -3,16 +3,23 @@
 // Replaces the Pallas TPU kernel repro/kernels/flash_prefill.py, function
 // flash_prefill (body _kernel: grid (B, H, T/blq, T/blk), the K/V index map
 // folding the GQA group, running (m, l, acc) in VMEM scratch, KV blocks that
-// are wholly masked skipped with pl.when). Contract: q (B, H, T, d), k and v
-// (B, kv, T, d), head h reading KV head h / (H / kv) -> out (B, H, T, d) in
-// q's dtype. Scores are (q . k) * scale, then softcap * tanh(s / softcap)
-// when softcap > 0, then masked to -1e30 where the key is past the query
-// (causal), at or before query - window (window > 0), or past T. Online
+// are wholly masked skipped with pl.when). Contract: q (B, H, Tq, d), k and v
+// (B, kv, Tk, d) with Tq <= Tk, head h reading KV head h / (H / kv) -> out
+// (B, H, Tq, d) in q's dtype. Query row i sits at absolute position
+// Tk - Tq + i (a prompt's suffix over its cached prefix and itself: the
+// causal mask aligns bottom-right; Tq == Tk is a whole prompt). Scores are
+// (q . k) * scale, then softcap * tanh(s / softcap) when softcap > 0, then
+// masked to -1e30 where the key is past the query's position (causal), at
+// or before that position - window (window > 0), or past Tk. Online
 // softmax exactly as the TPU kernel: m_new = max(m, rowmax s), alpha =
 // exp(m - m_new), l = l * alpha + rowsum exp(s - m_new), acc = acc * alpha +
 // exp(s - m_new) @ v; out = acc / max(l, 1e-30). Scores, statistics and
-// accumulators are float32. Unlike the TPU kernel, T need not be a multiple
-// of the block: the tail rows and keys are masked.
+// accumulators are float32. Unlike the TPU kernel, Tq and Tk need not be
+// multiples of the block: the tail rows and keys are masked. Key blocks are
+// aligned to absolute key 0 whatever Tq, and a block wholly masked for a row
+// leaves it exactly as it was (a first one is wiped by the next one's alpha
+// of 0), so on the FMA path a row's result does not depend on where a chunk
+// of the prompt began.
 //
 // What bounds it on an H100: operations. At the main path's prefill (B = 4,
 // H = 32, kv = 8, T = 8192, d = 128) the causal half of Q K^T and P V is
@@ -20,8 +27,9 @@
 // ~0.5 GB of bytes.
 //
 // Both paths: one block per query block (64 rows on the FMA path, 128 on
-// the tensor-core path) of one head and request, looping over 64-key blocks from the first one the window reaches to the
-// last one the causal mask reaches, so the upper triangle is never computed
+// the tensor-core path) of one head and request, looping over 64-key blocks
+// from the first one the window reaches to the last one the causal mask
+// reaches from the block's last row, so the upper triangle is never computed
 // (the TPU kernel's block skip). The grid walks query blocks from the last
 // (the longest causal row) to the first, so the heaviest blocks start
 // first. Strides are parameters (the last dim contiguous), so the model
@@ -36,7 +44,8 @@
 // tiles are in flight while the current one is computed and no consumer
 // calls __syncthreads in the key loop. Tiles arrive 128-byte swizzled in
 // panels of 64 channels (the swizzle's row limit), from tensor maps built
-// on the views' own strides; rows past T arrive as zeros. Warpgroups 0 and
+// on the views' own strides (Q's extent Tq rows, K's and V's Tk); rows past
+// either arrive as zeros. Warpgroups 0 and
 // 1 own 64 query rows each: S = Q K^T by wgmma m64n64k16 with both
 // operands read from shared memory, the online softmax in registers on the
 // accumulator layout in the log2 domain (on a tile that needs no mask and
@@ -125,7 +134,7 @@ struct Strides {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ out, int G, int T_len, Strides qs, Strides ks,
+                     T* __restrict__ out, int G, int Tq, int Tk, Strides qs, Strides ks,
                      Strides vs, Strides os, float scale, float softcap, int causal,
                      int window) {
   constexpr int kST = D + 4;
@@ -136,15 +145,16 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   float* Vs = Ks + kBK * kST;
   float* Ps = Vs + kBK * kST;
 
-  const int n_qb = (T_len + kBQ - 1) / kBQ;
+  const int n_qb = (Tq + kBQ - 1) / kBQ;
   const int qb = n_qb - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z, hk = h / G;
-  const int q0 = qb * kBQ;
+  const int q0 = qb * kBQ;          // the block's first query row
+  const int a0 = Tk - Tq + q0;      // and its absolute position
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
   const T* kb_base = k + b * ks.b + hk * ks.h;
   const T* vb_base = v + b * vs.b + hk * vs.h;
-  stage<T, D, kBQ>(q + b * qs.b + h * qs.h, qs.t, q0, T_len, Qs);
+  stage<T, D, kBQ>(q + b * qs.b + h * qs.h, qs.t, q0, Tq, Qs);
 
   float m[4], l[4], acc[4][4 * kCols];
 #pragma unroll
@@ -157,19 +167,19 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
   // key blocks: from the first one inside the window to the last one at or
   // before the block's last query (causal); the rest are wholly masked
-  const int n_kb = (T_len + kBK - 1) / kBK;
-  const int kb_end = causal ? min(n_kb, (q0 + kBQ - 1) / kBK + 1) : n_kb;
+  const int n_kb = (Tk + kBK - 1) / kBK;
+  const int kb_end = causal ? min(n_kb, (a0 + kBQ - 1) / kBK + 1) : n_kb;
   int kb_begin = 0;
   if (window > 0) {
-    const int x = q0 - window - kBK + 1;
+    const int x = a0 - window - kBK + 1;
     if (x >= 0) kb_begin = x / kBK + 1;
   }
 
   for (int kb = kb_begin; kb < kb_end; ++kb) {
     const int k0 = kb * kBK;
     __syncthreads();                                  // previous tiles consumed
-    stage<T, D, kBK>(kb_base, ks.t, k0, T_len, Ks);
-    stage<T, D, kBK>(vb_base, vs.t, k0, T_len, Vs);
+    stage<T, D, kBK>(kb_base, ks.t, k0, Tk, Ks);
+    stage<T, D, kBK>(vb_base, vs.t, k0, Tk, Vs);
     __syncthreads();
 
     float s[4][4];
@@ -199,14 +209,14 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int tq = q0 + ty * 4 + i;
+      const int tq = a0 + ty * 4 + i;
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int tk = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
         if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        const bool ok = tk < T_len && (!causal || tk <= tq) && (window <= 0 || tk > tq - window);
+        const bool ok = tk < Tk && (!causal || tk <= tq) && (window <= 0 || tk > tq - window);
         s[i][j] = ok ? x : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -255,10 +265,10 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   T* ob = out + b * os.b + h * os.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int tq = q0 + ty * 4 + i;
-    if (tq >= T_len) continue;
+    const int r = q0 + ty * 4 + i;
+    if (r >= Tq) continue;
     const float li = fmaxf(l[i], 1e-30f);
-    T* orow = ob + tq * os.t;
+    T* orow = ob + r * os.t;
 #pragma unroll
     for (int cc = 0; cc < kCols; ++cc)
 #pragma unroll
@@ -418,8 +428,9 @@ __global__ void __launch_bounds__(kWThreads, 1)
 flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
-                           __nv_bfloat16* __restrict__ out, int B, int H, int G, int T_len,
-                           Strides os, float scale, float softcap, int causal, int window) {
+                           __nv_bfloat16* __restrict__ out, int B, int H, int G, int Tq,
+                           int Tk, Strides os, float scale, float softcap, int causal,
+                           int window) {
   using C = WgmmaCfg<D>;
   constexpr int kS = C::kStages;
   extern __shared__ uint8_t smem_w[];
@@ -432,7 +443,7 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // block -> (query block, heaviest first; request; KV head; head of the
   // group): the G heads sharing a KV head and query block are neighbours,
   // so they meet the same K/V tiles in L2
-  const int n_qb = (T_len + kWBQ - 1) / kWBQ;
+  const int n_qb = (Tq + kWBQ - 1) / kWBQ;
   int id = blockIdx.x;
   const int g = id % G;
   id /= G;
@@ -442,13 +453,14 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int b = id % B;
   const int qb = n_qb - 1 - id / B;
   const int h = hk * G + g;
-  const int q0 = qb * kWBQ;
+  const int q0 = qb * kWBQ;         // the block's first query row
+  const int off = Tk - Tq;          // query row r sits at absolute position off + r
 
-  const int n_kb = (T_len + kWBK - 1) / kWBK;
-  const int kb_end = causal ? min(n_kb, (q0 + kWBQ - 1) / kWBK + 1) : n_kb;
+  const int n_kb = (Tk + kWBK - 1) / kWBK;
+  const int kb_end = causal ? min(n_kb, (off + q0 + kWBQ - 1) / kWBK + 1) : n_kb;
   int kb_begin = 0;
   if (window > 0) {
-    const int x = q0 - window - kWBK + 1;
+    const int x = off + q0 - window - kWBK + 1;
     if (x >= 0) kb_begin = x / kWBK + 1;
   }
   const int n_tiles = kb_end - kb_begin;
@@ -464,7 +476,8 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();
 
   if (threadIdx.x >= 256) {
-    // producer: Q once, then K and V tiles into the ring; rows past T arrive as zeros
+    // producer: Q once, then K and V tiles into the ring; rows past Tq (Q)
+    // or Tk (K, V) arrive as zeros
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 256) {
       mbar_expect_tx(bar_q, C::kPanels * C::kQPanel);
@@ -495,6 +508,8 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int gq = lane >> 2, t4 = lane & 3;
   const int w0 = q0 + wg * 64;                    // this warpgroup's first row
   const int row0 = w0 + warp * 16 + gq, row1 = row0 + 8;
+  const int wa0 = off + w0;                       // their absolute positions
+  const int pos0 = off + row0, pos1 = pos0 + 8;
   constexpr float kLog2e = 1.4426950408889634f;
   const bool capped = softcap > 0.f;
   // scores in the log2 domain: s * scale * log2(e), or with a softcap
@@ -506,12 +521,12 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // exactly nothing, and are only waited for and released
   int lb = kb_begin, le = kb_end;
   if (window > 0) {
-    const int x = w0 - window - (kWBK - 1);
+    const int x = wa0 - window - (kWBK - 1);
     if (x >= 0) lb = max(lb, x / kWBK + 1);
   }
-  if (causal) le = min(le, (w0 + 63) / kWBK + 1);
+  if (causal) le = min(le, (wa0 + 63) / kWBK + 1);
   // at least one tile, so no wgmma sits behind a branch on the warpgroup;
-  // it only ever adds to rows past T, which are not written
+  // it only ever adds to rows past Tq, which are not written
   lb = min(lb, kb_end - 1);
   le = max(le, lb + 1);
   auto stage = [&](int kb) { return (kb - kb_begin) % kS; };
@@ -565,17 +580,17 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int k0 = kb * kWBK;
     // a tile that needs no softcap and crosses no edge keeps its raw scores:
     // the scale folds into the exponent's FMA (max commutes with scale > 0)
-    const bool plain = !capped && pre > 0.f && !(causal && k0 + kWBK - 1 > w0) &&
-                       k0 + kWBK <= T_len && !(window > 0 && k0 <= w0 + 63 - window);
+    const bool plain = !capped && pre > 0.f && !(causal && k0 + kWBK - 1 > wa0) &&
+                       k0 + kWBK <= Tk && !(window > 0 && k0 <= wa0 + 63 - window);
     if (!plain) {
 #pragma unroll
       for (int j = 0; j < kWBK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float x = capped ? post * tanhf(sc[4 * j + e] * pre) : sc[4 * j + e] * pre;
-          const int tq = e < 2 ? row0 : row1;
+          const int tq = e < 2 ? pos0 : pos1;
           const int tk = k0 + 8 * j + 2 * t4 + (e & 1);
-          const bool ok = tk < T_len && (!causal || tk <= tq) && (window <= 0 || tk > tq - window);
+          const bool ok = tk < Tk && (!causal || tk <= tq) && (window <= 0 || tk > tq - window);
           sc[4 * j + e] = ok ? x : kNegInf;
         }
     }
@@ -701,7 +716,7 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int tq = r ? row1 : row0;
-    if (tq >= T_len) continue;
+    if (tq >= Tq) continue;
     __nv_bfloat16* orow = oh + tq * os.t;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -736,9 +751,9 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a (B, heads, T, D) bf16 view with element strides `st` (D contiguous) as a
-// 4-D tensor map whose box is 64 channels x `rows` tokens of one head,
-// 128-byte swizzled; rows past T read as zeros
+// a (B, heads, T_len, D) bf16 view with element strides `st` (D contiguous)
+// as a 4-D tensor map whose box is 64 channels x `rows` tokens of one head,
+// 128-byte swizzled; rows past T_len read as zeros
 bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int heads, int T_len,
               int D, Strides st, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T_len, (cuuint64_t)heads,
@@ -755,7 +770,7 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int 
 
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int H,
-                         int G, int T_len, Strides qs, Strides ks, Strides vs, Strides os,
+                         int G, int Tq, int Tk, Strides qs, Strides ks, Strides vs, Strides os,
                          float scale, float softcap, int causal, int window, int device,
                          cudaStream_t st) {
   using C = WgmmaCfg<D>;
@@ -766,32 +781,32 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   for (long long s : {qs.b, qs.h, qs.t, ks.b, ks.h, ks.t, vs.b, vs.h, vs.t})
     if (s <= 0 || s >= (1ll << 39)) return cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!make_map(encode, &tm_q, q, B, H, T_len, D, qs, kWBQ) ||
-      !make_map(encode, &tm_k, k, B, H / G, T_len, D, ks, kWBK) ||
-      !make_map(encode, &tm_v, v, B, H / G, T_len, D, vs, kWBK))
+  if (!make_map(encode, &tm_q, q, B, H, Tq, D, qs, kWBQ) ||
+      !make_map(encode, &tm_k, k, B, H / G, Tk, D, ks, kWBK) ||
+      !make_map(encode, &tm_v, v, B, H / G, Tk, D, vs, kWBK))
     return cudaErrorInvalidValue;
   const cudaError_t err = allow_smem<kernel>(C::kSmem, device);
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)((T_len + kWBQ - 1) / kWBQ) * B * H;
+  const long long blocks = (long long)((Tq + kWBQ - 1) / kWBQ) * B * H;
   if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kWThreads, C::kSmem, st>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), B, H, G, T_len, os, scale, softcap,
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), B, H, G, Tq, Tk, os, scale, softcap,
       causal, window);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int H,
-                   int G, int T_len, Strides qs, Strides ks, Strides vs, Strides os,
+                   int G, int Tq, int Tk, Strides qs, Strides ks, Strides vs, Strides os,
                    float scale, float softcap, int causal, int window, int device,
                    cudaStream_t st) {
   constexpr size_t kSmem = sizeof(float) * ((size_t)(kBQ + 2 * kBK) * (D + 4) + kBQ * kPS);
   const cudaError_t err = allow_smem<flash_prefill_kernel<T, D>>(kSmem, device);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T_len + kBQ - 1) / kBQ, H, B);
+  const dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
   flash_prefill_kernel<T, D><<<grid, kThreads, kSmem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), G, T_len, qs, ks, vs, os, scale, softcap, causal, window);
+      static_cast<T*>(out), G, Tq, Tk, qs, ks, vs, os, scale, softcap, causal, window);
   return cudaGetLastError();
 }
 
@@ -799,23 +814,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 // 128, the FMA path at d = 256
 template <typename T>
 cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, void* out, int B,
-                       int H, int G, int T_len, Strides qs, Strides ks, Strides vs,
+                       int H, int G, int Tq, int Tk, Strides qs, Strides ks, Strides vs,
                        Strides os, float scale, float softcap, int causal, int window,
                        int device, cudaStream_t st) {
   constexpr bool kTensor = std::is_same<T, __nv_bfloat16>::value;
   switch (d) {
     case 64:
-      return kTensor ? launch_wgmma<64>(q, k, v, out, B, H, G, T_len, qs, ks, vs, os, scale,
+      return kTensor ? launch_wgmma<64>(q, k, v, out, B, H, G, Tq, Tk, qs, ks, vs, os, scale,
                                         softcap, causal, window, device, st)
-                     : launch<float, 64>(q, k, v, out, B, H, G, T_len, qs, ks, vs, os, scale,
+                     : launch<float, 64>(q, k, v, out, B, H, G, Tq, Tk, qs, ks, vs, os, scale,
                                          softcap, causal, window, device, st);
     case 128:
-      return kTensor ? launch_wgmma<128>(q, k, v, out, B, H, G, T_len, qs, ks, vs, os, scale,
+      return kTensor ? launch_wgmma<128>(q, k, v, out, B, H, G, Tq, Tk, qs, ks, vs, os, scale,
                                          softcap, causal, window, device, st)
-                     : launch<float, 128>(q, k, v, out, B, H, G, T_len, qs, ks, vs, os, scale,
+                     : launch<float, 128>(q, k, v, out, B, H, G, Tq, Tk, qs, ks, vs, os, scale,
                                           softcap, causal, window, device, st);
     case 256:
-      return launch<T, 256>(q, k, v, out, B, H, G, T_len, qs, ks, vs, os, scale, softcap,
+      return launch<T, 256>(q, k, v, out, B, H, G, Tq, Tk, qs, ks, vs, os, scale, softcap,
                             causal, window, device, st);
     default:
       return cudaErrorInvalidValue;
@@ -826,17 +841,18 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, void*
 }  // namespace freekv
 
 // strides: (batch, head, token) of q, k, v, out in elements, the last dim
-// contiguous; every row 16-byte aligned. d in {64, 128, 256}; H a multiple
-// of kv (G = H / kv). softcap <= 0 means none, window <= 0 none, causal
-// 0 / 1. Returns the launch's cudaError_t.
+// contiguous; every row 16-byte aligned. q and out hold Tq tokens, k and v
+// Tk >= Tq (the query rows are the last Tq positions). d in {64, 128, 256};
+// H a multiple of kv (G = H / kv). softcap <= 0 means none, window <= 0
+// none, causal 0 / 1. Returns the launch's cudaError_t.
 extern "C" int freekv_flash_prefill(const void* q, const void* k, const void* v, void* out,
-                                    int B, int H, int G, int T_len, int d,
+                                    int B, int H, int G, int Tq, int Tk, int d,
                                     const long long* strides, float scale, float softcap,
                                     int causal, int window, int dtype, int device,
                                     void* stream) {
   using namespace freekv;
   const int elem = dtype == kBFloat16 ? 2 : 4;
-  if (B < 1 || H < 1 || G < 1 || H % G || T_len < 1 || B > 65535 || H > 65535)
+  if (B < 1 || H < 1 || G < 1 || H % G || Tq < 1 || Tk < Tq || B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) % 16)
@@ -849,10 +865,10 @@ extern "C" int freekv_flash_prefill(const void* q, const void* k, const void* v,
   if (guard.error() != cudaSuccess) return guard.error();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return dispatch_d<float>(d, q, k, v, out, B, H, G, T_len, qs, ks, vs, os, scale, softcap,
+    return dispatch_d<float>(d, q, k, v, out, B, H, G, Tq, Tk, qs, ks, vs, os, scale, softcap,
                              causal, window, device, st);
   if (dtype == kBFloat16)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, out, B, H, G, T_len, qs, ks, vs, os, scale,
+    return dispatch_d<__nv_bfloat16>(d, q, k, v, out, B, H, G, Tq, Tk, qs, ks, vs, os, scale,
                                      softcap, causal, window, device, st);
   return cudaErrorInvalidValue;
 }

@@ -652,7 +652,10 @@ def complete_page(win_k, win_v, length, summ, pool, scale=None):
 
 
 def flash_prefill(q, k, v, *, scale, causal=True, window=None, softcap=None):
-    """q (B,H,T,d); k/v (B,kv,T,d) -> (B,H,T,d) in q's dtype, float32 inside.
+    """q (B,H,Tq,d); k/v (B,kv,Tk,d) with Tk >= Tq -> (B,H,Tq,d) in q's
+    dtype, float32 inside. Query row i sits at absolute position Tk - Tq + i,
+    so the causal mask aligns bottom-right: Tq == Tk is a whole prompt, Tq <
+    Tk a prompt's suffix (an extension chunk) over its prefix's keys.
 
     CUDA inputs may be strided views (the last dim contiguous, 16-byte
     aligned rows), e.g. the model's (B,T,H,d) tensors transposed; the output
@@ -660,10 +663,10 @@ def flash_prefill(q, k, v, *, scale, causal=True, window=None, softcap=None):
     if not _on_cuda(q):
         return ref.flash_prefill_ref(q, k, v, scale, causal, window, softcap)
     dev = q.device
-    B, H, T, d = q.shape
-    kv = k.shape[1]
-    _require(k.shape == (B, kv, T, d) and v.shape == k.shape and H % kv == 0,
-             "flash_prefill: shape mismatch")
+    B, H, Tq, d = q.shape
+    kv, Tk = k.shape[1], k.shape[2]
+    _require(k.shape == (B, kv, Tk, d) and v.shape == k.shape and H % kv == 0 and Tk >= Tq,
+             "flash_prefill: shape mismatch (q (B,H,Tq,d), k/v (B,kv,Tk,d), Tk >= Tq)")
     _require(d in (64, 128, 256), f"flash_prefill takes d_head 64, 128 or 256, got {d}")
     for t in (q, k, v):
         _require(t.device == dev, f"tensor on {t.device}, expected {dev}")
@@ -675,7 +678,7 @@ def flash_prefill(q, k, v, *, scale, causal=True, window=None, softcap=None):
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                        *out.stride()[:3])
     lib = build.load("flash_prefill")
-    rc = lib.freekv_flash_prefill(_ptr(q), _ptr(k), _ptr(v), _ptr(out), B, H, H // kv, T, d,
+    rc = lib.freekv_flash_prefill(_ptr(q), _ptr(k), _ptr(v), _ptr(out), B, H, H // kv, Tq, Tk, d,
                                   strides, float(scale),
                                   float(softcap) if softcap is not None else 0.0,
                                   int(bool(causal)), int(window or 0), code, dev.index,

@@ -270,25 +270,28 @@ def recall_values_quant_ref(pool, scales, idx, bits, out_dtype=torch.float32):
 
 
 def flash_prefill_ref(q, k, v, scale, causal=True, window=None, softcap=None):
-    """q (B, H, T, d); k/v (B, kv, T, d) -> (B, H, T, d) in q's dtype, float32
-    throughout (reference ``kernels/ref.py:76``, plus the TPU kernel's
-    softcap, applied to the scaled scores before the mask). Query rows go
-    512 at a time so the scores of a long prompt never exist whole; each
-    row's softmax is independent, so the result is the same."""
+    """q (B, H, Tq, d); k/v (B, kv, Tk, d) with Tk >= Tq -> (B, H, Tq, d) in
+    q's dtype, float32 throughout (reference ``kernels/ref.py:76``, plus the
+    TPU kernel's softcap, applied to the scaled scores before the mask).
+    Query row i sits at absolute position Tk - Tq + i (the bottom-right
+    causal alignment of an extension chunk; Tq == Tk is a whole prompt).
+    Query rows go 512 at a time so the scores of a long prompt never exist
+    whole; each row's softmax is independent, so the result is the same."""
     q_chunk = 512
-    B, H, T, d = q.shape
-    kv = k.shape[1]
+    B, H, Tq, d = q.shape
+    kv, Tk = k.shape[1], k.shape[2]
     G = H // kv
     kf, vf = k.float(), v.float()
-    qg = q.reshape(B, kv, G, T, d)
-    ti = torch.arange(T, device=q.device)
+    qg = q.reshape(B, kv, G, Tq, d)
+    tpos = torch.arange(Tk - Tq, Tk, device=q.device)      # the query rows' positions
+    ti = torch.arange(Tk, device=q.device)
     out = []
-    for t0 in range(0, T, q_chunk):
-        tq = ti[t0:t0 + q_chunk, None]
+    for t0 in range(0, Tq, q_chunk):
+        tq = tpos[t0:t0 + q_chunk, None]
         s = torch.einsum("bkgtd,bksd->bkgts", qg[:, :, :, t0:t0 + q_chunk].float(), kf) * scale
         if softcap is not None:
             s = softcap * torch.tanh(s / softcap)
-        ok = torch.ones((tq.shape[0], T), dtype=torch.bool, device=q.device)
+        ok = torch.ones((tq.shape[0], Tk), dtype=torch.bool, device=q.device)
         if causal:
             ok &= ti[None, :] <= tq
         if window is not None:
@@ -296,4 +299,4 @@ def flash_prefill_ref(q, k, v, scale, causal=True, window=None, softcap=None):
         s = torch.where(ok, s, torch.full((), NEG_INF, device=q.device))
         w = torch.softmax(s, dim=-1)
         out.append(torch.einsum("bkgts,bksd->bkgtd", w, vf))
-    return torch.cat(out, dim=3).reshape(B, H, T, d).to(q.dtype)
+    return torch.cat(out, dim=3).reshape(B, H, Tq, d).to(q.dtype)

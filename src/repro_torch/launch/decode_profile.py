@@ -45,6 +45,7 @@ MAIN_RUNS = (("freekv", "none"), ("freekv", "int8"), ("shadowkv", "none"), ("sha
 # the runtime calls in which the host waits for the card
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 MEASURED = "decode_profile.measured"
+PROFILER_MARGIN_S = 0.05
 
 
 def dev_us(e):
@@ -236,8 +237,13 @@ def profile_window(cfg, fkv, params, state, logits, k=8):
         run()
         wall_ms = 1e3 * (time.perf_counter() - t0) / k
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # idle margins keep the profiler's own synchronizes at start
+            # and stop clear of the measured range: the runtime calls'
+            # timestamps and the range's need not agree to the microsecond
+            time.sleep(PROFILER_MARGIN_S)
             with record_function(MEASURED):
                 run()
+            time.sleep(PROFILER_MARGIN_S)
         events = prof.key_averages()
         # the card's rows but the measured range's own (a span, not work)
         dev_events = [e for e in events if e.device_type == DeviceType.CUDA and dev_us(e) > 0
@@ -250,10 +256,13 @@ def profile_window(cfg, fkv, params, state, logits, k=8):
         evs = prof.events()
         outer = next(e for e in evs if e.name == MEASURED)
         lo, hi = outer.time_range.start, outer.time_range.end
-        syncs = dict(Counter(e.name for e in evs
-                             if e.name in SYNC_CALLS and lo <= e.time_range.start <= hi))
+        inside = [e for e in evs if e.name in SYNC_CALLS and lo <= e.time_range.start <= hi]
+        syncs = dict(Counter(e.name for e in inside))
         return {"steps": k, "host_syncs_per_step": sum(syncs.values()) / k,
                 "sync_calls": syncs,
+                # where each wait starts, in us from the range's start (of hi - lo)
+                "sync_starts_us": [e.time_range.start - lo for e in inside],
+                "range_us": hi - lo,
                 "wall_ms_per_step_unprofiled": wall_ms, "device_busy_ms_per_step": busy_ms,
                 "device_busy_share": busy_ms / wall_ms if wall_ms else None,
                 "cpu_ops_per_step": sum(e.count for e in events

@@ -8,7 +8,8 @@ attention on the main stream.
 
 Shapes are the main path's: pools (4, 259, 8, 2, 32, 128) bf16, and int8
 and int4 at group 0 with bf16 output; idx (4, 8, 56). Every time is
-profiler device ms per call, cycling through four selections whose pages are
+profiler device ms per call (``device_ms``: CUDA events behind a spin where
+the profiler drops a session's device events three times), cycling through four selections whose pages are
 disjoint per (request, KV head), so no call reads a page an earlier one left
 in L2 (the card's L2 keeps system-memory reads). A share below 1 leaves each
 lane valid with that probability and -1 otherwise. The link's ceiling is one
@@ -45,13 +46,20 @@ N_SETS = 4                            # 4 x 56 disjoint pages of the 259
 SPIN_CYCLES = 30_000_000              # ~15 ms at the H100's clocks: longer than queueing a step
 
 
+EVENT_TIMED = []                      # (iters, ms) of each device_ms that fell back to events
+
+
 def device_ms(fn, args_list, iters=40, tries=3):
-    """Profiler device ms per call (kernels and copies), cycling through
-    ``args_list``. Every call puts at least one operation on the card; a
-    profiler session that recorded fewer (the profiler sometimes drops a
-    session's device events) runs again, up to ``tries`` times, and then
-    this raises: CUDA-event time would also hold the host's gaps between
-    launches, another quantity."""
+    """Device ms per call (kernels and copies), cycling through
+    ``args_list``. Every call puts at least one operation on the card.
+
+    The time is the sum of the card-side rows of a torch.profiler trace.
+    A profiler session that recorded fewer operations than calls (the
+    profiler sometimes drops a session's device events) runs again, up to
+    ``tries`` times; after that the calls are timed with CUDA events
+    behind a spin (``spin_event_ms``), which also holds the card's own
+    launch gaps between calls (a microsecond or two each), and the time is
+    appended to ``EVENT_TIMED`` and noted on stderr."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for a in args_list[:2]:
@@ -65,8 +73,37 @@ def device_ms(fn, args_list, iters=40, tries=3):
         rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         if sum(e.count for e in rows) >= iters:
             return sum(e.self_device_time_total for e in rows) / 1e3 / iters
-    raise RuntimeError(f"torch.profiler lost the device events of {tries} sessions in a row: "
-                       "the card's kernel times cannot be measured")
+    ms = spin_event_ms(fn, args_list, iters)
+    EVENT_TIMED.append((iters, ms))
+    print(f"device_ms: torch.profiler lost the device events of {tries} sessions in a row; "
+          f"timed with CUDA events behind a spin: {ms} ms a call", file=sys.stderr, flush=True)
+    return ms
+
+
+def spin_event_ms(fn, args_list, iters, spins=4):
+    """CUDA-event ms per call over ``iters`` calls queued while a spin holds
+    the stream, so the calls run back to back with none of the host's
+    launch gaps. The spin doubles (up to ``spins`` times) until it is still
+    running when the host has queued the last call; this raises if it
+    never is."""
+    cycles = SPIN_CYCLES
+    for _ in range(spins):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        spun = torch.cuda.Event()
+        spun.record()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(iters):
+            fn(*args_list[i % len(args_list)])
+        stop.record()
+        held = not spun.query()
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(stop) / iters
+        cycles *= 2
+    raise RuntimeError(f"queueing {iters} calls outlasted a spin of {cycles // 2} cycles: "
+                       "their CUDA-event time would hold the host's launch gaps")
 
 
 def selections(gen, dev, share=1.0):

@@ -170,8 +170,8 @@ def flash_call(lib, q, k, v, scale):
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                        *out.stride()[:3])
     build.check(lib.freekv_flash_prefill(_p(q), _p(k), _p(v), _p(out), B, H, H // k.shape[1], T,
-                                         d, strides, float(scale), 0.0, 1, 0, 1, q.device.index,
-                                         _stream()), "flash_prefill")
+                                         k.shape[2], d, strides, float(scale), 0.0, 1, 0, 1,
+                                         q.device.index, _stream()), "flash_prefill")
     return out
 
 

@@ -8,8 +8,10 @@
 Same flags and defaults as the reference CLI where the feature is ported:
 ``--scheduler continuous`` (the default) serves ``--requests`` requests over
 ``--batch`` slots, prompts left-padded to ``--prefill-bucket``, up to
-``--sync-interval`` decode steps per host read; ``--scheduler static`` is
-the lockstep fallback. ``--device``, ``--offload``, ``--dtype`` and
+``--sync-interval`` decode steps per host read, with the radix prefix cache
+(``--prefix-cache-tokens``), chunked prefill (``--prefill-chunk``) and
+priority preemption (``--preempt``, the last request urgent);
+``--scheduler static`` is the lockstep fallback. ``--device``, ``--offload``, ``--dtype`` and
 ``--seed`` are the port's own. Weights are random, made from ``--seed``.
 Prints each request's tokens and timings, then ``EngineMetrics.summary()``
 as one JSON line.
@@ -50,6 +52,14 @@ def main(argv=None):
                     help="continuous: left-pad prompts to a multiple of this")
     ap.add_argument("--sync-interval", type=int, default=8,
                     help="continuous: decode steps per host read")
+    ap.add_argument("--prefix-cache-tokens", type=int, default=0,
+                    help="continuous: radix prefix cache capacity in tokens (0 = off)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="continuous: chunked prefill, at most N prompt tokens a scheduler "
+                         "round between decode windows (0 = whole-shot)")
+    ap.add_argument("--preempt", action="store_true",
+                    help="continuous: priority preemption; the last request gets priority 1 "
+                         "and swaps the lowest-priority running request's state to host")
     ap.add_argument("--no-overlap", action="store_true",
                     help="disable the overlapped recall pipeline")
     ap.add_argument("--offload", choices=("sim", "host"), default="sim",
@@ -71,18 +81,20 @@ def main(argv=None):
                        n_window=args.page_size * 2, tau=args.tau,
                        recall_overlap=not args.no_overlap, offload=args.offload,
                        kv_quant=args.kv_quant, quant_group_size=args.quant_group_size,
-                       sync_interval=args.sync_interval)
+                       sync_interval=args.sync_interval, prefill_chunk_tokens=args.prefill_chunk,
+                       preempt=args.preempt)
     eng = ServeEngine(cfg, fkv, params,
                       max_len=args.context + args.new_tokens + args.page_size
                       + args.prefill_bucket,
                       batch_size=args.batch,
                       sampler=SamplerConfig(temperature=args.temperature),
                       state_dtype=dtype, scheduler=args.scheduler,
-                      prefill_bucket=args.prefill_bucket, device=args.device)
+                      prefill_bucket=args.prefill_bucket,
+                      prefix_cache_tokens=args.prefix_cache_tokens, device=args.device)
     n_req = args.requests or args.batch
     stream = needle_stream(cfg.vocab_size, args.context, args.page_size)
-    reqs = [Request(uid=i, tokens=next(stream).tokens,
-                    max_new_tokens=args.new_tokens) for i in range(n_req)]
+    reqs = [Request(uid=i, tokens=next(stream).tokens, max_new_tokens=args.new_tokens,
+                    priority=int(args.preempt and i == n_req - 1)) for i in range(n_req)]
     for out in eng.generate(reqs):
         steps = max(out.steps, 1)
         print(f"req {out.uid}: {out.tokens}")

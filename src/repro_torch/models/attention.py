@@ -1,12 +1,15 @@
 """GQA attention for prefill (reference ``repro/models/attention.py``).
 
-``attention_prefill`` is what the model's prefill calls. On the card it is
-the ``flash_prefill`` CUDA kernel (the reference registers its Pallas
-counterpart but computes prefill in jnp). On the CPU it is the reference's
-own plain computation, ``attention_auto``: ``attention_dense`` for small
-products and the flash-style ``attention_chunked`` (running max/sum over KV
-chunks of 512) beyond ``2048 * 2048`` query-key pairs, so the CPU parity
-tests keep the reference's numbers. Decode attention is
+``attention_prefill`` is what a prompt's prefill and an extension chunk
+(a prompt's suffix over its cached or already prefilled prefix,
+``models.model.prefill_extend``) call. On the card it is the
+``flash_prefill`` CUDA kernel (the reference registers its Pallas
+counterpart but computes prefill in jnp), whose causal mask is aligned
+bottom-right when there are fewer queries than keys. On the CPU it is the
+reference's own plain computation, ``attention_auto``: ``attention_dense``
+for small products and the flash-style ``attention_chunked`` (running
+max/sum over KV chunks of 512) beyond ``2048 * 2048`` query-key pairs, so
+the CPU parity tests keep the reference's numbers. Decode attention is
 ``core/retrieval._attend``.
 """
 from __future__ import annotations
@@ -111,16 +114,23 @@ def attention_auto(cfg: ArchConfig, q, k, v, pos_q, pos_k, causal=True, window=N
     return attention_chunked(cfg, q, k, v, pos_q, pos_k, causal, window)
 
 
-def attention_prefill(cfg: ArchConfig, q, k, v, positions):
-    """Causal self-attention of a prompt: q (B,T,H,dh), k/v (B,T,Hkv,dh),
-    positions (B,T) the same for q and k -> (B,T,H,dh).
+def attention_prefill(cfg: ArchConfig, q, k, v, q_pos, kv_pos):
+    """Causal attention of S prompt tokens over Tk >= S keys whose last S
+    are their own: q (B,S,H,dh) at positions ``q_pos`` (B,S), k/v
+    (B,Tk,Hkv,dh) at ``kv_pos`` (B,Tk) -> (B,S,H,dh). A whole prompt has
+    S = Tk and ``q_pos`` = ``kv_pos``; an extension chunk (reference
+    ``model._apply_layer_extend``) has ``q_pos`` = Tp..Tp+S-1 and ``kv_pos``
+    = 0..Tp+S-1.
 
     CUDA tensors go to ``ops.flash_prefill`` as transposed (B,H,T,dh) views
-    (the kernel takes strides, so nothing is copied) and the output comes
-    back in q's (B,T,H,dh) layout; CPU tensors take ``attention_auto``."""
+    (the kernel takes strides, so nothing is copied), whose bottom-right
+    alignment puts query row i at Tk - S + i, and the output comes back in
+    q's (B,S,H,dh) layout; CPU tensors take ``attention_auto`` at the given
+    positions, as the reference does, so the CPU tokens equal the
+    reference's."""
     if q.is_cuda:
         o = ops.flash_prefill(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                               scale=_scale(cfg), causal=True,
                               softcap=cfg.attn_logit_softcap)
         return o.transpose(1, 2)
-    return attention_auto(cfg, q, k, v, positions, positions, causal=True)
+    return attention_auto(cfg, q, k, v, q_pos, kv_pos, causal=True)

@@ -3,7 +3,9 @@
 
   init_params(cfg, seed, device, dtype)            -> params
   params_from_jax(cfg, np_params, device, dtype)    -> params
-  prefill(cfg, fkv, params, batch, max_len)         -> (logits_last, state)
+  prefill(cfg, fkv, params, batch, max_len)         -> (logits_last, state[, kv])
+  prefill_extend(cfg, fkv, params, batch, kv, prefix_len, max_len)
+                                                    -> (logits_last, state)
   serve_step(cfg, fkv, params, state, tokens)       -> (logits, state[, stats])
   serve_step_sampled(cfg, fkv, params, state, loop, sampler)
   decode_window(cfg, fkv, params, state, loop, sampler, n_steps)
@@ -145,7 +147,7 @@ def init_decode_state(cfg: ArchConfig, fkv: FreeKVConfig, batch_size: int,
 
 @torch.no_grad()
 def prefill(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, max_len: int,
-            state_dtype=torch.bfloat16, into=None):
+            state_dtype=torch.bfloat16, into=None, return_kv=False, build_state=True):
     """batch {"tokens": (B, T) on the params' device} -> (last-position
     logits (B, padded_vocab), decode state). Each layer's retriever state is
     built right after the layer runs, so only one layer's K/V is alive.
@@ -154,7 +156,15 @@ def prefill(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, max_len: int,
     of fresh ones: the continuous scheduler passes the rows of a slot
     (``SlotPool.claim``), so the pool pages land in the slot's pinned rows
     and no admission copies them. Leaves the retriever replaces come back
-    as new tensors, for ``SlotPool.insert`` to copy in."""
+    as new tensors, for ``SlotPool.insert`` to copy in.
+
+    ``return_kv`` also returns every layer's post-RoPE K/V, a list with one
+    ``(k, v)`` pair of (B, T, kv, dh) a layer (the reference's
+    ``{"prelude", "pattern"}`` tree in the port's per-layer form), for the
+    prefix cache and chunked prefill. ``build_state=False`` skips the
+    retriever state and returns ``state=None``: a chunked prefill's opening
+    chunk, whose state the final chunk rebuilds from the whole prompt's K/V
+    (and which may be shorter than the sink and the window ring)."""
     check_supported(cfg)
     tokens = batch["tokens"]
     x = L.embed_tokens(cfg, params["embed"], tokens)
@@ -162,22 +172,82 @@ def prefill(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, max_len: int,
     dev = x.device
     positions = torch.arange(T, device=dev)[None].expand(B, T)
     retr = make_retriever(cfg, fkv)
-    states = []
-    for lp in params["layers"]:
+    states, kvs = [], []
+    for i, lp in enumerate(params["layers"]):
         h = L.apply_norm(cfg, lp["norm1"], x)
         q, k, v = attn.qkv_proj(cfg, lp["mixer"], h, positions)
-        o = attn.attention_prefill(cfg, q, k, v, positions)
+        o = attn.attention_prefill(cfg, q, k, v, positions, positions)
         x = x + attn.out_proj(cfg, lp["mixer"], o)
         x = _ffn(cfg, lp, x)
-        st = into[len(states)] if into is not None else retr.init_state(
-            B, max_len, state_dtype, dev)
-        states.append(retr.prefill(st, k, v, q[:, -1].contiguous()))
+        if build_state:
+            st = into[i] if into is not None else retr.init_state(B, max_len, state_dtype, dev)
+            states.append(retr.prefill(st, k, v, q[:, -1].contiguous()))
+        if return_kv:
+            kvs.append((k, v))
         del q, k, v, o, h
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.lm_logits(cfg, params["embed"], x[:, -1])
-    state = {"layers": states,
-             "pos": torch.full((B,), T, dtype=torch.int32, device=dev),
-             "pos_host": torch.full((B,), T, dtype=torch.int32)}
+    state = _new_state(states, B, T, dev) if build_state else None
+    if return_kv:
+        return logits, state, kvs
+    return logits, state
+
+
+def _new_state(states, B, length, dev):
+    return {"layers": states,
+            "pos": torch.full((B,), length, dtype=torch.int32, device=dev),
+            "pos_host": torch.full((B,), length, dtype=torch.int32)}
+
+
+# ---------------------------------------------------------------------------
+# prefill extension: a prompt suffix over its prefix's K/V
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def prefill_extend(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, kv, prefix_len: int,
+                   max_len: int, state_dtype=torch.bfloat16, build_state=True, into=None):
+    """Prefill ``batch["tokens"]`` (B, S) as the continuation of a prefix of
+    Tp = ``prefix_len`` tokens (reference ``model.py:578``). ``kv`` holds
+    the per-layer post-RoPE K/V, a list with one ``(k, v)`` pair a layer:
+    buffers (B, >= Tp + S, kv, dh) whose first Tp tokens hold the prefix's.
+    The suffix's K/V is written into them in place, so a chunked prefill
+    never concatenates its growing K/V again (the reference concatenates;
+    the result is the same).
+
+    Only the suffix is embedded; each layer's queries at Tp..Tp+S-1 attend
+    over the buffers' first Tp + S tokens (``attention.attention_prefill``),
+    and the retriever state is rebuilt from the whole Tp + S tokens through
+    the same ``retr.prefill`` as a whole prompt's (``fill_pages`` on the
+    card), straight into ``into`` when given (a slot's rows, as
+    ``prefill``). ``build_state=False`` skips it and returns ``state=None``
+    (a chunked prefill's intermediate chunks).
+
+    Returns (logits, state); the suffix's K/V is left in ``kv``."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    x = L.embed_tokens(cfg, params["embed"], tokens)
+    B, S = tokens.shape
+    dev = x.device
+    Tp = int(prefix_len)
+    q_pos = torch.arange(Tp, Tp + S, device=dev)[None].expand(B, S)
+    kv_pos = torch.arange(Tp + S, device=dev)[None].expand(B, Tp + S)
+    retr = make_retriever(cfg, fkv)
+    states = []
+    for i, lp in enumerate(params["layers"]):
+        h = L.apply_norm(cfg, lp["norm1"], x)
+        q, k, v = attn.qkv_proj(cfg, lp["mixer"], h, q_pos)
+        k_full, v_full = kv[i][0][:, :Tp + S], kv[i][1][:, :Tp + S]
+        k_full[:, Tp:].copy_(k)
+        v_full[:, Tp:].copy_(v)
+        o = attn.attention_prefill(cfg, q, k_full, v_full, q_pos, kv_pos)
+        x = x + attn.out_proj(cfg, lp["mixer"], o)
+        x = _ffn(cfg, lp, x)
+        if build_state:
+            st = into[i] if into is not None else retr.init_state(B, max_len, state_dtype, dev)
+            states.append(retr.prefill(st, k_full, v_full, q[:, -1].contiguous()))
+        del q, k, v, o, h, k_full, v_full
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    logits = L.lm_logits(cfg, params["embed"], x[:, -1])
+    state = _new_state(states, B, Tp + S, dev) if build_state else None
     return logits, state
 
 

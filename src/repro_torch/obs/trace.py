@@ -11,6 +11,9 @@ one Chrome-trace dict with :meth:`TraceRecorder.chrome_trace`:
   ``RequestMetrics`` timestamps;
 * engine spans: ``engine/decode_window`` per host sync, with the step count
   and the bytes read back in ``args``, split into ``engine/decode_step``;
+  ``engine/prefill_chunk`` per chunk of a chunked prefill (its tokens and
+  the job's position); ``sched/preempt`` and ``sched/resume`` instants with
+  the swapped bytes;
 * recall spans: the blocking top-up on the decode track and the staged
   recall on a DMA track. Their durations are modeled from page counts at
   ``MODEL_LINK_BW``; ``args`` carry the exact byte counts;
@@ -30,6 +33,9 @@ SPAN_REQUEST_DECODE = "request/decode"
 SPAN_REQUEST_DONE = "request/done"
 SPAN_DECODE_WINDOW = "engine/decode_window"
 SPAN_DECODE_STEP = "engine/decode_step"
+SPAN_PREFILL_CHUNK = "engine/prefill_chunk"
+SPAN_SCHED_PREEMPT = "sched/preempt"
+SPAN_SCHED_RESUME = "sched/resume"
 SPAN_RECALL_TOPUP = "recall/topup"
 SPAN_RECALL_STAGED = "recall/staged"
 SPAN_RECALL_REUSE = "recall/reuse"

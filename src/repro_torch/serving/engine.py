@@ -19,10 +19,24 @@ Prompt lengths can be bucketed (``prefill_bucket``, continuous only): a
 prompt is left-padded to a multiple of the bucket, and the pads become
 attended context, as in the reference. The default 1 pads nothing.
 
+Under the continuous scheduler, as in the reference:
+
+* ``prefix_cache_tokens > 0``: a radix-trie prefix cache
+  (``serving/prefix_cache``) keyed by the padded prompt. A hit skips the
+  forward pass over the reused span: only the suffix runs
+  (``models.model.prefill_extend``), over the cached K/V copied back from
+  pinned host memory; every prefill's K/V is copied out to it.
+* ``fkv.prefill_chunk_tokens > 0``: chunked prefill. An admitted request
+  holds its slot while a ``PrefillJob`` runs its prompt in chunks of at
+  most that many tokens a scheduler round, between decode windows.
+* ``fkv.preempt``: priority preemption (``Request.priority``): a queued
+  request of strictly higher priority swaps the lowest-priority running
+  request's slot state out to host (``SlotPool.swap_out``) and takes the
+  slot; the victim resumes bit for bit later.
+
 Not ported yet under the continuous scheduler, and refused here: sampling
-with a temperature (ROADMAP queue 1, item 4), chunked prefill and
-preemption (item 3); the prefix cache, speculative decoding and tensor
-parallelism have no switch in the port.
+with a temperature (ROADMAP queue 1, item 4); speculative decoding and
+tensor parallelism have no switch in the port.
 """
 from __future__ import annotations
 
@@ -36,11 +50,13 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, FreeKVConfig
 from repro_torch.core.recall_pipeline import RecallFlightTracker
-from repro_torch.models.model import DECODE_STAT_KEYS, decode_window, prefill, serve_step
+from repro_torch.models.model import (DECODE_STAT_KEYS, decode_window, prefill,
+                                      prefill_extend, serve_step)
 from repro_torch.obs import Observability
 from repro_torch.quant.accounting import page_block_bytes, page_block_bytes_dense
 from repro_torch.serving.kv_slots import SlotPool
 from repro_torch.serving.metrics import EngineMetrics, RequestMetrics
+from repro_torch.serving.prefix_cache import RadixPrefixCache, copy_parts
 from repro_torch.serving.sampling import SamplerConfig, sample, sample_step
 from repro_torch.serving.scheduler import ContinuousScheduler, _request_stats
 
@@ -51,6 +67,10 @@ class Request:
     tokens: np.ndarray                 # prompt (T,)
     max_new_tokens: int = 32
     eos_token: Optional[int] = None
+    # scheduling priority (higher is more urgent). Admission stays FIFO;
+    # with ``fkv.preempt`` a queued request of strictly higher priority than
+    # the lowest-priority running one swaps that one out and takes its slot
+    priority: int = 0
 
 
 @dataclass
@@ -64,6 +84,84 @@ class Completion:
     metrics: Optional[RequestMetrics] = None
 
 
+class PrefillJob:
+    """Chunked prefill of one admitted request (reference
+    ``engine.py:102``), held in slot ``slot`` of ``pool``.
+
+    The opening chunk runs the ordinary prefill and keeps its K/V
+    (``return_kv``); every later chunk runs ``prefill_extend`` over the K/V
+    so far, the prefix cache's extension math. Only the final chunk builds
+    the decode state, from the whole prompt's K/V and straight into the
+    slot's rows (``SlotPool.claim``), as a whole-shot prefill does; earlier
+    chunks skip it (``build_state=False``). The K/V accumulate in per-layer
+    buffers allocated once for the padded prompt, each chunk writing its
+    span in place: nothing is concatenated again.
+
+    A prefix-cache hit seeds the buffers with the cached span (shrunk so
+    the suffix is a whole number of buckets, as ``prefill_one``); at the end
+    the whole prompt's K/V go into the trie. The scheduler paces the job:
+    ``advance`` with its budget a round."""
+
+    def __init__(self, engine: "ServeEngine", req: Request, pool=None, slot=None):
+        self.engine, self.req, self.pool, self.slot = engine, req, pool, slot
+        self.tokens = engine._padded_prompt(req)
+        self.seq = tuple(int(t) for t in self.tokens)
+        self.pos = 0                    # prompt tokens prefilled so far
+        self.hit = 0                    # of which served by the prefix cache
+        self.chunks = 0
+        self._kv = None                 # per-layer (k, v) buffers (1, T, kv, dh)
+        self.result = None  # (logits (1,V), B=1 state, hit, padded) when done
+        if engine.prefix_cache is not None:
+            tp, parts = engine._cache_lookup(self.seq)
+            if tp:
+                self._kv = engine._load_prefix(parts, len(self.seq))
+                self.pos = self.hit = tp
+
+    @property
+    def remaining(self) -> int:
+        return len(self.seq) - self.pos
+
+    @property
+    def done(self) -> bool:
+        return self.result is not None
+
+    def advance(self, budget: int) -> int:
+        """Run one chunk of at most ``budget`` prompt tokens; returns the
+        tokens consumed. The final chunk sets ``result`` to what
+        ``prefill_one`` returns."""
+        assert not self.done and budget > 0
+        eng = self.engine
+        n = min(int(budget), self.remaining)
+        last = n == self.remaining
+        into = self.pool.claim(self.slot) if last and self.pool is not None else None
+        batch = {"tokens": torch.from_numpy(self.tokens[None, self.pos: self.pos + n]).long()
+                 .to(eng.device)}
+        common = dict(max_len=eng.max_len, state_dtype=eng.state_dtype, build_state=last,
+                      into=into)
+        if self.pos == 0:
+            keep = not last or eng.prefix_cache is not None  # for later chunks or the cache
+            out = prefill(eng.cfg, eng.fkv, eng.params, batch, return_kv=keep, **common)
+            logits, state = out[:2]
+            if keep and last:
+                self._kv = out[2]
+            elif keep:
+                self._kv = eng._kv_buffers(len(self.seq), out[2][0][0].dtype)
+                for (bk, bv), (k, v) in zip(self._kv, out[2]):
+                    bk[:, :n].copy_(k)
+                    bv[:, :n].copy_(v)
+        else:
+            logits, state = prefill_extend(eng.cfg, eng.fkv, eng.params, batch, self._kv,
+                                           self.pos, **common)
+        self.pos += n
+        self.chunks += 1
+        if last:
+            if eng.prefix_cache is not None:
+                eng._cache_insert(self.seq, self._kv)
+            self._kv = None
+            self.result = (logits, state, self.hit, len(self.seq))
+        return n
+
+
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, fkv: FreeKVConfig, params,
                  max_len: int, batch_size: int,
@@ -71,6 +169,7 @@ class ServeEngine:
                  state_dtype=torch.float32,
                  scheduler: str = "continuous",
                  prefill_bucket: int = 1,
+                 prefix_cache_tokens: int = 0,
                  pad_token: int = 0,
                  obs: Optional[Observability] = None,
                  device="cuda"):
@@ -82,14 +181,6 @@ class ServeEngine:
                 raise NotImplementedError(
                     "temperature > 0 under scheduler='continuous' needs the reference's "
                     "per-request key streams (ROADMAP queue 1, item 4)")
-            if fkv.prefill_chunk_tokens > 0:
-                raise NotImplementedError(
-                    "prefill_chunk_tokens > 0 (chunked prefill) is not ported yet "
-                    "(ROADMAP queue 1, item 3)")
-            if fkv.preempt:
-                raise NotImplementedError(
-                    "preempt=True (priority preemption) is not ported yet "
-                    "(ROADMAP queue 1, item 3)")
         self.cfg, self.fkv, self.params = cfg, fkv, params
         self.max_len, self.batch_size = max_len, batch_size
         self.sampler = sampler
@@ -100,6 +191,9 @@ class ServeEngine:
         self.sync_interval = max(1, fkv.sync_interval)
         self.sample_on_device = bool(fkv.sample_on_device)
         self.obs = obs if obs is not None else Observability.off()
+        # kept across generate() calls, as the reference's
+        self.prefix_cache = (RadixPrefixCache(prefix_cache_tokens)
+                             if prefix_cache_tokens > 0 else None)
         self._pool: Optional[SlotPool] = None
         self.last_metrics: Optional[EngineMetrics] = None
         # per-slot staged recall in flight, fed by the continuous scheduler
@@ -134,6 +228,23 @@ class ServeEngine:
             em.pool_bytes_physical = float(detail["physical"])
             em.pool_bytes_dense = float(detail["dense"])
 
+    @property
+    def prefill_chunk_tokens(self) -> int:
+        """The chunked prefill's token budget a scheduler round; 0 is
+        whole-shot prefill at admission."""
+        return self.fkv.prefill_chunk_tokens
+
+    @property
+    def preempt(self) -> bool:
+        """Whether the scheduler may swap a lower-priority running request
+        out to host to admit a strictly higher-priority queued one."""
+        return bool(self.fkv.preempt)
+
+    def start_prefill_job(self, req: Request, pool: Optional[SlotPool] = None,
+                          slot: Optional[int] = None) -> PrefillJob:
+        """Open a chunked prefill of ``req`` into ``slot`` of ``pool``."""
+        return PrefillJob(self, req, pool, slot)
+
     def make_slot_pool(self, num_slots: int) -> SlotPool:
         return SlotPool(self.cfg, self.fkv, num_slots, self.max_len, self.state_dtype,
                         self.device)
@@ -156,27 +267,60 @@ class ServeEngine:
         """Token ``count`` of one request from its B=1 logits."""
         return sample_step(logits, self.sampler, key)
 
-    def _pad_prompt(self, tokens: np.ndarray) -> np.ndarray:
+    def _padded_prompt(self, req: Request) -> np.ndarray:
+        """The prompt left-padded to a whole number of buckets."""
+        tokens = np.asarray(req.tokens, np.int32)
         b = self.prefill_bucket
         padded_len = max(b, -(-len(tokens) // b) * b)
+        if padded_len + req.max_new_tokens > self.max_len:
+            raise ValueError(f"request {req.uid}: padded prompt {padded_len} + "
+                             f"{req.max_new_tokens} new tokens exceeds max_len {self.max_len}")
         out = np.full((padded_len,), self.pad_token, np.int32)
         out[padded_len - len(tokens):] = tokens
         return out
 
     def prefill_one(self, req: Request, pool: Optional[SlotPool] = None,
                     slot: Optional[int] = None):
-        """Prefill one request (B=1) -> (last-token logits (1, V), B=1
-        decode state, padded prompt length). With ``pool`` and ``slot`` the
+        """Prefill one request (B=1), through the prefix cache when there is
+        one -> (last-token logits (1, V), B=1 decode state, prefix-hit
+        tokens, padded prompt length) (reference ``engine.py:420``): a
+        ``PrefillJob`` run in one chunk. With ``pool`` and ``slot`` the
         state is built straight into the slot's rows (``SlotPool.claim``)."""
-        padded = self._pad_prompt(np.asarray(req.tokens, np.int32))
-        if len(padded) + req.max_new_tokens > self.max_len:
-            raise ValueError(f"request {req.uid}: padded prompt {len(padded)} + "
-                             f"{req.max_new_tokens} new tokens exceeds max_len {self.max_len}")
-        batch = {"tokens": torch.from_numpy(padded[None]).long().to(self.device)}
-        into = pool.claim(slot) if pool is not None else None
-        logits, state = prefill(self.cfg, self.fkv, self.params, batch, max_len=self.max_len,
-                                state_dtype=self.state_dtype, into=into)
-        return logits, state, len(padded)
+        job = PrefillJob(self, req, pool, slot)
+        job.advance(job.remaining)
+        return job.result
+
+    # -- the prefix cache's payload: [k, v] a layer, each (T, kv, dh) ----
+    def _cache_lookup(self, seq):
+        """(reused tokens, matched pieces): the match shrunk so the suffix
+        is a whole number of buckets, 0 unless at least a page is reused
+        (the reference's rule)."""
+        matched, parts = self.prefix_cache.match_parts(seq)
+        b = self.prefill_bucket
+        suffix = max(b, -(-(len(seq) - matched) // b) * b)
+        tp = len(seq) - suffix
+        return (tp if tp >= max(b, self.fkv.page_size) else 0), parts
+
+    def _kv_buffers(self, n_tokens: int, dtype):
+        shape = (1, n_tokens, self.cfg.n_kv_heads, self.cfg.d_head)
+        return [tuple(torch.empty(shape, dtype=dtype, device=self.device) for _ in range(2))
+                for _ in self.cfg.layers]
+
+    @staticmethod
+    def _flat(kv):
+        return [t[0] for pair in kv for t in pair]
+
+    def _load_prefix(self, parts, n_tokens: int):
+        """K/V buffers for an ``n_tokens`` prompt holding the matched pieces
+        in their leading tokens, copied from the (pinned) host."""
+        kv = self._kv_buffers(n_tokens, parts[0][0].dtype)
+        copy_parts(parts, self._flat(kv))
+        return kv
+
+    def _cache_insert(self, seq, kv) -> int:
+        """Copy the prompt's K/V into the trie (pinned host on the card);
+        returns the tokens newly stored."""
+        return self.prefix_cache.insert(seq, self._flat(kv))
 
     # ------------------------------------------------------------------
     # generation
@@ -209,6 +353,8 @@ class ServeEngine:
         sched = ContinuousScheduler(self, self._pool)
         tracked, em = sched.run(requests, seed)
         self._apply_quant_metrics(em)
+        if self.prefix_cache is not None:
+            em.prefix_cache = self.prefix_cache.stats()
         self.last_metrics = em
         self.last_logits_finite = sched.logits_finite
         return [Completion(uid=tr.req.uid, tokens=tr.tokens, prefill_s=tr.prefill_s,

@@ -1,5 +1,5 @@
 """Paged KV slot pool: maps requests onto physical batch rows (reference
-``repro/serving/kv_slots.py``, without the preemption swap).
+``repro/serving/kv_slots.py``).
 
 The decode state has a fixed batch: the slot count. Admission and
 completion are per-row writes, in place, with ``paging.slot_write_leaf``:
@@ -14,8 +14,12 @@ completion are per-row writes, in place, with ``paging.slot_write_leaf``:
     so after an in-place prefill only the leaves the retriever replaced
     (selection buffers, lengths, the centroid index) are copied;
   * ``free(slot)`` returns the slot and marks it dirty; the reset to the
-    empty state (the pool pages aside, see ``POOL_KEYS``) is lazy (``flush_resets``, called right before a decode
-    window), so a slot refilled at the same boundary is written once.
+    empty state (the pool pages aside, see ``POOL_KEYS``) is lazy
+    (``flush_resets``, called right before a decode window), so a slot
+    refilled at the same boundary is written once;
+  * ``swap_out(slot)`` / ``swap_in(host_state, slot)``, the preemption
+    swap: the row's whole state to host tensors at its stored dtypes and
+    back, bit for bit (``offload.swap_state_to_host``).
 
 Every write first makes the current stream wait for each layer's staged
 recall (``recall_pipeline.wait_staged``): the side stream writes the
@@ -29,7 +33,7 @@ from typing import List, Optional, Set
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import paging
+from repro_torch.core import offload, paging
 from repro_torch.core.recall_pipeline import wait_staged
 from repro_torch.models.model import init_decode_state
 from repro_torch.quant.accounting import pool_bytes_detail
@@ -75,10 +79,16 @@ class SlotPool:
     def free_count(self) -> int:
         return len(self._free)
 
-    def alloc(self, owner_uid: int) -> int:
+    def alloc(self, owner_uid: int, hold: bool = False) -> int:
+        """Take a free slot. ``hold``: the slot waits for a chunked prefill
+        over several rounds; its row is reset at the next flush, so it steps
+        from the empty state meanwhile, as an idle row does."""
         slot = self._free.pop()
         assert self.owner[slot] is None, f"slot {slot} already owned by {self.owner[slot]}"
-        self._dirty.discard(slot)       # the admission overwrites the row
+        if hold:
+            self._dirty.add(slot)
+        else:
+            self._dirty.discard(slot)       # the admission overwrites the row
         self.owner[slot] = owner_uid
         self.allocs += 1
         return slot
@@ -132,6 +142,7 @@ class SlotPool:
         ``prefill(into=...)``."""
         self._settle()
         self._reset_row(slot)
+        self._dirty.discard(slot)       # a held slot: its reset is done
         return [{k: paging.slot_read_leaf(t, slot) for k, t in _tensors(layer).items()}
                 for layer in self.state["layers"]]
 
@@ -152,6 +163,32 @@ class SlotPool:
                            for layer in self.state["layers"]],
                 "pos": paging.slot_read_leaf(self.state["pos"], slot).clone(),
                 "pos_host": paging.slot_read_leaf(self.state["pos_host"], slot).clone()}
+
+    def swap_out(self, slot: int):
+        """Row ``slot``'s whole B=1 state as host tensors at their stored
+        dtypes (the caller frees the slot): the pool at its packed width and
+        its scales, the summaries, the rings, the selection buffers
+        ``sel_k``/``sel_v``/``sel_idx`` (the staged recall, finished first),
+        ``qprev``, the lengths, ``pos`` and ``pos_host``."""
+        self._settle()
+        return offload.swap_state_to_host(
+            {"layers": [{k: paging.slot_read_leaf(t, slot) for k, t in _tensors(layer).items()}
+                        for layer in self.state["layers"]],
+             "pos": paging.slot_read_leaf(self.state["pos"], slot),
+             "pos_host": paging.slot_read_leaf(self.state["pos_host"], slot)})
+
+    def swap_in(self, host_state, slot: int):
+        """Write a ``swap_out`` state into row ``slot`` (allocated by the
+        caller), every leaf at its stored dtype: bit for bit. Card rows take
+        non-blocking copies from the pinned host tensors on the current
+        stream; host rows (the pinned pool) are copied on the host after
+        ``_settle``."""
+        self._settle()
+        for dst, src in zip(self.state["layers"], host_state["layers"]):
+            for k, t in src.items():
+                paging.slot_read_leaf(dst[k], slot).copy_(t, non_blocking=True)
+        for k in ("pos", "pos_host"):
+            paging.slot_read_leaf(self.state[k], slot).copy_(host_state[k], non_blocking=True)
 
     def reset_all(self):
         self._settle()

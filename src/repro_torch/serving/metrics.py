@@ -1,7 +1,6 @@
 """Serving telemetry: per-request lifecycle timings and engine-level counters
 (reference ``repro/serving/metrics.py``, cut to what the ported schedulers
-fill: no prefix cache, speculative decoding, preemption, SLOs or tensor
-parallelism yet).
+fill: no speculative decoding, SLOs or tensor parallelism yet).
 
 Timestamps are ``time.perf_counter()`` values relative to the scheduler
 run's start; queue wait, TTFT and inter-token latency are properties, so
@@ -14,7 +13,7 @@ the latency and speculation histograms live beside them.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from repro_torch.obs.registry import (COUNT_BUCKETS, LATENCY_BUCKETS, RATE_BUCKETS,
                                       MetricsRegistry)
@@ -35,6 +34,9 @@ class RequestMetrics:
     prefill_s: float = 0.0
     decode_s: float = 0.0
     max_token_gap_s: float = 0.0      # worst observed inter-token gap
+    priority: int = 0                 # the request's scheduling priority
+    prefix_hit_tokens: int = 0        # prompt tokens served from the prefix cache
+    preemptions: int = 0              # times this request was swapped out
 
     @property
     def queue_wait_s(self) -> Optional[float]:
@@ -90,6 +92,18 @@ _COUNTER_ATTRS = {
                         "kv heads that triggered fine-grained correction"),
     "kv_head_steps": ("spec_kv_head_steps_total", float,
                       "kv-head decision opportunities (heads x steps)"),
+    "prefill_chunks": ("sched_prefill_chunks_total", int,
+                       "chunked-prefill chunks executed"),
+    "prefill_chunk_tokens": ("sched_prefill_chunk_tokens_total", int,
+                             "prompt tokens prefilled through chunks"),
+    "preemptions": ("sched_preemptions_total", int,
+                    "requests swapped out of their slot to host"),
+    "resumes": ("sched_resumes_total", int,
+                "swapped-out requests swapped back into a slot"),
+    "swap_out_bytes": ("sched_swap_out_bytes_total", float,
+                       "decode-state bytes pulled to host at preemption"),
+    "swap_in_bytes": ("sched_swap_in_bytes_total", float,
+                      "decode-state bytes pushed back at resume"),
 }
 _GAUGE_ATTRS = {
     "dropped_pages": ("recall_dropped_in_flight_pages", float,
@@ -130,6 +144,8 @@ class EngineMetrics:
     # nonsync_host_bytes stays 0; the synchronous path reads every step
     sync_interval: int = 1
     sample_on_device: bool = True
+    # RadixPrefixCache.stats() after the run (empty without a cache)
+    prefix_cache: Dict = field(default_factory=dict)
 
     # -- recording ---------------------------------------------------------
     def record_step(self, n_active: int):
@@ -261,7 +277,6 @@ class EngineMetrics:
                 "ttft_s": self._hist_summary(H_TTFT, LATENCY_BUCKETS),
                 "itl_s": self._hist_summary(H_ITL, LATENCY_BUCKETS),
                 "decode_step_s": self._hist_summary(H_DECODE_STEP, LATENCY_BUCKETS),
-                "token_gap_s": self._hist_summary(H_TOKEN_GAP, LATENCY_BUCKETS),
             },
             "speculation": {
                 "sel_pages": self.sel_pages,
@@ -280,6 +295,15 @@ class EngineMetrics:
                 "reused_pages": self.reused_pages,
                 "dropped_in_flight_bytes": self.dropped_pages * self.page_block_bytes,
                 "transfer_is_dma": self.transfer_is_dma,
+            },
+            "scheduling": {
+                "prefill_chunks": self.prefill_chunks,
+                "prefill_chunk_tokens": self.prefill_chunk_tokens,
+                "preemptions": self.preemptions,
+                "resumes": self.resumes,
+                "swap_out_bytes": self.swap_out_bytes,
+                "swap_in_bytes": self.swap_in_bytes,
+                "token_gap_s": self._hist_summary(H_TOKEN_GAP, LATENCY_BUCKETS),
             },
             "dispatch": {
                 "sync_interval": self.sync_interval,
@@ -303,6 +327,7 @@ class EngineMetrics:
                 "pool_compression": (self.pool_bytes_dense / self.pool_bytes_physical
                                      if self.pool_bytes_physical else 1.0),
             },
+            "prefix_cache": dict(self.prefix_cache),
         }
 
 

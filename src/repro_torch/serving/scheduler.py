@@ -1,9 +1,9 @@
 """Continuous-batching scheduler: admission queue and per-slot request
-lifecycle (reference ``repro/serving/scheduler.py``, whole-shot prefill
-only: chunked prefill and preemption are ROADMAP queue 1, item 3; the live
-service mode is item 7).
+lifecycle (reference ``repro/serving/scheduler.py``; the live service mode
+is ROADMAP queue 1, item 7).
 
-Requests move QUEUED -> PREFILL -> DECODE -> DONE. Slots are refilled at
+Requests move QUEUED -> PREFILL -> DECODE -> DONE (and DECODE -> SWAPPED ->
+DECODE under preemption). Slots are refilled at
 every host boundary, so a short request's completion frees capacity for
 the next queued request instead of idling until the longest co-scheduled
 request drains (the static engine's behaviour). Finished slots stop
@@ -32,9 +32,31 @@ its slot is refilled at the window's end rather than at the eos step, and
 decode step and one host read per iteration. Greedy tokens are the same on
 both paths and for every ``sync_interval``.
 
+Each round of the loop runs the reference's three passes before its decode
+window:
+
+* admission: queued requests fill free slots, FIFO; a SWAPPED request
+  resumes (``resume``). With chunked prefill (``backend.prefill_chunk_tokens
+  > 0``) an admitted request takes its slot and opens a
+  ``backend.start_prefill_job``, its lane left finished until the job ends;
+* preemption (``backend.preempt``): while a queued request's priority
+  strictly exceeds the lowest-priority running request's, that victim's
+  whole slot state is swapped out to host (``SlotPool.swap_out``), its slot
+  goes to the candidate and it is queued again as SWAPPED; on resume
+  ``swap_in`` restores the slot bit for bit and its lane is rebuilt from
+  host bookkeeping, so its tokens equal an uninterrupted run's. Equal
+  priorities never preempt;
+* chunked prefill: at most ``prefill_chunk_tokens`` prompt tokens a round
+  across the open jobs, oldest first; a finished job's state is in its slot
+  and its request joins the decode lanes. Co-batched decoders wait at most
+  about one chunk instead of a whole prefill.
+
 The scheduler drives a backend (``ServeEngine``) exposing
 
-    prefill_one(request, pool, slot) -> (logits (1, V), B=1 state, padded_len)
+    prefill_one(request, pool, slot) -> (logits (1, V), B=1 state,
+                                         prefix_hit_tokens, padded_len)
+    start_prefill_job(request, pool, slot) -> job (.advance/.done/.result)
+    prefill_chunk_tokens, preempt
     step(state, tokens (B, 1)) -> (logits (B, V), state, stats)
     sample_slot(logits, key, count) -> tokens (1,)
     sample_lanes(logits, keys (B, 2), counts (B,)) -> tokens (B,)
@@ -51,8 +73,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.paging import state_bytes
 from repro_torch.models.model import DECODE_STAT_KEYS as _STAT_KEYS
-from repro_torch.obs.trace import SPAN_DECODE_STEP, SPAN_DECODE_WINDOW
+from repro_torch.obs.trace import (SPAN_DECODE_STEP, SPAN_DECODE_WINDOW, SPAN_PREFILL_CHUNK,
+                                   SPAN_SCHED_PREEMPT, SPAN_SCHED_RESUME)
 from repro_torch.serving.metrics import EngineMetrics, RequestMetrics
 
 # stat keys the engine-level counters accumulate (per-request aggregation
@@ -61,6 +85,14 @@ _PAGE_KEYS = ("sync_pages", "async_pages", "reused_pages", "sel_pages",
               "spec_hit_pages", "churn_pages")
 
 QUEUED, PREFILL, DECODE, DONE = "queued", "prefill", "decode", "done"
+SWAPPED = "swapped"           # preempted: the slot's state parked on the host
+
+
+def _swap_bytes(host_state) -> float:
+    """Bytes of a swapped-out state, as the reference counts them: every
+    leaf but ``pos_host``, the host's mirror of ``pos``, which the
+    reference's state does not have."""
+    return float(state_bytes({k: v for k, v in host_state.items() if k != "pos_host"}))
 
 
 @dataclass
@@ -73,6 +105,9 @@ class _Tracked:
     tokens: List[int] = field(default_factory=list)
     prefill_s: float = 0.0
     decode_s: float = 0.0
+    job: object = None                # open PrefillJob (chunked prefill)
+    host_state: object = None         # swapped-out B=1 state (host tensors)
+    flight_pages: float = 0.0         # staged recall suspended with the swap
     last_tok_t: Optional[float] = None  # run-relative time of the last token
     agg: Dict[str, float] = field(default_factory=lambda: {k: 0.0 for k in _STAT_KEYS})
 
@@ -174,7 +209,7 @@ class ContinuousScheduler:
         for i, r in enumerate(requests):
             queue.append(_Tracked(req=r, order=i, metrics=RequestMetrics(
                 uid=r.uid, prompt_tokens=len(r.tokens), max_new_tokens=r.max_new_tokens,
-                enqueue_t=now())))
+                priority=r.priority, enqueue_t=now())))
 
         em = EngineMetrics(num_slots=pool.num_slots, scheduler="continuous",
                            page_block_bytes=backend.page_block_bytes,
@@ -184,6 +219,8 @@ class ContinuousScheduler:
         # step t is consumed by step t+1 unless the slot turns over
         flight = backend.recall_tracker
         active: Dict[int, _Tracked] = {}
+        prefilling: Dict[int, _Tracked] = {}    # slot -> request with an open chunked prefill
+        chunk = int(backend.prefill_chunk_tokens)
         lanes = _Lanes(pool.num_slots, pool.device)
         done: List[_Tracked] = []
         self._step_idx = 0
@@ -246,21 +283,14 @@ class ContinuousScheduler:
                     finish(tr, s)
             self._step_idx += 1
 
-        def admit_one(tr: _Tracked):
-            """Prefill the request into a free slot and take its first token."""
-            if tr.req.max_new_tokens <= 0:
-                finish(tr, None)
-                return
-            tr.state = PREFILL
-            tr.metrics.prefill_start_t = now()
-            tp = time.perf_counter()
-            slot = pool.alloc(tr.req.uid)
-            logits1, state1, padded = backend.prefill_one(tr.req, pool, slot)
-            pool.insert(state1, slot)
+        def begin_decode(tr: _Tracked, slot: int, logits1, tp: Optional[float] = None):
+            """The first token of a finished prefill; the request joins the
+            decode lanes. ``tp``: the whole-shot prefill's start, whose
+            ``prefill_s`` runs to this read."""
             self._finite &= torch.isfinite(logits1).all()
             tok = int(backend.sample_slot(logits1, None, 0)[0])     # the admission's read
-            tr.prefill_s = time.perf_counter() - tp
-            tr.metrics.padded_prompt_tokens = padded
+            if tp is not None:
+                tr.prefill_s = time.perf_counter() - tp
             tr.metrics.first_token_t = now()
             tr.last_tok_t = tr.metrics.first_token_t
             tr.tokens.append(tok)
@@ -272,10 +302,123 @@ class ContinuousScheduler:
                 active[slot] = tr
                 lanes.admit(slot, tok, 1, tr.req.max_new_tokens, tr.req.eos_token)
 
-        while queue or active:
+        def resume(tr: _Tracked):
+            """Swap a preempted request's state back into a free slot; its
+            lane (current token, count) is rebuilt from the host's copy, so
+            its tokens go on as if never interrupted."""
+            slot = pool.alloc(tr.req.uid)
+            nbytes = _swap_bytes(tr.host_state)
+            pool.swap_in(tr.host_state, slot)
+            tr.host_state = None
+            flight.restore(slot, tr.flight_pages)
+            tr.flight_pages = 0.0
+            lanes.admit(slot, tr.tokens[-1], len(tr.tokens), tr.req.max_new_tokens,
+                        tr.req.eos_token)
+            tr.state = DECODE
+            tr.slot = slot
+            active[slot] = tr
+            em.resumes += 1
+            em.swap_in_bytes += nbytes
+            self._trace.instant(SPAN_SCHED_RESUME, now(),
+                                args={"uid": tr.req.uid, "slot": slot, "bytes": nbytes})
+
+        def admit_one(tr: _Tracked):
+            """Give the request a free slot: resume it, open its chunked
+            prefill, or prefill it into the slot and take its first token."""
+            if tr.state == SWAPPED:
+                resume(tr)
+                return
+            if tr.req.max_new_tokens <= 0:
+                finish(tr, None)
+                return
+            tr.state = PREFILL
+            tr.metrics.prefill_start_t = now()
+            if chunk > 0:
+                # the slot is held (its lane finished, its row reset) while
+                # the job runs a budgeted chunk a round (advance_prefill)
+                slot = pool.alloc(tr.req.uid, hold=True)
+                tr.job = backend.start_prefill_job(tr.req, pool, slot)
+                tr.slot = slot
+                prefilling[slot] = tr
+                return
+            tp = time.perf_counter()
+            slot = pool.alloc(tr.req.uid)
+            logits1, state1, hit, padded = backend.prefill_one(tr.req, pool, slot)
+            pool.insert(state1, slot)
+            tr.metrics.prefix_hit_tokens = hit
+            tr.metrics.padded_prompt_tokens = padded
+            begin_decode(tr, slot, logits1, tp)
+
+        def preempt_pass():
+            """While a queued request's priority strictly exceeds the
+            lowest-priority running request's, swap that victim out to the
+            host and admit the candidate in its slot. Ends: each admission
+            removes a queued request and queues only a strictly
+            lower-priority one."""
+            while queue and active:
+                cand = max(queue, key=lambda t: (t.req.priority, -t.order))
+                victim = min(active.values(), key=lambda t: (t.req.priority, -t.order))
+                if cand.req.priority <= victim.req.priority:
+                    return
+                slot = victim.slot
+                host = pool.swap_out(slot)
+                nbytes = _swap_bytes(host)
+                victim.host_state = host
+                victim.flight_pages = flight.suspend(slot)
+                del active[slot]
+                pool.free(slot)
+                lanes.retire(slot)
+                victim.state = SWAPPED
+                victim.slot = -1
+                victim.metrics.preemptions += 1
+                em.preemptions += 1
+                em.swap_out_bytes += nbytes
+                self._trace.instant(SPAN_SCHED_PREEMPT, now(),
+                                    args={"uid": victim.req.uid, "slot": slot,
+                                          "bytes": nbytes, "by_uid": cand.req.uid})
+                queue.append(victim)
+                queue.remove(cand)
+                admit_one(cand)
+
+        def advance_prefill():
+            """Spend at most one ``chunk`` budget across the open jobs, oldest
+            first; a finished job's state is in its slot, and its request
+            takes its first token."""
+            budget = chunk
+            for tr in sorted(prefilling.values(), key=lambda t: t.order):
+                while budget > 0 and not tr.job.done:
+                    tc = time.perf_counter()
+                    n = tr.job.advance(budget)
+                    dt = time.perf_counter() - tc
+                    tr.prefill_s += dt
+                    budget -= n
+                    em.prefill_chunks += 1
+                    em.prefill_chunk_tokens += n
+                    self._trace.complete(SPAN_PREFILL_CHUNK, tc - t0, dt,
+                                         args={"uid": tr.req.uid, "tokens": n,
+                                               "pos": tr.job.pos, "total": len(tr.job.seq)})
+                if tr.job.done:
+                    slot = tr.slot
+                    del prefilling[slot]
+                    logits1, state1, hit, padded = tr.job.result
+                    tr.job = None
+                    pool.insert(state1, slot)
+                    tr.metrics.prefix_hit_tokens = hit
+                    tr.metrics.padded_prompt_tokens = padded
+                    begin_decode(tr, slot, logits1)
+                if budget <= 0:
+                    break
+
+        while queue or active or prefilling:
             # admission: refill freed slots at the host boundary (FIFO)
             while queue and pool.free_count:
                 admit_one(queue.popleft())
+            # preemption: a strictly higher priority takes a running slot
+            if backend.preempt and queue:
+                preempt_pass()
+            # chunked prefill: one token budget a round
+            if prefilling:
+                advance_prefill()
             if not active:
                 continue
             pool.flush_resets()          # lazily reset freed-but-idle slots

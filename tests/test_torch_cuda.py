@@ -196,6 +196,59 @@ def test_cuda_flash_prefill_matches_plain(B, H, kv, T, d, window, softcap, dtype
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("B,H,kv,Tq,Tk,d,window,softcap", [
+    (1, 8, 2, 100, 300, 128, None, None), (1, 4, 1, 1, 513, 64, None, None),
+    (2, 4, 2, 200, 777, 64, None, 20.0), (1, 8, 2, 300, 1000, 128, 256, None),
+    (1, 2, 1, 130, 700, 256, 50, 30.0), (1, 8, 1, 64, 96, 64, None, None),
+    (1, 8, 2, 129, 161, 128, 40, None), (1, 32, 8, 1000, 7200, 128, None, None),
+])
+def test_cuda_flash_prefill_extension_matches_plain(B, H, kv, Tq, Tk, d, window, softcap,
+                                                    dtype):
+    """flash_prefill with Tq < Tk (query row i at position Tk - Tq + i, the
+    causal mask aligned bottom-right) against its plain version on the
+    model's strided views: offsets that are no multiple of the 64-key tile
+    or the 128-row query block, a single query row, windows, softcaps, the
+    FMA path (float32, d 256) and the wgmma path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn(B, Tq, H, d, generator=g, device=dev).to(dtype).transpose(1, 2)
+    k, v = (torch.randn(B, Tk, kv, d, generator=g, device=dev).to(dtype).transpose(1, 2)
+            for _ in range(2))
+    got = ops.flash_prefill(q, k, v, scale=d ** -0.5, window=window, softcap=softcap)
+    want = ref.flash_prefill_ref(q, k, v, d ** -0.5, True, window, softcap)
+    assert got.shape == q.shape and got.stride() == q.stride()
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("off,window", [(32, None), (100, None), (1000, None), (288, 200)])
+def test_cuda_flash_prefill_extension_rows_equal_whole(dtype, off, window):
+    """The last Tq rows of a whole prompt and the same rows as an extension
+    over all its keys: bit for bit on the float32 FMA path (key blocks are
+    aligned to key 0 and a wholly masked block leaves a row unchanged, so a
+    row does not depend on where its chunk began); within TOL on the bf16
+    wgmma path, whose unmasked fast path depends on the query tile's
+    alignment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(7)
+    T, d = 1300, 128
+    q, k, v = (torch.randn(1, T, n, d, generator=g, device=dev).to(dtype).transpose(1, 2)
+               for n in (8, 2, 2))
+    whole = ops.flash_prefill(q, k, v, scale=d ** -0.5, window=window)
+    ext = ops.flash_prefill(q[:, :, off:], k, v, scale=d ** -0.5, window=window)
+    if dtype == torch.float32:
+        assert torch.equal(ext, whole[:, :, off:])
+    else:
+        torch.testing.assert_close(ext.float(), whole[:, :, off:].float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_cuda_values_only_gathers_and_centroid_scores(dtype):
     """recall_values and recall_values_quant (int8 and int4, groups 0, 16
     and 32) equal to their plain versions bit for bit from a device pool and
@@ -497,9 +550,9 @@ def test_cuda_slot_pool_round_trip_with_staged_recall_in_flight():
     assert pool.state["layers"][0]["pool"].is_pinned()
     empty = pool.extract(1)
     req = _smoke_requests(cfg)[0]
-    logits, st, _ = eng.prefill_one(req, pool, 0)
+    logits, st, _, _ = eng.prefill_one(req, pool, 0)
     pool.insert(st, 0)
-    alone_logits, alone, _ = eng.prefill_one(req)
+    alone_logits, alone, _, _ = eng.prefill_one(req)
     assert torch.equal(logits, alone_logits)
     got = pool.extract(0)
     n_full = len(req.tokens) // fkv.page_size
@@ -560,7 +613,7 @@ def test_cuda_decode_window_makes_no_host_sync(method, kv_quant):
     lanes = _Lanes(3, dev)
     for req in _smoke_requests(cfg)[:2]:              # 72 and 101 tokens
         slot = pool.alloc(req.uid)
-        logits, st, _ = eng.prefill_one(req, pool, slot)
+        logits, st, _, _ = eng.prefill_one(req, pool, slot)
         pool.insert(st, slot)
         lanes.admit(slot, int(torch.argmax(logits[0])), 1, 100, None)
     loop = lanes.device_loop(EngineMetrics())
@@ -713,3 +766,43 @@ def test_cuda_append_token_makes_no_host_sync(kv_quant):
     assert states["cpu"]["pool"][2, 8].abs().sum() > 0
     for key, want in states["cpu"].items():
         assert torch.equal(states["cuda"][key].cpu(), want), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", ["none", "int8", "int4"])
+def test_cuda_slot_swap_roundtrip_exact(kv_quant):
+    """On the card with the pool in pinned host memory: a slot swapped out
+    after decode steps (a staged recall in flight) and swapped into another
+    slot reads back bit for bit, every leaf at its stored dtype, the
+    packed pool and its scales included; the swap's host tensors are
+    pinned."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServeEngine
+    dev = torch.device("cuda", 0)
+    cfg = get_config("granite-3-8b-smoke")
+    fkv = FreeKVConfig(method="freekv", tau=-1.0, kv_quant=kv_quant,
+                       quant_group_size=16 if kv_quant == "int4" else 0, **SMOKE_FKV)
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    eng = ServeEngine(cfg, fkv, params, max_len=128, batch_size=3, device=dev)
+    pool = eng.make_slot_pool(3)
+    logits, st, _, _ = eng.prefill_one(_smoke_requests(cfg)[0], pool, 0)
+    pool.insert(st, 0)
+    cur = torch.argmax(logits, dim=-1).expand(3)[:, None].contiguous()
+    for _ in range(3):
+        logits, pool.state, _ = eng.step(pool.state, cur)
+        cur = torch.argmax(logits, dim=-1)[:, None]
+    assert "sel_ready" in pool.state["layers"][0]          # a staged recall in flight
+    host = pool.swap_out(0)
+    before = pool.extract(0)
+    assert all(t.is_pinned() for layer in host["layers"] for t in layer.values())
+    pool.swap_in(host, 2)
+    after = pool.extract(2)
+    for key in ("pos", "pos_host"):
+        assert torch.equal(before[key], after[key])
+    for lb, la, lh in zip(before["layers"], after["layers"], host["layers"]):
+        for k in lb:
+            assert lh[k].dtype == lb[k].dtype and torch.equal(lb[k], la[k]), k

@@ -5,8 +5,9 @@ llama31-8b-smoke at 2 layers with the reference's weights
 greedy tokens exactly equal, the step and occupancy counters exactly equal,
 per-request correction and speculative-hit rates within 1e-6. Then the
 rest of the reference's ``tests/test_scheduler.py`` and
-``tests/test_async_decode.py`` on the port alone (the prefix cache and the
-sampled key streams are not ported)."""
+``tests/test_async_decode.py`` on the port alone (the sampled key streams
+are not ported; the prefix cache, chunked prefill and preemption are held
+in ``test_torch_chunked.py`` and ``test_torch_prefix_cache.py``)."""
 import dataclasses
 import math
 
@@ -100,8 +101,8 @@ def test_ragged_serve_step_matches_reference(models, method):
         toks = _prompt(cfg, n, seed=slot)
         jl, js, _, _ = jeng.prefill_one(JRequest(uid=slot, tokens=toks, max_new_tokens=8))
         jpool.insert(js, slot)
-        logits, st, _ = eng.prefill_one(Request(uid=slot, tokens=toks, max_new_tokens=8),
-                                        pool, slot)
+        logits, st, _, _ = eng.prefill_one(Request(uid=slot, tokens=toks, max_new_tokens=8),
+                                           pool, slot)
         pool.insert(st, slot)
         np.testing.assert_allclose(logits.numpy(), np.asarray(jl), atol=1e-4, rtol=1e-4)
         cur[slot] = int(np.argmax(np.asarray(jl)[0]))

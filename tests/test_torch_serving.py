@@ -131,13 +131,11 @@ def test_static_path_takes_every_kv_quant(kv_quant):
 
 @pytest.mark.parametrize("what,kw,item", [
     ("temperature", dict(sampler=SamplerConfig(temperature=0.7)), "item 4"),
-    ("preempt", dict(fkv=FreeKVConfig(**FKV, preempt=True)), "item 3"),
-    ("chunked prefill", dict(fkv=FreeKVConfig(**FKV, prefill_chunk_tokens=32)), "item 3"),
 ])
 def test_continuous_refuses_what_is_not_ported(what, kw, item):
-    """Under the continuous scheduler, sampling with a temperature, priority
-    preemption and chunked prefill raise and name their ROADMAP items; the
-    static path still samples with a temperature."""
+    """Under the continuous scheduler, sampling with a temperature raises
+    and names its ROADMAP item; the static path still samples with a
+    temperature."""
     cfg = get_config("granite-3-8b-smoke")
     args = dict(fkv=FreeKVConfig(**FKV), sampler=SamplerConfig())
     args.update(kw)
