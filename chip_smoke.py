@@ -46,6 +46,19 @@ Phases, each fatal on failure (nothing is caught):
      pages (the card's L2 keeps system-memory reads), beside the link's
      ceiling: one contiguous copy_ of the same bytes from pinned memory,
      and each logs the grid it launches from a pinned and from a device pool.
+     Then the kernels at the other served archs' shapes (ARCH_SHAPES:
+     qwen25-7b G=7 d=128 kv=4, smollm-360m G=3 d=64 kv=5, gemma2-2b G=2
+     d=256 kv=4 with softcap 50 and window 4096, stablelm-3b G=1 d=80
+     kv=32): paged_attention at each decode shape and flash_prefill at each
+     admission (B=1, T=8192) and extension (2048 over 8192) within TOL,
+     fp32 and bf16 (d=80 on the d=128 tiles, channels past 80 zero);
+     select_pages' per-query-head mode (Quest) and the pooled mode at each
+     G, ids exact on far-apart, forced-tie and invalid-lane inputs (the
+     invalid lanes keeping jax.lax.top_k's ids), tie-aware on random ones;
+     fill_pages and complete_page exact at d=80 and 256; each timed at bf16
+     (flash_prefill in both forms, select_pages in both modes) beside its
+     bound, its plain version and SDPA where SDPA computes the same
+     function.
   4. main path: ServeEngine(scheduler="continuous"), the default, serving
      llama31-8b at full width (32 layers, seeded random bf16 weights) with
      FreeKV defaults, recall_overlap=True and the KV pool in pinned host
@@ -86,6 +99,17 @@ Phases, each fatal on failure (nothing is caught):
      1-3, the pinned copies' ms); (c) preemption: four priority-0 requests
      in the 4 slots and a priority-1 fifth (the victim's tokens equal, swap
      bytes in == out, the swap timed, the urgent request's TTFT).
+ 4c. the other archs and retrievers at full width (seeded random bf16
+     weights, pinned pool, 4 needle requests of 8192/6144/4096/7168 tokens,
+     16 greedy tokens each, over 4 slots, continuous): qwen25-7b,
+     gemma2-2b (its prompts past its 4096-token window), smollm-360m and
+     stablelm-3b under freekv, then llama31-8b under quest, raas,
+     streaming, infinigen and freekv with select_top_p 0.9; each run's
+     kernels must launch (WIDE_RUNS), flash_prefill once a layer a prefill
+     and complete_page once a global layer a step; each logs TTFT, decode
+     ms/step, tokens/s, peak memory and its own launch counts (zeroed just
+     before it), whose sums the kernels line gives as wide_launches, apart
+     from phase 4's main-path launches.
   5. kernel path == plain path: granite-3-8b-smoke at float32 gives the same
      greedy tokens on the card (kernels) and on the CPU (plain versions):
      static, freekv and shadowkv under kv_quant none, int8 and int4,
@@ -94,8 +118,11 @@ Phases, each fatal on failure (nothing is caught):
      none, 5 requests of mixed lengths over 2 slots, one of them ended by an
      eos inside a window; freekv with chunk budgets of a page, a token and
      10 tokens, a prefix-cache hit, and a preemption under none and int8;
-     and the centroid index kept step by step on the card equals its
-     rebuild bit for bit.
+     quest, raas, streaming, infinigen and freekv with select_top_p on
+     granite-3-8b-smoke, and the four other archs at smoke width and at
+     their real head layouts (gemma2 also with a chunked prefill), through
+     the continuous scheduler (NEW_PATHS); and the centroid index kept step
+     by step on the card equals its rebuild bit for bit.
 Then one JSON line with the kernels' numbers and, last, the ok line.
 """
 import argparse
@@ -241,11 +268,12 @@ N_CENT = 16                               # FreeKVConfig.centroid_count
 def _sdpa_paged_inputs(q, k, v, pos, cur):
     """Paged attention's inputs as SDPA takes them: K/V heads expanded to the
     G query heads and a boolean mask over the same keys."""
+    b, kv, g, d = q.shape
     n = k.shape[2] * k.shape[3]
-    kk = k.reshape(B, KV, n, D).repeat_interleave(G, dim=1)
-    vv = v.reshape(B, KV, n, D).repeat_interleave(G, dim=1)
-    mask = ((pos >= 0) & (pos <= cur[:, None, None, None])).reshape(B, KV, 1, n)
-    return q.reshape(B, KV * G, 1, D), kk, vv, mask.repeat_interleave(G, dim=1)
+    kk = k.reshape(b, kv, n, d).repeat_interleave(g, dim=1)
+    vv = v.reshape(b, kv, n, d).repeat_interleave(g, dim=1)
+    mask = ((pos >= 0) & (pos <= cur[:, None, None, None])).reshape(b, kv, 1, n)
+    return q.reshape(b, kv * g, 1, d), kk, vv, mask.repeat_interleave(g, dim=1)
 
 
 def _sdpa(q, k, v, mask, scale):
@@ -808,20 +836,20 @@ def check_page_summary(ops, ref, dev, gen):
 FILL_QUANT = ((0, 0), (8, 0), (4, 0), (8, 16), (4, 32))   # (bits, quant_group_size)
 
 
-def _pool_outputs(b, n_pages, dt, bits, group, dev, pinned=False):
-    """Empty summ (b, n_pages, KV, 2, D) of dt and pool (b, n_pages, KV, 2, P,
-    dp) of dt, or int8 with float32 scales (b, n_pages, KV, 2, n_g), as
+def _pool_outputs(b, n_pages, dt, bits, group, dev, pinned=False, kv=KV, d=D):
+    """Empty summ (b, n_pages, kv, 2, d) of dt and pool (b, n_pages, kv, 2, P,
+    dp) of dt, or int8 with float32 scales (b, n_pages, kv, 2, n_g), as
     ``paging.init_kv_state`` lays them out; the pool and its scales on the
     card or pinned."""
     def alloc(shape, t):
         x = torch.zeros(shape, dtype=t)
         return x.pin_memory() if pinned else x.to(dev)
-    summ = torch.zeros(b, n_pages, KV, 2, D, dtype=dt, device=dev)
+    summ = torch.zeros(b, n_pages, kv, 2, d, dtype=dt, device=dev)
     if not bits:
-        return summ, alloc((b, n_pages, KV, 2, P, D), dt), None
-    n_g = D // (group or D)
-    return (summ, alloc((b, n_pages, KV, 2, P, D * bits // 8), torch.int8),
-            alloc((b, n_pages, KV, 2, n_g), torch.float32))
+        return summ, alloc((b, n_pages, kv, 2, P, d), dt), None
+    n_g = d // (group or d)
+    return (summ, alloc((b, n_pages, kv, 2, P, d * bits // 8), torch.int8),
+            alloc((b, n_pages, kv, 2, n_g), torch.float32))
 
 
 def _quant_arg(pool, scale):
@@ -1179,6 +1207,276 @@ def check_flash_prefill_extension(ops, ref, dev, gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, the served archs' shapes: each kernel at the head layouts, head
+# widths, softcap and window of qwen25-7b, smollm-360m, gemma2-2b and
+# stablelm-3b, against its plain version, timed beside its bound
+# ---------------------------------------------------------------------------
+ARCH_SHAPES = {   # arch -> (query heads, KV heads, d_head, softcap, sliding window)
+    "qwen25-7b": (28, 4, 128, None, None),
+    "smollm-360m": (15, 5, 64, None, None),
+    "gemma2-2b": (8, 4, 256, 50.0, 4096),
+    "stablelm-3b": (32, 32, 80, None, None),
+}
+
+
+def _bound(byts, flops, dt=torch.bfloat16):
+    return {"bound_bytes": byts, "bound_ops": flops,
+            "bound_ms": 1e3 * max(byts / HBM_BPS, flops / PEAK_OPS[dt]),
+            "bound_by": "bytes" if byts / HBM_BPS >= flops / PEAK_OPS[dt] else "operations"}
+
+
+def _visible_pairs(tq, tk, window):
+    """Query-key pairs a causal (optionally windowed) attention of tq rows at
+    positions tk - tq .. tk - 1 over tk keys computes."""
+    pos = torch.arange(tk - tq, tk, dtype=torch.float64)
+    lo = torch.clamp(pos - window + 1, min=0) if window else torch.zeros_like(pos)
+    return int((pos - lo + 1).sum().item())
+
+
+def _held(name, got, want, dt):
+    err = (got.float() - want.float()).abs().max().item()
+    require(got.dtype == want.dtype and torch.allclose(got.float(), want.float(), **TOL[dt]),
+            f"{name} {dt}: max |err| {err} (max |want| {want.float().abs().max().item()}), "
+            f"tolerance {TOL[dt]}")
+    return err
+
+
+def check_paged_attention_shapes(ops, ref, dev, gen):
+    """paged_attention at each arch's decode shape (B=4, L=2080 as the main
+    path's budget), random positions (some past cur, a masked page) in
+    fp32 and bf16 within TOL; timed at bf16 with every position valid
+    beside its bound, its plain version and SDPA (none under a softcap)."""
+    rows = {}
+    for arch, (h, kv, d, cap, _) in ARCH_SHAPES.items():
+        g, scale, n = h // kv, 1.0 / math.sqrt(d), L // P
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, kv, g, d, generator=gen, device=dev).to(dt)
+            k = torch.randn(B, kv, n, P, d, generator=gen, device=dev).to(dt)
+            v = torch.randn(B, kv, n, P, d, generator=gen, device=dev).to(dt)
+            pos = torch.randint(-1, CONTEXT + 8, (B, kv, n, P), generator=gen, device=dev,
+                                dtype=torch.int32)
+            pos[:, :, 5] = -1
+            cur = torch.full((B,), CONTEXT, dtype=torch.int32, device=dev)
+            errs[dt] = _held(f"paged_attention {arch}", ops.paged_attention(
+                q, k, v, pos, cur, scale=scale, softcap=cap),
+                ref.paged_attention_ref(q, k, v, pos, cur, scale, cap), dt)
+        dt = torch.bfloat16
+        args = []
+        for _ in range(copies_for(2 * B * kv * L * d * 2)):
+            pos = torch.arange(L, dtype=torch.int32, device=dev).reshape(1, 1, n, P)
+            args.append((torch.randn(B, kv, g, d, generator=gen, device=dev).to(dt),
+                         torch.randn(B, kv, n, P, d, generator=gen, device=dev).to(dt),
+                         torch.randn(B, kv, n, P, d, generator=gen, device=dev).to(dt),
+                         pos.expand(B, kv, -1, -1).contiguous(),
+                         torch.full((B,), L - 1, dtype=torch.int32, device=dev)))
+        ms, call_ms = time_ms(lambda *a: ops.paged_attention(*a, scale=scale, softcap=cap), args)
+        plain_ms, _ = time_ms(lambda *a: ref.paged_attention_ref(*a, scale, cap), args, iters=10)
+        lib_ms = None
+        if cap is None:
+            lib_ms, _ = time_ms(lambda q, k, v, m: _sdpa(q, k, v, m, scale),
+                                [_sdpa_paged_inputs(*a) for a in args])
+        q, k, v, pos, cur = args[0]
+        rows[arch] = {"shape": f"q({B},{kv},{g},{d}) kv({B},{kv},{n},{P},{d})"
+                               + (f" softcap {cap:g}" if cap else ""),
+                      **_bound(nbytes(q, k, v, pos, cur, q), 4 * B * h * L * d),
+                      "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "max_abs_err": errs[torch.bfloat16],
+                      "max_abs_err_fp32": errs[torch.float32]}
+    return rows
+
+
+def check_flash_prefill_shapes(ops, ref, dev, gen):
+    """flash_prefill at each arch's continuous admission (B=1, T=8192) and in
+    its extension form (Tq=2048 over Tk=8192), gemma2's with its window of
+    4096 and softcap 50, stablelm's at d_head 80 (the d=128 tiles, the
+    channels past 80 zero-filled), fp32 and bf16 within TOL; both forms
+    timed at bf16 beside their bounds, the plain version and SDPA (causal,
+    or with a lower-right causal bias for the extension; none for gemma2:
+    SDPA has no softcap)."""
+    from torch.nn.attention.bias import causal_lower_right
+    rows = {}
+    for arch, (h, kv, d, cap, window) in ARCH_SHAPES.items():
+        scale, errs = 1.0 / math.sqrt(d), {}
+        for form, tq in (("prompt", CONTEXT), ("extension", 2048)):
+            for dt in (torch.float32, torch.bfloat16):
+                q = _prefill_inputs(gen, dev, dt, 1, h, kv, tq, d)[0]
+                _, k, v = _prefill_inputs(gen, dev, dt, 1, h, kv, CONTEXT, d)
+                errs[f"{form} {str(dt).split('.')[-1]}"] = _held(
+                    f"flash_prefill {arch} {form}",
+                    ops.flash_prefill(q, k, v, scale=scale, window=window, softcap=cap),
+                    ref.flash_prefill_ref(q, k, v, scale, True, window, cap), dt)
+                del q, k, v
+        dt = torch.bfloat16
+        for form, tq in (("prompt", CONTEXT), ("extension", 2048)):
+            args = [(_prefill_inputs(gen, dev, dt, 1, h, kv, tq, d)[0],
+                     *_prefill_inputs(gen, dev, dt, 1, h, kv, CONTEXT, d)[1:])]
+            ms, call_ms = time_ms(lambda q, k, v: ops.flash_prefill(
+                q, k, v, scale=scale, window=window, softcap=cap), args, iters=3)
+            plain_ms, _ = time_ms(lambda q, k, v: ref.flash_prefill_ref(
+                q, k, v, scale, True, window, cap), args, iters=1)
+            q, k, v = args[0]
+            lib_ms = None
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            if cap is None and form == "prompt":
+                lib_ms, _ = time_ms(lambda q, k, v: sdpa(
+                    q, k, v, is_causal=True, scale=scale, enable_gqa=True),
+                    [tuple(x.contiguous() for x in args[0])], iters=10)
+            elif cap is None:
+                # lower-right causal bias over K/V expanded to the query heads,
+                # as the llama-shape extension row
+                bias = causal_lower_right(tq, CONTEXT)
+                expanded = [(q, k.repeat_interleave(h // kv, dim=1).contiguous(),
+                             v.repeat_interleave(h // kv, dim=1).contiguous())]
+                lib_ms, _ = time_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=bias, scale=scale),
+                                    expanded, iters=10)
+                del expanded
+            shape = (f"q(1,{h},{tq},{d}) kv(1,{kv},{CONTEXT},{d}) causal"
+                     + (" lower-right" if form == "extension" else "")
+                     + (f" window {window} softcap {cap:g}" if cap else ""))
+            rows[arch if form == "prompt" else f"{arch} extension"] = {
+                "shape": shape,
+                **_bound(nbytes(q, k, v, q), 4 * h * d * _visible_pairs(tq, CONTEXT, window)),
+                "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "max_abs_err": errs[f"{form} bfloat16"],
+                "max_abs_err_cases": errs}
+            del args, q, k, v
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_select_pages_shapes(ops, ref, dev, gen):
+    """select_pages at each arch's decode shape (B=4, 259 pages, n_sel 56):
+    the per-query-head mode (Quest) with ids exactly equal on far-apart and
+    forced-tie inputs and where fewer pages are selectable than n_sel (the
+    invalid lanes keep jax.lax.top_k's ids, lower first), tie-aware on
+    random ones; the pooled MeanS mode at the arch's G exact likewise, also
+    with its invalid lanes kept (RaaS's seeding). Both modes timed at bf16
+    beside their bounds and their plain versions."""
+    from repro_torch.launch.select_bench import select_inputs, tie_aware_mismatch
+    rows = {}
+    for arch, (h, kv, d, _, _) in ARCH_SHAPES.items():
+        g, scale = h // kv, 1.0 / math.sqrt(d)
+        for per_head in (True, False):
+            for kind in ("distinct", "tie", "invalid", "random"):
+                q, summ, length = select_inputs("distinct" if kind == "invalid" else kind, B,
+                                                kv, g, d, N_PAGES, N_SEL, torch.bfloat16, gen,
+                                                dev)
+                if kind == "invalid":          # pages 4..8 selectable, 56 lanes
+                    length = torch.full((B,), N_SINK + N_WIN + 5 * P, dtype=torch.int32,
+                                        device=dev)
+                kw = dict(n_sel=N_SEL, scale=scale, page_size=P, n_sink=N_SINK,
+                          n_window=N_WIN, per_head=per_head, keep_invalid=True)
+                idx, pooled = ops.select_pages(q, summ, length, with_pooled=True, **kw)
+                want, want_pooled = ref.select_pages_ref(
+                    q, summ, length, N_SEL, scale, P, N_SINK, N_WIN, "mean_softmax", None,
+                    per_head, True)
+                torch.cuda.synchronize()
+                what = f"select_pages {arch} {'per head' if per_head else 'MeanS'} {kind}"
+                require(idx.shape == want.shape and bool((idx >= 0).all()),
+                        f"{what}: shape {tuple(idx.shape)} or a -1 lane")
+                if kind == "random":
+                    bad = tie_aware_mismatch(idx, want, want_pooled)
+                    require(bad is None, f"{what}: {bad}")
+                else:
+                    require(torch.equal(idx, want), f"{what}: page ids differ")
+                if kind == "invalid":
+                    require(torch.equal(idx[..., 5:7].cpu(), torch.tensor([0, 1], dtype=torch.int32)
+                                        .expand(idx.shape[:-1] + (2,))),
+                            f"{what}: invalid lanes are not the lowest unselected ids")
+        args = [select_inputs("random", B, kv, g, d, N_PAGES, N_SEL, torch.bfloat16, gen, dev)
+                for _ in range(copies_for(B * N_PAGES * kv * 2 * d * 2))]
+        # the per-head mode (Quest), then the pooled MeanS mode at the arch's
+        # G as FreeKV's decode step calls it (-1 for invalid lanes)
+        for per_head, key in ((True, arch), (False, f"{arch} MeanS")):
+            kw = dict(n_sel=N_SEL, scale=scale, page_size=P, n_sink=N_SINK, n_window=N_WIN,
+                      per_head=per_head, keep_invalid=per_head)
+            ms, call_ms = time_ms(lambda q, s, n: ops.select_pages(q, s, n, **kw), args)
+            mode = "max_qk" if per_head else "mean_softmax"
+            plain_ms, _ = time_ms(lambda q, s, n: ref.select_pages_ref(
+                q, s, n, N_SEL, scale, P, N_SINK, N_WIN, mode, None, per_head, per_head),
+                args, iters=10)
+            q, summ, length = args[0]
+            ids_out = B * (h if per_head else kv) * N_SEL * 4
+            rows[key] = {"shape": f"q({B},{kv},{g},{d}) summ({B},{N_PAGES},{kv},2,{d}) n_sel "
+                                  f"{N_SEL} " + ("per query head" if per_head else "MeanS"),
+                         **_bound(nbytes(q, summ, length) + ids_out, 4 * B * h * N_PAGES * d),
+                         "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
+                         "library_ms": None, "max_abs_err": 0.0, "ids": "exact"}
+    return rows
+
+
+def check_fill_shapes(ops, ref, dev, gen):
+    """fill_pages and complete_page at d_head 80 (stablelm-3b, 32 KV heads)
+    and 256 (gemma2-2b, 4 KV heads), exact against their plain versions
+    (fp, and int8; fp32 and bf16; complete_page to a device and a pinned
+    pool with some rows completing); fill_pages at B=1, T=8192 and
+    complete_page to the pinned pool with every row completing timed at
+    bf16 beside their bounds."""
+    rows = {}
+    lengths = ([8224, 6150, 4128, 7170], [8224, 6176, 4128, 7200])
+    for arch in ("stablelm-3b", "gemma2-2b"):
+        _, kv, d, _, _ = ARCH_SHAPES[arch]
+
+        def outs(b, n, dt, bits, pinned=False):
+            return _pool_outputs(b, n, dt, bits, 0, dev, pinned, kv, d)
+        for dt in (torch.float32, torch.bfloat16):
+            k = torch.randn(1, CONTEXT, kv, d, generator=gen, device=dev).to(dt)
+            v = torch.randn(1, CONTEXT, kv, d, generator=gen, device=dev).to(dt)
+            win_k = torch.randn(B, N_WIN, kv, d, generator=gen, device=dev).to(dt)
+            win_v = torch.randn(B, N_WIN, kv, d, generator=gen, device=dev).to(dt)
+            for bits in (0, 8):
+                got = outs(1, CONTEXT // P, dt, bits)
+                want = tuple(None if t is None else t.clone() for t in got)
+                ops.fill_pages(k, v, *got)
+                ref.fill_pages_ref(k, v, *want)
+                for pinned in (False, True):
+                    cp = outs(B, N_PAGES, dt, bits, pinned)
+                    for ls in lengths:
+                        length = torch.tensor(ls, dtype=torch.int32, device=dev)
+                        cw = tuple(None if t is None else t.to(dev, copy=True) for t in cp)
+                        ops.complete_page(win_k, win_v, length, *cp)
+                        ref.complete_page_ref(win_k, win_v, length, *cw)
+                        torch.cuda.synchronize()
+                        require(all(x is None or torch.equal(x.to(dev), y)
+                                    for x, y in zip(cp, cw)),
+                                f"complete_page {arch} {dt} int{bits} "
+                                f"{'pinned' if pinned else 'device'} {ls}: not exact")
+                torch.cuda.synchronize()
+                require(all(x is None or torch.equal(x, y) for x, y in zip(got, want)),
+                        f"fill_pages {arch} {dt} int{bits}: not exact")
+            del k, v
+        dt, n = torch.bfloat16, CONTEXT // P
+        fb = 2 * CONTEXT * kv * d * 2 + n * kv * 2 * d * 2 + n * kv * 2 * P * d * 2
+        fargs = [(torch.randn(1, CONTEXT, kv, d, generator=gen, device=dev).to(dt),
+                  torch.randn(1, CONTEXT, kv, d, generator=gen, device=dev).to(dt))
+                 + outs(1, n, dt, 0) for _ in range(copies_for(fb))]
+        f_ms, f_call = time_ms(ops.fill_pages, fargs)
+        f_plain, _ = time_ms(ref.fill_pages_ref, fargs, iters=10)
+        win = tuple(torch.randn(B, N_WIN, kv, d, generator=gen, device=dev).to(dt)
+                    for _ in range(2))
+        every = torch.tensor(lengths[1], dtype=torch.int32, device=dev)
+        host = outs(B, N_PAGES, dt, 0, True)
+        c_ms, c_call = time_ms(ops.complete_page, [win + (every,) + host])
+        c_plain, _ = time_ms(ref.complete_page_ref, [win + (every,) + outs(B, N_PAGES, dt, 0)],
+                             iters=10)
+        link = B * kv * 2 * P * d * 2
+        on_card = 2 * B * P * kv * d * 2 + B * kv * 2 * d * 2
+        rows[arch] = {
+            "fill_pages": {"shape": f"k,v(1,{CONTEXT},{kv},{d}) -> block(1,{n},{kv},2,{P},{d}) "
+                                    "bf16 + summ", **_bound(fb, 0), "kernel_ms": f_ms,
+                           "kernel_call_ms": f_call, "plain_ms": f_plain, "library_ms": None,
+                           "max_abs_err": 0.0},
+            "complete_page": {"shape": f"rings({B},{N_WIN},{kv},{d}) -> pinned pool, every row "
+                                       "completing",
+                              "bound_bytes": link + on_card, "bound_ops": 0,
+                              "bound_ms": 1e3 * max(link / PCIE_BPS, on_card / HBM_BPS),
+                              "bound_by": "bytes", "kernel_ms": c_ms, "kernel_call_ms": c_call,
+                              "plain_ms": c_plain, "library_ms": None, "max_abs_err": 0.0}}
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4 and 5
 # ---------------------------------------------------------------------------
 def llama_params(dev):
@@ -1498,6 +1796,121 @@ def feature_pairs(dev, ops, cfg, params):
     return res
 
 
+# phase 4c: the other served archs and the other retrievers at full width,
+# through the continuous scheduler, the pool in pinned host memory: 4
+# needle requests over 4 slots, 16 greedy tokens each
+ARCH_PROMPTS = (8192, 6144, 4096, 7168)
+ARCH_NEW = 16
+_POOLED = ("paged_attention", "select_pages", "fill_pages", "complete_page", "flash_prefill",
+           "recall_gather")
+WIDE_RUNS = {   # (arch, method, select_top_p) -> the kernels the run must launch
+    ("qwen25-7b", "freekv", 0.0): _POOLED,
+    ("gemma2-2b", "freekv", 0.0): _POOLED,
+    ("smollm-360m", "freekv", 0.0): _POOLED,
+    ("stablelm-3b", "freekv", 0.0): _POOLED,
+    ("llama31-8b", "quest", 0.0): _POOLED,
+    # RaaS: no pool; its prefill seeds the kept pages (fill_pages, a
+    # select_pages and a recall_gather over the prompt's pages on the card)
+    ("llama31-8b", "raas", 0.0): ("paged_attention", "select_pages", "fill_pages",
+                                  "flash_prefill", "recall_gather"),
+    ("llama31-8b", "streaming", 0.0): ("paged_attention", "flash_prefill"),
+    ("llama31-8b", "infinigen", 0.0): _POOLED,
+    ("llama31-8b", "freekv", 0.9): _POOLED,
+}
+
+
+def wide_run(dev, ops, cfg, params, method, top_p):
+    """One phase-4c run: ``cfg`` at full width with seeded random bf16
+    weights ``params``; every kernel the run takes must launch, and the
+    scores-only, summary-only and centroid entries never; flash_prefill
+    once a layer a prefill, complete_page once a global layer a decode step
+    where the method keeps a pool. Returns (info, launches)."""
+    from repro_torch.configs.base import ATTN, FreeKVConfig
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.obs import Observability
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    fkv = FreeKVConfig(method=method, offload="host", select_top_p=top_p)
+    reqs = [Request(uid=i, tokens=next(needle_stream(cfg.vocab_size, n, fkv.page_size,
+                                                     seed=30 + i)).tokens,
+                    max_new_tokens=ARCH_NEW) for i, n in enumerate(ARCH_PROMPTS)]
+    eng = ServeEngine(cfg, fkv, params, max_len=max(ARCH_PROMPTS) + ARCH_NEW + P, batch_size=B,
+                      state_dtype=torch.bfloat16, obs=Observability(enabled=True), device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    em = eng.last_metrics
+    run = f"{cfg.name} {method}" + (f" top_p {top_p}" if top_p else "")
+    require(eng.last_logits_finite, f"non-finite logits ({run})")
+    for o, r in zip(outs, reqs):
+        require(len(o.tokens) == r.max_new_tokens
+                and all(0 <= t < cfg.vocab_size for t in o.tokens),
+                f"{run}: request {o.uid} made {len(o.tokens)} tokens or a bad one")
+    need = WIDE_RUNS[(cfg.name, method, top_p)]
+    for name in need:
+        require(launches[name] > 0, f"{name} was never launched ({run})")
+    for name in OFF_PATH + ("centroid_candidates", "recall_values", "recall_gather_quant",
+                            "recall_values_quant"):
+        require(launches[name] == 0, f"{name} launched ({run})")
+    n_global = sum(m == ATTN for m, _ in cfg.layers)
+    require(launches["flash_prefill"] == cfg.n_layers * len(reqs),
+            f"flash_prefill launched {launches['flash_prefill']} times for {len(reqs)} prefills "
+            f"of {cfg.n_layers} layers ({run})")
+    if "complete_page" in need:
+        require(launches["complete_page"] == n_global * em.steps,
+                f"complete_page launched {launches['complete_page']} times for {em.steps} steps "
+                f"of {n_global} global layers ({run})")
+    lat = em.summary()["latency"]["decode_step_s"]
+    gen_tokens = sum(len(o.tokens) for o in outs)
+    info = {"arch": cfg.name, "method": method, "select_top_p": top_p, "slots": B,
+            "layers": cfg.n_layers, "global_layers": n_global,
+            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.d_head],
+            "prompt_tokens": list(ARCH_PROMPTS), "ttft_s": [o.metrics.ttft_s for o in outs],
+            "decode_ms_per_step": 1e3 * lat["sum"] / lat["count"], "decode_steps": em.steps,
+            "tokens_per_s": gen_tokens / wall, "wall_s": wall,
+            "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "host_syncs_per_token": em.host_syncs / gen_tokens,
+            "correction_rate": outs[0].stats.get("correction_rate"),
+            "launches": launches, "first_tokens": outs[0].tokens[:8]}
+    del eng, outs
+    torch.cuda.empty_cache()
+    return info, launches
+
+
+def wide_runs(dev, ops, llama_cfg, llama):
+    """Phase 4c: the four other archs under freekv, then llama31-8b under
+    quest, raas, streaming, infinigen and freekv with select_top_p 0.9.
+    Each run's launches are its own (the counts set to 0 just before it);
+    returns their sums by kernel, which the ``kernels`` line keeps apart
+    from phase 4's main-path counts as ``wide_launches``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    totals = {}
+    for (arch, method, top_p) in WIDE_RUNS:
+        t0 = time.perf_counter()
+        if arch == "llama31-8b":
+            cfg, params = llama_cfg, llama
+        else:
+            cfg = get_config(arch)
+            params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+        info, run = wide_run(dev, ops, cfg, params, method, top_p)
+        info["run_s"] = time.perf_counter() - t0
+        del params
+        torch.cuda.empty_cache()
+        for name, n in run.items():
+            totals[name] = totals.get(name, 0) + n
+        log("[wide] " + json.dumps(info))
+        log(f"[wide] {arch} {method}{f' top_p {top_p}' if top_p else ''}: "
+            f"TTFT {min(info['ttft_s']):.3f}-{max(info['ttft_s']):.3f} s, decode "
+            f"{info['decode_ms_per_step']:.2f} ms/step over {info['decode_steps']} steps, "
+            f"{info['tokens_per_s']:.2f} tokens/s, peak {info['peak_device_gib']:.2f} GiB, "
+            f"{info['run_s']:.1f} s")
+    return totals
+
+
 def time_low_rank_keys(dev, cfg, gen):
     """ShadowKV's prefill factorization at one layer's shape (B x 8192 keys
     per KV head, d 128, full rank as at llama widths): the port's
@@ -1693,6 +2106,56 @@ def features_vs_plain(dev):
     return out
 
 
+# phase 5 for the other archs and retrievers: (label, arch, method,
+# select_top_p, real head layout, chunk budget)
+NEW_PATHS = [("quest", "granite-3-8b-smoke", "quest", 0.0, False, 0),
+             ("raas", "granite-3-8b-smoke", "raas", 0.0, False, 0),
+             ("streaming", "granite-3-8b-smoke", "streaming", 0.0, False, 0),
+             ("infinigen", "granite-3-8b-smoke", "infinigen", 0.0, False, 0),
+             ("freekv top_p 0.9", "granite-3-8b-smoke", "freekv", 0.9, False, 0)] + [
+    (f"{a}{' real heads' if real else ''}", f"{a}-smoke", "freekv", 0.0, real, 0)
+    for a in ARCH_SHAPES for real in (False, True)] + [
+    ("gemma2-2b chunked 24", "gemma2-2b-smoke", "freekv", 0.0, False, 24)]
+
+
+def new_paths_vs_plain(dev):
+    """The other retrievers (on granite-3-8b-smoke) and the other archs (at
+    smoke width and at their real head layouts, gemma2 also with a chunked
+    prefill) through the continuous scheduler on the card against the CPU,
+    float32: 4 requests of mixed lengths over 2 slots, greedy tokens and
+    steps equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import Request, ServeEngine
+    out = {}
+    for label, arch, method, top_p, real, chunk in NEW_PATHS:
+        cfg = get_config(arch)
+        if real:
+            h, kv, d, _, _ = ARCH_SHAPES[arch[: -len("-smoke")]]
+            cfg = dataclasses.replace(cfg, n_heads=h, n_kv_heads=kv, d_head=d)
+        fkv = dataclasses.replace(_smoke_fkv(method, "none"), select_top_p=top_p,
+                                  prefill_chunk_tokens=chunk)
+        params_gpu = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+        params_cpu = _tree_map(lambda t: t.cpu(), params_gpu)
+        prompts = [next(needle_stream(cfg.vocab_size, n, 8, seed=40 + i)).tokens
+                   for i, n in enumerate((256, 200, 129, 256))]
+        got = {}
+        for where, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+            eng = ServeEngine(cfg, fkv, params, max_len=320, batch_size=2,
+                              state_dtype=torch.float32, device=dev if where == "cuda" else "cpu")
+            outs = eng.generate([Request(uid=i, tokens=t, max_new_tokens=m)
+                                 for i, (t, m) in enumerate(zip(prompts, (12, 5, 9, 7)))])
+            require(eng.last_logits_finite, f"non-finite logits ({where} {label})")
+            got[where] = ([o.tokens for o in outs], eng.last_metrics.steps,
+                          eng.last_metrics.prefill_chunks)
+        require(got["cuda"] == got["cpu"], f"{label}: card {got['cuda']} vs cpu {got['cpu']}")
+        out[label] = {"arch": cfg.name, "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.d_head],
+                      "steps": got["cuda"][1], "chunks": got["cuda"][2],
+                      "tokens": got["cuda"][0][0][:8]}
+    return out
+
+
 def centroid_index_equals_rebuild(dev):
     """The centroid index kept step by step on the card (granite-3-8b-smoke,
     float32, a re-center at every completed page) equals
@@ -1840,6 +2303,24 @@ def main():
                 f"vs bound {sb['bound_ms']:.4f} ms{extra}")
         torch.cuda.empty_cache()
     rows = {k["name"]: k for k in kernels}
+    # the kernels at the other served archs' shapes (G 7/3/2/1, d_head
+    # 128/64/256/80, 4 to 32 KV heads, gemma2's softcap and window)
+    t0 = time.perf_counter()
+    shapes = {"paged_attention": check_paged_attention_shapes(ops, ref, dev, gen),
+              "flash_prefill": check_flash_prefill_shapes(ops, ref, dev, gen),
+              "select_pages": check_select_pages_shapes(ops, ref, dev, gen)}
+    fills = check_fill_shapes(ops, ref, dev, gen)
+    for name in ("fill_pages", "complete_page"):
+        shapes[name] = {arch: r[name] for arch, r in fills.items()}
+    for name, by_arch in shapes.items():
+        rows[name]["arch_shapes"] = by_arch
+        for arch, r in by_arch.items():
+            lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+            log(f"[kernel] {name} {arch} {r['shape']}: max|err| {r['max_abs_err']:.3g} | "
+                f"{r['kernel_ms']:.4f} ms vs bound {r['bound_ms']:.4f} ms | plain "
+                f"{r['plain_ms']:.4f} ms | library {lib}")
+    log(f"[kernel] the other archs' shapes held and timed in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
     ext = rows["flash_prefill"]["extension"]
     log(f"[kernel] flash_prefill extension max|err| by case: {json.dumps(ext['max_abs_err_cases'])}"
         f"; SDPA lower-right max|err| {ext['library_max_abs_err']:.3g}, within TOL: "
@@ -1852,6 +2333,7 @@ def main():
             f"({k['host_sms']:g} SMs at {k['blocks_per_sm']} an SM); "
             f"{k['device_grid_blocks']} blocks from a device pool")
     launches = {k["name"]: None for k in kernels}
+    wide_launches = {}
     share = None
     if not args.kernels_only:
         # phase 4: main path at full width: the static path, then every
@@ -1915,6 +2397,10 @@ def main():
             f"timed swap {json.dumps(pr['on']['swap_timed'])}; tokens equal "
             f"{[a['equal'] for a in pr['agreement']]}; "
             f"{time.perf_counter() - t0:.1f} s for the six runs")
+        # phase 4c: the other archs and retrievers at full width
+        t0 = time.perf_counter()
+        wide_launches = wide_runs(dev, ops, cfg, params)
+        log(f"[wide] {len(WIDE_RUNS)} runs in {time.perf_counter() - t0:.1f} s")
         del params
         torch.cuda.empty_cache()
         require(all(0 <= v <= 1 for v in share.values()), f"valid shares out of range: {share}")
@@ -1952,6 +2438,9 @@ def main():
         for name, r in features_vs_plain(dev).items():
             log(f"[equal] granite-3-8b-smoke fp32 continuous freekv, {name}: card == cpu greedy "
                 f"tokens and counts " + json.dumps(r))
+        for label, r in new_paths_vs_plain(dev).items():
+            log(f"[equal] {r['arch']} fp32 continuous, {label}: card == cpu greedy tokens and "
+                "steps " + json.dumps(r))
         n = centroid_index_equals_rebuild(dev)
         log(f"[equal] granite-3-8b-smoke fp32 centroid: the index kept on the card equals "
             f"its rebuild in every layer after 20 steps ({n} re-centers)")
@@ -1963,7 +2452,9 @@ def main():
     for k in kernels:
         src, replaces = KERNEL_META[k["name"]]
         line.append({"name": k["name"], "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": launches[k["name"]], "max_abs_err": k["max_abs_err"],
+                     "launches": launches[k["name"]],
+                     "wide_launches": wide_launches.get(k["name"]),
+                     "max_abs_err": k["max_abs_err"],
                      "ms": k["kernel_ms"], **k})
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

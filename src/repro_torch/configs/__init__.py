@@ -1,5 +1,7 @@
 """Architecture config registry: ``get_config(name)``; ``<name>-smoke`` gives
-the reduced variant. Only the dense archs the port serves are registered."""
+the reduced variant. The port registers the reference's dense, attention-only
+archs (gemma2-2b with its sliding-window local layers); the MoE, SSM, xLSTM,
+encoder-decoder and vision archs are not ported."""
 from importlib import import_module
 
 from repro_torch.configs.base import (  # noqa: F401
@@ -8,8 +10,12 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 _MODULES = {
+    "gemma2-2b": "gemma2_2b",
     "granite-3-8b": "granite_3_8b",
     "llama31-8b": "llama31_8b",
+    "qwen25-7b": "qwen25_7b",
+    "smollm-360m": "smollm_360m",
+    "stablelm-3b": "stablelm_3b",
 }
 
 
@@ -17,6 +23,7 @@ def get_config(name: str) -> ArchConfig:
     if name.endswith("-smoke"):
         return reduce_for_smoke(get_config(name[: -len("-smoke")]))
     if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; the port serves {sorted(_MODULES)} "
-                       "(other archs: ROADMAP queue 1, item 9)")
+        raise KeyError(f"unknown arch {name!r}; the port serves {sorted(_MODULES)} and "
+                       "their -smoke forms (MoE, SSM, xLSTM, encoder-decoder and vision "
+                       "archs: ROADMAP queue 1, item 9)")
     return import_module(f"repro_torch.configs.{_MODULES[name]}").CONFIG

@@ -97,7 +97,8 @@ class FreeKVConfig:
     ``repro/configs/base.py:191``). The kernels are chosen by the tensors'
     device, so there is no ``use_kernels`` flag: CUDA tensors launch the
     hand-written kernels, CPU tensors take their plain PyTorch versions."""
-    method: str = "freekv"      # freekv | arkvale | full | shadowkv | centroid
+    method: str = "freekv"      # freekv | arkvale | infinigen | quest | shadowkv |
+                                # raas | streaming | full | centroid
     retriever: str = ""         # alias for method; wins when given
     page_size: int = 32
     budget: int = 2048          # tokens resident on the device
@@ -119,6 +120,10 @@ class FreeKVConfig:
     # the re-center cadence in completed pages (``core/centroid_index``)
     centroid_count: int = 16
     centroid_refresh_interval: int = 4
+    # dynamic page budget (reference ``base.py:281``): keep the shortest
+    # prefix of the top-k whose pooled softmax mass reaches this (at least
+    # one page); 0 = off, and only the *_softmax pooling modes use it
+    select_top_p: float = 0.0
     # continuous scheduler (``serving/scheduler``): up to ``sync_interval``
     # decode steps between two host reads (``models.model.decode_window``),
     # greedy tokens picked on the card; ``sample_on_device=False`` is the

@@ -201,6 +201,21 @@ def prefill_fill_pool(state, k, v, length):
     return state
 
 
+def ring_append(state, k_new, v_new):
+    """Write one token's K/V (B, kv, d) into the window ring at slot
+    ``length % n_win`` with its position, and advance ``length``, in place
+    (the ring step of every paged and streaming state)."""
+    B, n_win = state["win_k"].shape[:2]
+    pos = state["length"]                          # (B,) position of the new token
+    slot = (pos % n_win).long()
+    bidx = torch.arange(B, device=pos.device)
+    state["win_k"][bidx, slot] = k_new.to(state["win_k"].dtype)
+    state["win_v"][bidx, slot] = v_new.to(state["win_v"].dtype)
+    state["win_pos"][bidx, slot] = pos
+    state["length"] = pos + 1
+    return state
+
+
 def append_token(state, k_new, v_new):
     """Append one token's K/V (B, kv, d); offload a page where one completes.
 
@@ -210,14 +225,7 @@ def append_token(state, k_new, v_new):
     the card; the other rows write nothing. Nothing is read back and no
     host copy of the lengths is needed. Updates ``state`` in place and
     returns it."""
-    B, n_win = state["win_k"].shape[:2]
-    pos = state["length"]                          # (B,) position of the new token
-    slot = (pos % n_win).long()
-    bidx = torch.arange(B, device=pos.device)
-    state["win_k"][bidx, slot] = k_new.to(state["win_k"].dtype)
-    state["win_v"][bidx, slot] = v_new.to(state["win_v"].dtype)
-    state["win_pos"][bidx, slot] = pos
-    state["length"] = pos + 1
+    ring_append(state, k_new, v_new)
     ops.complete_page(state["win_k"], state["win_v"], state["length"], state["summ"],
                       state["pool"], state.get("pool_scale"))
     return state

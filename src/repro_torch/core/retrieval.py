@@ -3,18 +3,27 @@
     r = make_retriever(cfg, fkv)
     state = r.init_state(batch, max_len, dtype, device)
     state = r.prefill(state, k, v, q_last)       # bulk-insert a prompt
-    o, state, info = r.decode(state, q, k_new, v_new)
+    o, state, info = r.decode(state, q, k_new, v_new[, q_proxy=...])
 
-Shapes: k/v (B,T,kv,dh) post-RoPE; q (B,H,dh) one decode token. ``decode``
-updates ``state`` in place and returns it.
+Shapes: k/v (B,T,kv,dh) post-RoPE; q (B,H,dh) one decode token; q_proxy
+(B,H,dh) the previous attention layer's query (zeros for the first), read
+by InfiniGen only. ``decode`` updates ``state`` in place and returns it.
 
-Ported methods: ``freekv`` (speculative retrieval + correction, the paper),
-``arkvale`` (fresh selection + blocking recall every step), ``shadowkv``
-(low-rank keys on the device, V-only recall), ``centroid`` (centroid-then-
-token selection inside FreeKV's machinery, ``core/centroid_index``) and
-``full`` (the exact oracle). The others raise ``NotImplementedError``.
+All nine methods of the reference (``make_retriever``): ``freekv``
+(speculative retrieval + correction, the paper), ``arkvale`` (fresh
+selection + blocking recall every step), ``infinigen`` (blocking, selection
+from the proxy query, token granularity in ``info``), ``quest`` (per-query-
+head selection, the pool on the card), ``shadowkv`` (low-rank keys on the
+device, V-only recall), ``raas`` (sink + window + kept pages with recency
+timestamps, no pool), ``streaming`` (sink + window; also gemma2's local
+layers), ``full`` (the exact oracle) and ``centroid`` (centroid-then-token
+selection inside FreeKV's machinery, ``core/centroid_index``). Every
+decode attention but ``full``'s is the ``paged_attention`` kernel on the
+card.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -33,16 +42,23 @@ def _scale(cfg):
     return cfg.attn_scale if cfg.attn_scale is not None else 1.0 / (cfg.d_head ** 0.5)
 
 
-def _attend(cfg, q, k_cat, v_cat, pos_cat, cur_pos, window=None, fkv=None):
+def _attend(cfg, q, k_cat, v_cat, pos_cat, cur_pos, fkv=None):
     """q (B,H,d); k/v_cat (B,kv,L,d); pos_cat (B,kv,L) -> (B,H,d).
 
-    With ``fkv`` given and L a whole number of pages this is the
-    ``paged_attention`` kernel (its plain version on the CPU); without
-    ``fkv`` (the full-cache oracle) it is the reference's plain einsum."""
+    With ``fkv`` given this is the ``paged_attention`` kernel (its plain
+    version on the CPU), which reads L as whole pages: an L that is not a
+    whole number of pages raises off the CPU and takes the plain einsum on
+    it. Without ``fkv`` (the full-cache oracle) it is the reference's plain
+    einsum."""
     B, H, d = q.shape
     kv, L = k_cat.shape[1], k_cat.shape[2]
     G = H // kv
-    if window is None and fkv is not None and L % fkv.page_size == 0:
+    if fkv is not None and L % fkv.page_size:
+        if q.device.type != "cpu":
+            raise ValueError(
+                f"{L} attended tokens are not a whole number of {fkv.page_size}-token pages: "
+                "paged_attention reads pages (the sink and window sizes must be page multiples)")
+    elif fkv is not None:
         p = fkv.page_size
         o = ops.paged_attention(
             q.reshape(B, kv, G, d).contiguous(),
@@ -55,8 +71,6 @@ def _attend(cfg, q, k_cat, v_cat, pos_cat, cur_pos, window=None, fkv=None):
     s = torch.einsum("bkgd,bkld->bkgl", qg, k_cat).float() * _scale(cfg)
     s = softcap(s, cfg.attn_logit_softcap)
     ok = (pos_cat >= 0) & (pos_cat <= cur_pos[:, None, None])
-    if window is not None:
-        ok = ok & (pos_cat > (cur_pos[:, None, None] - window))
     s = torch.where(ok[:, :, None, :], s, torch.full((), NEG_INF, device=s.device))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgl,bkld->bkgd", w.to(v_cat.dtype), v_cat)
@@ -72,21 +86,28 @@ def _window_floor(fkv, length):
                        min=fkv.n_sink // p) * p
 
 
-def _cat_regions(fkv, state, sel_k, sel_v, sel_idx, p):
+def _cat_regions(fkv, state, sel_k, sel_v, sel_idx, p, rep=1):
     """Sink + window + selected pages per KV head, with the three-region
-    position partition applied through pos = -1 masking."""
-    B, n_sink, kv, d = state["sink_k"].shape
+    position partition applied through pos = -1 masking. ``rep`` > 1 gives
+    each KV head's sink and window to ``rep`` consecutive rows, whose
+    selected pages sel_k/sel_v (B, kv * rep, n_sel, p, d) and sel_idx (B,
+    kv * rep, n_sel) are their own (Quest's per-query-head rows)."""
+    B, n_sink, _, d = state["sink_k"].shape
+    kv = sel_idx.shape[1]
     n_win = state["win_k"].shape[1]
     length = state["length"]
     dev = length.device
     wfloor = _window_floor(fkv, length)[:, None, None]
     neg = torch.full((), -1, dtype=torch.int32, device=dev)
-    ks = state["sink_k"].transpose(1, 2)                           # (B,kv,S,d)
-    vs = state["sink_v"].transpose(1, 2)
+
+    def rows(t):                                                   # (B,n,kv0,d) -> (B,kv,n,d)
+        t = t.transpose(1, 2)
+        return t if rep == 1 else t.repeat_interleave(rep, dim=1)
+
+    ks, vs = rows(state["sink_k"]), rows(state["sink_v"])
     pos_s = torch.arange(n_sink, dtype=torch.int32, device=dev)[None, None, :].expand(B, kv, n_sink)
     pos_s = torch.where(pos_s < length[:, None, None], pos_s, neg)
-    kw = state["win_k"].transpose(1, 2)
-    vw = state["win_v"].transpose(1, 2)
+    kw, vw = rows(state["win_k"]), rows(state["win_v"])
     pos_w = state["win_pos"][:, None, :].expand(B, kv, n_win)
     pos_w = torch.where((pos_w >= n_sink) & (pos_w >= wfloor), pos_w, neg)
     n_sel = sel_idx.shape[2]
@@ -102,12 +123,18 @@ def _cat_regions(fkv, state, sel_k, sel_v, sel_idx, p):
 
 
 class FreeKVRetriever:
-    """FreeKV (speculative=True) and, by flag, the ArkVale-style baseline
-    (speculative=False: fresh selection, blocking recall every step)."""
+    """FreeKV (speculative=True) and, by flags, the ArkVale-style baseline
+    (speculative=False: fresh selection, blocking recall every step) and
+    the InfiniGen-style one (also ``proxy_query``: the selection reads the
+    previous attention layer's query; ``token_wise_recall`` reports token
+    granularity in ``info``), reference ``retrieval.py:165-174``."""
 
-    def __init__(self, cfg: ArchConfig, fkv: FreeKVConfig, speculative: bool = True):
+    def __init__(self, cfg: ArchConfig, fkv: FreeKVConfig, speculative: bool = True,
+                 proxy_query: bool = False, token_wise_recall: bool = False):
         self.cfg, self.fkv = cfg, fkv
         self.speculative = speculative
+        self.proxy_query = proxy_query
+        self.token_wise_recall = token_wise_recall
         self.executor = RecallExecutor(recall_fn=self._recall, values_fn=self._recall_values)
 
     def _overlap(self):
@@ -149,10 +176,11 @@ class FreeKVRetriever:
         state["qprev"] = q_last.to(state["qprev"].dtype)
         return state
 
-    def decode(self, state, q, k_new, v_new, length_host=None):
+    def decode(self, state, q, k_new, v_new, length_host=None, q_proxy=None):
         """One decode step; ``length_host`` is an optional CPU copy of
         ``state["length"]``, read only by the centroid index's upkeep
-        (``centroid_index.update_on_append``)."""
+        (``centroid_index.update_on_append``); ``q_proxy`` replaces q in the
+        selection under ``proxy_query``."""
         cfg, fkv = self.cfg, self.fkv
         p = fkv.page_size
         cur_pos = state["length"]                  # position of the new token
@@ -170,7 +198,8 @@ class FreeKVRetriever:
             corr = torch.ones((B, cfg.n_kv_heads), dtype=torch.bool, device=q.device)
             sim = torch.zeros((B, cfg.n_kv_heads), dtype=torch.float32, device=q.device)
 
-        new_idx, sel_info = self._select_indices(state, q, corr)
+        q_sel = q_proxy if self.proxy_query and q_proxy is not None else q
+        new_idx, sel_info = self._select_indices(state, q_sel, corr)
         n_sel = new_idx.shape[2]
         reused = torch.zeros((B,), dtype=torch.int64, device=q.device)
         sel_pages = (new_idx >= 0).sum(dim=(1, 2))
@@ -210,6 +239,7 @@ class FreeKVRetriever:
             "sync_pages": sync_pages, "async_pages": async_pages,
             "reused_pages": reused, "sel_pages": sel_pages,
             "spec_hit_pages": spec_hit, "churn_pages": sel_pages - spec_hit,
+            "granularity": "token" if self.token_wise_recall else "page",
         }
         info.update(sel_info)
         return o, state, info
@@ -263,6 +293,219 @@ class CentroidRetriever(FreeKVRetriever):
                                                             self._n_sel(state))
         new_idx = torch.where(corr[:, :, None], exact_idx, cent_idx)
         return new_idx, {"cand_pages": (cand_idx >= 0).sum(dim=(1, 2))}
+
+
+class QuestRetriever(FreeKVRetriever):
+    """Quest (reference ``retrieval.py:492-530``): no offload, so the pool
+    stays in device memory whatever ``fkv.offload`` says; each query head
+    picks its own top-k pages over its own scores, with no group pooling
+    (``selection.select_pages(per_head=True)``, one launch),
+    so a layer recalls G times the pages of a group-consistent method, on
+    the critical path every step. The ids are ``jax.lax.top_k``'s,
+    unselectable lanes included (the reference does not turn them into -1;
+    ``_cat_regions`` masks their positions).
+
+    The reference loops over the G heads of a group: G recalls and G
+    attentions a layer. Here the G heads' pages are one ``recall_gather``
+    launch (ids (B, kv, G * n_sel)) and one ``paged_attention`` launch over
+    kv * G rows of one query each, whose sink and window are their KV
+    head's: a layer's decode step is one select_pages, one recall_gather,
+    one paged_attention and the page completion."""
+
+    def __init__(self, cfg, fkv):
+        super().__init__(cfg, fkv, speculative=False)
+
+    def init_state(self, batch, max_len, dtype=torch.bfloat16, device="cuda"):
+        return paging.init_kv_state(self.cfg, dataclasses.replace(self.fkv, offload="sim"),
+                                    batch, max_len, dtype, device)
+
+    def decode(self, state, q, k_new, v_new, length_host=None, q_proxy=None):
+        cfg, fkv = self.cfg, self.fkv
+        p = fkv.page_size
+        B, H, d = q.shape
+        kv, G = cfg.n_kv_heads, cfg.group_size
+        dev = q.device
+        cur_pos = state["length"]
+        state = paging.append_token(state, k_new, v_new)
+        n_sel = self._n_sel(state)
+        idx, _ = selection.select_pages(cfg, fkv, q, state["summ"], state["length"], n_sel,
+                                        with_pooled=False, per_head=True,
+                                        keep_invalid=True)         # (B,kv,G,n_sel)
+        sk, sv = self._recall(paging.pool_view(state), idx.reshape(B, kv, G * n_sel))
+        rows = (B, kv * G, n_sel, p, d)
+        k_cat, v_cat, pos = _cat_regions(fkv, state, sk.to(q.dtype).reshape(rows),
+                                         sv.to(q.dtype).reshape(rows),
+                                         idx.reshape(B, kv * G, n_sel), p, rep=G)
+        o = _attend(cfg, q, k_cat, v_cat, pos, cur_pos, fkv=fkv)
+        state["qprev"] = q.to(state["qprev"].dtype)
+        info = {"corrected": torch.ones((B, kv), dtype=torch.bool, device=dev),
+                "sync_pages": torch.full((B,), H * n_sel, dtype=torch.int64, device=dev),
+                "async_pages": torch.zeros((B,), dtype=torch.int64, device=dev),
+                "similarity": torch.zeros((B, kv), device=dev), "granularity": "page"}
+        return o, state, info
+
+
+def _no_recall_info(B, kv, dev):
+    zeros = torch.zeros((B,), dtype=torch.int64, device=dev)
+    return {"corrected": torch.zeros((B, kv), dtype=torch.bool, device=dev),
+            "sync_pages": zeros, "async_pages": zeros,
+            "similarity": torch.zeros((B, kv), device=dev), "granularity": "page"}
+
+
+class StreamingRetriever:
+    """Sink + sliding window only (StreamingLLM), reference
+    ``retrieval.py:533-611``; also gemma2's ``ATTN_LOCAL`` layers, with
+    ``window = cfg.sliding_window`` and no sink (``models.model``). No pool:
+    the ring holds the last ``window`` tokens. Decode attends the sink and
+    the ring through ``paged_attention``, which reads them as whole pages
+    (``_attend``)."""
+
+    def __init__(self, cfg, fkv, window=None, n_sink=None):
+        self.cfg, self.fkv = cfg, fkv
+        self.window = window or fkv.n_window
+        self.n_sink = fkv.n_sink if n_sink is None else n_sink
+
+    def init_state(self, batch, max_len, dtype=torch.bfloat16, device="cuda"):
+        from repro_torch import resolve_device
+        dev = resolve_device(device)
+        kv, d = self.cfg.n_kv_heads, self.cfg.d_head
+
+        def z(n):
+            return torch.zeros((batch, n, kv, d), dtype=dtype, device=dev)
+
+        return {"sink_k": z(self.n_sink), "sink_v": z(self.n_sink),
+                "win_k": z(self.window), "win_v": z(self.window),
+                "win_pos": torch.full((batch, self.window), -1, dtype=torch.int32, device=dev),
+                "length": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+    def prefill(self, state, k, v, q_last):
+        """The prompt's first ``n_sink`` tokens into the sink and its last
+        ``window`` into the ring (token t at slot t % window), in place."""
+        B, T = k.shape[:2]
+        n_sink, n_win = state["sink_k"].shape[1], state["win_k"].shape[1]
+        dt = state["win_k"].dtype
+        s, nt = min(T, n_sink), min(T, n_win)
+        for key, src in (("sink_k", k), ("sink_v", v)):
+            state[key].zero_()
+            state[key][:, :s] = src[:, :s].to(dt)
+        slots = torch.arange(T - nt, T, device=k.device) % n_win
+        for key, src in (("win_k", k), ("win_v", v)):
+            state[key].zero_()
+            state[key][:, slots] = src[:, T - nt:].to(dt)
+        state["win_pos"].fill_(-1)
+        state["win_pos"][:, slots] = torch.arange(T - nt, T, dtype=torch.int32,
+                                                  device=k.device)[None].expand(B, nt)
+        state["length"] = torch.full((B,), T, dtype=torch.int32, device=k.device)
+        return state
+
+    def decode(self, state, q, k_new, v_new, length_host=None, q_proxy=None):
+        B, kv = q.shape[0], self.cfg.n_kv_heads
+        cur_pos = state["length"]
+        paging.ring_append(state, k_new, v_new)
+        n_sink, n_win = state["sink_k"].shape[1], state["win_k"].shape[1]
+        dev = q.device
+        neg = torch.full((), -1, dtype=torch.int32, device=dev)
+        pos_s = torch.arange(n_sink, dtype=torch.int32, device=dev)[None, None].expand(
+            B, kv, n_sink)
+        pos_s = torch.where(pos_s < state["length"][:, None, None], pos_s, neg)
+        pos_w = state["win_pos"][:, None, :].expand(B, kv, n_win)
+        pos_w = torch.where(pos_w >= n_sink, pos_w, neg)
+        k_cat = torch.cat([state["sink_k"].transpose(1, 2), state["win_k"].transpose(1, 2)], 2)
+        v_cat = torch.cat([state["sink_v"].transpose(1, 2), state["win_v"].transpose(1, 2)], 2)
+        pos = torch.cat([pos_s, pos_w], dim=2)
+        o = _attend(self.cfg, q, k_cat, v_cat, pos, cur_pos, fkv=self.fkv)
+        return o, state, _no_recall_info(B, kv, dev)
+
+
+class RaaSRetriever:
+    """RaaS-like dynamic dropping (reference ``retrieval.py:661-767``): sink
+    + window + ``n_keep`` kept pages a KV head, no pool. The prefill seeds
+    the kept pages with the top pages under the prompt's last query; each
+    decode step marks the kept pages whose group-mean attention mass beats
+    1 / length as used now, and a completed page replaces the least
+    recently used one (``argmin(last_used)``)."""
+
+    def __init__(self, cfg, fkv):
+        self.cfg, self.fkv = cfg, fkv
+        self.stream = StreamingRetriever(cfg, fkv)
+
+    def init_state(self, batch, max_len, dtype=torch.bfloat16, device="cuda"):
+        cfg, fkv = self.cfg, self.fkv
+        kv, d, p = cfg.n_kv_heads, cfg.d_head, fkv.page_size
+        n_keep = max(1, (fkv.budget - fkv.n_sink - fkv.n_window) // p)
+        st = self.stream.init_state(batch, max_len, dtype, device)
+        dev = st["length"].device
+        st.update(keep_k=torch.zeros((batch, kv, n_keep, p, d), dtype=dtype, device=dev),
+                  keep_v=torch.zeros((batch, kv, n_keep, p, d), dtype=dtype, device=dev),
+                  keep_idx=torch.full((batch, kv, n_keep), -1, dtype=torch.int32, device=dev),
+                  last_used=torch.full((batch, kv, n_keep), -(10 ** 9), dtype=torch.int32,
+                                       device=dev))
+        return st
+
+    def prefill(self, state, k, v, q_last):
+        cfg, fkv = self.cfg, self.fkv
+        p = fkv.page_size
+        B, T, kv, d = k.shape
+        st = self.stream.prefill(state, k, v, q_last)
+        # the prompt's whole pages as a pool on the card with their min/max
+        # summaries, in one fill_pages launch (the reference's summaries of
+        # K, :690-691, and nhd_pages_to_hnd, :700), then the top pages under
+        # the last query as the reference's top_k returns them, gathered
+        n_pages = T // p
+        summ = torch.empty((B, n_pages, kv, 2, d), dtype=k.dtype, device=k.device)
+        pool = torch.empty((B, n_pages, kv, 2, p, d), dtype=k.dtype, device=k.device)
+        ops.fill_pages(k, v, summ, pool)
+        length = torch.full((B,), T, dtype=torch.int32, device=k.device)
+        idx, _ = selection.select_pages(cfg, fkv, q_last, summ, length,
+                                        st["keep_idx"].shape[2], with_pooled=False,
+                                        keep_invalid=True)
+        kk, vv = ops.recall_gather(pool, idx)
+        st["keep_k"].copy_(kk)
+        st["keep_v"].copy_(vv)
+        st["keep_idx"].copy_(idx)
+        st["last_used"].fill_(T)
+        return st
+
+    def decode(self, state, q, k_new, v_new, length_host=None, q_proxy=None):
+        cfg, fkv = self.cfg, self.fkv
+        p = fkv.page_size
+        B, H, d = q.shape
+        kv, G = cfg.n_kv_heads, cfg.group_size
+        dev = q.device
+        cur_pos = state["length"]
+        paging.ring_append(state, k_new, v_new)
+        length = state["length"]
+        keep_idx, last_used = state["keep_idx"], state["last_used"]
+        k_cat, v_cat, pos = _cat_regions(fkv, state, state["keep_k"], state["keep_v"],
+                                         keep_idx, p)
+        o = _attend(cfg, q, k_cat, v_cat, pos, cur_pos, fkv=fkv)
+        # each kept page's attention mass, averaged over the group, from an
+        # explicit softmax over every position (no softcap, as the reference)
+        n_keep = keep_idx.shape[2]
+        s = torch.einsum("bkgd,bkld->bkgl", q.reshape(B, kv, G, d), k_cat).float() * _scale(cfg)
+        s = torch.where((pos >= 0)[:, :, None, :], s, torch.full((), NEG_INF, device=dev))
+        w = torch.softmax(s, dim=-1)
+        off = k_cat.shape[2] - n_keep * p
+        wp = w[..., off:].reshape(B, kv, G, n_keep, p).sum(-1).mean(2)
+        significant = wp > (1.0 / torch.clamp(length, min=1))[:, None, None]
+        last_used = torch.where(significant & (keep_idx >= 0), length[:, None, None], last_used)
+        # a completed page evicts the least recently used kept page
+        done = (length % p) == 0
+        page = torch.div(length, p, rounding_mode="floor") - 1
+        n_win = state["win_k"].shape[1]
+        slot = ((page[:, None] * p + torch.arange(p, device=dev)) % n_win).long()
+        bI = torch.arange(B, device=dev)[:, None]
+        kI = torch.arange(kv, device=dev)[None, :]
+        evict = torch.argmin(last_used, dim=2)                     # (B,kv)
+        m4 = done[:, None, None, None]
+        for key, ring in (("keep_k", "win_k"), ("keep_v", "win_v")):
+            newp = state[ring][bI, slot].transpose(1, 2).to(state[key].dtype)   # (B,kv,p,d)
+            state[key][bI, kI, evict] = torch.where(m4, newp, state[key][bI, kI, evict])
+        m2 = done[:, None]
+        keep_idx[bI, kI, evict] = torch.where(m2, page[:, None], keep_idx[bI, kI, evict])
+        last_used[bI, kI, evict] = torch.where(m2, length[:, None], last_used[bI, kI, evict])
+        state["last_used"] = last_used
+        return o, state, _no_recall_info(B, kv, dev)
 
 
 def low_rank_keys(k, rank):
@@ -319,7 +562,7 @@ class ShadowKVRetriever(FreeKVRetriever):
         st["k_w"][:, :, :w.shape[2]] = w.to(st["k_w"].dtype)
         return st
 
-    def decode(self, state, q, k_new, v_new, length_host=None):
+    def decode(self, state, q, k_new, v_new, length_host=None, q_proxy=None):
         cfg, fkv = self.cfg, self.fkv
         p = fkv.page_size
         B = q.shape[0]
@@ -360,7 +603,7 @@ class ShadowKVRetriever(FreeKVRetriever):
                 "similarity": torch.zeros((B, kv), dtype=torch.float32, device=dev),
                 "sync_pages": sync_pages, "async_pages": zeros, "reused_pages": reused,
                 "sel_pages": sel_pages, "spec_hit_pages": spec_hit,
-                "churn_pages": sel_pages - spec_hit}
+                "churn_pages": sel_pages - spec_hit, "granularity": "page"}
         return o, state, info
 
 
@@ -387,7 +630,7 @@ class FullRetriever:
         state["length"] = torch.full((B,), T, dtype=torch.int32, device=k.device)
         return state
 
-    def decode(self, state, q, k_new, v_new, length_host=None):
+    def decode(self, state, q, k_new, v_new, length_host=None, q_proxy=None):
         cfg = self.cfg
         B = q.shape[0]
         kv = cfg.n_kv_heads
@@ -406,11 +649,17 @@ class FullRetriever:
         zeros = torch.zeros((B,), dtype=torch.int64, device=q.device)
         info = {"corrected": torch.zeros((B, kv), dtype=torch.bool, device=q.device),
                 "similarity": torch.zeros((B, kv), device=q.device),
-                "sync_pages": zeros, "async_pages": zeros}
+                "sync_pages": zeros, "async_pages": zeros, "granularity": "page"}
         return o, state, info
 
 
+METHODS = ("freekv", "arkvale", "infinigen", "quest", "shadowkv", "raas", "streaming",
+           "full", "centroid")
+
+
 def make_retriever(cfg: ArchConfig, fkv: FreeKVConfig):
+    """The retriever of ``fkv.method``, any of METHODS (reference
+    ``retrieval.py:861-890``; its tensor-parallel wrapper is queue 1 item 8)."""
     m = fkv.method
     if m == "freekv":
         return FreeKVRetriever(cfg, fkv, speculative=True)
@@ -422,7 +671,13 @@ def make_retriever(cfg: ArchConfig, fkv: FreeKVConfig):
         return ShadowKVRetriever(cfg, fkv)
     if m == "centroid":
         return CentroidRetriever(cfg, fkv)
-    if m in ("infinigen", "quest", "raas", "streaming"):
-        raise NotImplementedError(
-            f"method {m!r} is not ported yet (ROADMAP queue 1, item 5)")
+    if m == "infinigen":
+        return FreeKVRetriever(cfg, fkv, speculative=False, proxy_query=True,
+                               token_wise_recall=True)
+    if m == "quest":
+        return QuestRetriever(cfg, fkv)
+    if m == "raas":
+        return RaaSRetriever(cfg, fkv)
+    if m == "streaming":
+        return StreamingRetriever(cfg, fkv, window=fkv.budget - fkv.n_sink)
     raise ValueError(f"unknown method {m!r}")

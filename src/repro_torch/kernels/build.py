@@ -34,7 +34,7 @@ SIGNATURES = {
     "page_scores": {
         "freekv_page_scores": [_P] * 3 + [_I] * 5 + [_F, _I, _I, _P],
         "freekv_centroid_scores": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P],
-        "freekv_select_pages": [_P] * 8 + [_I] * 14 + [_F, _I, _I, _P],
+        "freekv_select_pages": [_P] * 8 + [_I] * 16 + [_F, _I, _I, _P],
         "freekv_centroid_candidates": [_P] * 7 + [_I] * 12 + [_F, _I, _I, _P],
     },
     "recall_gather": {

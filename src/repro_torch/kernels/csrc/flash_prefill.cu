@@ -74,6 +74,14 @@
 // 16*j) and a 4 x (d/16) tile of the output (columns 4*tx + 64*c ..), so
 // every 16-byte shared-memory read feeds 4 to 8 FMAs; the row statistics
 // reduce over the 16 tx lanes of a half-warp with shuffles.
+//
+// d = 80 (stablelm-3b) runs either path's d = 128 instance with dv = 80 valid
+// channels: 160-byte rows do not fill the 128-byte swizzle's panels of 64
+// channels, so the tiles stay 128 channels wide and the channels past 80
+// arrive as zeros (TMA fills the columns past the tensor map's extent of 80
+// with zeros; the FMA path's staging writes zeros there). Zeros add nothing
+// to Q K^T and give zero output columns, which are not written: the result
+// is the d = 80 attention, at the tensor work of d = 128.
 
 #include <cuda.h>   // CUtensorMap and its enums only: libcuda is not linked
 
@@ -89,19 +97,19 @@ constexpr int kBK = 64;
 constexpr int kThreads = 256;     // 16 x 16
 constexpr int kPS = kBK + 4;      // probability tile row stride (floats)
 
-// rows [r0, r0 + n) of a (rows, D) slab at `base` (row stride `rs`
-// elements, D contiguous) into shared memory as float32 rows of `D + 4`;
-// rows at or past `limit` become zeros.
+// rows [r0, r0 + n) of a (rows, dv) slab at `base` (row stride `rs`
+// elements, dv <= D contiguous) into shared memory as float32 rows of
+// `D + 4`; rows at or past `limit`, and channels at or past dv, become zeros.
 template <typename T, int D, int kRows>
 __device__ __forceinline__ void stage(const T* __restrict__ base, long long rs, int r0,
-                                      int limit, float* __restrict__ dst) {
+                                      int limit, int dv, float* __restrict__ dst) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kPerRow = D / kVec;
   constexpr int kST = D + 4;
   for (int i = threadIdx.x; i < kRows * kPerRow; i += kThreads) {
     const int r = i / kPerRow, c0 = (i % kPerRow) * kVec;
     float4* out = reinterpret_cast<float4*>(dst + r * kST + c0);
-    if (r0 + r < limit) {
+    if (r0 + r < limit && c0 < dv) {
       const uint4 raw = *reinterpret_cast<const uint4*>(base + (r0 + r) * rs + c0);
       const T* vals = reinterpret_cast<const T*>(&raw);
 #pragma unroll
@@ -136,7 +144,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      T* __restrict__ out, int G, int Tq, int Tk, Strides qs, Strides ks,
                      Strides vs, Strides os, float scale, float softcap, int causal,
-                     int window) {
+                     int window, int dv) {
   constexpr int kST = D + 4;
   constexpr int kCols = D / 64;   // float4 output columns per thread
   extern __shared__ float4 smem4[];
@@ -154,7 +162,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
   const T* kb_base = k + b * ks.b + hk * ks.h;
   const T* vb_base = v + b * vs.b + hk * vs.h;
-  stage<T, D, kBQ>(q + b * qs.b + h * qs.h, qs.t, q0, Tq, Qs);
+  stage<T, D, kBQ>(q + b * qs.b + h * qs.h, qs.t, q0, Tq, dv, Qs);
 
   float m[4], l[4], acc[4][4 * kCols];
 #pragma unroll
@@ -178,8 +186,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int kb = kb_begin; kb < kb_end; ++kb) {
     const int k0 = kb * kBK;
     __syncthreads();                                  // previous tiles consumed
-    stage<T, D, kBK>(kb_base, ks.t, k0, Tk, Ks);
-    stage<T, D, kBK>(vb_base, vs.t, k0, Tk, Vs);
+    stage<T, D, kBK>(kb_base, ks.t, k0, Tk, dv, Ks);
+    stage<T, D, kBK>(vb_base, vs.t, k0, Tk, dv, Vs);
     __syncthreads();
 
     float s[4][4];
@@ -273,7 +281,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int cc = 0; cc < kCols; ++cc)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        orow[cc * 64 + tx * 4 + e] = from_f32<T>(acc[i][cc * 4 + e] / li);
+        if (cc * 64 + tx * 4 + e < dv) orow[cc * 64 + tx * 4 + e] = from_f32<T>(acc[i][cc * 4 + e] / li);
   }
 }
 
@@ -430,7 +438,7 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_v,
                            __nv_bfloat16* __restrict__ out, int B, int H, int G, int Tq,
                            int Tk, Strides os, float scale, float softcap, int causal,
-                           int window) {
+                           int window, int dv) {
   using C = WgmmaCfg<D>;
   constexpr int kS = C::kStages;
   extern __shared__ uint8_t smem_w[];
@@ -720,7 +728,8 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     __nv_bfloat16* orow = oh + tq * os.t;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) =
+      if (8 * j < dv)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) =
           pack_bf16(__float2bfloat16_rn(o[4 * j + 2 * r] * inv_l[r]),
                     __float2bfloat16_rn(o[4 * j + 2 * r + 1] * inv_l[r]));
   }
@@ -753,7 +762,7 @@ EncodeTiled encode_tiled() {
 
 // a (B, heads, T_len, D) bf16 view with element strides `st` (D contiguous)
 // as a 4-D tensor map whose box is 64 channels x `rows` tokens of one head,
-// 128-byte swizzled; rows past T_len read as zeros
+// 128-byte swizzled; rows past T_len, and channels past D, read as zeros
 bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int heads, int T_len,
               int D, Strides st, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T_len, (cuuint64_t)heads,
@@ -771,7 +780,7 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int 
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int H,
                          int G, int Tq, int Tk, Strides qs, Strides ks, Strides vs, Strides os,
-                         float scale, float softcap, int causal, int window, int device,
+                         float scale, float softcap, int causal, int window, int dv, int device,
                          cudaStream_t st) {
   using C = WgmmaCfg<D>;
   constexpr auto kernel = flash_prefill_wgmma_kernel<D>;
@@ -781,9 +790,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   for (long long s : {qs.b, qs.h, qs.t, ks.b, ks.h, ks.t, vs.b, vs.h, vs.t})
     if (s <= 0 || s >= (1ll << 39)) return cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!make_map(encode, &tm_q, q, B, H, Tq, D, qs, kWBQ) ||
-      !make_map(encode, &tm_k, k, B, H / G, Tk, D, ks, kWBK) ||
-      !make_map(encode, &tm_v, v, B, H / G, Tk, D, vs, kWBK))
+  if (!make_map(encode, &tm_q, q, B, H, Tq, dv, qs, kWBQ) ||
+      !make_map(encode, &tm_k, k, B, H / G, Tk, dv, ks, kWBK) ||
+      !make_map(encode, &tm_v, v, B, H / G, Tk, dv, vs, kWBK))
     return cudaErrorInvalidValue;
   const cudaError_t err = allow_smem<kernel>(C::kSmem, device);
   if (err != cudaSuccess) return err;
@@ -791,14 +800,14 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kWThreads, C::kSmem, st>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), B, H, G, Tq, Tk, os, scale, softcap,
-      causal, window);
+      causal, window, dv);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int H,
                    int G, int Tq, int Tk, Strides qs, Strides ks, Strides vs, Strides os,
-                   float scale, float softcap, int causal, int window, int device,
+                   float scale, float softcap, int causal, int window, int dv, int device,
                    cudaStream_t st) {
   constexpr size_t kSmem = sizeof(float) * ((size_t)(kBQ + 2 * kBK) * (D + 4) + kBQ * kPS);
   const cudaError_t err = allow_smem<flash_prefill_kernel<T, D>>(kSmem, device);
@@ -806,12 +815,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   const dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
   flash_prefill_kernel<T, D><<<grid, kThreads, kSmem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), G, Tq, Tk, qs, ks, vs, os, scale, softcap, causal, window);
+      static_cast<T*>(out), G, Tq, Tk, qs, ks, vs, os, scale, softcap, causal, window, dv);
   return cudaGetLastError();
 }
 
-// float32: the FMA path at every d; bfloat16: the wgmma path at d = 64 and
-// 128, the FMA path at d = 256
+// float32: the FMA path at every d; bfloat16: the wgmma path at d = 64, 80
+// and 128, the FMA path at d = 256; d = 80 runs the d = 128 instances with
+// the channels past 80 as zeros
 template <typename T>
 cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, void* out, int B,
                        int H, int G, int Tq, int Tk, Strides qs, Strides ks, Strides vs,
@@ -821,17 +831,18 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, void*
   switch (d) {
     case 64:
       return kTensor ? launch_wgmma<64>(q, k, v, out, B, H, G, Tq, Tk, qs, ks, vs, os, scale,
-                                        softcap, causal, window, device, st)
+                                        softcap, causal, window, d, device, st)
                      : launch<float, 64>(q, k, v, out, B, H, G, Tq, Tk, qs, ks, vs, os, scale,
-                                         softcap, causal, window, device, st);
+                                         softcap, causal, window, d, device, st);
+    case 80:
     case 128:
       return kTensor ? launch_wgmma<128>(q, k, v, out, B, H, G, Tq, Tk, qs, ks, vs, os, scale,
-                                         softcap, causal, window, device, st)
+                                         softcap, causal, window, d, device, st)
                      : launch<float, 128>(q, k, v, out, B, H, G, Tq, Tk, qs, ks, vs, os, scale,
-                                          softcap, causal, window, device, st);
+                                          softcap, causal, window, d, device, st);
     case 256:
       return launch<T, 256>(q, k, v, out, B, H, G, Tq, Tk, qs, ks, vs, os, scale, softcap,
-                            causal, window, device, st);
+                            causal, window, d, device, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -842,7 +853,7 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, void*
 
 // strides: (batch, head, token) of q, k, v, out in elements, the last dim
 // contiguous; every row 16-byte aligned. q and out hold Tq tokens, k and v
-// Tk >= Tq (the query rows are the last Tq positions). d in {64, 128, 256};
+// Tk >= Tq (the query rows are the last Tq positions). d in {64, 80, 128, 256};
 // H a multiple of kv (G = H / kv). softcap <= 0 means none, window <= 0
 // none, causal 0 / 1. Returns the launch's cudaError_t.
 extern "C" int freekv_flash_prefill(const void* q, const void* k, const void* v, void* out,

@@ -18,7 +18,16 @@
 //     <= -5e29 and -1 padding past the page count. With candidate ids it
 //     is stage 2 of repro/core/centroid_index.py:289-330: each candidate's
 //     summary is read by its page id in place, a -1 candidate is invalid and
-//     never read, and the ids returned are the candidates'.
+//     never read, and the ids returned are the candidates'. Two variants
+//     of the same launch: per query head (hg = G query heads a summary
+//     row), each of the G heads of a (request, KV head) row makes its own
+//     top-k over its own scores with no pooling (Quest,
+//     repro/core/retrieval.py:508-513): the launch runs B * kv * G rows of
+//     one query row each, every one reading its KV head's summaries in
+//     place; and keep_invalid, where a lane whose value is -1e30 keeps the
+//     page id jax.lax.top_k gives it (the lower ids first among the equal
+//     -1e30 values) instead of -1 (Quest's raw top-k, RaaS's prefill
+//     seeding, repro/core/retrieval.py:697).
 //   - freekv_centroid_candidates: repro/core/centroid_index.py:254-287
 //     (cluster_scores + candidate_pages): the bound against the boxes, the
 //     max over the G rows, each selectable page inheriting its cluster's
@@ -98,6 +107,8 @@ struct Args {
   float* pooled;               // (B, kv, N) or null
   int B, kv, G, N, NP, d, n_sel, k, S, nl;
   int page_size, n_sink, n_window, pool;
+  int hg;                      // query heads a summary row: G per head, else 1
+  int keep_invalid;            // 1: -1e30 lanes keep their page ids, not -1
   float scale;
 };
 
@@ -275,11 +286,12 @@ __device__ __forceinline__ void block_reduce(float (&v)[kG], float* red, float* 
 template <typename T, int kG, int kLP, int kMode>
 __global__ void __launch_bounds__(kThreads) select_kernel(const Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  // blockIdx.y: a (KV head, query head) row; the summaries are the KV head's
+  const int h = blockIdx.y / a.hg, b = blockIdx.z, tid = threadIdx.x;
   const int r = blockIdx.x, S = a.S;
   const int i0 = (int)((long long)a.N * r / S), i1 = (int)((long long)a.N * (r + 1) / S);
   const int n_loc = i1 - i0;
-  const size_t row = (size_t)b * a.kv + h;
+  const size_t row = (size_t)b * gridDim.y + blockIdx.y;
   const int G = a.G, d = a.d;
   const bool sc_smem = G * a.nl <= kSmemScores, keys_smem = a.nl <= kSmemKeys;
   const Layout L(kMode, G, a.nl, a.k, a.NP, sc_smem, keys_smem);
@@ -457,7 +469,7 @@ __global__ void __launch_bounds__(kThreads) select_kernel(const Args a) {
       if (place[j] < k) {
         const unsigned long long key = list[j];
         const int i = key_index(key);
-        out[place[j]] = key_selects(key) ? (cand != nullptr ? cand[i] : i) : -1;
+        out[place[j]] = key_selects(key) || a.keep_invalid ? (cand != nullptr ? cand[i] : i) : -1;
       }
     }
     if (r == 0)
@@ -479,7 +491,7 @@ cudaError_t launch_t(Args a, int device, cudaStream_t st) {
   cudaError_t err = allow_smem<select_kernel<T, kG, kLP, kMode>>(L.total, device);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.S, a.kv, a.B);
+  cfg.gridDim = dim3(a.S, a.kv * a.hg, a.B);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = L.total;
   cfg.stream = st;
@@ -498,7 +510,7 @@ cudaError_t launch_t(Args a, int device, cudaStream_t st) {
 template <int kMode>
 int launch(Args a, int dtype, int device, void* stream) {
   if (a.G < 1 || a.G > kMaxG || a.d < 1 || a.d > kMaxD || a.N < 1 || a.NP < 1 || a.B < 1 ||
-      a.kv < 1)
+      a.kv < 1 || a.hg < 1 || a.kv * a.hg > 65535)
     return cudaErrorInvalidValue;
   if (kMode != kScores && (a.S < 1 || a.S > kMaxCluster || a.S > a.N || a.k < 1 ||
                            a.k > a.N || a.n_sel < a.k || a.page_size < 1 ||
@@ -534,7 +546,7 @@ extern "C" int freekv_page_scores(const void* q, const void* summ, void* out, in
                                   void* stream) {
   freekv::Args a = {};
   a.q = q, a.summ = summ, a.scores = static_cast<float*>(out);
-  a.B = B, a.kv = kv, a.G = G, a.N = N, a.NP = N, a.d = d, a.scale = scale;
+  a.B = B, a.kv = kv, a.G = G, a.N = N, a.NP = N, a.d = d, a.hg = 1, a.scale = scale;
   return freekv::launch<freekv::kScores>(a, dtype, device, stream);
 }
 
@@ -547,7 +559,7 @@ extern "C" int freekv_centroid_scores(const void* q, const void* cent, const voi
   freekv::Args a = {};
   a.q = q, a.summ = cent, a.count = static_cast<const int32_t*>(count);
   a.scores = static_cast<float*>(out);
-  a.B = B, a.kv = kv, a.G = G, a.N = C, a.NP = C, a.d = d, a.scale = scale;
+  a.B = B, a.kv = kv, a.G = G, a.N = C, a.NP = C, a.d = d, a.hg = 1, a.scale = scale;
   return freekv::launch<freekv::kScores>(a, dtype, device, stream);
 }
 
@@ -557,16 +569,19 @@ extern "C" int freekv_centroid_scores(const void* q, const void* cent, const voi
 // N) fp32 (or null) out. S blocks a row (a cluster), k = min(n_sel, N),
 // nl = ceil(N / S); ws_scores (B, kv, S, G, nl) fp32 when G * nl > 8192 and
 // ws_keys (B, kv, S, 2 nl) uint64 when nl > 2048, else null. pool: 0
-// mean_softmax, 1 max_softmax, 2 mean_qk, 3 max_qk. Returns
-// cudaGetLastError().
+// mean_softmax, 1 max_softmax, 2 mean_qk, 3 max_qk. per_head 1: each of
+// the G query heads is a row of its own (G = 1 of them, B * kv * G rows;
+// idx (B, kv, G, n_sel), pooled (B, kv, G, N), the workspaces as for
+// kv * G KV heads; no candidates); keep_invalid 1: lanes at -1e30 keep
+// their page ids. Returns cudaGetLastError().
 extern "C" int freekv_select_pages(const void* q, const void* summ, const void* length,
                                    const void* cand, void* idx, void* pooled, void* ws_scores,
                                    void* ws_keys, int B, int kv, int G, int N, int NP, int d,
                                    int n_sel, int k, int S, int nl, int page_size, int n_sink,
-                                   int n_window, int pool, float scale, int dtype, int device,
-                                   void* stream) {
+                                   int n_window, int pool, int per_head, int keep_invalid,
+                                   float scale, int dtype, int device, void* stream) {
   if (length == nullptr || idx == nullptr || pool < 0 || pool > 3 ||
-      (cand == nullptr && N != NP))
+      (cand == nullptr && N != NP) || (per_head && cand != nullptr))
     return cudaErrorInvalidValue;
   freekv::Args a = {};
   a.q = q, a.summ = summ, a.length = static_cast<const int32_t*>(length);
@@ -576,7 +591,9 @@ extern "C" int freekv_select_pages(const void* q, const void* summ, const void* 
   a.keys = static_cast<unsigned long long*>(ws_keys);
   a.B = B, a.kv = kv, a.G = G, a.N = N, a.NP = NP, a.d = d, a.n_sel = n_sel, a.k = k;
   a.S = S, a.nl = nl, a.page_size = page_size, a.n_sink = n_sink, a.n_window = n_window;
-  a.pool = pool, a.scale = scale;
+  a.pool = pool, a.scale = scale, a.keep_invalid = keep_invalid != 0;
+  a.hg = per_head ? G : 1;
+  if (per_head) a.G = 1;
   return freekv::launch<freekv::kSelect>(a, dtype, device, stream);
 }
 
@@ -598,6 +615,6 @@ extern "C" int freekv_centroid_candidates(const void* q, const void* cent, const
   a.idx = static_cast<int32_t*>(cand), a.keys = static_cast<unsigned long long*>(ws_keys);
   a.B = B, a.kv = kv, a.G = G, a.N = N, a.NP = C, a.d = d, a.n_sel = m, a.k = m;
   a.S = S, a.nl = nl, a.page_size = page_size, a.n_sink = n_sink, a.n_window = n_window;
-  a.scale = scale;
+  a.hg = 1, a.scale = scale;
   return freekv::launch<freekv::kCandidates>(a, dtype, device, stream);
 }

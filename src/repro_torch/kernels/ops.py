@@ -224,7 +224,8 @@ def _keys_workspace(dev, rows, S, nl):
 
 
 def select_pages(q, summ, length, *, n_sel, scale, page_size, n_sink, n_window,
-                 mode="mean_softmax", cand=None, with_pooled=False):
+                 mode="mean_softmax", cand=None, with_pooled=False, per_head=False,
+                 keep_invalid=False):
     """Quest scores, selectable mask, group pooling and top-k in one launch.
 
     q (B,kv,G,d); summ (B,N,kv,2,d); length (B,) int32 -> idx (B,kv,n_sel)
@@ -232,11 +233,20 @@ def select_pages(q, summ, length, *, n_sel, scale, page_size, n_sink, n_window,
     also the pooled scores (B,kv,N) float32. ``cand`` (B,kv,m) int32 page
     ids (-1 invalid) scores only those pages, read in place: idx holds
     candidates' ids, ties break by candidate position, pooled is (B,kv,m).
-    ``mode`` is one of POOL_MODES."""
+    ``mode`` is one of POOL_MODES.
+
+    ``per_head``: no pooling; each of the G query heads makes its own top-k
+    over its own masked scores (Quest) -> idx (B,kv,G,n_sel), pooled the
+    scores (B,kv,G,N); ``mode`` and ``cand`` do not apply. ``keep_invalid``:
+    lanes whose value is -1e30 keep the page ids ``jax.lax.top_k`` gives
+    them (lower ids first) instead of -1."""
     _require(mode in POOL_MODES, f"select_pages: unknown pooling mode {mode!r}")
+    _require(not (per_head and cand is not None), "select_pages: per_head takes no candidates")
+    if per_head:
+        mode = "max_qk"        # over one query row: the row's own scores
     if not _on_cuda(q):
         idx, pooled = ref.select_pages_ref(q, summ, length, n_sel, scale, page_size, n_sink,
-                                           n_window, mode, cand)
+                                           n_window, mode, cand, per_head, keep_invalid)
         return (idx, pooled) if with_pooled else idx
     dev = q.device
     q, summ = _one_dtype(q, summ)
@@ -252,18 +262,21 @@ def select_pages(q, summ, length, *, n_sel, scale, page_size, n_sink, n_window,
     _require(G <= 16 and d <= 256 and N >= 1 and n_sel >= 1 and page_size >= 1,
              "select_pages takes G <= 16, d <= 256, at least one page and n_sel >= 1")
     lib = build.load("page_scores")
-    S = select_split(N, B * kv, _sm_count(dev.index))
+    # per head: B * kv * G rows of one query row each
+    rows, g_row = (B * kv * G, 1) if per_head else (B * kv, G)
+    lead = (B, kv, G) if per_head else (B, kv)
+    S = select_split(N, rows, _sm_count(dev.index))
     nl = -(-N // S)
-    ws_s = (torch.empty((B * kv, S, G, nl), dtype=torch.float32, device=dev)
-            if G * nl > SMEM_SCORES else None)
-    ws_k = _keys_workspace(dev, B * kv, S, nl)
-    idx = torch.empty((B, kv, n_sel), dtype=torch.int32, device=dev)
-    pooled = torch.empty((B, kv, N), dtype=torch.float32, device=dev) if with_pooled else None
+    ws_s = (torch.empty((rows, S, g_row, nl), dtype=torch.float32, device=dev)
+            if g_row * nl > SMEM_SCORES else None)
+    ws_k = _keys_workspace(dev, rows, S, nl)
+    idx = torch.empty(lead + (n_sel,), dtype=torch.int32, device=dev)
+    pooled = torch.empty(lead + (N,), dtype=torch.float32, device=dev) if with_pooled else None
     rc = lib.freekv_select_pages(
         _ptr(q), _ptr(summ), _ptr(length), _opt_ptr(cand), _ptr(idx), _opt_ptr(pooled),
         _opt_ptr(ws_s), _opt_ptr(ws_k), B, kv, G, N, NP, d, n_sel, min(n_sel, N), S, nl,
-        page_size, n_sink, n_window, POOL_MODES.index(mode), float(scale), code, dev.index,
-        _stream(dev))
+        page_size, n_sink, n_window, POOL_MODES.index(mode), int(per_head),
+        int(keep_invalid), float(scale), code, dev.index, _stream(dev))
     build.check(rc, "select_pages")
     select_pages.launches += 1
     return (idx, pooled) if with_pooled else idx
@@ -667,7 +680,7 @@ def flash_prefill(q, k, v, *, scale, causal=True, window=None, softcap=None):
     kv, Tk = k.shape[1], k.shape[2]
     _require(k.shape == (B, kv, Tk, d) and v.shape == k.shape and H % kv == 0 and Tk >= Tq,
              "flash_prefill: shape mismatch (q (B,H,Tq,d), k/v (B,kv,Tk,d), Tk >= Tq)")
-    _require(d in (64, 128, 256), f"flash_prefill takes d_head 64, 128 or 256, got {d}")
+    _require(d in (64, 80, 128, 256), f"flash_prefill takes d_head 64, 80, 128 or 256, got {d}")
     for t in (q, k, v):
         _require(t.device == dev, f"tensor on {t.device}, expected {dev}")
         _require(t.stride(3) == 1 and t.data_ptr() % 16 == 0

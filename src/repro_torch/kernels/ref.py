@@ -138,15 +138,16 @@ def top_k_lower_index_first(x, k):
     return vals[..., :k], idx[..., :k]
 
 
-def top_ids(vals, ids, n_sel):
-    """Top-k positions of vals (B, kv, n) -> their ids (B, kv, n_sel) int32:
-    ``ids`` None for the positions themselves, else gathered from ``ids``;
-    -1 where the value is <= -5e29 and -1-padded past n."""
+def top_ids(vals, ids, n_sel, keep_invalid=False):
+    """Top-k positions of vals (..., n) -> their ids (..., n_sel) int32:
+    ``ids`` None for the positions themselves, else gathered from ``ids``
+    (B, kv, n); -1 where the value is <= -5e29 (unless ``keep_invalid``:
+    then the ids ``jax.lax.top_k`` returns there) and -1-padded past n."""
     k = min(n_sel, vals.shape[-1])
     top_s, top_i = top_k_lower_index_first(vals, k)
     if ids is not None:
         top_i = torch.gather(ids, 2, top_i)
-    idx = torch.where(top_s > NEG_INF / 2, top_i, -1).to(torch.int32)
+    idx = (top_i if keep_invalid else torch.where(top_s > NEG_INF / 2, top_i, -1)).to(torch.int32)
     if k < n_sel:
         pad = torch.full(idx.shape[:-1] + (n_sel - k,), -1, dtype=torch.int32,
                          device=idx.device)
@@ -155,11 +156,18 @@ def top_ids(vals, ids, n_sel):
 
 
 def select_pages_ref(q, summ, length, n_sel, scale, page_size, n_sink, n_window, mode,
-                     cand=None):
+                     cand=None, per_head=False, keep_invalid=False):
     """Quest scores -> selectable mask -> group pooling -> top-k page ids
-    (reference ``core/selection.py:74-112`` without ``select_top_p`` and
-    ``q_pool``). q (B, kv, G, d); summ (B, N, kv, 2, d); length (B,) int32
-    -> (idx (B, kv, n_sel) int32, -1 for invalid, pooled (B, kv, N) f32).
+    (reference ``core/selection.py:74-100``; ``select_top_p`` and
+    ``q_pool`` are plain tensor ops around it in ``core/selection.py``). q
+    (B, kv, G, d); summ (B, N, kv, 2, d); length (B,) int32 -> (idx (B, kv,
+    n_sel) int32, -1 for invalid, pooled (B, kv, N) f32).
+
+    ``per_head``: Quest's selection (reference ``core/retrieval.py:508-513``),
+    no pooling, each query head's own top-k over its masked scores -> (idx
+    (B, kv, G, n_sel), scores (B, kv, G, N)). ``keep_invalid``: lanes at
+    -1e30 keep the ids ``jax.lax.top_k`` returns (lower ids first), as
+    Quest's and RaaS's raw top-k do.
 
     With ``cand`` (B, kv, m) int32 page ids, -1 invalid: stage 2 of the
     reference's ``centroid_select`` (``core/centroid_index.py:289-330``):
@@ -167,6 +175,11 @@ def select_pages_ref(q, summ, length, n_sel, scale, page_size, n_sink, n_window,
     ties break by candidate position, the ids are ``cand[top_i]`` and
     pooled is (B, kv, m)."""
     N = summ.shape[1]
+    if per_head:
+        scores = page_scores_ref(q, summ, scale)                   # (B,kv,G,N)
+        ok = selectable_mask_ref(N, length, page_size, n_sink, n_window)[:, None, None, :]
+        scores = torch.where(ok, scores, torch.full((), NEG_INF, device=scores.device))
+        return top_ids(scores, None, n_sel, keep_invalid), scores
     if cand is None:
         scores = page_scores_ref(q, summ, scale)                   # (B,kv,G,N)
         ok = selectable_mask_ref(N, length, page_size, n_sink, n_window)
@@ -181,7 +194,7 @@ def select_pages_ref(q, summ, length, n_sel, scale, page_size, n_sink, n_window,
         scores = page_scores_ref(q, summ_c, scale)                 # (B,kv,G,m)
         ok = cand >= 0
     pooled = group_pool_ref(scores, ok, mode)
-    return top_ids(pooled, cand, n_sel), pooled
+    return top_ids(pooled, cand, n_sel, keep_invalid), pooled
 
 
 def centroid_candidates_ref(q, cent, count, cent_assign, length, m, scale, page_size,

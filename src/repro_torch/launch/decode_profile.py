@@ -5,8 +5,13 @@ random bf16 weights, ``torch.profiler`` over one prefill and over a few
 ``serve_step`` calls after warm-up.
 
     PYTHONPATH=src python -m repro_torch.launch.decode_profile [--steps 4] \
-        [--method freekv|shadowkv|centroid] [--kv-quant none|int8|int4] \
-        [--quant-group-size 0] [--window 8] [--completion] [--main-runs]
+        [--arch llama31-8b|qwen25-7b|gemma2-2b|smollm-360m|stablelm-3b|granite-3-8b] \
+        [--method freekv|arkvale|infinigen|quest|shadowkv|raas|streaming|centroid] \
+        [--kv-quant none|int8|int4] [--quant-group-size 0] [--window 8] [--completion] \
+        [--main-runs]
+
+``--arch`` profiles another served arch at full width with the same
+traffic (the default is the main path's llama31-8b).
 
 Prints one JSON line: the prefill's wall s, device-busy s and top kernels;
 per decode step the host wall ms, device-busy ms (sum of kernel and copy
@@ -279,8 +284,11 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--trace-out", default=None,
                     help="write a Chrome trace of the profiled steps here")
+    ap.add_argument("--arch", default=ARCH,
+                    help="a served arch at full width: llama31-8b (the main path), "
+                         "qwen25-7b, gemma2-2b, smollm-360m, stablelm-3b or granite-3-8b")
     ap.add_argument("--method", default="freekv",
-                    help="retriever: freekv, arkvale, shadowkv or centroid")
+                    help="retriever: any of core.retrieval.METHODS but full")
     ap.add_argument("--kv-quant", choices=("none", "int8", "int4"), default="none",
                     help="quantized host KV tier")
     ap.add_argument("--quant-group-size", type=int, default=0,
@@ -306,7 +314,7 @@ def main(argv=None):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    cfg = get_config(ARCH)
+    cfg = get_config(args.arch)
     fkv = FreeKVConfig(method=args.method, offload="host", kv_quant=args.kv_quant,
                        quant_group_size=args.quant_group_size)
     params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)

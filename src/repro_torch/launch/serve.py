@@ -34,9 +34,12 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--arch", default="granite-3-8b-smoke")
+    ap.add_argument("--arch", default="granite-3-8b-smoke",
+                    help="llama31-8b, qwen25-7b, gemma2-2b, smollm-360m, stablelm-3b or "
+                         "granite-3-8b, each also as <arch>-smoke")
     ap.add_argument("--method", default="freekv",
-                    help="retriever: freekv, arkvale, shadowkv, centroid or full")
+                    help="retriever: freekv, arkvale, infinigen, quest, shadowkv, raas, "
+                         "streaming, full or centroid")
     ap.add_argument("--context", type=int, default=512)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--batch", type=int, default=2)

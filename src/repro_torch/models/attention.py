@@ -114,13 +114,14 @@ def attention_auto(cfg: ArchConfig, q, k, v, pos_q, pos_k, causal=True, window=N
     return attention_chunked(cfg, q, k, v, pos_q, pos_k, causal, window)
 
 
-def attention_prefill(cfg: ArchConfig, q, k, v, q_pos, kv_pos):
+def attention_prefill(cfg: ArchConfig, q, k, v, q_pos, kv_pos, window=None):
     """Causal attention of S prompt tokens over Tk >= S keys whose last S
     are their own: q (B,S,H,dh) at positions ``q_pos`` (B,S), k/v
     (B,Tk,Hkv,dh) at ``kv_pos`` (B,Tk) -> (B,S,H,dh). A whole prompt has
     S = Tk and ``q_pos`` = ``kv_pos``; an extension chunk (reference
     ``model._apply_layer_extend``) has ``q_pos`` = Tp..Tp+S-1 and ``kv_pos``
-    = 0..Tp+S-1.
+    = 0..Tp+S-1. ``window`` (gemma2's local layers) masks keys at or before
+    a query's position minus the window, in both forms.
 
     CUDA tensors go to ``ops.flash_prefill`` as transposed (B,H,T,dh) views
     (the kernel takes strides, so nothing is copied), whose bottom-right
@@ -130,7 +131,7 @@ def attention_prefill(cfg: ArchConfig, q, k, v, q_pos, kv_pos):
     reference's."""
     if q.is_cuda:
         o = ops.flash_prefill(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                              scale=_scale(cfg), causal=True,
+                              scale=_scale(cfg), causal=True, window=window,
                               softcap=cfg.attn_logit_softcap)
         return o.transpose(1, 2)
-    return attention_auto(cfg, q, k, v, q_pos, kv_pos, causal=True)
+    return attention_auto(cfg, q, k, v, q_pos, kv_pos, causal=True, window=window)

@@ -13,7 +13,17 @@
 Params are nested dicts of tensors, dense weights in the ``x @ W``
 orientation ``(d_in, d_out)``: ``{"embed": {"tok", "head"?}, "final_norm":
 {"w"}, "layers": [{"norm1", "mixer": {wq, wk, wv, wo}, "norm2", "ffn":
-{up, gate, down}}, ...]}`` with one entry per layer in ``cfg.layers`` order.
+{up, gate, down}, "postnorm1"?, "postnorm2"?}, ...]}`` with one entry per
+layer in ``cfg.layers`` order (the post-block norms under
+``cfg.post_block_norm``, gemma2).
+
+Layers are global attention (``ATTN``, the retriever of ``fkv.method``) or
+sliding-window attention (``ATTN_LOCAL``, gemma2: a ``StreamingRetriever``
+over the last ``cfg.sliding_window`` tokens, no sink, and the window in the
+prefill's attention), as the reference's ``_retrievers``. Each decode layer
+hands its query to the next attention layer's retriever as ``q_proxy``
+(zeros for the first), InfiniGen's proxy query; only global layers count in
+the decode statistics.
 The reference's ``lax.scan`` over stacked periods becomes a Python loop over
 layers; the decode state is ``{"layers": [per-layer state], "pos": (B,)
 int32 on the device, "pos_host": (B,) int32 on the CPU}`` and ``serve_step``
@@ -29,8 +39,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ATTN, DENSE, ArchConfig, FreeKVConfig
-from repro_torch.core.retrieval import make_retriever
+from repro_torch.configs.base import ATTN, ATTN_LOCAL, DENSE, ArchConfig, FreeKVConfig
+from repro_torch.core.retrieval import StreamingRetriever, make_retriever
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 
@@ -42,12 +52,22 @@ DECODE_STAT_KEYS = ("corrected", "kv_heads", "sync_pages", "async_pages",
 
 def check_supported(cfg: ArchConfig):
     for mixer, ffn in cfg.layers:
-        if mixer != ATTN or ffn != DENSE:
+        if mixer not in (ATTN, ATTN_LOCAL) or ffn != DENSE:
             raise NotImplementedError(
                 f"{cfg.name}: layer ({mixer}, {ffn}) is not ported yet; the port "
                 "serves attention + dense-FFN stacks (ROADMAP queue 1, item 9)")
-    if cfg.is_encoder_decoder or cfg.frontend is not None or cfg.post_block_norm:
+    if cfg.is_encoder_decoder or cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: not ported yet (ROADMAP queue 1, item 9)")
+
+
+def retrievers(cfg: ArchConfig, fkv: FreeKVConfig) -> list:
+    """One retriever a layer (reference ``model.py:98-115``): ``ATTN`` ->
+    ``make_retriever``, ``ATTN_LOCAL`` -> the sliding window with no sink.
+    Layers of one kind share one object."""
+    by_kind = {ATTN: make_retriever(cfg, fkv)}
+    if any(m == ATTN_LOCAL for m, _ in cfg.layers):
+        by_kind[ATTN_LOCAL] = StreamingRetriever(cfg, fkv, window=cfg.sliding_window, n_sink=0)
+    return [by_kind[m] for m, _ in cfg.layers]
 
 
 # ---------------------------------------------------------------------------
@@ -85,13 +105,17 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda", dtype=torch.float
         mlp = {"up": dense(d, cfg.d_ff), "down": dense(cfg.d_ff, d)}
         if cfg.gated_mlp:
             mlp["gate"] = dense(d, cfg.d_ff)
-        layers.append({
+        lp = {
             "norm1": _norm(cfg, d, dtype, dev),
             "mixer": {"wq": dense(d, cfg.n_heads * dh), "wk": dense(d, cfg.n_kv_heads * dh),
                       "wv": dense(d, cfg.n_kv_heads * dh), "wo": dense(cfg.n_heads * dh, d)},
             "norm2": _norm(cfg, d, dtype, dev),
             "ffn": mlp,
-        })
+        }
+        if cfg.post_block_norm:
+            lp["postnorm1"] = _norm(cfg, d, dtype, dev)
+            lp["postnorm2"] = _norm(cfg, d, dtype, dev)
+        layers.append(lp)
     return {"embed": embed, "final_norm": _norm(cfg, d, dtype, dev), "layers": layers}
 
 
@@ -131,16 +155,29 @@ def params_from_jax(cfg: ArchConfig, np_params, device="cuda", dtype=None):
 # ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
+def _residual(cfg, lp, x, out, which):
+    """x + out, the block output normed first under ``cfg.post_block_norm``
+    (reference ``model.py:132-135``)."""
+    if cfg.post_block_norm:
+        out = L.apply_norm(cfg, lp["postnorm" + which], out)
+    return x + out
+
+
 def _ffn(cfg, lp, x):
-    return x + L.apply_mlp(cfg, lp["ffn"], L.apply_norm(cfg, lp["norm2"], x))
+    return _residual(cfg, lp, x, L.apply_mlp(cfg, lp["ffn"], L.apply_norm(cfg, lp["norm2"], x)),
+                     "2")
+
+
+def _window(cfg, layer):
+    return cfg.sliding_window if layer[0] == ATTN_LOCAL else None
 
 
 def init_decode_state(cfg: ArchConfig, fkv: FreeKVConfig, batch_size: int,
                       max_len: int, dtype=torch.bfloat16, device="cuda"):
     check_supported(cfg)
     dev = resolve_device(device)
-    r = make_retriever(cfg, fkv)
-    return {"layers": [r.init_state(batch_size, max_len, dtype, dev) for _ in cfg.layers],
+    return {"layers": [r.init_state(batch_size, max_len, dtype, dev)
+                       for r in retrievers(cfg, fkv)],
             "pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
             "pos_host": torch.zeros((batch_size,), dtype=torch.int32)}
 
@@ -171,17 +208,19 @@ def prefill(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, max_len: int,
     B, T = tokens.shape
     dev = x.device
     positions = torch.arange(T, device=dev)[None].expand(B, T)
-    retr = make_retriever(cfg, fkv)
+    retrs = retrievers(cfg, fkv)
     states, kvs = [], []
     for i, lp in enumerate(params["layers"]):
         h = L.apply_norm(cfg, lp["norm1"], x)
         q, k, v = attn.qkv_proj(cfg, lp["mixer"], h, positions)
-        o = attn.attention_prefill(cfg, q, k, v, positions, positions)
-        x = x + attn.out_proj(cfg, lp["mixer"], o)
+        o = attn.attention_prefill(cfg, q, k, v, positions, positions,
+                                   window=_window(cfg, cfg.layers[i]))
+        x = _residual(cfg, lp, x, attn.out_proj(cfg, lp["mixer"], o), "1")
         x = _ffn(cfg, lp, x)
         if build_state:
-            st = into[i] if into is not None else retr.init_state(B, max_len, state_dtype, dev)
-            states.append(retr.prefill(st, k, v, q[:, -1].contiguous()))
+            r = retrs[i]
+            st = into[i] if into is not None else r.init_state(B, max_len, state_dtype, dev)
+            states.append(r.prefill(st, k, v, q[:, -1].contiguous()))
         if return_kv:
             kvs.append((k, v))
         del q, k, v, o, h
@@ -230,7 +269,7 @@ def prefill_extend(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, kv, prefix
     Tp = int(prefix_len)
     q_pos = torch.arange(Tp, Tp + S, device=dev)[None].expand(B, S)
     kv_pos = torch.arange(Tp + S, device=dev)[None].expand(B, Tp + S)
-    retr = make_retriever(cfg, fkv)
+    retrs = retrievers(cfg, fkv)
     states = []
     for i, lp in enumerate(params["layers"]):
         h = L.apply_norm(cfg, lp["norm1"], x)
@@ -238,12 +277,14 @@ def prefill_extend(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, kv, prefix
         k_full, v_full = kv[i][0][:, :Tp + S], kv[i][1][:, :Tp + S]
         k_full[:, Tp:].copy_(k)
         v_full[:, Tp:].copy_(v)
-        o = attn.attention_prefill(cfg, q, k_full, v_full, q_pos, kv_pos)
-        x = x + attn.out_proj(cfg, lp["mixer"], o)
+        o = attn.attention_prefill(cfg, q, k_full, v_full, q_pos, kv_pos,
+                                   window=_window(cfg, cfg.layers[i]))
+        x = _residual(cfg, lp, x, attn.out_proj(cfg, lp["mixer"], o), "1")
         x = _ffn(cfg, lp, x)
         if build_state:
-            st = into[i] if into is not None else retr.init_state(B, max_len, state_dtype, dev)
-            states.append(retr.prefill(st, k_full, v_full, q[:, -1].contiguous()))
+            r = retrs[i]
+            st = into[i] if into is not None else r.init_state(B, max_len, state_dtype, dev)
+            states.append(r.prefill(st, k_full, v_full, q[:, -1].contiguous()))
         del q, k, v, o, h, k_full, v_full
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.lm_logits(cfg, params["embed"], x[:, -1])
@@ -273,23 +314,32 @@ def _info_stats(info, B, dev):
 def serve_step(cfg: ArchConfig, fkv: FreeKVConfig, params, state, tokens,
                collect_stats=False):
     """tokens (B, 1) -> (logits (B, padded_vocab), state[, stats]). One decode
-    step through every layer; ``state`` is updated in place and returned."""
+    step through every layer; ``state`` is updated in place and returned.
+    Each layer's retriever gets the previous attention layer's query as
+    ``q_proxy`` (zeros for the first, reference ``model.py:647-664``; None
+    for every method but InfiniGen, the one that reads it);
+    ``stats`` sum the global (``ATTN``) layers' info only."""
     x = L.embed_tokens(cfg, params["embed"], tokens)
     B = x.shape[0]
     dev = x.device
     pos = state["pos"]
     pos_host = state["pos_host"]
-    retr = make_retriever(cfg, fkv)
+    retrs = retrievers(cfg, fkv)
+    # only InfiniGen reads q_proxy; it selects from zeros at the first layer
+    q_proxy = (torch.zeros((B, cfg.n_heads, cfg.d_head), dtype=x.dtype, device=dev)
+               if fkv.method == "infinigen" else None)
     stats = {k: torch.zeros((B,), dtype=torch.float32, device=dev) for k in DECODE_STAT_KEYS}
     for i, lp in enumerate(params["layers"]):
         h = L.apply_norm(cfg, lp["norm1"], x)
         q, k, v = attn.qkv_proj(cfg, lp["mixer"], h, pos[:, None])
-        o, st, info = retr.decode(state["layers"][i], q[:, 0].contiguous(),
-                                  k[:, 0], v[:, 0], length_host=pos_host)
+        q = q[:, 0].contiguous()
+        o, st, info = retrs[i].decode(state["layers"][i], q, k[:, 0], v[:, 0],
+                                      length_host=pos_host, q_proxy=q_proxy)
+        q_proxy = q
         state["layers"][i] = st
-        x = x + attn.out_proj(cfg, lp["mixer"], o[:, None])
+        x = _residual(cfg, lp, x, attn.out_proj(cfg, lp["mixer"], o[:, None]), "1")
         x = _ffn(cfg, lp, x)
-        if collect_stats:
+        if collect_stats and cfg.layers[i][0] == ATTN:
             s = _info_stats(info, B, dev)
             stats = {key: stats[key] + s[key] for key in stats}
     x = L.apply_norm(cfg, params["final_norm"], x)

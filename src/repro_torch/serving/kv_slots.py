@@ -64,11 +64,15 @@ class SlotPool:
         self.device = resolve_device(device)
         self.state = init_decode_state(cfg, fkv, num_slots, max_len, state_dtype, self.device)
         # every leaf of an empty state is one constant (zeros, or -1 for
-        # the position and page-id leaves): read them off a tiny one
+        # the position and page-id leaves, -1e9 for RaaS's timestamps): read
+        # them off a tiny one, a layer at a time (gemma2's local layers hold
+        # other leaves than its global ones; an empty leaf, a sink of 0
+        # tokens, takes 0)
         tiny = init_decode_state(cfg, fkv, 1, fkv.page_size, state_dtype, "cpu")
-        self._fill = {k: t.flatten()[0].item() for k, t in _tensors(tiny["layers"][0]).items()}
+        self._fill = [{k: t.flatten()[0].item() if t.numel() else 0
+                       for k, t in _tensors(layer).items()} for layer in tiny["layers"]]
         self._host = self.device.type == "cuda" and any(
-            not t.is_cuda for t in _tensors(self.state["layers"][0]).values())
+            not t.is_cuda for layer in self.state["layers"] for t in _tensors(layer).values())
         self._free: List[int] = list(range(num_slots - 1, -1, -1))
         self._dirty: Set[int] = set()
         self.owner: List[Optional[int]] = [None] * num_slots
@@ -120,10 +124,10 @@ class SlotPool:
 
     def _reset_row(self, slot: int):
         """Row ``slot`` to the empty state, all but the pool pages."""
-        for layer in self.state["layers"]:
+        for layer, fill in zip(self.state["layers"], self._fill):
             for k, t in _tensors(layer).items():
                 if k not in POOL_KEYS:
-                    paging.slot_read_leaf(t, slot).fill_(self._fill[k])
+                    paging.slot_read_leaf(t, slot).fill_(fill[k])
         self.state["pos"][slot] = 0
         self.state["pos_host"][slot] = 0
 

@@ -806,3 +806,48 @@ def test_cuda_slot_swap_roundtrip_exact(kv_quant):
     for lb, la, lh in zip(before["layers"], after["layers"], host["layers"]):
         for k in lb:
             assert lh[k].dtype == lb[k].dtype and torch.equal(lb[k], la[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [(4, 7, 128), (5, 3, 64), (32, 1, 80), (4, 2, 256)],
+                         ids=lambda x: "kv%d-G%d-d%d" % x)
+def test_cuda_select_pages_per_head_and_kept_ids(layout):
+    """On the card: select_pages per query head (Quest) and pooled with the
+    unselectable lanes' ids kept (RaaS's seeding), at the served archs'
+    head layouts, ids exactly the plain version's on far-apart inputs and
+    where fewer pages are selectable than lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; chip_smoke.py runs this on the card")
+    from repro_torch.launch.select_bench import select_inputs
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(3)
+    kv, G, d = layout
+    q, summ, length = select_inputs("distinct", 2, kv, G, d, 259, 56, torch.bfloat16, g, dev)
+    for n in (length, torch.full_like(length, 128 + 160 + 5 * 32)):
+        for per_head in (True, False):
+            kw = dict(n_sel=56, scale=d ** -0.5, page_size=32, n_sink=128, n_window=160,
+                      per_head=per_head, keep_invalid=True)
+            got = ops.select_pages(q, summ, n, **kw)
+            want, _ = ref.select_pages_ref(q, summ, n, 56, d ** -0.5, 32, 128, 160,
+                                           "mean_softmax", None, per_head, True)
+            assert torch.equal(got, want) and bool((got >= 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("tq", [300, 97])
+def test_cuda_flash_prefill_d80(dtype, tq):
+    """On the card: flash_prefill at d_head 80 (stablelm-3b) on the d=128
+    tiles, a whole prompt and an extension, within ``_tol`` of its plain
+    version; the output's layout is q's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; chip_smoke.py runs this on the card")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn(1, tq, 4, 80, generator=g, device=dev).to(dtype).transpose(1, 2)
+    k = torch.randn(1, 300, 4, 80, generator=g, device=dev).to(dtype).transpose(1, 2)
+    v = torch.randn(1, 300, 4, 80, generator=g, device=dev).to(dtype).transpose(1, 2)
+    got = ops.flash_prefill(q, k, v, scale=80 ** -0.5)
+    assert got.shape == q.shape
+    torch.testing.assert_close(got.float(), ref.flash_prefill_ref(q, k, v, 80 ** -0.5).float(),
+                               **_tol(dtype))

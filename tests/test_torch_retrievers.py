@@ -1,5 +1,6 @@
-"""The port's ShadowKV and Centroid retrievers, their kernels' plain versions
-and the centroid index, held against the reference on the CPU. Inputs come
+"""The port's ShadowKV, Centroid, Quest, RaaS, StreamingLLM and InfiniGen
+retrievers, their kernels' plain versions and the centroid index, held
+against the reference on the CPU. Inputs come
 from numpy and go through both packages (the reference's Pallas kernels in
 interpret mode). Integers (page ids, candidate ids, cluster assignments and
 counts, block counts, greedy tokens) are exactly equal; gathers are exact;
@@ -30,8 +31,10 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import FreeKVConfig
 from repro_torch.core import centroid_index, paging, recall
 from repro_torch.core.recall_pipeline import RecallExecutor
-from repro_torch.core.retrieval import (CentroidRetriever, ShadowKVRetriever,
-                                        make_retriever)
+from repro_torch.core import retrieval
+from repro_torch.core.retrieval import (METHODS, CentroidRetriever, FreeKVRetriever,
+                                        FullRetriever, QuestRetriever, RaaSRetriever,
+                                        ShadowKVRetriever, StreamingRetriever, make_retriever)
 from repro_torch.data.synthetic import needle_stream
 from repro_torch.kernels import ops, ref
 from repro_torch.models import model
@@ -394,9 +397,159 @@ def test_make_retriever_ports_shadowkv_and_centroid():
     assert isinstance(make_retriever(cfg, FreeKVConfig(method="shadowkv")), ShadowKVRetriever)
     assert isinstance(make_retriever(cfg, FreeKVConfig(retriever="centroid")),
                       CentroidRetriever)
-    for m in ("quest", "infinigen", "raas", "streaming"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            make_retriever(cfg, FreeKVConfig(method=m))
+
+
+def test_make_retriever_builds_all_nine_methods_as_the_reference():
+    """Every method of the reference's ``make_retriever`` builds, each as
+    the reference's class and flags; an unknown one raises."""
+    cfg = get_config(ARCH)
+    want = {"freekv": FreeKVRetriever, "arkvale": FreeKVRetriever,
+            "infinigen": FreeKVRetriever, "quest": QuestRetriever,
+            "shadowkv": ShadowKVRetriever, "raas": RaaSRetriever,
+            "streaming": StreamingRetriever, "full": FullRetriever,
+            "centroid": CentroidRetriever}
+    assert set(want) == set(METHODS)
+    for m, cls in want.items():
+        assert type(make_retriever(cfg, FreeKVConfig(method=m))) is cls, m
+    st = make_retriever(cfg, FreeKVConfig(method="streaming", budget=256, n_sink=32))
+    assert (st.window, st.n_sink) == (224, 32)
+    for m, flags in (("freekv", (True, False, False)), ("arkvale", (False, False, False)),
+                     ("infinigen", (False, True, True))):
+        r = make_retriever(cfg, FreeKVConfig(method=m))
+        assert (r.speculative, r.proxy_query, r.token_wise_recall) == flags, m
+    with pytest.raises(ValueError, match="unknown method"):
+        make_retriever(cfg, FreeKVConfig(method="snapkv"))
+
+
+def test_attend_refuses_partial_pages_off_the_cpu():
+    """A decode attention over a length that is not a whole number of pages
+    cannot be paged_attention: off the CPU it raises (here on the meta
+    device) rather than take the plain version; on the CPU it is the plain
+    einsum, equal to the full oracle's."""
+    cfg = get_config(ARCH)
+    fkv = FreeKVConfig(**SMALL)
+    B, kv, L, d = 1, cfg.n_kv_heads, 3 * fkv.page_size + 1, cfg.d_head
+    rng = np.random.default_rng(3)
+    q = _t(rng.standard_normal((B, cfg.n_heads, d)).astype(np.float32))
+    k = _t(rng.standard_normal((B, kv, L, d)).astype(np.float32))
+    pos = torch.arange(L, dtype=torch.int32)[None, None].expand(B, kv, L).contiguous()
+    cur = torch.full((B,), L - 1, dtype=torch.int32)
+    got = retrieval._attend(cfg, q, k, k, pos, cur, fkv=fkv)
+    torch.testing.assert_close(got, retrieval._attend(cfg, q, k, k, pos, cur), **TOL)
+    with pytest.raises(ValueError, match="whole number of"):
+        retrieval._attend(cfg, *(t.to("meta") for t in (q, k, k, pos, cur)), fkv=fkv)
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_make_retriever_builds_every_method(method):
+    """Each of the nine methods builds and serves a prefill and a decode
+    step on the CPU with finite outputs of the query's shape."""
+    cfg = get_config(ARCH)
+    r = make_retriever(cfg, FreeKVConfig(method=method, **SMALL))
+    rng = np.random.default_rng(1)
+    k = _t(rng.standard_normal((1, 64, cfg.n_kv_heads, cfg.d_head)).astype(np.float32))
+    q = _t(rng.standard_normal((1, cfg.n_heads, cfg.d_head)).astype(np.float32))
+    st = r.prefill(r.init_state(1, 96, torch.float32, "cpu"), k, k, q)
+    o, st, info = r.decode(st, q, k[:, 0], k[:, 0], q_proxy=q)
+    assert o.shape == q.shape and torch.isfinite(o).all()
+    assert int(st["length"][0]) == 65 and info["granularity"] in ("page", "token")
+
+
+# ---------------------------------------------------------------------------
+# Quest, RaaS, StreamingLLM and InfiniGen against the reference
+# ---------------------------------------------------------------------------
+NEW = ("quest", "raas", "streaming", "infinigen")
+# narrow configs with the served archs' real head layouts (heads, KV heads,
+# d_head): qwen25-7b G=7, smollm-360m G=3, stablelm-3b G=1, gemma2-2b G=2
+REAL_LAYOUTS = {"qwen25-7b": (28, 4, 128), "smollm-360m": (15, 5, 64),
+                "stablelm-3b": (32, 32, 80), "gemma2-2b": (8, 4, 256)}
+
+
+def _pair_retrievers(get_a, get_b, method, layout=None, arch=ARCH):
+    cfgs = []
+    for get in (get_a, get_b):
+        c = get(arch)
+        if layout is not None:
+            c = dataclasses.replace(c, n_heads=layout[0], n_kv_heads=layout[1],
+                                    d_head=layout[2])
+        cfgs.append(c)
+    return cfgs
+
+
+def _drive_new(jcfg, cfg, method, steps, seed, B=2, T=100):
+    """Prefill a T-token prompt, then ``steps`` decode steps with a query
+    that drifts and the previous step's query as ``q_proxy`` (zeros first):
+    every state leaf equal (integers exactly, floats within 2e-5) after the
+    prefill and after each step, outputs within 2e-5, the block counts and
+    the granularity equal. Returns the number of steps on which a page
+    completed."""
+    jr, r = jmake_retriever(jcfg, JFreeKVConfig(method=method, **SMALL)), \
+        make_retriever(cfg, FreeKVConfig(method=method, **SMALL))
+    rng = np.random.default_rng(seed)
+    kv, H, d = cfg.n_kv_heads, cfg.n_heads, cfg.d_head
+    k = rng.standard_normal((B, T, kv, d)).astype(np.float32)
+    v = rng.standard_normal(k.shape).astype(np.float32)
+    base = rng.standard_normal((B, H, d)).astype(np.float32)
+    # the reference jitted, a compile a shape instead of one an op (its
+    # info's granularity, a string, stays outside)
+    def jdecode_info(*a, **kw):
+        o, st_, info = jr.decode(*a, **kw)
+        return o, st_, {k_: x for k_, x in info.items() if k_ != "granularity"}
+
+    jdecode = jax.jit(jdecode_info)
+    jst = jax.jit(jr.prefill)(jr.init_state(B, 160, jnp.float32), jnp.asarray(k),
+                              jnp.asarray(v), jnp.asarray(base))
+    st = r.prefill(r.init_state(B, 160, torch.float32, "cpu"), _t(k), _t(v), _t(base))
+
+    def same(where):
+        assert set(jst) <= set(st), where
+        for key in jst:
+            a, b = np.asarray(jst[key]), st[key].numpy()
+            if a.dtype.kind == "f":
+                np.testing.assert_allclose(b, a, **TOL, err_msg=f"{where} {key}")
+            else:
+                np.testing.assert_array_equal(b, a, err_msg=f"{where} {key}")
+
+    same("prefill")
+    qp = np.zeros_like(base)
+    completed = 0
+    for t in range(steps):
+        q = (base + (0.3, 1.5)[t % 3 == 0] * rng.standard_normal(base.shape)).astype(np.float32)
+        kn = rng.standard_normal((B, kv, d)).astype(np.float32)
+        vn = rng.standard_normal(kn.shape).astype(np.float32)
+        jo, jst, jinfo = jdecode(jst, jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn),
+                                 q_proxy=jnp.asarray(qp))
+        o, st, info = r.decode(st, _t(q), _t(kn), _t(vn), q_proxy=_t(qp))
+        np.testing.assert_allclose(o.numpy(), np.asarray(jo), **TOL)
+        same(f"step {t}")
+        for key in ("corrected", "sync_pages", "async_pages"):
+            np.testing.assert_array_equal(_n(info[key]), np.asarray(jinfo[key]), err_msg=key)
+        assert info["granularity"] == ("token" if method == "infinigen" else "page")
+        completed += int((int(st["length"][0]) % SMALL["page_size"]) == 0)
+        qp = q
+    return completed
+
+
+@pytest.mark.parametrize("method", NEW)
+def test_new_retriever_matches_reference(method):
+    """Quest, RaaS, StreamingLLM and InfiniGen: a prefill and 16 decode
+    steps (two page completions) against the reference's, every state leaf
+    compared: RaaS's kept page ids and timestamps and Quest's pool and
+    summaries exactly, InfiniGen's selected ids (from the proxy query)
+    exactly."""
+    jcfg, cfg = _pair_retrievers(jget_config, get_config, method)
+    assert _drive_new(jcfg, cfg, method, 16, seed=7) == 2
+
+
+@pytest.mark.parametrize("arch", sorted(REAL_LAYOUTS))
+def test_new_retrievers_real_head_layouts(arch):
+    """The four new retrievers and FreeKV at a served arch's real head
+    layout (G = 7, 3, 1 or 2; d_head 128, 64, 80 or 256), 6 decode steps
+    each (a page completing), against the reference's."""
+    for method in NEW + ("freekv",):
+        jcfg, cfg = _pair_retrievers(jget_config, get_config, method, REAL_LAYOUTS[arch])
+        assert cfg.group_size == REAL_LAYOUTS[arch][0] // REAL_LAYOUTS[arch][1]
+        assert _drive_new(jcfg, cfg, method, 6, seed=8, T=90) == 1
 
 
 # ---------------------------------------------------------------------------

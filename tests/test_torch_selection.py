@@ -1,12 +1,18 @@
 """The fused selection wrappers (``ops.select_pages``, ``ops.centroid_candidates``)
 held against the reference package on the CPU, where they run their plain
 versions, and a numpy model of the CUDA kernels' cluster split and top-k
-held against the stable sort.
+held against the stable sort. Also the selection's variants around the
+launch: MaxQ/MeanQ query pooling, the top-p budget, Quest's per-query-head
+top-k and RaaS's raw top-k, whose unselectable lanes keep
+``jax.lax.top_k``'s ids.
 
 Inputs come from numpy and go through both packages: page and candidate ids
 exactly equal, pooled scores within ``tests/test_kernels.py::_tol`` (float32).
 The reference runs its Pallas scoring kernels in interpret mode
 (``use_kernels=True``)."""
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +24,7 @@ from repro.core import centroid_index as jcentroid
 from repro.core import selection as jselection
 from repro_torch.configs import get_config
 from repro_torch.configs.base import FreeKVConfig
-from repro_torch.core import centroid_index
+from repro_torch.core import centroid_index, selection
 from repro_torch.kernels import ops, ref
 
 torch.set_float32_matmul_precision("highest")
@@ -272,3 +278,121 @@ def test_select_split_main_path_shape():
     row is a cluster of 4 blocks of 64 or 65 pages: 128 blocks, one wave."""
     assert ops.select_split(259, 32, 132) == 4
     assert {n1 - n0 for n0, n1 in (ops.split_range(259, 4, r) for r in range(4))} == {64, 65}
+
+
+# ---------------------------------------------------------------------------
+# MaxQ/MeanQ, the top-p budget, Quest's and RaaS's raw top-k
+# ---------------------------------------------------------------------------
+def _scale(d):
+    return 1.0 / d ** 0.5
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "k_gt_selectable"])
+@pytest.mark.parametrize("q_pool", ["max", "mean"])
+def test_q_pool_matches_reference(q_pool, case):
+    """MaxQ/MeanQ (``q_pool``): q pooled over the group before scoring, then
+    repeated, around the same launch; page ids exactly the reference's,
+    pooled scores within 2e-5."""
+    jcfg, jfkv, cfg, fkv = _cfgs("mean_softmax")
+    q, summ, length, n_sel = _select_case(case, np.random.default_rng(21), cfg)
+    jidx, jpooled = jselection.select_pages(jcfg, jfkv, jnp.asarray(q), jnp.asarray(summ),
+                                            jnp.asarray(length), n_sel, q_pool=q_pool)
+    idx, pooled = selection.select_pages(cfg, fkv, _t(q), _t(summ), _t(length), n_sel,
+                                         q_pool=q_pool)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_allclose(pooled.numpy(), np.asarray(jpooled), **TOL)
+    plain, _ = selection.select_pages(cfg, fkv, _t(q), _t(summ), _t(length), n_sel)
+    if case == "random":
+        assert not torch.equal(idx, plain)      # the pooling changes the selection
+
+
+@pytest.mark.parametrize("mode", ["mean_softmax", "max_softmax", "mean_qk"])
+@pytest.mark.parametrize("top_p", [0.3, 0.5, 0.9, 0.999])
+def test_select_top_p_matches_reference(top_p, mode):
+    """The dynamic budget (``select_top_p``, the reference's
+    ``test_retrieval.py::test_top_p_dynamic_budget`` inputs): ids exactly
+    the reference's; the kept pages are a prefix of the static top-k, at
+    least one a row; a qk pooling mode keeps the static top-k."""
+    B, n_pages, n_sel = 2, 16, 8
+    kw = dict(page_size=8, budget=10 ** 5, n_sink=8, n_window=8, group_pool=mode)
+    jcfg, cfg = jget_config(ARCH), get_config(ARCH)
+    key = jax.random.PRNGKey(3)
+    q = np.asarray(jax.random.normal(key, (B, cfg.n_heads, cfg.d_head))) * 3
+    # sorted so that lo <= hi, as a page summary is (the bound's two forms
+    # agree only then)
+    summ = np.sort(np.asarray(jax.random.normal(jax.random.fold_in(key, 1),
+                                                (B, n_pages, cfg.n_kv_heads, 2, cfg.d_head))),
+                   axis=3)
+    length = np.array([n_pages * 8, n_pages * 8], np.int32)
+    got = {}
+    for p_ in (0.0, top_p):
+        jidx, _ = jselection.select_pages(jcfg, JFreeKVConfig(**kw, select_top_p=p_),
+                                          jnp.asarray(q), jnp.asarray(summ),
+                                          jnp.asarray(length), n_sel)
+        idx, _ = selection.select_pages(cfg, FreeKVConfig(**kw, select_top_p=p_), _t(q),
+                                        _t(summ), _t(length), n_sel, with_pooled=False)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx), err_msg=f"top_p={p_}")
+        got[p_] = idx.numpy()
+    full, part = got[0.0], got[top_p]
+    assert ((part >= 0).sum(-1) >= 1).all()
+    for b in range(B):
+        for h in range(cfg.n_kv_heads):
+            kept = part[b, h][part[b, h] >= 0]
+            np.testing.assert_array_equal(kept, full[b, h][: len(kept)])
+    if mode == "mean_qk":
+        np.testing.assert_array_equal(part, full)
+    elif top_p == 0.3:
+        assert (part >= 0).sum() < (full >= 0).sum()
+
+
+LAYOUTS = [(4, 2, 64), (28, 4, 128), (15, 5, 64), (32, 32, 80), (8, 4, 256)]
+
+
+def _layout_cfg(H, kv, d):
+    return dataclasses.replace(get_config(ARCH), n_heads=H, n_kv_heads=kv, d_head=d)
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "no_selectable", "k_gt_selectable"])
+@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda x: "H%d-kv%d-d%d" % x)
+def test_per_head_top_pages_match_quest(layout, case):
+    """Quest's selection (reference ``retrieval.py:508-513``): each query
+    head's own top-k of its masked scores, at the head layouts of the
+    served archs (G = 2, 7, 3, 1, 2; d_head 64 to 256). Ids exactly
+    ``jax.lax.top_k``'s, unselectable lanes included: their ids, lower
+    first, never -1."""
+    cfg = _layout_cfg(*layout)
+    fkv = FreeKVConfig(page_size=P, budget=64, n_sink=N_SINK, n_window=N_WIN)
+    q, summ, length, n_sel = _select_case(case, np.random.default_rng(31), cfg)
+    B, H, d = q.shape
+    jfkv = JFreeKVConfig(page_size=P, budget=64, n_sink=N_SINK, n_window=N_WIN)
+    s = jselection.page_scores_minmax(jnp.asarray(q), jnp.asarray(summ), _scale(d))
+    valid = jselection.selectable_mask(None, jfkv, summ.shape[1], jnp.asarray(length))
+    s = jnp.where(valid[:, None, :], s, jselection.NEG_INF)
+    want = np.asarray(jax.lax.top_k(s, n_sel)[1]).reshape(B, cfg.n_kv_heads, -1, n_sel)
+    idx, _ = selection.select_pages(cfg, fkv, _t(q), _t(summ), _t(length), n_sel,
+                                    with_pooled=False, per_head=True, keep_invalid=True)
+    assert idx.dtype == torch.int32 and idx.shape == want.shape
+    np.testing.assert_array_equal(idx.numpy(), want)
+    assert (idx >= 0).all()
+    if case == "no_selectable":
+        assert (idx[1] == torch.arange(n_sel, dtype=torch.int32)).all()
+
+
+@pytest.mark.parametrize("case", ["random", "underflow", "no_selectable", "k_gt_selectable"])
+@pytest.mark.parametrize("mode", MODES)
+def test_pooled_top_pages_match_raas_seeding(mode, case):
+    """RaaS's prefill seeding (reference ``retrieval.py:693-698``): the group-
+    pooled scores' top-k as ``jax.lax.top_k`` returns it, unselectable
+    lanes keeping their ids; pages whose MeanS probability underflows to
+    0.0 still rank above unselectable ones."""
+    jcfg, jfkv, cfg, fkv = _cfgs(mode)
+    q, summ, length, n_sel = _select_case(case, np.random.default_rng(41), cfg)
+    d = q.shape[-1]
+    s = jselection.page_scores_minmax(jnp.asarray(q), jnp.asarray(summ), _scale(d))
+    valid = jselection.selectable_mask(jcfg, jfkv, summ.shape[1], jnp.asarray(length))
+    pooled = jselection.group_consistent_scores(jcfg, s, valid, mode)
+    want = np.asarray(jax.lax.top_k(pooled, n_sel)[1])
+    idx, _ = selection.select_pages(cfg, fkv, _t(q), _t(summ), _t(length), n_sel,
+                                    with_pooled=False, keep_invalid=True)
+    np.testing.assert_array_equal(idx.numpy(), want)
+    assert (idx >= 0).all()
