@@ -2193,6 +2193,271 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+# phase 4d: the reference's sampled key streams and speculative decoding at
+# full width: llama31-8b bf16, freekv/none, pinned pool, recall overlap,
+# continuous scheduler over 4 slots, the first four phase-4 needle prompts
+SPEC_PROMPTS = CONT_PROMPTS[:4]
+SPEC_NEW = 16
+SPEC_TEMPERATURE, SPEC_TOP_P = 0.8, 0.9
+
+
+def _ulp(x, dt):
+    """The spacing of ``dt`` at the float32 values ``x``."""
+    mant = 7 if dt == torch.bfloat16 else 23
+    e = torch.floor(torch.log2(x.abs().clamp_min(torch.finfo(dt).tiny)))
+    return torch.exp2(e - mant)
+
+
+def check_sampler(dev, vocab, padded):
+    """(a) Seeded bf16 and fp32 logits at llama31-8b's padded vocabulary
+    (the padded lanes at finfo.min) through ``sample_step`` (a key a row:
+    4 rows, and 20 = a verify pass's S * B) and ``sample`` (one key) on the
+    card and on the CPU. Keys and random bits must be equal; drawn ids
+    too, except where the CPU's top two perturbed logits lie within 4 ulp
+    of each other: those are counted and printed, as are rows where top-p
+    kept a different count on the card (no exemption)."""
+    from repro_torch.serving import sampling
+    keys = torch.stack([sampling.request_key(0, u) for u in range(20)])
+    counts = torch.arange(20, dtype=torch.int32) * 7
+    sk = sampling.step_keys(keys, counts)
+    sk_dev = sampling.step_keys(keys.to(dev), counts.to(dev))
+    require(torch.equal(sk, sk_dev.cpu()), "step keys differ between the card and the CPU")
+    for width in (8, 32):
+        for k_cpu, k_dev, shape in ((sk, sk_dev, (padded,)), (sk[0], sk_dev[0], (4, padded))):
+            require(torch.equal(sampling.random_bits(k_cpu, width, shape),
+                                sampling.random_bits(k_dev, width, shape).cpu()),
+                    f"random bits differ between the card and the CPU ({width} bits, {shape})")
+    g = torch.Generator().manual_seed(11)
+    out = {"rows": {}, "ms": {}}
+    for dt in (torch.bfloat16, torch.float32):
+        base = torch.randn((20, padded), generator=g) * 3
+        logits = base.to(dt)
+        logits[:, vocab:] = torch.finfo(dt).min
+        ld = logits.to(dev)
+        for top_p in (1.0, SPEC_TOP_P):
+            cfg = sampling.SamplerConfig(SPEC_TEMPERATURE, top_p)
+            label = f"{str(dt).split('.')[-1]} top_p {top_p}"
+            got = {"step": (sampling.sample_step(logits, cfg, sk),
+                            sampling.sample_step(ld, cfg, sk_dev).cpu()),
+                   "one_key": (sampling.sample(logits[:4], cfg, sk[0]),
+                               sampling.sample(ld[:4], cfg, sk_dev[0]).cpu())}
+            filt = sampling._filter_logits(logits, cfg)
+            kept = torch.isfinite(filt).sum(-1)
+            kept_dev = torch.isfinite(sampling._filter_logits(ld, cfg)).sum(-1).cpu()
+            pert = {"step": sampling.gumbel(sk, (padded,), dt) + filt,
+                    "one_key": sampling.gumbel(sk[0], (4, padded), dt) + filt[:4]}
+            tally = {"draws": 0, "equal": 0, "near_tie": 0, "top_p_kept_differs": 0}
+            for what, (a, b) in got.items():
+                top2 = torch.topk(pert[what].float(), 2, dim=-1).values
+                tie = (top2[:, 0] - top2[:, 1]) <= 4 * _ulp(top2[:, 0], dt)
+                tally["draws"] += a.numel()
+                tally["equal"] += int((a == b).sum())
+                tally["near_tie"] += int(((a != b) & tie).sum())
+                tally["top_p_kept_differs"] += int((kept != kept_dev)[:a.shape[0]].sum())
+                require(bool(((a == b) | tie).all()),
+                        f"sampled ids differ between the card and the CPU ({label}, {what}): "
+                        f"{a.tolist()} vs {b.tolist()}")
+            out["rows"][label] = tally
+            for rows in (4, 20):
+                dev_ms, call_ms = time_ms(lambda lg, k: sampling.sample_step(lg, cfg, k),
+                                          [(ld[:rows], sk_dev[:rows])], iters=10)
+                out["ms"][f"{label} rows {rows}"] = {"device_ms": dev_ms, "call_ms": call_ms}
+    return out
+
+
+def _spec_requests(cfg, hints=None):
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.serving.engine import Request
+    return [Request(uid=i, tokens=next(needle_stream(cfg.vocab_size, n, P, seed=i)).tokens,
+                    max_new_tokens=SPEC_NEW, draft_hint=None if hints is None else hints[i])
+            for i, n in enumerate(SPEC_PROMPTS)]
+
+
+def spec_run(dev, ops, cfg, params, draft_len, temperature=0.0, hints=None):
+    """One run of phase 4d with the counts set to 0 just before it and
+    read just after. A verify iteration launches, a layer, S = 1 +
+    draft_len times what a decode step does (select_pages 1, recall_gather
+    2: top-up and staged, paged_attention 1, complete_page 1) and one
+    recall_gather more, the rollback's; each admission's prefill one
+    flash_prefill, fill_pages, select_pages and recall_gather a layer."""
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.obs import Observability
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.sampling import SamplerConfig
+
+    fkv = FreeKVConfig(method="freekv", offload="host", draft_len=draft_len)
+    sampler = (SamplerConfig(temperature, SPEC_TOP_P) if temperature else SamplerConfig())
+    reqs = _spec_requests(cfg, hints)
+    eng = ServeEngine(cfg, fkv, params, max_len=MAX_LEN, batch_size=B,
+                      state_dtype=torch.bfloat16, sampler=sampler,
+                      obs=Observability(enabled=True), device=dev)
+    require(eng.spec_decode == (draft_len > 0), "spec decoding fell back on the main path")
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    em = eng.last_metrics
+    sd = em.summary()["specdec"]
+    require(eng.last_logits_finite, f"non-finite logits (draft_len {draft_len})")
+    L, S, n_pre = cfg.n_layers, draft_len + 1, len(reqs)
+    iters = sd["verify_steps"] + sd["idle_iterations"] if draft_len else em.steps
+    want = {"flash_prefill": L * n_pre, "fill_pages": L * n_pre,
+            "complete_page": L * S * iters, "paged_attention": L * S * iters,
+            "select_pages": L * (S * iters + n_pre),
+            "recall_gather": L * ((2 * S + (1 if draft_len else 0)) * iters + n_pre)}
+    for name, n in want.items():
+        require(launches[name] == n, f"{name} launched {launches[name]} times, {n} expected "
+                f"(draft_len {draft_len}, {iters} iterations of {S} rows)")
+    for name in OFF_PATH + ("recall_gather_quant", "recall_values", "recall_values_quant",
+                            "centroid_candidates"):
+        require(launches[name] == 0, f"{name} launched under spec decoding")
+    gen_tokens = sum(len(o.tokens) for o in outs)
+    committed = gen_tokens - len(outs)          # the first tokens come from the prefills
+    decode_s = wall - sum(o.prefill_s for o in outs)
+    info = {"draft_len": draft_len, "temperature": temperature, "hinted": hints is not None,
+            "tokens": [o.tokens for o in outs], "accept_rate": sd["accept_rate"],
+            "tokens_per_target_step": sd["tokens_per_step"],
+            "verify_steps": sd["verify_steps"], "idle_iterations": sd["idle_iterations"],
+            "steps": em.steps, "decode_ms_per_committed_token": 1e3 * decode_s / committed,
+            "host_reads_per_token": em.host_syncs / gen_tokens, "host_syncs": em.host_syncs,
+            "tokens_per_s": gen_tokens / wall, "wall_s": wall,
+            "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "launches": launches}
+    del eng, outs
+    torch.cuda.empty_cache()
+    return info, launches
+
+
+def verify_rows_vs_steps(dev, cfg, params):
+    """A verify pass's rows against S sequential ``serve_step`` calls from
+    the same state, at the main path's B = 4 (2048-token needle prompts,
+    two identical prefills): they must be equal bit for bit (logits and
+    stats). Beside it, what the port's row-by-row verify avoids: layer 0's
+    bf16 FFN up-projection over the B * S rows in one GEMM (the
+    reference's batched form) against S GEMMs at M = B, reported."""
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.models.model import prefill, serve_step, serve_step_verify
+
+    fkv = FreeKVConfig(method="freekv", offload="host", draft_len=4)
+    stream = needle_stream(cfg.vocab_size, 2048, P, seed=5)
+    toks = torch.from_numpy(np.stack([next(stream).tokens for _ in range(B)])).long().to(dev)
+    g = torch.Generator().manual_seed(3)
+    block = torch.randint(0, cfg.vocab_size, (B, 5), generator=g).to(dev)
+
+    def state():
+        return prefill(cfg, fkv, params, {"tokens": toks}, 2048 + 64,
+                       state_dtype=torch.bfloat16)[1]
+    st = state()
+    single, sstats = [], []
+    for j in range(5):
+        lg, st, s = serve_step(cfg, fkv, params, st, block[:, j:j + 1], collect_stats=True)
+        single.append(lg)
+        sstats.append(s)
+    del st
+    logits, st, rows, _ = serve_step_verify(cfg, fkv, params, state(), block)
+    out = {"rows_bitwise_equal": [bool(torch.equal(logits[:, j], single[j])) for j in range(5)],
+           "stats_equal": all(torch.equal(rows[k][j], sstats[j][k])
+                              for j in range(5) for k in rows)}
+    del st, logits
+    torch.cuda.empty_cache()
+    w = params["layers"][0]["ffn"]["up"]
+    h = torch.randn((5 * B, w.shape[0]), generator=g).to(dev, torch.bfloat16)
+    one = h @ w
+    per_m = torch.cat([h[j * B:(j + 1) * B] @ w for j in range(5)])
+    out["gemm_m20_vs_m4"] = {"bitwise_equal": bool(torch.equal(one, per_m)),
+                             "max_abs_diff": float((one.float() - per_m.float()).abs().max())}
+    require(all(out["rows_bitwise_equal"]) and out["stats_equal"],
+            f"a verify pass's rows differ from single steps: {json.dumps(out)}")
+    return out
+
+
+def spec_phase(dev, ops, cfg, params):
+    """Phase 4d: (a) the sampler, card against CPU; (b) greedy spec
+    decoding at draft_len 0, 2 and 4, then 4 with each request's
+    ``draft_hint`` its draft_len=0 output, tokens equal across the four;
+    the verify rows against single steps; (c) sampled (temperature 0.8,
+    top-p 0.9), draft_len 0 against 4 with the hint, tokens equal. Returns
+    the runs' summed launches."""
+    t_phase = time.perf_counter()
+    smp = check_sampler(dev, cfg.vocab_size, cfg.padded_vocab())
+    log("[spec] sampler card vs cpu: keys and random bits equal; ids " + json.dumps(smp["rows"]))
+    log("[spec] sampler ms on the card (device, call): " + json.dumps(smp["ms"]))
+    rows = verify_rows_vs_steps(dev, cfg, params)
+    log("[spec] verify rows vs single steps (B=4, S=5): " + json.dumps(rows))
+    totals, runs = {}, {}
+
+    def add(key, info, run):
+        runs[key] = info
+        for name, n in run.items():
+            totals[name] = totals.get(name, 0) + n
+        log(f"[spec] {key}: accept rate {info['accept_rate']:.3f}, "
+            f"{info['tokens_per_target_step']:.2f} tokens a target step, "
+            f"{info['verify_steps']} verify steps + {info['idle_iterations']} idle, "
+            f"{info['steps']} steps, decode {info['decode_ms_per_committed_token']:.2f} ms a "
+            f"committed token, {info['host_reads_per_token']:.4f} host reads a token, "
+            f"{info['tokens_per_s']:.2f} tokens/s, peak {info['peak_device_gib']:.2f} GiB, "
+            f"launches {json.dumps({k: v for k, v in info['launches'].items() if v})}")
+    for dl in (0, 2, 4):
+        add(f"greedy draft_len {dl}", *spec_run(dev, ops, cfg, params, dl))
+    base = runs["greedy draft_len 0"]["tokens"]
+    prompts = [r.tokens for r in _spec_requests(cfg)]
+    hints = [np.concatenate([p[-1:], np.asarray(t, np.int32)]) for p, t in zip(prompts, base)]
+    add("greedy draft_len 4 hinted", *spec_run(dev, ops, cfg, params, 4, hints=hints))
+    for key in ("greedy draft_len 2", "greedy draft_len 4", "greedy draft_len 4 hinted"):
+        require(runs[key]["tokens"] == base, f"{key} tokens differ from draft_len 0's: "
+                f"{runs[key]['tokens']} vs {base}")
+    add("sampled draft_len 0", *spec_run(dev, ops, cfg, params, 0, SPEC_TEMPERATURE))
+    sbase = runs["sampled draft_len 0"]["tokens"]
+    shints = [np.concatenate([p[-1:], np.asarray(t, np.int32)]) for p, t in zip(prompts, sbase)]
+    add("sampled draft_len 4 hinted",
+        *spec_run(dev, ops, cfg, params, 4, SPEC_TEMPERATURE, hints=shints))
+    require(runs["sampled draft_len 4 hinted"]["tokens"] == sbase,
+            "sampled draft_len 4 tokens differ from draft_len 0's")
+    require(sbase != base, "the sampled run drew the greedy tokens")
+    log(f"[spec] tokens equal across greedy draft_len 0/2/4/4-hinted and sampled 0/4-hinted; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+def spec_vs_plain(dev):
+    """Speculative decoding on the card against the CPU: granite-3-8b-smoke
+    at float32, continuous, 5 requests over 2 slots, draft_len 3, greedy
+    (none and int8) and sampled; the tokens must equal the CPU's and
+    draft_len 0's."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.serving.sampling import SamplerConfig
+
+    cfg = get_config("granite-3-8b-smoke")
+    params_gpu = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    params_cpu = _tree_map(lambda t: t.cpu(), params_gpu)
+    lens, news = (256, 200, 129, 256, 184), (16, 5, 12, 9, 7)
+    prompts = [next(needle_stream(cfg.vocab_size, n, 8, seed=10 + i)).tokens
+               for i, n in enumerate(lens)]
+    out = {}
+    for kv_quant, temp in (("none", 0.0), ("int8", 0.0), ("none", SPEC_TEMPERATURE)):
+        toks = {}
+        for where, dl in (("cuda", 3), ("cpu", 3), ("cuda", 0)):
+            fkv = dataclasses.replace(_smoke_fkv("freekv", kv_quant), draft_len=dl)
+            eng = ServeEngine(cfg, fkv, params_gpu if where == "cuda" else params_cpu,
+                              max_len=320, batch_size=2, state_dtype=torch.float32,
+                              sampler=SamplerConfig(temp, SPEC_TOP_P if temp else 1.0),
+                              device=dev if where == "cuda" else "cpu")
+            outs = eng.generate([Request(uid=i, tokens=t, max_new_tokens=m)
+                                 for i, (t, m) in enumerate(zip(prompts, news))])
+            toks[(where, dl)] = [o.tokens for o in outs]
+        label = f"{kv_quant} temperature {temp}"
+        require(toks[("cuda", 3)] == toks[("cpu", 3)] == toks[("cuda", 0)],
+                f"spec decoding card vs cpu ({label}): {toks}")
+        out[label] = toks[("cuda", 3)][0][:8]
+    return out
+
+
 KERNEL_META = {   # name -> (source, the TPU kernel it replaces)
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:69"),
@@ -2333,7 +2598,7 @@ def main():
             f"({k['host_sms']:g} SMs at {k['blocks_per_sm']} an SM); "
             f"{k['device_grid_blocks']} blocks from a device pool")
     launches = {k["name"]: None for k in kernels}
-    wide_launches = {}
+    wide_launches, spec_launches = {}, {}
     share = None
     if not args.kernels_only:
         # phase 4: main path at full width: the static path, then every
@@ -2401,6 +2666,8 @@ def main():
         t0 = time.perf_counter()
         wide_launches = wide_runs(dev, ops, cfg, params)
         log(f"[wide] {len(WIDE_RUNS)} runs in {time.perf_counter() - t0:.1f} s")
+        # phase 4d: the sampler and speculative decoding
+        spec_launches = spec_phase(dev, ops, cfg, params)
         del params
         torch.cuda.empty_cache()
         require(all(0 <= v <= 1 for v in share.values()), f"valid shares out of range: {share}")
@@ -2441,6 +2708,9 @@ def main():
         for label, r in new_paths_vs_plain(dev).items():
             log(f"[equal] {r['arch']} fp32 continuous, {label}: card == cpu greedy tokens and "
                 "steps " + json.dumps(r))
+        for label, t in spec_vs_plain(dev).items():
+            log(f"[equal] granite-3-8b-smoke fp32 continuous freekv draft_len 3, {label}: "
+                f"card == cpu == draft_len 0 tokens, e.g. {t}")
         n = centroid_index_equals_rebuild(dev)
         log(f"[equal] granite-3-8b-smoke fp32 centroid: the index kept on the card equals "
             f"its rebuild in every layer after 20 steps ({n} re-centers)")
@@ -2454,6 +2724,7 @@ def main():
         line.append({"name": k["name"], "route": "cuda", "source": src, "replaces": replaces,
                      "launches": launches[k["name"]],
                      "wide_launches": wide_launches.get(k["name"]),
+                     "spec_launches": spec_launches.get(k["name"]),
                      "max_abs_err": k["max_abs_err"],
                      "ms": k["kernel_ms"], **k})
     print(json.dumps({"kernels": line}), flush=True)

@@ -25,5 +25,5 @@ def get_config(name: str) -> ArchConfig:
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; the port serves {sorted(_MODULES)} and "
                        "their -smoke forms (MoE, SSM, xLSTM, encoder-decoder and vision "
-                       "archs: ROADMAP queue 1, item 9)")
+                       "archs: ROADMAP queue 1, \"Other mixers, archs and tools\")")
     return import_module(f"repro_torch.configs.{_MODULES[name]}").CONFIG

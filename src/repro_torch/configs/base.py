@@ -136,6 +136,15 @@ class FreeKVConfig:
     # slot's state swapped to host (``serving/scheduler``)
     prefill_chunk_tokens: int = 0
     preempt: bool = False
+    # speculative decoding (reference ``base.py:322``): a per-slot bigram
+    # drafter (``core/drafter``) proposes up to ``draft_len`` tokens a
+    # window iteration, one target pass verifies the drafted block row by
+    # row through the exact sequential decode (``models.model
+    # .serve_step_verify``), the longest consistent prefix commits and the
+    # rejected rows are rolled back in place. Tokens equal ``draft_len=0``'s;
+    # the engine falls back to 0 where that cannot hold
+    # (``models.model.supports_spec_decode``). 0 = off.
+    draft_len: int = 0
 
     def __post_init__(self):
         if self.retriever:

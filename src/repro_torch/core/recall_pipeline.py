@@ -215,6 +215,13 @@ class RecallFlightTracker:
         """Slot turnover: the staged buffer is abandoned in flight."""
         self.dropped_pages += self._in_flight.pop(slot, 0.0)
 
+    def drop(self, pages: float):
+        """Pages streamed for work discarded without touching the slot's
+        carried buffer: a speculative verify row whose draft was rejected
+        staged (and topped up) for a continuation that never commits; the
+        rollback recall re-stages from the last committed row."""
+        self.dropped_pages += max(pages, 0.0)
+
     def suspend(self, slot: int) -> float:
         """Preemption swap-out: the staged buffer lives in the ``sel_k`` /
         ``sel_v`` leaves and travels to the host with the rest of the slot's

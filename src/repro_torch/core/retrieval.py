@@ -122,6 +122,43 @@ def _cat_regions(fkv, state, sel_k, sel_v, sel_idx, p, rep=1):
     return k_cat, v_cat, pos
 
 
+def ring_snapshot(state, n_rows: int):
+    """Copy the ``n_rows`` window-ring slots a drafted block will write
+    (reference ``retrieval.py:121``): appends at positions ``length + j``
+    land in slots ``(length + j) % n_win``, distinct while ``n_rows <=
+    n_win``, so their (k, v, pos) before the block are a complete undo log.
+    The verify pass appends in place, so these are copies. Any state with
+    the ``win_k``/``win_v``/``win_pos`` ring (FreeKV's, streaming's)."""
+    n_win = state["win_k"].shape[1]
+    dev = state["length"].device
+    slots = ((state["length"][:, None].long()
+              + torch.arange(n_rows, device=dev)[None]) % n_win)
+    bidx = torch.arange(slots.shape[0], device=dev)[:, None]
+    return (slots, state["win_k"][bidx, slots], state["win_v"][bidx, slots],
+            state["win_pos"][bidx, slots])
+
+
+def ring_restore(state, snap, keep):
+    """Undo the ring writes of rejected drafted rows, in place (reference
+    ``retrieval.py:139``): ``keep`` (B,) is each slot's committed row count
+    m; slots written by rows >= m take their snapshot back, the others keep
+    what the rows wrote (what m sequential appends leave). Pool pages and
+    summaries written by rejected rows stay: a page is selectable only
+    below ``length // p``, and the genuine append that completes it
+    rewrites it first (``complete_page`` writes a page only on the step
+    that completes it)."""
+    slots, k, v, pos = snap
+    B, S = slots.shape
+    dev = slots.device
+    rej = torch.arange(S, device=dev)[None, :] >= keep[:, None]
+    bidx = torch.arange(B, device=dev)[:, None]
+    r4 = rej[:, :, None, None]
+    state["win_k"][bidx, slots] = torch.where(r4, k, state["win_k"][bidx, slots])
+    state["win_v"][bidx, slots] = torch.where(r4, v, state["win_v"][bidx, slots])
+    state["win_pos"][bidx, slots] = torch.where(rej, pos, state["win_pos"][bidx, slots])
+    return state
+
+
 class FreeKVRetriever:
     """FreeKV (speculative=True) and, by flags, the ArkVale-style baseline
     (speculative=False: fresh selection, blocking recall every step) and
@@ -243,6 +280,32 @@ class FreeKVRetriever:
         }
         info.update(sel_info)
         return o, state, info
+
+    # -- speculative-decoding rollback (models.model.serve_step_verify) -----
+    def draft_probe(self, state):
+        """What a verify row leaves that the rollback restores besides the
+        length and the ring: the row's ``qprev`` and ``sel_idx`` (reference
+        ``retrieval.py:413``). ``decode`` replaces both with new tensors, so
+        a later row never overwrites a probe."""
+        return (state["qprev"], state["sel_idx"])
+
+    def draft_rewind(self, state, keep_len, probe):
+        """Roll a drafted block back to ``keep_len`` committed tokens
+        (reference ``retrieval.py:419``), in place. ``probe`` is
+        ``draft_probe`` at each slot's last committed row. The selection
+        buffers become one blocking recall of that row's ``sel_idx``: what
+        the sequential path held, since pool pages below the committed
+        length are written once and the staged buffer equals the fresh
+        recall bit for bit. The recall first waits for the rejected rows'
+        staged recall on the side stream, so the two never write the
+        selection buffers in a race; it also serves as the next block's
+        prefetch. The ring is restored by ``ring_restore``."""
+        wait_staged(state)
+        qprev, sel_idx = probe
+        nk, nv = self.executor.recall(paging.pool_view(state), sel_idx)
+        state.update(length=keep_len.clone(), qprev=qprev, sel_idx=sel_idx,
+                     sel_k=nk.to(state["sel_k"].dtype), sel_v=nv.to(state["sel_v"].dtype))
+        return state
 
     # -- subclass hooks (reference retrieval.py:399-411) -------------------
     def _post_append(self, state, length_host=None):
@@ -415,6 +478,15 @@ class StreamingRetriever:
         pos = torch.cat([pos_s, pos_w], dim=2)
         o = _attend(self.cfg, q, k_cat, v_cat, pos, cur_pos, fkv=self.fkv)
         return o, state, _no_recall_info(B, kv, dev)
+
+    # -- speculative-decoding rollback (reference retrieval.py:605) --------
+    def draft_probe(self, state):
+        """Sink + ring only: nothing beyond the length and the ring."""
+        return ()
+
+    def draft_rewind(self, state, keep_len, probe):
+        state["length"] = keep_len.clone()
+        return state
 
 
 class RaaSRetriever:
@@ -659,7 +731,8 @@ METHODS = ("freekv", "arkvale", "infinigen", "quest", "shadowkv", "raas", "strea
 
 def make_retriever(cfg: ArchConfig, fkv: FreeKVConfig):
     """The retriever of ``fkv.method``, any of METHODS (reference
-    ``retrieval.py:861-890``; its tensor-parallel wrapper is queue 1 item 8)."""
+    ``retrieval.py:861-890``; its tensor-parallel wrapper is in ROADMAP
+    queue 1, "Tensor parallelism")."""
     m = fkv.method
     if m == "freekv":
         return FreeKVRetriever(cfg, fkv, speculative=True)

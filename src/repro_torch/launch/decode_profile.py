@@ -8,7 +8,7 @@ random bf16 weights, ``torch.profiler`` over one prefill and over a few
         [--arch llama31-8b|qwen25-7b|gemma2-2b|smollm-360m|stablelm-3b|granite-3-8b] \
         [--method freekv|arkvale|infinigen|quest|shadowkv|raas|streaming|centroid] \
         [--kv-quant none|int8|int4] [--quant-group-size 0] [--window 8] [--completion] \
-        [--main-runs]
+        [--draft-len 4] [--main-runs]
 
 ``--arch`` profiles another served arch at full width with the same
 traffic (the default is the main path's llama31-8b).
@@ -24,7 +24,10 @@ window of k steps on the same state, beside k steps of the static engine
 per step; host syncs counted from the runtime calls in the trace); with
 ``--completion`` also one eager step in which every row completes a page
 beside one in which none does (``profile_completion``: host ops, device
-operations and device-busy ms of each).
+operations and device-busy ms of each); with ``--draft-len N`` also one
+speculative verify iteration of 1 + N rows beside 1 + N eager steps on the
+same state (``profile_verify``: host ops, device operations, busy share,
+wall ms and host syncs of each side).
 ``profile_decode`` gives the same for weights already on
 the card (``chip_smoke.py`` phase 4). ``--main-runs`` gives the decode's
 numbers for each of the five main-path runs on one set of weights; it uses
@@ -59,20 +62,23 @@ def dev_us(e):
 
 
 def profile_decode(cfg, fkv, params, toks, steps=4, trace_out=None, with_prefill=True,
-                   window=0, completion=False):
+                   window=0, completion=False, draft_len=0):
     """The numbers ``main`` prints, for ``params`` already on the card and
     prompts ``toks`` (B, T) on the card: the prefill's (when
     ``with_prefill``) and an eager decode step's, as one dict; with
     ``window`` > 0 also a continuous-scheduler window of that many steps,
     on the same state, in the same process (``profile_window``); with
     ``completion`` then a step that completes a page in every row beside
-    one that completes none (``profile_completion``)."""
+    one that completes none (``profile_completion``); with ``draft_len``
+    > 0 then one verify iteration beside 1 + ``draft_len`` eager steps
+    (``profile_verify``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.model import prefill, serve_step
 
-    max_len = toks.shape[1] + 64 + WARMUP + 2 * steps + 6 * window + 2 * fkv.page_size
+    max_len = (toks.shape[1] + 64 + WARMUP + 2 * steps + 6 * window + 2 * fkv.page_size
+               + 6 * (draft_len + 1))
 
     def device_rows(events):
         # device-side rows only (kernels, copies): an aten op's row repeats
@@ -152,6 +158,8 @@ def profile_decode(cfg, fkv, params, toks, steps=4, trace_out=None, with_prefill
         out["window"] = profile_window(cfg, fkv, params, state, logits, window)
     if completion:
         out["completion"] = profile_completion(cfg, fkv, params, state, logits)
+    if draft_len:
+        out["verify"] = profile_verify(cfg, fkv, params, state, logits, draft_len)
     return out
 
 
@@ -196,6 +204,52 @@ def profile_completion(cfg, fkv, params, state, logits):
     return out
 
 
+def _measure(run, k):
+    """Host ops, device operations, busy share, wall ms and host syncs of
+    ``run`` per ``k`` (its steps): once to warm up, once timed, once under
+    the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / k
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # idle margins keep the profiler's own synchronizes at start
+        # and stop clear of the measured range: the runtime calls'
+        # timestamps and the range's need not agree to the microsecond
+        time.sleep(PROFILER_MARGIN_S)
+        with record_function(MEASURED):
+            run()
+        time.sleep(PROFILER_MARGIN_S)
+    events = prof.key_averages()
+    # the card's rows but the measured range's own (a span, not work)
+    dev_events = [e for e in events if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+                  and e.key != MEASURED]
+    busy_ms = sum(dev_us(e) for e in dev_events) / 1e3 / k
+    # every wait of the host for the card, as the runtime saw it: a read
+    # (.cpu(), .tolist(), .item()) and a copy from pageable memory each
+    # make one stream synchronize. Only those inside the measured range
+    # count: the profiler synchronizes the card itself when it stops.
+    evs = prof.events()
+    outer = next(e for e in evs if e.name == MEASURED)
+    lo, hi = outer.time_range.start, outer.time_range.end
+    inside = [e for e in evs if e.name in SYNC_CALLS and lo <= e.time_range.start <= hi]
+    syncs = dict(Counter(e.name for e in inside))
+    return {"steps": k, "host_syncs_per_step": sum(syncs.values()) / k,
+            "sync_calls": syncs,
+            # where each wait starts, in us from the range's start (of hi - lo)
+            "sync_starts_us": [e.time_range.start - lo for e in inside],
+            "range_us": hi - lo,
+            "wall_ms_per_step_unprofiled": wall_ms, "device_busy_ms_per_step": busy_ms,
+            "device_busy_share": busy_ms / wall_ms if wall_ms else None,
+            "cpu_ops_per_step": sum(e.count for e in events
+                                    if e.key.startswith("aten::")) // k,
+            "device_ops_per_step": sum(e.count for e in dev_events) / k}
+
+
 def profile_window(cfg, fkv, params, state, logits, k=8):
     """A continuous-scheduler decode window on the same state, beside the
     static engine's step, in the form of the eager step's numbers (per
@@ -206,16 +260,14 @@ def profile_window(cfg, fkv, params, state, logits, k=8):
     pick, the tokens' read and the stats' read), ``k`` times. Host syncs
     are counted from the runtime's synchronize calls in the trace, so one
     hidden anywhere in the step shows."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
     from repro_torch.models.model import DECODE_STAT_KEYS, decode_window, serve_step
     from repro_torch.serving.sampling import SamplerConfig
 
     B, dev = logits.shape[0], logits.device
     i32 = dict(dtype=torch.int32, device=dev)
     loop = {"cur": torch.argmax(logits, dim=-1).to(torch.int32),
-            "key": torch.zeros((B, 2), **i32), "count": torch.ones((B,), **i32),
+            "key": torch.zeros((B, 2), dtype=torch.int64, device=dev),
+            "count": torch.ones((B,), **i32),
             "limit": torch.full((B,), 1 << 30, **i32), "eos": torch.full((B,), -1, **i32),
             "fin": torch.zeros((B,), dtype=torch.bool, device=dev)}
     carry = {"state": state, "loop": loop, "cur": loop["cur"].long()}
@@ -235,47 +287,49 @@ def profile_window(cfg, fkv, params, state, logits, k=8):
             carry["cur"].tolist()                                            # read 1
             torch.stack([stats[key] for key in DECODE_STAT_KEYS]).cpu()      # read 2
 
-    def measure(run):
-        run()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / k
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            # idle margins keep the profiler's own synchronizes at start
-            # and stop clear of the measured range: the runtime calls'
-            # timestamps and the range's need not agree to the microsecond
-            time.sleep(PROFILER_MARGIN_S)
-            with record_function(MEASURED):
-                run()
-            time.sleep(PROFILER_MARGIN_S)
-        events = prof.key_averages()
-        # the card's rows but the measured range's own (a span, not work)
-        dev_events = [e for e in events if e.device_type == DeviceType.CUDA and dev_us(e) > 0
-                      and e.key != MEASURED]
-        busy_ms = sum(dev_us(e) for e in dev_events) / 1e3 / k
-        # every wait of the host for the card, as the runtime saw it: a read
-        # (.cpu(), .tolist(), .item()) and a copy from pageable memory each
-        # make one stream synchronize. Only those inside the measured range
-        # count: the profiler synchronizes the card itself when it stops.
-        evs = prof.events()
-        outer = next(e for e in evs if e.name == MEASURED)
-        lo, hi = outer.time_range.start, outer.time_range.end
-        inside = [e for e in evs if e.name in SYNC_CALLS and lo <= e.time_range.start <= hi]
-        syncs = dict(Counter(e.name for e in inside))
-        return {"steps": k, "host_syncs_per_step": sum(syncs.values()) / k,
-                "sync_calls": syncs,
-                # where each wait starts, in us from the range's start (of hi - lo)
-                "sync_starts_us": [e.time_range.start - lo for e in inside],
-                "range_us": hi - lo,
-                "wall_ms_per_step_unprofiled": wall_ms, "device_busy_ms_per_step": busy_ms,
-                "device_busy_share": busy_ms / wall_ms if wall_ms else None,
-                "cpu_ops_per_step": sum(e.count for e in events
-                                        if e.key.startswith("aten::")) // k,
-                "device_ops_per_step": sum(e.count for e in dev_events) / k}
+    out = _measure(window, k)
+    out["static_step"] = _measure(static_steps, k)
+    return out
 
-    out = measure(window)
-    out["static_step"] = measure(static_steps)
+
+def profile_verify(cfg, fkv, params, state, logits, draft_len):
+    """One speculative iteration (``serve_step_spec``: draft, verify pass of
+    S = 1 + ``draft_len`` rows, sampling, rollback, drafter update, every
+    lane live) beside S eager ``serve_step`` calls, on the same state, in
+    the form of ``profile_window``'s numbers, per iteration (the eager side
+    per S steps). Each side ends in one read of its tokens."""
+    import dataclasses
+
+    from repro_torch.core import drafter
+    from repro_torch.models.model import serve_step, serve_step_spec
+    from repro_torch.serving.sampling import SamplerConfig
+
+    sfkv = dataclasses.replace(fkv, draft_len=draft_len)
+    S = draft_len + 1
+    B, dev = logits.shape[0], logits.device
+    state.setdefault("draft_tab", drafter.init_draft_tab(B, cfg.vocab_size, dev))
+    i32 = dict(dtype=torch.int32, device=dev)
+    loop = {"cur": torch.argmax(logits, dim=-1).to(torch.int32),
+            "key": torch.zeros((B, 2), dtype=torch.int64, device=dev),
+            "count": torch.ones((B,), **i32), "limit": torch.full((B,), 1 << 30, **i32),
+            "eos": torch.full((B,), -1, **i32),
+            "fin": torch.zeros((B,), dtype=torch.bool, device=dev)}
+    carry = {"state": state, "loop": loop, "cur": loop["cur"].long()}
+
+    def verify():
+        st, lp, toks, emit, _, _ = serve_step_spec(cfg, sfkv, params, carry["state"],
+                                                   carry["loop"], SamplerConfig())
+        torch.stack([toks.to(torch.int64), emit.to(torch.int64)]).cpu()   # the one read
+        carry.update(state=st, loop=lp)
+
+    def eager_steps():
+        for _ in range(S):
+            lg, st = serve_step(cfg, fkv, params, carry["state"], carry["cur"][:, None])
+            carry.update(state=st, cur=torch.argmax(lg, dim=-1))
+        carry["cur"].cpu()
+
+    out = {"draft_len": draft_len, "rows": S, **_measure(verify, 1)}
+    out["eager_steps"] = _measure(eager_steps, 1)
     return out
 
 
@@ -298,6 +352,9 @@ def main(argv=None):
     ap.add_argument("--completion", action="store_true",
                     help="also profile a step where every row completes a page beside one "
                          "where none does")
+    ap.add_argument("--draft-len", type=int, default=0,
+                    help="also profile one speculative verify iteration of 1 + N rows beside "
+                         "1 + N eager steps on the same state (profile_verify)")
     ap.add_argument("--main-runs", action="store_true",
                     help="the five runs of chip_smoke.py phase 4 (freekv none/int8, "
                          "shadowkv none/int8, centroid none) on one set of weights, "
@@ -323,7 +380,8 @@ def main(argv=None):
     toks = toks.long().to(dev)
     if not args.main_runs:
         print(json.dumps(profile_decode(cfg, fkv, params, toks, args.steps, args.trace_out,
-                                        window=args.window, completion=args.completion)),
+                                        window=args.window, completion=args.completion,
+                                        draft_len=args.draft_len)),
               flush=True)
         return 0
     for method, kv_quant in MAIN_RUNS:

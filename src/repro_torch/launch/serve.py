@@ -10,7 +10,9 @@ Same flags and defaults as the reference CLI where the feature is ported:
 ``--batch`` slots, prompts left-padded to ``--prefill-bucket``, up to
 ``--sync-interval`` decode steps per host read, with the radix prefix cache
 (``--prefix-cache-tokens``), chunked prefill (``--prefill-chunk``) and
-priority preemption (``--preempt``, the last request urgent);
+priority preemption (``--preempt``, the last request urgent) and
+speculative decoding (``--draft-len``, off with ``--no-spec-decode``;
+greedy or ``--temperature`` sampled, the tokens equal ``--draft-len 0``'s);
 ``--scheduler static`` is the lockstep fallback. ``--device``, ``--offload``, ``--dtype`` and
 ``--seed`` are the port's own. Weights are random, made from ``--seed``.
 Prints each request's tokens and timings, then ``EngineMetrics.summary()``
@@ -63,6 +65,14 @@ def main(argv=None):
     ap.add_argument("--preempt", action="store_true",
                     help="continuous: priority preemption; the last request gets priority 1 "
                          "and swaps the lowest-priority running request's state to host")
+    ap.add_argument("--draft-len", type=int, default=0,
+                    help="speculative decoding: tokens the per-slot bigram drafter proposes a "
+                         "verify step (0 = off); the verify pass commits the longest prefix "
+                         "the model agrees with, so the tokens equal --draft-len 0's. Needs "
+                         "the continuous scheduler and on-card sampling (else 0)")
+    ap.add_argument("--no-spec-decode", action="store_true",
+                    help="force draft_len=0 whatever --draft-len says; the same as "
+                         "--draft-len 0, kept so the flags match the reference's CLI")
     ap.add_argument("--no-overlap", action="store_true",
                     help="disable the overlapped recall pipeline")
     ap.add_argument("--offload", choices=("sim", "host"), default="sim",
@@ -85,7 +95,8 @@ def main(argv=None):
                        recall_overlap=not args.no_overlap, offload=args.offload,
                        kv_quant=args.kv_quant, quant_group_size=args.quant_group_size,
                        sync_interval=args.sync_interval, prefill_chunk_tokens=args.prefill_chunk,
-                       preempt=args.preempt)
+                       preempt=args.preempt,
+                       draft_len=0 if args.no_spec_decode else args.draft_len)
     eng = ServeEngine(cfg, fkv, params,
                       max_len=args.context + args.new_tokens + args.page_size
                       + args.prefill_bucket,
@@ -104,6 +115,11 @@ def main(argv=None):
         print(f"  prefill {out.prefill_s*1e3:.1f} ms | "
               f"decode {out.decode_s/steps*1e3:.1f} ms/step | "
               f"corr_rate {out.stats.get('correction_rate', 0):.3f}")
+    sd = eng.last_metrics.specdec_summary()
+    if sd["draft_len"] > 0:
+        print(f"spec-decode (draft_len={sd['draft_len']}): accept rate {sd['accept_rate']:.3f} | "
+              f"{sd['tokens_per_step']:.2f} tokens per target step over {sd['verify_steps']} "
+              f"verify steps, {sd['idle_iterations']} idle")
     print(json.dumps(eng.last_metrics.summary()))
 
 

@@ -9,6 +9,9 @@
   serve_step(cfg, fkv, params, state, tokens)       -> (logits, state[, stats])
   serve_step_sampled(cfg, fkv, params, state, loop, sampler)
   decode_window(cfg, fkv, params, state, loop, sampler, n_steps)
+  serve_step_verify(cfg, fkv, params, state, tokens)  -> (logits (B, S, V), ...)
+  serve_step_spec(cfg, fkv, params, state, loop, sampler)
+  decode_window_spec(cfg, fkv, params, state, loop, sampler, n_max)
 
 Params are nested dicts of tensors, dense weights in the ``x @ W``
 orientation ``(d_in, d_out)``: ``{"embed": {"tok", "head"?}, "final_norm":
@@ -26,8 +29,9 @@ hands its query to the next attention layer's retriever as ``q_proxy``
 the decode statistics.
 The reference's ``lax.scan`` over stacked periods becomes a Python loop over
 layers; the decode state is ``{"layers": [per-layer state], "pos": (B,)
-int32 on the device, "pos_host": (B,) int32 on the CPU}`` and ``serve_step``
-updates it in place (the port's counterpart of buffer donation). Only the
+int32 on the device, "pos_host": (B,) int32 on the CPU}`` (and, under
+speculative decoding, ``"draft_tab"`` (B, vocab) int32, ``core/drafter``)
+and ``serve_step`` updates it in place (the port's counterpart of buffer donation). Only the
 centroid index's upkeep reads ``pos_host`` (``centroid_index
 .update_on_append``); the paging reads the lengths on the card.
 """
@@ -55,9 +59,11 @@ def check_supported(cfg: ArchConfig):
         if mixer not in (ATTN, ATTN_LOCAL) or ffn != DENSE:
             raise NotImplementedError(
                 f"{cfg.name}: layer ({mixer}, {ffn}) is not ported yet; the port "
-                "serves attention + dense-FFN stacks (ROADMAP queue 1, item 9)")
+                "serves attention + dense-FFN stacks (ROADMAP queue 1, \"Other mixers, archs "
+                "and tools\")")
     if cfg.is_encoder_decoder or cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: not ported yet (ROADMAP queue 1, item 9)")
+        raise NotImplementedError(f"{cfg.name}: not ported yet (ROADMAP queue 1, "
+                                  "\"Other mixers, archs and tools\")")
 
 
 def retrievers(cfg: ArchConfig, fkv: FreeKVConfig) -> list:
@@ -176,10 +182,14 @@ def init_decode_state(cfg: ArchConfig, fkv: FreeKVConfig, batch_size: int,
                       max_len: int, dtype=torch.bfloat16, device="cuda"):
     check_supported(cfg)
     dev = resolve_device(device)
-    return {"layers": [r.init_state(batch_size, max_len, dtype, dev)
-                       for r in retrievers(cfg, fkv)],
-            "pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
-            "pos_host": torch.zeros((batch_size,), dtype=torch.int32)}
+    out = {"layers": [r.init_state(batch_size, max_len, dtype, dev)
+                      for r in retrievers(cfg, fkv)],
+           "pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
+           "pos_host": torch.zeros((batch_size,), dtype=torch.int32)}
+    if fkv.draft_len > 0:               # the speculative drafter's lane
+        from repro_torch.core import drafter
+        out["draft_tab"] = drafter.init_draft_tab(batch_size, cfg.vocab_size, dev)
+    return out
 
 
 @torch.no_grad()
@@ -360,8 +370,9 @@ def serve_step_sampled(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, 
     sampling on the card and the finished mask; nothing is read back.
 
     ``loop`` is the decode-loop carry on the card, one lane per slot, each
-    (B,) unless noted: ``cur`` int32 token fed to this step, ``key`` int32
-    (B, 2) per-request key lane (carried, unused by greedy sampling),
+    (B,) unless noted: ``cur`` int32 token fed to this step, ``key`` int64
+    (B, 2) the request's key (``sampling.request_key``; token ``count`` is
+    drawn with ``fold_in(key, count)``, unused by greedy sampling),
     ``count`` int32 tokens generated so far, ``limit`` int32 the request's
     max_new_tokens, ``eos`` int32 (-1 for none), ``fin`` bool finished or
     empty. Finished lanes keep stepping (rows are independent) and their
@@ -373,7 +384,7 @@ def serve_step_sampled(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, 
     from repro_torch.serving import sampling
     logits, state, stats = serve_step(cfg, fkv, params, state, loop["cur"][:, None].long(),
                                       collect_stats=True)
-    tok = sampling.sample_step(logits, sampler, loop["key"])
+    tok = sampling.sample_counted(logits, sampler, loop["key"], loop["count"])
     valid = ~loop["fin"]
     count = loop["count"] + valid.to(torch.int32)
     fin = loop["fin"] | (count >= loop["limit"]) | (tok == loop["eos"])
@@ -411,4 +422,191 @@ def decode_window(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sampl
             stats[k].append(s[k])
         finite = finite & fin_ok
     return (state, loop, torch.stack(toks), torch.stack(valid),
+            {k: torch.stack(v) for k, v in stats.items()}, finite)
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: drafted-block verify and in-place rollback
+# ---------------------------------------------------------------------------
+SPEC_METHODS = ("freekv", "arkvale", "infinigen")
+
+
+def supports_spec_decode(cfg: ArchConfig, fkv: FreeKVConfig) -> bool:
+    """Whether ``draft_len`` can run exactly (reference ``model.py:864``):
+    every drafted row must take the exact sequential retrieval step, so
+    the retriever needs a rewindable selection buffer (the FreeKV family;
+    the local layers of gemma2 are streaming rings), over attention and
+    dense-FFN layers only."""
+    return (fkv.draft_len > 0 and fkv.method in SPEC_METHODS
+            and all(m in (ATTN, ATTN_LOCAL) and f == DENSE for m, f in cfg.layers))
+
+
+@torch.no_grad()
+def serve_step_verify(cfg: ArchConfig, fkv: FreeKVConfig, params, state, tokens):
+    """One target pass over a drafted block (reference ``model.py:924``):
+    tokens (B, S), row 0 the committed current token and rows 1..S-1 the
+    drafted continuation; every row is appended to ``state`` in place.
+
+    Row j is the j-th of S ``serve_step`` calls, so its logits and stats
+    are bit for bit a single step's. The reference runs the backbone once
+    over the B * S rows, which is exact only where the GEMMs are
+    row-independent; cuBLAS picks its kernel by M, so the port keeps each
+    GEMM at the decode step's M = B. ``pos`` and ``pos_host`` are left at
+    their pre-block values for ``rewind_state``.
+
+    Returns (logits (B, S, V), state, stats_rows {key: (S, B)}, undo), undo
+    a layer's ``(ring_snapshot, [draft_probe of each row])``."""
+    from repro_torch.core.retrieval import ring_snapshot
+    S = tokens.shape[1]
+    retrs = retrievers(cfg, fkv)
+    pos, pos_host = state["pos"], state["pos_host"]
+    undo = [(ring_snapshot(st, S), []) for st in state["layers"]]
+    logits, stats = [], []
+    for j in range(S):
+        lg, state, s = serve_step(cfg, fkv, params, state, tokens[:, j:j + 1],
+                                  collect_stats=True)
+        logits.append(lg)
+        stats.append(s)
+        for r, st, (_, probes) in zip(retrs, state["layers"], undo):
+            probes.append(r.draft_probe(st))
+    state["pos"], state["pos_host"] = pos, pos_host
+    return (torch.stack(logits, dim=1), state,
+            {k: torch.stack([s[k] for s in stats]) for k in DECODE_STAT_KEYS}, undo)
+
+
+def rewind_state(cfg: ArchConfig, fkv: FreeKVConfig, state, undo, m):
+    """Roll every layer back to its slot's ``m`` (B,) committed rows and
+    advance ``pos`` by m, in place (reference ``_rewind_state``,
+    ``model.py:978``): each layer's selection lanes come from its probe at
+    the last committed row (one recall, ``draft_rewind``), and the ring
+    writes of the rejected rows are undone (``ring_restore``). A slot with
+    m = 0 (finished) keeps its pre-block state."""
+    from repro_torch.core.retrieval import ring_restore
+    B = m.shape[0]
+    bidx = torch.arange(B, device=m.device)
+    last = (m - 1).clamp(0, None).long()
+    keep_len = state["pos"] + m
+    for i, r in enumerate(retrievers(cfg, fkv)):
+        snap, probes = undo[i]
+        probe = tuple(torch.stack([p[c] for p in probes])[last, bidx]
+                      for c in range(len(probes[0])))
+        st = r.draft_rewind(state["layers"][i], keep_len, probe)
+        state["layers"][i] = ring_restore(st, snap, m)
+    state["pos"] = keep_len
+    return state
+
+
+@torch.no_grad()
+def serve_step_spec(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sampler):
+    """One speculative iteration (reference ``model.py:1008``): draft ->
+    verify -> accept the longest consistent prefix -> roll back in place
+    -> fold the committed bigrams into the drafter; nothing is read back.
+
+    The block is [cur, d_1..d_L] (S = 1 + ``draft_len`` rows). Row j is
+    sampled with the key ``fold_in(request_key, count + j)`` the sequential
+    path would use, and row j >= 1 is emitted iff every earlier row matched
+    its draft, emitted no eos and the limit was not reached: the tokens m
+    sequential steps emit, greedy or sampled.
+
+    Returns (state, loop, toks (S, B) int32, emit (S, B) bool, stats
+    {key: (S, B)}, finite (B,)): ``finite`` marks lanes whose emitted rows'
+    logits were all finite."""
+    from repro_torch.core import drafter
+    from repro_torch.serving import sampling
+    B = loop["cur"].shape[0]
+    S = fkv.draft_len + 1
+    cur = loop["cur"]
+    drafted = drafter.propose(state["draft_tab"], cur, fkv.draft_len)
+    toks = torch.cat([cur[:, None], drafted], dim=1)                  # (B, S)
+    logits, state, stats_rows, undo = serve_step_verify(cfg, fkv, params, state, toks.long())
+    V = logits.shape[-1]
+    counts = loop["count"][None, :] + torch.arange(S, dtype=loop["count"].dtype,
+                                                   device=cur.device)[:, None]   # (S, B)
+    e = sampling.sample_counted(logits.transpose(0, 1).reshape(S * B, V), sampler,
+                                loop["key"].repeat(S, 1), counts.reshape(-1)).reshape(S, B)
+    live0 = ~loop["fin"]
+    emits = [live0]
+    for j in range(1, S):
+        prev = e[j - 1]
+        cont = ((drafted[:, j - 1] == prev) & (prev != loop["eos"])
+                & (loop["count"] + j < loop["limit"]))
+        emits.append(emits[-1] & cont)
+    emit = torch.stack(emits)                                          # (S, B)
+    m = emit.sum(dim=0).to(torch.int32)
+    state = rewind_state(cfg, fkv, state, undo, m)
+    bidx = torch.arange(B, device=cur.device)
+    e_last = e[(m - 1).clamp(0, None).long(), bidx]
+    any_ = m > 0
+    count = loop["count"] + m
+    fin = loop["fin"] | (any_ & ((e_last == loop["eos"]) | (count >= loop["limit"])))
+    finite = (torch.isfinite(logits).all(dim=-1) | ~emit.T).all(dim=1)
+    loop = dict(loop, cur=torch.where(any_, e_last, cur), count=count, fin=fin)
+    stream = torch.cat([cur[:, None], e.T], dim=1)                     # (B, S + 1)
+    emit_ext = torch.cat([live0[:, None], emit.T], dim=1)
+    drafter.update(state["draft_tab"], stream, emit_ext)
+    return state, loop, e, emit, stats_rows, finite
+
+
+@torch.no_grad()
+def decode_window_spec(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sampler,
+                       n_max: int, stop_turnover: bool = False):
+    """Up to ``n_max`` speculative iterations with no blocking host read
+    (reference ``model.py:1070``): (n, S, B) token, emit and stat blocks
+    stay on the card for one read when the window ends.
+
+    Window rule. An iteration commits 1 to S tokens a live lane, so the
+    host cannot know when a lane reaches its limit. The caller passes
+    ``n_max`` = the iterations the lanes need if every draft is rejected
+    (at most ``sync_interval``): enough for the reference's loop, which
+    stops when every lane is finished or, with admissions queued
+    (``stop_turnover``), when a lane live at the start finishes. After each
+    iteration that stop flag is copied to pinned host memory without
+    blocking, behind an event; before each iteration the host reads the
+    newest flag whose event has completed (``Event.query``, which never
+    waits) and stops if it is set. On the CPU the flag is read at once,
+    so the loop stops exactly where the reference's does. On the card the
+    host runs ahead of the card by a few iterations at most, and
+    iterations launched after the stop are masked: every lane finished,
+    nothing committed (``EngineMetrics.spec_idle_iterations`` counts them).
+    Tokens never depend on the window's length.
+
+    ``state["pos_host"]`` does not follow the rewinds; the caller advances
+    it from the read emit blocks (only the centroid index reads it, and
+    centroid runs no spec). Returns (state, loop, toks (n, S, B) int32,
+    emit (n, S, B) bool, stats {key: (n, S, B)}, finite (B,))."""
+    start_live = ~loop["fin"]
+    toks, emits = [], []
+    stats = {k: [] for k in DECODE_STAT_KEYS}
+    finite = torch.ones_like(loop["fin"])
+    on_card = loop["fin"].is_cuda
+    flags = (torch.zeros((max(n_max, 1),), dtype=torch.bool, pin_memory=True)
+             if on_card else None)
+    events = []
+    for it in range(n_max):
+        if events:
+            done = [j for j, ev in enumerate(events) if ev.query()]
+            if done and bool(flags[done[-1]]):
+                break
+        state, loop, tok, emit, s, fin_ok = serve_step_spec(cfg, fkv, params, state, loop,
+                                                            sampler)
+        toks.append(tok)
+        emits.append(emit)
+        for k in stats:
+            stats[k].append(s[k])
+        finite = finite & fin_ok
+        stop = ~(~loop["fin"]).any()
+        if stop_turnover:
+            stop = stop | (loop["fin"] & start_live).any()
+        if on_card:
+            flags[it:it + 1].copy_(stop[None], non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            events.append(ev)
+        elif bool(stop):
+            break
+    if not toks:
+        B, S = loop["cur"].shape[0], fkv.draft_len + 1
+        z = torch.zeros((0, S, B), dtype=torch.int32, device=loop["cur"].device)
+        return (state, loop, z, z.bool(), {k: z.float() for k in stats}, finite)
+    return (state, loop, torch.stack(toks), torch.stack(emits),
             {k: torch.stack(v) for k, v in stats.items()}, finite)

@@ -6,7 +6,8 @@
   request lifecycle and the recall.
 
 The reference's sliding-window board (``repro/obs/timeseries.py``) and its
-profiler annotations are not ported yet (ROADMAP queue 1, item 7).
+profiler annotations are not ported yet (ROADMAP queue 1, "Observability,
+cancellation, SLOs and the front-end").
 """
 from __future__ import annotations
 

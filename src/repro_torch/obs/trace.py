@@ -33,6 +33,9 @@ SPAN_REQUEST_DECODE = "request/decode"
 SPAN_REQUEST_DONE = "request/done"
 SPAN_DECODE_WINDOW = "engine/decode_window"
 SPAN_DECODE_STEP = "engine/decode_step"
+# one drafted-block verify iteration of the speculative decode window, with
+# its live slots and proposed/accepted/committed token counts
+SPAN_SPEC_VERIFY = "engine/spec_verify"
 SPAN_PREFILL_CHUNK = "engine/prefill_chunk"
 SPAN_SCHED_PREEMPT = "sched/preempt"
 SPAN_SCHED_RESUME = "sched/resume"

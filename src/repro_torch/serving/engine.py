@@ -34,12 +34,24 @@ Under the continuous scheduler, as in the reference:
   request's slot state out to host (``SlotPool.swap_out``) and takes the
   slot; the victim resumes bit for bit later.
 
-Not ported yet under the continuous scheduler, and refused here: sampling
-with a temperature (ROADMAP queue 1, item 4); speculative decoding and
-tensor parallelism have no switch in the port.
+Sampling with a temperature draws token ``i`` of request ``uid`` from
+``fold_in(request_key(seed, uid), i)`` on the continuous path and chains
+``fold_in(key, step)`` from ``PRNGKey(seed)`` on the static path, bit for
+bit the reference's draws (``serving/sampling``).
+
+``fkv.draft_len > 0``: speculative decoding (``models.model
+.decode_window_spec``), a bigram drafter a slot (``core/drafter``, seeded
+from the prompt and ``Request.draft_hint``) and a verify pass that commits
+up to ``1 + draft_len`` tokens a slot an iteration, the tokens equal to
+``draft_len=0``'s. Where that cannot hold (the static scheduler,
+``sample_on_device=False``, a method outside ``supports_spec_decode``) the
+engine falls back to ``draft_len=0``, as the reference does.
+
+Tensor parallelism has no switch in the port.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import List, Optional
@@ -50,14 +62,16 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, FreeKVConfig
 from repro_torch.core.recall_pipeline import RecallFlightTracker
-from repro_torch.models.model import (DECODE_STAT_KEYS, decode_window, prefill,
-                                      prefill_extend, serve_step)
+from repro_torch.models.model import (DECODE_STAT_KEYS, decode_window, decode_window_spec,
+                                      prefill, prefill_extend, serve_step,
+                                      supports_spec_decode)
 from repro_torch.obs import Observability
 from repro_torch.quant.accounting import page_block_bytes, page_block_bytes_dense
 from repro_torch.serving.kv_slots import SlotPool
 from repro_torch.serving.metrics import EngineMetrics, RequestMetrics
 from repro_torch.serving.prefix_cache import RadixPrefixCache, copy_parts
-from repro_torch.serving.sampling import SamplerConfig, sample, sample_step
+from repro_torch.serving.sampling import (PRNGKey, SamplerConfig, fold_in, sample,
+                                         sample_counted)
 from repro_torch.serving.scheduler import ContinuousScheduler, _request_stats
 
 
@@ -71,6 +85,11 @@ class Request:
     # with ``fkv.preempt`` a queued request of strictly higher priority than
     # the lowest-priority running one swaps that one out and takes its slot
     priority: int = 0
+    # optional reference stream for the speculative drafter (a retrieved
+    # document, an earlier draft of the answer, ...): its bigrams overlay
+    # the prompt's in the slot's table at admission. It steers which drafts
+    # are proposed, never which tokens are emitted
+    draft_hint: Optional[np.ndarray] = None
 
 
 @dataclass
@@ -158,7 +177,8 @@ class PrefillJob:
             if eng.prefix_cache is not None:
                 eng._cache_insert(self.seq, self._kv)
             self._kv = None
-            self.result = (logits, state, self.hit, len(self.seq))
+            self.result = (logits, eng._attach_draft_tab(state, self.seq, self.req.draft_hint),
+                           self.hit, len(self.seq))
         return n
 
 
@@ -176,11 +196,14 @@ class ServeEngine:
         if scheduler not in ("continuous", "static"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         self.device = resolve_device(device)
-        if scheduler == "continuous":
-            if sampler.temperature > 0:
-                raise NotImplementedError(
-                    "temperature > 0 under scheduler='continuous' needs the reference's "
-                    "per-request key streams (ROADMAP queue 1, item 4)")
+        # speculative decoding rides the continuous scheduler's window; where
+        # it cannot be exact the engine serves draft_len=0 (reference
+        # ``engine.py:222-232``): the same tokens, one a step
+        if fkv.draft_len > 0 and not (scheduler == "continuous" and fkv.sample_on_device
+                                      and supports_spec_decode(cfg, fkv)):
+            fkv = dataclasses.replace(fkv, draft_len=0)
+        self.spec_decode = fkv.draft_len > 0
+        self.draft_len = fkv.draft_len
         self.cfg, self.fkv, self.params = cfg, fkv, params
         self.max_len, self.batch_size = max_len, batch_size
         self.sampler = sampler
@@ -253,19 +276,41 @@ class ServeEngine:
         return serve_step(self.cfg, self.fkv, self.params, state, tokens.long(),
                           collect_stats=True)
 
-    def decode_window(self, state, loop, n_steps: int):
+    def decode_window(self, state, loop, n_steps: int, stop_turnover: bool = False):
         """``n_steps`` fused decode steps without a host read; ``state`` is
-        updated in place."""
+        updated in place. Under speculative decoding, at most ``n_steps``
+        verify iterations (``decode_window_spec``'s window rule), and the
+        blocks are (n, 1 + draft_len, B)."""
+        if self.spec_decode:
+            return decode_window_spec(self.cfg, self.fkv, self.params, state, loop,
+                                      self.sampler, n_steps, stop_turnover)
         return decode_window(self.cfg, self.fkv, self.params, state, loop, self.sampler,
                              n_steps)
 
     def sample_lanes(self, logits, keys, counts):
-        """Per-slot sampling outside the window (the synchronous path)."""
-        return sample_step(logits, self.sampler, keys)
+        """Per-slot sampling outside the window (the synchronous path): token
+        ``counts[b]`` of each slot's stream."""
+        return sample_counted(logits, self.sampler, keys, counts)
 
-    def sample_slot(self, logits, key, count: int):
+    def sample_slot(self, logits, req_key, count: int):
         """Token ``count`` of one request from its B=1 logits."""
-        return sample_step(logits, self.sampler, key)
+        keys = req_key.reshape(1, 2).to(logits.device)
+        return self.sample_lanes(logits, keys, torch.full((1,), count, dtype=torch.int32,
+                                                          device=logits.device))
+
+    def _attach_draft_tab(self, state, seq, hint=None):
+        """Seed the B=1 state's drafter table from the padded prompt, its
+        bigrams overlaid by the hint's (reference ``engine.py:394``); a
+        no-op without speculative decoding."""
+        if not self.spec_decode or state is None:
+            return state
+        from repro_torch.core import drafter
+        tab = drafter.seed_from_prompt(self.cfg.vocab_size, np.asarray(seq, np.int64))
+        if hint is not None and len(hint) >= 2:
+            h = drafter.seed_from_prompt(self.cfg.vocab_size, np.asarray(hint, np.int64))
+            tab = np.where(h >= 0, h, tab)
+        state["draft_tab"] = torch.from_numpy(tab).to(self.device)
+        return state
 
     def _padded_prompt(self, req: Request) -> np.ndarray:
         """The prompt left-padded to a whole number of buckets."""
@@ -390,16 +435,16 @@ class ServeEngine:
         self._sync()
         prefill_s = time.perf_counter() - t0
 
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
+        # the reference's chain: PRNGKey(seed), then fold_in(key, step)
+        key = PRNGKey(seed, self.device)
         max_new = max(r.max_new_tokens for r in reqs)
         out_toks = [[] for _ in reqs]
         aggs = [{k: 0.0 for k in DECODE_STAT_KEYS} for _ in reqs]
         decode_ss = [0.0 for _ in reqs]
-        cur = sample(logits, self.sampler, gen)
+        cur = sample(logits, self.sampler, key)
         finite = torch.isfinite(logits).all()       # read once, after the batch
         done = [r.max_new_tokens <= 0 for r in reqs]
-        for _ in range(max_new):
+        for step in range(max_new):
             cur_host = cur.tolist()
             em.host_syncs += 1
             t_host = time.perf_counter() - t_start
@@ -418,7 +463,8 @@ class ServeEngine:
             ts = time.perf_counter()
             logits, state, stats = serve_step(cfg, fkv, self.params, state,
                                               cur[:, None].long(), collect_stats=True)
-            cur = sample(logits, self.sampler, gen)
+            key = fold_in(key, step)
+            cur = sample(logits, self.sampler, key)
             finite &= torch.isfinite(logits).all()
             # one device-to-host read for all the step's statistics
             stats_np = dict(zip(DECODE_STAT_KEYS, torch.stack(

@@ -38,6 +38,12 @@ from repro_torch.core.recall_pipeline import wait_staged
 from repro_torch.models.model import init_decode_state
 from repro_torch.quant.accounting import pool_bytes_detail
 
+# top-level lanes of the decode state beside "layers", each batched on
+# axis 0: the positions and, under speculative decoding, the drafter's
+# successor table (empty value -1)
+TOP_LANES = ("pos", "pos_host", "draft_tab")
+_TOP_FILL = {"pos": 0, "pos_host": 0, "draft_tab": -1}
+
 # the pool payload and its scales: pages past a row's length are written (at
 # page completion) before a selection can reach them, so no reset clears
 # them: the previous occupant's bytes stay instead of ~1 GB of host memset
@@ -128,8 +134,11 @@ class SlotPool:
             for k, t in _tensors(layer).items():
                 if k not in POOL_KEYS:
                     paging.slot_read_leaf(t, slot).fill_(fill[k])
-        self.state["pos"][slot] = 0
-        self.state["pos_host"][slot] = 0
+        for k in self._top():
+            self.state[k][slot] = _TOP_FILL[k]
+
+    def _top(self):
+        return [k for k in TOP_LANES if k in self.state]
 
     def flush_resets(self):
         """Reset the slots freed since the last flush and not refilled, so
@@ -156,8 +165,9 @@ class SlotPool:
         for dst, src in zip(self.state["layers"], src_state["layers"]):
             for k, t in _tensors(src).items():
                 paging.slot_write_leaf(dst[k], t, slot)
-        for k in ("pos", "pos_host"):
-            paging.slot_write_leaf(self.state[k], src_state[k], slot)
+        for k in self._top():
+            if k in src_state:
+                paging.slot_write_leaf(self.state[k], src_state[k], slot)
 
     def extract(self, slot: int):
         """Row ``slot`` as a B=1 state of copies (tests, migration)."""
@@ -165,21 +175,20 @@ class SlotPool:
         return {"layers": [{k: paging.slot_read_leaf(t, slot).clone()
                             for k, t in _tensors(layer).items()}
                            for layer in self.state["layers"]],
-                "pos": paging.slot_read_leaf(self.state["pos"], slot).clone(),
-                "pos_host": paging.slot_read_leaf(self.state["pos_host"], slot).clone()}
+                **{k: paging.slot_read_leaf(self.state[k], slot).clone() for k in self._top()}}
 
     def swap_out(self, slot: int):
         """Row ``slot``'s whole B=1 state as host tensors at their stored
         dtypes (the caller frees the slot): the pool at its packed width and
         its scales, the summaries, the rings, the selection buffers
         ``sel_k``/``sel_v``/``sel_idx`` (the staged recall, finished first),
-        ``qprev``, the lengths, ``pos`` and ``pos_host``."""
+        ``qprev``, the lengths and the top-level lanes (``pos``,
+        ``pos_host`` and the drafter's ``draft_tab``)."""
         self._settle()
         return offload.swap_state_to_host(
             {"layers": [{k: paging.slot_read_leaf(t, slot) for k, t in _tensors(layer).items()}
                         for layer in self.state["layers"]],
-             "pos": paging.slot_read_leaf(self.state["pos"], slot),
-             "pos_host": paging.slot_read_leaf(self.state["pos_host"], slot)})
+             **{k: paging.slot_read_leaf(self.state[k], slot) for k in self._top()}})
 
     def swap_in(self, host_state, slot: int):
         """Write a ``swap_out`` state into row ``slot`` (allocated by the
@@ -191,7 +200,7 @@ class SlotPool:
         for dst, src in zip(self.state["layers"], host_state["layers"]):
             for k, t in src.items():
                 paging.slot_read_leaf(dst[k], slot).copy_(t, non_blocking=True)
-        for k in ("pos", "pos_host"):
+        for k in self._top():
             paging.slot_read_leaf(self.state[k], slot).copy_(host_state[k], non_blocking=True)
 
     def reset_all(self):

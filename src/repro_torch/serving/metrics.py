@@ -1,6 +1,6 @@
 """Serving telemetry: per-request lifecycle timings and engine-level counters
 (reference ``repro/serving/metrics.py``, cut to what the ported schedulers
-fill: no speculative decoding, SLOs or tensor parallelism yet).
+fill: no SLOs or tensor parallelism yet).
 
 Timestamps are ``time.perf_counter()`` values relative to the scheduler
 run's start; queue wait, TTFT and inter-token latency are properties, so
@@ -92,6 +92,22 @@ _COUNTER_ATTRS = {
                         "kv heads that triggered fine-grained correction"),
     "kv_head_steps": ("spec_kv_head_steps_total", float,
                       "kv-head decision opportunities (heads x steps)"),
+    # speculative decoding (models.model.serve_step_spec): one "verify
+    # step" is a drafted-block target pass; the tokens it commits share
+    # its compute
+    "spec_verify_steps": ("specdec_verify_steps_total", int,
+                          "drafted-block verify iterations dispatched"),
+    "spec_slot_steps": ("specdec_slot_steps_total", int,
+                        "live slot participations in verify steps"),
+    "spec_proposed_tokens": ("specdec_proposed_tokens_total", float,
+                             "drafted tokens proposed to verification"),
+    "spec_accepted_tokens": ("specdec_accepted_tokens_total", float,
+                             "drafted tokens accepted by the target pass"),
+    "spec_committed_tokens": ("specdec_committed_tokens_total", float,
+                              "tokens committed by verify steps (base + accepted)"),
+    "spec_idle_iterations": ("specdec_idle_iterations_total", int,
+                             "verify iterations run with every lane finished "
+                             "(models.model.decode_window_spec's window rule)"),
     "prefill_chunks": ("sched_prefill_chunks_total", int,
                        "chunked-prefill chunks executed"),
     "prefill_chunk_tokens": ("sched_prefill_chunk_tokens_total", int,
@@ -120,6 +136,7 @@ H_TOKEN_GAP = "request_token_gap_seconds"
 H_HIT_RATE = "spec_hit_rate"
 H_CORRECTION_RATE = "spec_correction_rate"
 H_CHURN = "spec_churn_pages"
+H_SPEC_TOKENS = "specdec_tokens_per_step"
 
 
 @dataclass
@@ -144,6 +161,9 @@ class EngineMetrics:
     # nonsync_host_bytes stays 0; the synchronous path reads every step
     sync_interval: int = 1
     sample_on_device: bool = True
+    # speculative decoding: drafted tokens per verify step (0 = off); a
+    # verify step commits up to 1 + draft_len tokens a slot
+    draft_len: int = 0
     # RadixPrefixCache.stats() after the run (empty without a cache)
     prefix_cache: Dict = field(default_factory=dict)
 
@@ -254,6 +274,37 @@ class EngineMetrics:
     def correction_rate_mean(self) -> float:
         return self.corrected_heads / self.kv_head_steps if self.kv_head_steps else 0.0
 
+    def observe_spec_step(self, tokens_per_step: float):
+        """One verify step's committed tokens per live slot (at least 1)."""
+        self.registry.histogram(H_SPEC_TOKENS, COUNT_BUCKETS,
+                                "tokens committed per verify step per slot"
+                                ).observe(tokens_per_step)
+
+    @property
+    def spec_accept_rate(self) -> float:
+        """Fraction of drafted tokens the target pass accepted."""
+        return (self.spec_accepted_tokens / self.spec_proposed_tokens
+                if self.spec_proposed_tokens else 0.0)
+
+    @property
+    def spec_tokens_per_target_step(self) -> float:
+        """Tokens committed per live slot per verify step."""
+        return (self.spec_committed_tokens / self.spec_slot_steps
+                if self.spec_slot_steps else 0.0)
+
+    def specdec_summary(self) -> dict:
+        return {
+            "draft_len": self.draft_len,
+            "verify_steps": self.spec_verify_steps,
+            "proposed_tokens": self.spec_proposed_tokens,
+            "accepted_tokens": self.spec_accepted_tokens,
+            "committed_tokens": self.spec_committed_tokens,
+            "accept_rate": self.spec_accept_rate,
+            "tokens_per_step": self.spec_tokens_per_target_step,
+            "tokens_per_step_hist": self._hist_summary(H_SPEC_TOKENS, COUNT_BUCKETS),
+            "idle_iterations": self.spec_idle_iterations,
+        }
+
     def _hist_summary(self, name: str, buckets) -> dict:
         return self.registry.histogram(name, buckets).summary()
 
@@ -272,6 +323,7 @@ class EngineMetrics:
                                         if r.queue_wait_s is not None]),
             "ttft_s_mean": _mean([r.ttft_s for r in done if r.ttft_s is not None]),
             "itl_s_mean": _mean([r.itl_s for r in done if r.itl_s is not None]),
+            "specdec": self.specdec_summary(),
             "latency": {
                 "queue_wait_s": self._hist_summary(H_QUEUE_WAIT, LATENCY_BUCKETS),
                 "ttft_s": self._hist_summary(H_TTFT, LATENCY_BUCKETS),

@@ -1,6 +1,7 @@
 """Continuous-batching scheduler: admission queue and per-slot request
 lifecycle (reference ``repro/serving/scheduler.py``; the live service mode
-is ROADMAP queue 1, item 7).
+is in ROADMAP queue 1, "Observability, cancellation, SLOs and the
+front-end").
 
 Requests move QUEUED -> PREFILL -> DECODE -> DONE (and DECODE -> SWAPPED ->
 DECODE under preemption). Slots are refilled at
@@ -10,11 +11,12 @@ request drains (the static engine's behaviour). Finished slots stop
 contributing tokens or statistics the moment they drain.
 
 Decode runs without host reads inside a window (``fkv.sample_on_device``,
-the default): the scheduler keeps the loop carry (current tokens, key
-lane, generated counts, limits, eos ids, finished mask) on the card and
-hands it to ``backend.decode_window``, which runs the window's steps
-(decode + greedy pick on the card) and leaves the (n, B) token, valid and
-stat blocks on the card. At the window's end the host reads the blocks
+the default): the scheduler keeps the loop carry (current tokens, the
+requests' keys ``request_key(seed, uid)``, generated counts, limits, eos
+ids, finished mask) on the card and hands it to ``backend.decode_window``,
+which runs the window's steps (decode + sampling on the card, token ``i``
+of a request drawn from ``fold_in(key, i)``) and leaves the (n, B) token,
+valid and stat blocks on the card. At the window's end the host reads the blocks
 once, appends tokens, frees and refills slots, and uploads the small lane
 vectors only when one changed. Between reads nothing crosses the host
 boundary (``EngineMetrics.summary()["dispatch"]``).
@@ -28,9 +30,21 @@ on the card at once, so its tokens are exact, but with admissions queued
 its slot is refilled at the window's end rather than at the eos step, and
 ``em.steps`` can then differ from the reference's.
 
+Under speculative decoding (``backend.spec_decode``) a window runs verify
+iterations instead (``models.model.decode_window_spec``), each committing
+1 to ``1 + draft_len`` tokens a lane, and its blocks are (n, 1 +
+draft_len, B). The host cannot know when a lane reaches its limit then, so
+the window gets the iterations the lanes would need if every draft were
+rejected (``_Lanes.window_len``) and stops early, with no blocking read,
+once the card's stop flag is seen (``decode_window_spec``'s docstring).
+Each committed row is applied as one logical step; iterations in which
+every lane was already finished count as ``spec_idle_iterations``. The
+tokens equal ``draft_len=0``'s; ``em.steps`` and the turnover points may
+differ (they follow the committed rows and the window ends).
+
 ``fkv.sample_on_device = False`` is the synchronous reference path: one
-decode step and one host read per iteration. Greedy tokens are the same on
-both paths and for every ``sync_interval``.
+decode step and one host read per iteration. Tokens are the same on both
+paths and for every ``sync_interval``.
 
 Each round of the loop runs the reference's three passes before its decode
 window:
@@ -60,8 +74,10 @@ The scheduler drives a backend (``ServeEngine``) exposing
     step(state, tokens (B, 1)) -> (logits (B, V), state, stats)
     sample_slot(logits, key, count) -> tokens (1,)
     sample_lanes(logits, keys (B, 2), counts (B,)) -> tokens (B,)
-    decode_window(state, loop, n) -> (state, loop, toks, valid, stats, finite)
-    page_block_bytes, sync_interval, sample_on_device, obs, recall_tracker
+    decode_window(state, loop, n, stop_turnover) -> (state, loop, toks, valid,
+                                                    stats, finite)
+    page_block_bytes, sync_interval, sample_on_device, obs, recall_tracker,
+    spec_decode, draft_len
 """
 from __future__ import annotations
 
@@ -76,8 +92,9 @@ import torch
 from repro_torch.core.paging import state_bytes
 from repro_torch.models.model import DECODE_STAT_KEYS as _STAT_KEYS
 from repro_torch.obs.trace import (SPAN_DECODE_STEP, SPAN_DECODE_WINDOW, SPAN_PREFILL_CHUNK,
-                                   SPAN_SCHED_PREEMPT, SPAN_SCHED_RESUME)
+                                   SPAN_SCHED_PREEMPT, SPAN_SCHED_RESUME, SPAN_SPEC_VERIFY)
 from repro_torch.serving.metrics import EngineMetrics, RequestMetrics
+from repro_torch.serving.sampling import request_key
 
 # stat keys the engine-level counters accumulate (per-request aggregation
 # keeps the full tuple)
@@ -138,7 +155,7 @@ class _Lanes:
     def __init__(self, num_slots: int, device):
         self.device = device
         self.cur = np.zeros(num_slots, np.int32)
-        self.key = np.zeros((num_slots, 2), np.int32)
+        self.key = np.zeros((num_slots, 2), np.int64)   # uint32 words of request_key
         self.count = np.zeros(num_slots, np.int32)
         self.limit = np.ones(num_slots, np.int32)
         self.eos = np.full(num_slots, -1, np.int32)
@@ -146,9 +163,9 @@ class _Lanes:
         self.dirty = True
         self._dev = None
 
-    def admit(self, slot: int, tok: int, count: int, limit: int, eos: Optional[int]):
+    def admit(self, slot: int, tok: int, key, count: int, limit: int, eos: Optional[int]):
         self.cur[slot] = tok
-        self.key[slot] = 0                        # greedy: the key lane is unused
+        self.key[slot] = np.asarray(key)
         self.count[slot] = count
         self.limit[slot] = limit
         self.eos[slot] = -1 if eos is None else eos
@@ -162,7 +179,9 @@ class _Lanes:
     def window_len(self, k_max: int, stop_turnover: bool) -> int:
         """Steps the reference's on-card loop runs from these lanes when no
         eos fires: until every live lane reaches its limit, or the first
-        one does when admissions are queued, at most ``k_max``."""
+        one does when admissions are queued, at most ``k_max``. Under
+        speculative decoding, an upper bound on its verify iterations (each
+        commits at least one token a live lane)."""
         live = ~self.fin
         if not live.any():
             return 0
@@ -194,12 +213,13 @@ class ContinuousScheduler:
 
     def run(self, requests, seed: int = 0):
         """Returns (tracked records in submission order, EngineMetrics).
-        ``seed`` seeds the per-request sample streams once sampling is
-        ported (ROADMAP queue 1, item 4); greedy ignores it."""
+        ``seed`` seeds the per-request sample streams (``request_key(seed,
+        uid)``); greedy ignores it."""
         backend, pool = self.backend, self.pool
         on_device = backend.sample_on_device
         obs = backend.obs
         self._trace = obs.trace
+        self._obs_enabled = obs.enabled
         self._page_block_bytes = backend.page_block_bytes
         t0 = time.perf_counter()
         self._t0 = t0
@@ -214,7 +234,8 @@ class ContinuousScheduler:
         em = EngineMetrics(num_slots=pool.num_slots, scheduler="continuous",
                            page_block_bytes=backend.page_block_bytes,
                            sync_interval=backend.sync_interval if on_device else 1,
-                           sample_on_device=on_device)
+                           sample_on_device=on_device,
+                           draft_len=int(getattr(backend, "draft_len", 0)))
         # per-slot staged recall in flight: the buffer a slot carries out of
         # step t is consumed by step t+1 unless the slot turns over
         flight = backend.recall_tracker
@@ -284,11 +305,13 @@ class ContinuousScheduler:
             self._step_idx += 1
 
         def begin_decode(tr: _Tracked, slot: int, logits1, tp: Optional[float] = None):
-            """The first token of a finished prefill; the request joins the
-            decode lanes. ``tp``: the whole-shot prefill's start, whose
-            ``prefill_s`` runs to this read."""
+            """The first token of a finished prefill, token 0 of the request's
+            stream; the request joins the decode lanes. ``tp``: the
+            whole-shot prefill's start, whose ``prefill_s`` runs to this
+            read."""
             self._finite &= torch.isfinite(logits1).all()
-            tok = int(backend.sample_slot(logits1, None, 0)[0])     # the admission's read
+            rkey = request_key(seed, tr.req.uid)
+            tok = int(backend.sample_slot(logits1, rkey, 0)[0])     # the admission's read
             if tp is not None:
                 tr.prefill_s = time.perf_counter() - tp
             tr.metrics.first_token_t = now()
@@ -300,7 +323,7 @@ class ContinuousScheduler:
                 finish(tr, slot)
             else:
                 active[slot] = tr
-                lanes.admit(slot, tok, 1, tr.req.max_new_tokens, tr.req.eos_token)
+                lanes.admit(slot, tok, rkey, 1, tr.req.max_new_tokens, tr.req.eos_token)
 
         def resume(tr: _Tracked):
             """Swap a preempted request's state back into a free slot; its
@@ -312,8 +335,8 @@ class ContinuousScheduler:
             tr.host_state = None
             flight.restore(slot, tr.flight_pages)
             tr.flight_pages = 0.0
-            lanes.admit(slot, tr.tokens[-1], len(tr.tokens), tr.req.max_new_tokens,
-                        tr.req.eos_token)
+            lanes.admit(slot, tr.tokens[-1], request_key(seed, tr.req.uid), len(tr.tokens),
+                        tr.req.max_new_tokens, tr.req.eos_token)
             tr.state = DECODE
             tr.slot = slot
             active[slot] = tr
@@ -424,7 +447,7 @@ class ContinuousScheduler:
             pool.flush_resets()          # lazily reset freed-but-idle slots
             if on_device:
                 self._window_steps(backend, pool, em, lanes, apply_step,
-                                   stop_turnover=bool(queue))
+                                   stop_turnover=bool(queue), flight=flight)
             else:
                 self._sync_step(backend, pool, em, lanes, apply_step)
 
@@ -466,14 +489,16 @@ class ContinuousScheduler:
             i += b.numel()
         return out
 
-    def _window_steps(self, backend, pool, em, lanes, apply_step, stop_turnover: bool):
+    def _window_steps(self, backend, pool, em, lanes, apply_step, stop_turnover: bool,
+                      flight=None):
         """Run one window without host reads, then read its blocks once and
-        apply them step by step."""
+        apply them step by step (verify iterations row by row)."""
         n = lanes.window_len(backend.sync_interval, stop_turnover)
         loop = lanes.device_loop(em)
         ts = time.perf_counter()
         ts_rel = ts - self._t0
-        state, loop, toks, valid, stats, finite = backend.decode_window(pool.state, loop, n)
+        state, loop, toks, valid, stats, finite = backend.decode_window(pool.state, loop, n,
+                                                                        stop_turnover)
         pool.state = state
         lanes.carry_back(loop)
         self._finite &= finite.all()
@@ -484,14 +509,65 @@ class ContinuousScheduler:
         em.host_syncs += 1
         pulled = 8 * (toks.numel() + valid.numel() + sum(stats[k].numel() for k in _STAT_KEYS))
         em.sync_bytes_to_host += pulled
+        n = toks_np.shape[0]
         self._trace.complete(SPAN_DECODE_WINDOW, ts_rel, dt,
                              args={"steps": n, "bytes_to_host": pulled})
         per_dt = dt / max(n, 1)
+        if toks_np.ndim == 3:
+            self._apply_spec_blocks(pool, em, toks_np, valid_np, stats_np, apply_step,
+                                    flight, ts_rel, per_dt)
+            return
         for j in range(n):
             live = [int(s) for s in np.nonzero(valid_np[j])[0]]
             if live:        # rows after an eos finished every lane: nothing to apply
                 apply_step({k: stats_np[k][j] for k in _STAT_KEYS}, toks_np[j], live,
                            per_dt, ts=ts_rel + j * per_dt)
+
+    def _apply_spec_blocks(self, pool, em, toks_np, valid_np, stats_np, apply_step, flight,
+                           ts_rel, per_dt):
+        """Apply a speculative window's (n, S, B) blocks (reference
+        ``scheduler.py:646-691``): iteration j committed, a slot, the rows r
+        with ``valid[j, r, slot]``, an accepted prefix, so row 0's live set
+        is the iteration's. Each committed row is one logical decode step;
+        the timestamps split the iteration's share of the window. An
+        iteration with no live row ran after every lane had finished: it
+        counts in ``spec_idle_iterations``."""
+        n, S = toks_np.shape[:2]
+        dl = S - 1
+        # pos_host follows the committed rows (the window's rewinds moved pos)
+        pool.state["pos_host"] += torch.from_numpy(
+            valid_np.sum(axis=(0, 1)).astype(np.int32))
+        for j in range(n):
+            rows = [(r, [int(s) for s in np.nonzero(valid_np[j, r])[0]]) for r in range(S)]
+            rows = [(r, live) for r, live in rows if live]
+            if not rows:
+                em.spec_idle_iterations += 1
+                continue
+            base = rows[0][1]
+            committed = sum(len(live) for _, live in rows)
+            em.spec_verify_steps += 1
+            em.spec_slot_steps += len(base)
+            em.spec_proposed_tokens += dl * len(base)
+            em.spec_accepted_tokens += committed - len(base)
+            em.spec_committed_tokens += committed
+            ts_j = ts_rel + j * per_dt
+            if self._obs_enabled:
+                em.observe_spec_step(committed / len(base))
+            self._trace.complete(SPAN_SPEC_VERIFY, ts_j, per_dt,
+                                 args={"live_slots": len(base), "proposed": dl * len(base),
+                                       "accepted": committed - len(base),
+                                       "committed": committed})
+            # rejected rows' recall was streamed for a continuation that never
+            # commits: dropped in flight (the rollback recall re-stages)
+            if flight is not None and dl:
+                rej = float(sum(stats_np[k][j, r, s] for k in ("async_pages", "sync_pages")
+                                for r in range(1, S) for s in base if not valid_np[j, r, s]))
+                if rej:
+                    flight.drop(rej)
+            sub = per_dt / len(rows)
+            for i, (r, live) in enumerate(rows):
+                apply_step({k: stats_np[k][j, r] for k in _STAT_KEYS}, toks_np[j, r], live,
+                           sub, ts=ts_j + i * sub)
 
     def _sync_step(self, backend, pool, em, lanes, apply_step):
         """Synchronous reference mode: one decode step, one host read."""

@@ -239,7 +239,8 @@ def test_check_supported_admits_dense_and_refuses_the_rest():
     for bad in (dataclasses.replace(base, pattern=(("attn", MOE),)),
                 dataclasses.replace(base, pattern=((SLSTM, "none"),)),
                 dataclasses.replace(base, is_encoder_decoder=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
+        with pytest.raises(NotImplementedError,
+                           match='ROADMAP queue 1, "Other mixers, archs and tools"'):
             model.check_supported(bad)
     with pytest.raises(KeyError, match="qwen25-7b"):
         get_config("deepseek-moe-16b")

@@ -5,6 +5,7 @@ so the repo's conftest can be left out there):
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+import numpy as np
 import pytest
 import torch
 
@@ -615,7 +616,7 @@ def test_cuda_decode_window_makes_no_host_sync(method, kv_quant):
         slot = pool.alloc(req.uid)
         logits, st, _, _ = eng.prefill_one(req, pool, slot)
         pool.insert(st, slot)
-        lanes.admit(slot, int(torch.argmax(logits[0])), 1, 100, None)
+        lanes.admit(slot, int(torch.argmax(logits[0])), np.zeros(2, np.int64), 1, 100, None)
     loop = lanes.device_loop(EngineMetrics())
     state, loop, *_ = eng.decode_window(pool.state, loop, 2)     # loads the kernels
     torch.cuda.synchronize()
@@ -628,6 +629,55 @@ def test_cuda_decode_window_makes_no_host_sync(method, kv_quant):
     assert finite.all()
     assert state["pos_host"].tolist() == state["pos"].tolist() == [72 + 18, 101 + 18, 18]
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_cuda_spec_window_makes_no_host_sync(temperature):
+    """A speculative window (draft_len 3, verify rows, rollback recall,
+    drafter update, its stop flags polled through events) never makes the
+    host wait for the card: under torch.cuda.set_sync_debug_mode("error"),
+    greedy and sampled; its emitted rows are what draft_len 0 emits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.metrics import EngineMetrics
+    from repro_torch.serving.sampling import SamplerConfig, request_key
+    from repro_torch.serving.scheduler import _Lanes
+    dev = torch.device("cuda", 0)
+    cfg = get_config("granite-3-8b-smoke")
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    out = {}
+    for dl in (3, 0):
+        fkv = FreeKVConfig(method="freekv", draft_len=dl, **SMOKE_FKV)
+        eng = ServeEngine(cfg, fkv, params, max_len=128, batch_size=3, device=dev,
+                          sampler=SamplerConfig(temperature))
+        pool = eng.make_slot_pool(3)
+        lanes = _Lanes(3, dev)
+        for req in _smoke_requests(cfg)[:2]:
+            slot = pool.alloc(req.uid)
+            logits, st, _, _ = eng.prefill_one(req, pool, slot)
+            pool.insert(st, slot)
+            rk = request_key(0, req.uid)
+            lanes.admit(slot, int(eng.sample_slot(logits, rk, 0)[0]), rk.numpy(), 1, 12, None)
+        loop = lanes.device_loop(EngineMetrics())
+        torch.cuda.synchronize()
+        if dl:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, loop, toks, valid, stats, finite = eng.decode_window(pool.state, loop, 11)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert finite.all()
+        toks, valid = toks.cpu(), valid.cpu()
+        if dl:          # committed rows in order: (n, S, B) -> per lane
+            out[dl] = [toks[:, :, b][valid[:, :, b]].tolist() for b in range(3)]
+        else:
+            out[dl] = [toks[:, b][valid[:, b]].tolist() for b in range(3)]
+    assert out[3] == out[0] and len(out[0][0]) == 11 and not out[0][2]
 
 # ---------------------------------------------------------------------------
 # the page-fill kernels (fill_pages, complete_page)
@@ -851,3 +901,75 @@ def test_cuda_flash_prefill_d80(dtype, tq):
     assert got.shape == q.shape
     torch.testing.assert_close(got.float(), ref.flash_prefill_ref(q, k, v, 80 ** -0.5).float(),
                                **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_cuda_sampler_streams_equal_cpu(dtype):
+    """On the card: the per-request keys, the random bits and the uniform
+    draws equal the CPU's bit for bit (the streams ``test_torch_sampling``
+    holds equal to JAX's); greedy and sampled ids equal the CPU's at a
+    llama-sized vocabulary but where the CPU's top two perturbed logits
+    tie within 4 ulp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from repro_torch.serving import sampling
+    dev = torch.device("cuda", 0)
+    keys = torch.stack([sampling.request_key(1234, u) for u in range(8)])
+    counts = torch.arange(8, dtype=torch.int32) * 5
+    sk = sampling.step_keys(keys, counts)
+    sk_dev = sampling.step_keys(keys.to(dev), counts.to(dev))
+    assert torch.equal(sk, sk_dev.cpu())
+    for width in (8, 16, 32):
+        assert torch.equal(sampling.random_bits(sk, width, (4096,)),
+                           sampling.random_bits(sk_dev, width, (4096,)).cpu())
+    tiny = torch.finfo(dtype).tiny
+    assert torch.equal(sampling.uniform(sk[0], (8, 4096), dtype, tiny, 1.0),
+                       sampling.uniform(sk_dev[0], (8, 4096), dtype, tiny, 1.0).cpu())
+    g = torch.Generator().manual_seed(0)
+    logits = (torch.randn((8, 128512), generator=g) * 3).to(dtype)
+    for top_p in (1.0, 0.9):
+        cfg = sampling.SamplerConfig(0.8, top_p)
+        a = sampling.sample_step(logits, cfg, sk)
+        b = sampling.sample_step(logits.to(dev), cfg, sk_dev).cpu()
+        pert = sampling.gumbel(sk, (128512,), dtype).float() + \
+            sampling._filter_logits(logits, cfg).float()
+        top2 = torch.topk(pert, 2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) <= 4 * torch.finfo(dtype).eps * top2[:, 0].abs()
+        assert bool(((a == b) | tie).all()), (top_p, a, b)
+    assert torch.equal(sampling.sample_step(logits, sampling.SamplerConfig(), None),
+                       sampling.sample_step(logits.to(dev), sampling.SamplerConfig(), None).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["freekv", "infinigen"])
+def test_cuda_verify_rows_equal_single_steps(method):
+    """On the card, bf16, pinned pool, the overlap's side stream: each row
+    of a verify pass is bit for bit a single ``serve_step`` from the same
+    state (two identical prefills), logits and stats."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.models import model
+    dev = torch.device("cuda", 0)
+    cfg = get_config("granite-3-8b-smoke")
+    fkv = FreeKVConfig(method=method, draft_len=3, **SMOKE_FKV)
+    params = model.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (3, 96), generator=g).to(dev)
+    block = torch.randint(0, cfg.vocab_size, (3, 4), generator=g).to(dev)
+
+    def state():
+        return model.prefill(cfg, fkv, params, {"tokens": toks}, 160,
+                             state_dtype=torch.bfloat16)[1]
+    st = state()
+    single = []
+    for j in range(4):
+        lg, st, s = model.serve_step(cfg, fkv, params, st, block[:, j:j + 1],
+                                     collect_stats=True)
+        single.append((lg, s))
+    logits, _, rows, _ = model.serve_step_verify(cfg, fkv, params, state(), block)
+    for j, (lg, s) in enumerate(single):
+        assert torch.equal(logits[:, j], lg), j
+        assert all(torch.equal(rows[k][j], s[k]) for k in rows), j

@@ -129,18 +129,30 @@ def test_static_path_takes_every_kv_quant(kv_quant):
                        device="cpu").scheduler == "continuous"
 
 
-@pytest.mark.parametrize("what,kw,item", [
-    ("temperature", dict(sampler=SamplerConfig(temperature=0.7)), "item 4"),
-])
-def test_continuous_refuses_what_is_not_ported(what, kw, item):
-    """Under the continuous scheduler, sampling with a temperature raises
-    and names its ROADMAP item; the static path still samples with a
-    temperature."""
+def test_continuous_samples_on_request_streams():
+    """The continuous scheduler takes a temperature and draws on the
+    reference's per-request streams: a request's first token is token 0 of
+    ``request_key(seed, uid)``'s stream from its prefill logits, and its
+    tokens do not depend on the slot count or the host-read cadence (the
+    tokens against the reference's: ``test_torch_sampling.py``)."""
+    from repro_torch.serving.sampling import request_key, sample_counted
     cfg = get_config("granite-3-8b-smoke")
-    args = dict(fkv=FreeKVConfig(**FKV), sampler=SamplerConfig())
-    args.update(kw)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
-        ServeEngine(cfg, args["fkv"], {}, max_len=64, batch_size=1, sampler=args["sampler"],
-                    scheduler="continuous", device="cpu")
+    params = model.init_params(cfg, seed=0, device="cpu")
+    sampler = SamplerConfig(temperature=0.7)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, 64).astype(np.int32)
+    outs = {}
+    for name, kw, slots in (("k8", {}, 1), ("k1", dict(sync_interval=1), 2),
+                            ("sync", dict(sample_on_device=False), 2)):
+        eng = ServeEngine(cfg, FreeKVConfig(**FKV, **kw), params, max_len=128, batch_size=slots,
+                          sampler=sampler, device="cpu")
+        outs[name] = {o.uid: o.tokens for o in eng.generate(
+            [Request(uid=u, tokens=prompt, max_new_tokens=6) for u in (3, 4)], seed=5)}
+    assert outs["k8"] == outs["k1"] == outs["sync"]
+    assert outs["k8"][3] != outs["k8"][4]          # one prompt, two streams
+    logits, _, _, _ = eng.prefill_one(Request(uid=3, tokens=prompt, max_new_tokens=6))
+    for uid in (3, 4):
+        first = sample_counted(logits, sampler, request_key(5, uid)[None],
+                               torch.zeros((1,), dtype=torch.int32))
+        assert int(first[0]) == outs["k8"][uid][0]
     ServeEngine(cfg, FreeKVConfig(**FKV), {}, max_len=64, batch_size=1,
                 sampler=SamplerConfig(temperature=0.7), scheduler="static", device="cpu")
