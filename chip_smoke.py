@@ -110,6 +110,26 @@ Phases, each fatal on failure (nothing is caught):
      ms/step, tokens/s, peak memory and its own launch counts (zeroed just
      before it), whose sums the kernels line gives as wide_launches, apart
      from phase 4's main-path launches.
+ 4d. the sampler (card against CPU) and speculative decoding at full width
+     (spec_phase; its launches are the kernels line's spec_launches).
+ 4e. live serving at full width: llama31-8b bf16, freekv/none, pinned pool,
+     recall overlap, continuous over 4 slots, Observability.full() and SLOs
+     of 2000 ms TTFT and 500 ms inter-token latency, the engine on the
+     EngineService's worker thread and the HTTP front-end on 127.0.0.1.
+     Nine streaming clients arrive on a seeded exponential schedule (mean
+     gap 0.5 s): phase 4's eight requests, whose streamed tokens must equal
+     phase 4's continuous freekv/none tokens, and, third, a 4096-token
+     request for 64 tokens that closes its socket after its 4th token and
+     must end CANCELLED (one cancellation, its tokens its direct run's);
+     then the nine through generate() on the same engine, for the tokens
+     and the decode ms/step without the front-end.
+     /healthz, /metrics (Prometheus text) and /stats (the board's snapshot)
+     are read and checked with requests in flight; every slot must be free
+     at the end, no client may see an error event, the kernels launch as
+     phase 4 requires (counted from just before the service starts: the
+     kernels line's service_launches), the written trace and JSONL snapshot
+     must validate. Logs client TTFT and token-gap percentiles, the SLO
+     summary, decode ms/step beside phase 4's, host reads a token, peak GiB.
   5. kernel path == plain path: granite-3-8b-smoke at float32 gives the same
      greedy tokens on the card (kernels) and on the CPU (plain versions):
      static, freekv and shadowkv under kv_quant none, int8 and int4,
@@ -1584,7 +1604,7 @@ def main_path(dev, ops, cfg, params, method, kv_quant, scheduler="continuous"):
             "dropped_in_flight_pages": em.dropped_pages,
             "launches": launches,
             "launches_per_decode_step": {k: v / max(steps, 1) for k, v in launches.items()},
-            "first_tokens": outs[0].tokens[:8]}
+            "first_tokens": outs[0].tokens[:8], "tokens": {o.uid: o.tokens for o in outs}}
     # valid lanes of the critical-path top-up and of the staged gather, each
     # over every lane of the live rows' launches (kv x n_sel a row)
     lanes = em.active_slot_steps * cfg.n_layers * KV * N_SEL
@@ -1604,7 +1624,8 @@ def main_path(dev, ops, cfg, params, method, kv_quant, scheduler="continuous"):
                               with_prefill=False, window=window, completion=main)
         info["profile"] = {k: prof[k] for k in ("wall_ms_per_step_unprofiled",
                                                 "cpu_ops_per_step", "device_ops_per_step",
-                                                "device_busy_ms_per_step", "device_busy_share")}
+                                                "device_busy_ms_per_step", "device_busy_share",
+                                                "spans")}
         if main:
             info["profile"]["completion"] = prof["completion"]
         if window:
@@ -2458,6 +2479,257 @@ def spec_vs_plain(dev):
     return out
 
 
+# phase 4e: live serving at full width through the HTTP front-end:
+# llama31-8b bf16, freekv/none, pinned pool, recall overlap, continuous over
+# 4 slots, the same max_len as phase 4, Observability.full() (trace and
+# board), SLOs of 2000 ms TTFT and 500 ms mean inter-token latency. Nine
+# streaming clients, a thread each, arrive on a seeded exponential schedule
+# (mean gap 0.5 s, a chat service whose users come over time): phase 4's
+# eight needle requests and, arriving third, a ninth that hangs up after
+# its 4th token
+SERVE_GAP_S = 0.5
+SERVE_SLO_MS = (2000.0, 500.0)
+SERVE_QUITTER = (8, 4096, 64, 4)        # uid, prompt tokens, new tokens, tokens it reads
+SERVE_ORDER = (0, 1, 8, 2, 3, 4, 5, 6, 7)
+
+
+def _prometheus_problems(text):
+    """The text exposition's line rules: a ``# TYPE`` is counter, gauge or
+    histogram; every other line that is not a comment is ``name[{labels}]
+    value`` with a finite value."""
+    problems, samples = [], 0
+    for i, ln in enumerate(text.splitlines(), 1):
+        if not ln.strip():
+            continue
+        if ln.startswith("# TYPE "):
+            if ln.split()[-1] not in ("counter", "gauge", "histogram"):
+                problems.append(f"line {i}: unknown metric type")
+            continue
+        if ln.startswith("#"):
+            continue
+        parts = ln.rsplit(" ", 1)
+        try:
+            ok = len(parts) == 2 and math.isfinite(float(parts[1]))
+        except ValueError:
+            ok = False
+        if not ok:
+            problems.append(f"line {i}: not 'name value' with a finite value: {ln[:80]}")
+        samples += 1
+    return problems if samples else problems + ["no sample"]
+
+
+def _ndjson_events(buf):
+    """The complete JSON events in the bytes of a chunked NDJSON stream."""
+    out = []
+    for piece in buf.split(b"\r\n"):
+        piece = piece.strip()
+        if piece.startswith(b"{") and piece.endswith(b"}"):
+            out.append(json.loads(piece))
+    return out
+
+
+def _serve_client(port, payload, quit_after, out):
+    """One streaming client: posts ``payload`` and records each event with
+    its arrival time (s from the request's start); with ``quit_after``, it
+    reads that many tokens and closes its socket."""
+    import socket
+
+    from repro_torch.serving.frontend import http_generate
+    t0 = time.perf_counter()
+    rec = out[payload["uid"]] = {"events": [], "t": [], "error": None}
+    try:
+        if quit_after is None:
+            for ev in http_generate("127.0.0.1", port, payload, timeout=600):
+                rec["events"].append(ev)
+                rec["t"].append(time.perf_counter() - t0)
+            return
+        body = json.dumps({**payload, "stream": True}).encode()
+        s = socket.create_connection(("127.0.0.1", port), timeout=600)
+        s.sendall(b"POST /generate HTTP/1.1\r\nHost: c\r\nContent-Type: application/json\r\n"
+                  b"Content-Length: " + str(len(body)).encode() + b"\r\n\r\n" + body)
+        buf = b""
+        while True:
+            chunk = s.recv(65536)
+            if not chunk:
+                break
+            buf += chunk
+            evs = _ndjson_events(buf)
+            rec["t"] += [time.perf_counter() - t0] * (len(evs) - len(rec["events"]))
+            rec["events"] = evs
+            if sum(e["event"] == "token" for e in evs) >= quit_after:
+                break
+        s.close()                       # the user gives up
+    except Exception as e:              # read by the phase, which fails on it
+        rec["error"] = repr(e)
+
+
+def serve_phase(dev, ops, cfg, params, direct_tokens, direct_ms):
+    """Phase 4e (see SERVE_*): the eight survivors' streamed tokens must
+    equal phase 4's continuous freekv/none tokens ``direct_tokens``; the
+    ninth must end CANCELLED with ``sched_cancellations_total`` 1 and its
+    tokens a prefix of a direct run's; every slot free; no client error and
+    no worker failure (``EngineService.stop()`` raises it); /healthz,
+    /metrics and /stats valid while requests are in flight; the main path's
+    kernels launched as phase 4 requires (flash_prefill and fill_pages once
+    a layer a prefill, complete_page once a layer a step), the counts set
+    to 0 just before the service starts and read when it stops; the trace
+    and the JSONL snapshot valid. Then the same nine requests go through
+    ``generate()`` on the same engine, the hung-up one for the tokens the
+    server made: all tokens equal, and its decode ms/step stands beside the
+    service's. Returns (info, launches)."""
+    import tempfile
+    import threading
+
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.obs import (Observability, validate_chrome_trace, validate_snapshot,
+                                 validate_timeseries_snapshot)
+    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.serving.frontend import (EngineService, http_get_json, http_get_text,
+                                              serve_http_background)
+
+    t_phase = time.perf_counter()
+    fkv = FreeKVConfig(method="freekv", offload="host")
+    quid, qlen, qnew, qread = SERVE_QUITTER
+    spec = {i: (n, m) for i, (n, m) in enumerate(zip(CONT_PROMPTS, CONT_NEW))}
+    spec[quid] = (qlen, qnew)
+    prompts = {u: next(needle_stream(cfg.vocab_size, n, fkv.page_size, seed=u)).tokens
+               for u, (n, _) in spec.items()}
+    obs = Observability.full()
+    eng = ServeEngine(cfg, fkv, params, max_len=MAX_LEN, batch_size=B,
+                      state_dtype=torch.bfloat16, obs=obs, slo_ttft_ms=SERVE_SLO_MS[0],
+                      slo_itl_ms=SERVE_SLO_MS[1], device=dev)
+    gaps = np.random.default_rng(0).exponential(SERVE_GAP_S, len(SERVE_ORDER))
+    gaps[0] = 0.0
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    svc = EngineService(eng, seed=0).start()
+    fe, stop, th = serve_http_background(svc)
+    results, clients, live = {}, [], {}
+    for k, (uid, gap) in enumerate(zip(SERVE_ORDER, gaps)):
+        time.sleep(gap)
+        payload = {"uid": uid, "tokens": prompts[uid].tolist(), "max_new_tokens": spec[uid][1]}
+        c = threading.Thread(target=_serve_client,
+                             args=(fe.port, payload, qread if uid == quid else None, results))
+        c.start()
+        clients.append(c)
+        if k == 5:                      # six requests in, tokens out: the live endpoints
+            live["healthz"] = http_get_json("127.0.0.1", fe.port, "/healthz")
+            live["metrics"] = http_get_text("127.0.0.1", fe.port, "/metrics")
+            live["stats"] = http_get_json("127.0.0.1", fe.port, "/stats")
+    for c in clients:
+        c.join(timeout=600)
+        require(not c.is_alive(), "a serving client did not finish")
+    stop.set()
+    th.join(timeout=60)
+    completions = svc.stop()            # raises the worker's failure
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    em = eng.last_metrics
+    by_uid = {c.uid: c for c in completions}
+
+    st, hz = live["healthz"]
+    require(st == 200 and hz["ok"] and hz["engine_running"], f"/healthz in flight: {st} {hz}")
+    st, prom = live["metrics"]
+    require(st == 200 and not _prometheus_problems(prom),
+            f"/metrics in flight: {st} {_prometheus_problems(prom)[:5]}")
+    st, stats = live["stats"]
+    require(st == 200 and not validate_timeseries_snapshot(stats)
+            and stats["rates"].get("tokens", {}).get("total_events", 0) > 0
+            and "ttft_s" in stats["stats"],
+            f"/stats in flight: {st} {validate_timeseries_snapshot(stats)} {stats.get('rates')}")
+    for uid, rec in results.items():
+        require(rec["error"] is None, f"client {uid}: {rec['error']}")
+        require(not any(e["event"] == "error" for e in rec["events"]),
+                f"client {uid} saw an error event: {rec['events'][-1]}")
+    ttft, gaps_s = [], []
+    for uid in spec:
+        if uid == quid:
+            continue
+        evs, ts = results[uid]["events"], results[uid]["t"]
+        toks = [e["token"] for e in evs if e["event"] == "token"]
+        require(evs[-1]["event"] == "done" and evs[-1]["tokens"] == toks,
+                f"client {uid}: the stream ended {evs[-1]['event']}")
+        require(toks == direct_tokens[uid], f"request {uid}: served tokens {toks} differ from "
+                f"phase 4's {direct_tokens[uid]}")
+        t_tok = [t for e, t in zip(evs, ts) if e["event"] == "token"]
+        ttft.append(t_tok[0])
+        gaps_s += list(np.diff(t_tok))
+    quitter = by_uid[quid]
+    read = [e["token"] for e in results[quid]["events"] if e["event"] == "token"]
+    require(quitter.metrics.cancelled and em.cancellations == 1
+            and em.registry.snapshot()["counters"]["sched_cancellations_total"] == 1,
+            f"the hung-up request: cancelled {quitter.metrics.cancelled}, cancellations "
+            f"{em.cancellations}")
+    require(len(read) >= qread and quitter.tokens[:len(read)] == read
+            and len(quitter.tokens) < qnew,
+            f"the hung-up request read {read}, the server made {quitter.tokens}")
+    require(eng._pool.owner == [None] * B and eng._pool.free_count == B,
+            f"slots still held after the run: {eng._pool.owner}")
+    require(all(not by_uid[u].metrics.cancelled for u in spec if u != quid),
+            "a survivor was cancelled")
+    for name in RUNS[("freekv", "none")]:
+        require(launches[name] > 0, f"{name} was never launched while serving")
+    for name in OFF_PATH + ("recall_gather_quant", "recall_values", "recall_values_quant",
+                            "centroid_candidates"):
+        require(launches[name] == 0, f"{name} launched while serving")
+    for name, per_layer in (("flash_prefill", len(spec)), ("fill_pages", len(spec)),
+                            ("complete_page", em.steps)):
+        require(launches[name] == cfg.n_layers * per_layer,
+                f"{name} launched {launches[name]} times while serving, "
+                f"{cfg.n_layers} x {per_layer} expected")
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path, snap_path = os.path.join(tmp, "trace.json"), os.path.join(tmp, "m.jsonl")
+        obs.trace.write(trace_path)
+        em.registry.write_jsonl(snap_path, extra={"phase": "4e"})
+        with open(trace_path, encoding="utf-8") as f:
+            problems = validate_chrome_trace(json.load(f))
+        require(not problems, f"the served trace: {problems[:5]}")
+        with open(snap_path, encoding="utf-8") as f:
+            for ln in f:
+                problems = validate_snapshot(json.loads(ln))
+                require(not problems, f"the JSONL snapshot: {problems[:5]}")
+        trace_events = len(obs.trace.events)
+    summary = em.summary()
+    lat = summary["latency"]["decode_step_s"]
+    gen_tokens = sum(len(c.tokens) for c in completions)
+    # the same nine requests handed to generate() on the same engine, the
+    # hung-up one for the tokens the server made: its tokens must be those,
+    # and the decode's ms/step is the same engine's without the front-end
+    direct = eng.generate([Request(uid=u, tokens=prompts[u], max_new_tokens=(
+        len(quitter.tokens) if u == quid else m)) for u, (_, m) in spec.items()])
+    dtoks = {c.uid: c.tokens for c in direct}
+    require(dtoks == {**direct_tokens, quid: quitter.tokens},
+            f"the direct run of the nine requests differs: the hung-up request's "
+            f"{quitter.tokens} against {dtoks[quid]}")
+    dlat = eng.last_metrics.summary()["latency"]["decode_step_s"]
+    pct = lambda xs, q: float(np.percentile(xs, q))     # noqa: E731
+    info = {"requests": len(spec), "arrival_order": list(SERVE_ORDER),
+            "arrival_gaps_s": [float(g) for g in gaps],
+            "client_ttft_s": {"p50": pct(ttft, 50), "p99": pct(ttft, 99), "max": max(ttft)},
+            "client_token_gap_s": {"p50": pct(gaps_s, 50), "p99": pct(gaps_s, 99),
+                                   "max": max(gaps_s)},
+            "slo": em.slo_summary(), "server_ttft_s": summary["latency"]["ttft_s"],
+            "decode_ms_per_step": 1e3 * lat["sum"] / lat["count"],
+            "direct_decode_ms_per_step": direct_ms,
+            "same_engine_direct_decode_ms_per_step": 1e3 * dlat["sum"] / dlat["count"],
+            "same_engine_direct_steps": eng.last_metrics.steps, "decode_steps": em.steps,
+            "host_syncs": em.host_syncs, "host_syncs_per_token": em.host_syncs / gen_tokens,
+            "generated_tokens": gen_tokens, "tokens_per_s": gen_tokens / wall, "wall_s": wall,
+            "hung_up": {"read": len(read), "server_tokens": len(quitter.tokens)},
+            "slot_occupancy": em.slot_occupancy, "peak_device_gib": peak,
+            "trace_events": trace_events,
+            "stats_in_flight": {k: stats["rates"].get(k, {}).get("total_events")
+                                for k in ("tokens", "completions")},
+            "launches": launches, "phase_s": time.perf_counter() - t_phase}
+    del eng, completions, direct
+    torch.cuda.empty_cache()
+    return info, launches
+
+
 KERNEL_META = {   # name -> (source, the TPU kernel it replaces)
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:69"),
@@ -2598,7 +2870,7 @@ def main():
             f"({k['host_sms']:g} SMs at {k['blocks_per_sm']} an SM); "
             f"{k['device_grid_blocks']} blocks from a device pool")
     launches = {k["name"]: None for k in kernels}
-    wide_launches, spec_launches = {}, {}
+    wide_launches, spec_launches, service_launches = {}, {}, {}
     share = None
     if not args.kernels_only:
         # phase 4: main path at full width: the static path, then every
@@ -2611,6 +2883,7 @@ def main():
             t0 = time.perf_counter()
             info, run = main_path(dev, ops, cfg, params, method, kv_quant, scheduler)
             info["run_s"] = time.perf_counter() - t0
+            tokens = info.pop("tokens")
             log("[main] " + json.dumps(info))
             log(f"[main] {scheduler} {method}/{kv_quant}: {info['requests']} requests over "
                 f"{B} slots, TTFT {min(info['ttft_s']):.3f}-{max(info['ttft_s']):.3f} s, "
@@ -2619,9 +2892,13 @@ def main():
                 f"{info['tokens_per_s']:.2f} tokens/s, peak {info['peak_device_gib']:.2f} GiB")
             if "profile" in info:
                 pr = info["profile"]
-                log(f"[main] {method}/{kv_quant}: eager decode step {pr['cpu_ops_per_step']} host "
+                log(f"[main] {method}/{kv_quant}: eager decode step "
+                    f"{pr['wall_ms_per_step_unprofiled']:.2f} ms, {pr['cpu_ops_per_step']} host "
                     f"ops, {pr['device_ops_per_step']:.1f} device operations, busy share "
-                    f"{pr['device_busy_share']:.3f}")
+                    f"{pr['device_busy_share']:.3f}; spans a step (host ms, device ms): "
+                    + json.dumps({k: (round(v["host_ms_per_step"], 3),
+                                      round(v["device_ms_per_step"], 3))
+                                  for k, v in pr["spans"].items()}))
                 if "completion" in pr:
                     log(f"[main] {method}/{kv_quant}: eager step, no row completing a page / "
                         "every row completing one: " + json.dumps(pr["completion"]))
@@ -2637,6 +2914,8 @@ def main():
                 launches[name] += n
             if (method, kv_quant) == ("freekv", "none"):
                 compare[scheduler] = info
+                if scheduler == "continuous":
+                    served_tokens = tokens
                 share = {"topup": info["topup_valid_share"], "staged": info["staged_valid_share"]}
         keys = ("decode_ms_per_step", "host_syncs_per_step", "host_syncs_per_token",
                 "tokens_per_s", "slot_occupancy")
@@ -2668,6 +2947,23 @@ def main():
         log(f"[wide] {len(WIDE_RUNS)} runs in {time.perf_counter() - t0:.1f} s")
         # phase 4d: the sampler and speculative decoding
         spec_launches = spec_phase(dev, ops, cfg, params)
+        # phase 4e: live serving through the HTTP front-end
+        serve, service_launches = serve_phase(dev, ops, cfg, params, served_tokens,
+                                              compare["continuous"]["decode_ms_per_step"])
+        log("[serve] " + json.dumps(serve))
+        log(f"[serve] {serve['requests']} streaming clients, one hung up after "
+            f"{serve['hung_up']['read']} tokens (the server made {serve['hung_up']['server_tokens']}"
+            f"): client TTFT p50 {serve['client_ttft_s']['p50']:.3f} s p99 "
+            f"{serve['client_ttft_s']['p99']:.3f} s, token gap p50 "
+            f"{1e3 * serve['client_token_gap_s']['p50']:.2f} ms p99 "
+            f"{1e3 * serve['client_token_gap_s']['p99']:.2f} ms; SLO attainment "
+            f"{serve['slo']['attainment']:.3f} ({serve['slo']['attained']}/{serve['slo']['tagged']}), "
+            f"goodput {serve['slo']['goodput_tokens_per_s']:.2f} of {serve['tokens_per_s']:.2f} "
+            f"tokens/s; decode {serve['decode_ms_per_step']:.2f} ms/step (phase 4's continuous "
+            f"freekv/none {serve['direct_decode_ms_per_step']:.2f}, the same engine's generate() "
+            f"of the nine {serve['same_engine_direct_decode_ms_per_step']:.2f}); "
+            f"{serve['host_syncs_per_token']:.4f} host reads a token; peak "
+            f"{serve['peak_device_gib']:.2f} GiB; phase {serve['phase_s']:.1f} s")
         del params
         torch.cuda.empty_cache()
         require(all(0 <= v <= 1 for v in share.values()), f"valid shares out of range: {share}")
@@ -2725,6 +3021,7 @@ def main():
                      "launches": launches[k["name"]],
                      "wide_launches": wide_launches.get(k["name"]),
                      "spec_launches": spec_launches.get(k["name"]),
+                     "service_launches": service_launches.get(k["name"]),
                      "max_abs_err": k["max_abs_err"],
                      "ms": k["kernel_ms"], **k})
     print(json.dumps({"kernels": line}), flush=True)

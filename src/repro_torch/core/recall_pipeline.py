@@ -33,6 +33,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core import recall
+from repro_torch.obs.trace import (SPAN_RECALL_REUSE, SPAN_RECALL_STAGED, SPAN_RECALL_TOPUP,
+                                   annotate)
 
 
 def match_resident(new_idx, prev_idx):
@@ -101,8 +103,9 @@ class RecallExecutor:
         heads whose fresh pages THIS step's attention must see."""
         dt = prev_k.dtype
         hit, src = match_resident(new_idx, prev_idx)
-        reused_k = _take_pages(prev_k, src)
-        reused_v = _take_pages(prev_v, src)
+        with annotate(SPAN_RECALL_REUSE):
+            reused_k = _take_pages(prev_k, src)
+            reused_v = _take_pages(prev_v, src)
         valid = new_idx >= 0
         need3 = need[:, :, None]
         hit5 = hit[..., None, None]
@@ -111,7 +114,8 @@ class RecallExecutor:
 
         # critical path: corrected heads' non-resident pages only
         topup_idx = torch.where(need3 & ~hit & valid, new_idx, neg)
-        tk, tv = self.recall_fn(pool, topup_idx)
+        with annotate(SPAN_RECALL_TOPUP):
+            tk, tv = self.recall_fn(pool, topup_idx)
         tk, tv = tk.to(dt), tv.to(dt)
         # overlapped: everything else that is fresh and non-resident
         stage_idx = torch.where(~need3 & ~hit & valid, new_idx, neg)
@@ -130,7 +134,8 @@ class RecallExecutor:
             ctx = torch.cuda.stream(side)
         else:
             ctx = contextlib.nullcontext()
-        with ctx:
+        # the span opens on the side stream, so its kernels are attributed to it
+        with ctx, annotate(SPAN_RECALL_STAGED):
             sk, sv = self.recall_fn(pool, stage_idx)
             fresh_k = torch.where(hit5, reused_k, torch.where(need5, tk, sk.to(dt)))
             fresh_v = torch.where(hit5, reused_v, torch.where(need5, tv, sv.to(dt)))

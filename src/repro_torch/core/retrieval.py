@@ -34,6 +34,8 @@ from repro_torch.core.recall_pipeline import (RecallExecutor, match_resident,
                                               wait_staged)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import softcap
+from repro_torch.obs.trace import (SPAN_ATTN_COMPUTE, SPAN_RECALL_CORRECTION, SPAN_RECALL_SELECT,
+                                   annotate)
 
 NEG_INF = -1e30
 
@@ -227,7 +229,8 @@ class FreeKVRetriever:
         B = q.shape[0]
 
         if self.speculative:
-            corr, sim = corrected_heads(cfg, fkv, q, state["qprev"])
+            with annotate(SPAN_RECALL_CORRECTION):
+                corr, sim = corrected_heads(cfg, fkv, q, state["qprev"])
             # one all() over the whole batch, as in the reference
             is_cold = torch.all(state["qprev"].float() == 0)
             corr = corr | is_cold
@@ -236,7 +239,8 @@ class FreeKVRetriever:
             sim = torch.zeros((B, cfg.n_kv_heads), dtype=torch.float32, device=q.device)
 
         q_sel = q_proxy if self.proxy_query and q_proxy is not None else q
-        new_idx, sel_info = self._select_indices(state, q_sel, corr)
+        with annotate(SPAN_RECALL_SELECT):
+            new_idx, sel_info = self._select_indices(state, q_sel, corr)
         n_sel = new_idx.shape[2]
         reused = torch.zeros((B,), dtype=torch.int64, device=q.device)
         sel_pages = (new_idx >= 0).sum(dim=(1, 2))
@@ -264,8 +268,9 @@ class FreeKVRetriever:
             sync_pages = corr.sum(dim=1) * n_sel
             async_pages = (~corr).sum(dim=1) * n_sel
 
-        k_cat, v_cat, pos = _cat_regions(fkv, state, use_k, use_v, use_idx, p)
-        o = _attend(cfg, q, k_cat, v_cat, pos, cur_pos, fkv=fkv)
+        with annotate(SPAN_ATTN_COMPUTE):
+            k_cat, v_cat, pos = _cat_regions(fkv, state, use_k, use_v, use_idx, p)
+            o = _attend(cfg, q, k_cat, v_cat, pos, cur_pos, fkv=fkv)
 
         state.update(sel_k=new_k, sel_v=new_v, sel_idx=new_idx,
                      qprev=q.to(state["qprev"].dtype))
@@ -391,15 +396,17 @@ class QuestRetriever(FreeKVRetriever):
         cur_pos = state["length"]
         state = paging.append_token(state, k_new, v_new)
         n_sel = self._n_sel(state)
-        idx, _ = selection.select_pages(cfg, fkv, q, state["summ"], state["length"], n_sel,
-                                        with_pooled=False, per_head=True,
-                                        keep_invalid=True)         # (B,kv,G,n_sel)
+        with annotate(SPAN_RECALL_SELECT):
+            idx, _ = selection.select_pages(cfg, fkv, q, state["summ"], state["length"], n_sel,
+                                            with_pooled=False, per_head=True,
+                                            keep_invalid=True)         # (B,kv,G,n_sel)
         sk, sv = self._recall(paging.pool_view(state), idx.reshape(B, kv, G * n_sel))
         rows = (B, kv * G, n_sel, p, d)
-        k_cat, v_cat, pos = _cat_regions(fkv, state, sk.to(q.dtype).reshape(rows),
-                                         sv.to(q.dtype).reshape(rows),
-                                         idx.reshape(B, kv * G, n_sel), p, rep=G)
-        o = _attend(cfg, q, k_cat, v_cat, pos, cur_pos, fkv=fkv)
+        with annotate(SPAN_ATTN_COMPUTE):
+            k_cat, v_cat, pos = _cat_regions(fkv, state, sk.to(q.dtype).reshape(rows),
+                                             sv.to(q.dtype).reshape(rows),
+                                             idx.reshape(B, kv * G, n_sel), p, rep=G)
+            o = _attend(cfg, q, k_cat, v_cat, pos, cur_pos, fkv=fkv)
         state["qprev"] = q.to(state["qprev"].dtype)
         info = {"corrected": torch.ones((B, kv), dtype=torch.bool, device=dev),
                 "sync_pages": torch.full((B,), H * n_sel, dtype=torch.int64, device=dev),
@@ -476,7 +483,8 @@ class StreamingRetriever:
         k_cat = torch.cat([state["sink_k"].transpose(1, 2), state["win_k"].transpose(1, 2)], 2)
         v_cat = torch.cat([state["sink_v"].transpose(1, 2), state["win_v"].transpose(1, 2)], 2)
         pos = torch.cat([pos_s, pos_w], dim=2)
-        o = _attend(self.cfg, q, k_cat, v_cat, pos, cur_pos, fkv=self.fkv)
+        with annotate(SPAN_ATTN_COMPUTE):
+            o = _attend(self.cfg, q, k_cat, v_cat, pos, cur_pos, fkv=self.fkv)
         return o, state, _no_recall_info(B, kv, dev)
 
     # -- speculative-decoding rollback (reference retrieval.py:605) --------
@@ -548,9 +556,10 @@ class RaaSRetriever:
         paging.ring_append(state, k_new, v_new)
         length = state["length"]
         keep_idx, last_used = state["keep_idx"], state["last_used"]
-        k_cat, v_cat, pos = _cat_regions(fkv, state, state["keep_k"], state["keep_v"],
-                                         keep_idx, p)
-        o = _attend(cfg, q, k_cat, v_cat, pos, cur_pos, fkv=fkv)
+        with annotate(SPAN_ATTN_COMPUTE):
+            k_cat, v_cat, pos = _cat_regions(fkv, state, state["keep_k"], state["keep_v"],
+                                             keep_idx, p)
+            o = _attend(cfg, q, k_cat, v_cat, pos, cur_pos, fkv=fkv)
         # each kept page's attention mass, averaged over the group, from an
         # explicit softmax over every position (no softcap, as the reference)
         n_keep = keep_idx.shape[2]
@@ -643,8 +652,9 @@ class ShadowKVRetriever(FreeKVRetriever):
         cur_pos = state["length"]
         state = paging.append_token(state, k_new, v_new)
         n_sel = self._n_sel(state)
-        idx, _ = selection.select_pages(cfg, fkv, q, state["summ"], state["length"], n_sel,
-                                        with_pooled=False)
+        with annotate(SPAN_RECALL_SELECT):
+            idx, _ = selection.select_pages(cfg, fkv, q, state["summ"], state["length"], n_sel,
+                                            with_pooled=False)
         sel_pages = (idx >= 0).sum(dim=(1, 2))
         spec_hit = match_resident(idx, state["sel_idx"])[0].sum(dim=(1, 2))
         # keys: the selected pages reconstructed from the low-rank factors
@@ -667,8 +677,9 @@ class ShadowKVRetriever(FreeKVRetriever):
             v_sel = self._recall_values(pool, idx).to(q.dtype)
             sync_pages = sel_pages // 2                             # V-only
             reused = torch.zeros((B,), dtype=torch.int64, device=dev)
-        k_cat, v_cat, pos = _cat_regions(fkv, state, k_rec, v_sel, idx, p)
-        o = _attend(cfg, q, k_cat, v_cat, pos, cur_pos, fkv=fkv)
+        with annotate(SPAN_ATTN_COMPUTE):
+            k_cat, v_cat, pos = _cat_regions(fkv, state, k_rec, v_sel, idx, p)
+            o = _attend(cfg, q, k_cat, v_cat, pos, cur_pos, fkv=fkv)
         state.update(sel_idx=idx, qprev=q.to(state["qprev"].dtype))
         zeros = torch.zeros((B,), dtype=torch.int64, device=dev)
         info = {"corrected": torch.ones((B, kv), dtype=torch.bool, device=dev),
@@ -717,7 +728,8 @@ class FullRetriever:
         pos = torch.arange(L, dtype=torch.int32, device=q.device)[None, None, :].expand(B, kv, L)
         pos = torch.where(pos < state["length"][:, None, None], pos,
                           torch.full((), -1, dtype=torch.int32, device=q.device))
-        o = _attend(cfg, q, k_cat, v_cat, pos, cur_pos)
+        with annotate(SPAN_ATTN_COMPUTE):
+            o = _attend(cfg, q, k_cat, v_cat, pos, cur_pos)
         zeros = torch.zeros((B,), dtype=torch.int64, device=q.device)
         info = {"corrected": torch.zeros((B, kv), dtype=torch.bool, device=q.device),
                 "similarity": torch.zeros((B, kv), device=q.device),

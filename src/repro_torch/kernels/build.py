@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -60,6 +61,7 @@ SIGNATURES = {
 }
 
 _LIBS: dict = {}
+_LOAD_LOCK = threading.Lock()     # one build and load at a time, whatever the thread
 BUILD_LOG: dict = {}
 
 
@@ -120,17 +122,23 @@ def build_all() -> float:
 
 
 def load(name: str):
-    """The ctypes library of kernel source ``name``, building on first use."""
+    """The ctypes library of kernel source ``name``, building on first use.
+    Safe from any thread: the first use builds and loads under a lock (the
+    serving front-end's worker thread may be the first to launch)."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    build_all()
-    lib = ctypes.CDLL(str(_lib_path(name)))
-    for fn, argtypes in SIGNATURES[name].items():
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
-    _LIBS[name] = lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is not None:
+            return lib
+        build_all()
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        for fn, argtypes in SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        _LIBS[name] = lib
     return lib
 
 

@@ -17,8 +17,12 @@ Prints one JSON line: the prefill's wall s, device-busy s and top kernels;
 per decode step the host wall ms, device-busy ms (sum of kernel and copy
 time on the card), the busy share, the PyTorch ops the host dispatched and
 the device operations (kernels, copies), the top kernels by device time,
-the top host-side ops by self CPU time, and the count of host-device
-synchronisations; with ``--window k`` also a continuous-scheduler decode
+the top host-side ops by self CPU time, the count of host-device
+synchronisations, and the per-span table: host ms and device ms a step of
+each profiler span the retrieval path opens (``obs.trace.annotate``:
+``recall/select``, ``recall/correction``, ``recall/topup``,
+``recall/staged`` on the side stream, ``recall/reuse``, ``attn/compute``;
+a span's device ms is its extent on the card, ``span_table``); with ``--window k`` also a continuous-scheduler decode
 window of k steps on the same state, beside k steps of the static engine
 (``profile_window``: host ops, device operations, busy share and wall ms
 per step; host syncs counted from the runtime calls in the trace); with
@@ -54,11 +58,51 @@ MAIN_RUNS = (("freekv", "none"), ("freekv", "int8"), ("shadowkv", "none"), ("sha
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 MEASURED = "decode_profile.measured"
 PROFILER_MARGIN_S = 0.05
+# the retrieval path's profiler spans (``obs.trace.ANNOTATED_SPANS``), named
+# here so that another checkout's ``src`` can be profiled; ``recall/staged``
+# opens on the side stream
+SPANS = ("recall/select", "recall/correction", "recall/topup", "recall/staged",
+         "recall/reuse", "attn/compute")
 
 
 def dev_us(e):
     """A profiler row's own device time, in microseconds."""
     return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+
+def device_rows(events):
+    """The card's work rows (kernels, copies) of ``key_averages()``. A
+    profiler range (a span, the measured range) also has a device-side row
+    that spans the kernels inside it; those are left out, so that no kernel
+    counts twice in the busy time. So is an aten op's row, which repeats the
+    device time of the kernels it launched."""
+    from torch.autograd import DeviceType
+    return [e for e in events if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+            and e.key not in SPANS and e.key != MEASURED]
+
+
+def span_table(events, steps):
+    """Each span's host ms a step (its host-side row: the host's time inside
+    it), device ms a step (its device-side row: its extent on the card,
+    from the first kernel launched inside it to the end of the last, on the
+    stream it ran on, gaps included; None where the profiler emitted no
+    such row) and how often it opened a step. The extent, not the host-side
+    row's device time, because kernels launched through ``ctypes`` (the
+    port's own) are attributed to no host-side row."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in events:
+        if e.key not in SPANS:
+            continue
+        row = out.setdefault(e.key, {"host_ms_per_step": None, "device_ms_per_step": None,
+                                     "calls_per_step": None,
+                                     "stream": "side" if e.key == "recall/staged" else "main"})
+        if e.device_type == DeviceType.CUDA:
+            row["device_ms_per_step"] = dev_us(e) / 1e3 / steps
+        else:
+            row["host_ms_per_step"] = e.cpu_time_total / 1e3 / steps
+            row["calls_per_step"] = e.count / steps
+    return out
 
 
 def profile_decode(cfg, fkv, params, toks, steps=4, trace_out=None, with_prefill=True,
@@ -72,18 +116,12 @@ def profile_decode(cfg, fkv, params, toks, steps=4, trace_out=None, with_prefill
     one that completes none (``profile_completion``); with ``draft_len``
     > 0 then one verify iteration beside 1 + ``draft_len`` eager steps
     (``profile_verify``)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.model import prefill, serve_step
 
     max_len = (toks.shape[1] + 64 + WARMUP + 2 * steps + 6 * window + 2 * fkv.page_size
                + 6 * (draft_len + 1))
-
-    def device_rows(events):
-        # device-side rows only (kernels, copies): an aten op's row repeats
-        # the device time of the kernels it launched
-        return [e for e in events if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
 
     prefill_out = None
     # warm-up prefill on a short prompt (builds and loads the kernels), the
@@ -153,6 +191,7 @@ def profile_decode(cfg, fkv, params, toks, steps=4, trace_out=None, with_prefill
                                    for e in top_dev],
         "top_self_cpu_ms_per_step": [(e.key[:80], e.self_cpu_time_total / 1e3 / steps,
                                       e.count // steps) for e in top_cpu],
+        "spans": span_table(events, steps),
     }
     if window:
         out["window"] = profile_window(cfg, fkv, params, state, logits, window)
@@ -169,7 +208,6 @@ def profile_completion(cfg, fkv, params, state, logits):
     every row does, each alone under the profiler: host ops, device
     operations and device-busy ms of the step. The rows share a length
     (``state["pos_host"]``, read on the host)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.model import serve_step
@@ -190,7 +228,7 @@ def profile_completion(cfg, fkv, params, state, logits):
             step()
             torch.cuda.synchronize()
         events = prof.key_averages()
-        dev = [e for e in events if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+        dev = device_rows(events)
         return {"cpu_ops": sum(e.count for e in events if e.key.startswith("aten::")),
                 "device_ops": sum(e.count for e in dev),
                 "device_busy_ms": sum(dev_us(e) for e in dev) / 1e3}
@@ -208,7 +246,6 @@ def _measure(run, k):
     """Host ops, device operations, busy share, wall ms and host syncs of
     ``run`` per ``k`` (its steps): once to warm up, once timed, once under
     the profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     run()
@@ -225,9 +262,7 @@ def _measure(run, k):
             run()
         time.sleep(PROFILER_MARGIN_S)
     events = prof.key_averages()
-    # the card's rows but the measured range's own (a span, not work)
-    dev_events = [e for e in events if e.device_type == DeviceType.CUDA and dev_us(e) > 0
-                  and e.key != MEASURED]
+    dev_events = device_rows(events)
     busy_ms = sum(dev_us(e) for e in dev_events) / 1e3 / k
     # every wait of the host for the card, as the runtime saw it: a read
     # (.cpu(), .tolist(), .item()) and a copy from pageable memory each
@@ -390,7 +425,7 @@ def main(argv=None):
                              window=args.window, completion=args.completion)
         keep = ("method", "kv_quant", "prefill_s", "wall_ms_per_step_unprofiled",
                 "device_busy_ms_per_step", "device_busy_share", "cpu_ops_per_step",
-                "device_ops_per_step", "runtime_calls_per_step", "window", "completion")
+                "device_ops_per_step", "runtime_calls_per_step", "spans", "window", "completion")
         print(json.dumps({k: out[k] for k in keep if k in out}), flush=True)
         torch.cuda.empty_cache()
     return 0

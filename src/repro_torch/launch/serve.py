@@ -17,6 +17,22 @@ greedy or ``--temperature`` sampled, the tokens equal ``--draft-len 0``'s);
 ``--seed`` are the port's own. Weights are random, made from ``--seed``.
 Prints each request's tokens and timings, then ``EngineMetrics.summary()``
 as one JSON line.
+
+``--serve-http`` serves the HTTP front-end (``serving/frontend``) instead
+of a fixed batch, until interrupted: ``POST /generate`` (a chunked NDJSON
+token stream; a client that hangs up is cancelled), ``GET /metrics``
+(Prometheus text), ``GET /stats`` (the sliding-window series) and ``GET
+/healthz``; ``--port 0`` takes a free port, printed at start:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch granite-3-8b-smoke --serve-http --port 0
+
+``--slo-ttft-ms``/``--slo-itl-ms`` tag the requests with the engine's SLOs
+(the summary's ``slo`` section: attainment and goodput). After the run,
+``--metrics-out`` appends a JSONL registry snapshot, ``--prom-out`` writes
+the Prometheus text and ``--trace-out`` a Chrome trace of the request
+lifecycle and recall spans; ``--no-obs`` turns the per-step histograms and
+spans off (the registry's counters always run).
 """
 import argparse
 import json
@@ -27,6 +43,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import FreeKVConfig
 from repro_torch.data.synthetic import needle_stream
 from repro_torch.models.model import init_params
+from repro_torch.obs import Observability, TimeSeriesBoard, TraceRecorder
 from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.serving.sampling import SamplerConfig
 
@@ -84,6 +101,26 @@ def main(argv=None):
     ap.add_argument("--dtype", choices=tuple(_DTYPES), default="float32",
                     help="weights and decode state dtype")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="append a JSONL snapshot of the metrics registry after the run")
+    ap.add_argument("--prom-out", default=None, metavar="PATH",
+                    help="write the Prometheus text exposition after the run")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome trace (request lifecycle and recall spans)")
+    ap.add_argument("--no-obs", action="store_true",
+                    help="no per-step histograms or spans (the registry's counters always run)")
+    ap.add_argument("--slo-ttft-ms", type=float, default=None,
+                    help="the engine's TTFT SLO in ms: the summary's slo section reports "
+                         "attainment and goodput (tokens/s of the requests that meet it)")
+    ap.add_argument("--slo-itl-ms", type=float, default=None,
+                    help="the engine's mean inter-token latency SLO in ms")
+    ap.add_argument("--serve-http", action="store_true",
+                    help="serve the HTTP front-end instead of a fixed batch: POST /generate "
+                         "(chunked NDJSON token stream), GET /metrics, /stats, /healthz; "
+                         "Ctrl-C stops it")
+    ap.add_argument("--host", default="127.0.0.1", help="--serve-http: bind address")
+    ap.add_argument("--port", type=int, default=8008,
+                    help="--serve-http: port (0 takes a free one)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -97,6 +134,12 @@ def main(argv=None):
                        sync_interval=args.sync_interval, prefill_chunk_tokens=args.prefill_chunk,
                        preempt=args.preempt,
                        draft_len=0 if args.no_spec_decode else args.draft_len)
+    if args.no_obs:
+        obs = Observability.off()
+    else:
+        # the board feeds the front-end's /stats
+        obs = Observability(enabled=True, trace=TraceRecorder(enabled=bool(args.trace_out)),
+                            timeseries=TimeSeriesBoard() if args.serve_http else None)
     eng = ServeEngine(cfg, fkv, params,
                       max_len=args.context + args.new_tokens + args.page_size
                       + args.prefill_bucket,
@@ -104,7 +147,27 @@ def main(argv=None):
                       sampler=SamplerConfig(temperature=args.temperature),
                       state_dtype=dtype, scheduler=args.scheduler,
                       prefill_bucket=args.prefill_bucket,
-                      prefix_cache_tokens=args.prefix_cache_tokens, device=args.device)
+                      prefix_cache_tokens=args.prefix_cache_tokens, obs=obs,
+                      slo_ttft_ms=args.slo_ttft_ms, slo_itl_ms=args.slo_itl_ms,
+                      device=args.device)
+    if args.serve_http:
+        from repro_torch.serving.frontend import EngineService, serve_http_background
+        svc = EngineService(eng, seed=args.seed).start()
+        fe, stop, th = serve_http_background(svc, args.host, args.port)
+        print(f"serving {args.arch}/{args.method} on http://{args.host}:{fe.port} "
+              "(POST /generate, GET /metrics /stats /healthz)", flush=True)
+        try:
+            while th.is_alive():
+                th.join(0.5)            # a timed join lets Ctrl-C through
+        except KeyboardInterrupt:
+            pass
+        finally:
+            stop.set()
+            th.join()
+            svc.stop()
+            if eng.last_metrics is not None:
+                _finish_run(args, eng.last_metrics, obs)
+        return
     n_req = args.requests or args.batch
     stream = needle_stream(cfg.vocab_size, args.context, args.page_size)
     reqs = [Request(uid=i, tokens=next(stream).tokens, max_new_tokens=args.new_tokens,
@@ -115,12 +178,34 @@ def main(argv=None):
         print(f"  prefill {out.prefill_s*1e3:.1f} ms | "
               f"decode {out.decode_s/steps*1e3:.1f} ms/step | "
               f"corr_rate {out.stats.get('correction_rate', 0):.3f}")
-    sd = eng.last_metrics.specdec_summary()
+    _finish_run(args, eng.last_metrics, obs)
+
+
+def _finish_run(args, em, obs):
+    """The end-of-run report of both modes: spec-decode and SLO lines, the
+    summary as one JSON line, and the files asked for."""
+    sd = em.specdec_summary()
     if sd["draft_len"] > 0:
         print(f"spec-decode (draft_len={sd['draft_len']}): accept rate {sd['accept_rate']:.3f} | "
               f"{sd['tokens_per_step']:.2f} tokens per target step over {sd['verify_steps']} "
               f"verify steps, {sd['idle_iterations']} idle")
-    print(json.dumps(eng.last_metrics.summary()))
+    slo = em.slo_summary()
+    if slo["tagged"]:
+        print(f"SLO (ttft<={slo['ttft_ms']}ms, itl<={slo['itl_ms']}ms): {slo['attained']}/"
+              f"{slo['tagged']} attained ({slo['attainment']:.1%}) | goodput "
+              f"{slo['goodput_tokens_per_s']:.1f} tok/s (total {em.tokens_per_s:.1f} tok/s)")
+    if args.metrics_out:
+        em.registry.write_jsonl(args.metrics_out, extra={"arch": args.arch,
+                                                         "method": args.method})
+        print(f"metrics snapshot appended to {args.metrics_out}")
+    if args.prom_out:
+        with open(args.prom_out, "w", encoding="utf-8") as f:
+            f.write(em.registry.to_prometheus())
+        print(f"prometheus exposition written to {args.prom_out}")
+    if args.trace_out and obs.trace.enabled:
+        obs.trace.write(args.trace_out)
+        print(f"trace written to {args.trace_out} ({len(obs.trace.events)} events)")
+    print(json.dumps(em.summary()), flush=True)
 
 
 if __name__ == "__main__":

@@ -13,16 +13,35 @@ interpolated p50/p90/p99.
 * Histograms carry their bucket bounds from construction; percentiles
   interpolate inside the containing bucket, so they are functions of the
   counts alone.
-* The reference's exporters (Prometheus text, JSON snapshots) are left
-  out until a launcher needs them: ``EngineMetrics.summary()`` reads the
-  metrics directly.
+* Two exporters: :meth:`MetricsRegistry.to_prometheus`, the Prometheus
+  text exposition (``# TYPE`` lines, cumulative ``_bucket{le=...}``
+  series), which the HTTP front-end serves at ``/metrics``; and
+  :meth:`MetricsRegistry.snapshot`, a schema-versioned JSON-able dict (one
+  JSONL line a call with :meth:`MetricsRegistry.write_jsonl`) that
+  ``obs.validate_snapshot`` checks.
 """
 from __future__ import annotations
 
 import bisect
+import json
 import math
+import re
 import threading
+import time
 from typing import Dict, List, Optional, Sequence
+
+SNAPSHOT_SCHEMA_VERSION = 1
+
+_NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def _prom_name(name: str) -> str:
+    """A metric name made legal for the Prometheus exposition format."""
+    return _NAME_RE.sub("_", name)
+
+
+def linear_buckets(start: float, width: float, count: int) -> List[float]:
+    return [start + width * i for i in range(count)]
 
 
 def exponential_buckets(start: float, factor: float,
@@ -158,12 +177,12 @@ class Histogram:
 
 
 class MetricsRegistry:
-    """Name -> metric map with get-or-create accessors.
+    """Name -> metric map with get-or-create accessors and two exporters.
 
-    Metric *creation* takes a lock, so another thread may read the maps
-    while the scheduler registers new series; the hot path (inc/observe on
-    an existing metric, reached via a plain dict ``get``) stays
-    lock-free."""
+    Metric *creation* and the exporters take a lock, so the HTTP
+    front-end's thread can render ``/metrics`` while the scheduler's thread
+    registers new series; the hot path (inc/observe on an existing metric,
+    reached via a plain dict ``get``) stays lock-free."""
 
     def __init__(self):
         self._counters: Dict[str, Counter] = {}
@@ -202,3 +221,55 @@ class MetricsRegistry:
                         buckets if buckets is not None else LATENCY_BUCKETS,
                         help)
         return h
+
+    # -- exporters -----------------------------------------------------
+    def snapshot(self, extra: Optional[dict] = None) -> dict:
+        """Schema-versioned JSON-able view (``obs.validate_snapshot``)."""
+        with self._lock:
+            snap = {
+                "schema_version": SNAPSHOT_SCHEMA_VERSION,
+                "unix_time": time.time(),
+                "counters": {n: c.value for n, c in sorted(self._counters.items())},
+                "gauges": {n: g.value for n, g in sorted(self._gauges.items())},
+                "histograms": {
+                    n: {**h.summary(), "buckets": h.buckets, "bucket_counts": list(h.counts)}
+                    for n, h in sorted(self._histograms.items())
+                },
+            }
+        if extra:
+            snap["extra"] = extra
+        return snap
+
+    def snapshot_line(self, extra: Optional[dict] = None) -> str:
+        return json.dumps(self.snapshot(extra), sort_keys=True)
+
+    def write_jsonl(self, path: str, extra: Optional[dict] = None) -> None:
+        """Append one snapshot line to ``path``."""
+        with open(path, "a", encoding="utf-8") as f:
+            f.write(self.snapshot_line(extra) + "\n")
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition (0.0.4): counters, gauges, and
+        histograms with cumulative ``le`` buckets."""
+        out: List[str] = []
+        with self._lock:
+            for kind, metrics in (("counter", self._counters), ("gauge", self._gauges)):
+                for n, c in sorted(metrics.items()):
+                    pn = _prom_name(n)
+                    if c.help:
+                        out.append(f"# HELP {pn} {c.help}")
+                    out.append(f"# TYPE {pn} {kind}")
+                    out.append(f"{pn} {c.value:g}")
+            for n, h in sorted(self._histograms.items()):
+                pn = _prom_name(n)
+                if h.help:
+                    out.append(f"# HELP {pn} {h.help}")
+                out.append(f"# TYPE {pn} histogram")
+                cum = 0
+                for b, c in zip(h.buckets, h.counts):
+                    cum += c
+                    out.append(f'{pn}_bucket{{le="{b:g}"}} {cum}')
+                out.append(f'{pn}_bucket{{le="+Inf"}} {h.count}')
+                out.append(f"{pn}_sum {h.sum:g}")
+                out.append(f"{pn}_count {h.count}")
+        return "\n".join(out) + "\n"

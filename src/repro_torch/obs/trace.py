@@ -18,10 +18,21 @@ one Chrome-trace dict with :meth:`TraceRecorder.chrome_trace`:
   recall on a DMA track. Their durations are modeled from page counts at
   ``MODEL_LINK_BW``; ``args`` carry the exact byte counts;
 * counter tracks: ``speculation`` hit and correction rates per step.
+
+:meth:`TraceRecorder.write` writes the trace as JSON, which
+:func:`validate_chrome_trace` checks. The retrieval path's span names
+(``recall/select``, ``recall/correction``, ``recall/topup``,
+``recall/staged``, ``recall/reuse``, ``attn/compute``) are also
+``torch.profiler`` ranges through :func:`annotate`, so a profile of the
+card lines up with these spans by name.
 """
 from __future__ import annotations
 
+import contextlib
+import json
 from typing import Dict, List, Optional
+
+import torch
 
 # modeled host-to-card link rate for the recall spans' durations (the
 # reference's value; the spans' args carry the exact bytes)
@@ -39,15 +50,33 @@ SPAN_SPEC_VERIFY = "engine/spec_verify"
 SPAN_PREFILL_CHUNK = "engine/prefill_chunk"
 SPAN_SCHED_PREEMPT = "sched/preempt"
 SPAN_SCHED_RESUME = "sched/resume"
+SPAN_SCHED_CANCEL = "sched/cancel"
+SPAN_RECALL_SELECT = "recall/select"
+SPAN_RECALL_CORRECTION = "recall/correction"
 SPAN_RECALL_TOPUP = "recall/topup"
 SPAN_RECALL_STAGED = "recall/staged"
 SPAN_RECALL_REUSE = "recall/reuse"
+SPAN_ATTN_COMPUTE = "attn/compute"
+# the spans ``annotate`` marks in the retrieval path (profiler ranges)
+ANNOTATED_SPANS = (SPAN_RECALL_SELECT, SPAN_RECALL_CORRECTION, SPAN_RECALL_TOPUP,
+                   SPAN_RECALL_STAGED, SPAN_RECALL_REUSE, SPAN_ATTN_COMPUTE)
 
 # Perfetto pid/tid layout: one process for the engine, one for requests
 PID_ENGINE = 1
 PID_REQUESTS = 2
 TID_ENGINE = 1
 TID_DMA = 2
+
+
+def annotate(name: str):
+    """A ``torch.profiler`` range named ``name`` while a profiler runs, so
+    the card's kernels inside it are attributed to the span (kernels
+    launched on the side stream inside ``recall/staged`` included);
+    otherwise ``contextlib.nullcontext()``, so outside a profile a span
+    costs one flag read and no profiler op."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 class TraceRecorder:
@@ -124,7 +153,8 @@ class TraceRecorder:
         if rm.prefill_start_t is not None and rm.first_token_t is not None:
             self.complete(SPAN_REQUEST_PREFILL, rm.prefill_start_t,
                           rm.first_token_t - rm.prefill_start_t, pid=PID_REQUESTS, tid=uid,
-                          args={"padded": rm.padded_prompt_tokens})
+                          args={"prefix_hit_tokens": rm.prefix_hit_tokens,
+                                "padded": rm.padded_prompt_tokens})
         if rm.first_token_t is not None and rm.finish_t is not None:
             self.complete(SPAN_REQUEST_DECODE, rm.first_token_t,
                           rm.finish_t - rm.first_token_t, pid=PID_REQUESTS, tid=uid,
@@ -158,3 +188,34 @@ class TraceRecorder:
     def chrome_trace(self) -> dict:
         return {"traceEvents": list(self.events), "displayTimeUnit": "ms",
                 "otherData": {"producer": "repro_torch.obs.trace"}}
+
+    def write(self, path: str) -> None:
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(self.chrome_trace(), f)
+
+
+def validate_chrome_trace(doc: dict) -> List[str]:
+    """Well-formedness of a Chrome trace, as Perfetto's loader needs it.
+    Returns a list of problems (empty = valid)."""
+    errors: List[str] = []
+    if not isinstance(doc, dict) or "traceEvents" not in doc:
+        return ["missing traceEvents key"]
+    evs = doc["traceEvents"]
+    if not isinstance(evs, list):
+        return ["traceEvents is not a list"]
+    for i, ev in enumerate(evs):
+        if not isinstance(ev, dict):
+            errors.append(f"event {i}: not an object")
+            continue
+        for key in ("ph", "pid", "name"):
+            if key not in ev:
+                errors.append(f"event {i}: missing {key!r}")
+        ph = ev.get("ph")
+        if ph in ("X", "i", "C") and "ts" not in ev:
+            errors.append(f"event {i}: {ph!r} event missing ts")
+        if ph == "X":
+            if "dur" not in ev or not isinstance(ev["dur"], (int, float)) or ev["dur"] < 0:
+                errors.append(f"event {i}: X event needs dur >= 0")
+            if "tid" not in ev:
+                errors.append(f"event {i}: X event missing tid")
+    return errors

@@ -47,6 +47,14 @@ up to ``1 + draft_len`` tokens a slot an iteration, the tokens equal to
 ``sample_on_device=False``, a method outside ``supports_spec_decode``) the
 engine falls back to ``draft_len=0``, as the reference does.
 
+Live serving (``serve_service``): the continuous scheduler driven by a
+``serving/frontend.EngineService`` that admits requests as they arrive,
+streams their tokens and cancels those whose client hung up; the HTTP
+front-end (``serving/frontend.HttpFrontend``) runs it on a worker thread.
+``slo_ttft_ms``/``slo_itl_ms`` (the engine's) and ``Request.slo_*`` (a
+request's own) feed ``EngineMetrics.summary()["slo"]``; they never change a
+scheduling decision.
+
 Tensor parallelism has no switch in the port.
 """
 from __future__ import annotations
@@ -85,6 +93,10 @@ class Request:
     # with ``fkv.preempt`` a queued request of strictly higher priority than
     # the lowest-priority running one swaps that one out and takes its slot
     priority: int = 0
+    # the request's SLOs in ms; None takes the engine's. Tagged completions
+    # feed EngineMetrics.summary()["slo"] (attainment, goodput)
+    slo_ttft_ms: Optional[float] = None
+    slo_itl_ms: Optional[float] = None
     # optional reference stream for the speculative drafter (a retrieved
     # document, an earlier draft of the answer, ...): its bigrams overlay
     # the prompt's in the slot's table at admission. It steers which drafts
@@ -192,6 +204,8 @@ class ServeEngine:
                  prefix_cache_tokens: int = 0,
                  pad_token: int = 0,
                  obs: Optional[Observability] = None,
+                 slo_ttft_ms: Optional[float] = None,
+                 slo_itl_ms: Optional[float] = None,
                  device="cuda"):
         if scheduler not in ("continuous", "static"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
@@ -214,6 +228,10 @@ class ServeEngine:
         self.sync_interval = max(1, fkv.sync_interval)
         self.sample_on_device = bool(fkv.sample_on_device)
         self.obs = obs if obs is not None else Observability.off()
+        # the engine's SLOs in ms, for requests without their own (None:
+        # untagged; EngineMetrics.slo_check)
+        self.slo_ttft_ms = slo_ttft_ms
+        self.slo_itl_ms = slo_itl_ms
         # kept across generate() calls, as the reference's
         self.prefix_cache = (RadixPrefixCache(prefix_cache_tokens)
                              if prefix_cache_tokens > 0 else None)
@@ -389,14 +407,17 @@ class ServeEngine:
         self.last_metrics = em
         return out
 
-    def _generate_continuous(self, requests: List[Request], seed: int) -> List[Completion]:
+    def _generate_continuous(self, requests: List[Request], seed: int,
+                             service=None) -> List[Completion]:
+        if self.scheduler != "continuous":
+            raise ValueError("live serving needs scheduler='continuous'")
         if self._pool is None:
             self._pool = self.make_slot_pool(self.batch_size)
         else:
             self._pool.reset_all()
         self.recall_tracker = RecallFlightTracker()
         sched = ContinuousScheduler(self, self._pool)
-        tracked, em = sched.run(requests, seed)
+        tracked, em = sched.run(requests, seed, service=service)
         self._apply_quant_metrics(em)
         if self.prefix_cache is not None:
             em.prefix_cache = self.prefix_cache.stats()
@@ -406,6 +427,16 @@ class ServeEngine:
                            decode_s=tr.decode_s, steps=max(len(tr.tokens) - 1, 0),
                            stats=_request_stats(tr.agg), metrics=tr.metrics)
                 for tr in tracked]
+
+    def serve_service(self, service, seed: int = 0) -> List[Completion]:
+        """Live serving: the continuous scheduler fed by ``service``
+        (``serving/frontend.EngineService``: requests admitted as they
+        arrive, tokens streamed, hung-up clients cancelled) until the
+        service closes and drains. Blocks; the front-end runs it on a
+        worker thread, which then makes every call to the card. Returns
+        every completion, cancelled requests' partial ones included, in
+        admission order."""
+        return self._generate_continuous([], seed, service=service)
 
     # -- static lockstep fallback --------------------------------------------
     def _generate_batch(self, reqs: List[Request], seed: int,

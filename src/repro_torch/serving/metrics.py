@@ -1,6 +1,6 @@
 """Serving telemetry: per-request lifecycle timings and engine-level counters
-(reference ``repro/serving/metrics.py``, cut to what the ported schedulers
-fill: no SLOs or tensor parallelism yet).
+(reference ``repro/serving/metrics.py``, without its tensor-parallel
+section and its cost-model dequant estimate).
 
 Timestamps are ``time.perf_counter()`` values relative to the scheduler
 run's start; queue wait, TTFT and inter-token latency are properties, so
@@ -8,7 +8,10 @@ no caller recomputes them differently. ``EngineMetrics`` is a view over a
 per-run ``obs.MetricsRegistry``: its accumulators (``em.steps``,
 ``em.host_syncs``, ...) are registry counters exposed as attributes, and
 the latency and speculation histograms live beside them.
-``EngineMetrics.summary()`` is the one dict the launcher prints.
+``EngineMetrics.summary()`` is the one dict the launcher prints; its
+``"slo"`` section holds SLO attainment and goodput over the completed
+requests that carry a TTFT or inter-token SLO (their own, or the engine's),
+and ``"cancelled"`` counts the requests cancelled mid-flight.
 """
 from __future__ import annotations
 
@@ -37,6 +40,10 @@ class RequestMetrics:
     priority: int = 0                 # the request's scheduling priority
     prefix_hit_tokens: int = 0        # prompt tokens served from the prefix cache
     preemptions: int = 0              # times this request was swapped out
+    cancelled: bool = False           # cancelled mid-flight (the client hung up)
+    # the request's SLOs in ms; None takes the engine's (EngineMetrics.slo_*)
+    slo_ttft_ms: Optional[float] = None
+    slo_itl_ms: Optional[float] = None
 
     @property
     def queue_wait_s(self) -> Optional[float]:
@@ -120,6 +127,14 @@ _COUNTER_ATTRS = {
                        "decode-state bytes pulled to host at preemption"),
     "swap_in_bytes": ("sched_swap_in_bytes_total", float,
                       "decode-state bytes pushed back at resume"),
+    "cancellations": ("sched_cancellations_total", int,
+                      "requests cancelled mid-flight (client disconnect)"),
+    "slo_tagged": ("slo_tagged_requests_total", int,
+                   "completed requests carrying an effective SLO tag"),
+    "slo_attained": ("slo_attained_requests_total", int,
+                     "tagged requests meeting their TTFT+ITL SLOs"),
+    "slo_good_tokens": ("slo_good_tokens_total", int,
+                        "tokens from SLO-attaining requests (goodput numerator)"),
 }
 _GAUGE_ATTRS = {
     "dropped_pages": ("recall_dropped_in_flight_pages", float,
@@ -166,6 +181,10 @@ class EngineMetrics:
     draft_len: int = 0
     # RadixPrefixCache.stats() after the run (empty without a cache)
     prefix_cache: Dict = field(default_factory=dict)
+    # the engine's SLOs in ms (None: untagged); a request's own tag wins.
+    # Requests with no SLO at all count in neither attainment nor goodput
+    slo_ttft_ms: Optional[float] = None
+    slo_itl_ms: Optional[float] = None
 
     # -- recording ---------------------------------------------------------
     def record_step(self, n_active: int):
@@ -196,11 +215,34 @@ class EngineMetrics:
             reg.histogram(H_CORRECTION_RATE, RATE_BUCKETS,
                           "per-step corrected-head fraction").observe(corrected / kv_heads)
 
+    def slo_check(self, rm: RequestMetrics):
+        """(tagged, attained) for one finished request: ``tagged`` when it
+        has a TTFT or inter-token SLO (its own, else the engine's);
+        ``attained`` when each holds, TTFT against ``rm.ttft_s`` and the
+        inter-token SLO against the request's mean ``rm.itl_s`` (a
+        one-token request has none and passes that bound)."""
+        t_slo = rm.slo_ttft_ms if rm.slo_ttft_ms is not None else self.slo_ttft_ms
+        i_slo = rm.slo_itl_ms if rm.slo_itl_ms is not None else self.slo_itl_ms
+        if t_slo is None and i_slo is None:
+            return False, False
+        ok = True
+        if t_slo is not None and (rm.ttft_s is None or rm.ttft_s * 1e3 > t_slo):
+            ok = False
+        if i_slo is not None and rm.itl_s is not None and rm.itl_s * 1e3 > i_slo:
+            ok = False
+        return True, ok
+
     def record_request(self, rm: RequestMetrics):
-        """Observe a finished request's latency distributions."""
+        """Observe a finished request's latency distributions and SLOs."""
         reg = self.registry
         reg.counter("requests_completed_total").inc()
         reg.counter("request_tokens_generated_total").inc(rm.new_tokens)
+        tagged, attained = self.slo_check(rm)
+        if tagged:
+            self.slo_tagged += 1
+            if attained:
+                self.slo_attained += 1
+                self.slo_good_tokens += rm.new_tokens
         if rm.queue_wait_s is not None:
             reg.histogram(H_QUEUE_WAIT, LATENCY_BUCKETS,
                           "enqueue -> prefill start").observe(rm.queue_wait_s)
@@ -305,15 +347,41 @@ class EngineMetrics:
             "idle_iterations": self.spec_idle_iterations,
         }
 
+    @property
+    def slo_attainment(self) -> float:
+        """Share of the SLO-tagged completed requests that met their SLOs
+        (1.0 with no tagged request: nothing was violated)."""
+        return self.slo_attained / self.slo_tagged if self.slo_tagged else 1.0
+
+    @property
+    def goodput_tokens_per_s(self) -> float:
+        """Tokens/s of the SLO-attaining requests alone; with no tagged
+        request, all tokens/s."""
+        good = self.slo_good_tokens if self.slo_tagged else self.generated_tokens
+        return good / self.wall_s if self.wall_s else 0.0
+
+    def slo_summary(self) -> dict:
+        return {
+            "ttft_ms": self.slo_ttft_ms,
+            "itl_ms": self.slo_itl_ms,
+            "tagged": self.slo_tagged,
+            "attained": self.slo_attained,
+            "attainment": self.slo_attainment,
+            "good_tokens": self.slo_good_tokens,
+            "goodput_tokens_per_s": self.goodput_tokens_per_s,
+            "cancelled": self.cancellations,
+        }
+
     def _hist_summary(self, name: str, buckets) -> dict:
         return self.registry.histogram(name, buckets).summary()
 
     def summary(self) -> dict:
-        done = [r for r in self.requests if r.finish_t is not None]
+        done = [r for r in self.requests if r.finish_t is not None and not r.cancelled]
         return {
             "scheduler": self.scheduler,
             "requests": len(self.requests),
             "completed": len(done),
+            "cancelled": self.cancellations,
             "generated_tokens": self.generated_tokens,
             "wall_s": self.wall_s,
             "tokens_per_s": self.tokens_per_s,
@@ -323,6 +391,7 @@ class EngineMetrics:
                                         if r.queue_wait_s is not None]),
             "ttft_s_mean": _mean([r.ttft_s for r in done if r.ttft_s is not None]),
             "itl_s_mean": _mean([r.itl_s for r in done if r.itl_s is not None]),
+            "slo": self.slo_summary(),
             "specdec": self.specdec_summary(),
             "latency": {
                 "queue_wait_s": self._hist_summary(H_QUEUE_WAIT, LATENCY_BUCKETS),

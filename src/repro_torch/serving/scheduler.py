@@ -1,10 +1,11 @@
 """Continuous-batching scheduler: admission queue and per-slot request
-lifecycle (reference ``repro/serving/scheduler.py``; the live service mode
-is in ROADMAP queue 1, "Observability, cancellation, SLOs and the
-front-end").
+lifecycle (reference ``repro/serving/scheduler.py``), for a batch handed
+to ``run`` or, in service mode, for requests that arrive while others
+decode.
 
 Requests move QUEUED -> PREFILL -> DECODE -> DONE (and DECODE -> SWAPPED ->
-DECODE under preemption). Slots are refilled at
+DECODE under preemption); a request cancelled in any of these states ends
+CANCELLED. Slots are refilled at
 every host boundary, so a short request's completion frees capacity for
 the next queued request instead of idling until the longest co-scheduled
 request drains (the static engine's behaviour). Finished slots stop
@@ -77,7 +78,19 @@ The scheduler drives a backend (``ServeEngine``) exposing
     decode_window(state, loop, n, stop_turnover) -> (state, loop, toks, valid,
                                                     stats, finite)
     page_block_bytes, sync_interval, sample_on_device, obs, recall_tracker,
-    spec_decode, draft_len
+    spec_decode, draft_len, slo_ttft_ms, slo_itl_ms
+
+Service mode (``run(..., service=svc)``, ``serving/frontend.EngineService``):
+each round first takes ``svc.poll()``'s new requests into the queue and
+``svc.drain_cancels()``'s uids into the cancellation pass, streams each
+token and each terminal state back (``svc.emit_token``, ``svc.emit_finish``),
+parks in ``svc.wait`` when there is nothing to do, and ends once the service
+is closed and drained. A cancelled request releases what it holds: its
+place in the queue, its swapped-out state, its held slot and open chunked
+prefill, or its decode slot through the path a finish takes (the staged
+recall dropped, the slot freed, the lane retired). With
+``obs.timeseries`` set, the scheduler feeds the sliding-window board from
+what it already reads at a window's end: no feed adds a read of the card.
 """
 from __future__ import annotations
 
@@ -92,7 +105,8 @@ import torch
 from repro_torch.core.paging import state_bytes
 from repro_torch.models.model import DECODE_STAT_KEYS as _STAT_KEYS
 from repro_torch.obs.trace import (SPAN_DECODE_STEP, SPAN_DECODE_WINDOW, SPAN_PREFILL_CHUNK,
-                                   SPAN_SCHED_PREEMPT, SPAN_SCHED_RESUME, SPAN_SPEC_VERIFY)
+                                   SPAN_SCHED_CANCEL, SPAN_SCHED_PREEMPT, SPAN_SCHED_RESUME,
+                                   SPAN_SPEC_VERIFY)
 from repro_torch.serving.metrics import EngineMetrics, RequestMetrics
 from repro_torch.serving.sampling import request_key
 
@@ -103,6 +117,7 @@ _PAGE_KEYS = ("sync_pages", "async_pages", "reused_pages", "sel_pages",
 
 QUEUED, PREFILL, DECODE, DONE = "queued", "prefill", "decode", "done"
 SWAPPED = "swapped"           # preempted: the slot's state parked on the host
+CANCELLED = "cancelled"       # terminal: the client gave the request up
 
 
 def _swap_bytes(host_state) -> float:
@@ -211,31 +226,52 @@ class ContinuousScheduler:
         self.pool = pool
         self.logits_finite: Optional[bool] = None   # live lanes' logits, whole run
 
-    def run(self, requests, seed: int = 0):
+    def run(self, requests, seed: int = 0, service=None):
         """Returns (tracked records in submission order, EngineMetrics).
         ``seed`` seeds the per-request sample streams (``request_key(seed,
-        uid)``); greedy ignores it."""
+        uid)``); greedy ignores it. ``service`` switches to service mode
+        (module docstring): the run also takes the requests that arrive
+        through it, and ends once it is closed and drained."""
         backend, pool = self.backend, self.pool
         on_device = backend.sample_on_device
         obs = backend.obs
         self._trace = obs.trace
         self._obs_enabled = obs.enabled
+        board = obs.timeseries          # None: no windowed series
         self._page_block_bytes = backend.page_block_bytes
         t0 = time.perf_counter()
         self._t0 = t0
         now = lambda: time.perf_counter() - t0  # noqa: E731
+        abst = lambda rel: t0 + rel             # noqa: E731  (the board's clock)
 
         queue: deque = deque()
-        for i, r in enumerate(requests):
-            queue.append(_Tracked(req=r, order=i, metrics=RequestMetrics(
-                uid=r.uid, prompt_tokens=len(r.tokens), max_new_tokens=r.max_new_tokens,
-                priority=r.priority, enqueue_t=now())))
+        by_uid: Dict[int, _Tracked] = {}
+        next_order = 0
+
+        def track(r) -> _Tracked:
+            nonlocal next_order
+            rm = RequestMetrics(uid=r.uid, prompt_tokens=len(r.tokens),
+                                max_new_tokens=r.max_new_tokens, priority=r.priority,
+                                enqueue_t=now(), slo_ttft_ms=getattr(r, "slo_ttft_ms", None),
+                                slo_itl_ms=getattr(r, "slo_itl_ms", None))
+            tr = _Tracked(req=r, order=next_order, metrics=rm)
+            next_order += 1
+            by_uid[r.uid] = tr
+            return tr
+
+        for r in requests:
+            queue.append(track(r))
 
         em = EngineMetrics(num_slots=pool.num_slots, scheduler="continuous",
                            page_block_bytes=backend.page_block_bytes,
                            sync_interval=backend.sync_interval if on_device else 1,
                            sample_on_device=on_device,
-                           draft_len=int(getattr(backend, "draft_len", 0)))
+                           draft_len=int(getattr(backend, "draft_len", 0)),
+                           slo_ttft_ms=getattr(backend, "slo_ttft_ms", None),
+                           slo_itl_ms=getattr(backend, "slo_itl_ms", None))
+        svc = service
+        if svc is not None:
+            svc.attach(em, t0)
         # per-slot staged recall in flight: the buffer a slot carries out of
         # step t is consumed by step t+1 unless the slot turns over
         flight = backend.recall_tracker
@@ -262,11 +298,59 @@ class ContinuousScheduler:
                 flight.invalidate(slot)   # staged buffer abandoned in flight
                 pool.free(slot)
                 lanes.retire(slot)
+            if board is not None:
+                board.event("completions", 1.0, abst(tr.metrics.finish_t))
+            if svc is not None:
+                svc.emit_finish(tr.req.uid, tr)
 
-        def apply_step(stats_np, toks_np, live_slots, dt, ts):
+        def cancel_pass(uids):
+            """The CANCELLED path (the client hung up): the request gives up
+            what it holds and nothing is parked; the other requests' lanes,
+            keys and states are untouched, so their tokens do not change.
+            A cancelled request counts in no completion, latency or SLO."""
+            for uid in uids:
+                tr = by_uid.get(uid)
+                if tr is None or tr.state in (DONE, CANCELLED):
+                    continue
+                slot = tr.slot if tr.slot >= 0 else None
+                if tr.state in (QUEUED, SWAPPED):
+                    queue.remove(tr)
+                    tr.host_state = None          # the parked state goes with it
+                    tr.flight_pages = 0.0
+                elif tr.state == PREFILL and slot in prefilling:
+                    del prefilling[slot]          # the open job and its held slot
+                    tr.job = None
+                    pool.free(slot)
+                    lanes.retire(slot)
+                elif tr.state == DECODE and slot in active:
+                    del active[slot]              # as a finish releases it
+                    flight.invalidate(slot)
+                    pool.free(slot)
+                    lanes.retire(slot)
+                tr.state = CANCELLED
+                tr.slot = -1
+                tr.metrics.cancelled = True
+                tr.metrics.finish_t = now()
+                tr.metrics.finish_step = self._step_idx
+                tr.metrics.new_tokens = len(tr.tokens)
+                tr.metrics.prefill_s = tr.prefill_s
+                tr.metrics.decode_s = tr.decode_s
+                em.cancellations += 1
+                self._trace.instant(SPAN_SCHED_CANCEL, tr.metrics.finish_t,
+                                    args={"uid": uid, "slot": -1 if slot is None else slot,
+                                          "tokens": len(tr.tokens)})
+                if board is not None:
+                    board.event("cancellations", 1.0, abst(tr.metrics.finish_t))
+                done.append(tr)
+                if svc is not None:
+                    svc.emit_finish(uid, tr)
+
+        def apply_step(stats_np, toks_np, live_slots, dt, ts, interpolated=False):
             """Host bookkeeping of ONE decode step (``ts``, ``dt``: its
             run-relative start and its share of the host's time): telemetry,
-            token append, finish detection; shared by both dispatch modes."""
+            token append, finish detection; shared by both dispatch modes.
+            ``interpolated`` marks token times split out of one read (window
+            and verify rows) in the events streamed to the service."""
             em.record_step(len(live_slots))
             for k in _PAGE_KEYS + ("corrected_heads", "kv_head_steps"):
                 src = {"corrected_heads": "corrected", "kv_head_steps": "kv_heads"}.get(k, k)
@@ -285,6 +369,15 @@ class ContinuousScheduler:
             if self._trace.enabled:
                 self._trace_step(stats_np, live_slots, ts, dt)
             tok_t = ts + dt
+            if board is not None:
+                board.observe("decode_step_s", dt, abst(tok_t))
+                board.observe("slot_occupancy", len(live_slots) / max(pool.num_slots, 1),
+                              abst(tok_t))
+                sel = float(sum(stats_np["sel_pages"][s] for s in live_slots))
+                if sel > 0:
+                    board.observe("spec_hit_rate",
+                                  float(sum(stats_np["spec_hit_pages"][s] for s in live_slots))
+                                  / sel, abst(tok_t))
             for s in live_slots:
                 tr = active[s]
                 tr.decode_s += dt
@@ -298,7 +391,14 @@ class ContinuousScheduler:
                     gap = max(tok_t - tr.last_tok_t, 0.0)
                     em.observe_token_gap(gap)
                     tr.metrics.max_token_gap_s = max(tr.metrics.max_token_gap_s, gap)
+                    if board is not None:
+                        board.observe("itl_s", gap, abst(tok_t))
                 tr.last_tok_t = tok_t
+                if board is not None:
+                    board.event("tokens", 1.0, abst(tok_t))
+                if svc is not None:
+                    svc.emit_token(tr.req.uid, len(tr.tokens) - 1, tok, tok_t,
+                                   interpolated=interpolated)
                 if tr.finished():
                     del active[s]
                     finish(tr, s)
@@ -319,6 +419,12 @@ class ContinuousScheduler:
             tr.tokens.append(tok)
             tr.state = DECODE
             tr.slot = slot
+            if board is not None:
+                t_abs = abst(tr.metrics.first_token_t)
+                board.observe("ttft_s", tr.metrics.first_token_t - tr.metrics.enqueue_t, t_abs)
+                board.event("tokens", 1.0, t_abs)
+            if svc is not None:
+                svc.emit_token(tr.req.uid, 0, tok, tr.metrics.first_token_t)
             if tr.finished():           # max_new_tokens == 1 or an instant eos
                 finish(tr, slot)
             else:
@@ -342,6 +448,8 @@ class ContinuousScheduler:
             active[slot] = tr
             em.resumes += 1
             em.swap_in_bytes += nbytes
+            if board is not None:
+                board.event("swap_bytes", nbytes, abst(now()))
             self._trace.instant(SPAN_SCHED_RESUME, now(),
                                 args={"uid": tr.req.uid, "slot": slot, "bytes": nbytes})
 
@@ -356,6 +464,9 @@ class ContinuousScheduler:
                 return
             tr.state = PREFILL
             tr.metrics.prefill_start_t = now()
+            if board is not None:
+                board.observe("queue_wait_s", tr.metrics.prefill_start_t - tr.metrics.enqueue_t,
+                              abst(tr.metrics.prefill_start_t))
             if chunk > 0:
                 # the slot is held (its lane finished, its row reset) while
                 # the job runs a budgeted chunk a round (advance_prefill)
@@ -396,6 +507,10 @@ class ContinuousScheduler:
                 victim.metrics.preemptions += 1
                 em.preemptions += 1
                 em.swap_out_bytes += nbytes
+                if board is not None:
+                    t_abs = abst(now())
+                    board.event("preemptions", 1.0, t_abs)
+                    board.event("swap_bytes", nbytes, t_abs)
                 self._trace.instant(SPAN_SCHED_PREEMPT, now(),
                                     args={"uid": victim.req.uid, "slot": slot,
                                           "bytes": nbytes, "by_uid": cand.req.uid})
@@ -432,7 +547,15 @@ class ContinuousScheduler:
                 if budget <= 0:
                     break
 
-        while queue or active or prefilling:
+        while queue or active or prefilling or (svc is not None and not svc.closed):
+            # service mode: take the arrivals and the cancellations
+            if svc is not None:
+                for r in svc.poll():
+                    queue.append(track(r))
+                cancels = svc.drain_cancels()
+                if cancels:
+                    cancel_pass(cancels)
+                em.wall_s = now()       # live tokens/s
             # admission: refill freed slots at the host boundary (FIFO)
             while queue and pool.free_count:
                 admit_one(queue.popleft())
@@ -443,11 +566,17 @@ class ContinuousScheduler:
             if prefilling:
                 advance_prefill()
             if not active:
+                if svc is not None and not (queue or prefilling):
+                    svc.wait(0.002)     # idle: park until work arrives
                 continue
             pool.flush_resets()          # lazily reset freed-but-idle slots
             if on_device:
+                # work waiting in the service ends the window at the first
+                # turnover, as a queued request does
                 self._window_steps(backend, pool, em, lanes, apply_step,
-                                   stop_turnover=bool(queue), flight=flight)
+                                   stop_turnover=bool(queue) or (svc is not None
+                                                                 and svc.pending),
+                                   flight=flight)
             else:
                 self._sync_step(backend, pool, em, lanes, apply_step)
 
@@ -521,7 +650,7 @@ class ContinuousScheduler:
             live = [int(s) for s in np.nonzero(valid_np[j])[0]]
             if live:        # rows after an eos finished every lane: nothing to apply
                 apply_step({k: stats_np[k][j] for k in _STAT_KEYS}, toks_np[j], live,
-                           per_dt, ts=ts_rel + j * per_dt)
+                           per_dt, ts=ts_rel + j * per_dt, interpolated=True)
 
     def _apply_spec_blocks(self, pool, em, toks_np, valid_np, stats_np, apply_step, flight,
                            ts_rel, per_dt):
@@ -567,7 +696,7 @@ class ContinuousScheduler:
             sub = per_dt / len(rows)
             for i, (r, live) in enumerate(rows):
                 apply_step({k: stats_np[k][j, r] for k in _STAT_KEYS}, toks_np[j, r], live,
-                           sub, ts=ts_j + i * sub)
+                           sub, ts=ts_j + i * sub, interpolated=True)
 
     def _sync_step(self, backend, pool, em, lanes, apply_step):
         """Synchronous reference mode: one decode step, one host read."""

@@ -973,3 +973,81 @@ def test_cuda_verify_rows_equal_single_steps(method):
     for j, (lg, s) in enumerate(single):
         assert torch.equal(logits[:, j], lg), j
         assert all(torch.equal(rows[k][j], s[k]) for k in rows), j
+
+
+@pytest.mark.cuda
+def test_cuda_service_path_equals_cpu_and_spans_carry_device_time():
+    """The live-serving path on the card (granite-3-8b-smoke, fp32, pinned
+    pool, recall overlap): three requests submitted through an
+    ``EngineService`` while the engine runs on its worker thread, one
+    cancelled after its second token, give the CPU engine's direct greedy
+    tokens (the cancelled one a prefix of them), and every slot is free at
+    the end. Then, under ``torch.profiler``, each ``annotate`` span of two
+    decode steps has a device-side row with time: its extent on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.models import model
+    from repro_torch.obs import Observability
+    from repro_torch.obs.trace import ANNOTATED_SPANS
+    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.serving.frontend import EngineService
+    dev = torch.device("cuda", 0)
+    cfg = get_config("granite-3-8b-smoke")
+    fkv = FreeKVConfig(method="freekv", **SMOKE_FKV)
+    params = model.init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    cpu_params = torch.utils._pytree.tree_map(lambda t: t.cpu(), params)
+    g = np.random.default_rng(3)
+    spec = [(0, 160, 12), (1, 96, 20), (2, 200, 8)]          # (uid, prompt, new tokens)
+    prompts = {u: g.integers(0, cfg.vocab_size, n).astype(np.int32) for u, n, _ in spec}
+
+    def engine(p, device, obs=None):
+        return ServeEngine(cfg, fkv, p, max_len=256, batch_size=2, device=device, obs=obs)
+
+    want = {c.uid: c.tokens for c in engine(cpu_params, "cpu").generate(
+        [Request(uid=u, tokens=prompts[u], max_new_tokens=m) for u, _, m in spec])}
+    eng = engine(params, dev, Observability.full())
+    svc = EngineService(eng).start()
+    got, ends = {u: [] for u, _, _ in spec}, {}
+    done = {u: threading.Event() for u, _, _ in spec}
+
+    def on_event(kind, payload):
+        u = payload["uid"]
+        if kind == "token":
+            got[u].append(payload["token"])
+            if u == 1 and payload["index"] == 1:
+                svc.cancel(1)
+            return
+        ends[u] = (kind, payload)
+        done[u].set()
+
+    for u, _, m in spec:
+        svc.submit(prompts[u], m, on_event, uid=u)
+    assert all(ev.wait(300) for ev in done.values())
+    svc.stop()
+    assert all(kind == "finish" for kind, _ in ends.values()), ends
+    assert ends[1][1]["cancelled"] and got[1] == want[1][:len(got[1])]
+    for u in (0, 2):
+        assert not ends[u][1]["cancelled"] and got[u] == want[u], u
+    assert eng.last_metrics.cancellations == 1 and eng._pool.owner == [None, None]
+
+    toks = torch.from_numpy(np.stack([prompts[0][:96], prompts[1]])).long().to(dev)
+    logits, state = model.prefill(cfg, fkv, params, {"tokens": toks}, 160)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            logits, state = model.serve_step(cfg, fkv, params, state,
+                                             torch.argmax(logits, dim=-1)[:, None])
+        torch.cuda.synchronize()
+    # each span's device-side row: its extent on the card, which covers the
+    # kernels launched inside it, the port's own (through ctypes) included
+    rows = {e.key: e for e in prof.key_averages()
+            if e.key in ANNOTATED_SPANS and e.device_type == torch.autograd.DeviceType.CUDA}
+    assert set(rows) == set(ANNOTATED_SPANS)
+    for name, e in rows.items():
+        dev_us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+        assert dev_us > 0, f"{name} carries no device time"
