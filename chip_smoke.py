@@ -49,16 +49,34 @@ Phases, each fatal on failure (nothing is caught):
      Then the kernels at the other served archs' shapes (ARCH_SHAPES:
      qwen25-7b G=7 d=128 kv=4, smollm-360m G=3 d=64 kv=5, gemma2-2b G=2
      d=256 kv=4 with softcap 50 and window 4096, stablelm-3b G=1 d=80
-     kv=32): paged_attention at each decode shape and flash_prefill at each
+     kv=32, deepseek-moe-16b G=1 d=128 kv=16, llama4-scout-17b-a16e G=5
+     d=128 kv=8, jamba-1.5-large-398b G=8 d=128 kv=8): paged_attention at
+     each decode shape and flash_prefill at each
      admission (B=1, T=8192) and extension (2048 over 8192) within TOL,
      fp32 and bf16 (d=80 on the d=128 tiles, channels past 80 zero);
      select_pages' per-query-head mode (Quest) and the pooled mode at each
      G, ids exact on far-apart, forced-tie and invalid-lane inputs (the
      invalid lanes keeping jax.lax.top_k's ids), tie-aware on random ones;
-     fill_pages and complete_page exact at d=80 and 256; each timed at bf16
+     fill_pages and complete_page exact at d=80 and 256 and at the three
+     MoE/hybrid archs' KV heads; each timed at bf16
      (flash_prefill in both forms, select_pages in both modes) beside its
      bound, its plain version and SDPA where SDPA computes the same
      function.
+ 3b. the MoE FFN and the Mamba mixer at full width (torch ops; they replace
+     no TPU kernel, so their numbers go on [moe] and [ssm] lines): one
+     deepseek-moe-16b MoE layer (64 experts of 2048 x 1408, top-6, 2 shared)
+     with seeded weights and a router biased so that capacity binds at 8
+     and 1024 tokens: at float32 apply_moe within 1e-4 of the
+     capacity-aware dense oracle at N = 4, 8 and 1024; at bfloat16 bit-equal
+     outputs run twice at N = 4 and 8192; a call at N = 4 under
+     torch.cuda.set_sync_debug_mode("error"); device ms at N = 4 and 8192
+     beside two bounds, the reference design's (all 64 experts at capacity
+     C) and the routed experts' own. One jamba-1.5-large-398b Mamba layer
+     (d 8192, d_inner 16384, d_state 16): at float32 256 decode steps
+     chained from the empty state within 1e-4 of mamba_forward's outputs
+     and final state (the largest error logged); a decode step at B = 4
+     under sync debug mode "error"; device ms of a decode step at B = 4 and
+     of a prefill at T = 2048 beside their bounds.
   4. main path: ServeEngine(scheduler="continuous"), the default, serving
      llama31-8b at full width (32 layers, seeded random bf16 weights) with
      FreeKV defaults, recall_overlap=True and the KV pool in pinned host
@@ -103,7 +121,9 @@ Phases, each fatal on failure (nothing is caught):
      weights, pinned pool, 4 needle requests of 8192/6144/4096/7168 tokens,
      16 greedy tokens each, over 4 slots, continuous): qwen25-7b,
      gemma2-2b (its prompts past its 4096-token window), smollm-360m and
-     stablelm-3b under freekv, then llama31-8b under quest, raas,
+     stablelm-3b under freekv, deepseek-moe-16b (MoE, 16/16 heads; its
+     ~33 GB of weights beside llama31-8b's, freed after the run) under
+     freekv, then llama31-8b under quest, raas,
      streaming, infinigen and freekv with select_top_p 0.9; each run's
      kernels must launch (WIDE_RUNS), flash_prefill once a layer a prefill
      and complete_page once a global layer a step; each logs TTFT, decode
@@ -139,10 +159,14 @@ Phases, each fatal on failure (nothing is caught):
      eos inside a window; freekv with chunk budgets of a page, a token and
      10 tokens, a prefix-cache hit, and a preemption under none and int8;
      quest, raas, streaming, infinigen and freekv with select_top_p on
-     granite-3-8b-smoke, and the four other archs at smoke width and at
+     granite-3-8b-smoke, and the seven other archs at smoke width and at
      their real head layouts (gemma2 also with a chunked prefill), through
-     the continuous scheduler (NEW_PATHS); and the centroid index kept step
-     by step on the card equals its rebuild bit for bit.
+     the continuous scheduler (NEW_PATHS); deepseek-moe-16b-smoke and
+     jamba-1.5-large-398b-smoke over 6 slots and llama4-scout-17b-a16e-smoke
+     over 8 (MOE_PATHS: more requests than slots, so lanes idle and turn
+     over and decode capacity binds), deepseek and scout also with a chunked
+     prefill (a held lane), jamba with a preemption; and the centroid index
+     kept step by step on the card equals its rebuild bit for bit.
 Then one JSON line with the kernels' numbers and, last, the ok line.
 """
 import argparse
@@ -1228,14 +1252,18 @@ def check_flash_prefill_extension(ops, ref, dev, gen):
 
 # ---------------------------------------------------------------------------
 # phase 3, the served archs' shapes: each kernel at the head layouts, head
-# widths, softcap and window of qwen25-7b, smollm-360m, gemma2-2b and
-# stablelm-3b, against its plain version, timed beside its bound
+# widths, softcap and window of qwen25-7b, smollm-360m, gemma2-2b,
+# stablelm-3b, deepseek-moe-16b, llama4-scout-17b-a16e and
+# jamba-1.5-large-398b, against its plain version, timed beside its bound
 # ---------------------------------------------------------------------------
 ARCH_SHAPES = {   # arch -> (query heads, KV heads, d_head, softcap, sliding window)
     "qwen25-7b": (28, 4, 128, None, None),
     "smollm-360m": (15, 5, 64, None, None),
     "gemma2-2b": (8, 4, 256, 50.0, 4096),
     "stablelm-3b": (32, 32, 80, None, None),
+    "deepseek-moe-16b": (16, 16, 128, None, None),
+    "llama4-scout-17b-a16e": (40, 8, 128, None, None),
+    "jamba-1.5-large-398b": (64, 8, 128, None, None),
 }
 
 
@@ -1427,15 +1455,17 @@ def check_select_pages_shapes(ops, ref, dev, gen):
 
 
 def check_fill_shapes(ops, ref, dev, gen):
-    """fill_pages and complete_page at d_head 80 (stablelm-3b, 32 KV heads)
-    and 256 (gemma2-2b, 4 KV heads), exact against their plain versions
+    """fill_pages and complete_page at d_head 80 (stablelm-3b, 32 KV heads),
+    256 (gemma2-2b, 4 KV heads) and 128 at 16 and 8 KV heads (deepseek,
+    scout, jamba), exact against their plain versions
     (fp, and int8; fp32 and bf16; complete_page to a device and a pinned
     pool with some rows completing); fill_pages at B=1, T=8192 and
     complete_page to the pinned pool with every row completing timed at
     bf16 beside their bounds."""
     rows = {}
     lengths = ([8224, 6150, 4128, 7170], [8224, 6176, 4128, 7200])
-    for arch in ("stablelm-3b", "gemma2-2b"):
+    for arch in ("stablelm-3b", "gemma2-2b", "deepseek-moe-16b", "llama4-scout-17b-a16e",
+                 "jamba-1.5-large-398b"):
         _, kv, d, _, _ = ARCH_SHAPES[arch]
 
         def outs(b, n, dt, bits, pinned=False):
@@ -1494,6 +1524,166 @@ def check_fill_shapes(ops, ref, dev, gen):
                               "bound_by": "bytes", "kernel_ms": c_ms, "kernel_call_ms": c_call,
                               "plain_ms": c_plain, "library_ms": None, "max_abs_err": 0.0}}
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the MoE FFN and the Mamba mixer at full width. They are torch ops
+# (the reference computes both in plain jnp, no Pallas kernel), so their
+# numbers go on [moe] and [ssm] lines, not on the kernels line
+# ---------------------------------------------------------------------------
+def _seeded_normal(gen, dev):
+    def normal(shape, std):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).mul_(std)
+    return normal
+
+
+def _moe_bounds(cfg, n, kept, experts_used):
+    """(the reference design's bound, the routed experts' own) for one MoE
+    call of ``n`` bf16 tokens: bytes are the weights read once (the router
+    float32) plus x in and y out; operations the three expert GEMMs (2 flops
+    a multiply-add), the shared experts' and the router's. The reference
+    design runs all E experts at capacity C; the routed bound counts only
+    the experts this call's routing used and its ``kept`` assignments."""
+    d, de, E = cfg.d_model, cfg.d_expert, cfg.n_experts
+    ds = de * cfg.n_shared_experts
+    c = 2 * 3 * d * de                       # one token through one expert
+    fixed_b = d * E * 4 + 3 * d * ds * 2 + 2 * n * d * 2
+    fixed_o = 2 * n * d * E + 2 * 3 * n * d * ds
+    from repro_torch.models.moe import capacity
+    cap = capacity(n, E, cfg.moe_top_k)
+    design = _bound(fixed_b + E * 3 * d * de * 2, fixed_o + E * cap * c)
+    routed = _bound(fixed_b + experts_used * 3 * d * de * 2, fixed_o + kept * c)
+    return design, routed
+
+
+def moe_layer_phase(dev):
+    """One deepseek-moe-16b MoE layer at full width with seeded weights:
+    the router biased toward experts 0-2 along a direction the inputs share
+    (a logit ~9 higher), so that every token picks them and capacity binds
+    at 8 and 1024 tokens. float32: apply_moe within
+    1e-4 of the capacity-aware dense oracle at N = 4, 8, 1024 (drops
+    required at 8 and 1024); bfloat16: N = 4 and 8192 bit-equal when run
+    twice, a call at N = 4 under set_sync_debug_mode("error"), device ms at
+    N = 4 and 8192 beside the two bounds of ``_moe_bounds``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("deepseek-moe-16b")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    p = moe.moe_init(cfg, _seeded_normal(gen, dev), torch.float32)
+    m = torch.randn(cfg.d_model, generator=gen, device=dev)
+    m = m / m.norm()
+    p["router"][:, :3] += 3.0 * m[:, None]
+
+    def inputs(n, dt):
+        x = torch.randn(1, n, cfg.d_model, generator=gen, device=dev) + 3.0 * m
+        return x.to(dt)
+
+    def routing(x):
+        xf = x.reshape(-1, cfg.d_model)
+        _, idx, _ = moe.route(cfg, p["router"], xf)
+        keep = moe.capacity_keep_mask(idx, cfg.n_experts,
+                                      moe.capacity(xf.shape[0], cfg.n_experts, cfg.moe_top_k))
+        return int(keep.sum()), int(torch.unique(idx[keep]).numel()), int((~keep).sum())
+
+    out = {"layer": f"E {cfg.n_experts} x ({cfg.d_model} x {cfg.d_expert}) top-{cfg.moe_top_k}"
+                    f" + {cfg.n_shared_experts} shared", "fp32": {}, "bf16": {}}
+    for n in (4, 8, 1024):
+        x = inputs(n, torch.float32)
+        y = moe.apply_moe(cfg, p, x)[0]
+        want = moe.moe_dense_reference(cfg, p, x)
+        err = (y - want).abs().max().item()
+        kept, used, dropped = routing(x)
+        require(torch.allclose(y, want, atol=1e-4, rtol=1e-4),
+                f"[moe] N={n}: apply_moe against the dense oracle, max |err| {err}")
+        require(n == 4 or dropped > 0, f"[moe] N={n}: the biased router dropped nothing")
+        out["fp32"][n] = {"max_abs_err_vs_oracle": err, "dropped": dropped,
+                          "capacity": moe.capacity(n, cfg.n_experts, cfg.moe_top_k)}
+        del x, y, want
+    pb = {k: (v if k == "router" else _tree_map(lambda t: t.to(torch.bfloat16), v))
+          for k, v in p.items()}
+    del p
+    p = pb
+    for n in (4, 8192):
+        x = inputs(n, torch.bfloat16)
+        y1, y2 = moe.apply_moe(cfg, p, x)[0], moe.apply_moe(cfg, p, x)[0]
+        require(torch.equal(y1, y2), f"[moe] bf16 N={n}: two runs differ")
+        require(bool(torch.isfinite(y1).all()), f"[moe] bf16 N={n}: non-finite output")
+        if n == 4:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                moe.apply_moe(cfg, p, x)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        kept, used, dropped = routing(x)
+        ms, call_ms = time_ms(lambda x: moe.apply_moe(cfg, p, x), [(x,)],
+                              iters=20 if n == 4 else 3)
+        design, routed = _moe_bounds(cfg, n, kept, used)
+        out["bf16"][n] = {"ms": ms, "call_ms": call_ms, "bound_reference_design": design,
+                          "bound_routed": routed, "experts_used": used, "kept": kept,
+                          "dropped": dropped, "bit_equal_repeat": True,
+                          "sync_free": n == 4}
+        del x, y1, y2
+    del p
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_layer_phase(dev):
+    """One jamba-1.5-large-398b Mamba layer at full width with seeded
+    weights: float32, 256 decode steps chained from the empty state (B=2)
+    against mamba_forward's outputs and final state within 1e-4 (the
+    largest error logged); bfloat16, a decode step at B=4 under
+    set_sync_debug_mode("error"), device ms of a decode step at B=4 and of
+    a prefill at T=2048 (B=1) beside their bounds (weights read once, the
+    state h read and written, activations in and out; the prefill's
+    projections at the bf16 peak)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    cfg = get_config("jamba-1.5-large-398b")
+    di, r, ds, dk = ssm.mamba_dims(cfg)
+    d = cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(29)
+    p = ssm.mamba_init(cfg, _seeded_normal(gen, dev), torch.float32)
+    T = 256
+    x = 0.5 * torch.randn(2, T, d, generator=gen, device=dev)
+    y, st = ssm.mamba_forward(cfg, p, x, return_state=True)
+    s = ssm.mamba_init_state(cfg, 2, torch.float32, dev)
+    ys = [ssm.mamba_decode_step(cfg, p, x[:, t:t + 1], s)[0] for t in range(T)]
+    errs = {"y": (torch.cat(ys, dim=1) - y).abs().max().item(),
+            "h": (s["h"] - st["h"]).abs().max().item(),
+            "conv": (s["conv"] - st["conv"]).abs().max().item()}
+    require(torch.allclose(torch.cat(ys, dim=1), y, atol=1e-4, rtol=1e-4)
+            and torch.allclose(s["h"], st["h"], atol=1e-4, rtol=1e-4)
+            and torch.allclose(s["conv"], st["conv"], atol=1e-4, rtol=1e-4),
+            f"[ssm] chained decode against mamba_forward: max |err| {errs}")
+    del x, y, st, s, ys
+    p = {k: (v if k in ("A_log", "D") else v.to(torch.bfloat16)) for k, v in p.items()}
+    Bd = 4
+    xs = torch.randn(Bd, 1, d, generator=gen, device=dev).to(torch.bfloat16)
+    s = ssm.mamba_init_state(cfg, Bd, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ssm.mamba_decode_step(cfg, p, xs, s)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require(s["h"].dtype == torch.float32, "[ssm] h left float32")
+    w_bytes = sum(t.numel() * t.element_size() for t in p.values())
+    flops_tok = 2 * (d * 2 * di + di * (r + 2 * ds) + r * di + di * d)
+    dec_ms, dec_call = time_ms(lambda x: ssm.mamba_decode_step(cfg, p, x, s), [(xs,)], iters=20)
+    dec_bound = _bound(w_bytes + 2 * s["h"].numel() * 4 + 2 * s["conv"].numel() * 2
+                       + 2 * Bd * d * 2, Bd * flops_tok)
+    Tp = 2048
+    xp = torch.randn(1, Tp, d, generator=gen, device=dev).to(torch.bfloat16)
+    pre_ms, pre_call = time_ms(lambda x: ssm.mamba_forward(cfg, p, x), [(xp,)], iters=1)
+    pre_bound = _bound(w_bytes + 2 * Tp * d * 2, Tp * flops_tok)
+    del p, xs, xp, s
+    torch.cuda.empty_cache()
+    return {"layer": f"d {d} d_inner {di} d_state {ds} d_conv {dk} dt_rank {r}",
+            "chain_steps": T, "max_abs_err_chain_vs_forward": errs, "tolerance": 1e-4,
+            "decode_b4": {"ms": dec_ms, "call_ms": dec_call, **dec_bound, "sync_free": True},
+            "prefill_t2048": {"ms": pre_ms, "call_ms": pre_call, **pre_bound}}
 
 
 # ---------------------------------------------------------------------------
@@ -1837,6 +2027,8 @@ WIDE_RUNS = {   # (arch, method, select_top_p) -> the kernels the run must launc
     ("llama31-8b", "streaming", 0.0): ("paged_attention", "flash_prefill"),
     ("llama31-8b", "infinigen", 0.0): _POOLED,
     ("llama31-8b", "freekv", 0.9): _POOLED,
+    # MoE FFNs (64 routed experts top-6, 2 shared), MHA 16/16 at d_head 128
+    ("deepseek-moe-16b", "freekv", 0.0): _POOLED,
 }
 
 
@@ -1902,7 +2094,8 @@ def wide_run(dev, ops, cfg, params, method, top_p):
 
 
 def wide_runs(dev, ops, llama_cfg, llama):
-    """Phase 4c: the four other archs under freekv, then llama31-8b under
+    """Phase 4c: the five other archs under freekv (deepseek-moe-16b's
+    weights freed after its run, as every arch's), then llama31-8b under
     quest, raas, streaming, infinigen and freekv with select_top_p 0.9.
     Each run's launches are its own (the counts set to 0 just before it);
     returns their sums by kernel, which the ``kernels`` line keeps apart
@@ -2174,6 +2367,73 @@ def new_paths_vs_plain(dev):
         out[label] = {"arch": cfg.name, "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.d_head],
                       "steps": got["cuda"][1], "chunks": got["cuda"][2],
                       "tokens": got["cuda"][0][0][:8]}
+    return out
+
+
+# phase 5 for the MoE and hybrid archs: more requests than slots, so lanes
+# idle and turn over and decode capacity binds (6 slots: 6 tokens x top-2
+# over 4 experts at capacity 4; 8 slots for scout's top-1); (label, arch,
+# slots, chunk budget, preempt, eos)
+MOE_PATHS = [("6 slots", "deepseek-moe-16b-smoke", 6, 0, False, False),
+             ("6 slots, chunked 24 (held lanes)", "deepseek-moe-16b-smoke", 6, 24, False, False),
+             ("6 slots, an eos in a window, admissions queued", "deepseek-moe-16b-smoke", 6, 0,
+              False, True),
+             ("8 slots", "llama4-scout-17b-a16e-smoke", 8, 0, False, False),
+             ("8 slots, chunked 24 (held lanes)", "llama4-scout-17b-a16e-smoke", 8, 24, False,
+              False),
+             ("6 slots", "jamba-1.5-large-398b-smoke", 6, 0, False, False),
+             ("6 slots, a preemption", "jamba-1.5-large-398b-smoke", 6, 0, True, False)]
+
+
+def moe_paths_vs_plain(dev):
+    """The MoE archs and jamba through the continuous scheduler on the card
+    against the CPU, float32 (MOE_PATHS): slots + 3 requests of mixed
+    lengths, the last of priority 1 under preemption; with ``eos`` request
+    2 ends by an eos picked inside a window (the window then reads the
+    finishes every step and stops where the reference's does). Greedy
+    tokens, steps, chunks, preemptions and swap bytes equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import Request, ServeEngine
+    lens, news = (128, 96, 160, 112), (12, 5, 9, 7, 14, 6, 10, 4, 11, 8, 13)
+    out = {}
+    for label, arch, slots, chunk, preempt, eos in MOE_PATHS:
+        cfg = get_config(arch)
+        fkv = dataclasses.replace(_smoke_fkv("freekv", "none"), prefill_chunk_tokens=chunk,
+                                  preempt=preempt)
+        params_gpu = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+        params_cpu = _tree_map(lambda t: t.cpu(), params_gpu)
+        n = slots + 3
+        prompts = [next(needle_stream(cfg.vocab_size, lens[i % 4], 8, seed=60 + i)).tokens
+                   for i in range(n)]
+        reqs = [Request(uid=i, tokens=t, max_new_tokens=news[i],
+                        priority=int(preempt and i == n - 1)) for i, t in enumerate(prompts)]
+        if eos:     # request 2's first new token at its third or later: inside a window
+            toks2 = ServeEngine(cfg, fkv, params_cpu, max_len=320, batch_size=slots,
+                                state_dtype=torch.float32, device="cpu").generate(reqs)[2].tokens
+            reqs[2].eos_token = next(t for i, t in enumerate(toks2) if i >= 2
+                                     and t not in toks2[:i])
+        got = {}
+        for where, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+            eng = ServeEngine(cfg, fkv, params, max_len=320, batch_size=slots,
+                              state_dtype=torch.float32, device=dev if where == "cuda" else "cpu")
+            outs = eng.generate(reqs)
+            em = eng.last_metrics
+            require(eng.last_logits_finite, f"non-finite logits ({where} {arch} {label})")
+            got[where] = ([o.tokens for o in outs], em.steps, em.prefill_chunks, em.preemptions,
+                          em.swap_out_bytes, em.swap_in_bytes)
+        require(got["cuda"] == got["cpu"], f"{arch} {label}: card {got['cuda']} vs cpu "
+                f"{got['cpu']}")
+        toks, steps, chunks, pre, swap_out, swap_in = got["cuda"]
+        require(not chunk or chunks > n, f"{arch} {label}: {chunks} chunks")
+        require(not preempt or (pre >= 1 and swap_in == swap_out > 0),
+                f"{arch} {label}: {pre} preemptions, swap bytes {swap_out} / {swap_in}")
+        require(not eos or 3 <= len(toks[2]) < news[2], f"{arch} {label}: the eos did not end "
+                "request 2 in a window")
+        out[f"{arch} {label}"] = {"requests": n, "steps": steps, "chunks": chunks,
+                                  "preemptions": pre, "swap_bytes": swap_out,
+                                  "tokens": toks[0][:8]}
     return out
 
 
@@ -2873,6 +3133,32 @@ def main():
     wide_launches, spec_launches, service_launches = {}, {}, {}
     share = None
     if not args.kernels_only:
+        # phase 3b: the MoE FFN and the Mamba mixer at full width
+        t0 = time.perf_counter()
+        moe_info = moe_layer_phase(dev)
+        log("[moe] " + json.dumps(moe_info))
+        for n, r in moe_info["fp32"].items():
+            log(f"[moe] fp32 N={n}: apply_moe vs the dense oracle max|err| "
+                f"{r['max_abs_err_vs_oracle']:.3g} (tolerance 1e-4), capacity {r['capacity']}, "
+                f"{r['dropped']} assignments dropped")
+        for n, r in moe_info["bf16"].items():
+            log(f"[moe] bf16 N={n}: {r['ms']:.4f} ms (call {r['call_ms']:.4f} ms) vs bound "
+                f"{r['bound_reference_design']['bound_ms']:.4f} ms (all 64 experts at "
+                f"capacity, by {r['bound_reference_design']['bound_by']}) and "
+                f"{r['bound_routed']['bound_ms']:.4f} ms (the {r['experts_used']} routed "
+                f"experts, by {r['bound_routed']['bound_by']}); two runs bit-equal"
+                + ("; no host sync under sync debug mode \"error\"" if r["sync_free"] else ""))
+        ssm_info = ssm_layer_phase(dev)
+        log("[ssm] " + json.dumps(ssm_info))
+        dec, pre = ssm_info["decode_b4"], ssm_info["prefill_t2048"]
+        log(f"[ssm] jamba Mamba layer ({ssm_info['layer']}): {ssm_info['chain_steps']} chained "
+            f"decode steps vs mamba_forward max|err| "
+            f"{json.dumps(ssm_info['max_abs_err_chain_vs_forward'])} (tolerance 1e-4); decode "
+            f"B=4 {dec['ms']:.4f} ms (call {dec['call_ms']:.4f} ms) vs bound "
+            f"{dec['bound_ms']:.4f} ms by {dec['bound_by']}, no host sync under sync debug mode "
+            f"\"error\"; prefill T=2048 {pre['ms']:.4f} ms (call {pre['call_ms']:.4f} ms) vs "
+            f"bound {pre['bound_ms']:.4f} ms by {pre['bound_by']}; "
+            f"{time.perf_counter() - t0:.1f} s for both")
         # phase 4: main path at full width: the static path, then every
         # retriever and pool tier through the continuous scheduler
         cfg, params = llama_params(dev)
@@ -3004,6 +3290,9 @@ def main():
         for label, r in new_paths_vs_plain(dev).items():
             log(f"[equal] {r['arch']} fp32 continuous, {label}: card == cpu greedy tokens and "
                 "steps " + json.dumps(r))
+        for label, r in moe_paths_vs_plain(dev).items():
+            log(f"[equal] {label}, fp32 continuous: card == cpu greedy tokens, steps and "
+                "counts " + json.dumps(r))
         for label, t in spec_vs_plain(dev).items():
             log(f"[equal] granite-3-8b-smoke fp32 continuous freekv draft_len 3, {label}: "
                 f"card == cpu == draft_len 0 tokens, e.g. {t}")

@@ -60,7 +60,13 @@ class ArchConfig:
     n_experts: int = 0
     n_shared_experts: int = 0
     moe_top_k: int = 0
-    d_expert: int = 0
+    d_expert: int = 0                # routed-expert hidden dim (fine-grained MoE)
+
+    # SSM (mamba)
+    ssm_d_state: int = 16
+    ssm_d_conv: int = 4
+    ssm_expand: int = 2
+
     is_encoder_decoder: bool = False
     n_encoder_layers: int = 0
     frontend: Optional[str] = None
@@ -167,8 +173,10 @@ class FreeKVConfig:
 
 
 def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:
-    """Reduced variant of the same family for CPU smoke tests (same rule as
-    the reference, restricted to the dense archs the port registers)."""
+    """Reduced variant of the same family for CPU smoke tests (the
+    reference's rule): one period cut to at most two layers, one a distinct
+    mixer, the MoE FFN preferred (jamba keeps a Mamba + MoE and an attention
+    + dense layer), 4 experts of width 128."""
     pat = cfg.pattern
     if len(pat) > 2:
         chosen, order = {}, []

@@ -5,13 +5,15 @@ random bf16 weights, ``torch.profiler`` over one prefill and over a few
 ``serve_step`` calls after warm-up.
 
     PYTHONPATH=src python -m repro_torch.launch.decode_profile [--steps 4] \
-        [--arch llama31-8b|qwen25-7b|gemma2-2b|smollm-360m|stablelm-3b|granite-3-8b] \
+        [--arch llama31-8b|qwen25-7b|gemma2-2b|smollm-360m|stablelm-3b|granite-3-8b|
+                deepseek-moe-16b] \
         [--method freekv|arkvale|infinigen|quest|shadowkv|raas|streaming|centroid] \
         [--kv-quant none|int8|int4] [--quant-group-size 0] [--window 8] [--completion] \
         [--draft-len 4] [--main-runs]
 
 ``--arch`` profiles another served arch at full width with the same
-traffic (the default is the main path's llama31-8b).
+traffic (the default is the main path's llama31-8b); deepseek-moe-16b
+(~33 GB of bf16 weights) is the MoE arch that fits the card.
 
 Prints one JSON line: the prefill's wall s, device-busy s and top kernels;
 per decode step the host wall ms, device-busy ms (sum of kernel and copy
@@ -375,7 +377,8 @@ def main(argv=None):
                     help="write a Chrome trace of the profiled steps here")
     ap.add_argument("--arch", default=ARCH,
                     help="a served arch at full width: llama31-8b (the main path), "
-                         "qwen25-7b, gemma2-2b, smollm-360m, stablelm-3b or granite-3-8b")
+                         "qwen25-7b, gemma2-2b, smollm-360m, stablelm-3b, granite-3-8b or "
+                         "deepseek-moe-16b")
     ap.add_argument("--method", default="freekv",
                     help="retriever: any of core.retrieval.METHODS but full")
     ap.add_argument("--kv-quant", choices=("none", "int8", "int4"), default="none",

@@ -54,8 +54,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--arch", default="granite-3-8b-smoke",
-                    help="llama31-8b, qwen25-7b, gemma2-2b, smollm-360m, stablelm-3b or "
-                         "granite-3-8b, each also as <arch>-smoke")
+                    help="llama31-8b, qwen25-7b, gemma2-2b, smollm-360m, stablelm-3b, "
+                         "granite-3-8b, deepseek-moe-16b, llama4-scout-17b-a16e or "
+                         "jamba-1.5-large-398b, each also as <arch>-smoke (jamba serves "
+                         "without chunked prefill and the prefix cache)")
     ap.add_argument("--method", default="freekv",
                     help="retriever: freekv, arkvale, infinigen, quest, shadowkv, raas, "
                          "streaming, full or centroid")

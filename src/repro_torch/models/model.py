@@ -1,5 +1,6 @@
-"""Model assembly for attention + dense-FFN decoder stacks (reference
-``repro/models/model.py``), with the serving entry points:
+"""Model assembly for decoder stacks of attention or Mamba mixers with
+dense or MoE FFNs (reference ``repro/models/model.py``), with the serving
+entry points:
 
   init_params(cfg, seed, device, dtype)            -> params
   params_from_jax(cfg, np_params, device, dtype)    -> params
@@ -15,18 +16,27 @@
 
 Params are nested dicts of tensors, dense weights in the ``x @ W``
 orientation ``(d_in, d_out)``: ``{"embed": {"tok", "head"?}, "final_norm":
-{"w"}, "layers": [{"norm1", "mixer": {wq, wk, wv, wo}, "norm2", "ffn":
-{up, gate, down}, "postnorm1"?, "postnorm2"?}, ...]}`` with one entry per
-layer in ``cfg.layers`` order (the post-block norms under
-``cfg.post_block_norm``, gemma2).
+{"w"}, "layers": [{"norm1", "mixer", "norm2", "ffn", "postnorm1"?,
+"postnorm2"?}, ...]}`` with one entry per layer in ``cfg.layers`` order
+(the post-block norms under ``cfg.post_block_norm``, gemma2). A layer's
+``mixer`` is ``{wq, wk, wv, wo}`` for attention or, for ``MAMBA``,
+``{in_proj, conv_w, conv_b, x_proj, dt_w, dt_b, A_log, D, out_proj}``
+(``models/ssm``); its ``ffn`` is ``{up, gate, down}`` for ``DENSE`` or, for
+``MOE``, ``{router (d, E), wg, wu (E, d, de), wd (E, de, d), shared?: {up,
+gate, down}}`` (``models/moe``). ``router``, ``A_log`` and ``D`` are float32
+whatever the other leaves' dtype (``FLOAT32_KEYS``), as in the reference.
 
-Layers are global attention (``ATTN``, the retriever of ``fkv.method``) or
+Layers are global attention (``ATTN``, the retriever of ``fkv.method``),
 sliding-window attention (``ATTN_LOCAL``, gemma2: a ``StreamingRetriever``
 over the last ``cfg.sliding_window`` tokens, no sink, and the window in the
-prefill's attention), as the reference's ``_retrievers``. Each decode layer
-hands its query to the next attention layer's retriever as ``q_proxy``
-(zeros for the first), InfiniGen's proxy query; only global layers count in
-the decode statistics.
+prefill's attention), as the reference's ``_retrievers``, or Mamba
+(``MAMBA``, jamba: no retriever; its decode state is ``{"h", "conv"}``).
+Each decode layer hands its query to the next attention layer's retriever
+as ``q_proxy`` (zeros for the first), InfiniGen's proxy query; a Mamba
+layer passes it on unchanged; only global layers count in the decode
+statistics. The FFN of every path (``prefill``, ``prefill_extend``,
+``serve_step``) goes through ``_ffn``, which runs ``moe.apply_moe`` over the
+call's flattened (B * T, d) tokens for a ``MOE`` layer.
 The reference's ``lax.scan`` over stacked periods becomes a Python loop over
 layers; the decode state is ``{"layers": [per-layer state], "pos": (B,)
 int32 on the device, "pos_host": (B,) int32 on the CPU}`` (and, under
@@ -43,34 +53,49 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ATTN, ATTN_LOCAL, DENSE, ArchConfig, FreeKVConfig
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, DENSE, MAMBA, MOE, ArchConfig,
+                                      FreeKVConfig)
 from repro_torch.core.retrieval import StreamingRetriever, make_retriever
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe, ssm
 
 # per-step retrieval statistics the engine aggregates (reference model.py:774)
 DECODE_STAT_KEYS = ("corrected", "kv_heads", "sync_pages", "async_pages",
                     "reused_pages", "sim_sum", "sim_cnt", "sel_pages",
                     "spec_hit_pages", "churn_pages")
 
+# leaves the reference keeps float32 whatever the params' dtype: the MoE
+# router (``moe_init``) and Mamba's ``A_log`` and ``D`` (``mamba_init``)
+FLOAT32_KEYS = ("router", "A_log", "D")
+
 
 def check_supported(cfg: ArchConfig):
     for mixer, ffn in cfg.layers:
-        if mixer not in (ATTN, ATTN_LOCAL) or ffn != DENSE:
+        if mixer not in (ATTN, ATTN_LOCAL, MAMBA) or ffn not in (DENSE, MOE):
             raise NotImplementedError(
                 f"{cfg.name}: layer ({mixer}, {ffn}) is not ported yet; the port "
-                "serves attention + dense-FFN stacks (ROADMAP queue 1, \"Other mixers, archs "
-                "and tools\")")
+                "serves attention or Mamba mixers with dense or MoE FFNs (ROADMAP queue 1, "
+                "\"Other mixers, archs and tools\")")
     if cfg.is_encoder_decoder or cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: not ported yet (ROADMAP queue 1, "
                                   "\"Other mixers, archs and tools\")")
 
 
+def supports_kv_extend(cfg: ArchConfig) -> bool:
+    """Whether every token's context lives in K/V form, so a prompt can be
+    extended over cached K/V (reference ``model.py:550``): attention-only
+    stacks. A Mamba layer compresses its history into a state that cannot
+    be sliced per token, so chunked prefill and the prefix cache turn off
+    (``serving/engine``)."""
+    return all(m in (ATTN, ATTN_LOCAL) for m, _ in cfg.layers)
+
+
 def retrievers(cfg: ArchConfig, fkv: FreeKVConfig) -> list:
     """One retriever a layer (reference ``model.py:98-115``): ``ATTN`` ->
-    ``make_retriever``, ``ATTN_LOCAL`` -> the sliding window with no sink.
-    Layers of one kind share one object."""
-    by_kind = {ATTN: make_retriever(cfg, fkv)}
+    ``make_retriever``, ``ATTN_LOCAL`` -> the sliding window with no sink,
+    ``MAMBA`` -> None. Layers of one kind share one object."""
+    by_kind = {ATTN: make_retriever(cfg, fkv), MAMBA: None}
     if any(m == ATTN_LOCAL for m, _ in cfg.layers):
         by_kind[ATTN_LOCAL] = StreamingRetriever(cfg, fkv, window=cfg.sliding_window, n_sink=0)
     return [by_kind[m] for m, _ in cfg.layers]
@@ -89,15 +114,19 @@ def _norm(cfg, d, dtype, dev):
 def init_params(cfg: ArchConfig, seed: int = 0, device="cuda", dtype=torch.float32):
     """Random parameters from a seeded ``torch.Generator`` on ``device``:
     normal(0, 1/d_in) dense weights as in the reference's init (not the same
-    numbers: those come from ``params_from_jax``)."""
+    numbers: those come from ``params_from_jax``); the MoE and Mamba layers
+    from ``moe.moe_init`` and ``ssm.mamba_init``, their ``FLOAT32_KEYS``
+    leaves float32."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
+    def draw(shape, std):
+        return torch.randn(shape, generator=gen, dtype=torch.float32, device=dev).mul_(std)
+
     def normal(shape, std):
-        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-        return w.mul_(std).to(dtype)
+        return draw(shape, std).to(dtype)
 
     def dense(d_in, d_out):
         return normal((d_in, d_out), 1.0 / math.sqrt(d_in))
@@ -107,17 +136,20 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda", dtype=torch.float
     if not cfg.tie_embeddings:
         embed["head"] = dense(d, vp)
     layers = []
-    for _ in cfg.layers:
-        mlp = {"up": dense(d, cfg.d_ff), "down": dense(cfg.d_ff, d)}
-        if cfg.gated_mlp:
-            mlp["gate"] = dense(d, cfg.d_ff)
-        lp = {
-            "norm1": _norm(cfg, d, dtype, dev),
-            "mixer": {"wq": dense(d, cfg.n_heads * dh), "wk": dense(d, cfg.n_kv_heads * dh),
-                      "wv": dense(d, cfg.n_kv_heads * dh), "wo": dense(cfg.n_heads * dh, d)},
-            "norm2": _norm(cfg, d, dtype, dev),
-            "ffn": mlp,
-        }
+    for mixer, ffn in cfg.layers:
+        if ffn == MOE:
+            mlp = moe.moe_init(cfg, draw, dtype)
+        else:
+            mlp = {"up": dense(d, cfg.d_ff), "down": dense(cfg.d_ff, d)}
+            if cfg.gated_mlp:
+                mlp["gate"] = dense(d, cfg.d_ff)
+        if mixer == MAMBA:
+            mix = ssm.mamba_init(cfg, draw, dtype)
+        else:
+            mix = {"wq": dense(d, cfg.n_heads * dh), "wk": dense(d, cfg.n_kv_heads * dh),
+                   "wv": dense(d, cfg.n_kv_heads * dh), "wo": dense(cfg.n_heads * dh, d)}
+        lp = {"norm1": _norm(cfg, d, dtype, dev), "mixer": mix,
+              "norm2": _norm(cfg, d, dtype, dev), "ffn": mlp}
         if cfg.post_block_norm:
             lp["postnorm1"] = _norm(cfg, d, dtype, dev)
             lp["postnorm2"] = _norm(cfg, d, dtype, dev)
@@ -131,19 +163,22 @@ def params_from_jax(cfg: ArchConfig, np_params, device="cuda", dtype=None):
 
     Stacked ``pattern`` leaves of shape (n_periods, ...) are split per layer
     in ``cfg.layers`` order; dense weights keep the ``x @ W`` orientation
-    (d_in, d_out) — nothing is transposed. ``dtype`` None keeps each leaf's."""
+    (d_in, d_out) — nothing is transposed. ``dtype`` None keeps each leaf's;
+    the ``FLOAT32_KEYS`` leaves (the MoE router, Mamba's ``A_log`` and
+    ``D``) stay float32 whatever ``dtype`` is."""
     check_supported(cfg)
     dev = resolve_device(device)
 
-    def conv(tree):
+    def conv(tree, key=None):
         if isinstance(tree, dict):
-            return {k: conv(v) for k, v in tree.items()}
+            return {k: conv(v, k) for k, v in tree.items()}
         arr = np.asarray(tree)
         if arr.dtype.name == "bfloat16":          # ml_dtypes: exact via float32
             t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(arr, copy=True))
-        return t.to(device=dev, dtype=dtype or t.dtype)
+        to = torch.float32 if key in FLOAT32_KEYS else (dtype or t.dtype)
+        return t.to(device=dev, dtype=to)
 
     def index(tree, i):
         if isinstance(tree, dict):
@@ -169,9 +204,16 @@ def _residual(cfg, lp, x, out, which):
     return x + out
 
 
-def _ffn(cfg, lp, x):
-    return _residual(cfg, lp, x, L.apply_mlp(cfg, lp["ffn"], L.apply_norm(cfg, lp["norm2"], x)),
-                     "2")
+def _ffn(cfg, layer, lp, x):
+    """The FFN sublayer of every path: a ``MOE`` layer routes the call's
+    flattened (B * T, d) tokens together (reference ``_apply_ffn``), so its
+    capacity couples the call's rows; the load-balance term is dropped."""
+    h = L.apply_norm(cfg, lp["norm2"], x)
+    if layer[1] == MOE:
+        out = moe.apply_moe(cfg, lp["ffn"], h)[0]
+    else:
+        out = L.apply_mlp(cfg, lp["ffn"], h)
+    return _residual(cfg, lp, x, out, "2")
 
 
 def _window(cfg, layer):
@@ -180,9 +222,13 @@ def _window(cfg, layer):
 
 def init_decode_state(cfg: ArchConfig, fkv: FreeKVConfig, batch_size: int,
                       max_len: int, dtype=torch.bfloat16, device="cuda"):
+    """The empty decode state at batch ``batch_size``: each attention
+    layer's retriever state, each Mamba layer's ``ssm.mamba_init_state``
+    (``h`` float32, ``conv`` at ``dtype``)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    out = {"layers": [r.init_state(batch_size, max_len, dtype, dev)
+    out = {"layers": [ssm.mamba_init_state(cfg, batch_size, dtype, dev) if r is None
+                      else r.init_state(batch_size, max_len, dtype, dev)
                       for r in retrievers(cfg, fkv)],
            "pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
            "pos_host": torch.zeros((batch_size,), dtype=torch.int32)}
@@ -211,7 +257,11 @@ def prefill(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, max_len: int,
     prefix cache and chunked prefill. ``build_state=False`` skips the
     retriever state and returns ``state=None``: a chunked prefill's opening
     chunk, whose state the final chunk rebuilds from the whole prompt's K/V
-    (and which may be shorter than the sink and the window ring)."""
+    (and which may be shorter than the sink and the window ring).
+
+    A Mamba layer runs ``ssm.mamba_forward`` over the whole prompt and
+    keeps its final state (new tensors, which ``SlotPool.insert`` copies
+    into the slot); its ``kv`` entry is None."""
     check_supported(cfg)
     tokens = batch["tokens"]
     x = L.embed_tokens(cfg, params["embed"], tokens)
@@ -222,11 +272,19 @@ def prefill(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, max_len: int,
     states, kvs = [], []
     for i, lp in enumerate(params["layers"]):
         h = L.apply_norm(cfg, lp["norm1"], x)
+        if cfg.layers[i][0] == MAMBA:
+            o, st = ssm.mamba_forward(cfg, lp["mixer"], h, return_state=True)
+            x = _ffn(cfg, cfg.layers[i], lp, _residual(cfg, lp, x, o, "1"))
+            if build_state:
+                states.append(st)
+            if return_kv:
+                kvs.append(None)
+            continue
         q, k, v = attn.qkv_proj(cfg, lp["mixer"], h, positions)
         o = attn.attention_prefill(cfg, q, k, v, positions, positions,
                                    window=_window(cfg, cfg.layers[i]))
         x = _residual(cfg, lp, x, attn.out_proj(cfg, lp["mixer"], o), "1")
-        x = _ffn(cfg, lp, x)
+        x = _ffn(cfg, cfg.layers[i], lp, x)
         if build_state:
             r = retrs[i]
             st = into[i] if into is not None else r.init_state(B, max_len, state_dtype, dev)
@@ -270,8 +328,12 @@ def prefill_extend(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, kv, prefix
     ``prefill``). ``build_state=False`` skips it and returns ``state=None``
     (a chunked prefill's intermediate chunks).
 
-    Returns (logits, state); the suffix's K/V is left in ``kv``."""
+    Returns (logits, state); the suffix's K/V is left in ``kv``. Only
+    for ``supports_kv_extend`` stacks (no Mamba layer)."""
     check_supported(cfg)
+    if not supports_kv_extend(cfg):
+        raise NotImplementedError(f"{cfg.name}: a Mamba layer's state cannot be extended "
+                                  "over cached K/V (supports_kv_extend)")
     tokens = batch["tokens"]
     x = L.embed_tokens(cfg, params["embed"], tokens)
     B, S = tokens.shape
@@ -290,7 +352,7 @@ def prefill_extend(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, kv, prefix
         o = attn.attention_prefill(cfg, q, k_full, v_full, q_pos, kv_pos,
                                    window=_window(cfg, cfg.layers[i]))
         x = _residual(cfg, lp, x, attn.out_proj(cfg, lp["mixer"], o), "1")
-        x = _ffn(cfg, lp, x)
+        x = _ffn(cfg, cfg.layers[i], lp, x)
         if build_state:
             r = retrs[i]
             st = into[i] if into is not None else r.init_state(B, max_len, state_dtype, dev)
@@ -327,8 +389,10 @@ def serve_step(cfg: ArchConfig, fkv: FreeKVConfig, params, state, tokens,
     step through every layer; ``state`` is updated in place and returned.
     Each layer's retriever gets the previous attention layer's query as
     ``q_proxy`` (zeros for the first, reference ``model.py:647-664``; None
-    for every method but InfiniGen, the one that reads it);
-    ``stats`` sum the global (``ATTN``) layers' info only."""
+    for every method but InfiniGen, the one that reads it); a Mamba layer
+    steps its state in place with ``ssm.mamba_decode_step`` and passes
+    ``q_proxy`` on unchanged; ``stats`` sum the global (``ATTN``) layers'
+    info only."""
     x = L.embed_tokens(cfg, params["embed"], tokens)
     B = x.shape[0]
     dev = x.device
@@ -341,6 +405,10 @@ def serve_step(cfg: ArchConfig, fkv: FreeKVConfig, params, state, tokens,
     stats = {k: torch.zeros((B,), dtype=torch.float32, device=dev) for k in DECODE_STAT_KEYS}
     for i, lp in enumerate(params["layers"]):
         h = L.apply_norm(cfg, lp["norm1"], x)
+        if cfg.layers[i][0] == MAMBA:
+            o, _ = ssm.mamba_decode_step(cfg, lp["mixer"], h, state["layers"][i])
+            x = _ffn(cfg, cfg.layers[i], lp, _residual(cfg, lp, x, o, "1"))
+            continue
         q, k, v = attn.qkv_proj(cfg, lp["mixer"], h, pos[:, None])
         q = q[:, 0].contiguous()
         o, st, info = retrs[i].decode(state["layers"][i], q, k[:, 0], v[:, 0],
@@ -348,7 +416,7 @@ def serve_step(cfg: ArchConfig, fkv: FreeKVConfig, params, state, tokens,
         q_proxy = q
         state["layers"][i] = st
         x = _residual(cfg, lp, x, attn.out_proj(cfg, lp["mixer"], o[:, None]), "1")
-        x = _ffn(cfg, lp, x)
+        x = _ffn(cfg, cfg.layers[i], lp, x)
         if collect_stats and cfg.layers[i][0] == ATTN:
             s = _info_stats(info, B, dev)
             stats = {key: stats[key] + s[key] for key in stats}
@@ -395,7 +463,7 @@ def serve_step_sampled(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, 
 
 @torch.no_grad()
 def decode_window(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sampler,
-                  n_steps: int):
+                  n_steps: int, stop_turnover: bool = False, read_finishes: bool = False):
     """``n_steps`` fused decode steps with no host read (reference
     ``model.py:816``): the tokens, valid masks and per-step stats stay on
     the card in (n_steps, B) blocks for one read when the window ends.
@@ -408,8 +476,19 @@ def decode_window(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sampl
     without an eos finish the step count equals the reference's. An eos
     finish is seen only when the window ends: the lane is masked on the
     card from that step on (its later rows invalid), but the window runs
-    to its planned end. Returns (state, loop, toks (n, B) int32, valid
-    (n, B) bool, stats {key: (n, B) float32}, finite (B,) bool)."""
+    to its planned end.
+
+    ``read_finishes`` reads the lanes' finished flags after every step and
+    stops where the reference's loop stops: every lane finished, or, with
+    ``stop_turnover``, a lane live at the window's start finished. That is
+    one host read a step, which the scheduler asks for only where rows meet
+    (a MoE router's capacity couples a call's rows, ``models/moe``) and a
+    live lane can end by eos: there an unplanned finish changes which
+    requests share the following steps, and so their tokens.
+
+    Returns (state, loop, toks (n, B) int32, valid (n, B) bool, stats {key:
+    (n, B) float32}, finite (B,) bool), n the steps run."""
+    start_live = ~loop["fin"]
     toks, valid = [], []
     stats = {k: [] for k in DECODE_STAT_KEYS}
     finite = torch.ones_like(loop["fin"])
@@ -421,6 +500,12 @@ def decode_window(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sampl
         for k in stats:
             stats[k].append(s[k])
         finite = finite & fin_ok
+        if read_finishes:
+            stop = loop["fin"].all()
+            if stop_turnover:
+                stop = stop | (loop["fin"] & start_live).any()
+            if bool(stop):
+                break
     return (state, loop, torch.stack(toks), torch.stack(valid),
             {k: torch.stack(v) for k, v in stats.items()}, finite)
 

@@ -1,0 +1,146 @@
+"""Mamba-1 selective SSM block, jamba's mixer (reference
+``repro/models/ssm.py``), with the reference's arithmetic and dtypes:
+``A_log``, ``D`` and the state ``h`` are float32, ``dt``, ``B`` and ``C``
+are upcast to float32, and each step's ``y`` is cast back to the compute
+dtype.
+
+  mamba_dims(cfg)                          -> (d_inner, dt_rank, d_state, d_conv)
+  mamba_init(cfg, normal, dtype)           -> params
+  mamba_forward(cfg, p, x, return_state)   -> y (B, T, d)[, state]
+  mamba_init_state(cfg, batch, dtype, device) -> {"h", "conv"}
+  mamba_decode_step(cfg, p, x, state)      -> (y (B, 1, d), state)
+
+The prefill's scan is a Python loop over time in torch ops (the reference's
+256-token remat chunks serve only its backward pass, and its ``_di_shard``
+is sharding). The decode step writes the new ``h`` and ``conv`` into the
+state's tensors in place, at their stored dtypes (the reference's
+``astype(a.dtype)`` on the stacked state), so a slot's rows stay where the
+slot pool put them. Nothing reads the card from the host.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig
+
+
+def mamba_dims(cfg: ArchConfig):
+    di = cfg.ssm_expand * cfg.d_model
+    dt_rank = max(1, math.ceil(cfg.d_model / 16))
+    return di, dt_rank, cfg.ssm_d_state, cfg.ssm_d_conv
+
+
+def mamba_init(cfg: ArchConfig, normal, dtype=torch.float32):
+    """Parameters from ``normal(shape, std)`` (a seeded float32 draw), laid
+    out as the reference's ``mamba_init``: dense weights (d_in, d_out) with
+    std 1/sqrt(d_in), the conv taps (d_conv, d_inner) with 1/sqrt(d_conv),
+    ``dt_b`` = -4.6 (softplus^-1(0.01)), ``A_log`` = log(1..d_state) and
+    ``D`` = 1 in float32."""
+    d = cfg.d_model
+    di, dt_rank, ds, dk = mamba_dims(cfg)
+
+    def dense(d_in, d_out):
+        return normal((d_in, d_out), 1.0 / math.sqrt(d_in)).to(dtype)
+
+    w = dense(d, 2 * di)
+    dev = w.device
+    A = torch.arange(1, ds + 1, dtype=torch.float32, device=dev)[None, :].repeat(di, 1)
+    return {
+        "in_proj": w,
+        "conv_w": normal((dk, di), 1.0 / math.sqrt(dk)).to(dtype),
+        "conv_b": torch.zeros((di,), dtype=dtype, device=dev),
+        "x_proj": dense(di, dt_rank + 2 * ds),
+        "dt_w": dense(dt_rank, di),
+        "dt_b": torch.full((di,), -4.6, dtype=dtype, device=dev),
+        "A_log": torch.log(A),
+        "D": torch.ones((di,), dtype=torch.float32, device=dev),
+        "out_proj": dense(di, d),
+    }
+
+
+def _mm(a, b):
+    """a @ b at the promoted dtype (jnp's promotion of mixed operands)."""
+    t = torch.promote_types(a.dtype, b.dtype)
+    return a.to(t) @ b.to(t)
+
+
+def _ssm_inputs(cfg, p, xc):
+    """xc (B, T, di) after the conv -> dt (B, T, di), Bm, Cm (B, T, ds),
+    all float32."""
+    _, dt_rank, ds, _ = mamba_dims(cfg)
+    dbl = _mm(xc, p["x_proj"])
+    dt, Bm, Cm = torch.split(dbl, [dt_rank, ds, ds], dim=-1)
+    dt = F.softplus(_mm(dt, p["dt_w"]) + p["dt_b"])
+    return dt.float(), Bm.float(), Cm.float()
+
+
+def _causal_conv(p, x):
+    """Depthwise causal conv over time: x (B, T, di) -> (B, T, di), the taps
+    summed in the reference's order."""
+    dk = p["conv_w"].shape[0]
+    T = x.shape[1]
+    xp = F.pad(x, (0, 0, dk - 1, 0))
+    out = xp[:, 0:T] * p["conv_w"][0]
+    for i in range(1, dk):
+        out = out + xp[:, i:i + T] * p["conv_w"][i]
+    return F.silu(out + p["conv_b"])
+
+
+def _step(h, xt, dtt, Bt, Ct, A, D):
+    """One recurrence step in float32: h (B, di, ds), xt/dtt (B, di), Bt/Ct
+    (B, ds) -> (h, y (B, di))."""
+    dA = torch.exp(dtt[..., None] * A)
+    h = dA * h + (dtt * xt)[..., None] * Bt[:, None, :]
+    y = torch.einsum("bis,bs->bi", h, Ct) + D * xt
+    return h, y
+
+
+def mamba_forward(cfg: ArchConfig, p, x, return_state=False):
+    """x (B, T, d) -> (B, T, d) [, the decode state after the last token]."""
+    B, T, d = x.shape
+    di, _, ds, dk = mamba_dims(cfg)
+    xm, z = torch.split(x @ p["in_proj"], di, dim=-1)
+    xc = _causal_conv(p, xm)
+    dt, Bm, Cm = _ssm_inputs(cfg, p, xc)
+    A = -torch.exp(p["A_log"])
+    h = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(T):
+        h, y = _step(h, xc[:, t].float(), dt[:, t], Bm[:, t], Cm[:, t], A, p["D"])
+        ys.append(y.to(x.dtype))
+    y = torch.stack(ys, dim=1) * F.silu(z)
+    out = y @ p["out_proj"]
+    if return_state:
+        conv = F.pad(xm, (0, 0, dk - 1, 0))[:, -(dk - 1):]
+        return out, {"h": h, "conv": conv.contiguous()}
+    return out
+
+
+def mamba_init_state(cfg: ArchConfig, batch: int, dtype=torch.float32, device="cuda"):
+    di, _, ds, dk = mamba_dims(cfg)
+    dev = resolve_device(device)
+    return {"h": torch.zeros((batch, di, ds), dtype=torch.float32, device=dev),
+            "conv": torch.zeros((batch, dk - 1, di), dtype=dtype, device=dev)}
+
+
+def mamba_decode_step(cfg: ArchConfig, p, x, state):
+    """x (B, 1, d); state {"h": (B, di, ds) float32, "conv": (B, dk-1, di)}
+    -> (y (B, 1, d), state), the state updated in place."""
+    di = mamba_dims(cfg)[0]
+    xm, z = torch.split(x[:, 0] @ p["in_proj"], di, dim=-1)
+    conv = state["conv"]
+    win = torch.cat([conv, xm[:, None]], dim=1)          # (B, dk, di), dtypes promoted
+    t = torch.promote_types(win.dtype, p["conv_w"].dtype)
+    xc = F.silu(torch.einsum("bki,ki->bi", win.to(t), p["conv_w"].to(t)) + p["conv_b"])
+    dt, Bm, Cm = _ssm_inputs(cfg, p, xc[:, None])
+    h, y = _step(state["h"], xc.float(), dt[:, 0], Bm[:, 0], Cm[:, 0], -torch.exp(p["A_log"]),
+                 p["D"])
+    y = y.to(x.dtype) * F.silu(z)
+    out = (y @ p["out_proj"])[:, None]
+    state["h"].copy_(h)
+    conv.copy_(win[:, 1:])
+    return out, state

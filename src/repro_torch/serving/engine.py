@@ -21,6 +21,12 @@ attended context, as in the reference. The default 1 pads nothing.
 
 Under the continuous scheduler, as in the reference:
 
+A stack with a Mamba layer (jamba) keeps its history in a recurrent state
+that cannot be extended over cached K/V (``models.model
+.supports_kv_extend``): chunked prefill and the prefix cache then turn off,
+as in the reference. MoE layers route each call's tokens together, so
+rows meet in the router (``models/moe``).
+
 * ``prefix_cache_tokens > 0``: a radix-trie prefix cache
   (``serving/prefix_cache``) keyed by the padded prompt. A hit skips the
   forward pass over the reused span: only the suffix runs
@@ -68,11 +74,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ArchConfig, FreeKVConfig
+from repro_torch.configs.base import MOE, ArchConfig, FreeKVConfig
 from repro_torch.core.recall_pipeline import RecallFlightTracker
 from repro_torch.models.model import (DECODE_STAT_KEYS, decode_window, decode_window_spec,
                                       prefill, prefill_extend, serve_step,
-                                      supports_spec_decode)
+                                      supports_kv_extend, supports_spec_decode)
 from repro_torch.obs import Observability
 from repro_torch.quant.accounting import page_block_bytes, page_block_bytes_dense
 from repro_torch.serving.kv_slots import SlotPool
@@ -232,9 +238,11 @@ class ServeEngine:
         # untagged; EngineMetrics.slo_check)
         self.slo_ttft_ms = slo_ttft_ms
         self.slo_itl_ms = slo_itl_ms
-        # kept across generate() calls, as the reference's
+        # kept across generate() calls, as the reference's; none for a stack
+        # whose context is not all K/V (a Mamba layer), as the reference's
+        self._can_extend = supports_kv_extend(cfg)
         self.prefix_cache = (RadixPrefixCache(prefix_cache_tokens)
-                             if prefix_cache_tokens > 0 else None)
+                             if prefix_cache_tokens > 0 and self._can_extend else None)
         self._pool: Optional[SlotPool] = None
         self.last_metrics: Optional[EngineMetrics] = None
         # per-slot staged recall in flight, fed by the continuous scheduler
@@ -272,8 +280,9 @@ class ServeEngine:
     @property
     def prefill_chunk_tokens(self) -> int:
         """The chunked prefill's token budget a scheduler round; 0 is
-        whole-shot prefill at admission."""
-        return self.fkv.prefill_chunk_tokens
+        whole-shot prefill at admission, and always so for a stack the
+        extension cannot serve (``supports_kv_extend``), as the reference."""
+        return self.fkv.prefill_chunk_tokens if self._can_extend else 0
 
     @property
     def preempt(self) -> bool:
@@ -294,16 +303,25 @@ class ServeEngine:
         return serve_step(self.cfg, self.fkv, self.params, state, tokens.long(),
                           collect_stats=True)
 
-    def decode_window(self, state, loop, n_steps: int, stop_turnover: bool = False):
+    @property
+    def rows_meet(self) -> bool:
+        """Whether a decode step's rows affect each other: a MoE layer's
+        capacity is shared by the step's B tokens (``models/moe``)."""
+        return any(f == MOE for _, f in self.cfg.layers)
+
+    def decode_window(self, state, loop, n_steps: int, stop_turnover: bool = False,
+                      read_finishes: bool = False):
         """``n_steps`` fused decode steps without a host read; ``state`` is
-        updated in place. Under speculative decoding, at most ``n_steps``
-        verify iterations (``decode_window_spec``'s window rule), and the
-        blocks are (n, 1 + draft_len, B)."""
+        updated in place. ``read_finishes``: one read a step, the window
+        stopping where the reference's does (``models.model.decode_window``).
+        Under speculative decoding, at most ``n_steps`` verify iterations
+        (``decode_window_spec``'s window rule), and the blocks are (n, 1 +
+        draft_len, B)."""
         if self.spec_decode:
             return decode_window_spec(self.cfg, self.fkv, self.params, state, loop,
                                       self.sampler, n_steps, stop_turnover)
         return decode_window(self.cfg, self.fkv, self.params, state, loop, self.sampler,
-                             n_steps)
+                             n_steps, stop_turnover, read_finishes)
 
     def sample_lanes(self, logits, keys, counts):
         """Per-slot sampling outside the window (the synchronous path): token

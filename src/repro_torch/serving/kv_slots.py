@@ -89,16 +89,17 @@ class SlotPool:
     def free_count(self) -> int:
         return len(self._free)
 
-    def alloc(self, owner_uid: int, hold: bool = False) -> int:
-        """Take a free slot. ``hold``: the slot waits for a chunked prefill
-        over several rounds; its row is reset at the next flush, so it steps
-        from the empty state meanwhile, as an idle row does."""
+    def alloc(self, owner_uid: int) -> int:
+        """Take a free slot; its pending reset is dropped, as the
+        reference's, because the admission overwrites the row. A slot held
+        by a chunked prefill over several rounds therefore keeps stepping
+        what its row held (the previous occupant's state, or an idle row's)
+        until ``claim`` empties it at the final chunk: exactly the
+        reference's row, which matters where rows meet (a MoE router's
+        capacity, ``models/moe``)."""
         slot = self._free.pop()
         assert self.owner[slot] is None, f"slot {slot} already owned by {self.owner[slot]}"
-        if hold:
-            self._dirty.add(slot)
-        else:
-            self._dirty.discard(slot)       # the admission overwrites the row
+        self._dirty.discard(slot)
         self.owner[slot] = owner_uid
         self.allocs += 1
         return slot
@@ -155,7 +156,6 @@ class SlotPool:
         ``prefill(into=...)``."""
         self._settle()
         self._reset_row(slot)
-        self._dirty.discard(slot)       # a held slot: its reset is done
         return [{k: paging.slot_read_leaf(t, slot) for k, t in _tensors(layer).items()}
                 for layer in self.state["layers"]]
 

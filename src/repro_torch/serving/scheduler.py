@@ -29,7 +29,11 @@ step count of the reference's on-card loop. An eos finish is seen only
 when the window ends (``models.model.decode_window``): the lane is masked
 on the card at once, so its tokens are exact, but with admissions queued
 its slot is refilled at the window's end rather than at the eos step, and
-``em.steps`` can then differ from the reference's.
+``em.steps`` can then differ from the reference's. Where a step's rows
+meet (``backend.rows_meet``: a MoE router's capacity is shared by the
+step's tokens) that would change the other lanes' tokens, so while a live
+lane has an eos the window reads the finished flags after every step and
+stops where the reference's loop stops (one host read a step).
 
 Under speculative decoding (``backend.spec_decode``) a window runs verify
 iterations instead (``models.model.decode_window_spec``), each committing
@@ -75,10 +79,10 @@ The scheduler drives a backend (``ServeEngine``) exposing
     step(state, tokens (B, 1)) -> (logits (B, V), state, stats)
     sample_slot(logits, key, count) -> tokens (1,)
     sample_lanes(logits, keys (B, 2), counts (B,)) -> tokens (B,)
-    decode_window(state, loop, n, stop_turnover) -> (state, loop, toks, valid,
-                                                    stats, finite)
+    decode_window(state, loop, n, stop_turnover, read_finishes)
+        -> (state, loop, toks, valid, stats, finite)
     page_block_bytes, sync_interval, sample_on_device, obs, recall_tracker,
-    spec_decode, draft_len, slo_ttft_ms, slo_itl_ms
+    spec_decode, draft_len, rows_meet, slo_ttft_ms, slo_itl_ms
 
 Service mode (``run(..., service=svc)``, ``serving/frontend.EngineService``):
 each round first takes ``svc.poll()``'s new requests into the queue and
@@ -468,9 +472,10 @@ class ContinuousScheduler:
                 board.observe("queue_wait_s", tr.metrics.prefill_start_t - tr.metrics.enqueue_t,
                               abst(tr.metrics.prefill_start_t))
             if chunk > 0:
-                # the slot is held (its lane finished, its row reset) while
-                # the job runs a budgeted chunk a round (advance_prefill)
-                slot = pool.alloc(tr.req.uid, hold=True)
+                # the slot is held (its lane finished, its row stepping what
+                # it held, as the reference's) while the job runs a budgeted
+                # chunk a round (advance_prefill)
+                slot = pool.alloc(tr.req.uid)
                 tr.job = backend.start_prefill_job(tr.req, pool, slot)
                 tr.slot = slot
                 prefilling[slot] = tr
@@ -623,11 +628,17 @@ class ContinuousScheduler:
         """Run one window without host reads, then read its blocks once and
         apply them step by step (verify iterations row by row)."""
         n = lanes.window_len(backend.sync_interval, stop_turnover)
+        # where rows meet in a MoE router, an eos finish the host cannot plan
+        # changes who shares the next steps: read the finishes every step
+        read = (backend.rows_meet and not backend.spec_decode
+                and bool((lanes.eos[~lanes.fin] >= 0).any()))
         loop = lanes.device_loop(em)
         ts = time.perf_counter()
         ts_rel = ts - self._t0
-        state, loop, toks, valid, stats, finite = backend.decode_window(pool.state, loop, n,
-                                                                        stop_turnover)
+        state, loop, toks, valid, stats, finite = backend.decode_window(
+            pool.state, loop, n, stop_turnover, read_finishes=read)
+        if read:
+            em.host_syncs += toks.shape[0]
         pool.state = state
         lanes.carry_back(loop)
         self._finite &= finite.all()

@@ -1,17 +1,20 @@
-"""The dense archs the port serves beside granite-3-8b and llama31-8b, and the
+"""The archs the port serves beside granite-3-8b and llama31-8b, and the
 new retrievers through the serving engine, held against the reference on
 the CPU with the reference's weights (``params_from_jax``), page_size 8,
 budget 64:
 
 * qwen25-7b, gemma2-2b (sliding-window local layers served by a sink-less
-  ``StreamingRetriever``, post-block norms, softcaps), smollm-360m and
-  stablelm-3b (LayerNorm, 25% rotary), each at its smoke width (4 heads
-  over 2 KV heads) and at a narrow config that keeps its real head layout
-  (qwen 28/4, smollm 15/5, stablelm 32/32 at d_head 80, gemma2 8/4 at
-  d_head 256): prefill logits within 2e-5 of the reference's and the
-  prefill's decode state leaf for leaf (integers exactly), then greedy
-  tokens, steps and per-request block counts through the continuous engine
-  exactly equal to the JAX engine's;
+  ``StreamingRetriever``, post-block norms, softcaps), smollm-360m,
+  stablelm-3b (LayerNorm, 25% rotary), deepseek-moe-16b and
+  llama4-scout-17b-a16e (MoE FFNs) and jamba-1.5-large-398b (a Mamba + MoE
+  and an attention + dense layer), each at its smoke width (4 heads over 2
+  KV heads) and at a narrow config that keeps its real head layout (qwen
+  28/4, smollm 15/5, stablelm 32/32 at d_head 80, gemma2 8/4 at d_head
+  256, deepseek 16/16, scout 40/8 and jamba 64/8 at d_head 128): prefill
+  logits within 2e-5 of the reference's and the prefill's decode state
+  leaf for leaf (integers exactly; a Mamba layer's ``h`` and ``conv``),
+  then greedy tokens, steps and per-request block counts through the
+  continuous engine exactly equal to the JAX engine's;
 * quest, raas, streaming, infinigen and freekv with ``select_top_p`` on a
   2-layer llama31-8b-smoke through the continuous engine: tokens and block
   counts exactly equal;
@@ -34,7 +37,7 @@ from repro.models import model as jmodel
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServeEngine as JServeEngine
 from repro.serving.prefix_cache import RadixPrefixCache as JRadixPrefixCache
-from repro_torch.configs import MOE, SLSTM, get_config
+from repro_torch.configs import MAMBA, MLSTM, MOE, SLSTM, get_config
 from repro_torch.configs.base import ATTN_LOCAL, FreeKVConfig
 from repro_torch.core.retrieval import StreamingRetriever
 from repro_torch.models import model
@@ -44,14 +47,28 @@ torch.set_float32_matmul_precision("highest")
 FKV = dict(page_size=8, budget=64, n_sink=8, n_window=8, tau=0.8)
 TOL = dict(atol=2e-5, rtol=2e-5)
 MAX_LEN = 192
-ARCHS = ("qwen25-7b", "gemma2-2b", "smollm-360m", "stablelm-3b")
+ARCHS = ("qwen25-7b", "gemma2-2b", "smollm-360m", "stablelm-3b", "deepseek-moe-16b",
+         "llama4-scout-17b-a16e", "jamba-1.5-large-398b")
 # (heads, KV heads, d_head) of each arch at full width
 REAL = {"qwen25-7b": (28, 4, 128), "gemma2-2b": (8, 4, 256), "smollm-360m": (15, 5, 64),
-        "stablelm-3b": (32, 32, 80)}
+        "stablelm-3b": (32, 32, 80), "deepseek-moe-16b": (16, 16, 128),
+        "llama4-scout-17b-a16e": (40, 8, 128), "jamba-1.5-large-398b": (64, 8, 128)}
 # three requests over two slots: one prompt length (one prefill compile),
 # limits that turn a slot over while the other decodes; gemma2-smoke's
 # 72-token prompts exceed its 64-token sliding window
 LEN, NEWS = 72, (9, 4, 12)
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread a test: the port's smoke-width steps are many
+    small ops, and with several test workers sharing the cores the default
+    thread pool spends its time spinning (a run under six workers took ~4x
+    longer). The thread count does not change what a test checks."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cfg(get, arch, real):
@@ -227,8 +244,9 @@ def test_features_take_new_archs_and_methods(llama2, case):
 
 
 def test_check_supported_admits_dense_and_refuses_the_rest():
-    """gemma2's local layers and post-block norms are served; MoE, xLSTM and
-    encoder-decoder stacks stay refused with their ROADMAP item."""
+    """gemma2's local layers and post-block norms, MoE FFNs and Mamba mixers
+    are served; sLSTM, mLSTM and encoder-decoder stacks stay refused with
+    their ROADMAP item, and xlstm-350m is not registered."""
     gemma = get_config("gemma2-2b")
     model.check_supported(gemma)
     assert gemma.post_block_norm and ATTN_LOCAL in {m for m, _ in gemma.layers}
@@ -236,11 +254,18 @@ def test_check_supported_admits_dense_and_refuses_the_rest():
     assert all(isinstance(r, StreamingRetriever) and r.window == 4096 and r.n_sink == 0
                for r, (m, _) in zip(rs, gemma.layers) if m == ATTN_LOCAL)
     base = get_config("llama31-8b-smoke")
-    for bad in (dataclasses.replace(base, pattern=(("attn", MOE),)),
-                dataclasses.replace(base, pattern=((SLSTM, "none"),)),
+    for ok in (get_config("deepseek-moe-16b"), get_config("llama4-scout-17b-a16e"),
+               get_config("jamba-1.5-large-398b"),
+               dataclasses.replace(base, pattern=(("attn", MOE),)),
+               dataclasses.replace(base, pattern=((MAMBA, "dense"),))):
+        model.check_supported(ok)
+    assert {MOE} <= {f for _, f in get_config("deepseek-moe-16b").layers}
+    assert {MAMBA, "attn"} == {m for m, _ in get_config("jamba-1.5-large-398b").layers}
+    for bad in (dataclasses.replace(base, pattern=((SLSTM, "none"),)),
+                dataclasses.replace(base, pattern=((MLSTM, "dense"),)),
                 dataclasses.replace(base, is_encoder_decoder=True)):
         with pytest.raises(NotImplementedError,
                            match='ROADMAP queue 1, "Other mixers, archs and tools"'):
             model.check_supported(bad)
-    with pytest.raises(KeyError, match="qwen25-7b"):
-        get_config("deepseek-moe-16b")
+    with pytest.raises(KeyError, match="deepseek-moe-16b"):
+        get_config("xlstm-350m")

@@ -632,6 +632,62 @@ def test_cuda_decode_window_makes_no_host_sync(method, kv_quant):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b-smoke", "jamba-1.5-large-398b-smoke"])
+def test_cuda_moe_and_mamba_window_makes_no_host_sync(arch):
+    """A decode window through MoE FFNs (deepseek) and a Mamba mixer with a
+    MoE FFN (jamba) makes no host wait under
+    torch.cuda.set_sync_debug_mode("error"): the capacity comes from shapes
+    and the dispatch and combine read nothing back. Two requests and an
+    idle slot stepping from the empty state; the window's tokens equal the
+    CPU's (float32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.metrics import EngineMetrics
+    from repro_torch.serving.scheduler import _Lanes
+    dev = torch.device("cuda", 0)
+    cfg = get_config(arch)
+    fkv = FreeKVConfig(**SMOKE_FKV)
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    toks = {}
+    for where in ("cuda", "cpu"):
+        p = params if where == "cuda" else {k: _to_cpu(v) for k, v in params.items()}
+        eng = ServeEngine(cfg, fkv, p, max_len=128, batch_size=3,
+                          device=dev if where == "cuda" else "cpu")
+        pool = eng.make_slot_pool(3)
+        lanes = _Lanes(3, eng.device)
+        for req in _smoke_requests(cfg)[:2]:
+            slot = pool.alloc(req.uid)
+            logits, st, _, _ = eng.prefill_one(req, pool, slot)
+            pool.insert(st, slot)
+            lanes.admit(slot, int(torch.argmax(logits[0])), np.zeros(2, np.int64), 1, 100, None)
+        loop = lanes.device_loop(EngineMetrics())
+        state, loop, *_ = eng.decode_window(pool.state, loop, 2)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, loop, t, valid, stats, finite = eng.decode_window(state, loop, 12)
+        finally:
+            if where == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+        assert finite.all() and valid[:, :2].all() and not valid[:, 2].any()
+        toks[where] = t[:, :2].cpu().tolist()
+    assert toks["cuda"] == toks["cpu"]
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("temperature", [0.0, 0.8])
 def test_cuda_spec_window_makes_no_host_sync(temperature):
     """A speculative window (draft_len 3, verify rows, rollback recall,
