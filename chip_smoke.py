@@ -50,18 +50,22 @@ Phases, each fatal on failure (nothing is caught):
      qwen25-7b G=7 d=128 kv=4, smollm-360m G=3 d=64 kv=5, gemma2-2b G=2
      d=256 kv=4 with softcap 50 and window 4096, stablelm-3b G=1 d=80
      kv=32, deepseek-moe-16b G=1 d=128 kv=16, llama4-scout-17b-a16e G=5
-     d=128 kv=8, jamba-1.5-large-398b G=8 d=128 kv=8): paged_attention at
+     d=128 kv=8, jamba-1.5-large-398b G=8 d=128 kv=8, whisper-tiny G=1 d=64
+     kv=6, internvl2-26b G=6 d=128 kv=8): paged_attention at
      each decode shape and flash_prefill at each
      admission (B=1, T=8192) and extension (2048 over 8192) within TOL,
      fp32 and bf16 (d=80 on the d=128 tiles, channels past 80 zero);
      select_pages' per-query-head mode (Quest) and the pooled mode at each
      G, ids exact on far-apart, forced-tie and invalid-lane inputs (the
      invalid lanes keeping jax.lax.top_k's ids), tie-aware on random ones;
-     fill_pages and complete_page exact at d=80 and 256 and at the three
-     MoE/hybrid archs' KV heads; each timed at bf16
+     fill_pages and complete_page exact at d=80 and 256 and at the five
+     newer archs' KV heads; each timed at bf16
      (flash_prefill in both forms, select_pages in both modes) beside its
      bound, its plain version and SDPA where SDPA computes the same
-     function.
+     function. flash_prefill's bidirectional form (causal=False, an
+     encoder's) within TOL at whisper-tiny's encoder shape (6/6 heads, d 64,
+     T=1500 and 1536, B=1 and 4), timed beside its bound, the plain version
+     and SDPA without a mask (and SDPA's own max |error|).
  3b. the MoE FFN and the Mamba mixer at full width (torch ops; they replace
      no TPU kernel, so their numbers go on [moe] and [ssm] lines): one
      deepseek-moe-16b MoE layer (64 experts of 2048 x 1408, top-6, 2 shared)
@@ -76,7 +80,12 @@ Phases, each fatal on failure (nothing is caught):
      chained from the empty state within 1e-4 of mamba_forward's outputs
      and final state (the largest error logged); a decode step at B = 4
      under sync debug mode "error"; device ms of a decode step at B = 4 and
-     of a prefill at T = 2048 beside their bounds.
+     of a prefill at T = 2048 beside their bounds. One xlstm-350m mLSTM and
+     one sLSTM layer (d 1024, 4 heads, d_inner 2048) likewise ([xlstm]:
+     256 chained steps against the forward within 1e-4, a decode step at
+     B = 4 with no host sync, decode and T = 2048 prefill ms beside bounds
+     counting bf16 products at the bf16 peak and float32 ones at
+     float32's).
   4. main path: ServeEngine(scheduler="continuous"), the default, serving
      llama31-8b at full width (32 layers, seeded random bf16 weights) with
      FreeKV defaults, recall_overlap=True and the KV pool in pinned host
@@ -129,7 +138,12 @@ Phases, each fatal on failure (nothing is caught):
      and complete_page once a global layer a step; each logs TTFT, decode
      ms/step, tokens/s, peak memory and its own launch counts (zeroed just
      before it), whose sums the kernels line gives as wide_launches, apart
-     from phase 4's main-path launches.
+     from phase 4's main-path launches. Then xlstm-350m (2048-token
+     prompts; no kernel may launch), whisper-tiny (1500 seeded frames a
+     request; flash_prefill once an encoder and a decoder layer an
+     admission) and internvl2-26b (1024 seeded patches ahead of each
+     prompt, ~40 GB of weights, built after deepseek's are freed; its
+     decode profiled: host ops a step, busy share) at full width.
  4d. the sampler (card against CPU) and speculative decoding at full width
      (spec_phase; its launches are the kernels line's spec_launches).
  4e. live serving at full width: llama31-8b bf16, freekv/none, pinned pool,
@@ -165,8 +179,13 @@ Phases, each fatal on failure (nothing is caught):
      jamba-1.5-large-398b-smoke over 6 slots and llama4-scout-17b-a16e-smoke
      over 8 (MOE_PATHS: more requests than slots, so lanes idle and turn
      over and decode capacity binds), deepseek and scout also with a chunked
-     prefill (a held lane), jamba with a preemption; and the centroid index
-     kept step by step on the card equals its rebuild bit for bit.
+     prefill (a held lane), jamba with a preemption; xlstm-350m,
+     whisper-tiny and internvl2-26b at smoke width and the last two at
+     their real head layouts, 5 requests over 2 slots with seeded frontends
+     (one without), through the continuous scheduler, the static path and a
+     preemption, each engine's chunk budget and prefix cache reading off
+     (XARCH_PATHS); and the centroid index kept step by step on the card
+     equals its rebuild bit for bit.
 Then one JSON line with the kernels' numbers and, last, the ok line.
 """
 import argparse
@@ -186,6 +205,9 @@ import torch
 # timed inputs are bf16), PCIe Gen5 x16 per direction
 HBM_BPS = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12}
+# float32 outside the tensor cores (TF32 is off), for the xLSTM gates and
+# states
+PEAK_F32_OPS = 67e12
 PCIE_BPS = 64e9
 L2_BYTES = 50 * 2 ** 20
 # a kernel against its plain version on the same inputs, by OUTPUT dtype. The
@@ -1181,12 +1203,57 @@ def check_flash_prefill(ops, ref, dev, gen):
     # the static batch's (B=4) beside it
     return {"name": "flash_prefill", **timed(1), "static_batch": timed(B),
             "extension": check_flash_prefill_extension(ops, ref, dev, gen),
+            "bidirectional": check_flash_prefill_bidirectional(ops, ref, dev, gen),
             "max_abs_err": errs[("admit 8192", torch.bfloat16)],
             "max_abs_err_fp32": errs[("admit 8192", torch.float32)],
             "max_abs_err_cases": {f"{n} {str(t).split('.')[-1]}": e for (n, t), e in errs.items()},
             "tol": TOL[torch.bfloat16], "tol_fp32": TOL[torch.float32],
             "library_call": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
             **lib_prec}
+
+
+# whisper-tiny's encoder: 1500 frames, 6/6 heads at d_head 64
+ENC_FRAMES, ENC_HEADS, ENC_D = 1500, 6, 64
+
+
+def check_flash_prefill_bidirectional(ops, ref, dev, gen):
+    """flash_prefill with ``causal=False`` (every query sees every key: the
+    encoder of an encoder-decoder) against its plain version within TOL in
+    bf16 and fp32 at whisper-tiny's encoder shape, B=1 and T=1500 (no
+    multiple of the 64-key tile or the 128-row block), at T=1536 (a
+    multiple) and at B=4; timed at B=1, T=1500 beside its bound, the plain
+    version and SDPA without a mask (the same function), with SDPA's own
+    max |error| against the plain version."""
+    errs = {}
+    h, d, scale = ENC_HEADS, ENC_D, 1.0 / math.sqrt(ENC_D)
+    for name, b, t in (("1500", 1, ENC_FRAMES), ("1536", 1, 1536), ("B=4 1500", B, ENC_FRAMES)):
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = _prefill_inputs(gen, dev, dt, b, h, h, t, d)
+            errs[f"{name} {str(dt).split('.')[-1]}"] = _held(
+                f"flash_prefill bidirectional {name}",
+                ops.flash_prefill(q, k, v, scale=scale, causal=False),
+                ref.flash_prefill_ref(q, k, v, scale, False), dt)
+            del q, k, v
+    dt, t = torch.bfloat16, ENC_FRAMES
+    args = [_prefill_inputs(gen, dev, dt, 1, h, h, t, d)
+            for _ in range(copies_for(4 * t * h * d * 2))]
+    ms, call_ms = time_ms(lambda q, k, v: ops.flash_prefill(q, k, v, scale=scale, causal=False),
+                          args)
+    plain_ms, _ = time_ms(lambda q, k, v: ref.flash_prefill_ref(q, k, v, scale, False), args,
+                          iters=10)
+    sdpa = lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, scale=scale)
+    sdpa_args = [tuple(x.contiguous() for x in a) for a in args]
+    lib_ms, _ = time_ms(sdpa, sdpa_args)
+    q, k, v = args[0]
+    lib_prec = _library_precision(sdpa(*sdpa_args[0]), ref.flash_prefill_ref(q, k, v, scale,
+                                                                             False), dt)
+    return {"shape": f"q(1,{h},{t},{d}) kv(1,{h},{t},{d}) bidirectional",
+            **_bound(nbytes(q, k, v, q), 4 * h * d * t * t),
+            "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_call": "scaled_dot_product_attention(q, k, v)",
+            "max_abs_err": errs["1500 bfloat16"], "max_abs_err_fp32": errs["1500 float32"],
+            "max_abs_err_cases": errs, **lib_prec}
 
 
 def check_flash_prefill_extension(ops, ref, dev, gen):
@@ -1264,6 +1331,8 @@ ARCH_SHAPES = {   # arch -> (query heads, KV heads, d_head, softcap, sliding win
     "deepseek-moe-16b": (16, 16, 128, None, None),
     "llama4-scout-17b-a16e": (40, 8, 128, None, None),
     "jamba-1.5-large-398b": (64, 8, 128, None, None),
+    "whisper-tiny": (6, 6, 64, None, None),
+    "internvl2-26b": (48, 8, 128, None, None),
 }
 
 
@@ -1456,8 +1525,8 @@ def check_select_pages_shapes(ops, ref, dev, gen):
 
 def check_fill_shapes(ops, ref, dev, gen):
     """fill_pages and complete_page at d_head 80 (stablelm-3b, 32 KV heads),
-    256 (gemma2-2b, 4 KV heads) and 128 at 16 and 8 KV heads (deepseek,
-    scout, jamba), exact against their plain versions
+    256 (gemma2-2b, 4 KV heads), 128 at 16 and 8 KV heads (deepseek, scout,
+    jamba, internvl2) and 64 at 6 KV heads (whisper), exact against their plain versions
     (fp, and int8; fp32 and bf16; complete_page to a device and a pinned
     pool with some rows completing); fill_pages at B=1, T=8192 and
     complete_page to the pinned pool with every row completing timed at
@@ -1465,7 +1534,7 @@ def check_fill_shapes(ops, ref, dev, gen):
     rows = {}
     lengths = ([8224, 6150, 4128, 7170], [8224, 6176, 4128, 7200])
     for arch in ("stablelm-3b", "gemma2-2b", "deepseek-moe-16b", "llama4-scout-17b-a16e",
-                 "jamba-1.5-large-398b"):
+                 "jamba-1.5-large-398b", "whisper-tiny", "internvl2-26b"):
         _, kv, d, _, _ = ARCH_SHAPES[arch]
 
         def outs(b, n, dt, bits, pinned=False):
@@ -1684,6 +1753,91 @@ def ssm_layer_phase(dev):
             "chain_steps": T, "max_abs_err_chain_vs_forward": errs, "tolerance": 1e-4,
             "decode_b4": {"ms": dec_ms, "call_ms": dec_call, **dec_bound, "sync_free": True},
             "prefill_t2048": {"ms": pre_ms, "call_ms": pre_call, **pre_bound}}
+
+
+def _bound_mixed(byts, ops_bf16, ops_f32):
+    """The bound of work whose products run partly in bf16 (tensor cores)
+    and partly in float32 (outside them): the bytes over HBM's rate, or the
+    two kinds of operations each over its own peak, whichever is longer."""
+    t_ops = ops_bf16 / PEAK_OPS[torch.bfloat16] + ops_f32 / PEAK_F32_OPS
+    return {"bound_bytes": byts, "bound_ops_bf16": ops_bf16, "bound_ops_f32": ops_f32,
+            "bound_ms": 1e3 * max(byts / HBM_BPS, t_ops),
+            "bound_by": "bytes" if byts / HBM_BPS >= t_ops else "operations"}
+
+
+def xlstm_layer_phase(dev):
+    """One mLSTM and one sLSTM layer of xlstm-350m at full width (d 1024, 4
+    heads, d_inner 2048, dqk 256 and dv 512 a head) with seeded weights:
+    float32, 256 decode steps chained from the empty state (B=2) against
+    the forward's outputs and final state within 1e-4 (the largest error
+    logged; 256 steps are a whole sLSTM scan chunk); bfloat16 weights (the
+    gates' float32), a decode step at B=4 under set_sync_debug_mode("error"),
+    device ms of a decode step at B=4 and of a prefill at T=2048 (B=1)
+    beside their bounds: the weights read once, the state read and written,
+    activations in and out; the bf16 projections at the bf16 peak and the
+    float32 gates, recurrence and mLSTM chunk products at float32's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import xlstm
+    cfg = get_config("xlstm-350m")
+    d = cfg.d_model
+    di, nh, dv, dqk = xlstm.xlstm_dims(cfg)
+    dh, chunk, T, Bd, Tp = di // nh, 256, 256, 4, 2048
+    gen = torch.Generator(device=dev).manual_seed(31)
+    f32_keys = {"mlstm": ("wi", "wf", "bf"), "slstm": ("W", "R", "b")}
+    # bf16 products a token (up, down and, for the mLSTM, q k v) and float32
+    # ones (the gates, the sLSTM's W and recurrence); then the mixers' own
+    proj = 2 * (d * 2 * di + di * d)
+    tok_ops = {"mlstm": (proj + 2 * di * nh * (2 * dqk + dv), 2 * di * 2 * nh),
+               "slstm": (proj, 2 * di * 4 * di + 2 * nh * 4 * dh * dh)}
+    # the mLSTM state's update and read a decode token, and a prefill
+    # token's chunk products (intra-chunk q k and weights v, the carried
+    # state's read and update)
+    mix_dec = {"mlstm": 5 * nh * dqk * dv, "slstm": 0}
+    mix_pre = {"mlstm": 2 * chunk * nh * (dqk + dv) + 4 * nh * dqk * dv, "slstm": 0}
+    out = {"layer": f"d {d} heads {nh} d_inner {di} dqk {dqk} dv {dv} a head",
+           "chain_steps": T, "tolerance": 1e-4}
+    for kind in ("mlstm", "slstm"):
+        fwd = getattr(xlstm, kind + "_forward")
+        step = getattr(xlstm, kind + "_decode_step")
+        init = getattr(xlstm, kind + "_init_state")
+        p = getattr(xlstm, kind + "_init")(cfg, _seeded_normal(gen, dev), torch.float32)
+        x = 0.5 * torch.randn(2, T, d, generator=gen, device=dev)
+        y, st = fwd(cfg, p, x, return_state=True)
+        s = init(cfg, 2, dev)
+        ys = torch.cat([step(cfg, p, x[:, t:t + 1], s)[0] for t in range(T)], dim=1)
+        errs = {"y": (ys - y).abs().max().item(),
+                **{k: (s[k] - st[k]).abs().max().item() for k in st}}
+        require(torch.allclose(ys, y, atol=1e-4, rtol=1e-4)
+                and all(torch.allclose(s[k], st[k], atol=1e-4, rtol=1e-4) for k in st),
+                f"[xlstm] {kind}: chained decode against the forward, max |err| {errs}")
+        del x, y, st, s, ys
+        p = {k: (v if k in f32_keys[kind] else v.to(torch.bfloat16)) for k, v in p.items()}
+        xs = torch.randn(Bd, 1, d, generator=gen, device=dev).to(torch.bfloat16)
+        s = init(cfg, Bd, dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(cfg, p, xs, s)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        require(all(t.dtype == torch.float32 for t in s.values()), f"[xlstm] {kind}: a state "
+                "leaf left float32")
+        w_bytes = sum(t.numel() * t.element_size() for t in p.values())
+        s_bytes = sum(t.numel() * t.element_size() for t in s.values())
+        ob, of = tok_ops[kind]
+        dec_ms, dec_call = time_ms(lambda x: step(cfg, p, x, s), [(xs,)], iters=20)
+        dec_bound = _bound_mixed(w_bytes + 2 * s_bytes + 2 * Bd * d * 2, Bd * ob,
+                                 Bd * (of + mix_dec[kind]))
+        xp = torch.randn(1, Tp, d, generator=gen, device=dev).to(torch.bfloat16)
+        pre_ms, pre_call = time_ms(lambda x: fwd(cfg, p, x), [(xp,)], iters=1)
+        pre_bound = _bound_mixed(w_bytes + 2 * Tp * d * 2, Tp * ob, Tp * (of + mix_pre[kind]))
+        out[kind] = {"max_abs_err_chain_vs_forward": errs,
+                     "decode_b4": {"ms": dec_ms, "call_ms": dec_call, **dec_bound,
+                                   "sync_free": True, "state_bytes_a_row": s_bytes // Bd},
+                     "prefill_t2048": {"ms": pre_ms, "call_ms": pre_call, **pre_bound}}
+        del p, xs, xp, s
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2125,6 +2279,134 @@ def wide_runs(dev, ops, llama_cfg, llama):
     return totals
 
 
+# phase 4c, the xLSTM, encoder-decoder and frontend archs at full width:
+# arch -> (prompt tokens, the kernels the run must launch). xlstm-350m's
+# prompts are cut to 2048 tokens (its sLSTM prefill is a Python loop over
+# time); it has no attention layer, so no kernel launches at all
+XARCH_RUNS = {
+    "whisper-tiny": (ARCH_PROMPTS, _POOLED),
+    "xlstm-350m": ((2048,) * 4, ()),
+    "internvl2-26b": (ARCH_PROMPTS, _POOLED),
+}
+
+
+def _frontend(cfg, rng):
+    """Seeded stub embeddings for a frontend arch: 0.1 N(0, 1), numpy."""
+    if cfg.frontend is None:
+        return None
+    return (0.1 * rng.standard_normal((cfg.n_frontend_tokens, cfg.d_model))).astype(np.float32)
+
+
+def xarch_run(dev, ops, arch):
+    """One phase-4c run of a new arch at full width with seeded random bf16
+    weights (built here and freed after), freekv, the pinned pool, 4 slots,
+    4 needle requests x 16 greedy tokens, each with its seeded frontend
+    (whisper's 1500 frames, internvl2's 1024 patches). Every kernel the run
+    takes must launch and no other: flash_prefill once an encoder and a
+    decoder layer an admission, complete_page once a layer a decode step;
+    xlstm none. internvl2's decode is then profiled (decode_profile's
+    profile_decode on the same weights: host ops a step, busy share).
+    Returns (info, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ATTN, FreeKVConfig
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.models.model import frontend_prefix, init_params
+    from repro_torch.obs import Observability
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    cfg = get_config(arch)
+    prompts, need = XARCH_RUNS[arch]
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    init_s = time.perf_counter() - t0
+    fkv = FreeKVConfig(offload="host")
+    rng = np.random.default_rng(41)
+    reqs = [Request(uid=i, tokens=next(needle_stream(cfg.vocab_size, n, fkv.page_size,
+                                                     seed=30 + i)).tokens,
+                    max_new_tokens=ARCH_NEW, frontend=_frontend(cfg, rng))
+            for i, n in enumerate(prompts)]
+    eng = ServeEngine(cfg, fkv, params, max_len=frontend_prefix(cfg) + max(prompts) + ARCH_NEW + P,
+                      batch_size=B, state_dtype=torch.bfloat16, obs=Observability(enabled=True),
+                      device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    em = eng.last_metrics
+    run = f"{arch} freekv"
+    require(eng.last_logits_finite, f"non-finite logits ({run})")
+    require(eng.prefill_chunk_tokens == 0 and eng.prefix_cache is None and not eng.spec_decode,
+            f"{run}: chunked prefill, the prefix cache or spec decoding on")
+    for o, r in zip(outs, reqs):
+        require(len(o.tokens) == r.max_new_tokens
+                and all(0 <= t < cfg.vocab_size for t in o.tokens),
+                f"{run}: request {o.uid} made {len(o.tokens)} tokens or a bad one")
+    for name, n in launches.items():
+        require((n > 0) == (name in need), f"{name} launched {n} times ({run})")
+    n_attn = sum(m == ATTN for m, _ in cfg.layers)
+    n_enc = cfg.n_encoder_layers if cfg.is_encoder_decoder else 0
+    if need:
+        require(launches["flash_prefill"] == (n_attn + n_enc) * len(reqs),
+                f"flash_prefill launched {launches['flash_prefill']} times for {len(reqs)} "
+                f"admissions of {n_enc} encoder and {n_attn} decoder layers ({run})")
+        require(launches["complete_page"] == n_attn * em.steps,
+                f"complete_page launched {launches['complete_page']} times for {em.steps} steps "
+                f"of {n_attn} layers ({run})")
+    lat = em.summary()["latency"]["decode_step_s"]
+    gen_tokens = sum(len(o.tokens) for o in outs)
+    info = {"arch": arch, "method": "freekv", "slots": B, "layers": cfg.n_layers,
+            "encoder_layers": n_enc, "frontend_tokens": cfg.n_frontend_tokens,
+            "params_b": n_params / 1e9, "init_s": init_s,
+            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.d_head],
+            "prompt_tokens": list(prompts), "ttft_s": [o.metrics.ttft_s for o in outs],
+            "decode_ms_per_step": 1e3 * lat["sum"] / lat["count"], "decode_steps": em.steps,
+            "tokens_per_s": gen_tokens / wall, "wall_s": wall,
+            "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "host_syncs_per_token": em.host_syncs / gen_tokens,
+            "launches": launches, "first_tokens": outs[0].tokens[:8]}
+    del eng, outs
+    torch.cuda.empty_cache()
+    if arch == "internvl2-26b":
+        from repro_torch.launch.decode_profile import profile_decode
+        stream = needle_stream(cfg.vocab_size, CONTEXT, fkv.page_size, seed=0)
+        toks = torch.from_numpy(np.stack([next(stream).tokens for _ in range(B)]))
+        prof = profile_decode(cfg, fkv, params, toks.long().to(dev), steps=3, with_prefill=False)
+        info["profile"] = {k: prof[k] for k in ("wall_ms_per_step_unprofiled",
+                                                "cpu_ops_per_step", "device_ops_per_step",
+                                                "device_busy_ms_per_step", "device_busy_share")}
+    del params
+    torch.cuda.empty_cache()
+    return info, launches
+
+
+def xarch_runs(dev, ops):
+    """Phase 4c's xlstm-350m, whisper-tiny and internvl2-26b runs (each
+    arch's weights freed after its run, after deepseek-moe-16b's); returns
+    the sums of their launches by kernel."""
+    totals = {}
+    for arch in XARCH_RUNS:
+        t0 = time.perf_counter()
+        info, run = xarch_run(dev, ops, arch)
+        info["run_s"] = time.perf_counter() - t0
+        for name, n in run.items():
+            totals[name] = totals.get(name, 0) + n
+        log("[wide] " + json.dumps(info))
+        log(f"[wide] {arch} freekv: TTFT {', '.join(f'{t:.3f}' for t in info['ttft_s'])} s, "
+            f"decode {info['decode_ms_per_step']:.2f} ms/step over {info['decode_steps']} steps, "
+            f"{info['tokens_per_s']:.2f} tokens/s, peak {info['peak_device_gib']:.2f} GiB, "
+            f"{info['params_b']:.3f} B parameters, {info['run_s']:.1f} s")
+        if "profile" in info:
+            pr = info["profile"]
+            log(f"[wide] {arch} freekv: eager decode step {pr['wall_ms_per_step_unprofiled']:.2f} "
+                f"ms, {pr['cpu_ops_per_step']} host ops, {pr['device_ops_per_step']:.1f} device "
+                f"operations, busy share {pr['device_busy_share']:.3f}")
+    return totals
+
+
 def time_low_rank_keys(dev, cfg, gen):
     """ShadowKV's prefill factorization at one layer's shape (B x 8192 keys
     per KV head, d 128, full rank as at llama widths): the port's
@@ -2328,7 +2610,7 @@ NEW_PATHS = [("quest", "granite-3-8b-smoke", "quest", 0.0, False, 0),
              ("infinigen", "granite-3-8b-smoke", "infinigen", 0.0, False, 0),
              ("freekv top_p 0.9", "granite-3-8b-smoke", "freekv", 0.9, False, 0)] + [
     (f"{a}{' real heads' if real else ''}", f"{a}-smoke", "freekv", 0.0, real, 0)
-    for a in ARCH_SHAPES for real in (False, True)] + [
+    for a in ARCH_SHAPES if a not in XARCH_RUNS for real in (False, True)] + [
     ("gemma2-2b chunked 24", "gemma2-2b-smoke", "freekv", 0.0, False, 24)]
 
 
@@ -2434,6 +2716,77 @@ def moe_paths_vs_plain(dev):
         out[f"{arch} {label}"] = {"requests": n, "steps": steps, "chunks": chunks,
                                   "preemptions": pre, "swap_bytes": swap_out,
                                   "tokens": toks[0][:8]}
+    return out
+
+
+# phase 5 for the xLSTM, encoder-decoder and frontend archs: (label, arch,
+# real head layout); each through the continuous scheduler, the static path
+# and a preemption
+XARCH_PATHS = [("xlstm-350m", "xlstm-350m-smoke", False),
+               ("whisper-tiny", "whisper-tiny-smoke", False),
+               ("whisper-tiny real heads", "whisper-tiny-smoke", True),
+               ("internvl2-26b", "internvl2-26b-smoke", False),
+               ("internvl2-26b real heads", "internvl2-26b-smoke", True)]
+
+
+def xarch_paths_vs_plain(dev):
+    """xlstm-350m, whisper-tiny and internvl2-26b at smoke width, whisper
+    and internvl2 also at their real head layouts, on the card against the
+    CPU at float32: 5 requests of mixed lengths over 2 slots, four with
+    seeded frontends and one without (zeros), through the continuous
+    scheduler (slots turning over), the static path and a preemption (the
+    last request of priority 1). Each engine is given a chunk budget and a
+    prefix cache, which must read as off (as the reference sets them).
+    Greedy tokens, steps, preemptions and swap bytes equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.models.model import frontend_prefix, init_params
+    from repro_torch.serving.engine import Request, ServeEngine
+    lens, news = (256, 200, 129, 256, 184), (12, 5, 9, 7, 6)
+    out = {}
+    for label, arch, real in XARCH_PATHS:
+        cfg = get_config(arch)
+        if real:
+            h, kv, d, _, _ = ARCH_SHAPES[arch[: -len("-smoke")]]
+            cfg = dataclasses.replace(cfg, n_heads=h, n_kv_heads=kv, d_head=d)
+        params_gpu = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+        params_cpu = _tree_map(lambda t: t.cpu(), params_gpu)
+        rng = np.random.default_rng(70)
+        prompts = [next(needle_stream(cfg.vocab_size, n, 8, seed=70 + i)).tokens
+                   for i, n in enumerate(lens)]
+        fronts = [_frontend(cfg, rng) for _ in lens]
+        fronts[2] = None
+        max_len = frontend_prefix(cfg) + 320
+        for case in ("continuous", "static", "preempt"):
+            fkv = dataclasses.replace(_smoke_fkv("freekv", "none"), prefill_chunk_tokens=24,
+                                      preempt=case == "preempt")
+            reqs = [Request(uid=i, tokens=t, max_new_tokens=m, frontend=f,
+                            priority=int(case == "preempt" and i == len(lens) - 1))
+                    for i, (t, m, f) in enumerate(zip(prompts, news, fronts))]
+            got = {}
+            for where, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+                eng = ServeEngine(cfg, fkv, params, max_len=max_len, batch_size=2,
+                                  state_dtype=torch.float32, prefix_cache_tokens=4096,
+                                  scheduler="static" if case == "static" else "continuous",
+                                  device=dev if where == "cuda" else "cpu")
+                require(eng.prefill_chunk_tokens == 0 and eng.prefix_cache is None,
+                        f"{label} {case}: the chunk budget or the prefix cache is on")
+                outs = eng.generate(reqs)
+                em = eng.last_metrics
+                require(eng.last_logits_finite, f"non-finite logits ({where} {label} {case})")
+                got[where] = ([o.tokens for o in outs], em.steps, em.prefill_chunks,
+                              em.preemptions, em.swap_out_bytes, em.swap_in_bytes)
+            require(got["cuda"] == got["cpu"], f"{label} {case}: card {got['cuda']} vs cpu "
+                    f"{got['cpu']}")
+            toks, steps, chunks, pre, swap_out, swap_in = got["cuda"]
+            require(chunks == 0, f"{label} {case}: {chunks} prefill chunks")
+            require(case != "preempt" or (pre >= 1 and swap_in == swap_out > 0),
+                    f"{label} {case}: {pre} preemptions, swap bytes {swap_out} / {swap_in}")
+            out[f"{label} {case}"] = {"arch": cfg.name,
+                                      "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.d_head],
+                                      "steps": steps, "preemptions": pre, "swap_bytes": swap_out,
+                                      "tokens": toks[0][:8]}
+        del params_gpu, params_cpu
     return out
 
 
@@ -3088,7 +3441,7 @@ def main():
         log(f"[kernel] {k['name']}: max|err| {k['max_abs_err']:.3g} | "
             f"{k['kernel_ms']:.4f} ms vs bound {k['bound_ms']:.4f} ms | plain "
             f"{k['plain_ms']:.4f} ms | library {lib} | {time.perf_counter() - t0:.1f} s")
-        for what in ("static_batch", "extension", "int8", "no_completion"):
+        for what in ("static_batch", "extension", "bidirectional", "int8", "no_completion"):
             if what not in k:
                 continue
             sb = k[what]
@@ -3122,6 +3475,10 @@ def main():
     log(f"[kernel] flash_prefill extension max|err| by case: {json.dumps(ext['max_abs_err_cases'])}"
         f"; SDPA lower-right max|err| {ext['library_max_abs_err']:.3g}, within TOL: "
         f"{ext['library_within_tol']}")
+    bid = rows["flash_prefill"]["bidirectional"]
+    log(f"[kernel] flash_prefill bidirectional (whisper-tiny's encoder) max|err| by case: "
+        f"{json.dumps(bid['max_abs_err_cases'])}; SDPA (no mask) max|err| "
+        f"{bid['library_max_abs_err']:.3g}, within TOL: {bid['library_within_tol']}")
     for name in ("recall_gather", "recall_values", "recall_gather_quant", "recall_values_quant"):
         k = rows[name]
         log(f"[kernel] {name} from the pinned pool: {k['kernel_ms']:.4f} ms, the link's "
@@ -3159,6 +3516,19 @@ def main():
             f"\"error\"; prefill T=2048 {pre['ms']:.4f} ms (call {pre['call_ms']:.4f} ms) vs "
             f"bound {pre['bound_ms']:.4f} ms by {pre['bound_by']}; "
             f"{time.perf_counter() - t0:.1f} s for both")
+        t0 = time.perf_counter()
+        xl = xlstm_layer_phase(dev)
+        log("[xlstm] " + json.dumps(xl))
+        for kind in ("mlstm", "slstm"):
+            dec, pre = xl[kind]["decode_b4"], xl[kind]["prefill_t2048"]
+            log(f"[xlstm] xlstm-350m {kind} layer ({xl['layer']}): {xl['chain_steps']} chained "
+                f"decode steps vs the forward max|err| "
+                f"{json.dumps(xl[kind]['max_abs_err_chain_vs_forward'])} (tolerance 1e-4); "
+                f"decode B=4 {dec['ms']:.4f} ms (call {dec['call_ms']:.4f} ms) vs bound "
+                f"{dec['bound_ms']:.4f} ms by {dec['bound_by']}, no host sync under sync debug "
+                f"mode \"error\"; prefill T=2048 {pre['ms']:.4f} ms (call {pre['call_ms']:.4f} "
+                f"ms) vs bound {pre['bound_ms']:.4f} ms by {pre['bound_by']}")
+        log(f"[xlstm] {time.perf_counter() - t0:.1f} s for both layers")
         # phase 4: main path at full width: the static path, then every
         # retriever and pool tier through the continuous scheduler
         cfg, params = llama_params(dev)
@@ -3230,7 +3600,10 @@ def main():
         # phase 4c: the other archs and retrievers at full width
         t0 = time.perf_counter()
         wide_launches = wide_runs(dev, ops, cfg, params)
-        log(f"[wide] {len(WIDE_RUNS)} runs in {time.perf_counter() - t0:.1f} s")
+        for name, n in xarch_runs(dev, ops).items():
+            wide_launches[name] = wide_launches.get(name, 0) + n
+        log(f"[wide] {len(WIDE_RUNS) + len(XARCH_RUNS)} runs in "
+            f"{time.perf_counter() - t0:.1f} s")
         # phase 4d: the sampler and speculative decoding
         spec_launches = spec_phase(dev, ops, cfg, params)
         # phase 4e: live serving through the HTTP front-end
@@ -3293,6 +3666,9 @@ def main():
         for label, r in moe_paths_vs_plain(dev).items():
             log(f"[equal] {label}, fp32 continuous: card == cpu greedy tokens, steps and "
                 "counts " + json.dumps(r))
+        for label, r in xarch_paths_vs_plain(dev).items():
+            log(f"[equal] {label}, fp32: card == cpu greedy tokens, steps and counts, chunk "
+                "budget and prefix cache off " + json.dumps(r))
         for label, t in spec_vs_plain(dev).items():
             log(f"[equal] granite-3-8b-smoke fp32 continuous freekv draft_len 3, {label}: "
                 f"card == cpu == draft_len 0 tokens, e.g. {t}")

@@ -1,9 +1,10 @@
 """Architecture config registry: ``get_config(name)``; ``<name>-smoke`` gives
-the reduced variant. The port registers the reference's dense archs (gemma2-2b
-with its sliding-window local layers), its MoE archs (deepseek-moe-16b,
-llama4-scout-17b-a16e) and the Mamba + attention + MoE hybrid
-jamba-1.5-large-398b; the xLSTM, encoder-decoder and vision archs are not
-ported."""
+the reduced variant. The port registers every arch of the reference: the
+dense archs (gemma2-2b with its sliding-window local layers), the MoE archs
+(deepseek-moe-16b, llama4-scout-17b-a16e), the Mamba + attention + MoE hybrid
+jamba-1.5-large-398b, the mLSTM + sLSTM stack xlstm-350m, the
+encoder-decoder whisper-tiny and internvl2-26b, whose patch embeddings sit
+ahead of the prompt."""
 from importlib import import_module
 
 from repro_torch.configs.base import (  # noqa: F401
@@ -15,12 +16,15 @@ _MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "gemma2-2b": "gemma2_2b",
     "granite-3-8b": "granite_3_8b",
+    "internvl2-26b": "internvl2_26b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "llama31-8b": "llama31_8b",
     "qwen25-7b": "qwen25_7b",
     "smollm-360m": "smollm_360m",
     "stablelm-3b": "stablelm_3b",
+    "whisper-tiny": "whisper_tiny",
+    "xlstm-350m": "xlstm_350m",
 }
 
 
@@ -29,6 +33,5 @@ def get_config(name: str) -> ArchConfig:
         return reduce_for_smoke(get_config(name[: -len("-smoke")]))
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; the port serves {sorted(_MODULES)} and "
-                       "their -smoke forms (xLSTM, encoder-decoder and vision archs: "
-                       "ROADMAP queue 1, \"Other mixers, archs and tools\")")
+                       "their -smoke forms")
     return import_module(f"repro_torch.configs.{_MODULES[name]}").CONFIG

@@ -67,6 +67,14 @@ class ArchConfig:
     ssm_d_conv: int = 4
     ssm_expand: int = 2
 
+    # xLSTM (``models/xlstm``): the blocks' inner width d_model * proj_factor,
+    # and the query/key width a fraction of it
+    xlstm_qk_dim_factor: float = 0.5
+    xlstm_proj_factor: float = 2.0
+
+    # encoder-decoder (whisper: an encoder over the frontend's frames, a
+    # cross-attention sublayer in every decoder layer) and a modality
+    # frontend's stub embeddings (internvl2: patches ahead of the prompt)
     is_encoder_decoder: bool = False
     n_encoder_layers: int = 0
     frontend: Optional[str] = None
@@ -176,7 +184,8 @@ def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:
     """Reduced variant of the same family for CPU smoke tests (the
     reference's rule): one period cut to at most two layers, one a distinct
     mixer, the MoE FFN preferred (jamba keeps a Mamba + MoE and an attention
-    + dense layer), 4 experts of width 128."""
+    + dense layer, xlstm an mLSTM and an sLSTM block), 4 experts of width
+    128, at most 2 encoder layers and 16 frontend tokens."""
     pat = cfg.pattern
     if len(pat) > 2:
         chosen, order = {}, []

@@ -6,14 +6,17 @@ random bf16 weights, ``torch.profiler`` over one prefill and over a few
 
     PYTHONPATH=src python -m repro_torch.launch.decode_profile [--steps 4] \
         [--arch llama31-8b|qwen25-7b|gemma2-2b|smollm-360m|stablelm-3b|granite-3-8b|
-                deepseek-moe-16b] \
+                deepseek-moe-16b|xlstm-350m|whisper-tiny|internvl2-26b] \
         [--method freekv|arkvale|infinigen|quest|shadowkv|raas|streaming|centroid] \
         [--kv-quant none|int8|int4] [--quant-group-size 0] [--window 8] [--completion] \
         [--draft-len 4] [--main-runs]
 
 ``--arch`` profiles another served arch at full width with the same
 traffic (the default is the main path's llama31-8b); deepseek-moe-16b
-(~33 GB of bf16 weights) is the MoE arch that fits the card.
+(~33 GB of bf16 weights) is the MoE arch that fits the card; a frontend
+arch gets zero embeddings, as the engine gives a request without its own
+(whisper's 1500 frames to its encoder, internvl2's 1024 patches ahead of
+each prompt, ~40 GB of bf16 weights).
 
 Prints one JSON line: the prefill's wall s, device-busy s and top kernels;
 per decode step the host wall ms, device-busy ms (sum of kernel and copy
@@ -120,24 +123,30 @@ def profile_decode(cfg, fkv, params, toks, steps=4, trace_out=None, with_prefill
     (``profile_verify``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models.model import prefill, serve_step
+    from repro_torch.models.model import frontend_prefix, prefill, serve_step
 
-    max_len = (toks.shape[1] + 64 + WARMUP + 2 * steps + 6 * window + 2 * fkv.page_size
-               + 6 * (draft_len + 1))
+    max_len = (frontend_prefix(cfg) + toks.shape[1] + 64 + WARMUP + 2 * steps + 6 * window
+               + 2 * fkv.page_size + 6 * (draft_len + 1))
+    # a frontend arch's stub embeddings: zeros, as the engine serves a
+    # request without its own
+    front = {} if cfg.frontend is None else {"frontend": torch.zeros(
+        (toks.shape[0], cfg.n_frontend_tokens, cfg.d_model), device=toks.device)}
 
     prefill_out = None
     # warm-up prefill on a short prompt (builds and loads the kernels), the
     # timed one, then (with_prefill) one under the profiler
-    prefill(cfg, fkv, params, {"tokens": toks[:, :512]}, max_len, state_dtype=torch.bfloat16)
+    prefill(cfg, fkv, params, {"tokens": toks[:, :512], **front}, max_len,
+            state_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, state = prefill(cfg, fkv, params, {"tokens": toks}, max_len,
+    logits, state = prefill(cfg, fkv, params, {"tokens": toks, **front}, max_len,
                             state_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     if with_prefill:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            prefill(cfg, fkv, params, {"tokens": toks}, max_len, state_dtype=torch.bfloat16)
+            prefill(cfg, fkv, params, {"tokens": toks, **front}, max_len,
+                    state_dtype=torch.bfloat16)
             torch.cuda.synchronize()
         pre_rows = device_rows(prof.key_averages())
         prefill_out = {
@@ -377,8 +386,8 @@ def main(argv=None):
                     help="write a Chrome trace of the profiled steps here")
     ap.add_argument("--arch", default=ARCH,
                     help="a served arch at full width: llama31-8b (the main path), "
-                         "qwen25-7b, gemma2-2b, smollm-360m, stablelm-3b, granite-3-8b or "
-                         "deepseek-moe-16b")
+                         "qwen25-7b, gemma2-2b, smollm-360m, stablelm-3b, granite-3-8b, "
+                         "deepseek-moe-16b, xlstm-350m, whisper-tiny or internvl2-26b")
     ap.add_argument("--method", default="freekv",
                     help="retriever: any of core.retrieval.METHODS but full")
     ap.add_argument("--kv-quant", choices=("none", "int8", "int4"), default="none",

@@ -42,7 +42,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.base import FreeKVConfig
 from repro_torch.data.synthetic import needle_stream
-from repro_torch.models.model import init_params
+from repro_torch.models.model import frontend_prefix, init_params
 from repro_torch.obs import Observability, TimeSeriesBoard, TraceRecorder
 from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.serving.sampling import SamplerConfig
@@ -55,9 +55,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--arch", default="granite-3-8b-smoke",
                     help="llama31-8b, qwen25-7b, gemma2-2b, smollm-360m, stablelm-3b, "
-                         "granite-3-8b, deepseek-moe-16b, llama4-scout-17b-a16e or "
-                         "jamba-1.5-large-398b, each also as <arch>-smoke (jamba serves "
-                         "without chunked prefill and the prefix cache)")
+                         "granite-3-8b, deepseek-moe-16b, llama4-scout-17b-a16e, "
+                         "jamba-1.5-large-398b, xlstm-350m, whisper-tiny or internvl2-26b, "
+                         "each also as <arch>-smoke (jamba, xlstm, whisper and internvl2 "
+                         "serve without chunked prefill and the prefix cache; whisper and "
+                         "internvl2 with zero frontend embeddings, as the engine gives a "
+                         "request without its own)")
     ap.add_argument("--method", default="freekv",
                     help="retriever: freekv, arkvale, infinigen, quest, shadowkv, raas, "
                          "streaming, full or centroid")
@@ -143,7 +146,7 @@ def main(argv=None):
         obs = Observability(enabled=True, trace=TraceRecorder(enabled=bool(args.trace_out)),
                             timeseries=TimeSeriesBoard() if args.serve_http else None)
     eng = ServeEngine(cfg, fkv, params,
-                      max_len=args.context + args.new_tokens + args.page_size
+                      max_len=frontend_prefix(cfg) + args.context + args.new_tokens + args.page_size
                       + args.prefill_bucket,
                       batch_size=args.batch,
                       sampler=SamplerConfig(temperature=args.temperature),

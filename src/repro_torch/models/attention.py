@@ -2,7 +2,8 @@
 
 ``attention_prefill`` is what a prompt's prefill and an extension chunk
 (a prompt's suffix over its cached or already prefilled prefix,
-``models.model.prefill_extend``) call. On the card it is the
+``models.model.prefill_extend``) call, and, bidirectional, an
+encoder-decoder's encoder (``models.model._encode``). On the card it is the
 ``flash_prefill`` CUDA kernel (the reference registers its Pallas
 counterpart but computes prefill in jnp), whose causal mask is aligned
 bottom-right when there are fewer queries than keys. On the CPU it is the
@@ -114,14 +115,15 @@ def attention_auto(cfg: ArchConfig, q, k, v, pos_q, pos_k, causal=True, window=N
     return attention_chunked(cfg, q, k, v, pos_q, pos_k, causal, window)
 
 
-def attention_prefill(cfg: ArchConfig, q, k, v, q_pos, kv_pos, window=None):
+def attention_prefill(cfg: ArchConfig, q, k, v, q_pos, kv_pos, window=None, causal=True):
     """Causal attention of S prompt tokens over Tk >= S keys whose last S
     are their own: q (B,S,H,dh) at positions ``q_pos`` (B,S), k/v
     (B,Tk,Hkv,dh) at ``kv_pos`` (B,Tk) -> (B,S,H,dh). A whole prompt has
     S = Tk and ``q_pos`` = ``kv_pos``; an extension chunk (reference
     ``model._apply_layer_extend``) has ``q_pos`` = Tp..Tp+S-1 and ``kv_pos``
     = 0..Tp+S-1. ``window`` (gemma2's local layers) masks keys at or before
-    a query's position minus the window, in both forms.
+    a query's position minus the window, in both forms. ``causal=False``
+    (the encoder, S = Tk) lets every query see every key.
 
     CUDA tensors go to ``ops.flash_prefill`` as transposed (B,H,T,dh) views
     (the kernel takes strides, so nothing is copied), whose bottom-right
@@ -131,7 +133,7 @@ def attention_prefill(cfg: ArchConfig, q, k, v, q_pos, kv_pos, window=None):
     reference's."""
     if q.is_cuda:
         o = ops.flash_prefill(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                              scale=_scale(cfg), causal=True, window=window,
+                              scale=_scale(cfg), causal=causal, window=window,
                               softcap=cfg.attn_logit_softcap)
         return o.transpose(1, 2)
-    return attention_auto(cfg, q, k, v, q_pos, kv_pos, causal=True, window=window)
+    return attention_auto(cfg, q, k, v, q_pos, kv_pos, causal=causal, window=window)

@@ -1,6 +1,6 @@
-"""Model assembly for decoder stacks of attention or Mamba mixers with
-dense or MoE FFNs (reference ``repro/models/model.py``), with the serving
-entry points:
+"""Model assembly for decoder stacks of attention, Mamba or xLSTM mixers
+with dense, MoE or no FFNs, encoder-decoder stacks and a frontend prefix
+(reference ``repro/models/model.py``), with the serving entry points:
 
   init_params(cfg, seed, device, dtype)            -> params
   params_from_jax(cfg, np_params, device, dtype)    -> params
@@ -21,20 +21,36 @@ orientation ``(d_in, d_out)``: ``{"embed": {"tok", "head"?}, "final_norm":
 (the post-block norms under ``cfg.post_block_norm``, gemma2). A layer's
 ``mixer`` is ``{wq, wk, wv, wo}`` for attention or, for ``MAMBA``,
 ``{in_proj, conv_w, conv_b, x_proj, dt_w, dt_b, A_log, D, out_proj}``
-(``models/ssm``); its ``ffn`` is ``{up, gate, down}`` for ``DENSE`` or, for
-``MOE``, ``{router (d, E), wg, wu (E, d, de), wd (E, de, d), shared?: {up,
-gate, down}}`` (``models/moe``). ``router``, ``A_log`` and ``D`` are float32
-whatever the other leaves' dtype (``FLOAT32_KEYS``), as in the reference.
+(``models/ssm``), for ``MLSTM`` ``{up, wq, wk, wv, wi, wf, bf, down}`` and
+for ``SLSTM`` ``{up, W, R, b, down}`` (``models/xlstm``); its ``ffn`` is
+``{up, gate, down}`` for ``DENSE`` or, for ``MOE``, ``{router (d, E), wg,
+wu (E, d, de), wd (E, de, d), shared?: {up, gate, down}}`` (``models/moe``);
+an xLSTM block (``NONE``) has no ``norm2`` and ``ffn``. ``router``,
+``A_log`` and ``D``, and the xLSTM gates' ``wi``, ``wf``, ``bf``, ``W``,
+``R`` and ``b``, are float32 whatever the other leaves' dtype
+(``FLOAT32_KEYS``, ``XLSTM_FLOAT32_KEYS``), as in the reference.
+
+An encoder-decoder config (whisper) adds ``params["encoder"] = {"layers":
+[...], "final_norm"}``, ``n_encoder_layers`` attention + dense layers run
+bidirectionally over the request's frontend frames (``_encode``), and each
+decoder layer a cross-attention sublayer ``{"xnorm", "xattn": {wq, wk, wv,
+wo}}`` after its self-attention: queries not RoPE'd over the encoder
+output's K/V (``_enc_kv``, not RoPE'd either), which the decode state keeps
+beside the retriever's leaves as ``xk``/``xv`` (B, F, kv, d_head). A
+frontend config that is no encoder-decoder (internvl2) puts the request's
+patch embeddings ahead of the prompt's (``_embed_inputs``); positions run
+over the whole prefix and prompt.
 
 Layers are global attention (``ATTN``, the retriever of ``fkv.method``),
 sliding-window attention (``ATTN_LOCAL``, gemma2: a ``StreamingRetriever``
 over the last ``cfg.sliding_window`` tokens, no sink, and the window in the
 prefill's attention), as the reference's ``_retrievers``, or Mamba
-(``MAMBA``, jamba: no retriever; its decode state is ``{"h", "conv"}``).
-Each decode layer hands its query to the next attention layer's retriever
-as ``q_proxy`` (zeros for the first), InfiniGen's proxy query; a Mamba
-layer passes it on unchanged; only global layers count in the decode
-statistics. The FFN of every path (``prefill``, ``prefill_extend``,
+(``MAMBA``, jamba: no retriever; its decode state is ``{"h", "conv"}``), or
+xLSTM (``MLSTM``/``SLSTM``, xlstm-350m: no retriever; ``{"C", "n", "m"}``
+and ``{"h", "c", "n", "m"}``, float32). Each decode layer hands its query
+to the next attention layer's retriever as ``q_proxy`` (zeros for the
+first), InfiniGen's proxy query; a recurrent layer passes it on
+unchanged; only global layers count in the decode statistics. The FFN of every path (``prefill``, ``prefill_extend``,
 ``serve_step``) goes through ``_ffn``, which runs ``moe.apply_moe`` over the
 call's flattened (B * T, d) tokens for a ``MOE`` layer.
 The reference's ``lax.scan`` over stacked periods becomes a Python loop over
@@ -53,12 +69,12 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import (ATTN, ATTN_LOCAL, DENSE, MAMBA, MOE, ArchConfig,
-                                      FreeKVConfig)
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, DENSE, MAMBA, MLSTM, MOE, NONE,
+                                      SLSTM, ArchConfig, FreeKVConfig)
 from repro_torch.core.retrieval import StreamingRetriever, make_retriever
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
-from repro_torch.models import moe, ssm
+from repro_torch.models import moe, ssm, xlstm
 
 # per-step retrieval statistics the engine aggregates (reference model.py:774)
 DECODE_STAT_KEYS = ("corrected", "kv_heads", "sync_pages", "async_pages",
@@ -68,34 +84,49 @@ DECODE_STAT_KEYS = ("corrected", "kv_heads", "sync_pages", "async_pages",
 # leaves the reference keeps float32 whatever the params' dtype: the MoE
 # router (``moe_init``) and Mamba's ``A_log`` and ``D`` (``mamba_init``)
 FLOAT32_KEYS = ("router", "A_log", "D")
+# and, inside an xLSTM mixer, its gates' weights and biases (``mlstm_init``,
+# ``slstm_init``; ``b`` is also a LayerNorm's bias, which takes the dtype)
+XLSTM_FLOAT32_KEYS = ("wi", "wf", "bf", "W", "R", "b")
+RECURRENT = (MAMBA, MLSTM, SLSTM)
+# the decode state's cross-attention K/V of an encoder-decoder layer
+CROSS_KEYS = ("xk", "xv")
 
 
 def check_supported(cfg: ArchConfig):
     for mixer, ffn in cfg.layers:
-        if mixer not in (ATTN, ATTN_LOCAL, MAMBA) or ffn not in (DENSE, MOE):
+        if mixer not in (ATTN, ATTN_LOCAL) + RECURRENT or ffn not in (DENSE, MOE, NONE):
             raise NotImplementedError(
-                f"{cfg.name}: layer ({mixer}, {ffn}) is not ported yet; the port "
-                "serves attention or Mamba mixers with dense or MoE FFNs (ROADMAP queue 1, "
-                "\"Other mixers, archs and tools\")")
-    if cfg.is_encoder_decoder or cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: not ported yet (ROADMAP queue 1, "
-                                  "\"Other mixers, archs and tools\")")
+                f"{cfg.name}: layer ({mixer}, {ffn}) is not a layer of the reference; the "
+                "port serves attention, Mamba, mLSTM or sLSTM mixers with dense, MoE or no "
+                "FFNs")
+    if cfg.is_encoder_decoder and any(m not in (ATTN, ATTN_LOCAL) for m, _ in cfg.layers):
+        raise NotImplementedError(f"{cfg.name}: an encoder-decoder's decoder layers attend "
+                                  "(the cross-attention K/V ride an attention layer's state)")
+
+
+def frontend_prefix(cfg: ArchConfig) -> int:
+    """Frontend tokens ahead of each prompt in the decode state: a
+    frontend config that is no encoder-decoder (internvl2's patches,
+    ``_embed_inputs``); 0 otherwise (whisper's frames feed its encoder)."""
+    return cfg.n_frontend_tokens if cfg.frontend and not cfg.is_encoder_decoder else 0
 
 
 def supports_kv_extend(cfg: ArchConfig) -> bool:
     """Whether every token's context lives in K/V form, so a prompt can be
     extended over cached K/V (reference ``model.py:550``): attention-only
-    stacks. A Mamba layer compresses its history into a state that cannot
-    be sliced per token, so chunked prefill and the prefix cache turn off
-    (``serving/engine``)."""
-    return all(m in (ATTN, ATTN_LOCAL) for m, _ in cfg.layers)
+    stacks with no encoder-decoder cross state and no frontend prefix. A
+    recurrent layer (Mamba, xLSTM) compresses its history into a state that
+    cannot be sliced per token, so chunked prefill and the prefix cache turn
+    off (``serving/engine``)."""
+    return (not cfg.is_encoder_decoder and cfg.frontend is None
+            and all(m in (ATTN, ATTN_LOCAL) for m, _ in cfg.layers))
 
 
 def retrievers(cfg: ArchConfig, fkv: FreeKVConfig) -> list:
     """One retriever a layer (reference ``model.py:98-115``): ``ATTN`` ->
     ``make_retriever``, ``ATTN_LOCAL`` -> the sliding window with no sink,
-    ``MAMBA`` -> None. Layers of one kind share one object."""
-    by_kind = {ATTN: make_retriever(cfg, fkv), MAMBA: None}
+    a recurrent mixer -> None. Layers of one kind share one object."""
+    by_kind = {ATTN: make_retriever(cfg, fkv), MAMBA: None, MLSTM: None, SLSTM: None}
     if any(m == ATTN_LOCAL for m, _ in cfg.layers):
         by_kind[ATTN_LOCAL] = StreamingRetriever(cfg, fkv, window=cfg.sliding_window, n_sink=0)
     return [by_kind[m] for m, _ in cfg.layers]
@@ -114,9 +145,10 @@ def _norm(cfg, d, dtype, dev):
 def init_params(cfg: ArchConfig, seed: int = 0, device="cuda", dtype=torch.float32):
     """Random parameters from a seeded ``torch.Generator`` on ``device``:
     normal(0, 1/d_in) dense weights as in the reference's init (not the same
-    numbers: those come from ``params_from_jax``); the MoE and Mamba layers
-    from ``moe.moe_init`` and ``ssm.mamba_init``, their ``FLOAT32_KEYS``
-    leaves float32."""
+    numbers: those come from ``params_from_jax``); the MoE, Mamba and xLSTM
+    layers from ``moe.moe_init``, ``ssm.mamba_init`` and ``xlstm``'s
+    ``mlstm_init``/``slstm_init``, their float32 leaves float32; an
+    encoder-decoder's cross-attention sublayers and encoder after."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -135,26 +167,43 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda", dtype=torch.float
     embed = {"tok": normal((vp, d), 1.0 / math.sqrt(d))}
     if not cfg.tie_embeddings:
         embed["head"] = dense(d, vp)
-    layers = []
-    for mixer, ffn in cfg.layers:
+    def attn_mixer():
+        return {"wq": dense(d, cfg.n_heads * dh), "wk": dense(d, cfg.n_kv_heads * dh),
+                "wv": dense(d, cfg.n_kv_heads * dh), "wo": dense(cfg.n_heads * dh, d)}
+
+    def layer(mixer, ffn, cross=False):
+        lp = {"norm1": _norm(cfg, d, dtype, dev)}
         if ffn == MOE:
-            mlp = moe.moe_init(cfg, draw, dtype)
-        else:
-            mlp = {"up": dense(d, cfg.d_ff), "down": dense(cfg.d_ff, d)}
+            lp["ffn"] = moe.moe_init(cfg, draw, dtype)
+        elif ffn == DENSE:
+            lp["ffn"] = {"up": dense(d, cfg.d_ff), "down": dense(cfg.d_ff, d)}
             if cfg.gated_mlp:
-                mlp["gate"] = dense(d, cfg.d_ff)
+                lp["ffn"]["gate"] = dense(d, cfg.d_ff)
         if mixer == MAMBA:
-            mix = ssm.mamba_init(cfg, draw, dtype)
+            lp["mixer"] = ssm.mamba_init(cfg, draw, dtype)
+        elif mixer == MLSTM:
+            lp["mixer"] = xlstm.mlstm_init(cfg, draw, dtype)
+        elif mixer == SLSTM:
+            lp["mixer"] = xlstm.slstm_init(cfg, draw, dtype)
         else:
-            mix = {"wq": dense(d, cfg.n_heads * dh), "wk": dense(d, cfg.n_kv_heads * dh),
-                   "wv": dense(d, cfg.n_kv_heads * dh), "wo": dense(cfg.n_heads * dh, d)}
-        lp = {"norm1": _norm(cfg, d, dtype, dev), "mixer": mix,
-              "norm2": _norm(cfg, d, dtype, dev), "ffn": mlp}
+            lp["mixer"] = attn_mixer()
+        if cross:
+            lp["xnorm"] = _norm(cfg, d, dtype, dev)
+            lp["xattn"] = attn_mixer()
+        if ffn != NONE:
+            lp["norm2"] = _norm(cfg, d, dtype, dev)
         if cfg.post_block_norm:
             lp["postnorm1"] = _norm(cfg, d, dtype, dev)
             lp["postnorm2"] = _norm(cfg, d, dtype, dev)
-        layers.append(lp)
-    return {"embed": embed, "final_norm": _norm(cfg, d, dtype, dev), "layers": layers}
+        return lp
+
+    cross = cfg.is_encoder_decoder
+    params = {"embed": embed, "layers": [layer(m, f, cross) for m, f in cfg.layers]}
+    params["final_norm"] = _norm(cfg, d, dtype, dev)
+    if cross:
+        params["encoder"] = {"layers": [layer(ATTN, DENSE) for _ in range(cfg.n_encoder_layers)],
+                             "final_norm": _norm(cfg, d, dtype, dev)}
+    return params
 
 
 def params_from_jax(cfg: ArchConfig, np_params, device="cuda", dtype=None):
@@ -165,19 +214,22 @@ def params_from_jax(cfg: ArchConfig, np_params, device="cuda", dtype=None):
     in ``cfg.layers`` order; dense weights keep the ``x @ W`` orientation
     (d_in, d_out) — nothing is transposed. ``dtype`` None keeps each leaf's;
     the ``FLOAT32_KEYS`` leaves (the MoE router, Mamba's ``A_log`` and
-    ``D``) stay float32 whatever ``dtype`` is."""
+    ``D``) and an xLSTM mixer's ``XLSTM_FLOAT32_KEYS`` stay float32 whatever
+    ``dtype`` is. An encoder-decoder's stacked encoder layers are split
+    likewise into ``params["encoder"]["layers"]``."""
     check_supported(cfg)
     dev = resolve_device(device)
 
-    def conv(tree, key=None):
+    def conv(tree, key=None, parent=None):
         if isinstance(tree, dict):
-            return {k: conv(v, k) for k, v in tree.items()}
+            return {k: conv(v, k, key) for k, v in tree.items()}
         arr = np.asarray(tree)
         if arr.dtype.name == "bfloat16":          # ml_dtypes: exact via float32
             t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(arr, copy=True))
-        to = torch.float32 if key in FLOAT32_KEYS else (dtype or t.dtype)
+        f32 = key in FLOAT32_KEYS or (parent == "mixer" and key in XLSTM_FLOAT32_KEYS)
+        to = torch.float32 if f32 else (dtype or t.dtype)
         return t.to(device=dev, dtype=to)
 
     def index(tree, i):
@@ -189,8 +241,14 @@ def params_from_jax(cfg: ArchConfig, np_params, device="cuda", dtype=None):
     for i in range(cfg.n_periods):
         for stacked in np_params["pattern"]:
             layers.append(conv(index(stacked, i)))
-    return {"embed": conv(np_params["embed"]), "final_norm": conv(np_params["final_norm"]),
-            "layers": layers}
+    out = {"embed": conv(np_params["embed"]), "final_norm": conv(np_params["final_norm"]),
+           "layers": layers}
+    if cfg.is_encoder_decoder:
+        enc = np_params["encoder"]
+        out["encoder"] = {"layers": [conv(index(enc["layers"], i))
+                                     for i in range(cfg.n_encoder_layers)],
+                          "final_norm": conv(enc["final_norm"])}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +265,10 @@ def _residual(cfg, lp, x, out, which):
 def _ffn(cfg, layer, lp, x):
     """The FFN sublayer of every path: a ``MOE`` layer routes the call's
     flattened (B * T, d) tokens together (reference ``_apply_ffn``), so its
-    capacity couples the call's rows; the load-balance term is dropped."""
+    capacity couples the call's rows; the load-balance term is dropped. An
+    xLSTM block (``NONE``) has none."""
+    if layer[1] == NONE:
+        return x
     h = L.apply_norm(cfg, lp["norm2"], x)
     if layer[1] == MOE:
         out = moe.apply_moe(cfg, lp["ffn"], h)[0]
@@ -220,16 +281,44 @@ def _window(cfg, layer):
     return cfg.sliding_window if layer[0] == ATTN_LOCAL else None
 
 
+def _recurrent_state(cfg, mixer, batch, dtype, dev):
+    """A recurrent mixer's empty state: Mamba's ``h`` float32 and ``conv``
+    at ``dtype``; the xLSTM states float32 whatever ``dtype`` is."""
+    if mixer == MAMBA:
+        return ssm.mamba_init_state(cfg, batch, dtype, dev)
+    if mixer == MLSTM:
+        return xlstm.mlstm_init_state(cfg, batch, dev)
+    return xlstm.slstm_init_state(cfg, batch, dev)
+
+
+# a recurrent mixer's prompt pass (-> y and its final state with
+# ``return_state=True``) and decode step (its state updated in place)
+_FORWARD = {MAMBA: ssm.mamba_forward, MLSTM: xlstm.mlstm_forward, SLSTM: xlstm.slstm_forward}
+_DECODE_STEP = {MAMBA: ssm.mamba_decode_step, MLSTM: xlstm.mlstm_decode_step,
+                SLSTM: xlstm.slstm_decode_step}
+
+
+def _layer_state(cfg, layer, r, batch, max_len, dtype, dev):
+    if r is None:
+        return _recurrent_state(cfg, layer[0], batch, dtype, dev)
+    st = r.init_state(batch, max_len, dtype, dev)
+    if cfg.is_encoder_decoder:
+        shape = (batch, cfg.n_frontend_tokens, cfg.n_kv_heads, cfg.d_head)
+        for key in CROSS_KEYS:
+            st[key] = torch.zeros(shape, dtype=dtype, device=dev)
+    return st
+
+
 def init_decode_state(cfg: ArchConfig, fkv: FreeKVConfig, batch_size: int,
                       max_len: int, dtype=torch.bfloat16, device="cuda"):
-    """The empty decode state at batch ``batch_size``: each attention
-    layer's retriever state, each Mamba layer's ``ssm.mamba_init_state``
-    (``h`` float32, ``conv`` at ``dtype``)."""
+    """The empty decode state at batch ``batch_size`` (reference
+    ``model.py:441-476``): each attention layer's retriever state (with the
+    cross-attention ``xk``/``xv`` zeros at ``dtype`` under an
+    encoder-decoder), each recurrent layer's (``_recurrent_state``)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    out = {"layers": [ssm.mamba_init_state(cfg, batch_size, dtype, dev) if r is None
-                      else r.init_state(batch_size, max_len, dtype, dev)
-                      for r in retrievers(cfg, fkv)],
+    out = {"layers": [_layer_state(cfg, layer, r, batch_size, max_len, dtype, dev)
+                      for layer, r in zip(cfg.layers, retrievers(cfg, fkv))],
            "pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
            "pos_host": torch.zeros((batch_size,), dtype=torch.int32)}
     if fkv.draft_len > 0:               # the speculative drafter's lane
@@ -259,22 +348,29 @@ def prefill(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, max_len: int,
     chunk, whose state the final chunk rebuilds from the whole prompt's K/V
     (and which may be shorter than the sink and the window ring).
 
-    A Mamba layer runs ``ssm.mamba_forward`` over the whole prompt and
-    keeps its final state (new tensors, which ``SlotPool.insert`` copies
-    into the slot); its ``kv`` entry is None."""
+    A recurrent layer (Mamba, xLSTM) runs over the whole prompt and keeps
+    its final state (new tensors, which ``SlotPool.insert`` copies into the
+    slot); its ``kv`` entry is None.
+
+    ``batch["frontend"]`` (B, F, d), a frontend config's stub embeddings:
+    an encoder-decoder's encoder runs over them (``_encode``) and every
+    decoder layer's cross-attention attends to its output, whose K/V the
+    state keeps as ``xk``/``xv`` at ``state_dtype``; otherwise they sit
+    ahead of the prompt (``_embed_inputs``) and the state's length counts
+    them."""
     check_supported(cfg)
-    tokens = batch["tokens"]
-    x = L.embed_tokens(cfg, params["embed"], tokens)
-    B, T = tokens.shape
+    x, positions = _embed_inputs(cfg, params, batch)
+    B, T = x.shape[:2]
     dev = x.device
-    positions = torch.arange(T, device=dev)[None].expand(B, T)
+    enc = _encode(cfg, params, batch["frontend"]) if cfg.is_encoder_decoder else None
     retrs = retrievers(cfg, fkv)
     states, kvs = [], []
     for i, lp in enumerate(params["layers"]):
+        layer = cfg.layers[i]
         h = L.apply_norm(cfg, lp["norm1"], x)
-        if cfg.layers[i][0] == MAMBA:
-            o, st = ssm.mamba_forward(cfg, lp["mixer"], h, return_state=True)
-            x = _ffn(cfg, cfg.layers[i], lp, _residual(cfg, lp, x, o, "1"))
+        if layer[0] in RECURRENT:
+            o, st = _FORWARD[layer[0]](cfg, lp["mixer"], h, return_state=True)
+            x = _ffn(cfg, layer, lp, _residual(cfg, lp, x, o, "1"))
             if build_state:
                 states.append(st)
             if return_kv:
@@ -282,13 +378,23 @@ def prefill(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, max_len: int,
             continue
         q, k, v = attn.qkv_proj(cfg, lp["mixer"], h, positions)
         o = attn.attention_prefill(cfg, q, k, v, positions, positions,
-                                   window=_window(cfg, cfg.layers[i]))
+                                   window=_window(cfg, layer))
         x = _residual(cfg, lp, x, attn.out_proj(cfg, lp["mixer"], o), "1")
-        x = _ffn(cfg, cfg.layers[i], lp, x)
+        if enc is not None:
+            xk, xv = _enc_kv(cfg, lp, enc)
+            x = _cross(cfg, lp, x, positions, xk, xv)
+        x = _ffn(cfg, layer, lp, x)
         if build_state:
             r = retrs[i]
             st = into[i] if into is not None else r.init_state(B, max_len, state_dtype, dev)
-            states.append(r.prefill(st, k, v, q[:, -1].contiguous()))
+            # the retriever never sees the cross-attention leaves (reference
+            # ``model.py:657-661``); a slot's rows take them in place
+            rows = {key: st.pop(key) for key in CROSS_KEYS if key in st}
+            st = r.prefill(st, k, v, q[:, -1].contiguous())
+            if enc is not None:
+                for key, t in zip(CROSS_KEYS, (xk, xv)):
+                    st[key] = rows[key].copy_(t) if key in rows else t.to(state_dtype)
+            states.append(st)
         if return_kv:
             kvs.append((k, v))
         del q, k, v, o, h
@@ -298,6 +404,62 @@ def prefill(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, max_len: int,
     if return_kv:
         return logits, state, kvs
     return logits, state
+
+
+def _embed_inputs(cfg: ArchConfig, params, batch):
+    """The prompt's embeddings and positions (reference ``model.py:321``):
+    a frontend config that is no encoder-decoder (internvl2) puts
+    ``batch["frontend"]`` (B, F, d), cast to the embeddings' dtype, ahead
+    of the tokens' (B, T, d); positions run over the whole F + T."""
+    x = L.embed_tokens(cfg, params["embed"], batch["tokens"])
+    if frontend_prefix(cfg) and "frontend" in batch:
+        x = torch.cat([batch["frontend"].to(x.dtype), x], dim=1)
+    B, T = x.shape[:2]
+    return x, torch.arange(T, device=x.device)[None].expand(B, T)
+
+
+def _encode(cfg: ArchConfig, params, frontend):
+    """The encoder (reference ``model.py:293``): RoPE'd bidirectional
+    self-attention over the frontend's F frames at positions 0..F-1
+    (``flash_prefill(causal=False)`` on the card), a dense FFN, the
+    encoder's final norm -> (B, F, d).
+
+    The frames are cast to the weights' dtype. The reference runs its
+    encoder at the frames' dtype (float32 from the engine), promoting bf16
+    weights; at float32 weights the two are the same computation."""
+    enc = params["encoder"]
+    x = frontend.to(params["embed"]["tok"].dtype)
+    B, F_ = x.shape[:2]
+    pos = torch.arange(F_, device=x.device)[None].expand(B, F_)
+    for lp in enc["layers"]:
+        h = L.apply_norm(cfg, lp["norm1"], x)
+        q, k, v = attn.qkv_proj(cfg, lp["mixer"], h, pos)
+        o = attn.attention_prefill(cfg, q, k, v, pos, pos, causal=False)
+        x = x + attn.out_proj(cfg, lp["mixer"], o)
+        x = _ffn(cfg, (ATTN, DENSE), lp, x)
+        del q, k, v, o, h
+    return L.apply_norm(cfg, enc["final_norm"], x)
+
+
+def _enc_kv(cfg: ArchConfig, lp, enc):
+    """One decoder layer's cross-attention K/V (B, F, kv, d_head) from the
+    encoder's output, not RoPE'd (reference ``model.py:310``)."""
+    B, F_ = enc.shape[:2]
+    shape = (B, F_, cfg.n_kv_heads, cfg.d_head)
+    return (enc @ lp["xattn"]["wk"]).reshape(shape), (enc @ lp["xattn"]["wv"]).reshape(shape)
+
+
+def _cross(cfg: ArchConfig, lp, x, pos, xk, xv):
+    """x + the cross-attention sublayer (reference ``model.py:279-285`` and
+    ``:672-679``): queries at ``pos`` (B, T), not RoPE'd, over every one of
+    the encoder's F keys. Torch ops, as the reference's plain jnp."""
+    h = L.apply_norm(cfg, lp["xnorm"], x)
+    B, T = h.shape[:2]
+    q = (h @ lp["xattn"]["wq"]).reshape(B, T, cfg.n_heads, cfg.d_head)
+    F_ = xk.shape[1]
+    epos = torch.arange(F_, device=x.device)[None].expand(B, F_)
+    o = attn.attention_dense(cfg, q, xk, xv, pos, epos, causal=False)
+    return x + attn.out_proj(cfg, lp["xattn"], o)
 
 
 def _new_state(states, B, length, dev):
@@ -329,11 +491,13 @@ def prefill_extend(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, kv, prefix
     (a chunked prefill's intermediate chunks).
 
     Returns (logits, state); the suffix's K/V is left in ``kv``. Only
-    for ``supports_kv_extend`` stacks (no Mamba layer)."""
+    for ``supports_kv_extend`` stacks (no recurrent layer, encoder or
+    frontend prefix)."""
     check_supported(cfg)
     if not supports_kv_extend(cfg):
-        raise NotImplementedError(f"{cfg.name}: a Mamba layer's state cannot be extended "
-                                  "over cached K/V (supports_kv_extend)")
+        raise NotImplementedError(f"{cfg.name}: a recurrent state, a cross-attention state or "
+                                  "a frontend prefix cannot be extended over cached K/V "
+                                  "(supports_kv_extend)")
     tokens = batch["tokens"]
     x = L.embed_tokens(cfg, params["embed"], tokens)
     B, S = tokens.shape
@@ -389,10 +553,12 @@ def serve_step(cfg: ArchConfig, fkv: FreeKVConfig, params, state, tokens,
     step through every layer; ``state`` is updated in place and returned.
     Each layer's retriever gets the previous attention layer's query as
     ``q_proxy`` (zeros for the first, reference ``model.py:647-664``; None
-    for every method but InfiniGen, the one that reads it); a Mamba layer
-    steps its state in place with ``ssm.mamba_decode_step`` and passes
-    ``q_proxy`` on unchanged; ``stats`` sum the global (``ATTN``) layers'
-    info only."""
+    for every method but InfiniGen, the one that reads it); a recurrent
+    layer steps its state in place (``ssm.mamba_decode_step``,
+    ``xlstm.mlstm_decode_step``/``slstm_decode_step``) and passes
+    ``q_proxy`` on unchanged; an encoder-decoder layer's cross-attention
+    follows its self-attention, over the state's ``xk``/``xv``; ``stats``
+    sum the global (``ATTN``) layers' info only."""
     x = L.embed_tokens(cfg, params["embed"], tokens)
     B = x.shape[0]
     dev = x.device
@@ -404,19 +570,27 @@ def serve_step(cfg: ArchConfig, fkv: FreeKVConfig, params, state, tokens,
                if fkv.method == "infinigen" else None)
     stats = {k: torch.zeros((B,), dtype=torch.float32, device=dev) for k in DECODE_STAT_KEYS}
     for i, lp in enumerate(params["layers"]):
+        layer = cfg.layers[i]
         h = L.apply_norm(cfg, lp["norm1"], x)
-        if cfg.layers[i][0] == MAMBA:
-            o, _ = ssm.mamba_decode_step(cfg, lp["mixer"], h, state["layers"][i])
-            x = _ffn(cfg, cfg.layers[i], lp, _residual(cfg, lp, x, o, "1"))
+        if layer[0] in RECURRENT:
+            o, _ = _DECODE_STEP[layer[0]](cfg, lp["mixer"], h, state["layers"][i])
+            x = _ffn(cfg, layer, lp, _residual(cfg, lp, x, o, "1"))
             continue
         q, k, v = attn.qkv_proj(cfg, lp["mixer"], h, pos[:, None])
         q = q[:, 0].contiguous()
-        o, st, info = retrs[i].decode(state["layers"][i], q, k[:, 0], v[:, 0],
+        st = state["layers"][i]
+        cross = {key: st[key] for key in CROSS_KEYS if key in st}
+        if cross:      # the retriever never sees them (reference model.py:657-661)
+            st = {key: t for key, t in st.items() if key not in CROSS_KEYS}
+        o, st, info = retrs[i].decode(st, q, k[:, 0], v[:, 0],
                                       length_host=pos_host, q_proxy=q_proxy)
         q_proxy = q
+        st.update(cross)
         state["layers"][i] = st
         x = _residual(cfg, lp, x, attn.out_proj(cfg, lp["mixer"], o[:, None]), "1")
-        x = _ffn(cfg, cfg.layers[i], lp, x)
+        if cross:
+            x = _cross(cfg, lp, x, pos[:, None], cross["xk"], cross["xv"])
+        x = _ffn(cfg, layer, lp, x)
         if collect_stats and cfg.layers[i][0] == ATTN:
             s = _info_stats(info, B, dev)
             stats = {key: stats[key] + s[key] for key in stats}
@@ -520,10 +694,11 @@ def supports_spec_decode(cfg: ArchConfig, fkv: FreeKVConfig) -> bool:
     """Whether ``draft_len`` can run exactly (reference ``model.py:864``):
     every drafted row must take the exact sequential retrieval step, so
     the retriever needs a rewindable selection buffer (the FreeKV family;
-    the local layers of gemma2 are streaming rings), over attention and
-    dense-FFN layers only."""
-    return (fkv.draft_len > 0 and fkv.method in SPEC_METHODS
-            and all(m in (ATTN, ATTN_LOCAL) and f == DENSE for m, f in cfg.layers))
+    the local layers of gemma2 are streaming rings), over a stack that
+    ``supports_kv_extend`` (no recurrent layer, no encoder-decoder, no
+    frontend prefix) with dense FFNs only."""
+    return (fkv.draft_len > 0 and fkv.method in SPEC_METHODS and supports_kv_extend(cfg)
+            and all(f == DENSE for _, f in cfg.layers))
 
 
 @torch.no_grad()

@@ -21,11 +21,17 @@ attended context, as in the reference. The default 1 pads nothing.
 
 Under the continuous scheduler, as in the reference:
 
-A stack with a Mamba layer (jamba) keeps its history in a recurrent state
-that cannot be extended over cached K/V (``models.model
-.supports_kv_extend``): chunked prefill and the prefix cache then turn off,
-as in the reference. MoE layers route each call's tokens together, so
-rows meet in the router (``models/moe``).
+A stack with a recurrent layer (jamba's Mamba, xlstm's mLSTM and sLSTM)
+keeps its history in a state that cannot be extended over cached K/V, and
+an encoder-decoder's cross-attention state and a frontend prefix cannot be
+either (``models.model.supports_kv_extend``): chunked prefill and the
+prefix cache then turn off, as in the reference. MoE layers route each
+call's tokens together, so rows meet in the router (``models/moe``).
+
+A frontend config (whisper's audio frames, internvl2's patches) takes each
+request's ``Request.frontend`` (n_frontend_tokens, d_model) embeddings,
+zeros where a request has none, as the reference: whisper's encoder runs
+over them; internvl2's sit ahead of the (left-padded) prompt.
 
 * ``prefix_cache_tokens > 0``: a radix-trie prefix cache
   (``serving/prefix_cache``) keyed by the padded prompt. A hit skips the
@@ -77,7 +83,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import MOE, ArchConfig, FreeKVConfig
 from repro_torch.core.recall_pipeline import RecallFlightTracker
 from repro_torch.models.model import (DECODE_STAT_KEYS, decode_window, decode_window_spec,
-                                      prefill, prefill_extend, serve_step,
+                                      frontend_prefix, prefill, prefill_extend, serve_step,
                                       supports_kv_extend, supports_spec_decode)
 from repro_torch.obs import Observability
 from repro_torch.quant.accounting import page_block_bytes, page_block_bytes_dense
@@ -108,6 +114,10 @@ class Request:
     # the prompt's in the slot's table at admission. It steers which drafts
     # are proposed, never which tokens are emitted
     draft_hint: Optional[np.ndarray] = None
+    # a frontend config's stub embeddings (n_frontend_tokens, d_model): the
+    # audio frames whisper's encoder reads, the patches internvl2 puts ahead
+    # of the prompt; None serves zeros (reference ``engine.py:71``)
+    frontend: Optional[np.ndarray] = None
 
 
 @dataclass
@@ -173,6 +183,8 @@ class PrefillJob:
         into = self.pool.claim(self.slot) if last and self.pool is not None else None
         batch = {"tokens": torch.from_numpy(self.tokens[None, self.pos: self.pos + n]).long()
                  .to(eng.device)}
+        if self.pos == 0:
+            batch.update(eng._frontend_batch([self.req]))
         common = dict(max_len=eng.max_len, state_dtype=eng.state_dtype, build_state=last,
                       into=into)
         if self.pos == 0:
@@ -239,7 +251,7 @@ class ServeEngine:
         self.slo_ttft_ms = slo_ttft_ms
         self.slo_itl_ms = slo_itl_ms
         # kept across generate() calls, as the reference's; none for a stack
-        # whose context is not all K/V (a Mamba layer), as the reference's
+        # whose context is not all K/V (supports_kv_extend), as the reference's
         self._can_extend = supports_kv_extend(cfg)
         self.prefix_cache = (RadixPrefixCache(prefix_cache_tokens)
                              if prefix_cache_tokens > 0 and self._can_extend else None)
@@ -348,14 +360,28 @@ class ServeEngine:
         state["draft_tab"] = torch.from_numpy(tab).to(self.device)
         return state
 
+    def _frontend_batch(self, reqs: List[Request]) -> dict:
+        """``{"frontend": (B, F, d) float32}`` for a frontend config, each
+        request's embeddings or zeros (reference ``engine.py:450-454``,
+        ``:562-567``); ``{}`` otherwise."""
+        cfg = self.cfg
+        if cfg.frontend is None:
+            return {}
+        fe = np.stack([np.zeros((cfg.n_frontend_tokens, cfg.d_model), np.float32)
+                       if r.frontend is None else np.asarray(r.frontend, np.float32)
+                       for r in reqs])
+        return {"frontend": torch.from_numpy(fe).to(self.device)}
+
     def _padded_prompt(self, req: Request) -> np.ndarray:
         """The prompt left-padded to a whole number of buckets."""
         tokens = np.asarray(req.tokens, np.int32)
         b = self.prefill_bucket
         padded_len = max(b, -(-len(tokens) // b) * b)
-        if padded_len + req.max_new_tokens > self.max_len:
-            raise ValueError(f"request {req.uid}: padded prompt {padded_len} + "
-                             f"{req.max_new_tokens} new tokens exceeds max_len {self.max_len}")
+        prefix = frontend_prefix(self.cfg)
+        if prefix + padded_len + req.max_new_tokens > self.max_len:
+            raise ValueError(f"request {req.uid}: {prefix} frontend tokens + padded "
+                             f"prompt {padded_len} + {req.max_new_tokens} new tokens exceeds "
+                             f"max_len {self.max_len}")
         out = np.full((padded_len,), self.pad_token, np.int32)
         out[padded_len - len(tokens):] = tokens
         return out
@@ -471,9 +497,13 @@ class ServeEngine:
         toks = np.zeros((B, T), np.int32)
         for i, r in enumerate(reqs):            # left-pad to align the last token
             toks[i, T - len(r.tokens):] = r.tokens
-        if T + max(r.max_new_tokens for r in reqs) > self.max_len:
-            raise ValueError(f"prompt {T} + new tokens exceeds max_len {self.max_len}")
-        batch = {"tokens": torch.from_numpy(toks).long().to(self.device)}
+        prefix = frontend_prefix(cfg)
+        if prefix + T + max(r.max_new_tokens for r in reqs) > self.max_len:
+            raise ValueError(f"{prefix} frontend tokens + prompt {T} + new tokens "
+                             f"exceeds max_len {self.max_len}")
+        # a frontend prefix sits ahead of the left padding (``_embed_inputs``)
+        batch = {"tokens": torch.from_numpy(toks).long().to(self.device),
+                 **self._frontend_batch(reqs)}
 
         t0 = time.perf_counter()
         rms = [RequestMetrics(uid=r.uid, prompt_tokens=len(r.tokens),

@@ -70,10 +70,11 @@ class SlotPool:
         self.device = resolve_device(device)
         self.state = init_decode_state(cfg, fkv, num_slots, max_len, state_dtype, self.device)
         # every leaf of an empty state is one constant (zeros, or -1 for
-        # the position and page-id leaves, -1e9 for RaaS's timestamps): read
-        # them off a tiny one, a layer at a time (gemma2's local layers hold
-        # other leaves than its global ones; an empty leaf, a sink of 0
-        # tokens, takes 0)
+        # the position and page-id leaves, -1e9 for RaaS's timestamps,
+        # -1e30 for the mLSTM's m, 1 for the sLSTM's n; whisper's xk/xv
+        # zeros): read them off a tiny one, a layer at a time (gemma2's
+        # local layers hold other leaves than its global ones; an empty
+        # leaf, a sink of 0 tokens, takes 0)
         tiny = init_decode_state(cfg, fkv, 1, fkv.page_size, state_dtype, "cpu")
         self._fill = [{k: t.flatten()[0].item() if t.numel() else 0
                        for k, t in _tensors(layer).items()} for layer in tiny["layers"]]

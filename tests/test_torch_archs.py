@@ -6,21 +6,27 @@ budget 64:
 * qwen25-7b, gemma2-2b (sliding-window local layers served by a sink-less
   ``StreamingRetriever``, post-block norms, softcaps), smollm-360m,
   stablelm-3b (LayerNorm, 25% rotary), deepseek-moe-16b and
-  llama4-scout-17b-a16e (MoE FFNs) and jamba-1.5-large-398b (a Mamba + MoE
-  and an attention + dense layer), each at its smoke width (4 heads over 2
-  KV heads) and at a narrow config that keeps its real head layout (qwen
-  28/4, smollm 15/5, stablelm 32/32 at d_head 80, gemma2 8/4 at d_head
-  256, deepseek 16/16, scout 40/8 and jamba 64/8 at d_head 128): prefill
-  logits within 2e-5 of the reference's and the prefill's decode state
-  leaf for leaf (integers exactly; a Mamba layer's ``h`` and ``conv``),
-  then greedy tokens, steps and per-request block counts through the
-  continuous engine exactly equal to the JAX engine's;
+  llama4-scout-17b-a16e (MoE FFNs), jamba-1.5-large-398b (a Mamba + MoE
+  and an attention + dense layer), xlstm-350m (an mLSTM and an sLSTM
+  block), whisper-tiny (an encoder over 16 zero frames, cross-attention in
+  every decoder layer) and internvl2-26b (16 zero patches ahead of each
+  prompt), each at its smoke width (4 heads over 2 KV heads) and, but for
+  xlstm, at a narrow config that keeps its real head layout (qwen 28/4,
+  smollm 15/5, stablelm 32/32 at d_head 80, gemma2 8/4 at d_head 256,
+  deepseek 16/16, scout 40/8, jamba 64/8 and internvl2 48/8 at d_head 128,
+  whisper 6/6 at d_head 64): prefill logits within 2e-5 of the reference's
+  and the prefill's decode state leaf for leaf (integers exactly; a
+  recurrent layer's state, whisper's ``xk``/``xv``), then greedy tokens,
+  steps and per-request block counts through the continuous engine exactly
+  equal to the JAX engine's;
 * quest, raas, streaming, infinigen and freekv with ``select_top_p`` on a
   2-layer llama31-8b-smoke through the continuous engine: tokens and block
   counts exactly equal;
 * gemma2-smoke's chunked prefill and a prefix-cache hit, and a preemption
   under RaaS and Quest, against the JAX engine (tokens, chunks, hits,
-  preemptions, swap bytes).
+  preemptions, swap bytes);
+* ``supports_kv_extend`` and ``supports_spec_decode`` giving the
+  reference's answers for every arch it registers.
 
 The JAX engine of a config is built once and serves both its prefill check
 (``prefill_one`` at the traffic's prompt length) and its run."""
@@ -32,6 +38,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget_config
+from repro.configs import list_archs as jlist_archs
 from repro.configs.base import FreeKVConfig as JFreeKVConfig
 from repro.models import model as jmodel
 from repro.serving.engine import Request as JRequest
@@ -48,11 +55,16 @@ FKV = dict(page_size=8, budget=64, n_sink=8, n_window=8, tau=0.8)
 TOL = dict(atol=2e-5, rtol=2e-5)
 MAX_LEN = 192
 ARCHS = ("qwen25-7b", "gemma2-2b", "smollm-360m", "stablelm-3b", "deepseek-moe-16b",
-         "llama4-scout-17b-a16e", "jamba-1.5-large-398b")
-# (heads, KV heads, d_head) of each arch at full width
+         "llama4-scout-17b-a16e", "jamba-1.5-large-398b", "xlstm-350m", "whisper-tiny",
+         "internvl2-26b")
+# (heads, KV heads, d_head) of each attention arch at full width (xlstm's
+# heads only split its mixers' widths, which its smoke form already has)
 REAL = {"qwen25-7b": (28, 4, 128), "gemma2-2b": (8, 4, 256), "smollm-360m": (15, 5, 64),
         "stablelm-3b": (32, 32, 80), "deepseek-moe-16b": (16, 16, 128),
-        "llama4-scout-17b-a16e": (40, 8, 128), "jamba-1.5-large-398b": (64, 8, 128)}
+        "llama4-scout-17b-a16e": (40, 8, 128), "jamba-1.5-large-398b": (64, 8, 128),
+        "whisper-tiny": (6, 6, 64), "internvl2-26b": (48, 8, 128)}
+ARCH_CASES = [pytest.param(a, r, id=f"{a}-{'real-heads' if r else 'smoke'}")
+              for a in ARCHS for r in (False, True) if not r or a in REAL]
 # three requests over two slots: one prompt length (one prefill compile),
 # limits that turn a slot over while the other decodes; gemma2-smoke's
 # 72-token prompts exceed its 64-token sliding window
@@ -131,8 +143,7 @@ def _arch_run(arch, real):
     return _ARCH_RUNS[key]
 
 
-@pytest.mark.parametrize("real", [False, True], ids=["smoke", "real-heads"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,real", ARCH_CASES)
 def test_arch_prefill_matches_reference(arch, real):
     """Prefill logits within 2e-5 and every layer's decode state equal to
     the reference's: the global layers' paged state, gemma2's local layers'
@@ -157,8 +168,7 @@ def test_arch_prefill_matches_reference(arch, real):
         assert st["layers"][0]["sink_k"].shape[1] == 0
 
 
-@pytest.mark.parametrize("real", [False, True], ids=["smoke", "real-heads"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,real", ARCH_CASES)
 def test_arch_continuous_tokens_match_reference(arch, real):
     """Three requests over two slots through the continuous engine: greedy
     tokens, steps and each request's corrected heads and blocking pages
@@ -244,9 +254,11 @@ def test_features_take_new_archs_and_methods(llama2, case):
 
 
 def test_check_supported_admits_dense_and_refuses_the_rest():
-    """gemma2's local layers and post-block norms, MoE FFNs and Mamba mixers
-    are served; sLSTM, mLSTM and encoder-decoder stacks stay refused with
-    their ROADMAP item, and xlstm-350m is not registered."""
+    """gemma2's local layers and post-block norms, MoE FFNs, Mamba, mLSTM and
+    sLSTM mixers, encoder-decoder and frontend stacks are served: every arch
+    the reference registers is registered and admitted. An unknown mixer or
+    FFN, an encoder-decoder with a recurrent decoder layer and an unknown
+    arch stay refused."""
     gemma = get_config("gemma2-2b")
     model.check_supported(gemma)
     assert gemma.post_block_norm and ATTN_LOCAL in {m for m, _ in gemma.layers}
@@ -261,11 +273,37 @@ def test_check_supported_admits_dense_and_refuses_the_rest():
         model.check_supported(ok)
     assert {MOE} <= {f for _, f in get_config("deepseek-moe-16b").layers}
     assert {MAMBA, "attn"} == {m for m, _ in get_config("jamba-1.5-large-398b").layers}
-    for bad in (dataclasses.replace(base, pattern=((SLSTM, "none"),)),
-                dataclasses.replace(base, pattern=((MLSTM, "dense"),)),
-                dataclasses.replace(base, is_encoder_decoder=True)):
-        with pytest.raises(NotImplementedError,
-                           match='ROADMAP queue 1, "Other mixers, archs and tools"'):
+    for ok in (dataclasses.replace(base, pattern=((SLSTM, "none"),)),
+               dataclasses.replace(base, pattern=((MLSTM, "dense"),)),
+               dataclasses.replace(base, is_encoder_decoder=True),
+               dataclasses.replace(base, frontend="vision", n_frontend_tokens=8)):
+        model.check_supported(ok)
+    for arch in jlist_archs():
+        for name in (arch, arch + "-smoke"):
+            cfg = get_config(name)
+            model.check_supported(cfg)
+            jcfg = jget_config(name)          # every field the port keeps, the same
+            for f in dataclasses.fields(cfg):
+                assert getattr(cfg, f.name) == getattr(jcfg, f.name), (name, f.name)
+    for bad in (dataclasses.replace(base, pattern=(("retnet", "dense"),)),
+                dataclasses.replace(base, pattern=(("attn", "glu2"),)),
+                dataclasses.replace(base, pattern=((MAMBA, "dense"),), is_encoder_decoder=True)):
+        with pytest.raises(NotImplementedError):
             model.check_supported(bad)
     with pytest.raises(KeyError, match="deepseek-moe-16b"):
-        get_config("xlstm-350m")
+        get_config("retnet-1b")
+
+
+@pytest.mark.parametrize("arch", jlist_archs())
+def test_gates_match_reference(arch):
+    """``supports_kv_extend`` and ``supports_spec_decode`` (draft_len 0 and
+    4 under freekv, arkvale, infinigen and quest) give the reference's
+    answers, at full width and smoke width."""
+    for name in (arch, arch + "-smoke"):
+        cfg, jcfg = get_config(name), jget_config(name)
+        assert model.supports_kv_extend(cfg) == jmodel.supports_kv_extend(jcfg), name
+        for method in ("freekv", "arkvale", "infinigen", "quest"):
+            for draft in (0, 4):
+                kw = dict(method=method, draft_len=draft)
+                assert model.supports_spec_decode(cfg, FreeKVConfig(**kw)) == \
+                    jmodel.supports_spec_decode(jcfg, JFreeKVConfig(**kw)), (name, kw)

@@ -1107,3 +1107,90 @@ def test_cuda_service_path_equals_cpu_and_spans_carry_device_time():
     for name, e in rows.items():
         dev_us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
         assert dev_us > 0, f"{name} carries no device time"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("B,T", [(1, 1500), (1, 1536), (4, 1500)])
+def test_cuda_flash_prefill_bidirectional(dtype, B, T):
+    """On the card: flash_prefill with ``causal=False`` at whisper's encoder
+    shape (6/6 heads, d_head 64, T = 1500 frames, which no tile divides; and
+    1536, which the tiles do) within ``_tol`` of its plain version, from the
+    model's transposed (B, T, H, d) views."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; chip_smoke.py runs this on the card")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(B, T, 6, 64, generator=g, device=dev).to(dtype).transpose(1, 2)
+               for _ in range(3))
+    got = ops.flash_prefill(q, k, v, scale=0.125, causal=False)
+    torch.testing.assert_close(got.float(), ref.flash_prefill_ref(q, k, v, 0.125, False).float(),
+                               **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_cuda_xlstm_decode_makes_no_host_sync(kind):
+    """On the card: an xLSTM decode step at xlstm-350m's width (B = 4) runs
+    under ``set_sync_debug_mode("error")``, its state stays float32, and
+    its output and state equal the CPU's within 1e-4 (float32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.configs import get_config
+    from repro_torch.models import xlstm
+    cfg = get_config("xlstm-350m")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(6)
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=g).mul_(std)
+    p = getattr(xlstm, kind + "_init")(cfg, normal)
+    x = torch.randn(4, 1, cfg.d_model, generator=g)
+    s_cpu = getattr(xlstm, kind + "_init_state")(cfg, 4, "cpu")
+    y_cpu, s_cpu = getattr(xlstm, kind + "_decode_step")(cfg, p, x, s_cpu)
+    p_dev = {key: t.to(dev) for key, t in p.items()}
+    s = getattr(xlstm, kind + "_init_state")(cfg, 4, dev)
+    xd = x.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, s = getattr(xlstm, kind + "_decode_step")(cfg, p_dev, xd, s)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.testing.assert_close(y.cpu(), y_cpu, atol=1e-4, rtol=1e-4)
+    for key, t in s.items():
+        assert t.dtype == torch.float32
+        torch.testing.assert_close(t.cpu(), s_cpu[key], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-350m-smoke", "whisper-tiny-smoke",
+                                  "internvl2-26b-smoke"])
+def test_cuda_new_archs_tokens_equal_cpu(arch):
+    """On the card: the continuous engine serves the xLSTM stack, the
+    encoder-decoder (its encoder through flash_prefill(causal=False)) and
+    the frontend prefix with the CPU's greedy tokens (float32, 3 requests
+    over 2 slots, seeded frontends)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; chip_smoke.py runs this on the card")
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import Request, ServeEngine
+    cfg = get_config(arch)
+    dev = torch.device("cuda", 0)
+    fkv = FreeKVConfig(page_size=8, budget=64, n_sink=8, n_window=8)
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    cpu_params = torch.utils._pytree.tree_map(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(7)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    max_new_tokens=m,
+                    frontend=None if cfg.frontend is None else (0.1 * rng.standard_normal(
+                        (cfg.n_frontend_tokens, cfg.d_model))).astype(np.float32))
+            for i, (n, m) in enumerate(((96, 9), (80, 5), (104, 7)))]
+    toks = {}
+    for where, p in (("cuda", params), ("cpu", cpu_params)):
+        eng = ServeEngine(cfg, fkv, p, max_len=192, batch_size=2, device=dev if where == "cuda"
+                          else "cpu")
+        toks[where] = [o.tokens for o in eng.generate(reqs)]
+    assert toks["cuda"] == toks["cpu"]

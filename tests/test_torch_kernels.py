@@ -185,6 +185,32 @@ def test_flash_prefill_ref(B, H, kv, T, d, blk, window, dt):
                                **_tol(name))
 
 
+@pytest.mark.parametrize("dt", DTYPES, ids=lambda d: d[0])
+@pytest.mark.parametrize("B,H,kv,T,d,blk", [(1, 6, 6, 192, 64, 64), (2, 4, 2, 128, 128, 64)])
+def test_flash_prefill_ref_bidirectional(B, H, kv, T, d, blk, dt):
+    """``causal=False``, the encoder's form (whisper: H = kv, d 64): every
+    query sees every key, against the reference's oracle and its Pallas
+    kernel in interpret mode."""
+    name, jdt, tdt = dt
+    rng = np.random.default_rng(8)
+    jq, tq = _pair(rng.standard_normal((B, H, T, d)), jdt, tdt)
+    jk, tk = _pair(rng.standard_normal((B, kv, T, d)), jdt, tdt)
+    jv, tv = _pair(rng.standard_normal((B, kv, T, d)), jdt, tdt)
+    scale = 1.0 / d ** 0.5
+    o = ops.flash_prefill(tq, tk, tv, scale=scale, causal=False)
+    assert o.dtype == tdt and o.shape == (B, H, T, d)
+    np.testing.assert_allclose(_np(o), _np(jref.flash_prefill_ref(jq, jk, jv, scale,
+                                                                  causal=False)),
+                               **_tol(name))
+    np.testing.assert_allclose(_np(o), _np(jops.flash_prefill(jq, jk, jv, scale=scale,
+                                                              causal=False, blq=blk, blk=blk,
+                                                              interpret=True)),
+                               **_tol(name))
+    # the first query row sees the last key: not the causal result
+    causal = ops.flash_prefill(tq, tk, tv, scale=scale, causal=True)
+    assert not torch.allclose(o[:, :, 0].float(), causal[:, :, 0].float())
+
+
 @pytest.mark.parametrize("window", [None, 48])
 def test_flash_prefill_ref_softcap(window):
     """The reference's oracle has no softcap; its model's ``attention_dense``

@@ -49,6 +49,18 @@ TOL = dict(atol=2e-5, rtol=2e-5)
 INDEX_KEYS = ("cent", "cent_assign", "cent_count")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread a test: the port's smoke-width steps are many
+    small ops, and with several test workers sharing the cores the default
+    thread pool spends its time spinning. The thread count does not change
+    what a test checks."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 

@@ -35,6 +35,18 @@ FKV = dict(method="freekv", page_size=8, budget=64, n_sink=8, n_window=8, tau=0.
 MAX_LEN = 192
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread a test: the port's smoke-width steps are many
+    small ops, and with several test workers sharing the cores the default
+    thread pool spends its time spinning. The thread count does not change
+    what a test checks."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _llama2(get):
     return dataclasses.replace(get("llama31-8b-smoke"), n_layers=2, n_periods=2)
 
