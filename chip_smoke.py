@@ -3,7 +3,10 @@
     python3 chip_smoke.py                 # every phase (what the check runs)
     python3 chip_smoke.py --kernels-only  # build + kernel phase only
 
-Phases, each fatal on failure (nothing is caught):
+Phases, each fatal on failure (nothing is caught). Phase 4's runs other
+than freekv/none, and phases 4b, 4c and 4d, run their models at full width
+and half depth (half the periods, ``half_depth``): they are host-bound, so
+their time is linear in the layers.
   1. device: the card's name and power limit from nvidia-smi, its PCIe link
      (generation and width from nvidia-smi and sysfs, "not readable" where
      the machine hides them) and NUMA node; exits non-zero without CUDA.
@@ -186,6 +189,25 @@ Phases, each fatal on failure (nothing is caught):
      preemption, each engine's chunk budget and prefix cache reading off
      (XARCH_PATHS); and the centroid index kept step by step on the card
      equals its rebuild bit for bit.
+  6. training: (a) smollm-360m at full width (32 layers, d 960, 15/5 heads,
+     vocab 49152, ~362 M params), float32 (TF32 off, reported), B=4,
+     T=4096 (the chunked attention, each KV chunk checkpointed, each layer
+     rematerialised), 6 AdamW steps with the launcher's defaults (lr 1e-3,
+     warmup steps // 10) on lm_batches(seed=0): each step's loss and grad
+     norm (finite), s/step after the first, tokens/s, the step's FLOPs
+     against the float32 bound, peak GiB (and what earlier phases left
+     allocated), beside the card's name and power limit; no serving kernel
+     may launch in a train step; one forward + backward profiled (device
+     ms, busy share, the top kernels). (b) the state
+     (params, m, v, step) saved to a checkpoint in the reference's layout
+     and restored, every leaf bit-equal, the seconds logged; the trained
+     weights cast to bf16 and served through ServeEngine (wide_run:
+     freekv/none, 4 needle requests x 16 tokens over 4 slots, continuous),
+     whose launches the kernels line gives as train_launches. (c) each of
+     the eight smoke archs trained 3 steps (B=2, T=128) on the card and on
+     the CPU from the same params and batches, losses within 1e-4
+     relative, then the card's trained weights served greedy on both, card
+     tokens == CPU tokens.
 Then one JSON line with the kernels' numbers and, last, the ok line.
 """
 import argparse
@@ -1856,6 +1878,20 @@ def llama_params(dev):
     return cfg, params
 
 
+def half_depth(cfg, params=None):
+    """``cfg`` at full width with half its periods (its prelude kept), and
+    ``params``' layers cut to match (the same tensors). Phase 4's runs
+    other than freekv/none, phase 4b, 4c and 4d run at this depth: they are
+    host-bound, their time linear in the layers, and the script must stay
+    inside its time limit with phase 6 added."""
+    n_periods = max(1, cfg.n_periods // 2)
+    cut = dataclasses.replace(cfg, n_periods=n_periods,
+                              n_layers=len(cfg.prelude) + len(cfg.pattern) * n_periods)
+    if params is None:
+        return cut
+    return cut, {**params, "layers": params["layers"][:cut.n_layers]}
+
+
 # the kernels each main-path run must launch (recall_gather reads the fp
 # pool, recall_gather_quant the quantized one; ShadowKV's decode recalls V
 # halves only; Centroid scores its cluster boxes every step)
@@ -1932,7 +1968,8 @@ def main_path(dev, ops, cfg, params, method, kv_quant, scheduler="continuous"):
     # token's arrival on the host
     ttft = [o.metrics.ttft_s for o in outs]
     gen_tokens = sum(len(o.tokens) for o in outs)
-    info = {"arch": cfg.name, "scheduler": scheduler, "method": method, "kv_quant": kv_quant,
+    info = {"arch": cfg.name, "layers": cfg.n_layers, "scheduler": scheduler, "method": method,
+            "kv_quant": kv_quant,
             "slots": B, "requests": len(reqs), "prompt_tokens": [len(r.tokens) for r in reqs],
             "tokens_per_request": [len(o.tokens) for o in outs],
             "ttft_s": ttft, "prefill_s": [o.prefill_s for o in outs],
@@ -2049,7 +2086,7 @@ def feature_pairs(dev, ops, cfg, params):
     def needle(n, seed):
         return next(needle_stream(cfg.vocab_size, n, P, seed=seed)).tokens
 
-    res = {}
+    res = {"layers": cfg.n_layers}
     # (a) four 2048-token needle prompts fill the 4 slots; request 0 stops
     # after 8 tokens, and the 8192-token request 4 takes its slot while
     # the other three decode
@@ -2260,9 +2297,9 @@ def wide_runs(dev, ops, llama_cfg, llama):
     for (arch, method, top_p) in WIDE_RUNS:
         t0 = time.perf_counter()
         if arch == "llama31-8b":
-            cfg, params = llama_cfg, llama
+            cfg, params = half_depth(llama_cfg, llama)
         else:
-            cfg = get_config(arch)
+            cfg = half_depth(get_config(arch))
             params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
         info, run = wide_run(dev, ops, cfg, params, method, top_p)
         info["run_s"] = time.perf_counter() - t0
@@ -2314,7 +2351,7 @@ def xarch_run(dev, ops, arch):
     from repro_torch.obs import Observability
     from repro_torch.serving.engine import Request, ServeEngine
 
-    cfg = get_config(arch)
+    cfg = half_depth(get_config(arch))
     prompts, need = XARCH_RUNS[arch]
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
@@ -2950,7 +2987,8 @@ def spec_run(dev, ops, cfg, params, draft_len, temperature=0.0, hints=None):
     gen_tokens = sum(len(o.tokens) for o in outs)
     committed = gen_tokens - len(outs)          # the first tokens come from the prefills
     decode_s = wall - sum(o.prefill_s for o in outs)
-    info = {"draft_len": draft_len, "temperature": temperature, "hinted": hints is not None,
+    info = {"draft_len": draft_len, "layers": cfg.n_layers, "temperature": temperature,
+            "hinted": hints is not None,
             "tokens": [o.tokens for o in outs], "accept_rate": sd["accept_rate"],
             "tokens_per_target_step": sd["tokens_per_step"],
             "verify_steps": sd["verify_steps"], "idle_iterations": sd["idle_iterations"],
@@ -3343,6 +3381,229 @@ def serve_phase(dev, ops, cfg, params, direct_tokens, direct_ms):
     return info, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training. smollm-360m at full width (float32, B 4, T 4096: the
+# reference's train_4k length, past the dense attention's 2048 x 2048, so
+# the chunked attention with its per-chunk checkpoints), 6 AdamW steps with
+# the launcher's defaults; a checkpoint round trip; the trained weights
+# served; then every smoke arch's steps and served tokens card == CPU
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "smollm-360m"
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 4, 4096, 6
+TRAIN_SMOKE = ("smollm-360m-smoke", "gemma2-2b-smoke", "deepseek-moe-16b-smoke",
+               "jamba-1.5-large-398b-smoke", "xlstm-350m-smoke", "whisper-tiny-smoke",
+               "internvl2-26b-smoke", "llama4-scout-17b-a16e-smoke")
+TRAIN_SMOKE_B, TRAIN_SMOKE_T, TRAIN_SMOKE_STEPS = 2, 128, 3
+TRAIN_LOSS_RTOL = 1e-4
+
+
+def _train_opt(steps):
+    from repro_torch.training.optimizer import AdamWConfig
+    # the launcher's AdamW: lr 1e-3, warmup steps // 10, a cosine over the run
+    return AdamWConfig(lr=1e-3, warmup_steps=max(steps // 10, 1), total_steps=steps)
+
+
+def train_step_flops(cfg, n_params, B, T):
+    """Float32 operations of one remat train step: 8 N a token for the
+    dense products (forward 2N, backward 4N, the period's recomputed
+    forward 2N; N counts the tied embedding once, as the LM head's
+    product), plus 4 times the attention's forward (forward, recompute and
+    a backward of twice the forward): q k^T and p v, 2 * 2 * B * H * T^2 *
+    d_head a layer, every query-key pair, which the chunked path computes
+    masked or not."""
+    attn_fwd = 4 * B * cfg.n_heads * T * T * cfg.d_head * cfg.n_layers
+    return 8 * n_params * B * T + 4 * attn_fwd
+
+
+def profile_train_grad(cfg, params, batch, top=10):
+    """Where a train step's time goes: one forward_train + backward (no
+    update, so the params do not move) under torch.profiler. Returns the
+    wall ms, the card's busy ms (its kernel and copy rows,
+    ``decode_profile.device_rows``) and share, and the ``top`` rows by
+    device ms; None for the device numbers where the profiler recorded no
+    device event."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.decode_profile import dev_us, device_rows
+    from repro_torch.models.model import forward_train
+    from repro_torch.training.optimizer import tree_leaves
+    leaves = [p for _, p in tree_leaves(params)]
+    for p in leaves:
+        p.requires_grad_(True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss, _ = forward_train(cfg, params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    for p in leaves:
+        p.requires_grad_(False)
+    del grads, loss
+    rows = device_rows(prof.key_averages())
+    busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    if not rows:
+        return {"wall_ms": wall_ms, "device_ms": None, "busy_share": None, "top": None}
+    rows.sort(key=dev_us, reverse=True)
+    return {"wall_ms": wall_ms, "device_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+            "top": [{"kernel": e.key[:90], "ms": dev_us(e) / 1e3, "count": e.count,
+                     "share": dev_us(e) / 1e3 / busy_ms} for e in rows[:top]]}
+
+
+def train_full_width(dev, ops):
+    """Phase 6a and 6b: smollm-360m trained at full width, its state saved
+    and restored bit for bit, its trained weights (bf16) served through the
+    continuous engine (``wide_run``: freekv/none, 4 needle requests x 16
+    tokens over 4 slots). Returns (info, the serve's launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.training import checkpoint
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    from repro_torch.training.train_step import init_train, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    opt_cfg = _train_opt(TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    # what earlier phases leave allocated counts in the peak too
+    resident = torch.cuda.memory_allocated(dev)
+    params, opt = init_train(cfg, opt_cfg, seed=0, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)       # the state's bytes stay in the peak
+    n_params = sum(p.numel() for _, p in tree_leaves(params))
+    step = make_train_step(cfg, opt_cfg)
+    data = lm_batches(cfg.vocab_size, TRAIN_T, TRAIN_B, seed=0)
+    flops = train_step_flops(cfg, n_params, TRAIN_B, TRAIN_T)
+    bound_s = flops / PEAK_F32_OPS
+    ops.reset_launches()
+    rows = []
+    for i in range(TRAIN_STEPS):
+        tokens = torch.from_numpy(next(data)).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, {"tokens": tokens})
+        loss, gnorm, lr = float(m["loss"]), float(m["grad_norm"]), float(m["lr"])
+        dt = time.perf_counter() - t0
+        require(math.isfinite(loss) and math.isfinite(gnorm),
+                f"{TRAIN_ARCH} step {i}: loss {loss}, grad norm {gnorm}")
+        rows.append({"step": i, "loss": loss, "grad_norm": gnorm, "lr": lr, "s": dt})
+        log(f"[train] {TRAIN_ARCH} step {i}: loss {loss:.4f} grad norm {gnorm:.4f} lr {lr:.2e} "
+            f"{dt:.3f} s")
+    launched = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    require(not any(launched.values()),
+            f"the train step launched a serving kernel: {launched}")
+    prof = profile_train_grad(cfg, params, {"tokens": tokens})
+    s_step = sum(r["s"] for r in rows[1:]) / (TRAIN_STEPS - 1)
+    info = {"arch": TRAIN_ARCH, "dtype": "float32", "batch": TRAIN_B, "seq": TRAIN_T,
+            "params": n_params, "steps": rows,
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "s_per_step_after_first": s_step, "tokens_per_s": TRAIN_B * TRAIN_T / s_step,
+            "flops_per_step": flops, "bound_s_float32": bound_s,
+            "bound_share": bound_s / s_step,
+            "achieved_tflops": flops / s_step / 1e12,
+            "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "resident_before_gib": resident / 2 ** 30,
+            "profile_forward_backward": prof}
+
+    # 6b: the checkpoint round trip, written inside the checkout (build/ is
+    # ignored) and removed after
+    ck = Path(__file__).resolve().parent / "build" / "train_ckpt" / f"{TRAIN_ARCH}.npz"
+    state = {"params": params, "opt": opt}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save(str(ck), cfg, state)
+    save_s = time.perf_counter() - t0
+    size = ck.stat().st_size
+    t0 = time.perf_counter()
+    back = checkpoint.restore(str(ck), cfg, state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    ck.unlink()
+    want = dict(tree_leaves(state))
+    got = tree_leaves(back)
+    require(len(got) == len(want), "the restored state has other leaves")
+    for path, t in got:
+        require(t.dtype == want[path].dtype and t.device == want[path].device
+                and torch.equal(t, want[path]), f"checkpoint leaf {path} differs")
+    info["checkpoint"] = {"bytes": size, "leaves": len(got), "save_s": save_s,
+                          "restore_s": restore_s, "round_trip_s": save_s + restore_s,
+                          "bit_equal": True}
+    del back, state, opt, step
+    served = tree_map(lambda t: t.to(torch.bfloat16), params)
+    del params
+    torch.cuda.empty_cache()
+    serve, launches = wide_run(dev, ops, cfg, served, "freekv", 0.0)
+    info["serve"] = {k: serve[k] for k in ("ttft_s", "decode_ms_per_step", "decode_steps",
+                                            "tokens_per_s", "peak_device_gib", "launches",
+                                            "first_tokens")}
+    del served
+    torch.cuda.empty_cache()
+    return info, launches
+
+
+def _smoke_batches(cfg, seed=0):
+    from repro_torch.data.synthetic import lm_batches
+    data = lm_batches(cfg.vocab_size, TRAIN_SMOKE_T, TRAIN_SMOKE_B, seed=seed)
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(TRAIN_SMOKE_STEPS):
+        b = {"tokens": torch.from_numpy(next(data))}
+        if cfg.frontend:
+            b["frontend"] = torch.from_numpy((0.1 * rng.standard_normal(
+                (TRAIN_SMOKE_B, cfg.n_frontend_tokens, cfg.d_model))).astype(np.float32))
+        out.append(b)
+    return out
+
+
+def train_smoke_vs_plain(dev):
+    """Phase 6c: each smoke arch trained 3 steps on the card and on the CPU
+    from the same float32 params and batches (losses within 1e-4
+    relative), then the card's trained weights served greedy on both
+    (continuous, 3 requests over 2 slots, seeded frontends): card tokens
+    == CPU tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.train_step import init_train, make_train_step
+    out = {}
+    for arch in TRAIN_SMOKE:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        opt_cfg = _train_opt(TRAIN_SMOKE_STEPS)
+        params, opt = init_train(cfg, opt_cfg, seed=0, device=dev)
+        host = lambda t: t.to("cpu", copy=True)                     # noqa: E731
+        state = {"cuda": (params, opt), "cpu": (tree_map(host, params), tree_map(host, opt))}
+        step = make_train_step(cfg, opt_cfg)
+        losses = {}
+        for where, (p, o) in state.items():
+            losses[where] = []
+            for b in _smoke_batches(cfg):
+                b = {k: v.to(dev if where == "cuda" else "cpu") for k, v in b.items()}
+                p, o, m = step(p, o, b)
+                losses[where].append(float(m["loss"]))
+            state[where] = (p, o)
+        err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+        require(all(math.isfinite(x) for x in losses["cuda"]) and err <= TRAIN_LOSS_RTOL,
+                f"{arch}: card losses {losses['cuda']} vs cpu {losses['cpu']}")
+        trained = state["cuda"][0]
+        rng = np.random.default_rng(7)
+        reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                        max_new_tokens=m, frontend=_frontend(cfg, rng))
+                for i, (n, m) in enumerate(((96, 9), (80, 5), (104, 7)))]
+        fkv = _smoke_fkv("freekv", "none")
+        toks = {}
+        for where, p in (("cuda", trained), ("cpu", tree_map(host, trained))):
+            eng = ServeEngine(cfg, fkv, p, max_len=192, batch_size=2,
+                              state_dtype=torch.float32, device=dev if where == "cuda" else "cpu")
+            outs = eng.generate(reqs)
+            require(eng.last_logits_finite, f"non-finite logits ({where} {arch})")
+            toks[where] = [o.tokens for o in outs]
+        require(toks["cuda"] == toks["cpu"], f"{arch} trained: card tokens {toks['cuda']} vs "
+                f"cpu {toks['cpu']}")
+        out[arch] = {"losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"],
+                     "max_loss_rel": err, "tokens": toks["cuda"][0],
+                     "s": time.perf_counter() - t0}
+        del state, trained
+    return out
+
+
 KERNEL_META = {   # name -> (source, the TPU kernel it replaces)
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:69"),
@@ -3487,7 +3748,7 @@ def main():
             f"({k['host_sms']:g} SMs at {k['blocks_per_sm']} an SM); "
             f"{k['device_grid_blocks']} blocks from a device pool")
     launches = {k["name"]: None for k in kernels}
-    wide_launches, spec_launches, service_launches = {}, {}, {}
+    wide_launches, spec_launches, service_launches, train_launches = {}, {}, {}, {}
     share = None
     if not args.kernels_only:
         # phase 3b: the MoE FFN and the Mamba mixer at full width
@@ -3537,7 +3798,9 @@ def main():
         for scheduler, method, kv_quant in [("static", "freekv", "none")] + [
                 ("continuous", m, q) for m, q in RUNS]:
             t0 = time.perf_counter()
-            info, run = main_path(dev, ops, cfg, params, method, kv_quant, scheduler)
+            full = (method, kv_quant) == ("freekv", "none")
+            info, run = main_path(dev, ops, *((cfg, params) if full else half_depth(cfg, params)),
+                                  method, kv_quant, scheduler)
             info["run_s"] = time.perf_counter() - t0
             tokens = info.pop("tokens")
             log("[main] " + json.dumps(info))
@@ -3580,7 +3843,7 @@ def main():
         # phase 4b: chunked prefill, the prefix cache and preemption, each
         # off and on over the same traffic
         t0 = time.perf_counter()
-        feats = feature_pairs(dev, ops, cfg, params)
+        feats = feature_pairs(dev, ops, *half_depth(cfg, params))
         log("[features] " + json.dumps(feats))
         ch, pc, pr = feats["chunked"], feats["prefix_cache"], feats["preempt"]
         log(f"[features] chunked prefill (budget {ch['budget']}): max token gap s off "
@@ -3605,7 +3868,7 @@ def main():
         log(f"[wide] {len(WIDE_RUNS) + len(XARCH_RUNS)} runs in "
             f"{time.perf_counter() - t0:.1f} s")
         # phase 4d: the sampler and speculative decoding
-        spec_launches = spec_phase(dev, ops, cfg, params)
+        spec_launches = spec_phase(dev, ops, *half_depth(cfg, params))
         # phase 4e: live serving through the HTTP front-end
         serve, service_launches = serve_phase(dev, ops, cfg, params, served_tokens,
                                               compare["continuous"]["decode_ms_per_step"])
@@ -3675,6 +3938,40 @@ def main():
         n = centroid_index_equals_rebuild(dev)
         log(f"[equal] granite-3-8b-smoke fp32 centroid: the index kept on the card equals "
             f"its rebuild in every layer after 20 steps ({n} re-centers)")
+        # phase 6: training at full width, the checkpoint round trip, the
+        # trained weights served; the smoke archs' steps card == CPU
+        t_phase = time.perf_counter()
+        train, train_launches = train_full_width(dev, ops)
+        log("[train] " + json.dumps(train))
+        ck, sv = train["checkpoint"], train["serve"]
+        log(f"[train] {smi} | {TRAIN_ARCH} float32 B={TRAIN_B} T={TRAIN_T} "
+            f"({train['params']} params), allow_tf32 {train['allow_tf32']}: "
+            f"{train['s_per_step_after_first']:.3f} s/step after the first, "
+            f"{train['tokens_per_s']:.0f} tokens/s, {train['flops_per_step']:.3e} FLOPs a step "
+            f"against the float32 bound {train['bound_s_float32']:.3f} s (share "
+            f"{train['bound_share']:.3f}, {train['achieved_tflops']:.2f} TFLOP/s), peak "
+            f"{train['peak_device_gib']:.2f} GiB ({train['resident_before_gib']:.2f} of it "
+            f"allocated before the phase); losses "
+            f"{[round(r['loss'], 4) for r in train['steps']]}")
+        pr = train["profile_forward_backward"]
+        if pr["device_ms"] is None:
+            log(f"[train] profiled forward + backward: {pr['wall_ms']:.1f} ms wall; device "
+                "time not measured (the profiler recorded no device event)")
+        else:
+            log(f"[train] profiled forward + backward: {pr['wall_ms']:.1f} ms wall, "
+                f"{pr['device_ms']:.1f} device ms, busy share {pr['busy_share']:.3f}; top rows "
+                + json.dumps([(r["kernel"], round(r["ms"], 1), r["count"]) for r in pr["top"]]))
+        log(f"[train] checkpoint of {ck['leaves']} leaves, {ck['bytes']} B: save "
+            f"{ck['save_s']:.2f} s, restore {ck['restore_s']:.2f} s, every leaf bit-equal; "
+            f"the trained weights (bf16) served freekv/none: TTFT "
+            f"{min(sv['ttft_s']):.3f}-{max(sv['ttft_s']):.3f} s, decode "
+            f"{sv['decode_ms_per_step']:.2f} ms/step, launches {json.dumps(sv['launches'])}")
+        for arch, r in train_smoke_vs_plain(dev).items():
+            log(f"[equal] {arch} trained {TRAIN_SMOKE_STEPS} steps (B={TRAIN_SMOKE_B}, "
+                f"T={TRAIN_SMOKE_T}): card losses {r['losses_cuda']} vs cpu {r['losses_cpu']} "
+                f"(max rel {r['max_loss_rel']:.3g}); served card == cpu greedy tokens, e.g. "
+                f"{r['tokens']}; {r['s']:.1f} s")
+        log(f"[train] phase 6 in {time.perf_counter() - t_phase:.1f} s")
 
     from repro_torch.launch.gather_bench import EVENT_TIMED
     log(f"[timing] device times taken with CUDA events behind a spin because the profiler "
@@ -3687,6 +3984,7 @@ def main():
                      "wide_launches": wide_launches.get(k["name"]),
                      "spec_launches": spec_launches.get(k["name"]),
                      "service_launches": service_launches.get(k["name"]),
+                     "train_launches": train_launches.get(k["name"]),
                      "max_abs_err": k["max_abs_err"],
                      "ms": k["kernel_ms"], **k})
     print(json.dumps({"kernels": line}), flush=True)

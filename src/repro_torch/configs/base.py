@@ -61,6 +61,7 @@ class ArchConfig:
     n_shared_experts: int = 0
     moe_top_k: int = 0
     d_expert: int = 0                # routed-expert hidden dim (fine-grained MoE)
+    router_aux_loss: float = 0.01    # the load-balance term's weight in the training loss
 
     # SSM (mamba)
     ssm_d_state: int = 16

@@ -16,6 +16,7 @@ the CPU parity tests keep the reference's numbers. Decode attention is
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
@@ -71,10 +72,28 @@ def attention_dense(cfg: ArchConfig, q, k, v, pos_q, pos_k, causal=True, window=
     return o.reshape(B, Tq, H, dh)
 
 
+def _chunk_step(cfg: ArchConfig, qg, m, l, acc, kc, vc, pos_q, pos_kc, causal, window):
+    """One KV chunk of ``attention_chunked``: the running (max, sum, acc)
+    after the chunk's keys."""
+    s = torch.einsum("bkgtd,bskd->bkgts", qg, kc.float())
+    s = softcap(s, cfg.attn_logit_softcap)
+    s = s + _mask_bias(pos_q, pos_kc, causal, window)[:, :, None]
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    del s
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum("bkgts,bskd->bkgtd", p, vc.float())
+    return m_new, l, acc
+
+
 def attention_chunked(cfg: ArchConfig, q, k, v, pos_q, pos_k, causal=True,
                       window=None, chunk=512):
     """Flash-style attention: a loop over KV chunks with running (max, sum);
-    peak memory O(Tq * chunk) instead of O(Tq * Tk)."""
+    peak memory O(Tq * chunk) instead of O(Tq * Tk). Under autograd each
+    chunk is checkpointed, as the reference's scan body (``jax.checkpoint``):
+    the backward recomputes a chunk's (B, kv, G, Tq, chunk) scores instead
+    of keeping every chunk's."""
     B, Tq, H, dh = q.shape
     Tk = k.shape[1]
     if Tk % chunk:
@@ -90,19 +109,14 @@ def attention_chunked(cfg: ArchConfig, q, k, v, pos_q, pos_k, causal=True,
     m = torch.full((B, kv, G, Tq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, kv, G, Tq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, kv, G, Tq, dh), dtype=torch.float32, device=q.device)
+    remat = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     for c0 in range(0, Tk, chunk):
-        kc = k[:, c0:c0 + chunk].float()
-        vc = v[:, c0:c0 + chunk].float()
-        s = torch.einsum("bkgtd,bskd->bkgts", qg, kc)
-        s = softcap(s, cfg.attn_logit_softcap)
-        s = s + _mask_bias(pos_q, pos_k[:, c0:c0 + chunk], causal, window)[:, :, None]
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        del s
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bkgts,bskd->bkgtd", p, vc)
-        m = m_new
+        args = (cfg, qg, m, l, acc, k[:, c0:c0 + chunk], v[:, c0:c0 + chunk], pos_q,
+                pos_k[:, c0:c0 + chunk], causal, window)
+        if remat:
+            m, l, acc = checkpoint(_chunk_step, *args, use_reentrant=False)
+        else:
+            m, l, acc = _chunk_step(*args)
     o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, dh).to(q.dtype)
 

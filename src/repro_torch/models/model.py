@@ -4,6 +4,8 @@ with dense, MoE or no FFNs, encoder-decoder stacks and a frontend prefix
 
   init_params(cfg, seed, device, dtype)            -> params
   params_from_jax(cfg, np_params, device, dtype)    -> params
+  params_to_numpy(cfg, params)                      -> the reference's numpy pytree
+  forward_train(cfg, params, batch, remat)          -> (loss, {"ce", "aux", "tokens"})
   prefill(cfg, fkv, params, batch, max_len)         -> (logits_last, state[, kv])
   prefill_extend(cfg, fkv, params, batch, kv, prefix_len, max_len)
                                                     -> (logits_last, state)
@@ -67,6 +69,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL, DENSE, MAMBA, MLSTM, MOE, NONE,
@@ -251,6 +254,137 @@ def params_from_jax(cfg: ArchConfig, np_params, device="cuda", dtype=None):
     return out
 
 
+def _numpy(t):
+    """A leaf as a numpy copy on the host; bfloat16 as float32 (exact)."""
+    t = t.detach()
+    return t.to("cpu", torch.float32 if t.dtype == torch.bfloat16 else t.dtype,
+                copy=True).numpy()
+
+
+def params_to_numpy(cfg: ArchConfig, params):
+    """The inverse of ``params_from_jax``: the port's per-layer params as the
+    reference's pytree of numpy arrays, ``{"embed", "final_norm", "prelude":
+    (layer, ...), "pattern": (stacked, ...)}`` with each pattern position's
+    layers stacked along a leading (n_periods,) axis, and an
+    encoder-decoder's ``{"encoder": {"layers": stacked, "final_norm"}}``.
+    Leaves keep their dtype, bfloat16 ones come back as float32 (the
+    reference's checkpoint restore casts to its own leaves' dtype). The
+    optimizer's ``m`` and ``v`` have the params' structure and convert the
+    same way."""
+    def tree(t, fn):
+        return {k: tree(v, fn) for k, v in t.items()} if isinstance(t, dict) else fn(t)
+
+    def stack(lps):
+        if isinstance(lps[0], dict):
+            return {k: stack([lp[k] for lp in lps]) for k in lps[0]}
+        return np.stack([_numpy(t) for t in lps])
+
+    n_pre, n_pat = len(cfg.prelude), len(cfg.pattern)
+    body = params["layers"][n_pre:]
+    out = {"embed": tree(params["embed"], _numpy),
+           "final_norm": tree(params["final_norm"], _numpy),
+           "prelude": tuple(tree(lp, _numpy) for lp in params["layers"][:n_pre]),
+           "pattern": tuple(stack(body[j::n_pat]) for j in range(n_pat))}
+    if cfg.is_encoder_decoder:
+        enc = params["encoder"]
+        out["encoder"] = {"layers": stack(enc["layers"]),
+                          "final_norm": tree(enc["final_norm"], _numpy)}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+def _train_layer(cfg, layer, lp, x, positions, enc):
+    """One layer over the whole sequence for training (reference
+    ``_apply_layer_seq``) -> (x, aux (B, T) or None). Attention is
+    ``attention_auto`` on every device (the reference's jnp computation:
+    dense up to 2048 x 2048 query-key pairs, chunked beyond), never the
+    forward-only ``flash_prefill``; a recurrent mixer runs its forward over
+    the sequence; an encoder-decoder layer adds its cross-attention over
+    ``enc``, the encoder's output."""
+    h = L.apply_norm(cfg, lp["norm1"], x)
+    if layer[0] in RECURRENT:
+        o = _FORWARD[layer[0]](cfg, lp["mixer"], h)
+    else:
+        q, k, v = attn.qkv_proj(cfg, lp["mixer"], h, positions)
+        o = attn.attention_auto(cfg, q, k, v, positions, positions, causal=True,
+                                window=_window(cfg, layer))
+        o = attn.out_proj(cfg, lp["mixer"], o)
+    x = _residual(cfg, lp, x, o, "1")
+    if enc is not None:
+        xk, xv = _enc_kv(cfg, lp, enc)
+        x = _cross(cfg, lp, x, positions, xk, xv)
+    return _ffn_aux(cfg, layer, lp, x)
+
+
+def forward_train(cfg: ArchConfig, params, batch, remat=True):
+    """The training loss (reference ``model.py:338``): batch ``{"tokens"
+    (B, T) int, "loss_mask" (B, T) optional, "frontend" (B, F, d)
+    optional}`` -> (loss, {"ce", "aux", "tokens"}), 0-dim tensors.
+
+    ``ce`` is the mean next-token cross-entropy over the masked targets
+    (float32 logsumexp over the padded vocabulary, whose padding
+    ``L.lm_logits`` masks); a frontend prefix's positions (internvl2's
+    patches) are left out of the logits. ``aux`` sums the MoE layers'
+    load-balance terms as the reference does (each prelude layer's mean,
+    plus the sum of each period's), and the loss is ``ce +
+    cfg.router_aux_loss * aux``.
+
+    ``remat`` recomputes each period of ``cfg.pattern`` in the backward
+    (``torch.utils.checkpoint``, the counterpart of the reference's
+    ``jax.checkpoint`` over its scan body): only a period's input is kept.
+    The prelude layers and an encoder are not rematerialised, as in the
+    reference."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    x, positions = _embed_inputs(cfg, params, batch)
+    n_front = x.shape[1] - tokens.shape[1]
+    enc = (_encode(cfg, params, batch["frontend"], attn.attention_auto)
+           if cfg.is_encoder_decoder else None)
+    layers = params["layers"]
+    n_pre, n_pat = len(cfg.prelude), len(cfg.pattern)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_pre):
+        x, aux = _train_layer(cfg, cfg.layers[i], layers[i], x, positions, enc)
+        if aux is not None:
+            aux_total = aux_total + aux.mean()
+
+    def period(x, i0):
+        aux_p = torch.zeros((), dtype=torch.float32, device=x.device)
+        for j in range(n_pat):
+            x, aux = _train_layer(cfg, cfg.pattern[j], layers[i0 + j], x, positions, enc)
+            if aux is not None:
+                aux_p = aux_p + aux.mean()
+        return x, aux_p
+
+    aux_periods = []
+    for i0 in range(n_pre, cfg.n_layers, n_pat):
+        if remat and torch.is_grad_enabled():
+            x, aux_p = checkpoint(period, x, i0, use_reentrant=False)
+        else:
+            x, aux_p = period(x, i0)
+        aux_periods.append(aux_p)
+    aux_total = aux_total + torch.stack(aux_periods).sum()
+
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    logits = L.lm_logits(cfg, params["embed"], x[:, n_front:])
+    per_tok = _cross_entropy(logits[:, :-1], tokens[:, 1:].long())
+    mask = batch.get("loss_mask")
+    mask = (torch.ones_like(tokens) if mask is None else mask)[:, 1:]
+    n_tok = mask.sum()
+    ce = (per_tok * mask).sum() / torch.clamp(n_tok, min=1)
+    loss = ce + cfg.router_aux_loss * aux_total
+    return loss, {"ce": ce, "aux": aux_total, "tokens": n_tok}
+
+
+def _cross_entropy(logits, tgt):
+    """Per-token cross-entropy (B, T) float32 (reference ``_cross_entropy``
+    on one device): logsumexp of the float32 logits minus the target's."""
+    lg = logits.float()
+    return torch.logsumexp(lg, dim=-1) - lg.gather(-1, tgt[..., None])[..., 0]
+
+
 # ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
@@ -262,19 +396,26 @@ def _residual(cfg, lp, x, out, which):
     return x + out
 
 
-def _ffn(cfg, layer, lp, x):
-    """The FFN sublayer of every path: a ``MOE`` layer routes the call's
-    flattened (B * T, d) tokens together (reference ``_apply_ffn``), so its
-    capacity couples the call's rows; the load-balance term is dropped. An
-    xLSTM block (``NONE``) has none."""
+def _ffn_aux(cfg, layer, lp, x):
+    """The FFN sublayer of every path -> (x, aux): a ``MOE`` layer routes the
+    call's flattened (B * T, d) tokens together (reference ``_apply_ffn``),
+    so its capacity couples the call's rows, and returns its load-balance
+    term (B, T) float32 as ``aux``; a dense FFN and an xLSTM block (``NONE``,
+    no FFN) return None, the reference's zeros."""
     if layer[1] == NONE:
-        return x
+        return x, None
     h = L.apply_norm(cfg, lp["norm2"], x)
+    aux = None
     if layer[1] == MOE:
-        out = moe.apply_moe(cfg, lp["ffn"], h)[0]
+        out, aux = moe.apply_moe(cfg, lp["ffn"], h)
     else:
         out = L.apply_mlp(cfg, lp["ffn"], h)
-    return _residual(cfg, lp, x, out, "2")
+    return _residual(cfg, lp, x, out, "2"), aux
+
+
+def _ffn(cfg, layer, lp, x):
+    """``_ffn_aux`` for the serving paths, which drop the load-balance term."""
+    return _ffn_aux(cfg, layer, lp, x)[0]
 
 
 def _window(cfg, layer):
@@ -418,11 +559,12 @@ def _embed_inputs(cfg: ArchConfig, params, batch):
     return x, torch.arange(T, device=x.device)[None].expand(B, T)
 
 
-def _encode(cfg: ArchConfig, params, frontend):
+def _encode(cfg: ArchConfig, params, frontend, attention=attn.attention_prefill):
     """The encoder (reference ``model.py:293``): RoPE'd bidirectional
     self-attention over the frontend's F frames at positions 0..F-1
-    (``flash_prefill(causal=False)`` on the card), a dense FFN, the
-    encoder's final norm -> (B, F, d).
+    (``attention``: ``attention_prefill``, i.e. ``flash_prefill(causal=False)``
+    on the card, when serving; ``attention_auto`` in training, as the
+    reference), a dense FFN, the encoder's final norm -> (B, F, d).
 
     The frames are cast to the weights' dtype. The reference runs its
     encoder at the frames' dtype (float32 from the engine), promoting bf16
@@ -434,7 +576,7 @@ def _encode(cfg: ArchConfig, params, frontend):
     for lp in enc["layers"]:
         h = L.apply_norm(cfg, lp["norm1"], x)
         q, k, v = attn.qkv_proj(cfg, lp["mixer"], h, pos)
-        o = attn.attention_prefill(cfg, q, k, v, pos, pos, causal=False)
+        o = attention(cfg, q, k, v, pos, pos, causal=False)
         x = x + attn.out_proj(cfg, lp["mixer"], o)
         x = _ffn(cfg, (ATTN, DENSE), lp, x)
         del q, k, v, o, h

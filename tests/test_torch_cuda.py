@@ -1194,3 +1194,33 @@ def test_cuda_new_archs_tokens_equal_cpu(arch):
                           else "cpu")
         toks[where] = [o.tokens for o in eng.generate(reqs)]
     assert toks["cuda"] == toks["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-360m-smoke", "deepseek-moe-16b-smoke"])
+def test_cuda_train_step_equals_cpu(arch):
+    """On the card: one training step (forward_train through the chunked
+    attention's per-chunk checkpoints at T 2304, remat, AdamW) from the same
+    float32 params and batch as the CPU's gives the CPU's loss within 1e-4
+    relative and params within 1e-3 relative L2 a leaf."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; chip_smoke.py phase 6 runs this on the card")
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.training.optimizer import AdamWConfig, tree_leaves, tree_map
+    from repro_torch.training.train_step import init_train, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    dev = torch.device("cuda", 0)
+    params, opt = init_train(cfg, opt_cfg, seed=0, device=dev)
+    cpu = (tree_map(lambda t: t.cpu(), params), tree_map(lambda t: t.cpu(), opt))
+    tokens = torch.from_numpy(next(lm_batches(cfg.vocab_size, 2304, 1, seed=0)))
+    step = make_train_step(cfg, opt_cfg)
+    params, _, m = step(params, opt, {"tokens": tokens.to(dev)})
+    cpu_params, _, cm = step(*cpu, {"tokens": tokens})
+    assert abs(float(m["loss"]) - float(cm["loss"])) <= 1e-4 * abs(float(cm["loss"]))
+    want = dict(tree_leaves(cpu_params))
+    for path, t in tree_leaves(params):
+        w = want[path].double()
+        assert float((t.cpu().double() - w).norm()) <= 1e-3 * float(w.norm()), path

@@ -61,6 +61,13 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--arch", "granite-3-8b-smoke", "--scheduler", "static"])
+    from repro_torch.launch import train
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import init_train
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_train(get_config("smollm-360m-smoke"), AdamWConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--arch", "smollm-360m-smoke", "--steps", "1"])
 
 
 def test_cuda_request_without_built_library_raises(monkeypatch):
