@@ -119,6 +119,16 @@ their time is linear in the layers.
      the staged-recall stream; and the four gathers again at the valid
      share of the continuous freekv/none run's top-up and staged recall
      launches (with --kernels-only: the overlap line only, after phase 3).
+     At the end of phase 4 the [cost] line (``cost_phase``): one llama31-8b
+     serve_step at the engine's shape (B 4, FreeKVConfig defaults, pinned
+     pool, 8192-token prompts) counted by launch/op_cost on the card and on
+     the meta device, FLOPs, bytes and every kernel's launches required
+     equal, the launches equal to the card step's .launches deltas (32
+     paged_attention, select_pages and complete_page, 64 recall_gather);
+     then the cost model's analytic step bound (launch/roofline.py), all
+     over HBM and with the pool over PCIe, beside the measured continuous
+     freekv/none ms/step and their share. Phase 3's bounds come from the
+     same module's per-kernel formulas.
  4b. the scheduler's features at full width (llama31-8b, bf16, freekv/none,
      pinned pool), each pair the same traffic off, then on: (a) chunked
      prefill, budget 1024: four 2048-token prompts in 4 slots, then an
@@ -223,14 +233,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# card data sheet (H100 SXM): HBM rate, dense bf16 tensor-core peak (the
-# timed inputs are bf16), PCIe Gen5 x16 per direction
-HBM_BPS = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12}
-# float32 outside the tensor cores (TF32 is off), for the xLSTM gates and
-# states
-PEAK_F32_OPS = 67e12
-PCIE_BPS = 64e9
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.kernels import cost as kcost  # noqa: E402  (pure Python, no torch op)
+from repro_torch.launch import roofline as rl  # noqa: E402
+
+# the card's rates (H100 SXM data sheet: HBM, the dense bf16 tensor-core
+# peak for the bf16 timings, float32 outside the tensor cores with TF32 off,
+# PCIe Gen5 x16 a direction) and the bounds come from the cost model,
+# launch/roofline.py (``rl``); each kernel's bytes and operations from
+# kernels/cost.py (``kcost``)
 L2_BYTES = 50 * 2 ** 20
 # a kernel against its plain version on the same inputs, by OUTPUT dtype. The
 # two compute in float32 and differ only in summation order; a bfloat16
@@ -280,10 +291,6 @@ def time_ms(fn, args_list, iters=50):
 
 def copies_for(nbytes):
     return max(1, math.ceil(2 * L2_BYTES / max(nbytes, 1)))
-
-
-def nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def link_info(dev):
@@ -417,13 +424,8 @@ def check_paged_attention(ops, ref, dev, gen):
     # already expanded to the G query heads
     sdpa_args = [_sdpa_paged_inputs(*a) for a in args]
     lib_ms, _ = time_ms(lambda q, k, v, m: _sdpa(q, k, v, m, scale), sdpa_args)
-    q, k, v, pos, cur = args[0]
-    byts = nbytes(q, k, v, pos, cur, q)
-    flops = 4 * B * KV * G * L * D
     return {"name": "paged_attention", "shape": f"q({B},{KV},{G},{D}) kv({B},{KV},{L // P},{P},{D})",
-            "bound_bytes": byts, "bound_ops": flops,
-            "bound_ms": 1e3 * max(byts / HBM_BPS, flops / PEAK_OPS[dt]),
-            "bound_by": "bytes" if byts / HBM_BPS >= flops / PEAK_OPS[dt] else "operations",
+            **rl.kernel_bound(kcost.paged_attention(B, KV, G, L // P, P, D, 2)),
             "max_abs_err": out[torch.bfloat16], "max_abs_err_fp32": out[torch.float32],
             "tol": TOL[torch.bfloat16], "tol_fp32": TOL[torch.float32],
             "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
@@ -461,13 +463,8 @@ def check_page_scores(ops, ref, dev, gen):
                for q, s in args]
     lib_ms, _ = time_ms(lambda qp, qn, hi, lo: (torch.matmul(qp, hi) + torch.matmul(qn, lo)) * scale,
                         mm_args)
-    q, summ = args[0]
-    byts = nbytes(q, summ) + B * KV * G * N_PAGES * 4
-    flops = 4 * B * KV * G * N_PAGES * D
     return {"name": "page_scores", "shape": f"q({B},{KV},{G},{D}) summ({B},{N_PAGES},{KV},2,{D})",
-            "bound_bytes": byts, "bound_ops": flops,
-            "bound_ms": 1e3 * max(byts / HBM_BPS, flops / PEAK_OPS[dt]),
-            "bound_by": "bytes" if byts / HBM_BPS >= flops / PEAK_OPS[dt] else "operations",
+            **rl.kernel_bound(kcost.page_scores(B, KV, G, N_PAGES, D, 2)),
             "max_abs_err": out[torch.bfloat16], "max_abs_err_fp32": out[torch.float32],
             "tol": tol, "tol_fp32": tol,
             "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
@@ -505,18 +502,16 @@ def check_recall_gather(ops, ref, dev, gen):
     kI = torch.arange(KV, device=dev)[None, :, None]
     lib_ms, _ = time_ms(lambda p_, i_: p_[bI, i_.long(), kI], [(pool, idx)])
     valid = int((idx >= 0).sum())
-    moved = valid * 2 * P * D * 2
-    written = 2 * B * KV * N_SEL * P * D * 2
-    byts = moved + written + nbytes(idx)
-    bound_host = 1e3 * max(moved / PCIE_BPS, (written + nbytes(idx)) / HBM_BPS)
+    host = kcost.recall_gather(B, KV, N_SEL, P, D, 2, valid=valid)
+    moved = host["link_bytes"]
     return {"name": "recall_gather", "shape": f"pool({B},{N_PAGES},{KV},2,{P},{D}) idx({B},{KV},{N_SEL})",
-            "bound_bytes": byts, "bound_ops": 0, "bound_ms": bound_host, "bound_by": "bytes",
-            "bound_link": "PCIe for the pinned host pool",
+            **rl.kernel_bound(host), "bound_link": "PCIe for the pinned host pool",
             "link_ms": gather_bench.link_ms(moved, dev), "moved_bytes": moved,
             **host_gather_grid(ops, "recall_gather", dev, 2),
             "max_abs_err": max(errs), "tol": 0.0,
             "kernel_ms": ms_host, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
-            "device_pool_ms": ms_dev, "device_pool_bound_ms": 1e3 * byts / HBM_BPS,
+            "device_pool_ms": ms_dev, "device_pool_bound_ms": rl.kernel_bound(kcost.recall_gather(
+                B, KV, N_SEL, P, D, 2, valid=valid, host=False))["bound_ms"],
             "library_ms": lib_ms, "library_call": "advanced indexing on a device pool"}
 
 
@@ -557,12 +552,13 @@ def check_recall_gather_quant(ops, ref, dev, gen):
         plain_ms, _ = time_ms(lambda p_, s_, i_: ref.recall_gather_quant_ref(p_, s_, i_, bits, dt),
                               [(pool, scales, idx)], iters=10)
         valid = int((idx >= 0).sum())
-        moved = valid * (2 * P * D * bits // 8 + 2 * scales.shape[-1] * 4)
-        written = 2 * B * KV * N_SEL * P * D * 2
+        cost = {host: kcost.recall_gather_quant(B, KV, N_SEL, P, D, bits, scales.shape[-1], 2,
+                                             valid=valid, host=host) for host in (True, False)}
+        moved = cost[True]["link_bytes"]
         row[bits] = {"ms": ms_host, "call_ms": call_ms, "device_pool_ms": ms_dev,
                      "plain_ms": plain_ms, "moved_bytes": moved,
-                     "bound_ms": 1e3 * max(moved / PCIE_BPS, (written + nbytes(idx)) / HBM_BPS),
-                     "device_pool_bound_ms": 1e3 * (moved + written + nbytes(idx)) / HBM_BPS,
+                     "bound_ms": rl.kernel_bound(cost[True])["bound_ms"],
+                     "device_pool_bound_ms": rl.kernel_bound(cost[False])["bound_ms"],
                      "link_ms": gather_bench.link_ms(moved, dev)}
     r8 = row[8]
     return {"name": "recall_gather_quant", "link_ms": r8["link_ms"],
@@ -607,11 +603,13 @@ def check_recall_values(ops, ref, dev, gen):
     sels = gather_bench.selections(gen, dev)          # disjoint pages, every lane valid
     idx = sels[0]
     valid = int((idx >= 0).sum())
-    moved = valid * P * D * 2
-    written = B * KV * N_SEL * P * D * 2
+    cost = {host: kcost.recall_values(B, KV, N_SEL, P, D, 2, valid=valid, host=host)
+            for host in (True, False)}
+    moved = cost[True]["link_bytes"]
     ms_host, call_ms = time_ms(ops.recall_values, [(host, i) for i in sels])
     # from the device pool, selections cycled so the pages read are not L2-resident
-    dev_args = [(pool, _distinct_idx(gen, dev)) for _ in range(copies_for(moved + written))]
+    dev_args = [(pool, _distinct_idx(gen, dev))
+                for _ in range(copies_for(rl.kernel_bound(cost[False])["bound_bytes"]))]
     ms_dev, _ = time_ms(ops.recall_values, dev_args)
     plain_ms, _ = time_ms(ref.recall_values_ref, dev_args)
     bI = torch.arange(B, device=dev)[:, None, None]
@@ -619,15 +617,13 @@ def check_recall_values(ops, ref, dev, gen):
     lib_ms, _ = time_ms(lambda p_, i_: p_[bI, i_.long(), kI, 1], dev_args)
     return {"name": "recall_values",
             "shape": f"pool({B},{N_PAGES},{KV},2,{P},{D}) idx({B},{KV},{N_SEL}) -> V only",
-            "bound_bytes": moved + written + nbytes(idx), "bound_ops": 0,
-            "bound_ms": 1e3 * max(moved / PCIE_BPS, (written + nbytes(idx)) / HBM_BPS),
-            "bound_by": "bytes", "bound_link": "PCIe for the pinned host pool",
+            **rl.kernel_bound(cost[True]), "bound_link": "PCIe for the pinned host pool",
             "link_ms": gather_bench.link_ms(moved, dev), "moved_bytes": moved,
             **host_gather_grid(ops, "recall_gather", dev, 1),
             "max_abs_err": max(errs), "tol": 0.0,
             "kernel_ms": ms_host, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
             "device_pool_ms": ms_dev,
-            "device_pool_bound_ms": 1e3 * (moved + written + nbytes(idx)) / HBM_BPS,
+            "device_pool_bound_ms": rl.kernel_bound(cost[False])["bound_ms"],
             "library_ms": lib_ms, "library_call": "advanced indexing of pool[..., 1, :, :] "
                                                   "on a device pool"}
 
@@ -661,19 +657,20 @@ def check_recall_values_quant(ops, ref, dev, gen):
                                                   device=dev), bits, 0)
         hp, hs = pool.cpu().pin_memory(), scales.cpu().pin_memory()
         valid = int((idx >= 0).sum())
-        moved = valid * (P * D * bits // 8 + scales.shape[-1] * 4)
-        written = B * KV * N_SEL * P * D * 2
+        cost = {host: kcost.recall_values_quant(B, KV, N_SEL, P, D, bits, scales.shape[-1], 2,
+                                             valid=valid, host=host) for host in (True, False)}
+        moved = cost[True]["link_bytes"]
         fn = lambda p_, s_, i_: ops.recall_values_quant(p_, s_, i_, bits=bits, out_dtype=dt)
         ms_host, call_ms = time_ms(fn, [(hp, hs, i) for i in sels])
         dev_args = [(pool, scales, _distinct_idx(gen, dev))
-                    for _ in range(copies_for(moved + written))]
+                    for _ in range(copies_for(rl.kernel_bound(cost[False])["bound_bytes"]))]
         ms_dev, _ = time_ms(fn, dev_args)
         plain_ms, _ = time_ms(lambda p_, s_, i_: ref.recall_values_quant_ref(p_, s_, i_, bits, dt),
                               dev_args, iters=10)
         row[bits] = {"ms": ms_host, "call_ms": call_ms, "device_pool_ms": ms_dev,
                      "plain_ms": plain_ms, "moved_bytes": moved,
-                     "bound_ms": 1e3 * max(moved / PCIE_BPS, (written + nbytes(idx)) / HBM_BPS),
-                     "device_pool_bound_ms": 1e3 * (moved + written + nbytes(idx)) / HBM_BPS,
+                     "bound_ms": rl.kernel_bound(cost[True])["bound_ms"],
+                     "device_pool_bound_ms": rl.kernel_bound(cost[False])["bound_ms"],
                      "link_ms": gather_bench.link_ms(moved, dev)}
     r8 = row[8]
     return {"name": "recall_values_quant", "link_ms": r8["link_ms"],
@@ -726,14 +723,9 @@ def check_centroid_scores(ops, ref, dev, gen):
                for q, c, n in args]
     lib_ms, _ = time_ms(lambda qp, qn, hi, lo, ok: torch.where(
         ok, (torch.matmul(qp, hi) + torch.matmul(qn, lo)) * scale, -1e30), mm_args)
-    q, cent, count = args[0]
-    byts = nbytes(q, cent, count) + B * KV * G * N_CENT * 4
-    flops = 4 * B * KV * G * N_CENT * D
     return {"name": "centroid_scores",
             "shape": f"q({B},{KV},{G},{D}) cent({B},{N_CENT},{KV},2,{D}) count({B},{N_CENT},{KV})",
-            "bound_bytes": byts, "bound_ops": flops,
-            "bound_ms": 1e3 * max(byts / HBM_BPS, flops / PEAK_OPS[dt]),
-            "bound_by": "bytes" if byts / HBM_BPS >= flops / PEAK_OPS[dt] else "operations",
+            **rl.kernel_bound(kcost.centroid_scores(B, KV, G, N_CENT, D, 2)),
             "max_abs_err": out[torch.bfloat16], "max_abs_err_fp32": out[torch.float32],
             "tol": tol, "tol_fp32": tol,
             "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
@@ -809,14 +801,9 @@ def check_select_pages(ops, ref, dev, gen):
     comp_ms, comp_call_ms = time_ms(comp, args)
     plain_ms, _ = time_ms(lambda q, s, n: ref.select_pages_ref(q, s, n, N_SEL, scale, P, N_SINK,
                                                                N_WIN, mode), args, iters=10)
-    q, summ, length = args[0]
-    byts = nbytes(q, summ, length) + B * KV * N_SEL * 4
-    flops = 4 * B * KV * G * N_PAGES * D
     return {"name": "select_pages",
             "shape": f"q({B},{KV},{G},{D}) summ({B},{N_PAGES},{KV},2,{D}) n_sel {N_SEL} MeanS",
-            "bound_bytes": byts, "bound_ops": flops,
-            "bound_ms": 1e3 * max(byts / HBM_BPS, flops / PEAK_OPS[dt]),
-            "bound_by": "bytes" if byts / HBM_BPS >= flops / PEAK_OPS[dt] else "operations",
+            **rl.kernel_bound(kcost.select_pages(B, KV, G, N_PAGES, D, N_SEL, 2)),
             "max_abs_err": err, "tol": tol, "ids": "exact (tie-aware on random inputs)",
             "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
             "composition_ms": comp_ms, "composition_call_ms": comp_call_ms,
@@ -867,15 +854,10 @@ def check_centroid_candidates(ops, ref, dev, gen):
     comp_ms, comp_call_ms = time_ms(comp, args)
     plain_ms, _ = time_ms(lambda *a: ref.centroid_candidates_ref(*a, m, scale, P, N_SINK, N_WIN),
                           args, iters=10)
-    q, cent, count, assign, length = args[0]
-    byts = nbytes(q, cent, count, assign, length) + B * KV * m * 4
-    flops = 4 * B * KV * G * N_CENT * D
     return {"name": "centroid_candidates",
             "shape": f"q({B},{KV},{G},{D}) cent({B},{N_CENT},{KV},2,{D}) "
                      f"assign({B},{N_PAGES},{KV}) m {m}",
-            "bound_bytes": byts, "bound_ops": flops,
-            "bound_ms": 1e3 * max(byts / HBM_BPS, flops / PEAK_OPS[dt]),
-            "bound_by": "bytes" if byts / HBM_BPS >= flops / PEAK_OPS[dt] else "operations",
+            **rl.kernel_bound(kcost.centroid_candidates(B, KV, G, N_CENT, N_PAGES, D, m, 2)),
             "max_abs_err": 0.0, "tol": 0.0,
             "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
             "composition_ms": comp_ms, "composition_call_ms": comp_call_ms,
@@ -907,10 +889,8 @@ def check_page_summary(ops, ref, dev, gen):
         plain_ms, _ = time_ms(lambda k: ref.page_summary_ref(k, P), args, iters=10)
         lib_ms, _ = time_ms(lambda k: torch.aminmax(k.view(b, CONTEXT // P, P, KV, D), dim=2),
                             args)
-        byts = nbytes(args[0][0]) + b * (CONTEXT // P) * KV * 2 * D * 2
         return {"shape": f"k({b},{CONTEXT},{KV},{D}) -> ({b},{CONTEXT // P},{KV},2,{D})",
-                "bound_bytes": byts, "bound_ops": 0, "bound_ms": 1e3 * byts / HBM_BPS,
-                "bound_by": "bytes", "kernel_ms": ms, "kernel_call_ms": call_ms,
+                **rl.kernel_bound(kcost.page_summary(b, CONTEXT, KV, D, P, 2)), "kernel_ms": ms, "kernel_call_ms": call_ms,
                 "plain_ms": plain_ms, "library_ms": lib_ms}
 
     # timed at a continuous admission's prefill (B=1), the main path's shape,
@@ -1017,10 +997,10 @@ def check_fill_pages(ops, ref, dev, gen):
 
     def timed(b, bits):
         n = CONTEXT // P
-        byts = 2 * b * CONTEXT * KV * D * 2 + b * n * KV * 2 * D * 2 + b * n * KV * 2 * P * (
-            D * 2 if not bits else D * bits // 8) + (b * n * KV * 2 * 4 if bits else 0)
+        bound = rl.kernel_bound(kcost.fill_pages(b, n, P, KV, D, 2, 2, bits=bits,
+                                              n_g=1 if bits else 0))
         args = []
-        for _ in range(copies_for(byts)):
+        for _ in range(copies_for(bound["bound_bytes"])):
             k = torch.randn(b, CONTEXT, KV, D, generator=gen, device=dev).to(dt)
             v = torch.randn(b, CONTEXT, KV, D, generator=gen, device=dev).to(dt)
             # the staging block of a pinned pool: exactly the filled pages
@@ -1031,8 +1011,7 @@ def check_fill_pages(ops, ref, dev, gen):
         lib_ms, _ = time_ms(lambda k, *_: torch.aminmax(k.unflatten(1, (n, P)), dim=2), args)
         return {"shape": f"k,v({b},{CONTEXT},{KV},{D}) -> block({b},{n},{KV},2,{P},{D}) "
                          f"{'bf16' if not bits else f'int{bits}'} + summ",
-                "bound_bytes": byts, "bound_ops": 0, "bound_ms": 1e3 * byts / HBM_BPS,
-                "bound_by": "bytes", "kernel_ms": ms, "kernel_call_ms": call_ms,
+                **bound, "kernel_ms": ms, "kernel_call_ms": call_ms,
                 "plain_ms": plain_ms, "composition_ms": comp_ms,
                 "composition_call_ms": comp_call_ms, "library_ms": lib_ms}
 
@@ -1138,18 +1117,18 @@ def check_complete_page(ops, ref, dev, gen):
             + torch.arange(P, device=dev)) % N_WIN
     pk = win_k[torch.arange(B, device=dev)[:, None], slot]       # (B, p, kv, d)
     lib_ms, _ = time_ms(lambda x: torch.aminmax(x, dim=1), [(pk,)])
-    link = B * KV * 2 * P * D * 2                                  # the blocks, to the host
-    on_card = 2 * B * P * KV * D * 2 + B * KV * 2 * D * 2 + nbytes(every)
+    # every row completing: the blocks to the host; no row: the lengths only
     return {"name": "complete_page",
             "shape": f"rings({B},{N_WIN},{KV},{D}) -> pinned pool({B},{N_PAGES},{KV},2,{P},{D}), "
                      "every row completing",
-            "bound_bytes": link + on_card, "bound_ops": 0,
-            "bound_ms": 1e3 * max(link / PCIE_BPS, on_card / HBM_BPS), "bound_by": "bytes",
+            **rl.kernel_bound(kcost.complete_page(B, P, KV, D, 2)),
             "bound_link": "PCIe for the pinned host pool",
             "kernel_ms": ms, "kernel_call_ms": call_ms, "device_pool_ms": dev_ms,
-            "device_pool_bound_ms": 1e3 * (link + on_card) / HBM_BPS,
+            "device_pool_bound_ms": rl.kernel_bound(kcost.complete_page(B, P, KV, D, 2,
+                                                                     host=False))["bound_ms"],
             "no_completion": {"kernel_ms": none_ms, "kernel_call_ms": none_call_ms,
-                              "bound_ms": 1e3 * nbytes(none) / HBM_BPS},
+                              "bound_ms": rl.kernel_bound(kcost.complete_page(
+                                  B, P, KV, D, 2, rows=0))["bound_ms"]},
             "plain_ms": plain_ms, "composition_ms": comp_ms, "composition_call_ms": comp_call_ms,
             "composition": "the former host-branch completion: host pick, 2 pinned index uploads, "
                            "ring gathers, stack, a copy_ a row, page_summary kernel, scatter",
@@ -1211,13 +1190,8 @@ def check_flash_prefill(ops, ref, dev, gen):
         sdpa_args = [tuple(x.contiguous() for x in args[0])]
         lib_ms, _ = time_ms(lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=True, scale=scale, enable_gqa=True), sdpa_args, iters=10)
-        q, k, v = args[0]
-        byts = nbytes(q, k, v, q)
-        flops = 4 * b * H * D * (CONTEXT * (CONTEXT + 1) // 2)   # QK^T and PV, causal pairs
         return {"shape": f"q({b},{H},{CONTEXT},{D}) kv({b},{KV},{CONTEXT},{D}) causal",
-                "bound_bytes": byts, "bound_ops": flops,
-                "bound_ms": 1e3 * max(byts / HBM_BPS, flops / PEAK_OPS[dt]),
-                "bound_by": "bytes" if byts / HBM_BPS >= flops / PEAK_OPS[dt] else "operations",
+                **rl.kernel_bound(kcost.flash_prefill(b, H, KV, CONTEXT, CONTEXT, D, 2)),
                 "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
                 "library_ms": lib_ms}
 
@@ -1271,7 +1245,7 @@ def check_flash_prefill_bidirectional(ops, ref, dev, gen):
     lib_prec = _library_precision(sdpa(*sdpa_args[0]), ref.flash_prefill_ref(q, k, v, scale,
                                                                              False), dt)
     return {"shape": f"q(1,{h},{t},{d}) kv(1,{h},{t},{d}) bidirectional",
-            **_bound(nbytes(q, k, v, q), 4 * h * d * t * t),
+            **rl.kernel_bound(kcost.flash_prefill(1, h, h, t, t, d, 2, causal=False)),
             "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "library_call": "scaled_dot_product_attention(q, k, v)",
             "max_abs_err": errs["1500 bfloat16"], "max_abs_err_fp32": errs["1500 float32"],
@@ -1323,13 +1297,8 @@ def check_flash_prefill_extension(ops, ref, dev, gen):
         q, k, v, attn_mask=bias, scale=scale)
     lib_ms, _ = time_ms(sdpa, sdpa_args, iters=10)
     lib_prec = _library_precision(sdpa(*sdpa_args[0]), ref.flash_prefill_ref(q, k, v, scale), dt)
-    byts = nbytes(q, k, v, q)
-    off = tk - tq
-    flops = 4 * H * D * (tq * off + tq * (tq + 1) // 2)    # QK^T and PV, visible pairs
     return {"shape": f"q(1,{H},{tq},{D}) kv(1,{KV},{tk},{D}) causal lower-right",
-            "bound_bytes": byts, "bound_ops": flops,
-            "bound_ms": 1e3 * max(byts / HBM_BPS, flops / PEAK_OPS[dt]),
-            "bound_by": "bytes" if byts / HBM_BPS >= flops / PEAK_OPS[dt] else "operations",
+            **rl.kernel_bound(kcost.flash_prefill(1, H, KV, tq, tk, D, 2)),
             "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms,
             "library_call": f"scaled_dot_product_attention(attn_mask=causal_lower_right({tq}, "
@@ -1356,20 +1325,6 @@ ARCH_SHAPES = {   # arch -> (query heads, KV heads, d_head, softcap, sliding win
     "whisper-tiny": (6, 6, 64, None, None),
     "internvl2-26b": (48, 8, 128, None, None),
 }
-
-
-def _bound(byts, flops, dt=torch.bfloat16):
-    return {"bound_bytes": byts, "bound_ops": flops,
-            "bound_ms": 1e3 * max(byts / HBM_BPS, flops / PEAK_OPS[dt]),
-            "bound_by": "bytes" if byts / HBM_BPS >= flops / PEAK_OPS[dt] else "operations"}
-
-
-def _visible_pairs(tq, tk, window):
-    """Query-key pairs a causal (optionally windowed) attention of tq rows at
-    positions tk - tq .. tk - 1 over tk keys computes."""
-    pos = torch.arange(tk - tq, tk, dtype=torch.float64)
-    lo = torch.clamp(pos - window + 1, min=0) if window else torch.zeros_like(pos)
-    return int((pos - lo + 1).sum().item())
 
 
 def _held(name, got, want, dt):
@@ -1415,10 +1370,9 @@ def check_paged_attention_shapes(ops, ref, dev, gen):
         if cap is None:
             lib_ms, _ = time_ms(lambda q, k, v, m: _sdpa(q, k, v, m, scale),
                                 [_sdpa_paged_inputs(*a) for a in args])
-        q, k, v, pos, cur = args[0]
         rows[arch] = {"shape": f"q({B},{kv},{g},{d}) kv({B},{kv},{n},{P},{d})"
                                + (f" softcap {cap:g}" if cap else ""),
-                      **_bound(nbytes(q, k, v, pos, cur, q), 4 * B * h * L * d),
+                      **rl.kernel_bound(kcost.paged_attention(B, kv, g, n, P, d, 2)),
                       "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
                       "library_ms": lib_ms, "max_abs_err": errs[torch.bfloat16],
                       "max_abs_err_fp32": errs[torch.float32]}
@@ -1475,7 +1429,7 @@ def check_flash_prefill_shapes(ops, ref, dev, gen):
                      + (f" window {window} softcap {cap:g}" if cap else ""))
             rows[arch if form == "prompt" else f"{arch} extension"] = {
                 "shape": shape,
-                **_bound(nbytes(q, k, v, q), 4 * h * d * _visible_pairs(tq, CONTEXT, window)),
+                **rl.kernel_bound(kcost.flash_prefill(1, h, kv, tq, CONTEXT, d, 2, window=window)),
                 "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
                 "library_ms": lib_ms, "max_abs_err": errs[f"{form} bfloat16"],
                 "max_abs_err_cases": errs}
@@ -1535,11 +1489,10 @@ def check_select_pages_shapes(ops, ref, dev, gen):
             plain_ms, _ = time_ms(lambda q, s, n: ref.select_pages_ref(
                 q, s, n, N_SEL, scale, P, N_SINK, N_WIN, mode, None, per_head, per_head),
                 args, iters=10)
-            q, summ, length = args[0]
-            ids_out = B * (h if per_head else kv) * N_SEL * 4
             rows[key] = {"shape": f"q({B},{kv},{g},{d}) summ({B},{N_PAGES},{kv},2,{d}) n_sel "
                                   f"{N_SEL} " + ("per query head" if per_head else "MeanS"),
-                         **_bound(nbytes(q, summ, length) + ids_out, 4 * B * h * N_PAGES * d),
+                         **rl.kernel_bound(kcost.select_pages(B, kv, g, N_PAGES, d, N_SEL, 2,
+                                                           per_head=per_head)),
                          "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
                          "library_ms": None, "max_abs_err": 0.0, "ids": "exact"}
     return rows
@@ -1588,10 +1541,10 @@ def check_fill_shapes(ops, ref, dev, gen):
                         f"fill_pages {arch} {dt} int{bits}: not exact")
             del k, v
         dt, n = torch.bfloat16, CONTEXT // P
-        fb = 2 * CONTEXT * kv * d * 2 + n * kv * 2 * d * 2 + n * kv * 2 * P * d * 2
+        f_bound = rl.kernel_bound(kcost.fill_pages(1, n, P, kv, d, 2, 2))
         fargs = [(torch.randn(1, CONTEXT, kv, d, generator=gen, device=dev).to(dt),
                   torch.randn(1, CONTEXT, kv, d, generator=gen, device=dev).to(dt))
-                 + outs(1, n, dt, 0) for _ in range(copies_for(fb))]
+                 + outs(1, n, dt, 0) for _ in range(copies_for(f_bound["bound_bytes"]))]
         f_ms, f_call = time_ms(ops.fill_pages, fargs)
         f_plain, _ = time_ms(ref.fill_pages_ref, fargs, iters=10)
         win = tuple(torch.randn(B, N_WIN, kv, d, generator=gen, device=dev).to(dt)
@@ -1601,18 +1554,15 @@ def check_fill_shapes(ops, ref, dev, gen):
         c_ms, c_call = time_ms(ops.complete_page, [win + (every,) + host])
         c_plain, _ = time_ms(ref.complete_page_ref, [win + (every,) + outs(B, N_PAGES, dt, 0)],
                              iters=10)
-        link = B * kv * 2 * P * d * 2
-        on_card = 2 * B * P * kv * d * 2 + B * kv * 2 * d * 2
         rows[arch] = {
             "fill_pages": {"shape": f"k,v(1,{CONTEXT},{kv},{d}) -> block(1,{n},{kv},2,{P},{d}) "
-                                    "bf16 + summ", **_bound(fb, 0), "kernel_ms": f_ms,
+                                    "bf16 + summ", **f_bound, "kernel_ms": f_ms,
                            "kernel_call_ms": f_call, "plain_ms": f_plain, "library_ms": None,
                            "max_abs_err": 0.0},
             "complete_page": {"shape": f"rings({B},{N_WIN},{kv},{d}) -> pinned pool, every row "
                                        "completing",
-                              "bound_bytes": link + on_card, "bound_ops": 0,
-                              "bound_ms": 1e3 * max(link / PCIE_BPS, on_card / HBM_BPS),
-                              "bound_by": "bytes", "kernel_ms": c_ms, "kernel_call_ms": c_call,
+                              **rl.kernel_bound(kcost.complete_page(B, P, kv, d, 2)),
+                              "kernel_ms": c_ms, "kernel_call_ms": c_call,
                               "plain_ms": c_plain, "library_ms": None, "max_abs_err": 0.0}}
     return rows
 
@@ -1642,8 +1592,10 @@ def _moe_bounds(cfg, n, kept, experts_used):
     fixed_o = 2 * n * d * E + 2 * 3 * n * d * ds
     from repro_torch.models.moe import capacity
     cap = capacity(n, E, cfg.moe_top_k)
-    design = _bound(fixed_b + E * 3 * d * de * 2, fixed_o + E * cap * c)
-    routed = _bound(fixed_b + experts_used * 3 * d * de * 2, fixed_o + kept * c)
+    design = rl.kernel_bound({"hbm_bytes": fixed_b + E * 3 * d * de * 2,
+                              "flops": fixed_o + E * cap * c})
+    routed = rl.kernel_bound({"hbm_bytes": fixed_b + experts_used * 3 * d * de * 2,
+                              "flops": fixed_o + kept * c})
     return design, routed
 
 
@@ -1763,28 +1715,19 @@ def ssm_layer_phase(dev):
     w_bytes = sum(t.numel() * t.element_size() for t in p.values())
     flops_tok = 2 * (d * 2 * di + di * (r + 2 * ds) + r * di + di * d)
     dec_ms, dec_call = time_ms(lambda x: ssm.mamba_decode_step(cfg, p, x, s), [(xs,)], iters=20)
-    dec_bound = _bound(w_bytes + 2 * s["h"].numel() * 4 + 2 * s["conv"].numel() * 2
-                       + 2 * Bd * d * 2, Bd * flops_tok)
+    dec_bound = rl.kernel_bound({"hbm_bytes": w_bytes + 2 * s["h"].numel() * 4
+                                 + 2 * s["conv"].numel() * 2 + 2 * Bd * d * 2,
+                                 "flops": Bd * flops_tok})
     Tp = 2048
     xp = torch.randn(1, Tp, d, generator=gen, device=dev).to(torch.bfloat16)
     pre_ms, pre_call = time_ms(lambda x: ssm.mamba_forward(cfg, p, x), [(xp,)], iters=1)
-    pre_bound = _bound(w_bytes + 2 * Tp * d * 2, Tp * flops_tok)
+    pre_bound = rl.kernel_bound({"hbm_bytes": w_bytes + 2 * Tp * d * 2, "flops": Tp * flops_tok})
     del p, xs, xp, s
     torch.cuda.empty_cache()
     return {"layer": f"d {d} d_inner {di} d_state {ds} d_conv {dk} dt_rank {r}",
             "chain_steps": T, "max_abs_err_chain_vs_forward": errs, "tolerance": 1e-4,
             "decode_b4": {"ms": dec_ms, "call_ms": dec_call, **dec_bound, "sync_free": True},
             "prefill_t2048": {"ms": pre_ms, "call_ms": pre_call, **pre_bound}}
-
-
-def _bound_mixed(byts, ops_bf16, ops_f32):
-    """The bound of work whose products run partly in bf16 (tensor cores)
-    and partly in float32 (outside them): the bytes over HBM's rate, or the
-    two kinds of operations each over its own peak, whichever is longer."""
-    t_ops = ops_bf16 / PEAK_OPS[torch.bfloat16] + ops_f32 / PEAK_F32_OPS
-    return {"bound_bytes": byts, "bound_ops_bf16": ops_bf16, "bound_ops_f32": ops_f32,
-            "bound_ms": 1e3 * max(byts / HBM_BPS, t_ops),
-            "bound_by": "bytes" if byts / HBM_BPS >= t_ops else "operations"}
 
 
 def xlstm_layer_phase(dev):
@@ -1848,11 +1791,13 @@ def xlstm_layer_phase(dev):
         s_bytes = sum(t.numel() * t.element_size() for t in s.values())
         ob, of = tok_ops[kind]
         dec_ms, dec_call = time_ms(lambda x: step(cfg, p, x, s), [(xs,)], iters=20)
-        dec_bound = _bound_mixed(w_bytes + 2 * s_bytes + 2 * Bd * d * 2, Bd * ob,
-                                 Bd * (of + mix_dec[kind]))
+        # the products run partly in bf16 (tensor cores), partly in float32
+        dec_bound = rl.kernel_bound({"hbm_bytes": w_bytes + 2 * s_bytes + 2 * Bd * d * 2,
+                                     "flops": Bd * ob, "flops_f32": Bd * (of + mix_dec[kind])})
         xp = torch.randn(1, Tp, d, generator=gen, device=dev).to(torch.bfloat16)
         pre_ms, pre_call = time_ms(lambda x: fwd(cfg, p, x), [(xp,)], iters=1)
-        pre_bound = _bound_mixed(w_bytes + 2 * Tp * d * 2, Tp * ob, Tp * (of + mix_pre[kind]))
+        pre_bound = rl.kernel_bound({"hbm_bytes": w_bytes + 2 * Tp * d * 2, "flops": Tp * ob,
+                                     "flops_f32": Tp * (of + mix_pre[kind])})
         out[kind] = {"max_abs_err_chain_vs_forward": errs,
                      "decode_b4": {"ms": dec_ms, "call_ms": dec_call, **dec_bound,
                                    "sync_free": True, "state_bytes_a_row": s_bytes // Bd},
@@ -2019,6 +1964,82 @@ def main_path(dev, ops, cfg, params, method, kv_quant, scheduler="continuous"):
                     f"({run})")
         torch.cuda.empty_cache()
     return info, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4's [cost] line: the cost model against the card on the main path
+# ---------------------------------------------------------------------------
+# the launches of one llama31-8b decode step (32 layers): FreeKV's top-up
+# and staged recall are two gathers a layer
+COST_STEP_LAUNCHES = {"paged_attention": 32, "select_pages": 32, "complete_page": 32,
+                      "recall_gather": 64}
+
+
+def _per_op_diff(a, b):
+    return {k: (a.get(k), b.get(k)) for k in sorted(set(a) | set(b))
+            if (a.get(k) or {}).get("bytes") != (b.get(k) or {}).get("bytes")
+            or (a.get(k) or {}).get("flops") != (b.get(k) or {}).get("flops")}
+
+
+def cost_phase(dev, ops, cfg, params, measured_ms):
+    """One llama31-8b ``serve_step`` at phase 4's engine shape (B 4, the
+    FreeKVConfig defaults, the pool in pinned host memory, prompts of 8192
+    tokens; the second step after the prefill) counted by
+    ``launch/op_cost`` on the card and the same step on
+    the meta device: FLOPs, bytes, link bytes and every kernel's launches
+    and bytes must be equal, and the launches must equal the ``.launches``
+    deltas of the card's step. Then the cost model's analytic bound for the
+    step (``roofline.decode_byte_parts``: all over HBM, and with the pool
+    part over PCIe) beside phase 4's measured continuous freekv/none
+    ms/step."""
+    from repro_torch.configs.base import FreeKVConfig, ShapeConfig
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.launch import op_cost
+    from repro_torch.models.model import init_decode_state, init_params, prefill, serve_step
+    t0 = time.perf_counter()
+    fkv = FreeKVConfig(offload="host")
+    stream = needle_stream(cfg.vocab_size, CONTEXT, fkv.page_size, seed=0)
+    toks = torch.from_numpy(np.stack([next(stream).tokens for _ in range(B)])).long().to(dev)
+    _, state = prefill(cfg, fkv, params, {"tokens": toks}, max_len=MAX_LEN)
+    # one step first: a kernel's one-time workspaces (paged_attention's
+    # ticket counters on a stream) are no part of a step
+    serve_step(cfg, fkv, params, state, toks[:, -1:])
+    torch.cuda.synchronize(dev)
+    ops.reset_launches()
+    card = op_cost.analyze(serve_step, cfg, fkv, params, state, toks[:, -1:])
+    torch.cuda.synchronize(dev)
+    deltas = {fn.__name__: fn.launches for fn in ops.KERNELS if fn.launches}
+    require(bool(torch.isfinite(card["out"][0].float()).all()), "[cost] non-finite logits")
+    del state, card["out"]
+    meta_params = init_params(cfg, device="meta", dtype=torch.bfloat16)
+    meta_state = init_decode_state(cfg, fkv, B, MAX_LEN, torch.bfloat16, "meta")
+    meta = op_cost.analyze(serve_step, cfg, fkv, meta_params, meta_state,
+                           torch.zeros((B, 1), dtype=torch.long, device="meta"))
+    for key in ("flops", "bytes", "link_bytes", "aten_flops", "aten_bytes"):
+        require(card[key] == meta[key],
+                f"[cost] {key}: {card[key]} counted on the card, {meta[key]} on meta; ops that "
+                f"differ {json.dumps(_per_op_diff(card['per_op'], meta['per_op']))}")
+    require(card["kernels"] == meta["kernels"],
+            f"[cost] kernels: card {card['kernels']} meta {meta['kernels']}")
+    counted = {k: v["launches"] for k, v in card["kernels"].items()}
+    require(counted == deltas == COST_STEP_LAUNCHES,
+            f"[cost] launches counted {counted}, .launches deltas {deltas}, expected "
+            f"{COST_STEP_LAUNCHES}")
+    shape = ShapeConfig("phase4_decode", CONTEXT, B, "decode")
+    parts = rl.decode_byte_parts(cfg, fkv, shape)
+    hbm_ms = 1e3 * rl.decode_step_bound_s(parts)
+    link_ms = 1e3 * rl.decode_step_bound_s(parts, pool_link=True)
+    terms = rl.roofline_terms(card["flops"], card["bytes"], 0.0)
+    return {"arch": cfg.name, "slots": B, "context": CONTEXT, "fkv": "FreeKVConfig(offload='host')",
+            "flops": card["flops"], "bytes": card["bytes"], "aten_bytes": card["aten_bytes"],
+            "link_bytes": card["link_bytes"], "launches": counted,
+            "kernels": card["kernels"], "card_equals_meta": True,
+            "top_ops_bytes": op_cost.top_ops(card, "bytes", 5),
+            "analytic_parts_bytes": parts, "analytic_bound_ms": hbm_ms,
+            "analytic_bound_pool_pcie_ms": link_ms,
+            "counted_bound_ms": 1e3 * terms.bound_s, "counted_dominant": terms.dominant,
+            "measured_ms_per_step": measured_ms, "share": hbm_ms / measured_ms,
+            "share_pool_pcie": link_ms / measured_ms, "phase_s": time.perf_counter() - t0}
 
 
 # phase 4b: the scheduler's features at full width, each pair the same
@@ -3471,7 +3492,7 @@ def train_full_width(dev, ops):
     step = make_train_step(cfg, opt_cfg)
     data = lm_batches(cfg.vocab_size, TRAIN_T, TRAIN_B, seed=0)
     flops = train_step_flops(cfg, n_params, TRAIN_B, TRAIN_T)
-    bound_s = flops / PEAK_F32_OPS
+    bound_s = flops / rl.PEAK_F32
     ops.reset_launches()
     rows = []
     for i in range(TRAIN_STEPS):
@@ -3840,6 +3861,18 @@ def main():
                 "tokens_per_s", "slot_occupancy")
         log("[main] freekv/none static vs continuous: " + json.dumps(
             {sch: {k: compare[sch][k] for k in keys} for sch in ("static", "continuous")}))
+        cost = cost_phase(dev, ops, cfg, params, compare["continuous"]["decode_ms_per_step"])
+        log("[cost] " + json.dumps(cost))
+        log(f"[cost] {smi} | llama31-8b serve_step, B {B}, context {CONTEXT}: counted on the "
+            f"card == on meta, {cost['flops']:.4e} FLOPs, {cost['bytes']:.4e} B "
+            f"({cost['aten_bytes']:.4e} by torch ops), {cost['link_bytes']:.4e} B over PCIe, "
+            f"launches {json.dumps(cost['launches'])}; analytic bound "
+            f"{cost['analytic_bound_ms']:.3f} ms all over HBM ("
+            + ", ".join(f"{k} {v / 1e9:.4f} GB" for k, v in cost["analytic_parts_bytes"].items())
+            + f"), {cost['analytic_bound_pool_pcie_ms']:.3f} ms with the pool over PCIe; "
+            f"measured continuous freekv/none {cost['measured_ms_per_step']:.2f} ms/step: share "
+            f"{cost['share']:.4f} ({cost['share_pool_pcie']:.4f} with the pool over PCIe); "
+            f"{cost['phase_s']:.1f} s")
         # phase 4b: chunked prefill, the prefix cache and preemption, each
         # off and on over the same traffic
         t0 = time.perf_counter()

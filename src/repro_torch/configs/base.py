@@ -1,5 +1,6 @@
-"""Config dataclasses for architectures and FreeKV (own copy of the reference
-``repro/configs/base.py``, cut to what the port serves).
+"""Config dataclasses for architectures, the cost model's input shapes and
+FreeKV (own copy of the reference ``repro/configs/base.py``, without its
+meshes).
 
 Layer structure is ``prelude + pattern * n_periods``, each layer a
 ``(mixer, ffn)`` pair, exactly as in the reference; the port runs the layers
@@ -102,8 +103,80 @@ class ArchConfig:
     def layers(self) -> Tuple[Layer, ...]:
         return self.prelude + self.pattern * self.n_periods
 
+    def has_mixer(self, kind: str) -> bool:
+        return any(m == kind for m, _ in self.layers)
+
+    @property
+    def uses_attention(self) -> bool:
+        return self.has_mixer(ATTN) or self.has_mixer(ATTN_LOCAL)
+
+    @property
+    def uses_moe(self) -> bool:
+        return any(f == MOE for _, f in self.layers)
+
     def padded_vocab(self, multiple: int = 512) -> int:
         return ((self.vocab_size + multiple - 1) // multiple) * multiple
+
+    def param_counts(self) -> dict:
+        """{'total': N, 'active': N_active} (active counts the top-k routed
+        experts), the reference's estimate (``repro/configs/base.py:126``)
+        behind the roofline's MODEL_FLOPS = 6 N D."""
+        d, dh = self.d_model, self.d_head
+        emb = self.padded_vocab() * d * (1 if self.tie_embeddings else 2)
+        total = active = emb
+        for mixer, ffn in self.layers:
+            if mixer in (ATTN, ATTN_LOCAL):
+                p = d * dh * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * dh * d
+            elif mixer == MAMBA:
+                di = self.ssm_expand * d
+                p = (d * di * 2 + di * self.ssm_d_conv
+                     + di * (self.ssm_d_state * 2 + 2) + di * d)
+            elif mixer in (MLSTM, SLSTM):
+                di = int(self.xlstm_proj_factor * d)
+                dqk = int(self.xlstm_qk_dim_factor * di)
+                p = d * (2 * dqk + 2 * di) + di * d + 3 * di
+            else:
+                raise ValueError(mixer)
+            total += p
+            active += p
+            if ffn == DENSE:
+                f = d * self.d_ff * (3 if self.gated_mlp else 2)
+                total += f
+                active += f
+            elif ffn == MOE:
+                de = self.d_expert or self.d_ff
+                per = d * de * (3 if self.gated_mlp else 2)
+                total += per * (self.n_experts + self.n_shared_experts) + d * self.n_experts
+                active += per * (self.moe_top_k + self.n_shared_experts) + d * self.n_experts
+        if self.is_encoder_decoder:
+            # encoder layers (attention + dense FFN) and each decoder layer's
+            # cross-attention
+            p = (d * dh * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * dh * d
+                 + d * self.d_ff * (3 if self.gated_mlp else 2))
+            total += p * self.n_encoder_layers
+            active += p * self.n_encoder_layers
+            xattn = (d * dh * (self.n_heads + 2 * self.n_kv_heads)
+                     + self.n_heads * dh * d) * self.n_layers
+            total += xattn
+            active += xattn
+        return {"total": total, "active": active}
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the cost model (reference ``base.py:171``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
 @dataclass(frozen=True)

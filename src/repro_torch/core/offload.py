@@ -8,21 +8,28 @@ reference's ``HOST_KEYS`` do. The card reads the host pool only through the
 ``recall_gather`` and ``recall_gather_quant`` kernels, at the mapped device
 addresses; writes are non-blocking copies from card-side blocks
 (``core/paging``). ``offload="sim"`` keeps the pool in device memory. On a
-CPU device the two coincide.
+CPU device the two coincide. On the meta device a host pool is a meta
+tensor marked by ``ops.mark_host_pool``, so the kernels' wrappers count its
+bytes, and those of its views, across the link as on the card.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import FreeKVConfig
+from repro_torch.kernels import ops
 
 
 def alloc_pool(shape, dtype, fkv: FreeKVConfig, device: torch.device):
     """A zeroed pool tensor (the payload or its scales): pinned host memory
-    for ``offload="host"`` on a CUDA device, else on ``device``."""
+    for ``offload="host"`` on a CUDA device (on meta, a meta tensor that
+    stands for it), else on ``device``."""
     if fkv.offload == "host" and device.type == "cuda":
         return torch.zeros(shape, dtype=dtype, pin_memory=True)
-    return torch.zeros(shape, dtype=dtype, device=device)
+    t = torch.zeros(shape, dtype=dtype, device=device)
+    if fkv.offload == "host" and device.type == "meta":
+        ops.mark_host_pool(t)
+    return t
 
 
 def swap_state_to_host(state):

@@ -171,7 +171,7 @@ def prefill_fill_pool(state, k, v, length):
                          f"or the window ring ({n_win})")
     pool, scale = state["pool"], state.get("pool_scale")
     n_full = T // pool.shape[4]
-    if pool.device == k.device:
+    if not ops.is_host_pool(pool, k.device):
         ops.fill_pages(k, v, state["summ"][:, :n_full], pool[:, :n_full],
                        None if scale is None else scale[:, :n_full])
     else:       # a pinned pool: fill a card-side block, moved by the copy engine

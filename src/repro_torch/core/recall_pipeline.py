@@ -15,7 +15,8 @@ stream); tensors that cross streams get ``record_stream``; the staged output
 is a fresh tensor that never aliases the buffer this step's attention reads;
 and the next step waits on ``PipelinedRecall.ready`` before it reads the
 staged buffer (``FreeKVRetriever`` keeps the event in the layer state). On
-the CPU there are no streams and the same code runs in order.
+the CPU there are no streams and the same code runs in order; on the meta
+device too (a counted step: the same ops and kernels, nothing to overlap).
 
 Guarantee, bit for bit: ``staged == fresh`` and
 ``use == where(corr, fresh, stale)``.

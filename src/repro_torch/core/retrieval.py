@@ -27,6 +27,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import card_branch
 from repro_torch.configs.base import ArchConfig, FreeKVConfig
 from repro_torch.core import centroid_index, paging, selection
 from repro_torch.core.correction import corrected_heads
@@ -602,7 +603,7 @@ def low_rank_keys(k, rank):
     ``time_low_rank_keys``). Singular vectors are defined only up to sign,
     so compare ``u @ w``, never ``u`` or ``w``."""
     kf = k.transpose(1, 2).float()                                 # (B, kv, T, d)
-    tall = kf.is_cuda and kf.shape[-2] >= kf.shape[-1]
+    tall = card_branch(kf) and kf.shape[-2] >= kf.shape[-1]
     u, s, vt = torch.linalg.svd(kf, full_matrices=False, driver="gesvda" if tall else None)
     r = min(rank, s.shape[-1])
     return u[..., :r] * s[..., None, :r], vt[..., :r, :]

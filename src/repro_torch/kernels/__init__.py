@@ -1,2 +1,3 @@
 """Hand-written CUDA kernels (``csrc/``), their build (``build.py``), their
-plain PyTorch versions (``ref.py``) and the device dispatch (``ops.py``)."""
+plain PyTorch versions (``ref.py``), the device dispatch (``ops.py``) and what
+a launch costs (``cost.py``)."""

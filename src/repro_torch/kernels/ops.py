@@ -4,30 +4,101 @@
 Every wrapper takes the JAX layouts of its reference kernel. Tensors on the
 CPU go to the plain version in ``kernels/ref.py``; tensors on a CUDA device
 launch the kernel or raise — there is no fallback from the card to the plain
-version. Each wrapper counts its kernel launches in ``<wrapper>.launches``
-(incremented where the kernel is launched and nowhere else);
-``reset_launches`` zeroes every count.
+version. Tensors on the meta device take the card's branch, with its checks,
+up to the launch: nothing runs, and the wrapper returns empty outputs of the
+kernel's shapes and dtypes (the cost model counts a step there,
+``launch/op_cost``). Each wrapper counts its kernel launches in
+``<wrapper>.launches`` (incremented where the kernel is launched and nowhere
+else, so never on meta); ``reset_launches`` zeroes every count. Inside
+``counting(counter)`` (``launch/op_cost``) each wrapper also reports the
+launch, on the card once it launched and on meta in its place, with its cost
+from ``kernels/cost.py``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+import weakref
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost as kcost, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU ones; other devices raise."""
-    if t.device.type == "cuda":
+    """Whether a wrapper takes the card's branch: True for CUDA tensors, which
+    launch the kernel, and for meta tensors, which stop at the launch
+    (``_launch``); False for CPU ones, which take the plain version; other
+    devices raise."""
+    if t.device.type in ("cuda", "meta"):
         return True
     if t.device.type == "cpu":
         return False
     raise ValueError(f"unsupported device {t.device}")
+
+
+# the active launch counters (``launch/op_cost``), each with ``kernel(name, cost)``
+_COUNTERS: list = []
+
+
+class counting:  # noqa: N801  (a context manager, named as contextlib's are)
+    """A context in which every kernel launch, on the card and on meta alike,
+    is reported to ``counter`` (``counter.kernel(name, cost)``)."""
+
+    def __init__(self, counter):
+        self.counter = counter
+
+    def __enter__(self):
+        _COUNTERS.append(self.counter)
+        return self.counter
+
+    def __exit__(self, *exc):
+        _COUNTERS.remove(self.counter)
+
+
+def _report(fn, cost):
+    """Reports one launch of ``fn``'s kernel to the active counters: on the
+    card after it launched, on meta in its place. ``cost`` gives its
+    ``kernels/cost`` cost and is called only when a counter is active."""
+    if _COUNTERS:
+        c = cost()
+        for counter in _COUNTERS:
+            counter.kernel(fn.__name__, c)
+
+
+def _meta_launch(fn, dev, cost) -> bool:
+    """True on meta, where the launch the card would make is reported and
+    nothing runs (the wrapper returns its empty outputs); False on a CUDA
+    device, which goes on to launch."""
+    if dev.type != "meta":
+        return False
+    _report(fn, cost)
+    return True
+
+
+# the storages of the meta tensors that stand for pinned host pools
+# (``core/offload.alloc_pool``); every view of such a pool shares its storage
+_HOST_STORAGES = weakref.WeakSet()
+
+
+def mark_host_pool(t: torch.Tensor) -> torch.Tensor:
+    """Marks the meta tensor ``t`` as the stand-in for a pinned host pool:
+    ``is_host_pool`` holds for it and for every view of it."""
+    _require(t.device.type == "meta", "only a meta tensor stands for a host pool")
+    _HOST_STORAGES.add(t.untyped_storage())
+    return t
+
+
+def is_host_pool(pool: torch.Tensor, dev) -> bool:
+    """Whether ``dev`` reads ``pool`` from pinned host memory: a pool on
+    another device than ``dev``'s, or on meta the stand-in for a host pool
+    (``mark_host_pool``) or a view of it."""
+    if pool.device != dev:
+        return True
+    return pool.device.type == "meta" and pool.untyped_storage() in _HOST_STORAGES
 
 
 def _require(cond: bool, msg: str):
@@ -134,12 +205,15 @@ def paged_attention(q, k_pages, v_pages, page_pos, cur_pos, *, scale,
              and all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
              "paged_attention takes G <= 16, d <= 256 with 16-byte rows, p <= 64, "
              "16-byte aligned q/K/V")
+    out = torch.empty_like(q)
+    cost = functools.partial(kcost.paged_attention, B, kv, G, N, p, d, q.element_size())
+    if _meta_launch(paged_attention, dev, cost):
+        return out.to(out_dtype)
     lib = build.load("paged_attention")
     n_split = split_pages(N, B * kv, _sm_count(dev.index))
     part_m = torch.empty((B, kv, n_split, G), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((B, kv, n_split, G, d), dtype=torch.float32, device=dev)
-    out = torch.empty_like(q)
     stream = _stream(dev)
     tickets = _tickets(dev, stream.value, B * kv)
     rc = lib.freekv_paged_attention(
@@ -149,6 +223,7 @@ def paged_attention(q, k_pages, v_pages, page_pos, cur_pos, *, scale,
         float(softcap) if softcap is not None else 0.0, code, dev.index, stream)
     build.check(rc, "paged_attention")
     paged_attention.launches += 1
+    _report(paged_attention, cost)
     return out.to(out_dtype)
 
 
@@ -163,12 +238,16 @@ def page_scores(q, summ, *, scale):
     B, kv, G, d = q.shape
     N = summ.shape[1]
     _require(summ.shape == (B, N, kv, 2, d), "page_scores: shape mismatch")
-    lib = build.load("page_scores")
     out = torch.empty((B, kv, G, N), dtype=torch.float32, device=dev)
+    cost = functools.partial(kcost.page_scores, B, kv, G, N, d, q.element_size())
+    if _meta_launch(page_scores, dev, cost):
+        return out
+    lib = build.load("page_scores")
     rc = lib.freekv_page_scores(_ptr(q), _ptr(summ), _ptr(out), B, kv, G, N, d,
                                 float(scale), code, dev.index, _stream(dev))
     build.check(rc, "page_scores")
     page_scores.launches += 1
+    _report(page_scores, cost)
     return out
 
 
@@ -185,12 +264,16 @@ def centroid_scores(q, cent, count, *, scale):
     C = cent.shape[1]
     _require(cent.shape == (B, C, kv, 2, d) and count.shape == (B, C, kv)
              and count.dtype == torch.int32, "centroid_scores: shape or dtype mismatch")
-    lib = build.load("page_scores")
     out = torch.empty((B, kv, G, C), dtype=torch.float32, device=dev)
+    cost = functools.partial(kcost.centroid_scores, B, kv, G, C, d, q.element_size())
+    if _meta_launch(centroid_scores, dev, cost):
+        return out
+    lib = build.load("page_scores")
     rc = lib.freekv_centroid_scores(_ptr(q), _ptr(cent), _ptr(count), _ptr(out), B, kv, G, C,
                                     d, float(scale), code, dev.index, _stream(dev))
     build.check(rc, "centroid_scores")
     centroid_scores.launches += 1
+    _report(centroid_scores, cost)
     return out
 
 
@@ -261,17 +344,22 @@ def select_pages(q, summ, length, *, n_sel, scale, page_size, n_sink, n_window,
              "select_pages: shape or dtype mismatch")
     _require(G <= 16 and d <= 256 and N >= 1 and n_sel >= 1 and page_size >= 1,
              "select_pages takes G <= 16, d <= 256, at least one page and n_sel >= 1")
-    lib = build.load("page_scores")
     # per head: B * kv * G rows of one query row each
     rows, g_row = (B * kv * G, 1) if per_head else (B * kv, G)
     lead = (B, kv, G) if per_head else (B, kv)
+    idx = torch.empty(lead + (n_sel,), dtype=torch.int32, device=dev)
+    pooled = torch.empty(lead + (N,), dtype=torch.float32, device=dev) if with_pooled else None
+    cost = functools.partial(kcost.select_pages, B, kv, G, NP, d, n_sel, q.element_size(),
+                             per_head=per_head, n_cand=0 if cand is None else N,
+                             with_pooled=with_pooled)
+    if _meta_launch(select_pages, dev, cost):
+        return (idx, pooled) if with_pooled else idx
+    lib = build.load("page_scores")
     S = select_split(N, rows, _sm_count(dev.index))
     nl = -(-N // S)
     ws_s = (torch.empty((rows, S, g_row, nl), dtype=torch.float32, device=dev)
             if g_row * nl > SMEM_SCORES else None)
     ws_k = _keys_workspace(dev, rows, S, nl)
-    idx = torch.empty(lead + (n_sel,), dtype=torch.int32, device=dev)
-    pooled = torch.empty(lead + (N,), dtype=torch.float32, device=dev) if with_pooled else None
     rc = lib.freekv_select_pages(
         _ptr(q), _ptr(summ), _ptr(length), _opt_ptr(cand), _ptr(idx), _opt_ptr(pooled),
         _opt_ptr(ws_s), _opt_ptr(ws_k), B, kv, G, N, NP, d, n_sel, min(n_sel, N), S, nl,
@@ -279,6 +367,7 @@ def select_pages(q, summ, length, *, n_sel, scale, page_size, n_sink, n_window,
         int(keep_invalid), float(scale), code, dev.index, _stream(dev))
     build.check(rc, "select_pages")
     select_pages.launches += 1
+    _report(select_pages, cost)
     return (idx, pooled) if with_pooled else idx
 
 
@@ -306,17 +395,21 @@ def centroid_candidates(q, cent, count, cent_assign, length, *, m, scale, page_s
              and page_size >= 1,
              "centroid_candidates takes G <= 16, d <= 256, 1 <= m <= N pages and "
              f"(G + 1) * C <= {SMEM_SCORES}")
+    cand = torch.empty((B, kv, m), dtype=torch.int32, device=dev)
+    cost = functools.partial(kcost.centroid_candidates, B, kv, G, C, N, d, m, q.element_size())
+    if _meta_launch(centroid_candidates, dev, cost):
+        return cand
     lib = build.load("page_scores")
     S = select_split(N, B * kv, _sm_count(dev.index))
     nl = -(-N // S)
     ws_k = _keys_workspace(dev, B * kv, S, nl)
-    cand = torch.empty((B, kv, m), dtype=torch.int32, device=dev)
     rc = lib.freekv_centroid_candidates(
         _ptr(q), _ptr(cent), _ptr(count), _ptr(cent_assign), _ptr(length), _ptr(cand),
         _opt_ptr(ws_k), B, kv, G, C, N, d, m, S, nl, page_size, n_sink, n_window, float(scale),
         code, dev.index, _stream(dev))
     build.check(rc, "centroid_candidates")
     centroid_candidates.launches += 1
+    _report(centroid_candidates, cost)
     return cand
 
 
@@ -418,15 +511,20 @@ def recall_gather(pool, idx):
     _require(two == 2 and idx.shape == (B, kv, n_sel), "recall_gather: shape mismatch")
     half = p * d * pool.element_size()
     _require(half % 16 == 0, "recall_gather: p * d * itemsize must be a multiple of 16")
-    lib = build.load("recall_gather")
-    src = _pool_pointer(pool, dev)
     k = torch.empty((B, kv, n_sel, p, d), dtype=pool.dtype, device=dev)
     v = torch.empty_like(k)
+    cost = functools.partial(kcost.recall_gather, B, kv, n_sel, p, d, pool.element_size(),
+                             host=is_host_pool(pool, dev))
+    if _meta_launch(recall_gather, dev, cost):
+        return k, v
+    lib = build.load("recall_gather")
+    src = _pool_pointer(pool, dev)
     grid = _gather_blocks("recall_gather", pool, dev, 2 * idx.numel())
     rc = lib.freekv_recall_gather(src, _ptr(idx), _ptr(k), _ptr(v), B, n_pages, kv, n_sel,
                                   half, grid, dev.index, _stream(dev))
     build.check(rc, "recall_gather")
     recall_gather.launches += 1
+    _report(recall_gather, cost)
     return k, v
 
 
@@ -446,14 +544,19 @@ def recall_values(pool, idx):
     _require(two == 2 and idx.shape == (B, kv, n_sel), "recall_values: shape mismatch")
     half = p * d * pool.element_size()
     _require(half % 16 == 0, "recall_values: p * d * itemsize must be a multiple of 16")
+    v = torch.empty((B, kv, n_sel, p, d), dtype=pool.dtype, device=dev)
+    cost = functools.partial(kcost.recall_values, B, kv, n_sel, p, d, pool.element_size(),
+                             host=is_host_pool(pool, dev))
+    if _meta_launch(recall_values, dev, cost):
+        return v
     lib = build.load("recall_gather")
     src = _pool_pointer(pool, dev)
-    v = torch.empty((B, kv, n_sel, p, d), dtype=pool.dtype, device=dev)
     grid = _gather_blocks("recall_gather", pool, dev, idx.numel())
     rc = lib.freekv_recall_values(src, _ptr(idx), _ptr(v), B, n_pages, kv, n_sel, half, grid,
                                   dev.index, _stream(dev))
     build.check(rc, "recall_values")
     recall_values.launches += 1
+    _report(recall_values, cost)
     return v
 
 
@@ -492,16 +595,21 @@ def recall_gather_quant(pool, scales, idx, *, bits, out_dtype=torch.float32):
     dev = idx.device
     code, B, n_pages, kv, n_sel, p, d, n_g = _quant_dims(pool, scales, idx, bits, out_dtype,
                                                          "recall_gather_quant")
-    lib = build.load("recall_gather_quant")
-    src, src_scales = _pool_pointer(pool, dev), _pool_pointer(scales, dev)
     k = torch.empty((B, kv, n_sel, p, d), dtype=out_dtype, device=dev)
     v = torch.empty_like(k)
+    cost = functools.partial(kcost.recall_gather_quant, B, kv, n_sel, p, d, bits, n_g,
+                             k.element_size(), host=is_host_pool(pool, dev))
+    if _meta_launch(recall_gather_quant, dev, cost):
+        return k, v
+    lib = build.load("recall_gather_quant")
+    src, src_scales = _pool_pointer(pool, dev), _pool_pointer(scales, dev)
     grid = _gather_blocks("recall_gather_quant", pool, dev, 2 * idx.numel())
     rc = lib.freekv_recall_gather_quant(src, src_scales, _ptr(idx), _ptr(k), _ptr(v), B,
                                         n_pages, kv, n_sel, p, d, n_g, bits, code, grid,
                                         dev.index, _stream(dev))
     build.check(rc, "recall_gather_quant")
     recall_gather_quant.launches += 1
+    _report(recall_gather_quant, cost)
     return k, v
 
 
@@ -514,15 +622,20 @@ def recall_values_quant(pool, scales, idx, *, bits, out_dtype=torch.float32):
     dev = idx.device
     code, B, n_pages, kv, n_sel, p, d, n_g = _quant_dims(pool, scales, idx, bits, out_dtype,
                                                          "recall_values_quant")
+    v = torch.empty((B, kv, n_sel, p, d), dtype=out_dtype, device=dev)
+    cost = functools.partial(kcost.recall_values_quant, B, kv, n_sel, p, d, bits, n_g,
+                             v.element_size(), host=is_host_pool(pool, dev))
+    if _meta_launch(recall_values_quant, dev, cost):
+        return v
     lib = build.load("recall_gather_quant")
     src, src_scales = _pool_pointer(pool, dev), _pool_pointer(scales, dev)
-    v = torch.empty((B, kv, n_sel, p, d), dtype=out_dtype, device=dev)
     grid = _gather_blocks("recall_gather_quant", pool, dev, idx.numel())
     rc = lib.freekv_recall_values_quant(src, src_scales, _ptr(idx), _ptr(v), B, n_pages, kv,
                                         n_sel, p, d, n_g, bits, code, grid, dev.index,
                                         _stream(dev))
     build.check(rc, "recall_values_quant")
     recall_values_quant.launches += 1
+    _report(recall_values_quant, cost)
     return v
 
 
@@ -542,12 +655,16 @@ def page_summary(k, *, page_size):
     _require((d * k.element_size()) % 16 == 0 and k.data_ptr() % 16 == 0
              and (k.stride(0) * k.element_size()) % 16 == 0,
              "page_summary takes 16-byte aligned rows of 16-byte multiples")
-    lib = build.load("page_summary")
     out = torch.empty((B, T // p, kv, 2, d), dtype=k.dtype, device=dev)
+    cost = functools.partial(kcost.page_summary, B, T, kv, d, p, k.element_size())
+    if _meta_launch(page_summary, dev, cost):
+        return out
+    lib = build.load("page_summary")
     rc = lib.freekv_page_summary(_ptr(k), _ptr(out), B, T // p, p, kv, d, k.stride(0), code,
                                  dev.index, _stream(dev))
     build.check(rc, "page_summary")
     page_summary.launches += 1
+    _report(page_summary, cost)
     return out
 
 
@@ -623,14 +740,19 @@ def fill_pages(k, v, summ, pool, scale=None):
                  and t.data_ptr() % 16 == 0 and (t.stride(0) * t.element_size()) % 16 == 0,
                  "fill_pages: k and v must be contiguous past the batch dim, rows 16-byte "
                  "aligned")
-    lib = build.load("page_summary")
     hpb = fill_heads_per_block(kv, d, k.element_size(), FILL_THREADS)
+    cost = functools.partial(kcost.fill_pages, B, n, p, kv, d, k.element_size(),
+                             summ.element_size(), bits=bits, n_g=n_g)
+    if _meta_launch(fill_pages, dev, cost):
+        return
+    lib = build.load("page_summary")
     rc = lib.freekv_fill_pages(
         _ptr(k), _ptr(v), _bs(k), _bs(v), _ptr(summ), _bs(summ), _ptr(pool), _bs(pool),
         _opt_ptr(scale), 0 if scale is None else _bs(scale), B, n, p, kv, d, n_g, bits,
         _dtype_code(k), _dtype_code(summ), hpb, dev.index, _stream(dev))
     build.check(rc, "fill_pages")
     fill_pages.launches += 1
+    _report(fill_pages, cost)
 
 
 def complete_page(win_k, win_v, length, summ, pool, scale=None):
@@ -652,6 +774,10 @@ def complete_page(win_k, win_v, length, summ, pool, scale=None):
     _require(win_v.shape == win_k.shape and win_v.dtype == win_k.dtype == summ.dtype
              and length.shape == (B,) and length.dtype == torch.int32,
              "complete_page: the rings and the summaries share a dtype; int32 lengths (B,)")
+    cost = functools.partial(kcost.complete_page, B, p, kv, d, win_k.element_size(),
+                             host=is_host_pool(pool, dev), bits=bits, n_g=n_g)
+    if _meta_launch(complete_page, dev, cost):
+        return
     lib = build.load("page_summary")
     rc = lib.freekv_complete_page(
         _ptr(win_k), _ptr(win_v), _ptr(length), _ptr(summ), _bs(summ),
@@ -662,6 +788,7 @@ def complete_page(win_k, win_v, length, summ, pool, scale=None):
         dev.index, _stream(dev))   # one head a block: the most SMs writing over the link
     build.check(rc, "complete_page")
     complete_page.launches += 1
+    _report(complete_page, cost)
 
 
 def flash_prefill(q, k, v, *, scale, causal=True, window=None, softcap=None):
@@ -688,6 +815,10 @@ def flash_prefill(q, k, v, *, scale, causal=True, window=None, softcap=None):
                  "flash_prefill: the last dim must be contiguous, rows 16-byte aligned")
     code = _dtype_code(q, k, v)
     out = torch.empty_like(q)
+    cost = functools.partial(kcost.flash_prefill, B, H, kv, Tq, Tk, d, q.element_size(),
+                             causal=causal, window=window)
+    if _meta_launch(flash_prefill, dev, cost):
+        return out
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                        *out.stride()[:3])
     lib = build.load("flash_prefill")
@@ -698,6 +829,7 @@ def flash_prefill(q, k, v, *, scale, causal=True, window=None, softcap=None):
                                   _stream(dev))
     build.check(rc, "flash_prefill")
     flash_prefill.launches += 1
+    _report(flash_prefill, cost)
     return out
 
 

@@ -42,7 +42,7 @@ def main(argv=None):
     if args.model_parallel > 1:
         raise NotImplementedError(
             "--model-parallel > 1: the port trains on one device; tensor parallelism is "
-            "ROADMAP queue 1 item 3")
+            "ROADMAP queue 1 item 2")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import card_branch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, softcap
@@ -142,10 +143,10 @@ def attention_prefill(cfg: ArchConfig, q, k, v, q_pos, kv_pos, window=None, caus
     CUDA tensors go to ``ops.flash_prefill`` as transposed (B,H,T,dh) views
     (the kernel takes strides, so nothing is copied), whose bottom-right
     alignment puts query row i at Tk - S + i, and the output comes back in
-    q's (B,S,H,dh) layout; CPU tensors take ``attention_auto`` at the given
-    positions, as the reference does, so the CPU tokens equal the
-    reference's."""
-    if q.is_cuda:
+    q's (B,S,H,dh) layout (meta tensors likewise: the card's branch,
+    counted); CPU tensors take ``attention_auto`` at the given positions, as
+    the reference does, so the CPU tokens equal the reference's."""
+    if card_branch(q):
         o = ops.flash_prefill(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                               scale=_scale(cfg), causal=causal, window=window,
                               softcap=cfg.attn_logit_softcap)

@@ -154,8 +154,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda", dtype=torch.float
     encoder-decoder's cross-attention sublayers and encoder after."""
     check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    # meta tensors hold no numbers: no generator to seed there
+    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
 
     def draw(shape, std):
         return torch.randn(shape, generator=gen, dtype=torch.float32, device=dev).mul_(std)
@@ -816,7 +816,7 @@ def decode_window(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sampl
         for k in stats:
             stats[k].append(s[k])
         finite = finite & fin_ok
-        if read_finishes:
+        if read_finishes and loop["fin"].device.type != "meta":
             stop = loop["fin"].all()
             if stop_turnover:
                 stop = stop | (loop["fin"] & start_live).any()
@@ -981,6 +981,9 @@ def decode_window_spec(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, 
     stats = {k: [] for k in DECODE_STAT_KEYS}
     finite = torch.ones_like(loop["fin"])
     on_card = loop["fin"].is_cuda
+    # on meta nothing can be read: every iteration runs, as on the card when
+    # the host reads no finished flag in time
+    meta = loop["fin"].device.type == "meta"
     flags = (torch.zeros((max(n_max, 1),), dtype=torch.bool, pin_memory=True)
              if on_card else None)
     events = []
@@ -1004,7 +1007,7 @@ def decode_window_spec(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, 
             ev = torch.cuda.Event()
             ev.record()
             events.append(ev)
-        elif bool(stop):
+        elif not meta and bool(stop):
             break
     if not toks:
         B, S = loop["cur"].shape[0], fkv.draft_len + 1

@@ -7,13 +7,26 @@
 
 The scales travel with the page, so they count as moved bytes.
 ``chip_smoke.py`` reports these per recalled page; nothing on the decode
-path calls them.
+path calls them. ``DEQUANT_ELEMS_PER_S`` is the rate behind
+``EngineMetrics.dequant_overhead_s``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.quant.quantizers import effective_group, quant_bits
+
+# Elements a second the fused gather + dequantization reached on the card
+# with the int8 pool in device memory, so that no PCIe time is in it
+# (reference ``repro/quant/accounting.py:25`` gives a nominal 2e10):
+# recall_gather_quant's int8 device-pool time, 0.01749824 ms for
+# pool(4, 259, 8, 2, 32, 128) int8, idx(4, 8, 56) -> bf16, every lane valid,
+# i.e. 4 * 8 * 56 * 2 * 32 * 128 = 14,680,064 elements (chip_smoke.py phase
+# 3, NVIDIA H100 80GB HBM3, 700.00 W). It includes the gather's own HBM
+# traffic, so it bounds the dequantization's time from above: at the same
+# shape the bf16 recall_gather from a device pool took longer (0.01940878
+# ms), so the dequantization hides under the memory traffic.
+DEQUANT_ELEMS_PER_S = 4 * 8 * 56 * 2 * 32 * 128 / 0.01749824e-3
 
 
 def scale_bytes_per_block(fkv, d_head: int) -> int:

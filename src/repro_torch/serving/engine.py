@@ -283,6 +283,7 @@ class ServeEngine:
         em.kv_quant = self.fkv.kv_quant
         em.page_block_bytes = self.page_block_bytes
         em.dense_block_bytes = page_block_bytes_dense(self.fkv, self.cfg.d_head, self._itemsize)
+        em.dequant_elems_per_block = 2 * self.fkv.page_size * self.cfg.d_head
         em.transfer_is_dma = self.fkv.offload == "host" and self.device.type == "cuda"
         if self._pool is not None:
             detail = self._pool.pool_bytes_detail()

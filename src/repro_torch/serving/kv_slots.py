@@ -78,6 +78,8 @@ class SlotPool:
         tiny = init_decode_state(cfg, fkv, 1, fkv.page_size, state_dtype, "cpu")
         self._fill = [{k: t.flatten()[0].item() if t.numel() else 0
                        for k, t in _tensors(layer).items()} for layer in tiny["layers"]]
+        # a pinned pool, which the host touches directly (never on meta: its
+        # stand-in holds nothing to wait for)
         self._host = self.device.type == "cuda" and any(
             not t.is_cuda for layer in self.state["layers"] for t in _tensors(layer).values())
         self._free: List[int] = list(range(num_slots - 1, -1, -1))

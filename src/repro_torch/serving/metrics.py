@@ -1,6 +1,9 @@
 """Serving telemetry: per-request lifecycle timings and engine-level counters
 (reference ``repro/serving/metrics.py``, without its tensor-parallel
-section and its cost-model dequant estimate).
+section). The ``kv_quant`` section's ``dequant_overhead_s`` is the cost
+model's estimate of the fused dequantization's time at the H100's
+device-pool rate (``quant.accounting.DEQUANT_ELEMS_PER_S``); it holds no
+PCIe time.
 
 Timestamps are ``time.perf_counter()`` values relative to the scheduler
 run's start; queue wait, TTFT and inter-token latency are properties, so
@@ -20,6 +23,7 @@ from typing import Dict, List, Optional
 
 from repro_torch.obs.registry import (COUNT_BUCKETS, LATENCY_BUCKETS, RATE_BUCKETS,
                                       MetricsRegistry)
+from repro_torch.quant.accounting import DEQUANT_ELEMS_PER_S
 
 
 @dataclass
@@ -166,6 +170,7 @@ class EngineMetrics:
     # (payload + fp32 scales) and dense_block_bytes the unquantized one
     kv_quant: str = "none"
     dense_block_bytes: int = 0
+    dequant_elems_per_block: int = 0  # elements dequantized per moved block
     pool_bytes_physical: float = 0.0  # slot-pool host-tier bytes (packed)
     pool_bytes_dense: float = 0.0     # same capacity unquantized
     # True when the pool is pinned host memory (real host-to-card transfers)
@@ -288,6 +293,17 @@ class EngineMetrics:
         if self.kv_quant == "none" or not self.dense_block_bytes:
             return 0.0
         return self.moved_page_blocks * (self.dense_block_bytes - self.page_block_bytes)
+
+    @property
+    def dequant_overhead_s(self) -> float:
+        """Cost-model estimate of the cumulative fused dequantization time:
+        every moved block is dequantized once on recall, at the rate the
+        card's ``recall_gather_quant`` reached from a device pool, an upper
+        bound with no link time in it (reference ``metrics.py:358``). 0 when
+        the tier is off."""
+        if self.kv_quant == "none":
+            return 0.0
+        return self.moved_page_blocks * self.dequant_elems_per_block / DEQUANT_ELEMS_PER_S
 
     @property
     def steps_per_sync(self) -> float:
@@ -443,6 +459,7 @@ class EngineMetrics:
                 "dense_block_bytes": self.dense_block_bytes,
                 "moved_page_blocks": self.moved_page_blocks,
                 "bytes_saved": self.transfer_bytes_saved,
+                "dequant_overhead_s": self.dequant_overhead_s,
                 "pool_bytes_physical": self.pool_bytes_physical,
                 "pool_bytes_dense": self.pool_bytes_dense,
                 "pool_compression": (self.pool_bytes_dense / self.pool_bytes_physical

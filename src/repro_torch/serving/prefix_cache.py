@@ -39,7 +39,7 @@ def _view_payload(payload: Payload, start: int, stop: int) -> Payload:
 def _store_payload(payload: Payload, start: int, stop: int) -> Payload:
     """Owned copies of tokens [start, stop): one pinned host block for CUDA
     tensors (filled by non-blocking copies on the current stream), clones
-    for CPU ones."""
+    for CPU ones and for meta ones (nothing to pin)."""
     parts = [a[start:stop] for a in payload]
     if not parts or not parts[0].is_cuda:
         return [p.clone(memory_format=torch.contiguous_format) for p in parts]

@@ -13,7 +13,8 @@ from repro_torch.configs.base import FreeKVConfig
 from repro_torch.kernels import build, ops
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_roots(path):
@@ -121,9 +122,16 @@ def test_cuda_request_without_built_library_raises(monkeypatch):
 
 
 def test_other_devices_raise():
-    m = torch.empty((1, 1, 2, 16), device="meta")
+    """A device other than the CPU, CUDA and meta (where a wrapper takes the
+    card's branch and launches nothing: ``launch/op_cost``) raises."""
+    class OnXpu:
+        device = torch.device("xpu")
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.page_scores(m, torch.empty((1, 3, 1, 2, 16), device="meta"), scale=0.25)
+        ops.page_scores(OnXpu(), OnXpu(), scale=0.25)
+    m = torch.empty((1, 1, 2, 16), device="meta")
+    out = ops.page_scores(m, torch.empty((1, 3, 1, 2, 16), device="meta"), scale=0.25)
+    assert out.device.type == "meta" and out.shape == (1, 1, 2, 3)
+    assert ops.page_scores.launches == 0
 
 
 def test_dispatch_has_no_try_fallback():
