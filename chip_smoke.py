@@ -54,15 +54,18 @@ their time is linear in the layers.
      d=256 kv=4 with softcap 50 and window 4096, stablelm-3b G=1 d=80
      kv=32, deepseek-moe-16b G=1 d=128 kv=16, llama4-scout-17b-a16e G=5
      d=128 kv=8, jamba-1.5-large-398b G=8 d=128 kv=8, whisper-tiny G=1 d=64
-     kv=6, internvl2-26b G=6 d=128 kv=8): paged_attention at
+     kv=6, internvl2-26b G=6 d=128 kv=8, and TP_SHAPES, the shard layout of
+     phase 4f: llama31-8b@tp2 G=4 d=128 kv=4): paged_attention at
      each decode shape and flash_prefill at each
-     admission (B=1, T=8192) and extension (2048 over 8192) within TOL,
+     admission (B=1, T=8192) and extension (2048 over 8192) within TOL
+     (not at TP_SHAPES: the backbone prefills at the whole arch's heads),
      fp32 and bf16 (d=80 on the d=128 tiles, channels past 80 zero);
      select_pages' per-query-head mode (Quest) and the pooled mode at each
      G, ids exact on far-apart, forced-tie and invalid-lane inputs (the
      invalid lanes keeping jax.lax.top_k's ids), tie-aware on random ones;
      fill_pages and complete_page exact at d=80 and 256 and at the five
-     newer archs' KV heads; each timed at bf16
+     newer archs' KV heads and at TP_SHAPES'; recall_gather exact at
+     TP_SHAPES from a device and a pinned pool; each timed at bf16
      (flash_prefill in both forms, select_pages in both modes) beside its
      bound, its plain version and SDPA where SDPA computes the same
      function. flash_prefill's bidirectional form (causal=False, an
@@ -177,6 +180,22 @@ their time is linear in the layers.
      kernels line's service_launches), the written trace and JSONL snapshot
      must validate. Logs client TTFT and token-gap percentiles, the SLO
      summary, decode ms/step beside phase 4's, host reads a token, peak GiB.
+  4f. KV-head-group tensor parallelism at full width (tp_phase): llama31-8b,
+     bf16, freekv, pinned pool, recall overlap, continuous over 4 slots,
+     phase 4's eight requests through ServeEngine over a 2-shard mesh with
+     both shards on cuda:0 (make_tp_mesh(2, ("cuda:0", "cuda:0"))): none at
+     full depth, int8 at half depth, each held against phase 4's run of the
+     same method, quantization and depth: tokens and steps equal, exposed,
+     hidden and dropped bytes equal, each shard's measured bytes of each
+     (summary()["tp"]["shard_transfer_bytes"], from its own counters) adding
+     up to them and equal to the flight tracker's, paged_attention, select_pages, fill_pages, complete_page and the
+     recall gather launched exactly twice phase 4's counts and flash_prefill
+     as often (the backbone runs once), each shard's pool holding a page
+     only a decode completion writes. Logs decode ms/step and TTFT beside
+     phase 4's, peak GiB and (none) a profiled eager step's host ops and
+     busy share beside phase 4's; with two cards or more the none case
+     runs on cuda:0 and cuda:1 too. Its launches are the kernels line's
+     tp_launches.
   5. kernel path == plain path: granite-3-8b-smoke at float32 gives the same
      greedy tokens on the card (kernels) and on the CPU (plain versions):
      static, freekv and shadowkv under kv_quant none, int8 and int4,
@@ -197,7 +216,10 @@ their time is linear in the layers.
      their real head layouts, 5 requests over 2 slots with seeded frontends
      (one without), through the continuous scheduler, the static path and a
      preemption, each engine's chunk budget and prefix cache reading off
-     (XARCH_PATHS); and the centroid index kept step by step on the card
+     (XARCH_PATHS); tensor parallelism over two shards on cuda:0 against two
+     on the CPU and against tp=1 on the CPU (tp_paths_vs_plain: continuous
+     freekv none and int8, a preemption, a prefix-cache hit, the static
+     path); and the centroid index kept step by step on the card
      equals its rebuild bit for bit.
   6. training: (a) smollm-360m at full width (32 layers, d 960, 15/5 heads,
      vocab 49152, ~362 M params), float32 (TF32 off, reported), B=4,
@@ -1314,6 +1336,10 @@ def check_flash_prefill_extension(ops, ref, dev, gen):
 # stablelm-3b, deepseek-moe-16b, llama4-scout-17b-a16e and
 # jamba-1.5-large-398b, against its plain version, timed beside its bound
 # ---------------------------------------------------------------------------
+# the shard layouts of KV-head-group tensor parallelism (phase 4f): each
+# shard's retrieval kernels run at the arch's head counts divided by tp (the
+# backbone's flash_prefill at the whole arch's, so it is not held here)
+TP_SHAPES = {"llama31-8b@tp2": (16, 4, 128, None, None)}
 ARCH_SHAPES = {   # arch -> (query heads, KV heads, d_head, softcap, sliding window)
     "qwen25-7b": (28, 4, 128, None, None),
     "smollm-360m": (15, 5, 64, None, None),
@@ -1324,6 +1350,7 @@ ARCH_SHAPES = {   # arch -> (query heads, KV heads, d_head, softcap, sliding win
     "jamba-1.5-large-398b": (64, 8, 128, None, None),
     "whisper-tiny": (6, 6, 64, None, None),
     "internvl2-26b": (48, 8, 128, None, None),
+    **TP_SHAPES,
 }
 
 
@@ -1390,6 +1417,8 @@ def check_flash_prefill_shapes(ops, ref, dev, gen):
     from torch.nn.attention.bias import causal_lower_right
     rows = {}
     for arch, (h, kv, d, cap, window) in ARCH_SHAPES.items():
+        if arch in TP_SHAPES:
+            continue
         scale, errs = 1.0 / math.sqrt(d), {}
         for form, tq in (("prompt", CONTEXT), ("extension", 2048)):
             for dt in (torch.float32, torch.bfloat16):
@@ -1501,7 +1530,8 @@ def check_select_pages_shapes(ops, ref, dev, gen):
 def check_fill_shapes(ops, ref, dev, gen):
     """fill_pages and complete_page at d_head 80 (stablelm-3b, 32 KV heads),
     256 (gemma2-2b, 4 KV heads), 128 at 16 and 8 KV heads (deepseek, scout,
-    jamba, internvl2) and 64 at 6 KV heads (whisper), exact against their plain versions
+    jamba, internvl2), 128 at 4 KV heads (llama31-8b's tp=2 shard) and 64 at 6
+    KV heads (whisper), exact against their plain versions
     (fp, and int8; fp32 and bf16; complete_page to a device and a pinned
     pool with some rows completing); fill_pages at B=1, T=8192 and
     complete_page to the pinned pool with every row completing timed at
@@ -1509,7 +1539,7 @@ def check_fill_shapes(ops, ref, dev, gen):
     rows = {}
     lengths = ([8224, 6150, 4128, 7170], [8224, 6176, 4128, 7200])
     for arch in ("stablelm-3b", "gemma2-2b", "deepseek-moe-16b", "llama4-scout-17b-a16e",
-                 "jamba-1.5-large-398b", "whisper-tiny", "internvl2-26b"):
+                 "jamba-1.5-large-398b", "whisper-tiny", "internvl2-26b", *TP_SHAPES):
         _, kv, d, _, _ = ARCH_SHAPES[arch]
 
         def outs(b, n, dt, bits, pinned=False):
@@ -1564,6 +1594,45 @@ def check_fill_shapes(ops, ref, dev, gen):
                               **rl.kernel_bound(kcost.complete_page(B, P, kv, d, 2)),
                               "kernel_ms": c_ms, "kernel_call_ms": c_call,
                               "plain_ms": c_plain, "library_ms": None, "max_abs_err": 0.0}}
+    return rows
+
+
+def check_recall_gather_shapes(ops, ref, dev, gen):
+    """recall_gather at each tensor-parallel shard layout (``TP_SHAPES``:
+    llama31-8b's tp=2 shard, 4 KV heads): exact against its plain version
+    from a device and a pinned pool (fp32 and bf16, -1 lanes); timed at bf16
+    from the pinned pool cycling disjoint selections (every lane valid)
+    beside its bound, the link's ceiling, its plain version and advanced
+    indexing on a device pool."""
+    from repro_torch.launch import gather_bench
+    rows = {}
+    for arch, (_, kv, d, _, _) in TP_SHAPES.items():
+        for dt in (torch.float32, torch.bfloat16):
+            pool = torch.randn(B, N_PAGES, kv, 2, P, d, generator=gen, device=dev).to(dt)
+            idx = torch.randint(-1, N_PAGES, (B, kv, N_SEL), generator=gen, device=dev,
+                                dtype=torch.int32)
+            want = ref.recall_gather_ref(pool, idx)
+            for src in (pool, pool.cpu().pin_memory()):
+                got = ops.recall_gather(src, idx)
+                torch.cuda.synchronize()
+                require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                        f"recall_gather {arch} {dt} from {src.device}: not bit-exact")
+        dt = torch.bfloat16
+        pool = torch.randn(B, N_PAGES, kv, 2, P, d, generator=gen, device=dev).to(dt)
+        host = pool.cpu().pin_memory()
+        sels = [i[:, :kv].contiguous() for i in gather_bench.selections(gen, dev)]
+        ms, call_ms = time_ms(ops.recall_gather, [(host, i) for i in sels])
+        plain_ms, _ = time_ms(ref.recall_gather_ref, [(pool, sels[0])])
+        bI = torch.arange(B, device=dev)[:, None, None]
+        kI = torch.arange(kv, device=dev)[None, :, None]
+        lib_ms, _ = time_ms(lambda p_, i_: p_[bI, i_.long(), kI], [(pool, sels[0])])
+        cost = kcost.recall_gather(B, kv, N_SEL, P, d, 2, valid=int((sels[0] >= 0).sum()))
+        rows[arch] = {"shape": f"pool({B},{N_PAGES},{kv},2,{P},{d}) pinned, idx({B},{kv},{N_SEL})",
+                      **rl.kernel_bound(cost), "link_ms": gather_bench.link_ms(
+                          cost["link_bytes"], dev),
+                      "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "max_abs_err": 0.0}
+        del pool, host
     return rows
 
 
@@ -1853,17 +1922,24 @@ RUNS = {
 OFF_PATH = ("page_scores", "centroid_scores", "page_summary")
 
 
+def main_requests(cfg, fkv):
+    """Phase 4's eight needle requests (CONT_PROMPTS, CONT_NEW)."""
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.serving.engine import Request
+    return [Request(uid=i, tokens=next(needle_stream(cfg.vocab_size, n, fkv.page_size,
+                                                     seed=i)).tokens, max_new_tokens=m)
+            for i, (n, m) in enumerate(zip(CONT_PROMPTS, CONT_NEW))]
+
+
 def main_path(dev, ops, cfg, params, method, kv_quant, scheduler="continuous"):
     from repro_torch.configs.base import FreeKVConfig
     from repro_torch.data.synthetic import needle_stream
     from repro_torch.obs import Observability
     from repro_torch.quant.accounting import page_block_bytes
-    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.serving.engine import ServeEngine
 
     fkv = FreeKVConfig(method=method, offload="host", kv_quant=kv_quant)
-    reqs = [Request(uid=i, tokens=next(needle_stream(cfg.vocab_size, n, fkv.page_size,
-                                                     seed=i)).tokens, max_new_tokens=m)
-            for i, (n, m) in enumerate(zip(CONT_PROMPTS, CONT_NEW))]
+    reqs = main_requests(cfg, fkv)
     # one prefill per admitted request, or per lockstep batch of B
     prefills = len(reqs) if scheduler == "continuous" else -(-len(reqs) // B)
     # the per-step latency histogram (no trace): decode ms a step
@@ -1928,6 +2004,9 @@ def main_path(dev, ops, cfg, params, method, kv_quant, scheduler="continuous"):
             "correction_rate": outs[0].stats.get("correction_rate"),
             "spec_hit_rate": outs[0].stats.get("spec_hit_rate"),
             "dropped_in_flight_pages": em.dropped_pages,
+            "recall_overlap": {k: em.summary()["recall_overlap"][k]
+                               for k in ("exposed_bytes", "hidden_bytes",
+                                         "dropped_in_flight_bytes")},
             "launches": launches,
             "launches_per_decode_step": {k: v / max(steps, 1) for k, v in launches.items()},
             "first_tokens": outs[0].tokens[:8], "tokens": {o.uid: o.tokens for o in outs}}
@@ -2668,7 +2747,8 @@ NEW_PATHS = [("quest", "granite-3-8b-smoke", "quest", 0.0, False, 0),
              ("infinigen", "granite-3-8b-smoke", "infinigen", 0.0, False, 0),
              ("freekv top_p 0.9", "granite-3-8b-smoke", "freekv", 0.9, False, 0)] + [
     (f"{a}{' real heads' if real else ''}", f"{a}-smoke", "freekv", 0.0, real, 0)
-    for a in ARCH_SHAPES if a not in XARCH_RUNS for real in (False, True)] + [
+    for a in ARCH_SHAPES if a not in XARCH_RUNS and a not in TP_SHAPES
+    for real in (False, True)] + [
     ("gemma2-2b chunked 24", "gemma2-2b-smoke", "freekv", 0.0, False, 24)]
 
 
@@ -3403,6 +3483,199 @@ def serve_phase(dev, ops, cfg, params, direct_tokens, direct_ms):
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: KV-head-group tensor parallelism at full width. llama31-8b's 8
+# KV heads over TP shards (4 a shard, G 4, d 128): every retrieval kernel
+# runs once a shard where tp=1 runs it once, at the shard's head layout
+# (phase 3's TP_SHAPES); the backbone, and so flash_prefill, runs once
+# ---------------------------------------------------------------------------
+TP = 2
+TP_DOUBLED = ("paged_attention", "select_pages", "fill_pages", "complete_page")
+
+
+def tp_run(dev, ops, cfg, params, kv_quant, devices, ref, profile=False):
+    """Phase 4's eight requests through ``ServeEngine`` over a TP-shard mesh
+    on ``devices``, freekv/``kv_quant``, pinned pool, recall overlap,
+    continuous over B slots, held against phase 4's tp=1 run ``ref`` of the
+    same method, quantization and depth: tokens and steps equal, exposed
+    and hidden bytes equal, each shard's measured transfer bytes adding up
+    to them and equal to the flight tracker's, every retrieval kernel launched exactly TP times as often and
+    flash_prefill as often, each shard's pool holding a page only a decode
+    completion writes. ``profile``: a few eager decode steps profiled as
+    phase 4's (host ops, busy share)."""
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.launch.mesh import make_tp_mesh
+    from repro_torch.obs import Observability
+    from repro_torch.serving.engine import ServeEngine
+
+    fkv = FreeKVConfig(method="freekv", offload="host", kv_quant=kv_quant)
+    reqs = main_requests(cfg, fkv)
+    mesh = make_tp_mesh(TP, devices)
+    run = f"tp{TP} on {','.join(str(d) for d in mesh.devices)} freekv/{kv_quant}"
+    eng = ServeEngine(cfg, fkv, params, max_len=MAX_LEN, batch_size=B,
+                      state_dtype=torch.bfloat16, obs=Observability(enabled=True), device=dev,
+                      mesh=mesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    em = eng.last_metrics
+    s = em.summary()
+    require(eng.last_logits_finite, f"non-finite logits ({run})")
+    tokens = {o.uid: o.tokens for o in outs}
+    require(tokens == ref["tokens"], f"{run}: tokens {tokens} differ from phase 4's tp=1 "
+            f"{ref['tokens']}")
+    require(em.steps == ref["info"]["decode_steps"],
+            f"{run}: {em.steps} steps, phase 4's tp=1 {ref['info']['decode_steps']}")
+    ro, ref_ro = s["recall_overlap"], ref["info"]["recall_overlap"]
+    for key in ("exposed_bytes", "hidden_bytes", "dropped_in_flight_bytes"):
+        require(ro[key] == ref_ro[key], f"{run}: {key} {ro[key]}, phase 4's tp=1 {ref_ro[key]}")
+    shard, flight = s["tp"]["shard_transfer_bytes"], eng.recall_tracker.summary()["shards"]
+    require(s["tp"]["tp"] == TP, f"{run}: summary()['tp'] {s['tp']}")
+    for cls, total, tracked in (("sync", "exposed_bytes", "topup_pages"),
+                                ("async", "hidden_bytes", "staged_pages"),
+                                ("dropped", "dropped_in_flight_bytes", "dropped_pages")):
+        require(len(shard[cls]) == TP and sum(shard[cls]) == ro[total],
+                f"{run}: the shards' {cls} bytes {shard[cls]} do not add up to {ro[total]}")
+        require([n * em.page_block_bytes for n in flight[tracked]] == shard[cls],
+                f"{run}: the flight tracker's {tracked} {flight[tracked]} disagree with the "
+                f"shards' {cls} bytes {shard[cls]}")
+    gather = "recall_gather" if kv_quant == "none" else "recall_gather_quant"
+    for name in TP_DOUBLED + (gather,):
+        require(launches[name] == TP * ref["launches"][name] > 0,
+                f"{run}: {name} launched {launches[name]} times, phase 4's tp=1 "
+                f"{ref['launches'][name]}")
+    require(launches["flash_prefill"] == ref["launches"]["flash_prefill"]
+            == cfg.n_layers * len(reqs), f"{run}: flash_prefill launched "
+            f"{launches['flash_prefill']} times for {len(reqs)} prefills of {cfg.n_layers} layers")
+    require(launches["complete_page"] == TP * cfg.n_layers * em.steps,
+            f"{run}: complete_page launched {launches['complete_page']} times in {em.steps} "
+            "steps")
+    for name in OFF_PATH:
+        require(launches[name] == 0, f"{name} launched on the main path ({run})")
+    torch.cuda.synchronize()
+    page = max(CONT_PROMPTS) // P
+    for i, layer in enumerate(eng._pool.state["layers"]):
+        for shard in range(TP):
+            require(bool(layer[f"{shard}/pool"][:, page].ne(0).any()),
+                    f"no page completed during decode ({run}): layer {i} shard {shard}'s pool "
+                    f"page {page} is empty in every slot")
+    lat = s["latency"]["decode_step_s"]
+    gen_tokens = sum(len(o.tokens) for o in outs)
+    info = {"run": run, "layers": cfg.n_layers, "devices": [str(d) for d in mesh.devices],
+            "decode_steps": em.steps, "decode_ms_per_step": 1e3 * lat["sum"] / lat["count"],
+            "tp1_decode_ms_per_step": ref["info"]["decode_ms_per_step"],
+            "ttft_s": [o.metrics.ttft_s for o in outs], "tp1_ttft_s": ref["info"]["ttft_s"],
+            "tokens_per_s": gen_tokens / wall, "wall_s": wall,
+            "host_syncs_per_token": em.host_syncs / gen_tokens,
+            "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "recall_overlap": {k: ro[k] for k in ref_ro}, "tp": s["tp"],
+            "shard_flight": flight,
+            "launches": launches, "tp1_launches": ref["launches"]}
+    del eng, outs
+    torch.cuda.empty_cache()
+    if profile:
+        from repro_torch.data.synthetic import needle_stream
+        from repro_torch.launch.decode_profile import profile_decode
+        stream = needle_stream(cfg.vocab_size, CONTEXT, fkv.page_size, seed=0)
+        toks = torch.from_numpy(np.stack([next(stream).tokens for _ in range(B)]))
+        prof = profile_decode(cfg, fkv, params, toks.long().to(dev), steps=3,
+                              with_prefill=False, mesh=mesh)
+        info["profile"] = {k: prof[k] for k in ("wall_ms_per_step_unprofiled",
+                                                "cpu_ops_per_step", "device_ops_per_step",
+                                                "device_busy_ms_per_step", "device_busy_share")}
+        info["tp1_profile"] = {k: ref["info"]["profile"][k] for k in info["profile"]}
+        torch.cuda.empty_cache()
+    return info, launches
+
+
+def tp_phase(dev, ops, cfg, params, phase4):
+    """Phase 4f: freekv/none at full depth and freekv/int8 at half depth
+    (as phase 4's runs of the same method and quantization), both shards on
+    cuda:0; with two cards or more, the none case also on cuda:0 and
+    cuda:1. Returns (infos, the summed launches)."""
+    forms = [("cuda:0", "cuda:0")] + ([("cuda:0", "cuda:1")]
+                                      if torch.cuda.device_count() >= 2 else [])
+    cases = [(kv_quant, devs) for kv_quant in ("none", "int8") for devs in forms
+             if kv_quant == "none" or devs == forms[0]]
+    infos, total = [], {}
+    for kv_quant, devs in cases:
+        t0 = time.perf_counter()
+        c, p = (cfg, params) if kv_quant == "none" else half_depth(cfg, params)
+        info, launches = tp_run(dev, ops, c, p, kv_quant, devs,
+                                phase4[("freekv", kv_quant)],
+                                profile=(kv_quant, devs) == ("none", forms[0]))
+        info["run_s"] = time.perf_counter() - t0
+        infos.append(info)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    return infos, total
+
+
+def tp_paths_vs_plain(dev):
+    """Tensor-parallel serving on the card against the CPU: granite-3-8b-
+    smoke at float32 (4/2 heads, one KV head a shard) over two shards on
+    cuda:0 (and on ("cpu", "cpu")), greedy tokens, steps and counts equal,
+    and equal to tp=1's on the CPU: continuous (freekv none and int8, 5
+    requests over 2 slots), a preemption, a prefix-cache hit, and the
+    static path."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.launch.mesh import make_tp_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    cfg = get_config("granite-3-8b-smoke")
+    params_gpu = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    params_cpu = _tree_map(lambda t: t.cpu(), params_gpu)
+
+    def needle(n, seed):
+        return next(needle_stream(cfg.vocab_size, n, 8, seed=seed)).tokens
+
+    mixed = [Request(uid=i, tokens=needle(n, 10 + i), max_new_tokens=m)
+             for i, (n, m) in enumerate(zip((256, 200, 129, 256, 184), (16, 5, 12, 9, 7)))]
+    shared = needle(64, 90)
+    cached = [Request(uid=i, tokens=np.concatenate(
+        [shared, np.random.default_rng(91 + i).integers(0, cfg.vocab_size, t).astype(np.int32)]),
+        max_new_tokens=6) for i, t in enumerate((16, 24, 16))]
+    urgent = [Request(uid=i, tokens=needle(n, 95 + i), max_new_tokens=10, priority=int(i == 2))
+              for i, n in enumerate((64, 96, 60))]
+    cases = [("continuous none", mixed, "none", {}, {}),
+             ("continuous int8", mixed, "int8", {}, {}),
+             ("preempt", urgent, "none", dict(preempt=True), {}),
+             ("prefix-cache hit", cached, "none", {},
+              dict(prefix_cache_tokens=4096, prefill_bucket=8)),
+             ("static", mixed, "none", {}, dict(scheduler="static"))]
+    out = {}
+    for name, reqs, kv_quant, fkv_kw, eng_kw in cases:
+        fkv = dataclasses.replace(_smoke_fkv("freekv", kv_quant), **fkv_kw)
+        got = {}
+        for where, tp in (("cuda", TP), ("cpu", TP), ("cpu", 1)):
+            on_card = where == "cuda"
+            mesh = None if tp == 1 else make_tp_mesh(TP, ("cuda:0" if on_card else "cpu",) * TP)
+            eng = ServeEngine(cfg, fkv, params_gpu if on_card else params_cpu, max_len=320,
+                              batch_size=2, state_dtype=torch.float32,
+                              device=dev if on_card else "cpu", mesh=mesh, **eng_kw)
+            toks = [o.tokens for o in eng.generate(reqs)]
+            em = eng.last_metrics
+            require(eng.last_logits_finite, f"non-finite logits ({where} tp{tp} {name})")
+            got[f"{where} tp{tp}"] = (toks, em.steps,
+                                      [m.prefix_hit_tokens for m in em.requests],
+                                      em.preemptions, em.swap_out_bytes == em.swap_in_bytes)
+        first = got[f"cuda tp{TP}"]
+        require(all(g == first for g in got.values()), f"tp {name}: {got}")
+        toks, steps, hits, pre, _ = first
+        if fkv.preempt:
+            require(pre >= 1, f"tp {name}: no preemption")
+        if "prefix_cache_tokens" in eng_kw:
+            require(hits[1:] == [64, 64], f"tp {name}: prefix hits {hits}")
+        out[name] = {"steps": steps, "prefix_hit_tokens": hits, "preemptions": pre,
+                     "tokens": toks[0][:8]}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: training. smollm-360m at full width (float32, B 4, T 4096: the
 # reference's train_4k length, past the dense attention's 2048 x 2048, so
 # the chunked attention with its per-chunk checkpoints), 6 AdamW steps with
@@ -3740,7 +4013,8 @@ def main():
     t0 = time.perf_counter()
     shapes = {"paged_attention": check_paged_attention_shapes(ops, ref, dev, gen),
               "flash_prefill": check_flash_prefill_shapes(ops, ref, dev, gen),
-              "select_pages": check_select_pages_shapes(ops, ref, dev, gen)}
+              "select_pages": check_select_pages_shapes(ops, ref, dev, gen),
+              "recall_gather": check_recall_gather_shapes(ops, ref, dev, gen)}
     fills = check_fill_shapes(ops, ref, dev, gen)
     for name in ("fill_pages", "complete_page"):
         shapes[name] = {arch: r[name] for arch, r in fills.items()}
@@ -3770,6 +4044,7 @@ def main():
             f"{k['device_grid_blocks']} blocks from a device pool")
     launches = {k["name"]: None for k in kernels}
     wide_launches, spec_launches, service_launches, train_launches = {}, {}, {}, {}
+    tp_launches = {}
     share = None
     if not args.kernels_only:
         # phase 3b: the MoE FFN and the Mamba mixer at full width
@@ -3815,7 +4090,7 @@ def main():
         # retriever and pool tier through the continuous scheduler
         cfg, params = llama_params(dev)
         launches = {k["name"]: 0 for k in kernels}
-        compare = {}
+        compare, phase4 = {}, {}
         for scheduler, method, kv_quant in [("static", "freekv", "none")] + [
                 ("continuous", m, q) for m, q in RUNS]:
             t0 = time.perf_counter()
@@ -3824,6 +4099,8 @@ def main():
                                   method, kv_quant, scheduler)
             info["run_s"] = time.perf_counter() - t0
             tokens = info.pop("tokens")
+            if scheduler == "continuous":
+                phase4[(method, kv_quant)] = {"tokens": tokens, "info": info, "launches": run}
             log("[main] " + json.dumps(info))
             log(f"[main] {scheduler} {method}/{kv_quant}: {info['requests']} requests over "
                 f"{B} slots, TTFT {min(info['ttft_s']):.3f}-{max(info['ttft_s']):.3f} s, "
@@ -3919,6 +4196,30 @@ def main():
             f"of the nine {serve['same_engine_direct_decode_ms_per_step']:.2f}); "
             f"{serve['host_syncs_per_token']:.4f} host reads a token; peak "
             f"{serve['peak_device_gib']:.2f} GiB; phase {serve['phase_s']:.1f} s")
+        # phase 4f: KV-head-group tensor parallelism at full width
+        t0 = time.perf_counter()
+        tp_infos, tp_launches = tp_phase(dev, ops, cfg, params, phase4)
+        for info in tp_infos:
+            log("[tp] " + json.dumps(info))
+            pr = info.get("profile")
+            log(f"[tp] {smi} | llama31-8b {info['layers']} layers {info['run']}: tokens, steps, "
+                f"exposed/hidden bytes equal phase 4's tp=1, the shards' own "
+                f"{json.dumps(info['tp']['shard_transfer_bytes'])} B; decode "
+                f"{info['decode_ms_per_step']:.2f} ms/step (tp=1 "
+                f"{info['tp1_decode_ms_per_step']:.2f}), TTFT "
+                f"{min(info['ttft_s']):.3f}-{max(info['ttft_s']):.3f} s (tp=1 "
+                f"{min(info['tp1_ttft_s']):.3f}-{max(info['tp1_ttft_s']):.3f}), "
+                f"{info['tokens_per_s']:.2f} tokens/s, peak {info['peak_device_gib']:.2f} GiB; "
+                f"launches {json.dumps({k: v for k, v in info['launches'].items() if v})}"
+                + ("" if pr is None else
+                   f"; eager step {pr['wall_ms_per_step_unprofiled']:.2f} ms, "
+                   f"{pr['cpu_ops_per_step']} host ops, busy share "
+                   f"{pr['device_busy_share']:.3f} (tp=1 "
+                   f"{info['tp1_profile']['wall_ms_per_step_unprofiled']:.2f} ms, "
+                   f"{info['tp1_profile']['cpu_ops_per_step']} host ops, busy share "
+                   f"{info['tp1_profile']['device_busy_share']:.3f})"))
+        log(f"[tp] {len(tp_infos)} runs ({', '.join(i['run'] for i in tp_infos)}) in "
+            f"{time.perf_counter() - t0:.1f} s")
         del params
         torch.cuda.empty_cache()
         require(all(0 <= v <= 1 for v in share.values()), f"valid shares out of range: {share}")
@@ -3968,6 +4269,9 @@ def main():
         for label, t in spec_vs_plain(dev).items():
             log(f"[equal] granite-3-8b-smoke fp32 continuous freekv draft_len 3, {label}: "
                 f"card == cpu == draft_len 0 tokens, e.g. {t}")
+        for name, r in tp_paths_vs_plain(dev).items():
+            log(f"[equal] granite-3-8b-smoke fp32 tp{TP} (two shards on cuda:0), {name}: card "
+                f"== cpu == cpu tp1 greedy tokens, steps and counts " + json.dumps(r))
         n = centroid_index_equals_rebuild(dev)
         log(f"[equal] granite-3-8b-smoke fp32 centroid: the index kept on the card equals "
             f"its rebuild in every layer after 20 steps ({n} re-centers)")
@@ -4018,6 +4322,7 @@ def main():
                      "spec_launches": spec_launches.get(k["name"]),
                      "service_launches": service_launches.get(k["name"]),
                      "train_launches": train_launches.get(k["name"]),
+                     "tp_launches": tp_launches.get(k["name"]),
                      "max_abs_err": k["max_abs_err"],
                      "ms": k["kernel_ms"], **k})
     print(json.dumps({"kernels": line}), flush=True)

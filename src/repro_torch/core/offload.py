@@ -23,7 +23,11 @@ from repro_torch.kernels import ops
 def alloc_pool(shape, dtype, fkv: FreeKVConfig, device: torch.device):
     """A zeroed pool tensor (the payload or its scales): pinned host memory
     for ``offload="host"`` on a CUDA device (on meta, a meta tensor that
-    stands for it), else on ``device``."""
+    stands for it), else on ``device``. Each tensor-parallel shard places
+    its own pool, on its own device (the counterpart of the reference's
+    mesh-aware ``place_decode_state``): pinned pages are mapped into every
+    card's address space, so the shard's card reads them at their host
+    address."""
     if fkv.offload == "host" and device.type == "cuda":
         return torch.zeros(shape, dtype=dtype, pin_memory=True)
     t = torch.zeros(shape, dtype=dtype, device=device)

@@ -31,6 +31,7 @@ import contextlib
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import recall
@@ -183,15 +184,19 @@ class RecallExecutor:
 
 def wait_staged(state):
     """Make the current stream wait for the staged buffer of the previous
-    step (no-op on the CPU or when nothing is in flight)."""
-    ev = state.pop("sel_ready", None)
-    if ev is not None:
-        torch.cuda.current_stream(state["sel_k"].device).wait_event(ev)
+    step (no-op on the CPU or when nothing is in flight). A layer served
+    with KV-head-group TP holds one such event a shard, ``"<s>/sel_ready"``
+    (``core/sharded_retrieval``); each is waited for on its shard's device."""
+    for key in [k for k in state if k.endswith("sel_ready")]:
+        ev = state.pop(key)
+        if ev is not None:
+            buf = state[key[:-len("sel_ready")] + "sel_k"]
+            torch.cuda.current_stream(buf.device).wait_event(ev)
 
 
 class RecallFlightTracker:
     """Host-side per-slot accounting of the staged recall in flight
-    (reference ``recall_pipeline.py:174``, one device).
+    (reference ``recall_pipeline.py:174``).
 
     The staged buffer a slot carries out of step t is consumed by step t+1,
     unless the slot turns over at the boundary (its request finished, the
@@ -199,50 +204,84 @@ class RecallFlightTracker:
     nothing. The continuous scheduler feeds the tracker each step, from the
     stat blocks it reads at a sync, and invalidates a slot when it frees
     it; the dropped total lands in ``EngineMetrics.summary()
-    ["recall_overlap"]``."""
+    ["recall_overlap"]``.
 
-    def __init__(self):
+    Under tensor-parallel serving (``shards > 1``) each step's staged and
+    topped-up counts come a shard, from each shard's own counters
+    (``core/sharded_retrieval``), and every count is kept a shard: the
+    ``shard_*`` arrays measure what each shard's link moved, and
+    ``summary()["shards"]`` lists them. ``summary()["per_shard"]`` is the
+    reference's view, each total over ``shards``."""
+
+    def __init__(self, shards: int = 1):
+        self.shards = max(shards, 1)
         self._in_flight = {}
-        self.dropped_pages = 0.0
-        self.staged_pages = 0.0
-        self.topup_pages = 0.0
+        self.shard_staged = np.zeros(self.shards)
+        self.shard_topup = np.zeros(self.shards)
+        self.shard_dropped = np.zeros(self.shards)
         self.reused_pages = 0.0
 
-    def note_step(self, slot: int, staged: float, topup: float = 0.0,
-                  reused: float = 0.0):
+    @property
+    def staged_pages(self) -> float:
+        return float(self.shard_staged.sum())
+
+    @property
+    def topup_pages(self) -> float:
+        return float(self.shard_topup.sum())
+
+    @property
+    def dropped_pages(self) -> float:
+        return float(self.shard_dropped.sum())
+
+    def _per_shard(self, pages) -> np.ndarray:
+        """A count, or one a shard, as a (shards,) array (a lone count is
+        refused where there are several shards)."""
+        return np.asarray(pages, dtype=np.float64).reshape(self.shards)
+
+    def note_step(self, slot: int, staged, topup=0.0, reused: float = 0.0):
         """One step's transfer split for ``slot``: its staged pages replace
-        (consume) what the slot had in flight."""
+        (consume) what the slot had in flight. ``staged``/``topup``: a count
+        or, with several shards, one a shard."""
+        staged = self._per_shard(staged)
         self._in_flight[slot] = staged
-        self.staged_pages += staged
-        self.topup_pages += topup
+        self.shard_staged += staged
+        self.shard_topup += self._per_shard(topup)
         self.reused_pages += reused
 
     def invalidate(self, slot: int):
         """Slot turnover: the staged buffer is abandoned in flight."""
-        self.dropped_pages += self._in_flight.pop(slot, 0.0)
+        self.shard_dropped += self._in_flight.pop(slot, 0.0)
 
-    def drop(self, pages: float):
+    def drop(self, pages):
         """Pages streamed for work discarded without touching the slot's
         carried buffer: a speculative verify row whose draft was rejected
         staged (and topped up) for a continuation that never commits; the
-        rollback recall re-stages from the last committed row."""
-        self.dropped_pages += max(pages, 0.0)
+        rollback recall re-stages from the last committed row. A count or
+        one a shard."""
+        self.shard_dropped += np.maximum(self._per_shard(pages), 0.0)
 
-    def suspend(self, slot: int) -> float:
+    def suspend(self, slot: int):
         """Preemption swap-out: the staged buffer lives in the ``sel_k`` /
         ``sel_v`` leaves and travels to the host with the rest of the slot's
         state, so its pages are not dropped. Returns the count for
         ``restore``."""
         return self._in_flight.pop(slot, 0.0)
 
-    def restore(self, slot: int, staged: float):
+    def restore(self, slot: int, staged):
         """Preemption swap-in: reattach a suspended count to the slot the
         request resumed into."""
-        if staged:
+        if np.any(staged):
             self._in_flight[slot] = staged
 
     def summary(self) -> dict:
         moved = self.staged_pages + self.topup_pages
         return {"staged_pages": self.staged_pages, "topup_pages": self.topup_pages,
                 "reused_pages": self.reused_pages, "dropped_pages": self.dropped_pages,
-                "hidden_fraction": self.staged_pages / moved if moved else 0.0}
+                "hidden_fraction": self.staged_pages / moved if moved else 0.0,
+                "per_shard": {"shards": self.shards,
+                              "staged_pages": self.staged_pages / self.shards,
+                              "topup_pages": self.topup_pages / self.shards,
+                              "dropped_pages": self.dropped_pages / self.shards},
+                "shards": {"staged_pages": self.shard_staged.tolist(),
+                           "topup_pages": self.shard_topup.tolist(),
+                           "dropped_pages": self.shard_dropped.tolist()}}

@@ -33,6 +33,7 @@ from repro_torch.core import centroid_index, paging, selection
 from repro_torch.core.correction import corrected_heads
 from repro_torch.core.recall_pipeline import (RecallExecutor, match_resident,
                                               wait_staged)
+from repro_torch.core.sharded_retrieval import TPGroupShardedRetriever
 from repro_torch.kernels import ops
 from repro_torch.models.layers import softcap
 from repro_torch.obs.trace import (SPAN_ATTN_COMPUTE, SPAN_RECALL_CORRECTION, SPAN_RECALL_SELECT,
@@ -162,7 +163,20 @@ def ring_restore(state, snap, keep):
     return state
 
 
-class FreeKVRetriever:
+class RingRollback:
+    """``ring_snapshot``/``ring_restore`` as a retriever's methods, which
+    ``models.model.serve_step_verify`` and ``rewind_state`` call on every
+    layer's retriever; the tensor-parallel wrapper
+    (``core/sharded_retrieval``) runs them on each shard's ring."""
+
+    def ring_snapshot(self, state, n_rows: int):
+        return ring_snapshot(state, n_rows)
+
+    def ring_restore(self, state, snap, keep):
+        return ring_restore(state, snap, keep)
+
+
+class FreeKVRetriever(RingRollback):
     """FreeKV (speculative=True) and, by flags, the ArkVale-style baseline
     (speculative=False: fresh selection, blocking recall every step) and
     the InfiniGen-style one (also ``proxy_query``: the selection reads the
@@ -423,7 +437,7 @@ def _no_recall_info(B, kv, dev):
             "similarity": torch.zeros((B, kv), device=dev), "granularity": "page"}
 
 
-class StreamingRetriever:
+class StreamingRetriever(RingRollback):
     """Sink + sliding window only (StreamingLLM), reference
     ``retrieval.py:533-611``; also gemma2's ``ATTN_LOCAL`` layers, with
     ``window = cfg.sliding_window`` and no sink (``models.model``). No pool:
@@ -742,10 +756,14 @@ METHODS = ("freekv", "arkvale", "infinigen", "quest", "shadowkv", "raas", "strea
            "full", "centroid")
 
 
-def make_retriever(cfg: ArchConfig, fkv: FreeKVConfig):
+def make_retriever(cfg: ArchConfig, fkv: FreeKVConfig, mesh=None):
     """The retriever of ``fkv.method``, any of METHODS (reference
-    ``retrieval.py:861-890``; its tensor-parallel wrapper is in ROADMAP
-    queue 1, "Tensor parallelism")."""
+    ``retrieval.py:861-890``). With a ``mesh`` (serving TP,
+    ``launch/mesh.make_tp_mesh``) it is the plain retriever of the local
+    KV-head group, run per shard by ``TPGroupShardedRetriever``, which
+    raises where the mesh does not divide both head counts."""
+    if mesh is not None:
+        return TPGroupShardedRetriever(cfg, mesh, lambda c: make_retriever(c, fkv))
     m = fkv.method
     if m == "freekv":
         return FreeKVRetriever(cfg, fkv, speculative=True)

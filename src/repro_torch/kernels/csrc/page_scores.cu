@@ -56,11 +56,15 @@
 //     cp.async.bulk copies, one 512-byte copy a page, took ~20% longer at
 //     the main shape on an H100.) The scores stay in shared memory (a
 //     workspace in device memory when a block's pages do not fit).
-//   - Softmax: each block's max m_b and its sum of exp(x - m_b) go to the
-//     cluster through distributed shared memory; every block combines the
-//     S pairs in rank order (max M, then sum_b s_b exp(m_b - M)), so all
-//     agree bit for bit; expf, not __expf; probabilities below FLT_MIN flush to 0.0 as XLA's
-//     do; the G rows are summed in order and divided by G.
+//   - Softmax: each block's max m_b goes to the cluster through
+//     distributed shared memory and every block takes M = max_b m_b; then
+//     each block's sum of exp(x - M), each term in fixed point (2^-46 a
+//     unit, kFixedOne) so that the sums are integers, exact in any order,
+//     and the cluster's total is the same whatever the split S: the
+//     selection does not depend on how many rows a launch holds (S follows
+//     the row count, ops.select_split; a tensor-parallel shard launches
+//     half the rows). expf, not __expf; probabilities below FLT_MIN flush
+//     to 0.0 as XLA's do; the G rows are summed in order and divided by G.
 //   - Top-k: exact and deterministic on a 64-bit key (the value's bits in
 //     an order-preserving form, then the complement of the index), so no
 //     two keys are equal. Each block ranks its pages by counting the keys
@@ -90,6 +94,10 @@ constexpr int kMaxCluster = 8;          // ops.MAX_CLUSTER
 constexpr int kSmemScores = 8192;       // G * pages a block keeps in shared memory (ops)
 constexpr int kSmemKeys = 2048;         // pages a block ranks in shared memory (ops)
 constexpr float kNegHalf = -5e29f;      // NEG_INF / 2: a value at or below it selects -1
+// the softmax denominator's fixed-point unit: a term exp(x - M) <= 1 is at
+// most 2^46, so up to kMaxFixedPages terms sum exactly in 64 bits
+constexpr double kFixedOne = 70368744177664.0;   // 2^46
+constexpr int kMaxFixedPages = 1 << 18;
 
 enum Mode { kScores = 0, kSelect = 1, kCandidates = 2 };
 enum Pool { kMeanSoftmax = 0, kMaxSoftmax = 1, kMeanQk = 2, kMaxQk = 3 };
@@ -122,10 +130,10 @@ struct Layout {
   __host__ __device__ Layout(int mode, int G, int nl, int k, int C, bool sc_smem,
                              bool keys_smem) {
     size_t off = 0;
-    red = off;
-    off += sizeof(float) * kWarps * kMaxG;
-    part = off;                                  // part_max, part_sum, M, Sum
-    off += sizeof(float) * 4 * kMaxG;
+    red = off;                                   // a 64-bit value a (warp, row)
+    off += sizeof(unsigned long long) * kWarps * kMaxG;
+    part = off;                                  // part_max, M, Sum (float); part_sum (u64)
+    off += sizeof(float) * 4 * kMaxG + sizeof(unsigned long long) * kMaxG;
     cs = off;
     if (mode == kCandidates) off += sizeof(float) * (size_t)(G + 1) * C;
     off = align16(off);
@@ -265,6 +273,27 @@ __device__ __forceinline__ void score_items(const T* __restrict__ src, int NP, i
   }
 }
 
+// v[g] over the block into out[g] (g < G): an exact integer sum
+template <int kG>
+__device__ __forceinline__ void block_sum_u64(unsigned long long (&v)[kG],
+                                              unsigned long long* red,
+                                              unsigned long long* out, int G) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int g = 0; g < kG; ++g) {
+    unsigned long long x = v[g];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+    if (lane == 0) red[warp * kMaxG + g] = x;
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < G) {
+    unsigned long long a = 0;
+    for (int w = 0; w < kWarps; ++w) a += red[w * kMaxG + threadIdx.x];
+    out[threadIdx.x] = a;
+  }
+}
+
 // v[g] over the block into out[g] (g < G), by max or by sum, warps in order
 template <int kG, bool kMax>
 __device__ __forceinline__ void block_reduce(float (&v)[kG], float* red, float* out, int G) {
@@ -297,9 +326,9 @@ __global__ void __launch_bounds__(kThreads) select_kernel(const Args a) {
   const Layout L(kMode, G, a.nl, a.k, a.NP, sc_smem, keys_smem);
   float* red = reinterpret_cast<float*>(smem + L.red);
   float* part_max = reinterpret_cast<float*>(smem + L.part);
-  float* part_sum = part_max + kMaxG;
-  float* stat_m = part_sum + kMaxG;
+  float* stat_m = part_max + kMaxG;
   float* stat_s = stat_m + kMaxG;
+  unsigned long long* part_sum = reinterpret_cast<unsigned long long*>(part_max + 4 * kMaxG);
   const T* summ = static_cast<const T*>(a.summ);
   const bool vec = d % 8 == 0 && reinterpret_cast<uintptr_t>(summ) % 16 == 0;
   const T* qrow = static_cast<const T*>(a.q) + row * G * d;
@@ -348,8 +377,9 @@ __global__ void __launch_bounds__(kThreads) select_kernel(const Args a) {
       const bool softmax = a.pool == kMeanSoftmax || a.pool == kMaxSoftmax;
       const bool mean = a.pool == kMeanSoftmax || a.pool == kMeanQk;
       if (softmax) {
-        // the block's max m_b and sum of exp(x - m_b), then over the cluster
-        // M = max m_b and sum_b s_b exp(m_b - M), combined in rank order
+        // the block's max m_b, then over the cluster M = max m_b; the
+        // block's sum of exp(x - M) in fixed point, then over the cluster:
+        // integer sums, so the total is the same in any order and split
         float v[kG];
 #pragma unroll
         for (int g = 0; g < kG; ++g) v[g] = -FLT_MAX;
@@ -360,28 +390,30 @@ __global__ void __launch_bounds__(kThreads) select_kernel(const Args a) {
             if (g < G) v[g] = fmaxf(v[g], ok ? sc[(size_t)g * a.nl + i] : kNegInf);
         }
         block_reduce<kG, true>(v, red, part_max, G);
+        cluster.sync();
+        if (tid < G) {
+          float m = -FLT_MAX;
+          for (int s = 0; s < S; ++s) m = fmaxf(m, *cluster.map_shared_rank(part_max + tid, s));
+          stat_m[tid] = m;
+        }
         __syncthreads();
+        unsigned long long u[kG];
 #pragma unroll
-        for (int g = 0; g < kG; ++g) v[g] = 0.f;
+        for (int g = 0; g < kG; ++g) u[g] = 0ull;
         for (int i = tid; i < n_loc; i += kThreads) {
           const bool ok = valid(i0 + i);
 #pragma unroll
           for (int g = 0; g < kG; ++g)
-            if (g < G) v[g] += expf((ok ? sc[(size_t)g * a.nl + i] : kNegInf) - part_max[g]);
+            if (g < G)
+              u[g] += (unsigned long long)(
+                  (double)expf((ok ? sc[(size_t)g * a.nl + i] : kNegInf) - stat_m[g]) * kFixedOne);
         }
-        block_reduce<kG, false>(v, red, part_sum, G);
+        block_sum_u64<kG>(u, reinterpret_cast<unsigned long long*>(red), part_sum, G);
         cluster.sync();
         if (tid < G) {
-          float m = -FLT_MAX, m_s[kMaxCluster], s_s[kMaxCluster];
-          for (int s = 0; s < S; ++s) {
-            m_s[s] = *cluster.map_shared_rank(part_max + tid, s);
-            s_s[s] = *cluster.map_shared_rank(part_sum + tid, s);
-            m = fmaxf(m, m_s[s]);
-          }
-          float sum = 0.f;
-          for (int s = 0; s < S; ++s) sum += s_s[s] * expf(m_s[s] - m);
-          stat_m[tid] = m;
-          stat_s[tid] = sum;
+          unsigned long long total = 0;
+          for (int s = 0; s < S; ++s) total += *cluster.map_shared_rank(part_sum + tid, s);
+          stat_s[tid] = (float)((double)total / kFixedOne);
         }
         __syncthreads();
       }
@@ -517,6 +549,7 @@ int launch(Args a, int dtype, int device, void* stream) {
                            a.nl != (a.N + a.S - 1) / a.S))
     return cudaErrorInvalidValue;
   if (kMode == kCandidates && (size_t)(a.G + 1) * a.NP > kSmemScores) return cudaErrorInvalidValue;
+  if (kMode == kSelect && a.N > kMaxFixedPages) return cudaErrorInvalidValue;
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -173,7 +173,10 @@ _TICKETS: dict = {}
 def _tickets(dev, stream: int, n: int) -> torch.Tensor:
     """Zeroed int32 counters, one per (b, kv), for paged attention's merge;
     each launch leaves them zero again, so one buffer per device and stream
-    serves every launch (launches on one stream never overlap)."""
+    serves every launch (launches on one stream never overlap). Tensor-
+    parallel shards that share a card (``core/sharded_retrieval``) launch on
+    its one current stream, one shard after the other, so they share the
+    buffer safely; a shard on another card has its own."""
     key = (dev.index, stream)
     buf = _TICKETS.get(key)
     if buf is None or buf.numel() < n:
@@ -290,7 +293,10 @@ def select_split(N: int, rows: int, sms: int) -> int:
     (request, KV head) rows of N pages on a card of ``sms`` SMs: about one
     wave, and more where a block's pages would not fit its shared memory;
     at most MAX_CLUSTER and at most N. Block r takes pages
-    ``split_range(N, S, r)``."""
+    ``split_range(N, S, r)``. The ids and pooled scores do not depend on S
+    (the softmax's denominator is an integer sum, ``csrc/page_scores.cu``),
+    so a row selects the same pages in a launch of any size: a
+    tensor-parallel shard's, with half the rows, included."""
     want = max(sms // max(rows, 1), -(-N // SMEM_KEYS))
     return max(1, min(MAX_CLUSTER, N, want))
 

@@ -9,7 +9,7 @@ random bf16 weights, ``torch.profiler`` over one prefill and over a few
                 deepseek-moe-16b|xlstm-350m|whisper-tiny|internvl2-26b] \
         [--method freekv|arkvale|infinigen|quest|shadowkv|raas|streaming|centroid] \
         [--kv-quant none|int8|int4] [--quant-group-size 0] [--window 8] [--completion] \
-        [--draft-len 4] [--main-runs]
+        [--draft-len 4] [--main-runs] [--tp 2 [--tp-devices cuda:0,cuda:0]]
 
 ``--arch`` profiles another served arch at full width with the same
 traffic (the default is the main path's llama31-8b); deepseek-moe-16b
@@ -37,6 +37,10 @@ operations and device-busy ms of each); with ``--draft-len N`` also one
 speculative verify iteration of 1 + N rows beside 1 + N eager steps on the
 same state (``profile_verify``: host ops, device operations, busy share,
 wall ms and host syncs of each side).
+``--tp N`` profiles KV-head-group tensor-parallel decode
+(``core/sharded_retrieval``) over N shards, on ``cuda:0`` .. ``cuda:N-1``
+or the devices ``--tp-devices`` names (``cuda:0,cuda:0``: both on one
+card); the backbone on ``cuda:0``.
 ``profile_decode`` gives the same for weights already on
 the card (``chip_smoke.py`` phase 4). ``--main-runs`` gives the decode's
 numbers for each of the five main-path runs on one set of weights; it uses
@@ -111,7 +115,7 @@ def span_table(events, steps):
 
 
 def profile_decode(cfg, fkv, params, toks, steps=4, trace_out=None, with_prefill=True,
-                   window=0, completion=False, draft_len=0):
+                   window=0, completion=False, draft_len=0, mesh=None):
     """The numbers ``main`` prints, for ``params`` already on the card and
     prompts ``toks`` (B, T) on the card: the prefill's (when
     ``with_prefill``) and an eager decode step's, as one dict; with
@@ -120,7 +124,8 @@ def profile_decode(cfg, fkv, params, toks, steps=4, trace_out=None, with_prefill
     ``completion`` then a step that completes a page in every row beside
     one that completes none (``profile_completion``); with ``draft_len``
     > 0 then one verify iteration beside 1 + ``draft_len`` eager steps
-    (``profile_verify``)."""
+    (``profile_verify``). ``mesh`` (``launch/mesh.make_tp_mesh``): the
+    decode runs KV-head-group tensor-parallel over its shards."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.model import frontend_prefix, prefill, serve_step
@@ -136,17 +141,17 @@ def profile_decode(cfg, fkv, params, toks, steps=4, trace_out=None, with_prefill
     # warm-up prefill on a short prompt (builds and loads the kernels), the
     # timed one, then (with_prefill) one under the profiler
     prefill(cfg, fkv, params, {"tokens": toks[:, :512], **front}, max_len,
-            state_dtype=torch.bfloat16)
+            state_dtype=torch.bfloat16, mesh=mesh)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, state = prefill(cfg, fkv, params, {"tokens": toks, **front}, max_len,
-                            state_dtype=torch.bfloat16)
+                            state_dtype=torch.bfloat16, mesh=mesh)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     if with_prefill:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             prefill(cfg, fkv, params, {"tokens": toks, **front}, max_len,
-                    state_dtype=torch.bfloat16)
+                    state_dtype=torch.bfloat16, mesh=mesh)
             torch.cuda.synchronize()
         pre_rows = device_rows(prof.key_averages())
         prefill_out = {
@@ -159,7 +164,7 @@ def profile_decode(cfg, fkv, params, toks, steps=4, trace_out=None, with_prefill
 
     def step(logits, state):
         cur = torch.argmax(logits, dim=-1)[:, None]
-        return serve_step(cfg, fkv, params, state, cur)
+        return serve_step(cfg, fkv, params, state, cur, mesh=mesh)
 
     for _ in range(WARMUP):
         logits, state = step(logits, state)
@@ -189,7 +194,7 @@ def profile_decode(cfg, fkv, params, toks, steps=4, trace_out=None, with_prefill
     out = {
         "device": torch.cuda.get_device_name(0), "arch": cfg.name, "batch": toks.shape[0],
         "context": toks.shape[1], "method": fkv.method, "offload": fkv.offload,
-        "kv_quant": fkv.kv_quant,
+        "kv_quant": fkv.kv_quant, "tp": 1 if mesh is None else mesh.shape["model"],
         "steps": steps, "prefill_s": prefill_s, "prefill": prefill_out,
         "wall_ms_per_step_unprofiled": wall_ms,
         "device_busy_ms_per_step": busy_ms,
@@ -205,15 +210,15 @@ def profile_decode(cfg, fkv, params, toks, steps=4, trace_out=None, with_prefill
         "spans": span_table(events, steps),
     }
     if window:
-        out["window"] = profile_window(cfg, fkv, params, state, logits, window)
+        out["window"] = profile_window(cfg, fkv, params, state, logits, window, mesh=mesh)
     if completion:
-        out["completion"] = profile_completion(cfg, fkv, params, state, logits)
+        out["completion"] = profile_completion(cfg, fkv, params, state, logits, mesh=mesh)
     if draft_len:
-        out["verify"] = profile_verify(cfg, fkv, params, state, logits, draft_len)
+        out["verify"] = profile_verify(cfg, fkv, params, state, logits, draft_len, mesh=mesh)
     return out
 
 
-def profile_completion(cfg, fkv, params, state, logits):
+def profile_completion(cfg, fkv, params, state, logits, mesh=None):
     """One eager decode step in which no row completes a page, then (after
     the plain steps that bring the rows to a page boundary) one in which
     every row does, each alone under the profiler: host ops, device
@@ -228,7 +233,8 @@ def profile_completion(cfg, fkv, params, state, logits):
 
     def step():
         cur = torch.argmax(carry["logits"], dim=-1)[:, None]
-        carry["logits"], carry["state"] = serve_step(cfg, fkv, params, carry["state"], cur)
+        carry["logits"], carry["state"] = serve_step(cfg, fkv, params, carry["state"], cur,
+                                                     mesh=mesh)
 
     def completes():           # the next step's append takes each length L to L + 1
         return [(int(n) + 1) % p == 0 for n in carry["state"]["pos_host"]]
@@ -296,7 +302,7 @@ def _measure(run, k):
             "device_ops_per_step": sum(e.count for e in dev_events) / k}
 
 
-def profile_window(cfg, fkv, params, state, logits, k=8):
+def profile_window(cfg, fkv, params, state, logits, k=8, mesh=None):
     """A continuous-scheduler decode window on the same state, beside the
     static engine's step, in the form of the eager step's numbers (per
     step). ``window``: ``k`` fused steps (decode with stats, greedy pick on
@@ -320,15 +326,15 @@ def profile_window(cfg, fkv, params, state, logits, k=8):
 
     def window():
         st, lp, toks, valid, stats, finite = decode_window(
-            cfg, fkv, params, carry["state"], carry["loop"], SamplerConfig(), k)
-        blocks = [toks, valid, finite] + [stats[key] for key in DECODE_STAT_KEYS]
+            cfg, fkv, params, carry["state"], carry["loop"], SamplerConfig(), k, mesh=mesh)
+        blocks = [toks, valid, finite] + list(stats.values())
         torch.cat([b.reshape(-1).to(torch.float64) for b in blocks]).cpu()   # the one read
         carry.update(state=st, loop=lp)
 
     def static_steps():
         for _ in range(k):
             lg, st, stats = serve_step(cfg, fkv, params, carry["state"],
-                                       carry["cur"][:, None], collect_stats=True)
+                                       carry["cur"][:, None], collect_stats=True, mesh=mesh)
             carry.update(state=st, cur=torch.argmax(lg, dim=-1))
             carry["cur"].tolist()                                            # read 1
             torch.stack([stats[key] for key in DECODE_STAT_KEYS]).cpu()      # read 2
@@ -338,7 +344,7 @@ def profile_window(cfg, fkv, params, state, logits, k=8):
     return out
 
 
-def profile_verify(cfg, fkv, params, state, logits, draft_len):
+def profile_verify(cfg, fkv, params, state, logits, draft_len, mesh=None):
     """One speculative iteration (``serve_step_spec``: draft, verify pass of
     S = 1 + ``draft_len`` rows, sampling, rollback, drafter update, every
     lane live) beside S eager ``serve_step`` calls, on the same state, in
@@ -364,13 +370,14 @@ def profile_verify(cfg, fkv, params, state, logits, draft_len):
 
     def verify():
         st, lp, toks, emit, _, _ = serve_step_spec(cfg, sfkv, params, carry["state"],
-                                                   carry["loop"], SamplerConfig())
+                                                   carry["loop"], SamplerConfig(), mesh=mesh)
         torch.stack([toks.to(torch.int64), emit.to(torch.int64)]).cpu()   # the one read
         carry.update(state=st, loop=lp)
 
     def eager_steps():
         for _ in range(S):
-            lg, st = serve_step(cfg, fkv, params, carry["state"], carry["cur"][:, None])
+            lg, st = serve_step(cfg, fkv, params, carry["state"], carry["cur"][:, None],
+                                mesh=mesh)
             carry.update(state=st, cur=torch.argmax(lg, dim=-1))
         carry["cur"].cpu()
 
@@ -406,6 +413,11 @@ def main(argv=None):
                     help="the five runs of chip_smoke.py phase 4 (freekv none/int8, "
                          "shadowkv none/int8, centroid none) on one set of weights, "
                          "decode only: one JSON line each")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="KV-head-group tensor parallelism over N shards")
+    ap.add_argument("--tp-devices", default=None, metavar="DEV,DEV,...",
+                    help="--tp: each shard's device, the first cuda:0 (e.g. cuda:0,cuda:0); "
+                         "default cuda:0..N-1")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("decode_profile: needs a CUDA device", file=sys.stderr)
@@ -414,6 +426,7 @@ def main(argv=None):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import FreeKVConfig
     from repro_torch.data.synthetic import needle_stream
+    from repro_torch.launch.mesh import make_tp_mesh
     from repro_torch.models.model import init_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -425,16 +438,18 @@ def main(argv=None):
     stream = needle_stream(cfg.vocab_size, CONTEXT, fkv.page_size, seed=0)
     toks = torch.from_numpy(np.stack([next(stream).tokens for _ in range(BATCH)]))
     toks = toks.long().to(dev)
+    mesh = None if args.tp == 1 and not args.tp_devices else make_tp_mesh(
+        args.tp, args.tp_devices.split(",") if args.tp_devices else None)
     if not args.main_runs:
         print(json.dumps(profile_decode(cfg, fkv, params, toks, args.steps, args.trace_out,
                                         window=args.window, completion=args.completion,
-                                        draft_len=args.draft_len)),
+                                        draft_len=args.draft_len, mesh=mesh)),
               flush=True)
         return 0
     for method, kv_quant in MAIN_RUNS:
         fkv = FreeKVConfig(method=method, offload="host", kv_quant=kv_quant)
         out = profile_decode(cfg, fkv, params, toks, args.steps, with_prefill=False,
-                             window=args.window, completion=args.completion)
+                             window=args.window, completion=args.completion, mesh=mesh)
         keep = ("method", "kv_quant", "prefill_s", "wall_ms_per_step_unprofiled",
                 "device_busy_ms_per_step", "device_busy_share", "cpu_ops_per_step",
                 "device_ops_per_step", "runtime_calls_per_step", "spans", "window", "completion")

@@ -15,6 +15,18 @@ speculative decoding (``--draft-len``, off with ``--no-spec-decode``;
 greedy or ``--temperature`` sampled, the tokens equal ``--draft-len 0``'s);
 ``--scheduler static`` is the lockstep fallback. ``--device``, ``--offload``, ``--dtype`` and
 ``--seed`` are the port's own. Weights are random, made from ``--seed``.
+
+``--tp N`` serves with KV-head-group tensor parallelism (``ServeEngine(tp=N)``,
+``core/sharded_retrieval``): each attention layer's retrieval state and step
+split over N shards by KV head, the backbone on ``--device``; the tokens
+equal ``--tp 1``'s. The shards take ``cuda:0`` .. ``cuda:N-1``, which must
+exist, unless ``--tp-devices`` names them, its first being ``--device``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama31-8b \
+        --context 8192 --new-tokens 40 --batch 4 --requests 8 --page-size 32 \
+        --budget 2048 --offload host --dtype bfloat16 --tp 2 --tp-devices cuda:0,cuda:0
+
+(two shards on one card; ``--device cpu --tp-devices cpu,cpu`` on the CPU).
 Prints each request's tokens and timings, then ``EngineMetrics.summary()``
 as one JSON line.
 
@@ -106,6 +118,12 @@ def main(argv=None):
     ap.add_argument("--dtype", choices=tuple(_DTYPES), default="float32",
                     help="weights and decode state dtype")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="KV-head-group tensor parallelism over N shards (must divide both "
+                         "head counts; the tokens equal --tp 1's)")
+    ap.add_argument("--tp-devices", default=None, metavar="DEV,DEV,...",
+                    help="--tp: each shard's device, the first being --device (e.g. "
+                         "cuda:0,cuda:0 puts two shards on one card); default cuda:0..N-1")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="append a JSONL snapshot of the metrics registry after the run")
     ap.add_argument("--prom-out", default=None, metavar="PATH",
@@ -139,6 +157,10 @@ def main(argv=None):
                        sync_interval=args.sync_interval, prefill_chunk_tokens=args.prefill_chunk,
                        preempt=args.preempt,
                        draft_len=0 if args.no_spec_decode else args.draft_len)
+    mesh = None
+    if args.tp_devices:
+        from repro_torch.launch.mesh import make_tp_mesh
+        mesh = make_tp_mesh(args.tp, args.tp_devices.split(","))
     if args.no_obs:
         obs = Observability.off()
     else:
@@ -154,12 +176,12 @@ def main(argv=None):
                       prefill_bucket=args.prefill_bucket,
                       prefix_cache_tokens=args.prefix_cache_tokens, obs=obs,
                       slo_ttft_ms=args.slo_ttft_ms, slo_itl_ms=args.slo_itl_ms,
-                      device=args.device)
+                      device=args.device, tp=1 if mesh is not None else args.tp, mesh=mesh)
     if args.serve_http:
         from repro_torch.serving.frontend import EngineService, serve_http_background
         svc = EngineService(eng, seed=args.seed).start()
         fe, stop, th = serve_http_background(svc, args.host, args.port)
-        print(f"serving {args.arch}/{args.method} on http://{args.host}:{fe.port} "
+        print(f"serving {args.arch}/{args.method} (tp {eng.tp}) on http://{args.host}:{fe.port} "
               "(POST /generate, GET /metrics /stats /healthz)", flush=True)
         try:
             while th.is_alive():
@@ -201,7 +223,7 @@ def _finish_run(args, em, obs):
               f"{slo['goodput_tokens_per_s']:.1f} tok/s (total {em.tokens_per_s:.1f} tok/s)")
     if args.metrics_out:
         em.registry.write_jsonl(args.metrics_out, extra={"arch": args.arch,
-                                                         "method": args.method})
+                                                         "method": args.method, "tp": em.tp})
         print(f"metrics snapshot appended to {args.metrics_out}")
     if args.prom_out:
         with open(args.prom_out, "w", encoding="utf-8") as f:

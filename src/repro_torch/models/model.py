@@ -16,6 +16,11 @@ with dense, MoE or no FFNs, encoder-decoder stacks and a frontend prefix
   serve_step_spec(cfg, fkv, params, state, loop, sampler)
   decode_window_spec(cfg, fkv, params, state, loop, sampler, n_max)
 
+Every serving entry point also takes ``mesh`` (``launch/mesh.make_tp_mesh``):
+with one, each attention layer's retrieval runs per KV-head group on its
+shard's device (``core/sharded_retrieval``) and the backbone runs once, on
+the params' device.
+
 Params are nested dicts of tensors, dense weights in the ``x @ W``
 orientation ``(d_in, d_out)``: ``{"embed": {"tok", "head"?}, "final_norm":
 {"w"}, "layers": [{"norm1", "mixer", "norm2", "ffn", "postnorm1"?,
@@ -75,6 +80,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL, DENSE, MAMBA, MLSTM, MOE, NONE,
                                       SLSTM, ArchConfig, FreeKVConfig)
 from repro_torch.core.retrieval import StreamingRetriever, make_retriever
+from repro_torch.core.sharded_retrieval import TPGroupShardedRetriever, tp_group_size
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe, ssm, xlstm
@@ -83,6 +89,15 @@ from repro_torch.models import moe, ssm, xlstm
 DECODE_STAT_KEYS = ("corrected", "kv_heads", "sync_pages", "async_pages",
                     "reused_pages", "sim_sum", "sim_cnt", "sel_pages",
                     "spec_hit_pages", "churn_pages")
+# and, under serving TP, each KV-head-group shard's own transfer counts,
+# each (tp, B) (``core/sharded_retrieval``)
+SHARD_STAT_KEYS = ("shard_sync_pages", "shard_async_pages")
+
+
+def stat_keys(mesh=None) -> tuple:
+    """The keys of a decode step's stats: ``DECODE_STAT_KEYS``, each (B,),
+    and with a ``mesh`` ``SHARD_STAT_KEYS``, each (tp, B)."""
+    return DECODE_STAT_KEYS + (SHARD_STAT_KEYS if mesh is not None else ())
 
 # leaves the reference keeps float32 whatever the params' dtype: the MoE
 # router (``moe_init``) and Mamba's ``A_log`` and ``D`` (``mamba_init``)
@@ -125,13 +140,18 @@ def supports_kv_extend(cfg: ArchConfig) -> bool:
             and all(m in (ATTN, ATTN_LOCAL) for m, _ in cfg.layers))
 
 
-def retrievers(cfg: ArchConfig, fkv: FreeKVConfig) -> list:
+def retrievers(cfg: ArchConfig, fkv: FreeKVConfig, mesh=None) -> list:
     """One retriever a layer (reference ``model.py:98-115``): ``ATTN`` ->
     ``make_retriever``, ``ATTN_LOCAL`` -> the sliding window with no sink,
-    a recurrent mixer -> None. Layers of one kind share one object."""
-    by_kind = {ATTN: make_retriever(cfg, fkv), MAMBA: None, MLSTM: None, SLSTM: None}
+    a recurrent mixer -> None. Layers of one kind share one object. Under
+    serving TP (``mesh``) both attention kinds run per KV-head group, the
+    sliding window too."""
+    by_kind = {ATTN: make_retriever(cfg, fkv, mesh), MAMBA: None, MLSTM: None, SLSTM: None}
     if any(m == ATTN_LOCAL for m, _ in cfg.layers):
-        by_kind[ATTN_LOCAL] = StreamingRetriever(cfg, fkv, window=cfg.sliding_window, n_sink=0)
+        def local(c):
+            return StreamingRetriever(c, fkv, window=cfg.sliding_window, n_sink=0)
+        by_kind[ATTN_LOCAL] = (TPGroupShardedRetriever(cfg, mesh, local)
+                               if mesh is not None else local(cfg))
     return [by_kind[m] for m, _ in cfg.layers]
 
 
@@ -451,15 +471,19 @@ def _layer_state(cfg, layer, r, batch, max_len, dtype, dev):
 
 
 def init_decode_state(cfg: ArchConfig, fkv: FreeKVConfig, batch_size: int,
-                      max_len: int, dtype=torch.bfloat16, device="cuda"):
+                      max_len: int, dtype=torch.bfloat16, device="cuda", mesh=None):
     """The empty decode state at batch ``batch_size`` (reference
     ``model.py:441-476``): each attention layer's retriever state (with the
     cross-attention ``xk``/``xv`` zeros at ``dtype`` under an
-    encoder-decoder), each recurrent layer's (``_recurrent_state``)."""
+    encoder-decoder), each recurrent layer's (``_recurrent_state``). Under
+    serving TP (``mesh``) an attention layer's retriever state is its
+    shards' (``core/sharded_retrieval``), each on its shard's device;
+    everything else, ``xk``/``xv`` included, stays with the backbone on
+    ``device``."""
     check_supported(cfg)
     dev = resolve_device(device)
     out = {"layers": [_layer_state(cfg, layer, r, batch_size, max_len, dtype, dev)
-                      for layer, r in zip(cfg.layers, retrievers(cfg, fkv))],
+                      for layer, r in zip(cfg.layers, retrievers(cfg, fkv, mesh))],
            "pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
            "pos_host": torch.zeros((batch_size,), dtype=torch.int32)}
     if fkv.draft_len > 0:               # the speculative drafter's lane
@@ -470,7 +494,8 @@ def init_decode_state(cfg: ArchConfig, fkv: FreeKVConfig, batch_size: int,
 
 @torch.no_grad()
 def prefill(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, max_len: int,
-            state_dtype=torch.bfloat16, into=None, return_kv=False, build_state=True):
+            state_dtype=torch.bfloat16, into=None, return_kv=False, build_state=True,
+            mesh=None):
     """batch {"tokens": (B, T) on the params' device} -> (last-position
     logits (B, padded_vocab), decode state). Each layer's retriever state is
     built right after the layer runs, so only one layer's K/V is alive.
@@ -498,13 +523,17 @@ def prefill(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, max_len: int,
     decoder layer's cross-attention attends to its output, whose K/V the
     state keeps as ``xk``/``xv`` at ``state_dtype``; otherwise they sit
     ahead of the prompt (``_embed_inputs``) and the state's length counts
-    them."""
+    them.
+
+    ``mesh``: serving TP (``core/sharded_retrieval``). The backbone runs
+    once, on the params' device; each attention layer's retriever state is
+    built per KV-head group on its shard's device."""
     check_supported(cfg)
     x, positions = _embed_inputs(cfg, params, batch)
     B, T = x.shape[:2]
     dev = x.device
     enc = _encode(cfg, params, batch["frontend"]) if cfg.is_encoder_decoder else None
-    retrs = retrievers(cfg, fkv)
+    retrs = retrievers(cfg, fkv, mesh)
     states, kvs = [], []
     for i, lp in enumerate(params["layers"]):
         layer = cfg.layers[i]
@@ -615,7 +644,8 @@ def _new_state(states, B, length, dev):
 # ---------------------------------------------------------------------------
 @torch.no_grad()
 def prefill_extend(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, kv, prefix_len: int,
-                   max_len: int, state_dtype=torch.bfloat16, build_state=True, into=None):
+                   max_len: int, state_dtype=torch.bfloat16, build_state=True, into=None,
+                   mesh=None):
     """Prefill ``batch["tokens"]`` (B, S) as the continuation of a prefix of
     Tp = ``prefix_len`` tokens (reference ``model.py:578``). ``kv`` holds
     the per-layer post-RoPE K/V, a list with one ``(k, v)`` pair a layer:
@@ -634,7 +664,7 @@ def prefill_extend(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, kv, prefix
 
     Returns (logits, state); the suffix's K/V is left in ``kv``. Only
     for ``supports_kv_extend`` stacks (no recurrent layer, encoder or
-    frontend prefix)."""
+    frontend prefix). ``mesh``: serving TP, as ``prefill``'s."""
     check_supported(cfg)
     if not supports_kv_extend(cfg):
         raise NotImplementedError(f"{cfg.name}: a recurrent state, a cross-attention state or "
@@ -647,7 +677,7 @@ def prefill_extend(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, kv, prefix
     Tp = int(prefix_len)
     q_pos = torch.arange(Tp, Tp + S, device=dev)[None].expand(B, S)
     kv_pos = torch.arange(Tp + S, device=dev)[None].expand(B, Tp + S)
-    retrs = retrievers(cfg, fkv)
+    retrs = retrievers(cfg, fkv, mesh)
     states = []
     for i, lp in enumerate(params["layers"]):
         h = L.apply_norm(cfg, lp["norm1"], x)
@@ -685,12 +715,13 @@ def _info_stats(info, B, dev):
             "sim_cnt": torch.full((B,), info["similarity"].shape[1], dtype=f, device=dev),
             "sel_pages": info.get("sel_pages", z).to(f),
             "spec_hit_pages": info.get("spec_hit_pages", z).to(f),
-            "churn_pages": info.get("churn_pages", z).to(f)}
+            "churn_pages": info.get("churn_pages", z).to(f),
+            **{k: info[k].to(f) for k in SHARD_STAT_KEYS if k in info}}
 
 
 @torch.no_grad()
 def serve_step(cfg: ArchConfig, fkv: FreeKVConfig, params, state, tokens,
-               collect_stats=False):
+               collect_stats=False, mesh=None):
     """tokens (B, 1) -> (logits (B, padded_vocab), state[, stats]). One decode
     step through every layer; ``state`` is updated in place and returned.
     Each layer's retriever gets the previous attention layer's query as
@@ -700,17 +731,22 @@ def serve_step(cfg: ArchConfig, fkv: FreeKVConfig, params, state, tokens,
     ``xlstm.mlstm_decode_step``/``slstm_decode_step``) and passes
     ``q_proxy`` on unchanged; an encoder-decoder layer's cross-attention
     follows its self-attention, over the state's ``xk``/``xv``; ``stats``
-    sum the global (``ATTN``) layers' info only."""
+    sum the global (``ATTN``) layers' info only. Under serving TP
+    (``mesh``) the backbone runs once, on the primary device, each
+    attention layer's retrieval step runs per KV-head group
+    (``core/sharded_retrieval``), its attention output gathered back, and
+    ``stats`` also hold each shard's transfer counts (``stat_keys``)."""
     x = L.embed_tokens(cfg, params["embed"], tokens)
     B = x.shape[0]
     dev = x.device
     pos = state["pos"]
     pos_host = state["pos_host"]
-    retrs = retrievers(cfg, fkv)
+    retrs = retrievers(cfg, fkv, mesh)
     # only InfiniGen reads q_proxy; it selects from zeros at the first layer
     q_proxy = (torch.zeros((B, cfg.n_heads, cfg.d_head), dtype=x.dtype, device=dev)
                if fkv.method == "infinigen" else None)
-    stats = {k: torch.zeros((B,), dtype=torch.float32, device=dev) for k in DECODE_STAT_KEYS}
+    stats = {k: torch.zeros((B,) if k in DECODE_STAT_KEYS else (tp_group_size(mesh), B),
+                            dtype=torch.float32, device=dev) for k in stat_keys(mesh)}
     for i, lp in enumerate(params["layers"]):
         layer = cfg.layers[i]
         h = L.apply_norm(cfg, lp["norm1"], x)
@@ -749,7 +785,8 @@ def serve_step(cfg: ArchConfig, fkv: FreeKVConfig, params, state, tokens,
 # decode window: on-card greedy sampling, several steps per host read
 # ---------------------------------------------------------------------------
 @torch.no_grad()
-def serve_step_sampled(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sampler):
+def serve_step_sampled(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sampler,
+                       mesh=None):
     """One fused decode step (reference ``model.py:779``): ``serve_step``,
     sampling on the card and the finished mask; nothing is read back.
 
@@ -767,7 +804,7 @@ def serve_step_sampled(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, 
     logits were finite (always True for a lane that was not live)."""
     from repro_torch.serving import sampling
     logits, state, stats = serve_step(cfg, fkv, params, state, loop["cur"][:, None].long(),
-                                      collect_stats=True)
+                                      collect_stats=True, mesh=mesh)
     tok = sampling.sample_counted(logits, sampler, loop["key"], loop["count"])
     valid = ~loop["fin"]
     count = loop["count"] + valid.to(torch.int32)
@@ -779,7 +816,8 @@ def serve_step_sampled(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, 
 
 @torch.no_grad()
 def decode_window(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sampler,
-                  n_steps: int, stop_turnover: bool = False, read_finishes: bool = False):
+                  n_steps: int, stop_turnover: bool = False, read_finishes: bool = False,
+                  mesh=None):
     """``n_steps`` fused decode steps with no host read (reference
     ``model.py:816``): the tokens, valid masks and per-step stats stay on
     the card in (n_steps, B) blocks for one read when the window ends.
@@ -803,14 +841,15 @@ def decode_window(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sampl
     requests share the following steps, and so their tokens.
 
     Returns (state, loop, toks (n, B) int32, valid (n, B) bool, stats {key:
-    (n, B) float32}, finite (B,) bool), n the steps run."""
+    (n, B) float32, the ``SHARD_STAT_KEYS`` (n, tp, B)}, finite (B,) bool), n
+    the steps run."""
     start_live = ~loop["fin"]
     toks, valid = [], []
-    stats = {k: [] for k in DECODE_STAT_KEYS}
+    stats = {k: [] for k in stat_keys(mesh)}
     finite = torch.ones_like(loop["fin"])
     for _ in range(n_steps):
         state, loop, tok, ok, s, fin_ok = serve_step_sampled(cfg, fkv, params, state, loop,
-                                                             sampler)
+                                                             sampler, mesh)
         toks.append(tok)
         valid.append(ok)
         for k in stats:
@@ -844,7 +883,7 @@ def supports_spec_decode(cfg: ArchConfig, fkv: FreeKVConfig) -> bool:
 
 
 @torch.no_grad()
-def serve_step_verify(cfg: ArchConfig, fkv: FreeKVConfig, params, state, tokens):
+def serve_step_verify(cfg: ArchConfig, fkv: FreeKVConfig, params, state, tokens, mesh=None):
     """One target pass over a drafted block (reference ``model.py:924``):
     tokens (B, S), row 0 the committed current token and rows 1..S-1 the
     drafted continuation; every row is appended to ``state`` in place.
@@ -858,48 +897,51 @@ def serve_step_verify(cfg: ArchConfig, fkv: FreeKVConfig, params, state, tokens)
 
     Returns (logits (B, S, V), state, stats_rows {key: (S, B)}, undo), undo
     a layer's ``(ring_snapshot, [draft_probe of each row])``."""
-    from repro_torch.core.retrieval import ring_snapshot
     S = tokens.shape[1]
-    retrs = retrievers(cfg, fkv)
+    retrs = retrievers(cfg, fkv, mesh)
     pos, pos_host = state["pos"], state["pos_host"]
-    undo = [(ring_snapshot(st, S), []) for st in state["layers"]]
+    undo = [(r.ring_snapshot(st, S), []) for r, st in zip(retrs, state["layers"])]
     logits, stats = [], []
     for j in range(S):
         lg, state, s = serve_step(cfg, fkv, params, state, tokens[:, j:j + 1],
-                                  collect_stats=True)
+                                  collect_stats=True, mesh=mesh)
         logits.append(lg)
         stats.append(s)
         for r, st, (_, probes) in zip(retrs, state["layers"], undo):
             probes.append(r.draft_probe(st))
     state["pos"], state["pos_host"] = pos, pos_host
     return (torch.stack(logits, dim=1), state,
-            {k: torch.stack([s[k] for s in stats]) for k in DECODE_STAT_KEYS}, undo)
+            {k: torch.stack([s[k] for s in stats]) for k in stat_keys(mesh)}, undo)
 
 
-def rewind_state(cfg: ArchConfig, fkv: FreeKVConfig, state, undo, m):
+def rewind_state(cfg: ArchConfig, fkv: FreeKVConfig, state, undo, m, mesh=None):
     """Roll every layer back to its slot's ``m`` (B,) committed rows and
     advance ``pos`` by m, in place (reference ``_rewind_state``,
     ``model.py:978``): each layer's selection lanes come from its probe at
     the last committed row (one recall, ``draft_rewind``), and the ring
     writes of the rejected rows are undone (``ring_restore``). A slot with
-    m = 0 (finished) keeps its pre-block state."""
-    from repro_torch.core.retrieval import ring_restore
+    m = 0 (finished) keeps its pre-block state. Under serving TP
+    (``mesh``) each shard's probes and ring are rolled back on its device."""
     B = m.shape[0]
     bidx = torch.arange(B, device=m.device)
     last = (m - 1).clamp(0, None).long()
     keep_len = state["pos"] + m
-    for i, r in enumerate(retrievers(cfg, fkv)):
+
+    def pick(rows):                    # (S, B, ...) -> each slot's last committed row
+        return rows[last.to(rows.device), bidx.to(rows.device)]
+
+    for i, r in enumerate(retrievers(cfg, fkv, mesh)):
         snap, probes = undo[i]
-        probe = tuple(torch.stack([p[c] for p in probes])[last, bidx]
-                      for c in range(len(probes[0])))
+        probe = tuple(pick(torch.stack([p[c] for p in probes])) for c in range(len(probes[0])))
         st = r.draft_rewind(state["layers"][i], keep_len, probe)
-        state["layers"][i] = ring_restore(st, snap, m)
+        state["layers"][i] = r.ring_restore(st, snap, m)
     state["pos"] = keep_len
     return state
 
 
 @torch.no_grad()
-def serve_step_spec(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sampler):
+def serve_step_spec(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sampler,
+                    mesh=None):
     """One speculative iteration (reference ``model.py:1008``): draft ->
     verify -> accept the longest consistent prefix -> roll back in place
     -> fold the committed bigrams into the drafter; nothing is read back.
@@ -920,7 +962,8 @@ def serve_step_spec(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sam
     cur = loop["cur"]
     drafted = drafter.propose(state["draft_tab"], cur, fkv.draft_len)
     toks = torch.cat([cur[:, None], drafted], dim=1)                  # (B, S)
-    logits, state, stats_rows, undo = serve_step_verify(cfg, fkv, params, state, toks.long())
+    logits, state, stats_rows, undo = serve_step_verify(cfg, fkv, params, state, toks.long(),
+                                                        mesh)
     V = logits.shape[-1]
     counts = loop["count"][None, :] + torch.arange(S, dtype=loop["count"].dtype,
                                                    device=cur.device)[:, None]   # (S, B)
@@ -935,7 +978,7 @@ def serve_step_spec(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sam
         emits.append(emits[-1] & cont)
     emit = torch.stack(emits)                                          # (S, B)
     m = emit.sum(dim=0).to(torch.int32)
-    state = rewind_state(cfg, fkv, state, undo, m)
+    state = rewind_state(cfg, fkv, state, undo, m, mesh)
     bidx = torch.arange(B, device=cur.device)
     e_last = e[(m - 1).clamp(0, None).long(), bidx]
     any_ = m > 0
@@ -951,7 +994,7 @@ def serve_step_spec(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sam
 
 @torch.no_grad()
 def decode_window_spec(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sampler,
-                       n_max: int, stop_turnover: bool = False):
+                       n_max: int, stop_turnover: bool = False, mesh=None):
     """Up to ``n_max`` speculative iterations with no blocking host read
     (reference ``model.py:1070``): (n, S, B) token, emit and stat blocks
     stay on the card for one read when the window ends.
@@ -978,7 +1021,7 @@ def decode_window_spec(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, 
     emit (n, S, B) bool, stats {key: (n, S, B)}, finite (B,))."""
     start_live = ~loop["fin"]
     toks, emits = [], []
-    stats = {k: [] for k in DECODE_STAT_KEYS}
+    stats = {k: [] for k in stat_keys(mesh)}
     finite = torch.ones_like(loop["fin"])
     on_card = loop["fin"].is_cuda
     # on meta nothing can be read: every iteration runs, as on the card when
@@ -993,7 +1036,7 @@ def decode_window_spec(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, 
             if done and bool(flags[done[-1]]):
                 break
         state, loop, tok, emit, s, fin_ok = serve_step_spec(cfg, fkv, params, state, loop,
-                                                            sampler)
+                                                            sampler, mesh)
         toks.append(tok)
         emits.append(emit)
         for k in stats:
@@ -1012,6 +1055,8 @@ def decode_window_spec(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, 
     if not toks:
         B, S = loop["cur"].shape[0], fkv.draft_len + 1
         z = torch.zeros((0, S, B), dtype=torch.int32, device=loop["cur"].device)
-        return (state, loop, z, z.bool(), {k: z.float() for k in stats}, finite)
+        return (state, loop, z, z.bool(),
+                {k: torch.zeros((0, S) + (() if k in DECODE_STAT_KEYS else (tp_group_size(mesh),))
+                                + (B,), device=z.device) for k in stats}, finite)
     return (state, loop, torch.stack(toks), torch.stack(emits),
             {k: torch.stack(v) for k, v in stats.items()}, finite)

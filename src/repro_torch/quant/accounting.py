@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.quant.quantizers import effective_group, quant_bits
+from repro_torch.sharding.rules import base_key
 
 # Elements a second the fused gather + dequantization reached on the card
 # with the int8 pool in device memory, so that no PCIe time is in it
@@ -69,10 +70,12 @@ def pool_bytes_detail(state, d_head: int, dense_itemsize: int = 2) -> dict:
     Returns {"payload", "scales", "physical", "dense", "ratio"}: ``payload``
     sums the (possibly packed) ``pool`` tensors, ``scales`` the
     ``pool_scale`` tensors, ``dense`` what the same pages would take
-    unquantized at ``dense_itemsize`` bytes per element."""
+    unquantized at ``dense_itemsize`` bytes per element. Every shard's
+    pool counts under tensor-parallel serving (``"<s>/pool"``)."""
     acc = {"payload": 0, "scales": 0, "dense": 0}
     for key, t in _tensors_by_key(state):
         nbytes = t.numel() * t.element_size()
+        key = base_key(key) if isinstance(key, str) else key
         if key == "pool":
             acc["payload"] += nbytes
             acc["dense"] += t.numel() // t.shape[-1] * d_head * dense_itemsize

@@ -67,7 +67,15 @@ front-end (``serving/frontend.HttpFrontend``) runs it on a worker thread.
 request's own) feed ``EngineMetrics.summary()["slo"]``; they never change a
 scheduling decision.
 
-Tensor parallelism has no switch in the port.
+``tp > 1`` (or ``mesh``, ``launch/mesh.make_tp_mesh``): KV-head-group
+tensor parallelism (reference ``engine.py:201-221``). Every attention
+layer's retrieval state is split over ``tp`` shards by KV head, each on its
+own device, and the retrieval step runs per shard
+(``core/sharded_retrieval``); the backbone runs once, on the primary
+device (``device``, the mesh's first), and the greedy tokens equal tp=1's.
+One process drives every shard: one engine, one scheduler, one slot pool
+whose rows span the shards. ``tp`` must divide both head counts; it
+composes with speculative decoding.
 """
 from __future__ import annotations
 
@@ -82,6 +90,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import MOE, ArchConfig, FreeKVConfig
 from repro_torch.core.recall_pipeline import RecallFlightTracker
+from repro_torch.core.sharded_retrieval import tp_group_size
+from repro_torch.launch.mesh import indexed_device, make_tp_mesh
 from repro_torch.models.model import (DECODE_STAT_KEYS, decode_window, decode_window_spec,
                                       frontend_prefix, prefill, prefill_extend, serve_step,
                                       supports_kv_extend, supports_spec_decode)
@@ -186,7 +196,7 @@ class PrefillJob:
         if self.pos == 0:
             batch.update(eng._frontend_batch([self.req]))
         common = dict(max_len=eng.max_len, state_dtype=eng.state_dtype, build_state=last,
-                      into=into)
+                      into=into, mesh=eng.mesh)
         if self.pos == 0:
             keep = not last or eng.prefix_cache is not None  # for later chunks or the cache
             out = prefill(eng.cfg, eng.fkv, eng.params, batch, return_kv=keep, **common)
@@ -224,10 +234,24 @@ class ServeEngine:
                  obs: Optional[Observability] = None,
                  slo_ttft_ms: Optional[float] = None,
                  slo_itl_ms: Optional[float] = None,
-                 device="cuda"):
+                 device="cuda", tp: int = 1, mesh=None):
         if scheduler not in ("continuous", "static"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         self.device = resolve_device(device)
+        if mesh is not None and tp > 1:
+            raise ValueError("pass either mesh= or tp=, not both")
+        if mesh is not None or tp > 1:
+            # the reference's checks (``engine.py:206-218``), then the mesh:
+            # by default cuda:0 .. cuda:tp-1, which raises with fewer cards
+            tp = tp if mesh is None else tp_group_size(mesh)
+            if cfg.n_kv_heads % tp or cfg.n_heads % tp:
+                raise ValueError(f"{cfg.name}: tp={tp} must divide both n_heads={cfg.n_heads} "
+                                 f"and n_kv_heads={cfg.n_kv_heads}")
+            mesh = mesh if mesh is not None else make_tp_mesh(tp)
+            if indexed_device(self.device) != mesh.primary:
+                raise ValueError(f"the backbone's device {self.device} must be the mesh's "
+                                 f"first, {mesh.primary}")
+        self.tp, self.mesh = tp, mesh
         # speculative decoding rides the continuous scheduler's window; where
         # it cannot be exact the engine serves draft_len=0 (reference
         # ``engine.py:222-232``): the same tokens, one a step
@@ -258,7 +282,7 @@ class ServeEngine:
         self._pool: Optional[SlotPool] = None
         self.last_metrics: Optional[EngineMetrics] = None
         # per-slot staged recall in flight, fed by the continuous scheduler
-        self.recall_tracker = RecallFlightTracker()
+        self.recall_tracker = RecallFlightTracker(shards=self.tp)
         # whether every live lane's logits of the last generate() were finite
         self.last_logits_finite: Optional[bool] = None
 
@@ -310,11 +334,11 @@ class ServeEngine:
 
     def make_slot_pool(self, num_slots: int) -> SlotPool:
         return SlotPool(self.cfg, self.fkv, num_slots, self.max_len, self.state_dtype,
-                        self.device)
+                        self.device, self.mesh)
 
     def step(self, state, tokens):
         return serve_step(self.cfg, self.fkv, self.params, state, tokens.long(),
-                          collect_stats=True)
+                          collect_stats=True, mesh=self.mesh)
 
     @property
     def rows_meet(self) -> bool:
@@ -332,9 +356,9 @@ class ServeEngine:
         draft_len, B)."""
         if self.spec_decode:
             return decode_window_spec(self.cfg, self.fkv, self.params, state, loop,
-                                      self.sampler, n_steps, stop_turnover)
+                                      self.sampler, n_steps, stop_turnover, mesh=self.mesh)
         return decode_window(self.cfg, self.fkv, self.params, state, loop, self.sampler,
-                             n_steps, stop_turnover, read_finishes)
+                             n_steps, stop_turnover, read_finishes, mesh=self.mesh)
 
     def sample_lanes(self, logits, keys, counts):
         """Per-slot sampling outside the window (the synchronous path): token
@@ -437,7 +461,7 @@ class ServeEngine:
         if self.scheduler == "continuous":
             return self._generate_continuous(requests, seed)
         t0 = time.perf_counter()
-        em = EngineMetrics(num_slots=self.batch_size, scheduler="static",
+        em = EngineMetrics(num_slots=self.batch_size, scheduler="static", tp=self.tp,
                            sample_on_device=False)
         out: List[Completion] = []
         self.last_logits_finite = True
@@ -460,7 +484,7 @@ class ServeEngine:
             self._pool = self.make_slot_pool(self.batch_size)
         else:
             self._pool.reset_all()
-        self.recall_tracker = RecallFlightTracker()
+        self.recall_tracker = RecallFlightTracker(shards=self.tp)
         sched = ContinuousScheduler(self, self._pool)
         tracked, em = sched.run(requests, seed, service=service)
         self._apply_quant_metrics(em)
@@ -511,7 +535,7 @@ class ServeEngine:
                               padded_prompt_tokens=T, max_new_tokens=r.max_new_tokens,
                               prefill_start_t=t0 - t_start) for r in reqs]
         logits, state = prefill(cfg, fkv, self.params, batch, max_len=self.max_len,
-                                state_dtype=self.state_dtype)
+                                state_dtype=self.state_dtype, mesh=self.mesh)
         self._sync()
         prefill_s = time.perf_counter() - t0
 
@@ -542,7 +566,8 @@ class ServeEngine:
                 break
             ts = time.perf_counter()
             logits, state, stats = serve_step(cfg, fkv, self.params, state,
-                                              cur[:, None].long(), collect_stats=True)
+                                              cur[:, None].long(), collect_stats=True,
+                                              mesh=self.mesh)
             key = fold_in(key, step)
             cur = sample(logits, self.sampler, key)
             finite &= torch.isfinite(logits).all()

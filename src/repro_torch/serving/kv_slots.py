@@ -21,6 +21,12 @@ completion are per-row writes, in place, with ``paging.slot_write_leaf``:
     swap: the row's whole state to host tensors at its stored dtypes and
     back, bit for bit (``offload.swap_state_to_host``).
 
+Under tensor-parallel serving (``mesh``) a layer's retrieval state holds
+every KV-head-group shard's leaves under ``"<shard>/<key>"``, each on its
+shard's device (``core/sharded_retrieval``): every operation above acts on
+each leaf's rows, so on every shard's, and the pool accounting and the
+pinned check count every shard's pool.
+
 Every write first makes the current stream wait for each layer's staged
 recall (``recall_pipeline.wait_staged``): the side stream writes the
 ``sel_k``/``sel_v`` tensors and reads the pool rows. Writes and reads of the
@@ -37,6 +43,7 @@ from repro_torch.core import offload, paging
 from repro_torch.core.recall_pipeline import wait_staged
 from repro_torch.models.model import init_decode_state
 from repro_torch.quant.accounting import pool_bytes_detail
+from repro_torch.sharding.rules import base_key
 
 # top-level lanes of the decode state beside "layers", each batched on
 # axis 0: the positions and, under speculative decoding, the drafter's
@@ -62,19 +69,20 @@ class SlotPool:
     ``fkv.offload == "host"`` as everywhere in the port."""
 
     def __init__(self, cfg, fkv, num_slots: int, max_len: int,
-                 state_dtype=torch.float32, device="cuda"):
+                 state_dtype=torch.float32, device="cuda", mesh=None):
         self.cfg, self.fkv = cfg, fkv
         self.num_slots = num_slots
         self.max_len = max_len
         self.state_dtype = state_dtype
         self.device = resolve_device(device)
-        self.state = init_decode_state(cfg, fkv, num_slots, max_len, state_dtype, self.device)
+        self.state = init_decode_state(cfg, fkv, num_slots, max_len, state_dtype, self.device,
+                                       mesh)
         # every leaf of an empty state is one constant (zeros, or -1 for
         # the position and page-id leaves, -1e9 for RaaS's timestamps,
         # -1e30 for the mLSTM's m, 1 for the sLSTM's n; whisper's xk/xv
         # zeros): read them off a tiny one, a layer at a time (gemma2's
         # local layers hold other leaves than its global ones; an empty
-        # leaf, a sink of 0 tokens, takes 0)
+        # leaf, a sink of 0 tokens, takes 0), by key without the shard
         tiny = init_decode_state(cfg, fkv, 1, fkv.page_size, state_dtype, "cpu")
         self._fill = [{k: t.flatten()[0].item() if t.numel() else 0
                        for k, t in _tensors(layer).items()} for layer in tiny["layers"]]
@@ -82,6 +90,9 @@ class SlotPool:
         # stand-in holds nothing to wait for)
         self._host = self.device.type == "cuda" and any(
             not t.is_cuda for layer in self.state["layers"] for t in _tensors(layer).values())
+        # the cards the state lives on: the primary one and every TP shard's
+        self._cards = sorted({t.device for layer in self.state["layers"]
+                              for t in _tensors(layer).values() if t.is_cuda}, key=str)
         self._free: List[int] = list(range(num_slots - 1, -1, -1))
         self._dirty: Set[int] = set()
         self.owner: List[Optional[int]] = [None] * num_slots
@@ -130,14 +141,15 @@ class SlotPool:
         for layer in self.state["layers"]:
             wait_staged(layer)
         if self._host:
-            torch.cuda.synchronize(self.device)
+            for card in self._cards:
+                torch.cuda.synchronize(card)
 
     def _reset_row(self, slot: int):
         """Row ``slot`` to the empty state, all but the pool pages."""
         for layer, fill in zip(self.state["layers"], self._fill):
             for k, t in _tensors(layer).items():
-                if k not in POOL_KEYS:
-                    paging.slot_read_leaf(t, slot).fill_(fill[k])
+                if base_key(k) not in POOL_KEYS:
+                    paging.slot_read_leaf(t, slot).fill_(fill[base_key(k)])
         for k in self._top():
             self.state[k][slot] = _TOP_FILL[k]
 

@@ -176,6 +176,13 @@ class EngineMetrics:
     # True when the pool is pinned host memory (real host-to-card transfers)
     transfer_is_dma: bool = False
     scheduler: str = "continuous"
+    # tensor-parallel serving: page counts are global (summed over the
+    # KV-head-group shards); ``shard_pages`` holds each shard's own,
+    # measured ("sync"/"async"/"dropped" -> one count a shard; empty where
+    # the run had no mesh), ``per_shard_transfer_bytes`` the reference's
+    # even split of the totals
+    tp: int = 1
+    shard_pages: Dict[str, List[float]] = field(default_factory=dict)
     # decode steps per host read (models.model.decode_window); with
     # sample_on_device nothing crosses the host boundary between reads, so
     # nonsync_host_bytes stays 0; the synchronous path reads every step
@@ -286,6 +293,23 @@ class EngineMetrics:
     def moved_page_blocks(self) -> float:
         """Blocks that crossed the link (reused blocks moved nothing)."""
         return self.sync_pages + self.async_pages
+
+    @property
+    def per_shard_transfer_bytes(self) -> Dict[str, float]:
+        """The reference's per-shard host-to-card bytes (``metrics.py:370``):
+        each transfer class's total over tp, derived, not measured
+        (``shard_transfer_bytes`` is what each shard moved)."""
+        tp = max(self.tp, 1)
+        return {"sync": self.exposed_transfer_bytes / tp,
+                "async": self.hidden_transfer_bytes / tp,
+                "dropped": self.dropped_pages * self.page_block_bytes / tp}
+
+    @property
+    def shard_transfer_bytes(self) -> Dict[str, List[float]]:
+        """Host-to-card bytes each tensor-parallel shard moved over its own
+        link, from its own counters: "sync"/"async"/"dropped" -> one a
+        shard (empty where the run had no mesh)."""
+        return {k: [n * self.page_block_bytes for n in v] for k, v in self.shard_pages.items()}
 
     @property
     def transfer_bytes_saved(self) -> float:
@@ -432,6 +456,11 @@ class EngineMetrics:
                 "reused_pages": self.reused_pages,
                 "dropped_in_flight_bytes": self.dropped_pages * self.page_block_bytes,
                 "transfer_is_dma": self.transfer_is_dma,
+            },
+            "tp": {
+                "tp": self.tp,
+                "per_shard_transfer_bytes": self.per_shard_transfer_bytes,
+                "shard_transfer_bytes": self.shard_transfer_bytes,
             },
             "scheduling": {
                 "prefill_chunks": self.prefill_chunks,

@@ -82,7 +82,9 @@ The scheduler drives a backend (``ServeEngine``) exposing
     decode_window(state, loop, n, stop_turnover, read_finishes)
         -> (state, loop, toks, valid, stats, finite)
     page_block_bytes, sync_interval, sample_on_device, obs, recall_tracker,
-    spec_decode, draft_len, rows_meet, slo_ttft_ms, slo_itl_ms
+    spec_decode, draft_len, rows_meet, slo_ttft_ms, slo_itl_ms, tp (the
+    tensor-parallel shard count, for ``EngineMetrics.tp``; 1 if absent),
+    mesh (its mesh, whose steps carry each shard's counts; None if absent)
 
 Service mode (``run(..., service=svc)``, ``serving/frontend.EngineService``):
 each round first takes ``svc.poll()``'s new requests into the queue and
@@ -107,7 +109,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.paging import state_bytes
-from repro_torch.models.model import DECODE_STAT_KEYS as _STAT_KEYS
+from repro_torch.models.model import DECODE_STAT_KEYS
 from repro_torch.obs.trace import (SPAN_DECODE_STEP, SPAN_DECODE_WINDOW, SPAN_PREFILL_CHUNK,
                                    SPAN_SCHED_CANCEL, SPAN_SCHED_PREEMPT, SPAN_SCHED_RESUME,
                                    SPAN_SPEC_VERIFY)
@@ -145,13 +147,20 @@ class _Tracked:
     host_state: object = None         # swapped-out B=1 state (host tensors)
     flight_pages: float = 0.0         # staged recall suspended with the swap
     last_tok_t: Optional[float] = None  # run-relative time of the last token
-    agg: Dict[str, float] = field(default_factory=lambda: {k: 0.0 for k in _STAT_KEYS})
+    agg: Dict[str, float] = field(default_factory=lambda: {k: 0.0 for k in DECODE_STAT_KEYS})
 
     def finished(self) -> bool:
         if len(self.tokens) >= self.req.max_new_tokens:
             return True
         eos = self.req.eos_token
         return bool(self.tokens) and eos is not None and self.tokens[-1] == eos
+
+
+def _per_shard(stats_np, key: str, s: int):
+    """Slot ``s``'s ``key`` count in one step's stats, or one a shard where
+    the step carries each shard's own (``models.model.SHARD_STAT_KEYS``)."""
+    per = stats_np.get("shard_" + key)
+    return stats_np[key][s] if per is None else per[..., s]
 
 
 def _request_stats(agg: Dict[str, float]) -> dict:
@@ -271,6 +280,7 @@ class ContinuousScheduler:
                            sync_interval=backend.sync_interval if on_device else 1,
                            sample_on_device=on_device,
                            draft_len=int(getattr(backend, "draft_len", 0)),
+                           tp=int(getattr(backend, "tp", 1)),
                            slo_ttft_ms=getattr(backend, "slo_ttft_ms", None),
                            slo_itl_ms=getattr(backend, "slo_itl_ms", None))
         svc = service
@@ -279,6 +289,10 @@ class ContinuousScheduler:
         # per-slot staged recall in flight: the buffer a slot carries out of
         # step t is consumed by step t+1 unless the slot turns over
         flight = backend.recall_tracker
+        # each tensor-parallel shard's own sync/async page counts, where the
+        # steps carry them (a mesh, ``models.model.SHARD_STAT_KEYS``)
+        shard_pages = ({k: np.zeros(flight.shards) for k in ("sync", "async")}
+                       if getattr(backend, "mesh", None) is not None else {})
         active: Dict[int, _Tracked] = {}
         prefilling: Dict[int, _Tracked] = {}    # slot -> request with an open chunked prefill
         chunk = int(backend.prefill_chunk_tokens)
@@ -360,9 +374,12 @@ class ContinuousScheduler:
                 src = {"corrected_heads": "corrected", "kv_head_steps": "kv_heads"}.get(k, k)
                 setattr(em, k, getattr(em, k) + float(sum(stats_np[src][s] for s in live_slots)))
             for s in live_slots:
-                flight.note_step(s, float(stats_np["async_pages"][s]),
-                                 float(stats_np["sync_pages"][s]),
+                flight.note_step(s, _per_shard(stats_np, "async_pages", s),
+                                 _per_shard(stats_np, "sync_pages", s),
                                  float(stats_np["reused_pages"][s]))
+                if shard_pages:
+                    for k in ("sync", "async"):
+                        shard_pages[k] += _per_shard(stats_np, k + "_pages", s)
             if obs.enabled:
                 em.observe_decode_step(dt)
                 for s in live_slots:
@@ -385,7 +402,7 @@ class ContinuousScheduler:
             for s in live_slots:
                 tr = active[s]
                 tr.decode_s += dt
-                for k in _STAT_KEYS:
+                for k in DECODE_STAT_KEYS:
                     tr.agg[k] += float(stats_np[k][s])
                 tok = int(toks_np[s])
                 tr.tokens.append(tok)
@@ -587,6 +604,9 @@ class ContinuousScheduler:
 
         em.wall_s = now()
         em.dropped_pages = flight.dropped_pages
+        if shard_pages:
+            em.shard_pages = {k: v.tolist() for k, v in shard_pages.items()}
+            em.shard_pages["dropped"] = flight.shard_dropped.tolist()
         self.logits_finite = bool(self._finite)
         done.sort(key=lambda tr: tr.order)
         em.requests = [tr.metrics for tr in done]
@@ -642,12 +662,11 @@ class ContinuousScheduler:
         pool.state = state
         lanes.carry_back(loop)
         self._finite &= finite.all()
-        toks_np, valid_np, *stat_np = self._read([toks, valid]
-                                                 + [stats[k] for k in _STAT_KEYS])
-        stats_np = dict(zip(_STAT_KEYS, stat_np))
+        toks_np, valid_np, *stat_np = self._read([toks, valid] + list(stats.values()))
+        stats_np = dict(zip(stats, stat_np))
         dt = time.perf_counter() - ts
         em.host_syncs += 1
-        pulled = 8 * (toks.numel() + valid.numel() + sum(stats[k].numel() for k in _STAT_KEYS))
+        pulled = 8 * (toks.numel() + valid.numel() + sum(b.numel() for b in stats.values()))
         em.sync_bytes_to_host += pulled
         n = toks_np.shape[0]
         self._trace.complete(SPAN_DECODE_WINDOW, ts_rel, dt,
@@ -660,7 +679,7 @@ class ContinuousScheduler:
         for j in range(n):
             live = [int(s) for s in np.nonzero(valid_np[j])[0]]
             if live:        # rows after an eos finished every lane: nothing to apply
-                apply_step({k: stats_np[k][j] for k in _STAT_KEYS}, toks_np[j], live,
+                apply_step({k: b[j] for k, b in stats_np.items()}, toks_np[j], live,
                            per_dt, ts=ts_rel + j * per_dt, interpolated=True)
 
     def _apply_spec_blocks(self, pool, em, toks_np, valid_np, stats_np, apply_step, flight,
@@ -700,13 +719,14 @@ class ContinuousScheduler:
             # rejected rows' recall was streamed for a continuation that never
             # commits: dropped in flight (the rollback recall re-stages)
             if flight is not None and dl:
-                rej = float(sum(stats_np[k][j, r, s] for k in ("async_pages", "sync_pages")
-                                for r in range(1, S) for s in base if not valid_np[j, r, s]))
-                if rej:
+                rej = sum(_per_shard({k: b[j, r] for k, b in stats_np.items()}, key, s)
+                          for key in ("async_pages", "sync_pages")
+                          for r in range(1, S) for s in base if not valid_np[j, r, s])
+                if np.any(rej):
                     flight.drop(rej)
             sub = per_dt / len(rows)
             for i, (r, live) in enumerate(rows):
-                apply_step({k: stats_np[k][j, r] for k in _STAT_KEYS}, toks_np[j, r], live,
+                apply_step({k: b[j, r] for k, b in stats_np.items()}, toks_np[j, r], live,
                            sub, ts=ts_j + i * sub, interpolated=True)
 
     def _sync_step(self, backend, pool, em, lanes, apply_step):
@@ -718,13 +738,12 @@ class ContinuousScheduler:
         toks = backend.sample_lanes(logits, loop["key"], loop["count"])
         live = ~loop["fin"]
         self._finite &= (torch.isfinite(logits).all(dim=-1) | ~live).all()
-        toks_np, *stat_np = self._read([toks] + [stats[k] for k in _STAT_KEYS])
-        stats_np = dict(zip(_STAT_KEYS, stat_np))
+        toks_np, *stat_np = self._read([toks] + list(stats.values()))
+        stats_np = dict(zip(stats, stat_np))
         dt = time.perf_counter() - ts
         pool.state = state
         em.host_syncs += 1
-        em.sync_bytes_to_host += 8 * (toks.numel() + sum(stats[k].numel()
-                                                         for k in _STAT_KEYS))
+        em.sync_bytes_to_host += 8 * (toks.numel() + sum(b.numel() for b in stats.values()))
         # cur and count change every step on this path: upload them again
         # (the per-step round trip the window removes)
         lanes.dirty = True

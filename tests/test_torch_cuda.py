@@ -424,6 +424,36 @@ def test_cuda_select_pages_matches_plain(B, kv, N, mode, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("mode", SELECT_MODES)
+@pytest.mark.parametrize("N", [259, 4096])
+def test_cuda_select_pages_batch_invariant(N, mode, dtype):
+    """A row's ids and pooled scores are bit for bit the same whatever the
+    launch holds: all 32 (request, KV head) rows, each tensor-parallel
+    shard's 16 (the KV heads split in two), or one row alone, though the
+    cluster's split follows the row count (ops.select_split)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(12)
+    B, kv, G, d, n_sel = 4, 8, 4, 128, 56
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = {ops.select_split(N, rows, sms) for rows in (B * kv, B * kv // 2, 1)}
+    for kind in ("random", "tie"):
+        q, summ, length = select_inputs(kind, B, kv, G, d, N, n_sel, dtype, g, dev)
+        idx, pooled = _select(_ops_select, q, summ, length, n_sel, mode)
+        halves = [_select(_ops_select, q[:, h:h + kv // 2].contiguous(),
+                          summ[:, :, h:h + kv // 2].contiguous(), length, n_sel, mode)
+                  for h in (0, kv // 2)]
+        assert torch.equal(idx, torch.cat([h[0] for h in halves], dim=1)), kind
+        assert torch.equal(pooled, torch.cat([h[1] for h in halves], dim=1)), kind
+        one_idx, one_pooled = _select(_ops_select, q[1:2, 3:4].contiguous(),
+                                      summ[1:2, :, 3:4].contiguous(), length[1:2], n_sel, mode)
+        assert torch.equal(idx[1:2, 3:4], one_idx) and torch.equal(pooled[1:2, 3:4], one_pooled)
+    assert len(splits) > 1, splits          # 4 blocks a row at 32 rows, 8 at 16 and at 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("mode", SELECT_MODES)
 def test_cuda_select_pages_candidates_match_plain(mode, dtype):
     """select_pages with candidate ids (-1 among them, read in place) on the
     card: ids exactly equal to the plain version's on far-apart inputs."""

@@ -62,6 +62,15 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--arch", "granite-3-8b-smoke", "--scheduler", "static"])
+    from repro_torch.launch.mesh import make_tp_mesh
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_tp_mesh(2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_tp_mesh(2, ("cuda:0", "cuda:0"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServeEngine(cfg, fkv, {}, max_len=64, batch_size=1, tp=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "granite-3-8b-smoke", "--tp", "2"])
     from repro_torch.launch import train
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.train_step import init_train
@@ -69,6 +78,31 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
         init_train(get_config("smollm-360m-smoke"), AdamWConfig())
     with pytest.raises(RuntimeError, match="cuda"):
         train.main(["--arch", "smollm-360m-smoke", "--steps", "1"])
+
+
+def test_tp_mesh_never_shares_a_card_unasked(monkeypatch):
+    """With fewer cards than tp, the default mesh (and so ``ServeEngine(tp)``
+    and ``serve --tp``) raises: two shards share one card only where the
+    devices are named."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_tp_mesh
+    from repro_torch.serving.engine import ServeEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    cfg = get_config("granite-3-8b-smoke")
+    fkv = FreeKVConfig(page_size=8, budget=64, n_sink=8, n_window=8)
+    for tp in (2, 4):
+        with pytest.raises(RuntimeError, match=f"tp={tp} needs {tp} cuda devices"):
+            make_tp_mesh(tp)
+    with pytest.raises(RuntimeError, match="tp=2 needs 2 cuda devices"):
+        ServeEngine(cfg, fkv, {}, max_len=64, batch_size=1, tp=2)
+    with pytest.raises(RuntimeError, match="cuda:1 requested"):
+        make_tp_mesh(2, ("cuda:0", "cuda:1"))
+    with pytest.raises(RuntimeError, match="tp=2 needs 2 cuda devices"):
+        serve.main(["--arch", "granite-3-8b-smoke", "--device", "cpu", "--tp", "2"])
+    mesh = make_tp_mesh(2, ("cuda:0", "cuda:0"))
+    assert mesh.devices == (torch.device("cuda", 0),) * 2 and mesh.shape == {"model": 2}
+    assert make_tp_mesh(2, ("cpu", "cpu")).axis_names == ("model",)
 
 
 def test_cuda_request_without_built_library_raises(monkeypatch):
