@@ -235,11 +235,28 @@ their time is linear in the layers.
      and restored, every leaf bit-equal, the seconds logged; the trained
      weights cast to bf16 and served through ServeEngine (wide_run:
      freekv/none, 4 needle requests x 16 tokens over 4 slots, continuous),
-     whose launches the kernels line gives as train_launches. (c) each of
-     the eight smoke archs trained 3 steps (B=2, T=128) on the card and on
-     the CPU from the same params and batches, losses within 1e-4
-     relative, then the card's trained weights served greedy on both, card
-     tokens == CPU tokens.
+     whose launches the kernels line gives as train_launches. (c)
+     model-parallel training (train_mp_phase), every shard on cuda:0 by
+     name, float32, TF32 off: smollm-360m at full width and depth on a
+     (1, 2) ("data", "model") mesh (15/5 heads do not divide 2: the
+     input-dim split, query-row attention, the vocab-parallel
+     cross-entropy over 49152 / 2), B=4, T=4096, 2 steps with phase (a)'s
+     AdamW and data, losses and grad norms within 1e-4 of phase (a)'s first
+     two; deepseek-moe-16b at full width (d 2048, 64 experts of 1408,
+     16/16 heads, vocab 102400), its depth cut to the dense prelude layer
+     and 3 MoE periods (the only cut: 28 layers' float32 params and AdamW
+     moments exceed the card), B=2, T=2048, 2 steps at (1, 1) and at (1, 4)
+     (16 experts a shard), losses and grad norms within 1e-4; each run's
+     s/step, tokens/s, peak GiB in a freed allocator, and the step's bytes
+     moved between shards by kind with their time over NVLink (computed,
+     not measured); no serving kernel may launch. (d) each of the eight
+     smoke archs trained 3 steps (B=2, T=128) on the card and on the CPU
+     from the same params and batches, losses within 1e-4 relative, then
+     the card's trained weights served greedy on both, card tokens == CPU
+     tokens; and deepseek-moe-16b-smoke, llama4-scout-17b-a16e-smoke,
+     smollm-360m-smoke and gemma2-2b-smoke trained 3 steps on (2, 2) and
+     (1, 4) meshes, four shards on cuda:0 against four on the CPU, losses
+     within 1e-4 (the (2, 2) runs route the MoE per data block).
 Then one JSON line with the kernels' numbers and, last, the ok line.
 """
 import argparse
@@ -3680,7 +3697,9 @@ def tp_paths_vs_plain(dev):
 # reference's train_4k length, past the dense attention's 2048 x 2048, so
 # the chunked attention with its per-chunk checkpoints), 6 AdamW steps with
 # the launcher's defaults; a checkpoint round trip; the trained weights
-# served; then every smoke arch's steps and served tokens card == CPU
+# served; model-parallel training at full width on meshes of shards on one
+# card; then every smoke arch's steps and served tokens card == CPU, and
+# four smoke archs' steps on (2, 2) and (1, 4) meshes card == CPU
 # ---------------------------------------------------------------------------
 TRAIN_ARCH = "smollm-360m"
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 4, 4096, 6
@@ -3689,6 +3708,15 @@ TRAIN_SMOKE = ("smollm-360m-smoke", "gemma2-2b-smoke", "deepseek-moe-16b-smoke",
                "internvl2-26b-smoke", "llama4-scout-17b-a16e-smoke")
 TRAIN_SMOKE_B, TRAIN_SMOKE_T, TRAIN_SMOKE_STEPS = 2, 128, 3
 TRAIN_LOSS_RTOL = 1e-4
+# phase 6c: (arch, mesh(es) (data, model), B, T)
+MP_STEPS = 2
+MP_SMOLLM = (TRAIN_ARCH, (1, 2), TRAIN_B, TRAIN_T)
+MP_DEEPSEEK = ("deepseek-moe-16b", ((1, 1), (1, 4)), 2, 2048)
+MP_DEEPSEEK_LAYERS = 4          # the dense prelude layer and 3 MoE periods
+# phase 6d's meshes for the smoke archs, card == CPU
+MP_SMOKE = ("deepseek-moe-16b-smoke", "llama4-scout-17b-a16e-smoke", "smollm-360m-smoke",
+            "gemma2-2b-smoke")
+MP_SMOKE_MESHES = ((2, 2), (1, 4))
 
 
 def _train_opt(steps):
@@ -3847,11 +3875,12 @@ def _smoke_batches(cfg, seed=0):
 
 
 def train_smoke_vs_plain(dev):
-    """Phase 6c: each smoke arch trained 3 steps on the card and on the CPU
+    """Phase 6d: each smoke arch trained 3 steps on the card and on the CPU
     from the same float32 params and batches (losses within 1e-4
     relative), then the card's trained weights served greedy on both
     (continuous, 3 requests over 2 slots, seeded frontends): card tokens
-    == CPU tokens."""
+    == CPU tokens. Then ``MP_SMOKE`` on each of ``MP_SMOKE_MESHES``, four
+    shards on the card against four on the CPU (``train_smoke_mesh``)."""
     from repro_torch.configs import get_config
     from repro_torch.serving.engine import Request, ServeEngine
     from repro_torch.training.optimizer import tree_map
@@ -3895,7 +3924,124 @@ def train_smoke_vs_plain(dev):
                      "max_loss_rel": err, "tokens": toks["cuda"][0],
                      "s": time.perf_counter() - t0}
         del state, trained
+    for arch in MP_SMOKE:
+        for dims in MP_SMOKE_MESHES:
+            out[f"{arch} mesh {dims[0]}x{dims[1]}"] = train_smoke_mesh(dev, arch, dims)
     return out
+
+
+def train_smoke_mesh(dev, arch, dims):
+    """``arch`` trained ``TRAIN_SMOKE_STEPS`` steps on a ``dims`` mesh of
+    shards on ``dev`` and on one of CPU shards, from the same seeded params
+    and batches: losses within 1e-4 relative."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding.rules import shard_params
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_step import make_train_step
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    opt_cfg = _train_opt(TRAIN_SMOKE_STEPS)
+    host = init_params(cfg, seed=0, device="cpu")
+    losses = {}
+    for where in ("cuda", "cpu"):
+        mesh = _mesh(dims, dev if where == "cuda" else "cpu")
+        params = shard_params(cfg, host, mesh)
+        opt = adamw_init(params, opt_cfg)
+        step = make_train_step(cfg, opt_cfg, mesh=mesh)
+        losses[where] = []
+        for b in _smoke_batches(cfg):
+            params, opt, m = step(params, opt, {k: v.to(mesh.primary) for k, v in b.items()})
+            losses[where].append(float(m["loss"]))
+        moved = dict(mesh.moved.bytes)
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    require(all(math.isfinite(x) for x in losses["cuda"]) and err <= TRAIN_LOSS_RTOL,
+            f"{arch} {dims}: card losses {losses['cuda']} vs cpu {losses['cpu']}")
+    return {"losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"], "max_loss_rel": err,
+            "moved_bytes_per_step": moved, "s": time.perf_counter() - t0}
+
+
+def _mesh(dims, device):
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(dims[1], (str(device),) * (dims[0] * dims[1]))
+
+
+def train_mp_run(dev, ops, cfg, dims, B, T, opt_cfg):
+    """``MP_STEPS`` train steps of ``cfg`` on a ``dims`` mesh of shards all on
+    ``dev``, from init_train's seeded params and lm_batches(seed=0); in a
+    freed allocator (what earlier phases leave allocated is reported
+    beside the peak). Returns each step's loss, grad norm, seconds and
+    bytes moved between shards by kind."""
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_step import init_train, make_train_step
+    mesh = _mesh(dims, dev)
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_run = time.perf_counter()
+    params, opt = init_train(cfg, opt_cfg, seed=0, device=dev, mesh=mesh)
+    step = make_train_step(cfg, opt_cfg, mesh=mesh)
+    data = lm_batches(cfg.vocab_size, T, B, seed=0)
+    ops.reset_launches()
+    rows = []
+    for i in range(MP_STEPS):
+        tokens = torch.from_numpy(next(data)).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, {"tokens": tokens})
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        dt = time.perf_counter() - t0
+        require(math.isfinite(loss) and math.isfinite(gnorm),
+                f"{cfg.name} {dims} step {i}: loss {loss}, grad norm {gnorm}")
+        rows.append({"step": i, "loss": loss, "grad_norm": gnorm, "s": dt,
+                     "moved_bytes": dict(mesh.moved.bytes)})
+    launched = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    require(not any(launched.values()), f"a model-parallel train step launched a serving "
+            f"kernel: {launched}")
+    moved = rows[-1]["moved_bytes"]
+    info = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": list(dims), "batch": B, "seq": T,
+            "dtype": "float32", "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "params": sum(p.numel() for _, p in tree_leaves(params)), "steps": rows,
+            "s_per_step_after_first": rows[-1]["s"], "tokens_per_s": B * T / rows[-1]["s"],
+            "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "resident_before_gib": resident / 2 ** 30,
+            "moved_bytes_per_step": moved,
+            "nvlink_s_computed": {k: v / rl.NVLINK_BPS for k, v in moved.items()},
+            "run_s": time.perf_counter() - t_run}
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return info
+
+
+def train_mp_phase(dev, ops, phase6a):
+    """Phase 6c: smollm-360m at full width on a (1, 2) mesh, held against
+    phase 6a's first two steps (same AdamW, data and seed); deepseek-moe-16b
+    at full width, depth cut to ``MP_DEEPSEEK_LAYERS``, at (1, 1) and (1, 4),
+    held against each other. Losses and grad norms within 1e-4."""
+    from repro_torch.configs import get_config
+
+    def hold(info, steps, against):
+        """``info``'s losses and grad norms within 1e-4 of ``steps``'."""
+        want = [{k: w[k] for k in ("loss", "grad_norm")} for w in steps[:MP_STEPS]]
+        for r, w in zip(info["steps"], want):
+            for k, v in w.items():
+                require(abs(r[k] - v) <= TRAIN_LOSS_RTOL * abs(v),
+                        f"{info['arch']} {info['mesh']} step {r['step']}: {k} {r[k]} against "
+                        f"{against}'s {v}")
+        info["against"] = {against: want}
+        return info
+
+    arch, dims, B, T = MP_SMOLLM
+    smollm = train_mp_run(dev, ops, get_config(arch), dims, B, T, _train_opt(TRAIN_STEPS))
+    arch, meshes, B, T = MP_DEEPSEEK
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=MP_DEEPSEEK_LAYERS,
+                              n_periods=MP_DEEPSEEK_LAYERS - len(full.prelude))
+    one, four = (train_mp_run(dev, ops, cfg, dims, B, T, _train_opt(MP_STEPS))
+                 for dims in meshes)
+    return [hold(smollm, phase6a["steps"], "phase 6a (1 x 1)"), one,
+            hold(four, one["steps"], str(meshes[0]))]
 
 
 KERNEL_META = {   # name -> (source, the TPU kernel it replaces)
@@ -4303,7 +4449,33 @@ def main():
             f"the trained weights (bf16) served freekv/none: TTFT "
             f"{min(sv['ttft_s']):.3f}-{max(sv['ttft_s']):.3f} s, decode "
             f"{sv['decode_ms_per_step']:.2f} ms/step, launches {json.dumps(sv['launches'])}")
+        # 6c: model-parallel training at full width
+        t0 = time.perf_counter()
+        for info in train_mp_phase(dev, ops, train):
+            log("[mp] " + json.dumps(info))
+            moved = info["moved_bytes_per_step"]
+            log(f"[mp] {smi} | {info['arch']} {info['layers']} layers float32 B={info['batch']} "
+                f"T={info['seq']} mesh {info['mesh'][0]}x{info['mesh'][1]} (shards on {dev}): "
+                f"losses {[round(r['loss'], 5) for r in info['steps']]}, grad norms "
+                f"{[round(r['grad_norm'], 5) for r in info['steps']]}"
+                + (f" against {json.dumps(info['against'])}" if "against" in info else "")
+                + f"; {info['s_per_step_after_first']:.3f} s/step after the first "
+                f"({info['steps'][0]['s']:.3f} s the first), {info['tokens_per_s']:.0f} tokens/s,"
+                f" peak {info['peak_device_gib']:.2f} GiB ({info['resident_before_gib']:.2f} "
+                f"allocated before); moved between shards a step "
+                + ", ".join(f"{k} {v} B" for k, v in moved.items())
+                + f", {sum(moved.values()) / rl.NVLINK_BPS * 1e3:.3f} ms over NVLink at "
+                f"{rl.NVLINK_BPS / 1e9:.0f} GB/s (computed, not measured); run "
+                f"{info['run_s']:.1f} s")
+        log(f"[mp] phase 6c in {time.perf_counter() - t0:.1f} s")
+        # 6d: the smoke archs' steps card == CPU, on one device and on meshes
         for arch, r in train_smoke_vs_plain(dev).items():
+            if "tokens" not in r:
+                log(f"[equal] {arch} trained {TRAIN_SMOKE_STEPS} steps (B={TRAIN_SMOKE_B}, "
+                    f"T={TRAIN_SMOKE_T}): four shards on the card, losses {r['losses_cuda']} vs "
+                    f"four on the cpu {r['losses_cpu']} (max rel {r['max_loss_rel']:.3g}); "
+                    f"moved a step {json.dumps(r['moved_bytes_per_step'])}; {r['s']:.1f} s")
+                continue
             log(f"[equal] {arch} trained {TRAIN_SMOKE_STEPS} steps (B={TRAIN_SMOKE_B}, "
                 f"T={TRAIN_SMOKE_T}): card losses {r['losses_cuda']} vs cpu {r['losses_cpu']} "
                 f"(max rel {r['max_loss_rel']:.3g}); served card == cpu greedy tokens, e.g. "

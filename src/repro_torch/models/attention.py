@@ -12,8 +12,14 @@ for small products and the flash-style ``attention_chunked`` (running
 max/sum over KV chunks of 512) beyond ``2048 * 2048`` query-key pairs, so
 the CPU parity tests keep the reference's numbers. Decode attention is
 ``core/retrieval._attend``.
+
+``attention_mp`` is a training layer's attention sublayer under a mesh, on
+one data group's model shards (``sharding/transfer.MeshRow``), in the
+layouts of the reference's ``_gather_for_compute`` and ``_maybe_seq_shard``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -152,3 +158,76 @@ def attention_prefill(cfg: ArchConfig, q, k, v, q_pos, kv_pos, window=None, caus
                               softcap=cfg.attn_logit_softcap)
         return o.transpose(1, 2)
     return attention_auto(cfg, q, k, v, q_pos, kv_pos, causal=causal, window=window)
+
+
+def _positions(B: int, t0: int, t1: int, device):
+    return torch.arange(t0, t1, device=device)[None].expand(B, t1 - t0)
+
+
+def attention_mp(cfg: ArchConfig, p, h, window, row):
+    """Causal self-attention of a training layer over one data group's ``h``
+    (B, T, d) on shard 0 of ``row``, placed weights ``p`` -> the sublayer's
+    output (B, T, d) on shard 0 (before any post-norm).
+
+    Where the model axis divides both head counts, the projections are
+    Megatron's: shard j takes query heads [j H/m, (j+1) H/m) and KV heads
+    [j kv/m, (j+1) kv/m) (whole GQA groups) through its column blocks of
+    wq/wk/wv, attends with them and multiplies by its row block of wo; the
+    partial outputs are summed on shard 0. Where it does not (smollm-360m's
+    15/5 at m = 2, the smoke configs' 4/2 at m = 4), shard j takes input
+    block j of wq/wk/wv (d_model) and of wo (H * d_head), the partial q, k, v
+    and outputs summed on shard 0, and the attention is split over query
+    rows when T divides: shard j attends rows [j T/m, (j+1) T/m) to every
+    key, which is exact. A dim that does not divide stays whole on shard 0.
+    With one model shard this is the unsharded sublayer."""
+    m = row.m
+    B, T, d = h.shape
+    H, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if H % m == 0 and kv % m == 0:
+        local = cfg if m == 1 else dataclasses.replace(cfg, n_heads=H // m, n_kv_heads=kv // m)
+        hs = row.broadcast(h, "partial_sum")
+        parts = []
+        for j in range(m):
+            w = {k: row.fetch(p[k], j, dim=1) for k in ("wq", "wk", "wv")}
+            w["wo"] = row.fetch(p["wo"], j, dim=0)
+            pos = _positions(B, 0, T, row.device(j))
+            q, k, v = qkv_proj(local, w, hs[j], pos)
+            o = attention_auto(local, q, k, v, pos, pos, causal=True, window=window)
+            parts.append(out_proj(local, w, o))
+        return row.reduce(parts, "partial_sum")
+
+    pos = _positions(B, 0, T, h.device)
+    if d % m == 0:
+        hs = [row.move(h[..., j * d // m:(j + 1) * d // m], 0, j, "partial_sum")
+              for j in range(m)]
+        q, k, v = (row.reduce([hs[j] @ row.fetch(p[key], j, dim=0) for j in range(m)],
+                              "partial_sum") for key in ("wq", "wk", "wv"))
+    else:
+        q, k, v = (h @ row.fetch(p[key], 0) for key in ("wq", "wk", "wv"))
+    q = apply_rope(cfg, q.reshape(B, T, H, dh), pos)
+    k = apply_rope(cfg, k.reshape(B, T, kv, dh), pos)
+    v = v.reshape(B, T, kv, dh)
+    if T % m == 0:                          # query rows: shard j holds block j
+        n = T // m
+        ks, vs = row.broadcast(k, "partial_sum"), row.broadcast(v, "partial_sum")
+        blocks = []
+        for j in range(m):
+            qj = row.move(q[:, j * n:(j + 1) * n], 0, j, "partial_sum")
+            blocks.append((j, attention_auto(cfg, qj, ks[j], vs[j],
+                                             _positions(B, j * n, (j + 1) * n, row.device(j)),
+                                             _positions(B, 0, T, row.device(j)),
+                                             causal=True, window=window)))
+    else:
+        blocks = [(0, attention_auto(cfg, q, k, v, pos, pos, causal=True, window=window))]
+    F = H * dh
+    if F % m == 0:
+        # feature block j of every row block to shard j, for wo's input block j
+        parts = []
+        for j in range(m):
+            o_j = [row.move(o.reshape(B, o.shape[1], F)[..., j * F // m:(j + 1) * F // m],
+                            src, j, "partial_sum") for src, o in blocks]
+            o_j = o_j[0] if len(o_j) == 1 else torch.cat(o_j, dim=1)
+            parts.append(o_j @ row.fetch(p["wo"], j, dim=0))
+        return row.reduce(parts, "partial_sum")
+    o = torch.cat([row.move(o, src, 0, "partial_sum") for src, o in blocks], dim=1)
+    return o.reshape(B, T, F) @ row.fetch(p["wo"], 0)

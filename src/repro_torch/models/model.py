@@ -5,7 +5,7 @@ with dense, MoE or no FFNs, encoder-decoder stacks and a frontend prefix
   init_params(cfg, seed, device, dtype)            -> params
   params_from_jax(cfg, np_params, device, dtype)    -> params
   params_to_numpy(cfg, params)                      -> the reference's numpy pytree
-  forward_train(cfg, params, batch, remat)          -> (loss, {"ce", "aux", "tokens"})
+  forward_train(cfg, params, batch, mesh, remat)    -> (loss, {"ce", "aux", "tokens"})
   prefill(cfg, fkv, params, batch, max_len)         -> (logits_last, state[, kv])
   prefill_extend(cfg, fkv, params, batch, kv, prefix_len, max_len)
                                                     -> (logits_last, state)
@@ -19,7 +19,9 @@ with dense, MoE or no FFNs, encoder-decoder stacks and a frontend prefix
 Every serving entry point also takes ``mesh`` (``launch/mesh.make_tp_mesh``):
 with one, each attention layer's retrieval runs per KV-head group on its
 shard's device (``core/sharded_retrieval``) and the backbone runs once, on
-the params' device.
+the params' device. ``forward_train`` takes a ("data", "model") ``mesh``
+(``launch/mesh.make_host_mesh``) and params placed on it: model-parallel
+training.
 
 Params are nested dicts of tensors, dense weights in the ``x @ W``
 orientation ``(d_in, d_out)``: ``{"embed": {"tok", "head"?}, "final_norm":
@@ -84,6 +86,8 @@ from repro_torch.core.sharded_retrieval import TPGroupShardedRetriever, tp_group
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe, ssm, xlstm
+from repro_torch.sharding import rules, transfer
+from repro_torch.sharding.transfer import MeshRow
 
 # per-step retrieval statistics the engine aggregates (reference model.py:774)
 DECODE_STAT_KEYS = ("corrected", "kv_heads", "sync_pages", "async_pages",
@@ -315,30 +319,39 @@ def params_to_numpy(cfg: ArchConfig, params):
 # ---------------------------------------------------------------------------
 # training forward
 # ---------------------------------------------------------------------------
-def _train_layer(cfg, layer, lp, x, positions, enc):
+def _train_layer(cfg, layer, lp, x, positions, enc, row=None, n_blocks=1):
     """One layer over the whole sequence for training (reference
     ``_apply_layer_seq``) -> (x, aux (B, T) or None). Attention is
     ``attention_auto`` on every device (the reference's jnp computation:
     dense up to 2048 x 2048 query-key pairs, chunked beyond), never the
     forward-only ``flash_prefill``; a recurrent mixer runs its forward over
     the sequence; an encoder-decoder layer adds its cross-attention over
-    ``enc``, the encoder's output."""
-    h = L.apply_norm(cfg, lp["norm1"], x)
+    ``enc``, the encoder's output.
+
+    Under ``row`` (one data group's model shards, ``sharding/transfer
+    .MeshRow``) ``lp`` is placed and ``x`` lives on the row's shard 0: the
+    attention is ``attn.attention_mp``, the FFN column/row- or
+    expert-parallel (``_ffn_aux``), and the norms, a recurrent mixer and the
+    cross-attention take their weights whole on shard 0."""
+    h = L.apply_norm(cfg, _whole(row, lp["norm1"]), x)
     if layer[0] in RECURRENT:
-        o = _FORWARD[layer[0]](cfg, lp["mixer"], h)
+        o = _FORWARD[layer[0]](cfg, _whole(row, lp["mixer"]), h)
+    elif row is not None:
+        o = attn.attention_mp(cfg, lp["mixer"], h, _window(cfg, layer), row)
     else:
         q, k, v = attn.qkv_proj(cfg, lp["mixer"], h, positions)
         o = attn.attention_auto(cfg, q, k, v, positions, positions, causal=True,
                                 window=_window(cfg, layer))
         o = attn.out_proj(cfg, lp["mixer"], o)
-    x = _residual(cfg, lp, x, o, "1")
+    x = _residual(cfg, lp, x, o, "1", row)
     if enc is not None:
-        xk, xv = _enc_kv(cfg, lp, enc)
-        x = _cross(cfg, lp, x, positions, xk, xv)
-    return _ffn_aux(cfg, layer, lp, x)
+        xp = _whole(row, lp)
+        xk, xv = _enc_kv(cfg, xp, enc)
+        x = _cross(cfg, xp, x, positions, xk, xv)
+    return _ffn_aux(cfg, layer, lp, x, row, n_blocks)
 
 
-def forward_train(cfg: ArchConfig, params, batch, remat=True):
+def forward_train(cfg: ArchConfig, params, batch, mesh=None, remat=True):
     """The training loss (reference ``model.py:338``): batch ``{"tokens"
     (B, T) int, "loss_mask" (B, T) optional, "frontend" (B, F, d)
     optional}`` -> (loss, {"ce", "aux", "tokens"}), 0-dim tensors.
@@ -355,82 +368,197 @@ def forward_train(cfg: ArchConfig, params, batch, remat=True):
     (``torch.utils.checkpoint``, the counterpart of the reference's
     ``jax.checkpoint`` over its scan body): only a period's input is kept.
     The prelude layers and an encoder are not rematerialised, as in the
-    reference."""
+    reference.
+
+    ``mesh`` (``launch/mesh.make_host_mesh``, n_data x m shards driven by
+    one controller) takes params placed on it (``sharding/rules
+    .shard_params``). The batch's rows are split over "data" as
+    ``rules.batch_shardings`` splits them, where B divides (else every
+    layer runs the whole batch on data group 0, as it does when the MoE's
+    experts do not divide the model axis and its replicated branch routes
+    the whole batch in one call); group g's activations live on shard
+    (g, 0) between sublayers, and each sublayer runs on the group's model
+    shards (``sharding/transfer.MeshRow``): the vocab-parallel embedding,
+    the attention's Megatron or input-dim-split layouts
+    (``attn.attention_mp``), the column/row-parallel MLP, the
+    expert-parallel MoE and the vocab-parallel logits and cross-entropy. A
+    MoE call is one data block of the flat tokens (n_data blocks where
+    B * T divides), so the loss depends on the data axis as the reference's
+    does. Each period is rematerialised with its moves inside; the loss's
+    terms and each layer's ``aux`` come back to shard (0, 0). Under a mesh
+    above 1 x 1 the recurrent mixers and the encoder-decoder raise
+    (``MESH_TODO``); at 1 x 1 their layers run whole, and a 1 x 1 mesh
+    gives the loss and gradients of no mesh bit for bit."""
     check_supported(cfg)
     tokens = batch["tokens"]
-    x, positions = _embed_inputs(cfg, params, batch)
-    n_front = x.shape[1] - tokens.shape[1]
-    enc = (_encode(cfg, params, batch["frontend"], attn.attention_auto)
+    B = tokens.shape[0]
+    if mesh is None:
+        rows, groups, n_data = [None], [batch], 1
+    else:
+        if mesh.size > 1 and (cfg.is_encoder_decoder or any(m in RECURRENT
+                                                            for m, _ in cfg.layers)):
+            raise NotImplementedError(
+                f"{cfg.name}: the recurrent mixers and the encoder-decoder train on one "
+                f"device or a 1 x 1 mesh only; a {mesh.dims} mesh is {MESH_TODO}")
+        n_data = mesh.shape["data"]
+        n_groups = rules.axsize(mesh, rules.batch_shardings(cfg, mesh, batch)["tokens"][0])
+        if any(f == MOE for _, f in cfg.layers) and cfg.n_experts % mesh.shape["model"]:
+            n_groups = 1
+        rows = [MeshRow(mesh, g) for g in range(n_groups)]
+        b = B // n_groups
+        batch = {k: v.to(mesh.primary) for k, v in batch.items()}
+        groups = [{k: transfer.move(mesh, v if n_groups == 1 else v[g * b:(g + 1) * b],
+                                    HOME, (g, 0), "data") for k, v in batch.items()}
+                  for g in range(n_groups)]
+    embedded = [_embed_inputs(cfg, params, grp, row) for grp, row in zip(groups, rows)]
+    xs, poss = [x for x, _ in embedded], [pos for _, pos in embedded]
+    T = xs[0].shape[1]
+    n_front = T - tokens.shape[1]
+    # the MoE's data blocks in each group's flat tokens
+    n_blocks = n_data // len(rows) if (B * T) % n_data == 0 else 1
+    enc = (_encode(cfg, {"embed": params["embed"],
+                         "encoder": _whole(rows[0], params["encoder"])},
+                   groups[0]["frontend"], attn.attention_auto)
            if cfg.is_encoder_decoder else None)
     layers = params["layers"]
     n_pre, n_pat = len(cfg.prelude), len(cfg.pattern)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(n_pre):
-        x, aux = _train_layer(cfg, cfg.layers[i], layers[i], x, positions, enc)
-        if aux is not None:
-            aux_total = aux_total + aux.mean()
+    home = xs[0].device
+    aux_total = torch.zeros((), dtype=torch.float32, device=home)
 
-    def period(x, i0):
-        aux_p = torch.zeros((), dtype=torch.float32, device=x.device)
+    def layer_step(layer, lp, xs):
+        """One layer over every data group -> (xs, aux's mean on (0, 0) or None)."""
+        outs = [_train_layer(cfg, layer, lp, x, pos, enc, row, n_blocks)
+                for x, pos, row in zip(xs, poss, rows)]
+        aux = None if outs[0][1] is None else _to_home(rows, [a for _, a in outs]).mean()
+        return [x for x, _ in outs], aux
+
+    for i in range(n_pre):
+        xs, aux = layer_step(cfg.layers[i], layers[i], xs)
+        if aux is not None:
+            aux_total = aux_total + aux
+
+    def period(xs, i0):
+        aux_p = torch.zeros((), dtype=torch.float32, device=home)
         for j in range(n_pat):
-            x, aux = _train_layer(cfg, cfg.pattern[j], layers[i0 + j], x, positions, enc)
+            xs, aux = layer_step(cfg.pattern[j], layers[i0 + j], xs)
             if aux is not None:
-                aux_p = aux_p + aux.mean()
-        return x, aux_p
+                aux_p = aux_p + aux
+        return xs, aux_p
 
     aux_periods = []
     for i0 in range(n_pre, cfg.n_layers, n_pat):
         if remat and torch.is_grad_enabled():
-            x, aux_p = checkpoint(period, x, i0, use_reentrant=False)
+            xs, aux_p = checkpoint(period, xs, i0, use_reentrant=False)
         else:
-            x, aux_p = period(x, i0)
+            xs, aux_p = period(xs, i0)
         aux_periods.append(aux_p)
     aux_total = aux_total + torch.stack(aux_periods).sum()
 
-    x = L.apply_norm(cfg, params["final_norm"], x)
-    logits = L.lm_logits(cfg, params["embed"], x[:, n_front:])
-    per_tok = _cross_entropy(logits[:, :-1], tokens[:, 1:].long())
-    mask = batch.get("loss_mask")
-    mask = (torch.ones_like(tokens) if mask is None else mask)[:, 1:]
-    n_tok = mask.sum()
-    ce = (per_tok * mask).sum() / torch.clamp(n_tok, min=1)
+    sums, counts = [], []
+    for x, grp, row in zip(xs, groups, rows):
+        x = L.apply_norm(cfg, _whole(row, params["final_norm"]), x)
+        logits = L.lm_logits(cfg, params["embed"], x[:, n_front:], row=row)
+        logits = [logits] if row is None else logits
+        tok = grp["tokens"]
+        per_tok = _cross_entropy([lg[:, :-1] for lg in logits], tok[:, 1:].long(), row)
+        mask = grp.get("loss_mask")
+        mask = (torch.ones_like(tok) if mask is None else mask)[:, 1:]
+        at = HOME if row is None else (row.g, 0)
+        sums.append(transfer.move(mesh, (per_tok * mask).sum(), at, HOME, "data"))
+        counts.append(transfer.move(mesh, mask.sum(), at, HOME, "data"))
+    n_tok = _sum(counts)
+    ce = _sum(sums) / torch.clamp(n_tok, min=1)
     loss = ce + cfg.router_aux_loss * aux_total
     return loss, {"ce": ce, "aux": aux_total, "tokens": n_tok}
 
 
-def _cross_entropy(logits, tgt):
-    """Per-token cross-entropy (B, T) float32 (reference ``_cross_entropy``
-    on one device): logsumexp of the float32 logits minus the target's."""
-    lg = logits.float()
-    return torch.logsumexp(lg, dim=-1) - lg.gather(-1, tgt[..., None])[..., 0]
+def _cross_entropy(logits, tgt, row=None):
+    """Per-token cross-entropy (B, T) float32 (reference ``_cross_entropy``)
+    from the list of ``L.lm_logits``' vocab blocks: one block (no mesh, or
+    a head that is not vocab-parallel) gives logsumexp of the float32
+    logits minus the target's. Several blocks, block j on shard j of
+    ``row``, give the vocab-parallel form: the max over the shards of the
+    detached logits (the shift cancels in the gradient), the shards' sums of
+    exponentials added, and the target's logit taken from the shard whose
+    block holds it; the result on shard 0."""
+    if len(logits) == 1:
+        lg = logits[0].float()
+        return torch.logsumexp(lg, dim=-1) - lg.gather(-1, tgt[..., None])[..., 0]
+    n = logits[0].shape[-1]
+    lgs = [lg.float() for lg in logits]
+    mx = row.reduce([lg.detach().amax(dim=-1) for lg in lgs], "vocab", op=torch.maximum)
+    mxs = row.broadcast(mx, "vocab")
+    s = row.reduce([torch.exp(lg - mxs[j][..., None]).sum(dim=-1) for j, lg in enumerate(lgs)],
+                   "vocab")
+    tgts = row.broadcast(tgt, "vocab")
+    lls = []
+    for j, lg in enumerate(lgs):
+        rel = tgts[j] - j * n
+        hit = (rel >= 0) & (rel < n)
+        ll = lg.gather(-1, rel.clamp(0, n - 1)[..., None])[..., 0]
+        lls.append(torch.where(hit, ll, torch.zeros((), dtype=ll.dtype, device=ll.device)))
+    return mx + torch.log(s) - row.reduce(lls, "vocab")
+
+
+# ---------------------------------------------------------------------------
+# training under a ("data", "model") mesh
+# ---------------------------------------------------------------------------
+MESH_TODO = "ROADMAP queue 1 item 2"
+HOME = (0, 0)                  # the shard that holds the batch, the loss and aux
+
+
+def _sum(ts):
+    out = ts[0]
+    for t in ts[1:]:
+        out = out + t
+    return out
+
+
+def _to_home(rows, ts):
+    """Per-group tensors (group g's on shard (g, 0)) joined along the batch
+    on shard (0, 0); with no mesh the one tensor as it is."""
+    if rows[0] is None:
+        return ts[0]
+    ts = [transfer.move(row.mesh, t, (row.g, 0), HOME, "data") for row, t in zip(rows, ts)]
+    return ts[0] if len(ts) == 1 else torch.cat(ts)
+
+
+def _whole(row, tree):
+    """A subtree of params as plain tensors: itself with no mesh, else whole
+    on the row's shard 0."""
+    return tree if row is None else row.whole(tree)
 
 
 # ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
-def _residual(cfg, lp, x, out, which):
+def _residual(cfg, lp, x, out, which, row=None):
     """x + out, the block output normed first under ``cfg.post_block_norm``
-    (reference ``model.py:132-135``)."""
+    (reference ``model.py:132-135``); under ``row`` the norm's weight is
+    fetched whole to the row's shard 0."""
     if cfg.post_block_norm:
-        out = L.apply_norm(cfg, lp["postnorm" + which], out)
+        out = L.apply_norm(cfg, _whole(row, lp["postnorm" + which]), out)
     return x + out
 
 
-def _ffn_aux(cfg, layer, lp, x):
+def _ffn_aux(cfg, layer, lp, x, row=None, n_blocks=1):
     """The FFN sublayer of every path -> (x, aux): a ``MOE`` layer routes the
     call's flattened (B * T, d) tokens together (reference ``_apply_ffn``),
     so its capacity couples the call's rows, and returns its load-balance
     term (B, T) float32 as ``aux``; a dense FFN and an xLSTM block (``NONE``,
-    no FFN) return None, the reference's zeros."""
+    no FFN) return None, the reference's zeros. Under ``row`` (training
+    under a mesh) the MLP is column/row-parallel and the MoE
+    expert-parallel over ``n_blocks`` data blocks of the call's tokens."""
     if layer[1] == NONE:
         return x, None
-    h = L.apply_norm(cfg, lp["norm2"], x)
+    h = L.apply_norm(cfg, _whole(row, lp["norm2"]), x)
     aux = None
     if layer[1] == MOE:
-        out, aux = moe.apply_moe(cfg, lp["ffn"], h)
+        out, aux = (moe.apply_moe(cfg, lp["ffn"], h) if row is None else
+                    moe.apply_moe(cfg, lp["ffn"], h, row=row, n_blocks=n_blocks))
     else:
-        out = L.apply_mlp(cfg, lp["ffn"], h)
-    return _residual(cfg, lp, x, out, "2"), aux
+        out = L.apply_mlp(cfg, lp["ffn"], h, row=row)
+    return _residual(cfg, lp, x, out, "2", row), aux
 
 
 def _ffn(cfg, layer, lp, x):
@@ -576,12 +704,13 @@ def prefill(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, max_len: int,
     return logits, state
 
 
-def _embed_inputs(cfg: ArchConfig, params, batch):
+def _embed_inputs(cfg: ArchConfig, params, batch, row=None):
     """The prompt's embeddings and positions (reference ``model.py:321``):
     a frontend config that is no encoder-decoder (internvl2) puts
     ``batch["frontend"]`` (B, F, d), cast to the embeddings' dtype, ahead
-    of the tokens' (B, T, d); positions run over the whole F + T."""
-    x = L.embed_tokens(cfg, params["embed"], batch["tokens"])
+    of the tokens' (B, T, d); positions run over the whole F + T. Under
+    ``row`` the embedding is vocab-parallel (``L.embed_tokens``)."""
+    x = L.embed_tokens(cfg, params["embed"], batch["tokens"], row=row)
     if frontend_prefix(cfg) and "frontend" in batch:
         x = torch.cat([batch["frontend"].to(x.dtype), x], dim=1)
     B, T = x.shape[:2]

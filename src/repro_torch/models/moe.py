@@ -4,15 +4,20 @@ GShard-style capacity and the sort-based dispatch, on one device.
 
   capacity(N, E, k)                  -> slots an expert takes in one call
   route(cfg, router, x)              -> (gates, topk_idx, topk_w)
-  dispatch(x, topk_idx, E, C)        -> (xg, pos)
+  dispatch(x, topk_idx, E, C[, e_lo, n_local])
+                                     -> (xg, pos)
   expert_ffn(cfg, wg, wu, wd, xg)    -> (E, C, d)
-  apply_moe(cfg, p, x)               -> (y, aux)
+  apply_moe(cfg, p, x[, row, n_blocks])
+                                     -> (y, aux)
 
 Capacity couples the tokens of one call: an assignment's slot is its
 arrival rank within its expert over the call's flat (token, k) order, and
 ranks ``>= capacity`` are dropped. So a row's output depends on every other
 row of the same call (a decode step's idle lanes included), exactly as in
-the reference.
+the reference. Under a mesh (training) a call is one data block: the flat
+tokens are cut into the mesh's data blocks, each routed on its own at
+``capacity(B * T / n_data, E, k)`` with its own ``aux``, so the numbers
+depend on the data axis, as the reference's do.
 
 The combine uses no atomics: each token gathers its k outputs through the
 inverse of the dispatch map and adds them in expert-ascending order, the
@@ -21,8 +26,13 @@ the compute dtype. Nothing reads the card from the host: the capacity
 comes from shapes, and there is no ``.item()``, ``nonzero``, boolean-mask
 indexing or ``one_hot`` (whose range check would wait for the card).
 
-The expert-parallel ``shard_map`` branch of the reference waits for tensor
-parallelism (ROADMAP queue 1).
+Expert parallelism (the reference's ``shard_map`` branch, ``moe.py:126-153``):
+under ``row`` (``sharding/transfer.MeshRow``) model shard j runs experts
+[j E/m, (j+1) E/m) on the block's tokens, dispatching locally (the
+non-local assignments sorted last, which gives the local experts the slots
+of the global dispatch), adds its experts' outputs in expert-ascending
+order, and the shards' outputs are summed in ``x.dtype`` on shard 0. The
+shared experts run as a dense MLP, column- and row-parallel.
 """
 from __future__ import annotations
 
@@ -79,25 +89,36 @@ def route(cfg: ArchConfig, router_w, x):
     return gates, topk_idx, topk_w
 
 
-def dispatch(x, topk_idx, n_experts: int, cap: int):
-    """The reference's sort-based ``_dispatch_local`` over all experts:
-    a stable argsort of the flat (token, k) expert ids, each expert's start
-    by ``searchsorted``, an assignment's slot its arrival rank within its
-    expert; ranks ``>= cap`` go to a drop row.
+def dispatch(x, topk_idx, n_experts: int, cap: int, e_lo: int = 0, n_local=None):
+    """The reference's sort-based ``_dispatch_local`` to the experts
+    [e_lo, e_lo + n_local) (all of them by default): a stable argsort of the
+    flat (token, k) expert ids, non-local ones last, each expert's start by
+    ``searchsorted``, an assignment's slot its arrival rank within its
+    expert; ranks ``>= cap`` and non-local assignments go to a drop row.
 
-    Returns xg (E, C, d), the routed tokens gathered through the (E, C)
-    token ids (N, a zero row, where a slot is empty), and pos (N, k) int64:
-    where each assignment landed in the flat (E * C) slot order, E * C
-    where it was dropped. The reference's weight matrix has no counterpart:
-    the combine weighs each assignment through ``pos``."""
+    Returns xg (E, C, d), E the local experts, the routed tokens gathered
+    through the (E, C) token ids (N, a zero row, where a slot is empty), and
+    pos (N, k) int64: where each assignment landed in the flat (E * C) slot
+    order, E * C where it was dropped or is not local. The reference's
+    weight matrix has no counterpart: the combine weighs each assignment
+    through ``pos``."""
     N, k = topk_idx.shape
-    E, dev = n_experts, x.device
+    dev = x.device
     flat_e = topk_idx.reshape(-1)
+    part = n_local is not None and n_local != n_experts
+    E = n_local if part else n_experts
+    if part:                                 # non-local assignments sort last
+        rel = flat_e - e_lo
+        flat_e = torch.where((rel >= 0) & (rel < E), rel, torch.full_like(rel, E))
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
     start = torch.searchsorted(se, torch.arange(E, device=dev, dtype=se.dtype))
-    slot = torch.arange(N * k, device=dev) - start[se]
-    keep = slot < cap
+    if part:
+        slot = torch.arange(N * k, device=dev) - start[se.clamp(max=E - 1)]
+        keep = (se < E) & (slot < cap)
+    else:
+        slot = torch.arange(N * k, device=dev) - start[se]
+        keep = slot < cap
     drop = E * cap
     dest = torch.where(keep, se * cap + slot, torch.full_like(slot, drop))
     tok = torch.div(order, k, rounding_mode="floor")
@@ -140,31 +161,67 @@ def _onehot_sum(topk_idx, n_experts: int):
     return (topk_idx[..., None] == ar).float().sum(dim=1)
 
 
-def _moe_local(cfg: ArchConfig, p, x, cap: int):
-    """x (N, d) -> (y (N, d) in x's dtype, aux (N,) float32)."""
+def _moe_local(cfg: ArchConfig, p, x, cap: int, e_lo: int = 0, with_aux: bool = True):
+    """x (N, d) through the experts [e_lo, e_lo + E_loc) of ``p``'s wg/wu/wd
+    (E_loc of them) -> (y (N, d) in x's dtype, aux (N,) float32 or None)."""
     N = x.shape[0]
     E = cfg.n_experts
     gates, topk_idx, topk_w = route(cfg, p["router"], x)
-    xg, pos = dispatch(x, topk_idx, E, cap)
+    xg, pos = dispatch(x, topk_idx, E, cap, e_lo, p["wg"].shape[0])
     out = expert_ffn(cfg, p["wg"], p["wu"], p["wd"], xg)
     y = _combine(out, pos, topk_idx, topk_w, x.dtype)
+    if not with_aux:
+        return y, None
     f = _onehot_sum(topk_idx, E).mean(dim=0)
     aux = E * torch.sum(f * gates.mean(dim=0)) / cfg.moe_top_k
     return y, aux.expand(N)
 
 
-def apply_moe(cfg: ArchConfig, p, x):
+def apply_moe(cfg: ArchConfig, p, x, row=None, n_blocks: int = 1):
     """x (B, T, d) -> (y (B, T, d), aux (B, T) float32): the routed experts
     over the call's B * T flattened tokens at ``capacity(B * T, E, k)``,
     plus the shared experts. ``aux`` is the load-balance term (training
-    reads it; serving discards it)."""
+    reads it; serving discards it).
+
+    Under ``row`` (placed weights ``p``, ``x`` on shard 0) expert-parallel
+    where the model axis divides E: the flat tokens are cut into
+    ``n_blocks`` contiguous blocks, each routed on its own at ``capacity(B *
+    T / n_blocks, E, k)`` with its own ``aux`` (computed on shard 0). Where
+    it does not, the reference's replicated branch: the weights whole on
+    shard 0 and one call over ``x``."""
+    if row is not None and cfg.n_experts % row.m:
+        return apply_moe(cfg, row.whole(p), x)
     B, T, d = x.shape
-    cap = capacity(B * T, cfg.n_experts, cfg.moe_top_k)
-    y, aux = _moe_local(cfg, p, x.reshape(B * T, d), cap)
+    if row is None:
+        cap = capacity(B * T, cfg.n_experts, cfg.moe_top_k)
+        y, aux = _moe_local(cfg, p, x.reshape(B * T, d), cap)
+    else:
+        y, aux = _moe_expert_parallel(cfg, p, x.reshape(B * T, d), row, n_blocks)
     y = y.reshape(B, T, d)
     if "shared" in p:
-        y = y + L.apply_mlp(cfg, p["shared"], x)
+        y = y + L.apply_mlp(cfg, p["shared"], x, row=row)
     return y, aux.reshape(B, T)
+
+
+def _moe_expert_parallel(cfg: ArchConfig, p, xf, row, n_blocks: int):
+    m, E = row.m, cfg.n_experts
+    assert E % m == 0, (E, m)
+    n_local = E // m
+    cap = capacity(xf.shape[0] // n_blocks, E, cfg.moe_top_k)
+    local = [{"router": row.fetch(p["router"], j),
+              **{key: row.fetch(p[key], j, dim=0) for key in ("wg", "wu", "wd")}}
+             for j in range(m)]
+    ys, auxs = [], []
+    for xb in xf.chunk(n_blocks):
+        xbs = row.broadcast(xb, "expert_sum")
+        parts = []
+        for j in range(m):
+            y, aux = _moe_local(cfg, local[j], xbs[j], cap, j * n_local, with_aux=j == 0)
+            parts.append(y)
+            if j == 0:
+                auxs.append(aux)
+        ys.append(row.reduce(parts, "expert_sum"))
+    return (ys[0], auxs[0]) if n_blocks == 1 else (torch.cat(ys), torch.cat(auxs))
 
 
 def capacity_keep_mask(topk_idx, n_experts: int, cap: int):

@@ -10,6 +10,11 @@ periods; keys are the paths joined by "/" (``"params/pattern/0/mixer/wq"``,
 float32 (exact) and cast back to the leaf's dtype on restore; a bfloat16
 array written by the reference (numpy's 2-byte void) is read as its bits.
 Writes are atomic: a ``.tmp.npz`` file, then ``os.replace``.
+
+A state placed on a mesh (``init_train(mesh=)``) is gathered into the
+unsharded layout as it is written, and ``restore`` cuts each leaf onto the
+mesh of ``like``'s ``Sharded`` leaf, so a file crosses between meshes
+(1 x 2 to 1 x 1 and back) and to the unsharded state bit for bit.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.model import params_from_jax, params_to_numpy
+from repro_torch.sharding.rules import Sharded, gather_params, map_leaves
 from repro_torch.training.optimizer import tree_leaves
 
 
@@ -44,7 +50,7 @@ def save(path: str, cfg: ArchConfig, tree) -> None:
     trees and tensors) to ``path`` in the reference's layout."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp.npz"
-    np.savez(tmp, **_flatten(_to_reference(cfg, tree)))
+    np.savez(tmp, **_flatten(_to_reference(cfg, gather_params(tree, "cpu"))))
     os.replace(tmp, path)
 
 
@@ -85,7 +91,8 @@ def _from_reference(cfg, np_tree, like):
     else:
         got = torch.from_numpy(np.array(np_tree))
     paths = lambda t: sorted(map(str, (p for p, _ in tree_leaves(t))))   # noqa: E731
-    assert paths(got) == paths(like), "the file's tree differs from the state's"
+    logical = map_leaves(lambda _, t: t.pieces[0] if isinstance(t, Sharded) else t, like)
+    assert paths(got) == paths(logical), "the file's tree differs from the state's"
     return _cast_like(got, like)
 
 
@@ -96,12 +103,14 @@ def _cast_like(got, like, path=()):
         return type(like)(_cast_like(g, v, path + (i,)) for i, (g, v) in
                           enumerate(zip(got, like)))
     assert got.shape == like.shape, (path, tuple(got.shape), tuple(like.shape))
+    if isinstance(like, Sharded):
+        return Sharded.place(got.to(like.dtype), like.spec, like.mesh)
     return got.to(device=like.device, dtype=like.dtype)
 
 
 def restore(path: str, cfg: ArchConfig, like):
     """The state in ``path`` in the structure of ``like`` (the port's tree
-    that ``save`` takes), each leaf on ``like``'s device at its dtype;
-    shapes must match."""
+    that ``save`` takes), each leaf on ``like``'s device at its dtype, a
+    ``Sharded`` leaf cut onto its mesh by its spec; shapes must match."""
     with np.load(path) as data:
         return _from_reference(cfg, _unflatten(data), like)

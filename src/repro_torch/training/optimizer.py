@@ -13,6 +13,13 @@ reference's leaves: a layer of ``cfg.pattern`` (and an encoder layer) is a
 slice of a leaf stacked along a leading (n_periods,) axis there, so its
 norms' ``w`` and its 1-D biases are decayed too; the prelude layers',
 ``embed``'s and the final norms' 1-D leaves are not (``decays``).
+
+Params placed on a mesh (``sharding/rules.shard_params``) have ``Sharded``
+leaves: the tree functions walk into their pieces, so AdamW runs on each
+piece on its own device, the moments are pieces of the same layout, and
+``global_norm`` sums each element once. A piece's path is its leaf's with
+the piece's index after it, and its rank is its leaf's, so ``decays``
+decides as it does for the unsharded leaf.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.sharding.rules import Sharded
 
 
 @dataclass(frozen=True)
@@ -40,11 +48,14 @@ class AdamWConfig:
 
 def tree_leaves(tree, path=()):
     """(path, leaf) pairs of a tree of dicts, lists and tuples, in insertion
-    order (dict keys as given, sequence entries by index)."""
+    order (dict keys as given, sequence entries by index); a ``Sharded``
+    leaf gives its pieces, at its path and the piece's index."""
     if isinstance(tree, dict):
         return [kv for k, v in tree.items() for kv in tree_leaves(v, path + (k,))]
     if isinstance(tree, (list, tuple)):
         return [kv for i, v in enumerate(tree) for kv in tree_leaves(v, path + (i,))]
+    if isinstance(tree, Sharded):
+        return [(path + (i,), p) for i, p in enumerate(tree.pieces)]
     return [(path, tree)]
 
 
@@ -53,6 +64,8 @@ def tree_map(fn, tree):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
+    if isinstance(tree, Sharded):
+        return tree.like(fn(p) for p in tree.pieces)
     return fn(tree)
 
 
@@ -95,8 +108,11 @@ def adamw_init(params, cfg: AdamWConfig):
 
 
 def global_norm(tree):
-    """sqrt of the sum over leaves of their float32 sums of squares."""
-    sq = [torch.sum(torch.square(x.float())) for _, x in tree_leaves(tree)]
+    """sqrt of the sum over leaves (or pieces) of their float32 sums of
+    squares, on the first leaf's device."""
+    leaves = [x for _, x in tree_leaves(tree)]
+    dev = leaves[0].device
+    sq = [torch.sum(torch.square(x.float())).to(dev) for x in leaves]
     return torch.sqrt(torch.stack(sq).sum())
 
 
@@ -117,14 +133,18 @@ def adamw_update(grads, opt_state, params, cfg: AdamWConfig, arch: ArchConfig):
     g_leaves = [g for _, g in tree_leaves(grads)]
     m_leaves = [m for _, m in tree_leaves(opt_state["m"])]
     v_leaves = [v for _, v in tree_leaves(opt_state["v"])]
+    scalars = {lr.device: (lr, clip, bc1, bc2)}
     for (path, p), g, m, v in zip(tree_leaves(params), g_leaves, m_leaves, v_leaves):
-        g = g.float() * clip
+        if p.device not in scalars:          # a piece on another card of a mesh
+            scalars[p.device] = tuple(t.to(p.device) for t in scalars[lr.device])
+        lr_p, clip_p, bc1_p, bc2_p = scalars[p.device]
+        g = g.float() * clip_p
         m_new = b1 * m.float() + (1 - b1) * g
         v_new = b2 * v.float() + (1 - b2) * g * g
-        delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
+        delta = (m_new / bc1_p) / (torch.sqrt(v_new / bc2_p) + cfg.eps)
         if decays(arch, path, p):      # decoupled weight decay
             delta = delta + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
+        p.copy_(p.float() - lr_p * delta)
         m.copy_(m_new)
         v.copy_(v_new)
     opt_state["step"].copy_(step)

@@ -78,6 +78,14 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
         init_train(get_config("smollm-360m-smoke"), AdamWConfig())
     with pytest.raises(RuntimeError, match="cuda"):
         train.main(["--arch", "smollm-360m-smoke", "--steps", "1"])
+    from repro_torch.launch.mesh import make_host_mesh
+    for mp in (1, 2):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make_host_mesh(mp)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_host_mesh(2, ("cuda:0", "cuda:0"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--arch", "smollm-360m-smoke", "--steps", "1", "--model-parallel", "2"])
 
 
 def test_tp_mesh_never_shares_a_card_unasked(monkeypatch):
@@ -103,6 +111,34 @@ def test_tp_mesh_never_shares_a_card_unasked(monkeypatch):
     mesh = make_tp_mesh(2, ("cuda:0", "cuda:0"))
     assert mesh.devices == (torch.device("cuda", 0),) * 2 and mesh.shape == {"model": 2}
     assert make_tp_mesh(2, ("cpu", "cpu")).axis_names == ("model",)
+
+
+def test_host_mesh_never_shares_a_card_unasked(monkeypatch):
+    """``make_host_mesh`` (and so ``train --model-parallel``) takes every card
+    and raises when their count does not divide by the model axis; shards
+    share a card only where the devices are named."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for mp in (2, 4):
+        with pytest.raises(RuntimeError, match=f"model_parallel={mp} needs {mp} devices"):
+            make_host_mesh(mp)
+    with pytest.raises(RuntimeError, match="model_parallel=2 needs 2 devices"):
+        train.main(["--arch", "smollm-360m-smoke", "--device", "cpu", "--model-parallel", "2"])
+    with pytest.raises(RuntimeError, match="cuda:1 requested"):
+        make_host_mesh(2, ("cuda:0", "cuda:1"))
+    mesh = make_host_mesh(2, ("cuda:0",) * 4)
+    assert mesh.dims == (2, 2) and mesh.devices == ((torch.device("cuda", 0),) * 2,) * 2
+    assert make_host_mesh(1).dims == (1, 1)
+    # with two cards the mesh takes them, but a --device cpu run never does
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert make_host_mesh(2).devices == ((torch.device("cuda", 0), torch.device("cuda", 1)),)
+    with pytest.raises(RuntimeError, match="model_parallel=2 needs 2 devices, --device cpu"):
+        train.main(["--arch", "smollm-360m-smoke", "--device", "cpu", "--model-parallel", "2"])
+    with pytest.raises(ValueError, match="first device cuda:0 is not --device cpu"):
+        train.main(["--arch", "smollm-360m-smoke", "--device", "cpu", "--model-parallel", "2",
+                    "--mesh-devices", "cuda:0,cuda:1"])
 
 
 def test_cuda_request_without_built_library_raises(monkeypatch):

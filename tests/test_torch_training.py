@@ -317,8 +317,22 @@ def test_train_cli_loss_decreases(tmp_path, capsys):
     like = dict(zip(("params", "opt"), init_train(cfg, AdamWConfig(), seed=1, device="cpu")))
     state = checkpoint.restore(ck, cfg, like)
     assert int(state["opt"]["step"]) == 40
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    # a mesh needs its devices: without --mesh-devices there are no cards here
+    with pytest.raises(RuntimeError, match="needs 2 devices"):
         train_cli.main(["--device", "cpu", "--model-parallel", "2"])
+
+
+def test_train_cli_model_parallel_matches_one_device(capsys):
+    """``--model-parallel 2 --mesh-devices cpu,cpu`` trains on a (1, 2) mesh
+    of CPU shards, its step losses within ``STEP_LOSS_RTOL`` of
+    ``--model-parallel 1``'s."""
+    argv = ["--device", "cpu", "--arch", "smollm-360m-smoke", "--steps", "8", "--batch", "4",
+            "--seq", "64", "--log-every", "1"]
+    one = train_cli.main(argv)
+    two = train_cli.main(argv + ["--model-parallel", "2", "--mesh-devices", "cpu,cpu"])
+    assert "mesh {'data': 1, 'model': 2}" in capsys.readouterr().out
+    assert len(two) == len(one) == 8
+    assert max(abs(a - b) / abs(b) for a, b in zip(two, one)) <= STEP_LOSS_RTOL, (two, one)
 
 
 # ---------------------------------------------------------------------------
