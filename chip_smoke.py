@@ -110,10 +110,10 @@ their time is linear in the layers.
      and page_summary must not launch; on the continuous path every
      layer's pool must hold a page that only a completion in decode writes. Each run logs tokens and TTFT per request, decode ms a step,
      host reads a generated token, tokens/s and peak memory. After each
-     continuous run a few eager decode steps are profiled
+     continuous run an eager decode step is profiled
      (launch/decode_profile.py profile_decode): host ops and device
      operations a step and the device's busy share; for freekv/none also a
-     continuous window of 8 steps on the same state beside 8 steps of the
+     continuous window of MAIN_WINDOW steps on the same state beside as many steps of the
      static engine (profile_window), and a step in which every row
      completes a page beside one in which none does (profile_completion).
      ShadowKV's low-rank key factorization is timed at one layer's shape.
@@ -224,7 +224,7 @@ their time is linear in the layers.
   6. training: (a) smollm-360m at full width (32 layers, d 960, 15/5 heads,
      vocab 49152, ~362 M params), float32 (TF32 off, reported), B=4,
      T=4096 (the chunked attention, each KV chunk checkpointed, each layer
-     rematerialised), 6 AdamW steps with the launcher's defaults (lr 1e-3,
+     rematerialised), 4 AdamW steps with the launcher's defaults (lr 1e-3,
      warmup steps // 10) on lm_batches(seed=0): each step's loss and grad
      norm (finite), s/step after the first, tokens/s, the step's FLOPs
      against the float32 bound, peak GiB (and what earlier phases left
@@ -300,6 +300,14 @@ def require(cond, msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+START = time.perf_counter()
+
+
+def mark(phase):
+    """The script's seconds so far, logged as ``phase`` ends."""
+    log(f"[time] {phase} done at {time.perf_counter() - START:.1f} s")
 
 
 def time_ms(fn, args_list, iters=50):
@@ -1347,6 +1355,228 @@ def check_flash_prefill_extension(ops, ref, dev, gen):
             **lib_prec}
 
 
+
+# ---------------------------------------------------------------------------
+# phase 3: the page-sharded fused step's forms (core/sharded_retrieval), at
+# the main path's shapes over MESH_SHARDS page shards of a MESH_PAGES-page pool
+# ---------------------------------------------------------------------------
+MESH_SHARDS = 4
+MESH_PAGES = -(-N_PAGES // MESH_SHARDS) * MESH_SHARDS       # 260: pool_pad_pages 4
+MESH_SEL = N_SEL * 2 // MESH_SHARDS                         # 28: sharded_overselect 2
+LSE_ATOL = 1e-5                                             # fp32 log-sum-exp
+
+
+def _lse_merge(parts):
+    """(o, lse) partials merged by log-sum-exp, as the fused step does."""
+    mx = parts[0][1]
+    for _, lse in parts[1:]:
+        mx = torch.maximum(mx, lse)
+    num = den = 0.0
+    for o, lse in parts:
+        w = torch.exp(lse - mx)
+        num = num + o.float() * w[..., None]
+        den = den + w
+    return num / den[..., None]
+
+
+def _efficient_lse_inputs(q, k, v, pos, cur):
+    """Paged attention's inputs as the memory-efficient SDPA op takes them:
+    K/V heads expanded to the G query heads and the mask as an additive
+    bias of the inputs' dtype (0 or -inf)."""
+    qq, kk, vv, mask = _sdpa_paged_inputs(q, k, v, pos, cur)
+    bias = torch.zeros(mask.shape, dtype=q.dtype, device=q.device)
+    return qq, kk, vv, bias.masked_fill_(~mask, float("-inf"))
+
+
+def _efficient_lse(q, k, v, bias, scale):
+    """One library call for attention and its log-sum-exp: (o (B, H, 1, d)
+    in q's dtype, lse (B, H) float32)."""
+    o, lse = torch.ops.aten._scaled_dot_product_efficient_attention(
+        q, k, v, bias, True, scale=scale)[:2]
+    return o, lse[..., 0]
+
+
+def check_paged_attention_lse(ops, ref, dev, gen):
+    """paged_attention_lse against its plain version: the float32 output
+    within TOL's fp32 entry (both are unrounded float32 sums of the same
+    products, bf16 inputs too) and the log-sum-exp within LSE_ATOL at fp32
+    (TOL's fp32 entry at bf16); and MESH_SHARDS page shards' (o, lse), each
+    its own launch over its slice of the pages, merged and rounded to the
+    inputs' dtype against one whole launch, within TOL."""
+    out, lse_err, merge_err, lib_prec = {}, {}, {}, None
+    n = L // P
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.randn(B, KV, G, D, generator=gen, device=dev).to(dt)
+        k = torch.randn(B, KV, n, P, D, generator=gen, device=dev).to(dt)
+        v = torch.randn(B, KV, n, P, D, generator=gen, device=dev).to(dt)
+        pos = torch.randint(-1, CONTEXT + 8, (B, KV, n, P), generator=gen, device=dev,
+                            dtype=torch.int32)
+        pos[:, :, 5] = -1                             # a fully masked page
+        cur = torch.full((B,), CONTEXT, dtype=torch.int32, device=dev)
+        scale = 1.0 / math.sqrt(D)
+        got, got_lse = ops.paged_attention_lse(q, k, v, pos, cur, scale=scale)
+        want, want_lse = ref.paged_attention_lse_ref(q, k, v, pos, cur, scale)
+        torch.cuda.synchronize()
+        # both outputs are float32 sums of the same products (unrounded)
+        o_tol = TOL[torch.float32]
+        out[dt] = (got - want).abs().max().item()
+        require(got.dtype == torch.float32 and torch.allclose(got, want, **o_tol),
+                f"paged_attention_lse {dt}: output max |err| {out[dt]}, tolerance {o_tol}")
+        lse_err[dt] = (got_lse - want_lse).abs().max().item()
+        lse_tol = dict(atol=LSE_ATOL, rtol=0.0) if dt == torch.float32 else TOL[torch.float32]
+        require(torch.allclose(got_lse, want_lse, **lse_tol),
+                f"paged_attention_lse {dt}: lse max |err| {lse_err[dt]}, tolerance {lse_tol}")
+        whole = ops.paged_attention(q, k, v, pos, cur, scale=scale)
+        cuts = [n * j // MESH_SHARDS for j in range(MESH_SHARDS + 1)]
+        parts = [ops.paged_attention_lse(q, k[:, :, a:b].contiguous(), v[:, :, a:b].contiguous(),
+                                         pos[:, :, a:b].contiguous(), cur, scale=scale)
+                 for a, b in zip(cuts, cuts[1:])]
+        merged = _lse_merge(parts)
+        torch.cuda.synchronize()
+        merge_err[dt] = (merged.to(dt).float() - whole.float()).abs().max().item()
+        require(torch.allclose(merged.to(dt).float(), whole.float(), **TOL[dt]),
+                f"{MESH_SHARDS} page shards merged by lse {dt}: max |err| {merge_err[dt]} "
+                f"against one launch, tolerance {TOL[dt]}")
+        if dt == torch.bfloat16:
+            lib_o, lib_lse = _efficient_lse(*_efficient_lse_inputs(q, k, v, pos, cur), scale)
+            lib_prec = _library_precision(lib_o.reshape(B, KV, G, D), want, dt)
+            lib_prec["library_lse_max_abs_err"] = (
+                lib_lse.reshape(B, KV, G) - want_lse).abs().max().item()
+    dt = torch.bfloat16
+    args = []
+    for _ in range(copies_for(2 * B * KV * L * D * 2)):
+        q = torch.randn(B, KV, G, D, generator=gen, device=dev).to(dt)
+        k = torch.randn(B, KV, n, P, D, generator=gen, device=dev).to(dt)
+        v = torch.randn(B, KV, n, P, D, generator=gen, device=dev).to(dt)
+        pos = torch.arange(L, dtype=torch.int32, device=dev).reshape(1, 1, n, P)
+        args.append((q, k, v, pos.expand(B, KV, -1, -1).contiguous(),
+                     torch.full((B,), L - 1, dtype=torch.int32, device=dev)))
+    scale = 1.0 / math.sqrt(D)
+    ms, call_ms = time_ms(lambda *a: ops.paged_attention_lse(*a, scale=scale), args)
+    plain_ms, _ = time_ms(lambda *a: ref.paged_attention_lse_ref(*a, scale), args, iters=10)
+    # yardstick: the memory-efficient SDPA op with its log-sum-exp, an
+    # additive mask over the same keys, timed on inputs already expanded to
+    # the G query heads
+    lib_args = [_efficient_lse_inputs(*a) for a in args]
+    lib_ms, _ = time_ms(lambda q, k, v, b: _efficient_lse(q, k, v, b, scale), lib_args)
+    return {"name": "paged_attention_lse",
+            "shape": f"q({B},{KV},{G},{D}) kv({B},{KV},{n},{P},{D}) -> o, lse({B},{KV},{G})",
+            **rl.kernel_bound(kcost.paged_attention_lse(B, KV, G, n, P, D, 2)),
+            "max_abs_err": out[torch.bfloat16], "max_abs_err_fp32": out[torch.float32],
+            "lse_max_abs_err": lse_err[torch.bfloat16], "lse_max_abs_err_fp32":
+            lse_err[torch.float32], "lse_tol_fp32": LSE_ATOL,
+            "merge_max_abs_err": merge_err[torch.bfloat16],
+            "merge_max_abs_err_fp32": merge_err[torch.float32],
+            "merge": f"{MESH_SHARDS} page shards merged by lse against one launch",
+            "tol": TOL[torch.float32], "merge_tol": TOL[torch.bfloat16],
+            "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms,
+            "library_call": "aten._scaled_dot_product_efficient_attention(additive mask, "
+                            "compute_log_sumexp=True)", **lib_prec}
+
+
+def check_select_pages_shard(ops, ref, dev, gen):
+    """select_pages_shard against its plain version on each of MESH_SHARDS
+    page shards of a MESH_PAGES-page pool (page offset, global ids and
+    validity): ids exact on the designed inputs (far apart, forced ties,
+    probabilities underflowing to 0.0) in every pooling mode at fp32 and
+    bf16, the kept ids' pooled values within 2e-5."""
+    from repro_torch.launch.select_bench import select_inputs
+    scale = 1.0 / math.sqrt(D)
+    n_loc = MESH_PAGES // MESH_SHARDS
+    tol = TOL[torch.float32]
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        for mode in SELECT_MODES:
+            for kind in ("distinct", "tie", "underflow"):
+                q, summ, length = select_inputs(kind, B, KV, G, D, MESH_PAGES, N_SEL, dt, gen,
+                                                dev)
+                for j in range(MESH_SHARDS):
+                    part = summ[:, j * n_loc:(j + 1) * n_loc].contiguous()
+                    kw = dict(n_sel=MESH_SEL, scale=scale, page_size=P, n_sink=N_SINK,
+                              n_window=N_WIN, mode=mode)
+                    idx, top = ops.select_pages_shard(q, part, length, page_lo=j * n_loc, **kw)
+                    want_idx, want_top = ref.select_pages_shard_ref(
+                        q, part, length, MESH_SEL, scale, P, N_SINK, N_WIN, mode, j * n_loc)
+                    torch.cuda.synchronize()
+                    what = f"select_pages_shard {kind} {mode} {dt} shard {j}"
+                    require(torch.equal(idx, want_idx), f"{what}: page ids differ")
+                    e = (top - want_top).abs().max().item()
+                    require(torch.allclose(top, want_top, **tol),
+                            f"{what}: kept scores max |err| {e}, tolerance {tol}")
+                    err = max(err, e)
+    dt, mode = torch.bfloat16, "mean_softmax"
+    args = []
+    for _ in range(copies_for(B * n_loc * KV * 2 * D * 2)):
+        q, summ, length = select_inputs("random", B, KV, G, D, MESH_PAGES, N_SEL, dt, gen, dev)
+        args.append((q, summ[:, n_loc:2 * n_loc].contiguous(), length))
+    kw = dict(page_lo=n_loc, n_sel=MESH_SEL, scale=scale, page_size=P, n_sink=N_SINK,
+              n_window=N_WIN, mode=mode)
+    ms, call_ms = time_ms(lambda q, s, n: ops.select_pages_shard(q, s, n, **kw), args)
+    plain_ms, _ = time_ms(lambda q, s, n: ref.select_pages_shard_ref(
+        q, s, n, MESH_SEL, scale, P, N_SINK, N_WIN, mode, n_loc), args, iters=10)
+    return {"name": "select_pages_shard",
+            "shape": f"q({B},{KV},{G},{D}) summ({B},{n_loc},{KV},2,{D}) page_lo {n_loc} "
+                     f"n_sel {MESH_SEL} MeanS",
+            **rl.kernel_bound(kcost.select_pages_shard(B, KV, G, n_loc, D, MESH_SEL, 2)),
+            "max_abs_err": err, "tol": tol, "ids": "exact",
+            "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": None, "library_call": "none: no single PyTorch call selects pages"}
+
+
+def check_complete_page_shard(ops, ref, dev, gen):
+    """complete_page_shard exact against its plain version on each of
+    MESH_SHARDS page shards (device and pinned pool, fp32 and bf16): the
+    four rows complete pages that lie in different shards, each shard
+    writes only the rows whose page is in its range, and every other row
+    keeps its bytes. Timed at bf16 into a pinned shard with one row
+    completing there."""
+    n_loc = MESH_PAGES // MESH_SHARDS
+    # pages 256, 192, 128 and 64 complete: shards 3, 2, 1 and 0
+    lengths = torch.tensor([257 * P, 193 * P, 129 * P, 65 * P], dtype=torch.int32, device=dev)
+    owner = [(int(n) // P - 1) // n_loc for n in lengths.tolist()]
+    for dt in (torch.float32, torch.bfloat16):
+        win_k = torch.randn(B, N_WIN, KV, D, generator=gen, device=dev).to(dt)
+        win_v = torch.randn(B, N_WIN, KV, D, generator=gen, device=dev).to(dt)
+        for pinned in (False, True):
+            for j in range(MESH_SHARDS):
+                summ, pool, _ = _pool_outputs(B, n_loc, dt, 0, 0, dev, pinned)
+                for t in (summ, pool):
+                    t.copy_(torch.randint(-50, 50, t.shape, generator=gen, device=dev))
+                want = (summ.clone(), pool.to(dev, copy=True))
+                before = (summ.clone(), pool.clone())
+                ops.complete_page_shard(win_k, win_v, lengths, summ, pool, page_lo=j * n_loc)
+                ref.complete_page_ref(win_k, win_v, lengths, *want, page_lo=j * n_loc)
+                torch.cuda.synchronize()
+                what = f"complete_page_shard {dt} {'pinned' if pinned else 'device'} shard {j}"
+                for name, x, y, x0 in zip(("summ", "pool"), (summ, pool), want, before):
+                    require(torch.equal(x.to(dev), y), f"{what}: {name} not exact")
+                    for r in range(B):
+                        require(owner[r] == j or torch.equal(x[r], x0[r]),
+                                f"{what}: row {r}'s page lies in shard {owner[r]}, yet its "
+                                f"{name} changed")
+    dt = torch.bfloat16
+    win_k = torch.randn(B, N_WIN, KV, D, generator=gen, device=dev).to(dt)
+    win_v = torch.randn(B, N_WIN, KV, D, generator=gen, device=dev).to(dt)
+    host = _pool_outputs(B, n_loc, dt, 0, 0, dev, pinned=True)[:2]
+    device = _pool_outputs(B, n_loc, dt, 0, 0, dev)[:2]
+    ms, call_ms = time_ms(lambda *a: ops.complete_page_shard(*a, page_lo=3 * n_loc),
+                          [(win_k, win_v, lengths) + host])
+    plain_ms, _ = time_ms(lambda *a: ref.complete_page_ref(*a, page_lo=3 * n_loc),
+                          [(win_k, win_v, lengths) + device], iters=10)
+    slot = (torch.tensor([256], device=dev)[:, None] * P + torch.arange(P, device=dev)) % N_WIN
+    pk = win_k[:1, slot[0]]                                        # (1, p, kv, d)
+    lib_ms, _ = time_ms(lambda x: torch.aminmax(x, dim=1), [(pk,)])
+    return {"name": "complete_page_shard",
+            "shape": f"rings({B},{N_WIN},{KV},{D}) -> pinned shard pool({B},{n_loc},{KV},2,{P},"
+                     f"{D}) page_lo {3 * n_loc}, one row completing there",
+            **rl.kernel_bound(kcost.complete_page_shard(B, P, KV, D, 2, rows=1)),
+            "bound_link": "PCIe for the pinned host pool",
+            "kernel_ms": ms, "kernel_call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_call": "torch.aminmax over the page's tokens "
+                                                  "(the summary part)",
+            "max_abs_err": 0.0, "tol": 0.0}
+
 # ---------------------------------------------------------------------------
 # phase 3, the served archs' shapes: each kernel at the head layouts, head
 # widths, softcap and window of qwen25-7b, smollm-360m, gemma2-2b,
@@ -1948,6 +2178,11 @@ def main_requests(cfg, fkv):
             for i, (n, m) in enumerate(zip(CONT_PROMPTS, CONT_NEW))]
 
 
+# the profiled window's steps: 4, not the engine's sync_interval of 8, since a
+# profiled step costs the host many times an unprofiled one (the time limit)
+MAIN_WINDOW = 4
+
+
 def main_path(dev, ops, cfg, params, method, kv_quant, scheduler="continuous"):
     from repro_torch.configs.base import FreeKVConfig
     from repro_torch.data.synthetic import needle_stream
@@ -2036,13 +2271,15 @@ def main_path(dev, ops, cfg, params, method, kv_quant, scheduler="continuous"):
     torch.cuda.empty_cache()
     if scheduler == "continuous":
         # host ops, device operations and busy share of a few eager decode
-        # steps, and for freekv/none of a continuous window of 8 steps
+        # steps, and for freekv/none of a continuous window of MAIN_WINDOW steps
         from repro_torch.launch.decode_profile import profile_decode
         stream = needle_stream(cfg.vocab_size, CONTEXT, fkv.page_size, seed=0)
         toks = torch.from_numpy(np.stack([next(stream).tokens for _ in range(B)]))
         main = (method, kv_quant) == ("freekv", "none")
-        window = 8 if main else 0
-        prof = profile_decode(cfg, fkv, params, toks.long().to(dev), steps=3,
+        window = MAIN_WINDOW if main else 0
+        # a profiled step costs the host many times an unprofiled one (the
+        # script's time limit): one eager step each
+        prof = profile_decode(cfg, fkv, params, toks.long().to(dev), steps=1,
                               with_prefill=False, window=window, completion=main)
         info["profile"] = {k: prof[k] for k in ("wall_ms_per_step_unprofiled",
                                                 "cpu_ops_per_step", "device_ops_per_step",
@@ -2528,7 +2765,7 @@ def xarch_run(dev, ops, arch):
         from repro_torch.launch.decode_profile import profile_decode
         stream = needle_stream(cfg.vocab_size, CONTEXT, fkv.page_size, seed=0)
         toks = torch.from_numpy(np.stack([next(stream).tokens for _ in range(B)]))
-        prof = profile_decode(cfg, fkv, params, toks.long().to(dev), steps=3, with_prefill=False)
+        prof = profile_decode(cfg, fkv, params, toks.long().to(dev), steps=1, with_prefill=False)
         info["profile"] = {k: prof[k] for k in ("wall_ms_per_step_unprofiled",
                                                 "cpu_ops_per_step", "device_ops_per_step",
                                                 "device_busy_ms_per_step", "device_busy_share")}
@@ -3597,7 +3834,7 @@ def tp_run(dev, ops, cfg, params, kv_quant, devices, ref, profile=False):
         from repro_torch.launch.decode_profile import profile_decode
         stream = needle_stream(cfg.vocab_size, CONTEXT, fkv.page_size, seed=0)
         toks = torch.from_numpy(np.stack([next(stream).tokens for _ in range(B)]))
-        prof = profile_decode(cfg, fkv, params, toks.long().to(dev), steps=3,
+        prof = profile_decode(cfg, fkv, params, toks.long().to(dev), steps=1,
                               with_prefill=False, mesh=mesh)
         info["profile"] = {k: prof[k] for k in ("wall_ms_per_step_unprofiled",
                                                 "cpu_ops_per_step", "device_ops_per_step",
@@ -3693,6 +3930,423 @@ def tp_paths_vs_plain(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 4g: serving over a ("data", "model") compute mesh, every shard on
+# cuda:0 (ServeEngine(mesh=)): the backbone per data group on its model
+# shards, the retrieval state in KV-head groups, page-sharded (the fused
+# step) or whole on shard 0. A move between two shards on one card is no
+# copy; the bytes that would cross cards are counted (mesh.moved) and put
+# over NVLink's data-sheet rate, not timed
+# ---------------------------------------------------------------------------
+MESH_SMOLLM = "smollm-360m"                # 15/5 heads: the input-dim split
+# the kernel forms only the fused step launches; phase 4g's run (b) is their path
+MESH_FORMS = ("paged_attention_lse", "select_pages_shard", "complete_page_shard")
+MESH_DEEPSEEK_LAYERS = 4                   # the dense prelude layer and 3 MoE periods
+MESH_F32_LAYERS = 2                        # the float32 gate's llama31-8b depth
+MESH_LOGIT_RTOL = 2e-4                     # of the largest |logit| (tests/test_sharding.py)
+MESH_PROFILE_CONTEXT = 2048                # the profiled eager steps' prompts (host ops a step)
+
+
+def _mesh_expect(kind, m, n_groups, layers, reqs, steps):
+    """The launches a phase-4g run implies, by kernel: "groups" (KV-head
+    groups, m shards a data group, each its own prefill and decode), "pages"
+    (the fused step: the prompt's whole state on shard 0, then m page
+    shards a step) and "whole" (the input-dim split: prefill attention over
+    query rows split m ways, the retrieval whole on shard 0)."""
+    L = layers
+    if kind == "groups":
+        return {"flash_prefill": m * L * reqs, "fill_pages": m * L * reqs,
+                "complete_page": n_groups * m * L * steps,
+                "paged_attention": n_groups * m * L * steps,
+                "select_pages": n_groups * m * L * steps + m * L * reqs,
+                "complete_page_shard": 0, "select_pages_shard": 0, "paged_attention_lse": 0}
+    if kind == "pages":
+        return {"flash_prefill": m * L * reqs, "fill_pages": L * reqs,
+                "select_pages": L * reqs, "recall_gather": L * reqs + m * L * steps,
+                "complete_page": 0, "paged_attention": 0,
+                "complete_page_shard": m * L * steps, "select_pages_shard": m * L * steps,
+                "paged_attention_lse": m * L * steps}
+    return {"flash_prefill": m * L * reqs, "fill_pages": L * reqs,
+            "complete_page": n_groups * L * steps, "paged_attention": n_groups * L * steps,
+            "complete_page_shard": 0, "select_pages_shard": 0, "paged_attention_lse": 0}
+
+
+def _arch_requests(cfg, fkv, seed=30):
+    """Phase 4c's four requests (ARCH_PROMPTS, ARCH_NEW tokens each)."""
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.serving.engine import Request
+    return [Request(uid=i, tokens=next(needle_stream(cfg.vocab_size, n, fkv.page_size,
+                                                     seed=seed + i)).tokens,
+                    max_new_tokens=ARCH_NEW) for i, n in enumerate(ARCH_PROMPTS)]
+
+
+def mesh_run(dev, ops, label, cfg, params, fkv, dims, reqs, max_len, kind, profile_context):
+    """One phase-4g run: ``ServeEngine(mesh=)`` over a ``dims`` mesh of
+    shards on ``dev``, continuous over B slots, the launches counted from 0
+    just before it; every request finishes with its tokens, the logits are
+    finite, each kernel launched as often as the path implies
+    (``_mesh_expect``; under the fused step its counter equals the global
+    layers x steps). Returns (info, launches, tokens)."""
+    from repro_torch.configs.base import ATTN
+    from repro_torch.core import retrieval
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.launch.decode_profile import profile_decode
+    from repro_torch.configs.base import DENSE
+    from repro_torch.models.model import mesh_layout, serving_groups
+    from repro_torch.obs import Observability
+    from repro_torch.serving.engine import ServeEngine
+    layout = mesh_layout(cfg, fkv, (ATTN, DENSE), dims[1], max_len=max_len)
+    require(layout == kind, f"{label} {cfg.name} {dims}: the global layers' layout is {layout}, "
+            f"the run is meant for {kind}")
+    mesh = _mesh(dims, dev)
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, fkv, params, max_len=max_len, batch_size=B,
+                      state_dtype=torch.bfloat16, obs=Observability(enabled=True), device=dev,
+                      mesh=mesh)
+    place_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    retrieval.SHARDED_PATHS.update(fused=0, fallback=0)
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    paths = dict(retrieval.SHARDED_PATHS)
+    em = eng.last_metrics
+    s = em.summary()
+    run = f"{label} {cfg.name} {dims[0]}x{dims[1]}"
+    require(eng.last_logits_finite, f"non-finite logits ({run})")
+    for o, r in zip(outs, reqs):
+        require(len(o.tokens) == r.max_new_tokens
+                and all(0 <= t < cfg.vocab_size for t in o.tokens),
+                f"{run}: request {o.uid} made {len(o.tokens)} tokens or a bad one")
+    n_global = sum(mx == ATTN for mx, _ in cfg.layers)
+    want = _mesh_expect(kind, dims[1], serving_groups(cfg, mesh, B), n_global, len(reqs),
+                        em.steps)
+    for name, n in want.items():
+        require(launches[name] == n, f"{run}: {name} launched {launches[name]} times, the path "
+                f"implies {n} ({em.steps} steps, {len(reqs)} prefills, {n_global} layers)")
+    require(launches["recall_gather"] > 0, f"{run}: recall_gather never launched")
+    for name in OFF_PATH + ("centroid_candidates", "recall_values", "recall_gather_quant",
+                            "recall_values_quant"):
+        require(launches[name] == 0, f"{name} launched ({run})")
+    if fkv.sharded_retrieval:
+        require(paths == {"fused": n_global * em.steps, "fallback": 0},
+                f"{run}: the fused step ran {paths} layer-steps, {n_global} x {em.steps} wanted")
+    lat = s["latency"]["decode_step_s"]
+    gen_tokens = sum(len(o.tokens) for o in outs)
+    ms = s["mesh"]
+    info = {"run": label, "arch": cfg.name, "layers": cfg.n_layers, "mesh": list(dims),
+            "layout": kind, "sharded_retrieval": fkv.sharded_retrieval,
+            "sharded_overselect": fkv.sharded_overselect, "pool_pad_pages": fkv.pool_pad_pages,
+            "requests": len(reqs), "decode_steps": em.steps,
+            "decode_ms_per_step": 1e3 * lat["sum"] / lat["count"],
+            "ttft_s": [o.metrics.ttft_s for o in outs], "tokens_per_s": gen_tokens / wall,
+            "wall_s": wall, "place_params_s": place_s,
+            "host_syncs_per_token": em.host_syncs / gen_tokens,
+            "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "moved_bytes_per_step": ms["bytes_per_step"],
+            "moved_bytes_per_step_total": ms["bytes_per_step_total"],
+            "nvlink_ms_per_step_computed": ms["nvlink_ms_per_step"],
+            "moved_prefill_bytes": ms["prefill_bytes"], "fused_paths": paths,
+            "launches": {k: v for k, v in launches.items() if v},
+            "first_tokens": outs[0].tokens[:8]}
+    tokens = {o.uid: o.tokens for o in outs}
+    placed = eng.params
+    del eng, outs
+    torch.cuda.empty_cache()
+    stream = needle_stream(cfg.vocab_size, profile_context, fkv.page_size, seed=0)
+    toks = torch.from_numpy(np.stack([next(stream).tokens for _ in range(B)]))
+    prof = profile_decode(cfg, fkv, placed, toks.long().to(dev), steps=1, with_prefill=False,
+                          mesh=mesh)
+    info["profile"] = {k: prof[k] for k in ("wall_ms_per_step_unprofiled", "cpu_ops_per_step",
+                                            "device_ops_per_step", "device_busy_share")}
+    del placed
+    torch.cuda.empty_cache()
+    return info, launches, tokens
+
+
+def _greedy_logits(cfg, fkv, params, toks, max_len, steps, mesh):
+    """prefill, then ``steps`` greedy serve_steps: the logits of each
+    (steps + 1, B, V) on the primary device, each run fed its own tokens."""
+    from repro_torch.models.model import prefill, serve_step
+    logits, st = prefill(cfg, fkv, params, {"tokens": toks}, max_len,
+                         state_dtype=torch.float32, mesh=mesh)
+    rows = [logits]
+    for _ in range(steps):
+        logits, st = serve_step(cfg, fkv, params, st, logits.argmax(-1)[:, None], mesh=mesh)
+        rows.append(logits)
+    return torch.stack(rows)
+
+
+def mesh_f32_gate(dev, ops):
+    """llama31-8b cut to MESH_F32_LAYERS at full width, float32, on phase
+    4c's prompts (left-padded into one batch of B) and ARCH_NEW greedy
+    steps, at (2, 2) against no mesh: prefill and every step's logits within
+    MESH_LOGIT_RTOL of the largest |logit| and the same greedy tokens. A
+    request whose token flips at a near tie (its top-2 margin printed)
+    leaves the comparison from that step on: the two runs no longer decode
+    the same sequence."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding import rules
+    t0 = time.perf_counter()
+    full = get_config("llama31-8b")
+    cfg = dataclasses.replace(full, n_layers=MESH_F32_LAYERS, n_periods=MESH_F32_LAYERS)
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    fkv = FreeKVConfig(method="freekv", offload="host")
+    T = max(ARCH_PROMPTS)
+    toks = torch.zeros((B, T), dtype=torch.long)
+    for i, n in enumerate(ARCH_PROMPTS):
+        toks[i, T - n:] = torch.from_numpy(next(needle_stream(
+            cfg.vocab_size, n, fkv.page_size, seed=30 + i)).tokens).long()
+    toks = toks.to(dev)
+    max_len = T + ARCH_NEW + P
+    plain = _greedy_logits(cfg, fkv, params, toks, max_len, ARCH_NEW, None)
+    mesh = _mesh((2, 2), dev)
+    placed = rules.place_serving_params(cfg, params, mesh)
+    meshed = _greedy_logits(cfg, fkv, placed, toks, max_len, ARCH_NEW, mesh)
+    del placed, params
+    # the real vocabulary: the padding's logits are float32's min in both
+    plain, meshed = plain[..., :cfg.vocab_size], meshed[..., :cfg.vocab_size]
+    live = torch.ones(B, dtype=torch.bool, device=dev)
+    worst, flips = 0.0, []
+    for step in range(ARCH_NEW + 1):
+        a, b = plain[step], meshed[step]
+        scale = a[live].abs().max().item() if bool(live.any()) else 1.0
+        err = (a - b).abs().amax(dim=-1)
+        bad = live & (err > MESH_LOGIT_RTOL * scale)
+        require(not bool(bad.any()), f"f32 gate step {step}: logits of rows "
+                f"{bad.nonzero().flatten().tolist()} differ by {err[bad].tolist()}, over "
+                f"{MESH_LOGIT_RTOL} x {scale}")
+        if bool(live.any()):
+            worst = max(worst, (err[live] / scale).max().item())
+        flip = live & (a.argmax(-1) != b.argmax(-1))
+        for r in flip.nonzero().flatten().tolist():
+            top2 = a[r].topk(2).values
+            margin = (top2[0] - top2[1]).item()
+            flips.append({"request": r, "step": step, "top2_margin": margin})
+            log(f"[mesh] f32 gate: request {r}'s token flips at step {step} at a top-2 margin "
+                f"of {margin:.3g} (tolerance {MESH_LOGIT_RTOL * scale:.3g}); it leaves the "
+                "comparison")
+        live &= ~flip
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "dtype": "float32", "mesh": [2, 2],
+            "steps": ARCH_NEW, "max_rel_logit_err": worst, "rtol": MESH_LOGIT_RTOL,
+            "flips": flips, "requests_compared_to_the_end": int(live.sum()),
+            "s": time.perf_counter() - t0}
+
+
+def mesh_bit_gate(dev, ops):
+    """smollm-360m at full width (bf16) on phase 4c's traffic: a 1 x 1 mesh
+    gives no mesh's tokens and launch counts, bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServeEngine
+    t0 = time.perf_counter()
+    cfg = get_config(MESH_SMOLLM)
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    fkv = FreeKVConfig(method="freekv", offload="host")
+    out = {}
+    for dims in (None, (1, 1)):
+        mesh = None if dims is None else _mesh(dims, dev)
+        eng = ServeEngine(cfg, fkv, params, max_len=max(ARCH_PROMPTS) + ARCH_NEW + P,
+                          batch_size=B, state_dtype=torch.bfloat16, device=dev, mesh=mesh)
+        ops.reset_launches()
+        outs = eng.generate(_arch_requests(cfg, fkv))
+        out[dims] = ({o.uid: o.tokens for o in outs},
+                     {fn.__name__: fn.launches for fn in ops.KERNELS})
+        del eng, outs
+    require(out[None] == out[(1, 1)], f"1 x 1 mesh gate: tokens or launches differ from no "
+            f"mesh: {out[None]} vs {out[(1, 1)]}")
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "tokens_equal": True, "launches_equal": True,
+            "launches": {k: v for k, v in out[None][1].items() if v},
+            "s": time.perf_counter() - t0}
+
+
+MESH_FUSED_STEPS = 8                       # the card-vs-CPU gate's decode steps
+MESH_FUSED_T = CONTEXT - 3                 # its prompt: a page completes at step 3
+
+
+def _fused_retriever_run(cfg, fkv, x, device):
+    """``PageShardedRetriever`` over a (1, MESH_SHARDS) mesh of shards on
+    ``device``: prefill, then MESH_FUSED_STEPS decode steps on ``x``'s
+    inputs -> (outputs, infos, per-step ids, the final state), on the CPU."""
+    from repro_torch.core.sharded_retrieval import PageShardedRetriever
+    from repro_torch.sharding.transfer import MeshRow
+    mesh = _mesh((1, MESH_SHARDS), device)
+    r = PageShardedRetriever(cfg, fkv, MeshRow(mesh, 0))
+    dev = mesh.primary
+    st = r.init_state(B, MAX_LEN, torch.bfloat16)
+    st = r.prefill(st, x["k"].to(dev), x["v"].to(dev), x["q_last"].to(dev))
+    outs, infos, ids = [], [], []
+    for t in range(MESH_FUSED_STEPS):
+        o, st, info = r.decode(st, x["q"][t].to(dev), x["kn"][t].to(dev), x["vn"][t].to(dev))
+        outs.append(o.float().cpu())
+        infos.append({k: v.cpu() for k, v in info.items() if isinstance(v, torch.Tensor)})
+        ids.append([st[f"{j}/sel_idx"].cpu() for j in range(MESH_SHARDS)])
+    state = {k: v.cpu() for k, v in st.items()}
+    return outs, infos, ids, state
+
+
+def mesh_fused_gate(dev, ops):
+    """The fused step as ``PageShardedRetriever`` runs it (ring append,
+    the owner's page completion, local selection with global ids, the
+    overselect re-rank, local recall, the speculative reuse, the page
+    region's masking and the log-sum-exp merge), llama31-8b's per-layer
+    shapes (B 4, a MESH_FUSED_T-token prompt, overselect 2, pool_pad_pages
+    4) on MESH_SHARDS page shards on the card against the same shards on
+    the CPU (the plain versions), on the same seeded bf16 inputs: every
+    step's ids, corrected heads and counters exactly equal, its output
+    within TOL and the heads' similarity within TOL's fp32 entry; the final
+    pool, summaries and rings exactly equal. Every
+    other step's query is the last one plus a little noise, so the
+    uncorrected heads reuse their previous selection."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FreeKVConfig
+    t0 = time.perf_counter()
+    cfg = get_config("llama31-8b")
+    fkv = FreeKVConfig(method="freekv", offload="host", sharded_retrieval=True,
+                       sharded_overselect=2, pool_pad_pages=4)
+    rng = np.random.default_rng(7)
+    kv, d, H = cfg.n_kv_heads, cfg.d_head, cfg.n_heads
+
+    def n(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(torch.bfloat16)
+    x = {"k": n(B, MESH_FUSED_T, kv, d), "v": n(B, MESH_FUSED_T, kv, d), "q_last": n(B, H, d),
+         "kn": n(MESH_FUSED_STEPS, B, kv, d), "vn": n(MESH_FUSED_STEPS, B, kv, d)}
+    qs = [n(B, H, d)]
+    for t in range(1, MESH_FUSED_STEPS):
+        qs.append(n(B, H, d) if t % 2 == 0 else (qs[-1].float() + 0.05 * n(B, H, d).float())
+                  .to(torch.bfloat16))
+    x["q"] = torch.stack(qs)
+    card = _fused_retriever_run(cfg, fkv, x, dev)
+    cpu = _fused_retriever_run(cfg, fkv, x, "cpu")
+    worst, corrected = 0.0, []
+    for t in range(MESH_FUSED_STEPS):
+        got, want = card[0][t], cpu[0][t]
+        err = (got - want).abs().max().item()
+        require(torch.allclose(got, want, **TOL[torch.bfloat16]),
+                f"fused gate step {t}: output max |err| {err} card vs CPU, tolerance "
+                f"{TOL[torch.bfloat16]}")
+        worst = max(worst, err)
+        for k, v in cpu[1][t].items():
+            # the query's cosine similarity is a float32 reduction: TOL's
+            # fp32 entry; the corrected heads and the counters exact
+            same = (torch.allclose(card[1][t][k], v, **TOL[torch.float32])
+                    if v.is_floating_point() else torch.equal(card[1][t][k], v))
+            require(same, f"fused gate step {t}: info {k} differs")
+        for j in range(MESH_SHARDS):
+            require(torch.equal(card[2][t][j], cpu[2][t][j]),
+                    f"fused gate step {t}: shard {j}'s selected ids differ")
+        corrected.append(int(cpu[1][t]["corrected"].sum()))
+    for k, v in cpu[3].items():
+        require(torch.equal(card[3][k], v), f"fused gate: final state leaf {k} differs")
+    require(min(corrected) < B * kv,
+            f"fused gate: every step corrected {corrected} of {B * kv} heads; the reuse path "
+            "never ran")
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "mesh": [1, MESH_SHARDS], "batch": B, "prompt": MESH_FUSED_T,
+            "steps": MESH_FUSED_STEPS, "sharded_overselect": 2,
+            "output_max_abs_err_card_vs_cpu": worst, "tol": TOL[torch.bfloat16],
+            "ids_equal": True, "state_equal": True, "corrected_heads_per_step": corrected,
+            "s": time.perf_counter() - t0}
+
+
+def mesh_phase(dev, ops, cfg, params, phase4):
+    """Phase 4g: (a) llama31-8b at full width and depth on a (2, 2) mesh,
+    freekv/none on phase 4's traffic (KV-head groups: 8 KV heads over 2);
+    (b) llama31-8b at half depth on (1, 4) with the fused step
+    (sharded_retrieval, sharded_overselect 2, pool_pad_pages 4); (c)
+    smollm-360m on (1, 2) (15/5 heads: the input-dim split, the state whole
+    on shard 0), phase 4c's traffic; (d) deepseek-moe-16b cut to
+    MESH_DEEPSEEK_LAYERS on (1, 4) (expert-parallel), phase 4c's traffic;
+    then the 1 x 1 bit gate, the float32 gate and the fused step's card
+    against CPU gate (``mesh_fused_gate``). (a)'s tokens and prefill
+    logits beside phase 4's no-mesh run, printed, not gated. Returns
+    (infos, gates, the summed launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.models.model import init_params, prefill
+    from repro_torch.sharding import rules
+    infos, total = [], {}
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+
+    fkv = FreeKVConfig(method="freekv", offload="host")
+    reqs = main_requests(cfg, fkv)
+    t0 = time.perf_counter()
+    info, launches, toks = mesh_run(dev, ops, "(a)", cfg, params, fkv, (2, 2), reqs, MAX_LEN,
+                                    "groups", MESH_PROFILE_CONTEXT)
+    ref = phase4[("freekv", "none")]["tokens"]
+    info["first_differing_token_vs_no_mesh"] = {
+        uid: next((i for i, (x, y) in enumerate(zip(t, ref[uid])) if x != y), None)
+        for uid, t in toks.items()}
+    one = torch.from_numpy(reqs[0].tokens[None]).long().to(dev)
+    lp = prefill(cfg, fkv, params, {"tokens": one}, MAX_LEN, state_dtype=torch.bfloat16)[0]
+    mesh = _mesh((2, 2), dev)
+    placed = rules.place_serving_params(cfg, params, mesh)
+    lm = prefill(cfg, fkv, placed, {"tokens": one}, MAX_LEN, state_dtype=torch.bfloat16,
+                 mesh=mesh)[0]
+    del placed
+    # over the real vocabulary: the padding's logits are the dtype's min
+    lp, lm = lp[:, :cfg.vocab_size].float(), lm[:, :cfg.vocab_size].float()
+    info["bf16_prefill_logits_rel_max_err_vs_no_mesh"] = (
+        (lp - lm).abs().max() / lp.abs().max()).item()
+    torch.cuda.empty_cache()
+    info["run_s"] = time.perf_counter() - t0
+    infos.append(info)
+    add(launches)
+
+    # (b) at half depth: at full depth phase 4g took 228.8 s of its 200
+    # (NVIDIA H100 80GB HBM3, 700 W), the script 1119.9 s of its 1200
+    t0 = time.perf_counter()
+    half, half_params = half_depth(cfg, params)
+    fused = FreeKVConfig(method="freekv", offload="host", sharded_retrieval=True,
+                         sharded_overselect=2, pool_pad_pages=4)
+    info, launches, _ = mesh_run(dev, ops, "(b)", half, half_params, fused, (1, 4), reqs,
+                                 MAX_LEN, "pages", MESH_PROFILE_CONTEXT)
+    info["run_s"] = time.perf_counter() - t0
+    infos.append(info)
+    add(launches)
+    del half_params
+
+    t0 = time.perf_counter()
+    smol = get_config(MESH_SMOLLM)
+    sp = init_params(smol, seed=0, device=dev, dtype=torch.bfloat16)
+    info, launches, _ = mesh_run(dev, ops, "(c)", smol, sp, fkv, (1, 2),
+                                 _arch_requests(smol, fkv), max(ARCH_PROMPTS) + ARCH_NEW + P,
+                                 "whole", MESH_PROFILE_CONTEXT)
+    info["run_s"] = time.perf_counter() - t0
+    infos.append(info)
+    add(launches)
+    del sp
+
+    t0 = time.perf_counter()
+    full = get_config("deepseek-moe-16b")
+    ds = dataclasses.replace(full, n_layers=MESH_DEEPSEEK_LAYERS,
+                             n_periods=MESH_DEEPSEEK_LAYERS - len(full.prelude))
+    dp = init_params(ds, seed=0, device=dev, dtype=torch.bfloat16)
+    info, launches, _ = mesh_run(dev, ops, "(d)", ds, dp, fkv, (1, 4), _arch_requests(ds, fkv),
+                                 max(ARCH_PROMPTS) + ARCH_NEW + P, "groups",
+                                 MESH_PROFILE_CONTEXT)
+    info["run_s"] = time.perf_counter() - t0
+    infos.append(info)
+    add(launches)
+    del dp
+    torch.cuda.empty_cache()
+    gates = {"bit_1x1": mesh_bit_gate(dev, ops), "f32_2x2": mesh_f32_gate(dev, ops),
+             "fused_card_vs_cpu": mesh_fused_gate(dev, ops)}
+    return infos, gates, total
+
+
+# ---------------------------------------------------------------------------
 # phase 6: training. smollm-360m at full width (float32, B 4, T 4096: the
 # reference's train_4k length, past the dense attention's 2048 x 2048, so
 # the chunked attention with its per-chunk checkpoints), 6 AdamW steps with
@@ -3702,7 +4356,7 @@ def tp_paths_vs_plain(dev):
 # four smoke archs' steps on (2, 2) and (1, 4) meshes card == CPU
 # ---------------------------------------------------------------------------
 TRAIN_ARCH = "smollm-360m"
-TRAIN_B, TRAIN_T, TRAIN_STEPS = 4, 4096, 6
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 4, 4096, 4
 TRAIN_SMOKE = ("smollm-360m-smoke", "gemma2-2b-smoke", "deepseek-moe-16b-smoke",
                "jamba-1.5-large-398b-smoke", "xlstm-350m-smoke", "whisper-tiny-smoke",
                "internvl2-26b-smoke", "llama4-scout-17b-a16e-smoke")
@@ -4044,6 +4698,46 @@ def train_mp_phase(dev, ops, phase6a):
             hold(four, one["steps"], str(meshes[0]))]
 
 
+def log_mesh_phase(dev, ops, cfg, params, phase4, smi):
+    """Phase 4g (``mesh_phase``) run and logged; returns its launches."""
+    t0 = time.perf_counter()
+    mesh_infos, mesh_gates, mesh_launches = mesh_phase(dev, ops, cfg, params, phase4)
+    for info in mesh_infos:
+        log("[mesh] " + json.dumps(info))
+        pr, mv = info["profile"], info["moved_bytes_per_step"]
+        log(f"[mesh] {smi} | {info['run']} {info['arch']} {info['layers']} layers mesh "
+            f"{info['mesh'][0]}x{info['mesh'][1]} ({info['layout']}"
+            + (f", fused step, overselect {info['sharded_overselect']}"
+               if info["sharded_retrieval"] else "") + f"; shards on {dev}): decode "
+            f"{info['decode_ms_per_step']:.2f} ms/step over {info['decode_steps']} steps, "
+            f"TTFT {min(info['ttft_s']):.3f}-{max(info['ttft_s']):.3f} s, "
+            f"{info['tokens_per_s']:.2f} tokens/s, peak {info['peak_device_gib']:.2f} GiB; "
+            f"eager step {pr['wall_ms_per_step_unprofiled']:.2f} ms, "
+            f"{pr['cpu_ops_per_step']} host ops, busy share {pr['device_busy_share']:.3f}; "
+            f"moved a step " + ", ".join(f"{k} {v:.0f} B" for k, v in mv.items() if v)
+            + f", {info['nvlink_ms_per_step_computed']:.4f} ms over NVLink at "
+            f"{rl.NVLINK_BPS / 1e9:.0f} GB/s (computed, not measured); run "
+            f"{info['run_s']:.1f} s")
+    a = mesh_infos[0]
+    log(f"[mesh] (a) beside phase 4's no-mesh run (bf16, not gated): prefill logits rel "
+        f"max |err| {a['bf16_prefill_logits_rel_max_err_vs_no_mesh']:.4g}, first "
+        f"differing token by request {json.dumps(a['first_differing_token_vs_no_mesh'])}")
+    log("[mesh] gates " + json.dumps(mesh_gates))
+    g = mesh_gates["f32_2x2"]
+    log(f"[mesh] 1 x 1 mesh == no mesh ({mesh_gates['bit_1x1']['arch']}): tokens and "
+        f"launches bit-equal; float32 {g['arch']} {g['layers']} layers at 2x2: logits within "
+        f"{g['max_rel_logit_err']:.3g} of the largest |logit| (gate {g['rtol']}), "
+        f"{len(g['flips'])} near-tie flips, {g['requests_compared_to_the_end']} of {B} "
+        f"requests compared to the end")
+    f = mesh_gates["fused_card_vs_cpu"]
+    log(f"[mesh] fused step {f['arch']} 1x{MESH_SHARDS}, card == CPU shards over "
+        f"{f['steps']} steps: ids, counters and state exact, output max |err| "
+        f"{f['output_max_abs_err_card_vs_cpu']:.3g} (TOL {f['tol']}), corrected heads a step "
+        f"{f['corrected_heads_per_step']}, {f['s']:.1f} s")
+    log(f"[mesh] phase 4g in {time.perf_counter() - t0:.1f} s")
+    return mesh_launches
+
+
 KERNEL_META = {   # name -> (source, the TPU kernel it replaces)
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:69"),
@@ -4076,6 +4770,16 @@ KERNEL_META = {   # name -> (source, the TPU kernel it replaces)
     "complete_page": ("src/repro_torch/kernels/csrc/page_summary.cu",
                       "src/repro/kernels/page_summary.py:19 page_summary, fused with the "
                       "masked page completion of src/repro/core/paging.py:206-254"),
+    "paged_attention_lse": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                            "src/repro/kernels/paged_attention.py:69, with the partials of "
+                            "src/repro/core/sharded_retrieval.py:216-232 (_partial_attend)"),
+    "select_pages_shard": ("src/repro_torch/kernels/csrc/page_scores.cu",
+                           "src/repro/kernels/page_scores.py:36 page_scores, fused with the "
+                           "shard-local selection of src/repro/core/sharded_retrieval.py:292-306"),
+    "complete_page_shard": ("src/repro_torch/kernels/csrc/page_summary.cu",
+                            "src/repro/kernels/page_summary.py:19 page_summary, fused with the "
+                            "owner-masked page write of "
+                            "src/repro/core/sharded_retrieval.py:271-290"),
 }
 
 
@@ -4115,6 +4819,7 @@ def main():
                     or "Performance Loss" in line):
                 log(f"[build] {name}: {line.strip()}")
 
+    mark("build")
     # phase 3: kernels
     gen = torch.Generator(device=dev).manual_seed(0)
     checks = {"paged_attention": check_paged_attention, "page_scores": check_page_scores,
@@ -4125,7 +4830,10 @@ def main():
               "recall_values_quant": check_recall_values_quant,
               "centroid_scores": check_centroid_scores, "select_pages": check_select_pages,
               "centroid_candidates": check_centroid_candidates, "fill_pages": check_fill_pages,
-              "complete_page": check_complete_page}
+              "complete_page": check_complete_page,
+              "paged_attention_lse": check_paged_attention_lse,
+              "select_pages_shard": check_select_pages_shard,
+              "complete_page_shard": check_complete_page_shard}
     require(set(checks) == {fn.__name__ for fn in ops.KERNELS} == set(KERNEL_META),
             "a kernel has no check")
     kernels = []
@@ -4190,9 +4898,10 @@ def main():
             f"{k['device_grid_blocks']} blocks from a device pool")
     launches = {k["name"]: None for k in kernels}
     wide_launches, spec_launches, service_launches, train_launches = {}, {}, {}, {}
-    tp_launches = {}
+    tp_launches, mesh_launches = {}, {}
     share = None
     if not args.kernels_only:
+        mark("phase 3")
         # phase 3b: the MoE FFN and the Mamba mixer at full width
         t0 = time.perf_counter()
         moe_info = moe_layer_phase(dev)
@@ -4232,6 +4941,7 @@ def main():
                 f"mode \"error\"; prefill T=2048 {pre['ms']:.4f} ms (call {pre['call_ms']:.4f} "
                 f"ms) vs bound {pre['bound_ms']:.4f} ms by {pre['bound_by']}")
         log(f"[xlstm] {time.perf_counter() - t0:.1f} s for both layers")
+        mark("phase 3b")
         # phase 4: main path at full width: the static path, then every
         # retriever and pool tier through the continuous scheduler
         cfg, params = llama_params(dev)
@@ -4266,7 +4976,7 @@ def main():
                     log(f"[main] {method}/{kv_quant}: eager step, no row completing a page / "
                         "every row completing one: " + json.dumps(pr["completion"]))
                 if "window" in pr:
-                    for what, w in (("continuous window of 8 steps", pr["window"]),
+                    for what, w in ((f"continuous window of {MAIN_WINDOW} steps", pr["window"]),
                                     ("static engine step", pr["window"]["static_step"])):
                         log(f"[main] {method}/{kv_quant}: {what}: "
                             f"{w['wall_ms_per_step_unprofiled']:.2f} ms, {w['cpu_ops_per_step']} "
@@ -4296,6 +5006,7 @@ def main():
             f"measured continuous freekv/none {cost['measured_ms_per_step']:.2f} ms/step: share "
             f"{cost['share']:.4f} ({cost['share_pool_pcie']:.4f} with the pool over PCIe); "
             f"{cost['phase_s']:.1f} s")
+        mark("phase 4")
         # phase 4b: chunked prefill, the prefix cache and preemption, each
         # off and on over the same traffic
         t0 = time.perf_counter()
@@ -4316,6 +5027,7 @@ def main():
             f"timed swap {json.dumps(pr['on']['swap_timed'])}; tokens equal "
             f"{[a['equal'] for a in pr['agreement']]}; "
             f"{time.perf_counter() - t0:.1f} s for the six runs")
+        mark("phase 4b")
         # phase 4c: the other archs and retrievers at full width
         t0 = time.perf_counter()
         wide_launches = wide_runs(dev, ops, cfg, params)
@@ -4323,8 +5035,10 @@ def main():
             wide_launches[name] = wide_launches.get(name, 0) + n
         log(f"[wide] {len(WIDE_RUNS) + len(XARCH_RUNS)} runs in "
             f"{time.perf_counter() - t0:.1f} s")
+        mark("phase 4c")
         # phase 4d: the sampler and speculative decoding
         spec_launches = spec_phase(dev, ops, *half_depth(cfg, params))
+        mark("phase 4d")
         # phase 4e: live serving through the HTTP front-end
         serve, service_launches = serve_phase(dev, ops, cfg, params, served_tokens,
                                               compare["continuous"]["decode_ms_per_step"])
@@ -4342,6 +5056,7 @@ def main():
             f"of the nine {serve['same_engine_direct_decode_ms_per_step']:.2f}); "
             f"{serve['host_syncs_per_token']:.4f} host reads a token; peak "
             f"{serve['peak_device_gib']:.2f} GiB; phase {serve['phase_s']:.1f} s")
+        mark("phase 4e")
         # phase 4f: KV-head-group tensor parallelism at full width
         t0 = time.perf_counter()
         tp_infos, tp_launches = tp_phase(dev, ops, cfg, params, phase4)
@@ -4366,6 +5081,9 @@ def main():
                    f"{info['tp1_profile']['device_busy_share']:.3f})"))
         log(f"[tp] {len(tp_infos)} runs ({', '.join(i['run'] for i in tp_infos)}) in "
             f"{time.perf_counter() - t0:.1f} s")
+        mark("phase 4f")
+        # phase 4g: serving over a ("data", "model") compute mesh
+        mesh_launches = log_mesh_phase(dev, ops, cfg, params, phase4, smi)
         del params
         torch.cuda.empty_cache()
         require(all(0 <= v <= 1 for v in share.values()), f"valid shares out of range: {share}")
@@ -4386,6 +5104,7 @@ def main():
             target = rows[base]["int4"] if bits == "4" else rows[base]
             target.update(real_share=share, real_share_ms=ms)
     if not args.kernels_only:
+        mark("phase 4g and the gathers")
         # phase 5: kernel path == plain path
         for method, kv_quant in (("freekv", "none"), ("freekv", "int8"), ("freekv", "int4"),
                                  ("shadowkv", "none"), ("shadowkv", "int8"),
@@ -4421,6 +5140,7 @@ def main():
         n = centroid_index_equals_rebuild(dev)
         log(f"[equal] granite-3-8b-smoke fp32 centroid: the index kept on the card equals "
             f"its rebuild in every layer after 20 steps ({n} re-centers)")
+        mark("phase 5")
         # phase 6: training at full width, the checkpoint round trip, the
         # trained weights served; the smoke archs' steps card == CPU
         t_phase = time.perf_counter()
@@ -4488,15 +5208,20 @@ def main():
     line = []
     for k in kernels:
         src, replaces = KERNEL_META[k["name"]]
+        # the fused step's forms run on phase 4g's path: their launches are its
+        main_launches = (mesh_launches.get(k["name"]) if k["name"] in MESH_FORMS
+                         else launches[k["name"]])
         line.append({"name": k["name"], "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": launches[k["name"]],
+                     "launches": main_launches,
                      "wide_launches": wide_launches.get(k["name"]),
                      "spec_launches": spec_launches.get(k["name"]),
                      "service_launches": service_launches.get(k["name"]),
                      "train_launches": train_launches.get(k["name"]),
                      "tp_launches": tp_launches.get(k["name"]),
+                     "mesh_launches": mesh_launches.get(k["name"]),
                      "max_abs_err": k["max_abs_err"],
                      "ms": k["kernel_ms"], **k})
+    mark("phase 6")
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -233,6 +233,16 @@ class FreeKVConfig:
     # the engine falls back to 0 where that cannot hold
     # (``models.model.supports_spec_decode``). 0 = off.
     draft_len: int = 0
+    # the page-sharded fused decode step (reference ``base.py:285-293``)
+    # under a ("data", "model") mesh: each model shard holds a page range
+    # of the pool, selects its own top-(n_sel / model) pages, recalls and
+    # attends them locally, and the partials merge by log-sum-exp
+    # (``core/sharded_retrieval``). An approximation of the global top-k.
+    # ``sharded_overselect`` > 1 over-selects that many times and re-ranks
+    # the candidates' scores globally. Excludes ``method="centroid"`` and
+    # KV-head-group TP.
+    sharded_retrieval: bool = False
+    sharded_overselect: int = 1
 
     def __post_init__(self):
         if self.retriever:
@@ -247,6 +257,12 @@ class FreeKVConfig:
             raise ValueError(f"offload must be 'sim' or 'host', got {self.offload!r}")
         if self.kv_quant not in ("none", "int8", "int4"):
             raise ValueError(f"kv_quant must be none, int8 or int4, got {self.kv_quant!r}")
+        if self.sharded_overselect < 1:
+            raise ValueError(f"sharded_overselect={self.sharded_overselect} must be at least 1")
+        if self.sharded_retrieval and self.method == "centroid":
+            # reference ``retrieval.py:455``
+            raise ValueError("method='centroid' composes with KV-head-group TP, not "
+                             "sharded_retrieval")
 
     @property
     def quant_bits(self) -> int:

@@ -46,6 +46,10 @@ def state_dims(cfg: ArchConfig, fkv: FreeKVConfig, max_len: int):
     n_sink = fkv.n_sink
     n_win = fkv.n_window + p          # ring slack so a completing page is present
     n_sel = max(1, (fkv.budget - fkv.n_sink - fkv.n_window) // p)
+    if fkv.sharded_retrieval and fkv.sharded_overselect > 1:
+        # the fused step's over-selection (reference ``paging.py:47-50``): a
+        # page shard holds up to overselect times its share of the pages
+        n_sel *= fkv.sharded_overselect
     return p, n_pages, n_sink, n_win, n_sel
 
 

@@ -126,6 +126,21 @@ def _cat_regions(fkv, state, sel_k, sel_v, sel_idx, p, rep=1):
     return k_cat, v_cat, pos
 
 
+def _page_region(fkv, length, sel_k, sel_v, sel_idx, p):
+    """The selected pages alone as ``_cat_regions`` lays them out, their
+    positions masked to [n_sink, window floor): a page shard of the fused
+    step other than shard 0, which holds no sink and attends no window."""
+    B, kv, n_sel = sel_idx.shape
+    d = sel_k.shape[-1]
+    dev = length.device
+    wfloor = _window_floor(fkv, length)[:, None, None]
+    neg = torch.full((), -1, dtype=torch.int32, device=dev)
+    pos = sel_idx[..., None] * p + torch.arange(p, dtype=torch.int32, device=dev)
+    pos = torch.where(sel_idx[..., None] >= 0, pos, neg).reshape(B, kv, n_sel * p)
+    pos = torch.where((pos >= fkv.n_sink) & (pos < wfloor), pos, neg).to(torch.int32)
+    return sel_k.reshape(B, kv, n_sel * p, d), sel_v.reshape(B, kv, n_sel * p, d), pos
+
+
 def ring_snapshot(state, n_rows: int):
     """Copy the ``n_rows`` window-ring slots a drafted block will write
     (reference ``retrieval.py:121``): appends at positions ``length + j``
@@ -754,6 +769,29 @@ class FullRetriever:
 
 METHODS = ("freekv", "arkvale", "infinigen", "quest", "shadowkv", "raas", "streaming",
            "full", "centroid")
+
+
+# the methods whose decode takes the page-sharded fused step under a mesh
+# with ``fkv.sharded_retrieval`` (the reference's ``FreeKVRetriever``, whose
+# ``decode`` dispatches on ``_use_sharded``; centroid excludes it)
+FUSED_METHODS = ("freekv", "arkvale", "infinigen")
+# layer-steps under ``fkv.sharded_retrieval`` and a mesh that took the fused
+# step and that fell back to the plain path (a caller can require the first)
+SHARDED_PATHS = {"fused": 0, "fallback": 0}
+
+
+def use_sharded(cfg: ArchConfig, fkv: FreeKVConfig, model_parallel: int, max_len: int) -> bool:
+    """Whether a global attention layer's decode takes the page-sharded
+    fused step (reference ``retrieval.py:265-277``): ``sharded_retrieval``
+    on, an unquantized pool (the quantized tier falls back to the plain
+    path), and the selection slots and the pool's pages dividing the model
+    axis."""
+    if not (fkv.sharded_retrieval and fkv.method in FUSED_METHODS):
+        return False
+    if fkv.kv_quant != "none":
+        return False
+    _, n_pages, _, _, n_sel = paging.state_dims(cfg, fkv, max_len)
+    return n_sel % model_parallel == 0 and n_pages % model_parallel == 0
 
 
 def make_retriever(cfg: ArchConfig, fkv: FreeKVConfig, mesh=None):

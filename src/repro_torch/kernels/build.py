@@ -30,12 +30,12 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 # C signatures of the entry points; every one returns a cudaError_t as int
 SIGNATURES = {
     "paged_attention": {
-        "freekv_paged_attention": [_P] * 10 + [_I] * 7 + [_F, _F, _I, _I, _P],
+        "freekv_paged_attention": [_P] * 12 + [_I] * 7 + [_F, _F, _I, _I, _P],
     },
     "page_scores": {
         "freekv_page_scores": [_P] * 3 + [_I] * 5 + [_F, _I, _I, _P],
         "freekv_centroid_scores": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P],
-        "freekv_select_pages": [_P] * 8 + [_I] * 16 + [_F, _I, _I, _P],
+        "freekv_select_pages": [_P] * 9 + [_I] * 17 + [_F, _I, _I, _P],
         "freekv_centroid_candidates": [_P] * 7 + [_I] * 12 + [_F, _I, _I, _P],
     },
     "recall_gather": {
@@ -52,7 +52,7 @@ SIGNATURES = {
     "page_summary": {
         "freekv_page_summary": [_P] * 2 + [_I] * 5 + [_LL, _I, _I, _P],
         "freekv_fill_pages": [_P, _P, _LL, _LL] + [_P, _LL] * 3 + [_I] * 11 + [_P],
-        "freekv_complete_page": [_P] * 3 + [_P, _LL] * 3 + [_I] * 11 + [_P],
+        "freekv_complete_page": [_P] * 3 + [_P, _LL] * 3 + [_I] * 12 + [_P],
     },
     "flash_prefill": {
         "freekv_flash_prefill": [_P] * 4 + [_I] * 6 + [ctypes.POINTER(_LL), _F, _F]

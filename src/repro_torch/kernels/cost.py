@@ -25,6 +25,14 @@ def paged_attention(B, kv, G, N, p, d, itemsize) -> dict:
                  flops=4 * B * kv * G * L * d)
 
 
+def paged_attention_lse(B, kv, G, N, p, d, itemsize) -> dict:
+    """``paged_attention`` with its output written in float32, and its
+    float32 log-sum-exp (B,kv,G)."""
+    c = paged_attention(B, kv, G, N, p, d, itemsize)
+    c["hbm_bytes"] += (4 - itemsize) * B * kv * G * d + 4 * B * kv * G
+    return c
+
+
 def page_scores(B, kv, G, N, d, itemsize) -> dict:
     """q and the summaries (B,N,kv,2,d) read, float32 scores written."""
     return _cost(itemsize * (B * kv * G * d + B * N * kv * 2 * d) + 4 * B * kv * G * N,
@@ -49,6 +57,14 @@ def select_pages(B, kv, G, N, d, n_sel, itemsize, *, per_head=False, n_cand=0,
     out = 4 * rows * n_sel + (4 * rows * n if with_pooled else 0)
     return _cost(itemsize * (B * kv * G * d + B * n * kv * 2 * d) + 4 * B + 4 * B * kv * n_cand
                  + out, flops=4 * B * kv * G * n * d)
+
+
+def select_pages_shard(B, kv, G, N, d, n_sel, itemsize) -> dict:
+    """``select_pages`` over one page shard's N pages, and the kept ids'
+    float32 pooled values (B,kv,n_sel) written."""
+    c = select_pages(B, kv, G, N, d, n_sel, itemsize)
+    c["hbm_bytes"] += 4 * B * kv * n_sel
+    return c
 
 
 def centroid_candidates(B, kv, G, C, N, d, m, itemsize) -> dict:
@@ -117,6 +133,13 @@ def complete_page(B, p, kv, d, itemsize, *, rows=None, host=True, bits=0, n_g=0)
     to_pool = rows * kv * 2 * p * block + (rows * kv * 2 * n_g * 4 if bits else 0)
     on_card = rows * (2 * p * kv * d * itemsize + kv * 2 * d * itemsize) + 4 * B
     return _cost(on_card, to_pool) if host else _cost(on_card + to_pool)
+
+
+def complete_page_shard(B, p, kv, d, itemsize, *, rows=None, host=True, bits=0,
+                        n_g=0) -> dict:
+    """``complete_page`` into one page shard's range: ``rows`` are the rows
+    whose completed page lies in the range (default every row)."""
+    return complete_page(B, p, kv, d, itemsize, rows=rows, host=host, bits=bits, n_g=n_g)
 
 
 def visible_pairs(tq, tk, causal=True, window=None) -> int:

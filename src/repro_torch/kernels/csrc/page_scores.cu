@@ -113,10 +113,12 @@ struct Args {
   unsigned long long* keys;    // workspace (B, kv, S, 2 nl) or null
   int32_t* idx;                // (B, kv, n_sel)
   float* pooled;               // (B, kv, N) or null
+  float* top;                  // (B, kv, n_sel) the kept ids' pooled values, or null
   int B, kv, G, N, NP, d, n_sel, k, S, nl;
   int page_size, n_sink, n_window, pool;
   int hg;                      // query heads a summary row: G per head, else 1
   int keep_invalid;            // 1: -1e30 lanes keep their page ids, not -1
+  int page_lo;                 // select: item i is page page_lo + i (a page shard's range)
   float scale;
 };
 
@@ -157,6 +159,13 @@ __device__ __forceinline__ unsigned long long make_key(float v, int i) {
   uint32_t u = __float_as_uint(v == 0.f ? 0.f : v);   // -0.0 ties +0.0
   u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
   return ((unsigned long long)u << 32) | (0xffffffffu - (uint32_t)i);
+}
+
+// the value a key was made from (make_key's order map undone; -0.0 comes back as 0.0)
+__device__ __forceinline__ float key_value(unsigned long long key) {
+  uint32_t u = (uint32_t)(key >> 32);
+  u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
+  return __uint_as_float(u);
 }
 
 __device__ __forceinline__ int key_index(unsigned long long key) {
@@ -364,7 +373,10 @@ __global__ void __launch_bounds__(kThreads) select_kernel(const Args a) {
 
     if constexpr (kMode == kSelect) {
       const int32_t* cand = a.cand != nullptr ? a.cand + row * a.N : nullptr;
-      auto valid = [&](int i) { return cand != nullptr ? cand[i] >= 0 : i >= first && i < lim; };
+      // a page shard's items are pages page_lo + i, validity and ids global
+      auto valid = [&](int i) {
+        return cand != nullptr ? cand[i] >= 0 : i + a.page_lo >= first && i + a.page_lo < lim;
+      };
       float* sc = sc_smem ? reinterpret_cast<float*>(smem + L.sc)
                           : a.scores + (row * S + r) * (size_t)G * a.nl;
       score_items<T, kG, kLP>(summ, a.NP, a.kv, b, h, d, qrow, G, cand, i0, i1, vec,
@@ -497,15 +509,22 @@ __global__ void __launch_bounds__(kThreads) select_kernel(const Args a) {
     __syncthreads();
     const int32_t* cand = kMode == kSelect && a.cand != nullptr ? a.cand + row * a.N : nullptr;
     int32_t* out = a.idx + row * a.n_sel;
+    float* top = a.top != nullptr ? a.top + row * a.n_sel : nullptr;
+    const int lo = kMode == kSelect ? a.page_lo : 0;
     for (int j = tid; j < kk; j += kThreads) {
       if (place[j] < k) {
         const unsigned long long key = list[j];
         const int i = key_index(key);
-        out[place[j]] = key_selects(key) || a.keep_invalid ? (cand != nullptr ? cand[i] : i) : -1;
+        out[place[j]] =
+            key_selects(key) || a.keep_invalid ? (cand != nullptr ? cand[i] : lo + i) : -1;
+        if (top != nullptr) top[place[j]] = key_value(key);
       }
     }
     if (r == 0)
-      for (int j = k + tid; j < a.n_sel; j += kThreads) out[j] = -1;
+      for (int j = k + tid; j < a.n_sel; j += kThreads) {
+        out[j] = -1;
+        if (top != nullptr) top[j] = kNegInf;
+      }
     cluster.sync();                               // no block leaves while its list is read
   }
 }
@@ -606,20 +625,27 @@ extern "C" int freekv_centroid_scores(const void* q, const void* cent, const voi
 // the G query heads is a row of its own (G = 1 of them, B * kv * G rows;
 // idx (B, kv, G, n_sel), pooled (B, kv, G, N), the workspaces as for
 // kv * G KV heads; no candidates); keep_invalid 1: lanes at -1e30 keep
-// their page ids. Returns cudaGetLastError().
+// their page ids. page_lo: summ holds pages page_lo .. page_lo + NP - 1 of
+// the request (a page shard's range; 0 for the whole pool): the mask and
+// the ids are the global pages'. top (B, kv, n_sel) fp32 or null: each
+// kept id's pooled value (-1e30 past the valid lanes). Returns
+// cudaGetLastError().
 extern "C" int freekv_select_pages(const void* q, const void* summ, const void* length,
-                                   const void* cand, void* idx, void* pooled, void* ws_scores,
-                                   void* ws_keys, int B, int kv, int G, int N, int NP, int d,
-                                   int n_sel, int k, int S, int nl, int page_size, int n_sink,
-                                   int n_window, int pool, int per_head, int keep_invalid,
-                                   float scale, int dtype, int device, void* stream) {
+                                   const void* cand, void* idx, void* pooled, void* top,
+                                   void* ws_scores, void* ws_keys, int B, int kv, int G, int N,
+                                   int NP, int d, int n_sel, int k, int S, int nl,
+                                   int page_size, int n_sink, int n_window, int pool,
+                                   int per_head, int keep_invalid, int page_lo, float scale,
+                                   int dtype, int device, void* stream) {
   if (length == nullptr || idx == nullptr || pool < 0 || pool > 3 ||
-      (cand == nullptr && N != NP) || (per_head && cand != nullptr))
+      (cand == nullptr && N != NP) || (per_head && cand != nullptr) || page_lo < 0 ||
+      (page_lo > 0 && (cand != nullptr || per_head)))
     return cudaErrorInvalidValue;
   freekv::Args a = {};
   a.q = q, a.summ = summ, a.length = static_cast<const int32_t*>(length);
   a.cand = static_cast<const int32_t*>(cand);
   a.idx = static_cast<int32_t*>(idx), a.pooled = static_cast<float*>(pooled);
+  a.top = static_cast<float*>(top), a.page_lo = page_lo;
   a.scores = static_cast<float*>(ws_scores);
   a.keys = static_cast<unsigned long long*>(ws_keys);
   a.B = B, a.kv = kv, a.G = G, a.N = N, a.NP = NP, a.d = d, a.n_sel = n_sel, a.k = k;

@@ -169,6 +169,7 @@ struct FillArgs {
   float* scale;                   // a row: (n_dst, kv, 2, n_g); null unquantized
   long long scale_bs;
   int n_dst, p, kv, d, n_g, hpb;  // hpb: KV heads a block
+  int page_lo;                    // decode: the outputs hold pages page_lo .. + n_dst - 1
 };
 
 // Loads the 16-byte chunk at `base` of tokens t0, t0 + step, ... (kN of
@@ -197,13 +198,15 @@ fill_pages_kernel(const FillArgs a) {
   const int b = blockIdx.y;
   const int groups = a.kv / a.hpb;
   const int h0 = (blockIdx.x % groups) * a.hpb;
-  int page = blockIdx.x / groups;
+  int page = blockIdx.x / groups;       // the source page: its tokens' ring slots
   if (a.length != nullptr) {            // decode: only a row whose page just completed
     const int len = a.length[b];
     if (len < a.p || len % a.p != 0) return;
     page = len / a.p - 1;
   }
-  if (page >= a.n_dst) return;
+  // the destination page: a page shard writes only the pages of its range
+  const int dpage = page - a.page_lo;
+  if (dpage < 0 || dpage >= a.n_dst) return;
   const int cpr = a.d / kVec;           // chunks in a head's row
   const int u = threadIdx.x;            // blockDim.x == hpb * 2 * cpr
   const int hl = u / (2 * cpr), half = (u / cpr) & 1, cc = u % cpr;
@@ -211,7 +214,7 @@ fill_pages_kernel(const FillArgs a) {
   const T* head = static_cast<const T*>(half ? a.v : a.k) + b * (half ? a.v_bs : a.k_bs)
                   + h * a.d;
   // this (page, head, half)'s (p, dp) block
-  const size_t blk = ((size_t)page * a.kv + h) * 2 + half;
+  const size_t blk = ((size_t)dpage * a.kv + h) * 2 + half;
 
   float lo[kVec], hi[kVec], amax[kVec];
 #pragma unroll
@@ -241,7 +244,7 @@ fill_pages_kernel(const FillArgs a) {
     }
   }
   if (half == 0) {                      // the K threads: the summary
-    S* dst = static_cast<S*>(a.summ) + b * a.summ_bs + ((size_t)page * a.kv + h) * 2 * a.d + c0;
+    S* dst = static_cast<S*>(a.summ) + b * a.summ_bs + ((size_t)dpage * a.kv + h) * 2 * a.d + c0;
     store_values<S, kVec>(dst, lo);
     store_values<S, kVec>(dst + a.d, hi);
   }
@@ -268,7 +271,7 @@ fill_pages_kernel(const FillArgs a) {
     __syncthreads();
     for (int i = u; i < slots; i += blockDim.x) {
       const int hh = i / (2 * a.n_g), rest = i % (2 * a.n_g);   // rest: half * n_g + group
-      a.scale[b * a.scale_bs + ((size_t)page * a.kv + h0 + hh) * 2 * a.n_g + rest] =
+      a.scale[b * a.scale_bs + ((size_t)dpage * a.kv + h0 + hh) * 2 * a.n_g + rest] =
           group_scale(amax_bits + i, kQmax);
     }
     int8_t* pool = static_cast<int8_t*>(a.pool) + b * a.pool_bs;
@@ -435,17 +438,20 @@ extern "C" int freekv_fill_pages(const void* k, const void* v, long long k_bs, l
 // whole number of pages writes page length / p - 1 (if below n_pages) to
 // summ (B, n_pages, kv, 2, d), pool (B, n_pages, kv, 2, p, dp) and, with
 // bits, scale (B, n_pages, kv, 2, n_g), each at its address on `device`
-// (a pinned host pool's mapped one); other rows write nothing. Returns
-// cudaGetLastError().
+// (a pinned host pool's mapped one); other rows write nothing. page_lo:
+// the outputs hold pages page_lo .. page_lo + n_pages - 1 (a page shard's
+// range; 0 for the whole pool), and a row writes only a page of that range,
+// at its place there. Returns cudaGetLastError().
 extern "C" int freekv_complete_page(const void* win_k, const void* win_v, const void* length,
                                     void* summ, long long summ_bs, void* pool, long long pool_bs,
                                     void* scale, long long scale_bs, int B, int n_win,
                                     int n_pages, int p, int kv, int d, int n_g, int bits,
-                                    int dtype, int heads_per_block, int device, void* stream) {
+                                    int dtype, int heads_per_block, int page_lo, int device,
+                                    void* stream) {
   const long long ring = static_cast<long long>(n_win) * kv * d;
-  if (n_win < 1 || length == nullptr) return cudaErrorInvalidValue;
+  if (n_win < 1 || length == nullptr || page_lo < 0) return cudaErrorInvalidValue;
   freekv::FillArgs a{win_k, win_v, ring, ring, static_cast<const int32_t*>(length), n_win,
                      summ, summ_bs, pool, pool_bs, static_cast<float*>(scale), scale_bs,
-                     n_pages, p, kv, d, n_g, heads_per_block};
+                     n_pages, p, kv, d, n_g, heads_per_block, page_lo};
   return freekv::launch_fill(a, B, 1, bits, dtype, dtype, device, stream);
 }

@@ -39,6 +39,16 @@
 // arrival. The warps' states merge once, at the end of the slice. The
 // statistics are kept in the log2 domain (scores times log2 e, then
 // ex2.approx). Accumulation is fp32 throughout.
+//
+// With `lse` given, the merge also writes each (b, KV head, query row)'s
+// log-sum-exp of its scaled (softcapped) scores in fp32, natural log, and
+// the output in fp32 (`out32`, not rounded to the inputs' dtype): the
+// page-sharded decode step (core/sharded_retrieval) merges the page
+// shards' (output, lse) partials, as the reference merges its fp32
+// numerators and denominators. The merge has the lse already, M + log2(L)
+// in the log2 domain. A row whose positions are all masked scores -1e30 in
+// the log2 domain and reports about -6.9e29, which weighs 0 against any
+// shard with a valid position.
 
 #include <algorithm>
 
@@ -108,8 +118,9 @@ paged_attention_split(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int32_t* __restrict__ pos,
                       const int32_t* __restrict__ cur, float* __restrict__ part_m,
                       float* __restrict__ part_l, float* __restrict__ part_acc,
-                      int* __restrict__ tickets, T* __restrict__ out, int kv, int G, int N,
-                      int p, int d, int n_split, float scale, float softcap) {
+                      int* __restrict__ tickets, T* __restrict__ out, float* __restrict__ lse,
+                      float* __restrict__ out32, int kv, int G, int N, int p, int d,
+                      int n_split, float scale, float softcap) {
   constexpr int kVec = 16 / sizeof(T);             // elements per 16-byte vector
   constexpr int kVPL = sizeof(T) == 4 ? 2 : 1;     // vectors per lane (nv <= 32 * kVPL)
   extern __shared__ uint4 ring[];   // K stages | V stages; then the warps' sums, the weights
@@ -369,6 +380,7 @@ paged_attention_split(const T* __restrict__ q, const T* __restrict__ k,
       L += __ldcg(part_l + row) * w;
     }
     L = fmaxf(warp_sum(L), 1e-30f);
+    if (lse != nullptr && lane == 0) lse[bh * G + g] = (M + log2f(L)) * 0.6931471805599453f;
     __syncwarp();
     for (int j = lane; j < n_split; j += 32) w_s[j * G + g] /= L;
   }
@@ -378,16 +390,19 @@ paged_attention_split(const T* __restrict__ q, const T* __restrict__ k,
     float o = 0.f;
     for (int j = 0; j < n_split; ++j)
       o += __ldcg(part_acc + ((bh * n_split + j) * G + g) * d + col) * w_s[j * G + g];
-    out[bh * G * d + e] = from_f32<T>(o);
+    if (out32 != nullptr)
+      out32[bh * G * d + e] = o;
+    else
+      out[bh * G * d + e] = from_f32<T>(o);
   }
   if (tid == 0) tickets[bh] = 0;                  // ready for the next launch
 }
 template <typename T, int kG>
 cudaError_t launch_split(const void* q, const void* k, const void* v, const void* pos,
                          const void* cur, void* part_m, void* part_l, void* part_acc,
-                         void* tickets, void* out, int B, int kv, int G, int N, int p, int d,
-                         int n_split, float scale, float softcap, int device,
-                         cudaStream_t stream) {
+                         void* tickets, void* out, void* lse, void* out32, int B, int kv,
+                         int G, int N, int p, int d, int n_split, float scale, float softcap,
+                         int device, cudaStream_t stream) {
   // the ring, or the warps' sums and the merge weights where those are larger
   const size_t smem = std::max({kRingBytes, sizeof(float) * kWarps * G * d,
                                 sizeof(float) * n_split * G});
@@ -397,24 +412,24 @@ cudaError_t launch_split(const void* q, const void* k, const void* v, const void
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int32_t*>(pos), static_cast<const int32_t*>(cur),
       static_cast<float*>(part_m), static_cast<float*>(part_l), static_cast<float*>(part_acc),
-      static_cast<int*>(tickets), static_cast<T*>(out), kv, G, N, p, d, n_split, scale,
-      softcap);
+      static_cast<int*>(tickets), static_cast<T*>(out), static_cast<float*>(lse),
+      static_cast<float*>(out32), kv, G, N, p, d, n_split, scale, softcap);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* pos,
                    const void* cur, void* part_m, void* part_l, void* part_acc, void* tickets,
-                   void* out, int B, int kv, int G, int N, int p, int d, int n_split,
-                   float scale, float softcap, int device, cudaStream_t stream) {
+                   void* out, void* lse, void* out32, int B, int kv, int G, int N, int p, int d,
+                   int n_split, float scale, float softcap, int device, cudaStream_t stream) {
   if (G <= 4)
-    return launch_split<T, 4>(q, k, v, pos, cur, part_m, part_l, part_acc, tickets, out, B, kv,
-                              G, N, p, d, n_split, scale, softcap, device, stream);
+    return launch_split<T, 4>(q, k, v, pos, cur, part_m, part_l, part_acc, tickets, out, lse,
+                              out32, B, kv, G, N, p, d, n_split, scale, softcap, device, stream);
   if (G <= 8)
-    return launch_split<T, 8>(q, k, v, pos, cur, part_m, part_l, part_acc, tickets, out, B, kv,
-                              G, N, p, d, n_split, scale, softcap, device, stream);
-  return launch_split<T, 16>(q, k, v, pos, cur, part_m, part_l, part_acc, tickets, out, B, kv,
-                             G, N, p, d, n_split, scale, softcap, device, stream);
+    return launch_split<T, 8>(q, k, v, pos, cur, part_m, part_l, part_acc, tickets, out, lse,
+                              out32, B, kv, G, N, p, d, n_split, scale, softcap, device, stream);
+  return launch_split<T, 16>(q, k, v, pos, cur, part_m, part_l, part_acc, tickets, out, lse,
+                             out32, B, kv, G, N, p, d, n_split, scale, softcap, device, stream);
 }
 
 }  // namespace
@@ -424,13 +439,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* pos,
 // (B, kv, n_split, G, d), fp32, allocated by the caller; split s takes pages
 // [N * s / n_split, N * (s + 1) / n_split). tickets: B * kv int32 zeros,
 // which the launch leaves zero again (so one buffer serves every launch on
-// a stream). softcap <= 0 means no softcap. Returns the launch's error.
+// a stream). softcap <= 0 means no softcap. lse (B, kv, G) fp32 or null:
+// each row's log-sum-exp, natural log. out32 (B, kv, G, d) fp32 or null:
+// the output in fp32, written instead of out. Returns the launch's error.
 extern "C" int freekv_paged_attention(const void* q, const void* k, const void* v,
                                       const void* pos, const void* cur, void* part_m,
                                       void* part_l, void* part_acc, void* tickets, void* out,
-                                      int B, int kv, int G, int N, int p, int d, int n_split,
-                                      float scale, float softcap, int dtype, int device,
-                                      void* stream) {
+                                      void* lse, void* out32, int B, int kv, int G, int N, int p,
+                                      int d, int n_split, float scale, float softcap, int dtype,
+                                      int device, void* stream) {
   using namespace freekv;
   const int elem = dtype == kBFloat16 ? 2 : 4;
   if (G < 1 || G > kMaxG || d < 1 || d > kMaxD || (d * elem) % 16 || p < 1 || p > kMaxP ||
@@ -442,10 +459,10 @@ extern "C" int freekv_paged_attention(const void* q, const void* k, const void* 
   if (guard.error() != cudaSuccess) return guard.error();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return launch<float>(q, k, v, pos, cur, part_m, part_l, part_acc, tickets, out, B, kv, G,
-                         N, p, d, n_split, scale, softcap, device, st);
+    return launch<float>(q, k, v, pos, cur, part_m, part_l, part_acc, tickets, out, lse, out32,
+                         B, kv, G, N, p, d, n_split, scale, softcap, device, st);
   if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, pos, cur, part_m, part_l, part_acc, tickets, out, B,
-                                 kv, G, N, p, d, n_split, scale, softcap, device, st);
+    return launch<__nv_bfloat16>(q, k, v, pos, cur, part_m, part_l, part_acc, tickets, out, lse,
+                                 out32, B, kv, G, N, p, d, n_split, scale, softcap, device, st);
   return cudaErrorInvalidValue;
 }

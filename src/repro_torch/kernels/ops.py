@@ -136,6 +136,10 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _opt_ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None) if t is None else _ptr(t)
+
+
 def reset_launches():
     for fn in KERNELS:
         fn.launches = 0
@@ -186,10 +190,33 @@ def _tickets(dev, stream: int, n: int) -> torch.Tensor:
 
 
 def paged_attention(q, k_pages, v_pages, page_pos, cur_pos, *, scale,
-                    softcap=None):
+                    softcap=None, return_lse=False):
     """q (B,kv,G,d); k/v_pages (B,kv,N,p,d); page_pos (B,kv,N,p) int32;
-    cur_pos (B,) int32 -> (B,kv,G,d) in q's dtype."""
+    cur_pos (B,) int32 -> (B,kv,G,d) in q's dtype. ``return_lse``: the
+    ``paged_attention_lse`` form, (out, lse)."""
+    if return_lse:
+        return paged_attention_lse(q, k_pages, v_pages, page_pos, cur_pos, scale=scale,
+                                   softcap=softcap)
+    return _paged_attention(paged_attention, q, k_pages, v_pages, page_pos, cur_pos, scale,
+                            softcap)
+
+
+def paged_attention_lse(q, k_pages, v_pages, page_pos, cur_pos, *, scale, softcap=None):
+    """``paged_attention`` that returns its output in float32 (not rounded to
+    q's dtype) and each (b, KV head, query row)'s log-sum-exp of its scaled
+    (softcapped) scores, (B,kv,G) float32 natural log: the partial a page
+    shard of the fused decode step hands to the merge
+    (``core/sharded_retrieval``). Counted under its own name."""
+    return _paged_attention(paged_attention_lse, q, k_pages, v_pages, page_pos, cur_pos, scale,
+                            softcap)
+
+
+def _paged_attention(fn, q, k_pages, v_pages, page_pos, cur_pos, scale, softcap):
+    want_lse = fn is paged_attention_lse
     if not _on_cuda(q):
+        if want_lse:
+            return ref.paged_attention_lse_ref(q, k_pages, v_pages, page_pos, cur_pos, scale,
+                                               softcap)
         return ref.paged_attention_ref(q, k_pages, v_pages, page_pos, cur_pos,
                                        scale, softcap)
     dev = q.device
@@ -208,10 +235,13 @@ def paged_attention(q, k_pages, v_pages, page_pos, cur_pos, *, scale,
              and all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
              "paged_attention takes G <= 16, d <= 256 with 16-byte rows, p <= 64, "
              "16-byte aligned q/K/V")
-    out = torch.empty_like(q)
-    cost = functools.partial(kcost.paged_attention, B, kv, G, N, p, d, q.element_size())
-    if _meta_launch(paged_attention, dev, cost):
-        return out.to(out_dtype)
+    # the lse form's output is float32, unrounded, for the merge of partials
+    out = torch.empty(q.shape, dtype=torch.float32 if want_lse else q.dtype, device=dev)
+    lse = torch.empty((B, kv, G), dtype=torch.float32, device=dev) if want_lse else None
+    cost = functools.partial(kcost.paged_attention_lse if want_lse else kcost.paged_attention,
+                             B, kv, G, N, p, d, q.element_size())
+    if _meta_launch(fn, dev, cost):
+        return (out, lse) if want_lse else out.to(out_dtype)
     lib = build.load("paged_attention")
     n_split = split_pages(N, B * kv, _sm_count(dev.index))
     part_m = torch.empty((B, kv, n_split, G), dtype=torch.float32, device=dev)
@@ -221,13 +251,14 @@ def paged_attention(q, k_pages, v_pages, page_pos, cur_pos, *, scale,
     tickets = _tickets(dev, stream.value, B * kv)
     rc = lib.freekv_paged_attention(
         _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(page_pos), _ptr(cur_pos),
-        _ptr(part_m), _ptr(part_l), _ptr(part_acc), _ptr(tickets), _ptr(out),
+        _ptr(part_m), _ptr(part_l), _ptr(part_acc), _ptr(tickets),
+        _opt_ptr(None if want_lse else out), _opt_ptr(lse), _opt_ptr(out if want_lse else None),
         B, kv, G, N, p, d, n_split, float(scale),
         float(softcap) if softcap is not None else 0.0, code, dev.index, stream)
-    build.check(rc, "paged_attention")
-    paged_attention.launches += 1
-    _report(paged_attention, cost)
-    return out.to(out_dtype)
+    build.check(rc, fn.__name__)
+    fn.launches += 1
+    _report(fn, cost)
+    return (out, lse) if want_lse else out.to(out_dtype)
 
 
 def page_scores(q, summ, *, scale):
@@ -301,10 +332,6 @@ def select_split(N: int, rows: int, sms: int) -> int:
     return max(1, min(MAX_CLUSTER, N, want))
 
 
-def _opt_ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None) if t is None else _ptr(t)
-
-
 def _keys_workspace(dev, rows, S, nl):
     """Device memory for the keys of a block whose pages exceed SMEM_KEYS."""
     if nl <= SMEM_KEYS:
@@ -368,13 +395,61 @@ def select_pages(q, summ, length, *, n_sel, scale, page_size, n_sink, n_window,
     ws_k = _keys_workspace(dev, rows, S, nl)
     rc = lib.freekv_select_pages(
         _ptr(q), _ptr(summ), _ptr(length), _opt_ptr(cand), _ptr(idx), _opt_ptr(pooled),
-        _opt_ptr(ws_s), _opt_ptr(ws_k), B, kv, G, N, NP, d, n_sel, min(n_sel, N), S, nl,
-        page_size, n_sink, n_window, POOL_MODES.index(mode), int(per_head),
-        int(keep_invalid), float(scale), code, dev.index, _stream(dev))
+        _opt_ptr(None), _opt_ptr(ws_s), _opt_ptr(ws_k), B, kv, G, N, NP, d, n_sel,
+        min(n_sel, N), S, nl, page_size, n_sink, n_window, POOL_MODES.index(mode),
+        int(per_head), int(keep_invalid), 0, float(scale), code, dev.index, _stream(dev))
     build.check(rc, "select_pages")
     select_pages.launches += 1
     _report(select_pages, cost)
     return (idx, pooled) if with_pooled else idx
+
+
+def select_pages_shard(q, summ, length, *, page_lo, n_sel, scale, page_size, n_sink, n_window,
+                       mode="mean_softmax"):
+    """One page shard's selection in the fused decode step: summ (B,N,kv,2,d)
+    holds the request's pages page_lo .. page_lo + N - 1; the selectable
+    mask and the returned ids are the global pages', the pooling's softmax
+    runs over the shard's N pages (reference ``sharded_retrieval.py:
+    292-306``) -> (idx (B,kv,n_sel) int32, -1 for invalid, top (B,kv,n_sel)
+    float32 the kept ids' pooled values, -1e30 past the valid lanes, for
+    ``sharded_overselect``'s global re-rank). The ids do not depend on the
+    launch's size, as ``select_pages``'. Counted under its own name."""
+    _require(mode in POOL_MODES, f"select_pages_shard: unknown pooling mode {mode!r}")
+    if not _on_cuda(q):
+        return ref.select_pages_shard_ref(q, summ, length, n_sel, scale, page_size, n_sink,
+                                          n_window, mode, page_lo)
+    dev = q.device
+    q, summ = _one_dtype(q, summ)
+    _check_cuda(dev, q, summ, length)
+    code = _dtype_code(q, summ)
+    B, kv, G, d = q.shape
+    N = summ.shape[1]
+    _require(summ.shape == (B, N, kv, 2, d) and length.shape == (B,)
+             and length.dtype == torch.int32 and page_lo >= 0,
+             "select_pages_shard: shape or dtype mismatch")
+    _require(G <= 16 and d <= 256 and N >= 1 and n_sel >= 1 and page_size >= 1,
+             "select_pages_shard takes G <= 16, d <= 256, at least one page and n_sel >= 1")
+    idx = torch.empty((B, kv, n_sel), dtype=torch.int32, device=dev)
+    top = torch.empty((B, kv, n_sel), dtype=torch.float32, device=dev)
+    cost = functools.partial(kcost.select_pages_shard, B, kv, G, N, d, n_sel, q.element_size())
+    if _meta_launch(select_pages_shard, dev, cost):
+        return idx, top
+    lib = build.load("page_scores")
+    rows = B * kv
+    S = select_split(N, rows, _sm_count(dev.index))
+    nl = -(-N // S)
+    ws_s = (torch.empty((rows, S, G, nl), dtype=torch.float32, device=dev)
+            if G * nl > SMEM_SCORES else None)
+    ws_k = _keys_workspace(dev, rows, S, nl)
+    rc = lib.freekv_select_pages(
+        _ptr(q), _ptr(summ), _ptr(length), _opt_ptr(None), _ptr(idx), _opt_ptr(None), _ptr(top),
+        _opt_ptr(ws_s), _opt_ptr(ws_k), B, kv, G, N, N, d, n_sel, min(n_sel, N), S, nl,
+        page_size, n_sink, n_window, POOL_MODES.index(mode), 0, 0, int(page_lo), float(scale),
+        code, dev.index, _stream(dev))
+    build.check(rc, "select_pages_shard")
+    select_pages_shard.launches += 1
+    _report(select_pages_shard, cost)
+    return idx, top
 
 
 def centroid_candidates(q, cent, count, cent_assign, length, *, m, scale, page_size, n_sink,
@@ -771,18 +846,33 @@ def complete_page(win_k, win_v, length, summ, pool, scale=None):
     page]; other rows write nothing. One launch whatever the lengths, no
     host read, no allocation: the pool and its scales may be pinned host
     memory, written at their mapped device addresses."""
+    return _complete_page(complete_page, win_k, win_v, length, summ, pool, scale, 0)
+
+
+def complete_page_shard(win_k, win_v, length, summ, pool, scale=None, *, page_lo):
+    """``complete_page`` into one page shard's range of the pool: summ,
+    pool and scale hold pages page_lo .. page_lo + n_pages - 1, and a row
+    writes its completed page only where it lies in that range, at its
+    place there (reference ``sharded_retrieval.py:271-290``). Counted under
+    its own name."""
+    return _complete_page(complete_page_shard, win_k, win_v, length, summ, pool, scale,
+                          page_lo)
+
+
+def _complete_page(fn, win_k, win_v, length, summ, pool, scale, page_lo):
     if not _on_cuda(length):
-        return ref.complete_page_ref(win_k, win_v, length, summ, pool, scale)
+        return ref.complete_page_ref(win_k, win_v, length, summ, pool, scale, page_lo)
     dev = length.device
     B, n_win, kv, d = win_k.shape
-    bits, n_g, p = _fill_outputs(summ, pool, scale, B, pool.shape[1], kv, d, "complete_page")
+    bits, n_g, p = _fill_outputs(summ, pool, scale, B, pool.shape[1], kv, d, fn.__name__)
     _check_cuda(dev, win_k, win_v, length, summ)
     _require(win_v.shape == win_k.shape and win_v.dtype == win_k.dtype == summ.dtype
-             and length.shape == (B,) and length.dtype == torch.int32,
-             "complete_page: the rings and the summaries share a dtype; int32 lengths (B,)")
-    cost = functools.partial(kcost.complete_page, B, p, kv, d, win_k.element_size(),
+             and length.shape == (B,) and length.dtype == torch.int32 and page_lo >= 0,
+             f"{fn.__name__}: the rings and the summaries share a dtype; int32 lengths (B,)")
+    cost = functools.partial(kcost.complete_page_shard if fn is complete_page_shard
+                             else kcost.complete_page, B, p, kv, d, win_k.element_size(),
                              host=is_host_pool(pool, dev), bits=bits, n_g=n_g)
-    if _meta_launch(complete_page, dev, cost):
+    if _meta_launch(fn, dev, cost):
         return
     lib = build.load("page_summary")
     rc = lib.freekv_complete_page(
@@ -790,11 +880,12 @@ def complete_page(win_k, win_v, length, summ, pool, scale=None):
         _pool_pointer(pool, dev), _bs(pool),
         ctypes.c_void_p(None) if scale is None else _pool_pointer(scale, dev),
         0 if scale is None else _bs(scale), B, n_win, pool.shape[1], p, kv, d, n_g, bits,
+        # one head a block: the most SMs writing over the link
         _dtype_code(win_k), fill_heads_per_block(kv, d, win_k.element_size(), 0),
-        dev.index, _stream(dev))   # one head a block: the most SMs writing over the link
-    build.check(rc, "complete_page")
-    complete_page.launches += 1
-    _report(complete_page, cost)
+        int(page_lo), dev.index, _stream(dev))
+    build.check(rc, fn.__name__)
+    fn.launches += 1
+    _report(fn, cost)
 
 
 def flash_prefill(q, k, v, *, scale, causal=True, window=None, softcap=None):
@@ -841,5 +932,6 @@ def flash_prefill(q, k, v, *, scale, causal=True, window=None, softcap=None):
 
 KERNELS = (paged_attention, page_scores, recall_gather, recall_gather_quant, page_summary,
            flash_prefill, recall_values, recall_values_quant, centroid_scores, select_pages,
-           centroid_candidates, fill_pages, complete_page)
+           centroid_candidates, fill_pages, complete_page, paged_attention_lse,
+           select_pages_shard, complete_page_shard)
 reset_launches()

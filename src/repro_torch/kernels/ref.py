@@ -52,7 +52,7 @@ def fill_pages_ref(k, v, summ, pool, scale=None):
         scale.copy_(sc)
 
 
-def complete_page_ref(win_k, win_v, length, summ, pool, scale=None):
+def complete_page_ref(win_k, win_v, length, summ, pool, scale=None, page_lo=0):
     """The decode's page completion, in place, masked as the reference's
     (``core/paging.py:228-254``): row b whose post-append length (length
     (B,) int32) is a whole number of pages, with page = length // p - 1 <
@@ -60,14 +60,19 @@ def complete_page_ref(win_k, win_v, length, summ, pool, scale=None):
     n_win, kv, d) at slots (page * p + t) % n_win and writes their summary to
     summ[b, page], their HND block to pool[b, page] (and its scales to
     scale[b, page]); every other row writes its own old bytes back at page
-    0, a ``where`` over every row, so it changes nothing."""
+    0, a ``where`` over every row, so it changes nothing. ``page_lo``: the
+    outputs hold pages page_lo .. page_lo + n_pages - 1 (a page shard's
+    range, reference ``sharded_retrieval.py:271-290``); a row writes only a
+    page of that range."""
     B, n_win = win_k.shape[:2]
     n_pages, p = pool.shape[1], pool.shape[4]
     page = torch.div(length, p, rounding_mode="floor") - 1
-    done = (length % p == 0) & (page >= 0) & (page < n_pages)
-    tgt = torch.where(done, page, 0).long()
+    rel = page - page_lo
+    done = (length % p == 0) & (page >= 0) & (rel >= 0) & (rel < n_pages)
+    src = torch.where(done, page, 0).long()
+    tgt = torch.where(done, rel, 0).long()
     bI = torch.arange(B, device=length.device)
-    slot = (tgt[:, None] * p + torch.arange(p, device=length.device)) % n_win
+    slot = (src[:, None] * p + torch.arange(p, device=length.device)) % n_win
     pk = win_k[bI[:, None], slot]                                  # (B, p, kv, d)
     pv = win_v[bI[:, None], slot]
     blk, sc = _as_pool(torch.stack([pk.transpose(1, 2), pv.transpose(1, 2)], dim=2),
@@ -100,12 +105,14 @@ def centroid_scores_ref(q, cent, count, scale):
     return torch.where(ok, s, torch.full((), NEG_INF, dtype=s.dtype, device=s.device))
 
 
-def selectable_mask_ref(n_pages, length, page_size, n_sink, n_window):
+def selectable_mask_ref(n_pages, length, page_size, n_sink, n_window, page_lo=0):
     """(B, n_pages) bool: fully offloaded pages outside the sink and the
     local window (those tokens are resident on the device already);
-    reference ``core/selection.py:37``."""
+    reference ``core/selection.py:37``. ``page_lo``: the n_pages are pages
+    page_lo .. page_lo + n_pages - 1 (a page shard's range, reference
+    ``sharded_retrieval.py:296-299``)."""
     p = page_size
-    pages = torch.arange(n_pages, device=length.device)
+    pages = torch.arange(page_lo, page_lo + n_pages, device=length.device)
     first = n_sink // p
     n_done = torch.div(length, p, rounding_mode="floor")
     last = torch.clamp(torch.div(length - n_window, p, rounding_mode="floor"), min=first)
@@ -197,6 +204,28 @@ def select_pages_ref(q, summ, length, n_sel, scale, page_size, n_sink, n_window,
     return top_ids(pooled, cand, n_sel, keep_invalid), pooled
 
 
+def select_pages_shard_ref(q, summ, length, n_sel, scale, page_size, n_sink, n_window,
+                           mode, page_lo):
+    """One page shard's selection in the fused decode step (reference
+    ``sharded_retrieval.py:292-306``): summ (B, n_loc, kv, 2, d) holds pages
+    page_lo .. page_lo + n_loc - 1; the mask and the ids are global, the
+    pooling's softmax runs over the shard's pages -> (idx (B, kv, n_sel)
+    int32 global ids, -1 for invalid, top (B, kv, n_sel) float32 their
+    pooled values, -1e30 past the valid lanes)."""
+    N = summ.shape[1]
+    scores = page_scores_ref(q, summ, scale)                       # (B,kv,G,N)
+    ok = selectable_mask_ref(N, length, page_size, n_sink, n_window, page_lo)
+    pooled = group_pool_ref(scores, ok[:, None, :].expand(-1, q.shape[1], -1), mode)
+    k = min(n_sel, N)
+    top_s, top_i = top_k_lower_index_first(pooled, k)
+    idx = torch.where(top_s > NEG_INF / 2, top_i + page_lo, -1).to(torch.int32)
+    if k < n_sel:
+        pad = idx.shape[:-1] + (n_sel - k,)
+        idx = torch.cat([idx, torch.full(pad, -1, dtype=torch.int32, device=idx.device)], -1)
+        top_s = torch.cat([top_s, torch.full(pad, NEG_INF, device=idx.device)], -1)
+    return idx, top_s.float()
+
+
 def centroid_candidates_ref(q, cent, count, cent_assign, length, m, scale, page_size,
                             n_sink, n_window):
     """Stage 1 of centroid selection (reference ``core/centroid_index.py:254-287``
@@ -233,6 +262,26 @@ def paged_attention_ref(q, k_pages, v_pages, page_pos, cur_pos, scale,
     s = torch.where(ok[:, :, None, :], s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bkgl,bkld->bkgd", w, v).to(q.dtype)
+
+
+def paged_attention_lse_ref(q, k_pages, v_pages, page_pos, cur_pos, scale, softcap=None):
+    """``paged_attention_ref`` with its output left in float32, and each (b,
+    KV head, query row)'s log-sum-exp of its scaled (softcapped) masked
+    scores, float32 natural log (B, kv, G): the partial a page shard hands
+    to the fused step's merge (reference ``sharded_retrieval
+    ._partial_attend``'s num / den and m + log(den)). A row whose positions
+    are all masked gives about -1e30."""
+    B, kv, N, p, d = k_pages.shape
+    k = k_pages.reshape(B, kv, N * p, d).float()
+    v = v_pages.reshape(B, kv, N * p, d).float()
+    pos = page_pos.reshape(B, kv, N * p)
+    s = torch.einsum("bkgd,bkld->bkgl", q.float(), k) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    ok = (pos >= 0) & (pos <= cur_pos[:, None, None])
+    s = torch.where(ok[:, :, None, :], s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgl,bkld->bkgd", w, v), torch.logsumexp(s, dim=-1)
 
 
 def recall_gather_ref(pool, idx):

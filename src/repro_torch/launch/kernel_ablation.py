@@ -184,7 +184,8 @@ def paged_call(lib, n_split, tickets, q, k, v, pos, cur, scale):
     out = torch.empty_like(q)
     build.check(lib.freekv_paged_attention(
         _p(q), _p(k), _p(v), _p(pos), _p(cur), _p(part_m), _p(part_l), _p(part_acc),
-        _p(tickets), _p(out), B, kv, G, N, p, d, n_split, float(scale), 0.0, 1, q.device.index,
+        _p(tickets), _p(out), None, None, B, kv, G, N, p, d, n_split, float(scale), 0.0, 1,
+        q.device.index,
         _stream()), "paged_attention")
     return out
 

@@ -4,8 +4,10 @@
                                           ("model",) axis, one KV-head-group
                                           shard a device (``core/sharded_retrieval``)
   make_host_mesh(model_parallel, devices)
-                                       -> Mesh, the trainer's 2-D ("data",
-                                          "model") mesh (``models/model.forward_train``)
+                                       -> Mesh, the 2-D ("data", "model") compute
+                                          mesh of training (``models/model
+                                          .forward_train``) and serving
+                                          (``ServeEngine(mesh=)``)
   make_production_mesh(multi_pod)      -> Mesh of shape only (16 x 16, or
                                           2 x 16 x 16 with a "pod" axis), no
                                           devices: what ``sharding/rules``' tests
@@ -72,6 +74,13 @@ class Mesh:
     @property
     def primary(self) -> torch.device:
         return self.devices[0][0]
+
+
+def is_compute_mesh(mesh) -> bool:
+    """Whether ``mesh`` is a ("data", "model") compute mesh (``Mesh``, which
+    the serving entry points run the backbone over), as opposed to serving
+    TP's ``TPMesh`` (a "model" axis only) or no mesh."""
+    return mesh is not None and "data" in getattr(mesh, "axis_names", ())
 
 
 def make_host_mesh(model_parallel: int = 1, devices: Optional[Sequence] = None) -> Mesh:

@@ -78,8 +78,8 @@ def decode_byte_parts(cfg, fkv, shape, mesh_shape=None) -> dict:
     n_sel = max(0, (fkv.budget - fkv.n_sink - fkv.n_window) // p)
     resident = fkv.n_sink + fkv.n_window + p + n_sel * p
     kv_term = B_loc * kv * resident * d * 2 * it
-    # kv-head sharding splits the budget attention over 'model'
-    if cfg.n_kv_heads % mp == 0:
+    # kv-head or page sharding splits the budget attention over 'model'
+    if cfg.n_kv_heads % mp == 0 or fkv.sharded_retrieval:
         kv_term /= mp
     attn_bytes = kv_term * n_attn
     attn_bytes += (B_loc * kv * min(cfg.sliding_window, 10 ** 9) * d * 2 * it
@@ -88,7 +88,7 @@ def decode_byte_parts(cfg, fkv, shape, mesh_shape=None) -> dict:
     n_pages_ctx = shape.seq_len // p
     pool_bytes = B_loc * kv * 2 * p * d * it * (1 + n_sel) * n_attn
     summ_bytes = B_loc * kv * n_pages_ctx * 2 * d * it * n_attn
-    if cfg.n_kv_heads % mp == 0 or B % nb != 0:
+    if cfg.n_kv_heads % mp == 0 or fkv.sharded_retrieval or B % nb != 0:
         pool_bytes /= mp
         summ_bytes /= mp
     # recurrent states (mamba / xlstm): read + write

@@ -15,7 +15,10 @@ the CPU parity tests keep the reference's numbers. Decode attention is
 
 ``attention_mp`` is a training layer's attention sublayer under a mesh, on
 one data group's model shards (``sharding/transfer.MeshRow``), in the
-layouts of the reference's ``_gather_for_compute`` and ``_maybe_seq_shard``.
+layouts of the reference's ``_gather_for_compute`` and ``_maybe_seq_shard``;
+``attention_mp_prefill`` is a serving prefill's, forward only, and
+``megatron_weights``, ``qkv_split`` and ``out_split`` are the pieces a
+serving decode step's sublayer reuses (``models/model``).
 """
 from __future__ import annotations
 
@@ -176,20 +179,19 @@ def attention_mp(cfg: ArchConfig, p, h, window, row):
     partial outputs are summed on shard 0. Where it does not (smollm-360m's
     15/5 at m = 2, the smoke configs' 4/2 at m = 4), shard j takes input
     block j of wq/wk/wv (d_model) and of wo (H * d_head), the partial q, k, v
-    and outputs summed on shard 0, and the attention is split over query
-    rows when T divides: shard j attends rows [j T/m, (j+1) T/m) to every
-    key, which is exact. A dim that does not divide stays whole on shard 0.
-    With one model shard this is the unsharded sublayer."""
+    and outputs summed on shard 0 (``qkv_split``, ``out_split``), and the
+    attention is split over query rows when T divides: shard j attends rows
+    [j T/m, (j+1) T/m) to every key, which is exact. A dim that does not
+    divide stays whole on shard 0. With one model shard this is the
+    unsharded sublayer."""
     m = row.m
     B, T, d = h.shape
-    H, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    if H % m == 0 and kv % m == 0:
-        local = cfg if m == 1 else dataclasses.replace(cfg, n_heads=H // m, n_kv_heads=kv // m)
+    if heads_divide(cfg, m):
+        local = local_cfg(cfg, m)
         hs = row.broadcast(h, "partial_sum")
         parts = []
         for j in range(m):
-            w = {k: row.fetch(p[k], j, dim=1) for k in ("wq", "wk", "wv")}
-            w["wo"] = row.fetch(p["wo"], j, dim=0)
+            w = megatron_weights(p, row, j)
             pos = _positions(B, 0, T, row.device(j))
             q, k, v = qkv_proj(local, w, hs[j], pos)
             o = attention_auto(local, q, k, v, pos, pos, causal=True, window=window)
@@ -197,16 +199,7 @@ def attention_mp(cfg: ArchConfig, p, h, window, row):
         return row.reduce(parts, "partial_sum")
 
     pos = _positions(B, 0, T, h.device)
-    if d % m == 0:
-        hs = [row.move(h[..., j * d // m:(j + 1) * d // m], 0, j, "partial_sum")
-              for j in range(m)]
-        q, k, v = (row.reduce([hs[j] @ row.fetch(p[key], j, dim=0) for j in range(m)],
-                              "partial_sum") for key in ("wq", "wk", "wv"))
-    else:
-        q, k, v = (h @ row.fetch(p[key], 0) for key in ("wq", "wk", "wv"))
-    q = apply_rope(cfg, q.reshape(B, T, H, dh), pos)
-    k = apply_rope(cfg, k.reshape(B, T, kv, dh), pos)
-    v = v.reshape(B, T, kv, dh)
+    q, k, v = qkv_split(cfg, p, h, pos, row)
     if T % m == 0:                          # query rows: shard j holds block j
         n = T // m
         ks, vs = row.broadcast(k, "partial_sum"), row.broadcast(v, "partial_sum")
@@ -219,15 +212,130 @@ def attention_mp(cfg: ArchConfig, p, h, window, row):
                                              causal=True, window=window)))
     else:
         blocks = [(0, attention_auto(cfg, q, k, v, pos, pos, causal=True, window=window))]
-    F = H * dh
+    return out_split(cfg, p, blocks, row)
+
+
+# ---------------------------------------------------------------------------
+# the sublayer's pieces under a mesh row, shared by training and serving
+# ---------------------------------------------------------------------------
+def local_cfg(cfg: ArchConfig, m: int) -> ArchConfig:
+    """``cfg`` with its head counts divided by ``m`` (one Megatron shard's)."""
+    return cfg if m == 1 else dataclasses.replace(cfg, n_heads=cfg.n_heads // m,
+                                                  n_kv_heads=cfg.n_kv_heads // m)
+
+
+def heads_divide(cfg: ArchConfig, m: int) -> bool:
+    """Whether ``m`` model shards take Megatron's layout: m divides both head
+    counts."""
+    return cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
+
+
+def megatron_weights(p, row, j: int) -> dict:
+    """Shard j's Megatron blocks of an attention sublayer's weights."""
+    w = {k: row.fetch(p[k], j, dim=1) for k in ("wq", "wk", "wv")}
+    w["wo"] = row.fetch(p["wo"], j, dim=0)
+    return w
+
+
+def qkv_split(cfg: ArchConfig, p, h, pos, row):
+    """The input-dim split's q, k, v (B, T, H|kv, dh) on shard 0, RoPE'd at
+    ``pos``: input block j of wq/wk/wv on shard j, the partial products
+    summed on shard 0 (whole on shard 0 where d_model does not divide)."""
+    m = row.m
+    B, T, d = h.shape
+    if d % m == 0:
+        hs = [row.move(h[..., j * d // m:(j + 1) * d // m], 0, j, "partial_sum")
+              for j in range(m)]
+        q, k, v = (row.reduce([hs[j] @ row.fetch(p[key], j, dim=0) for j in range(m)],
+                              "partial_sum") for key in ("wq", "wk", "wv"))
+    else:
+        q, k, v = (h @ row.fetch(p[key], 0) for key in ("wq", "wk", "wv"))
+    q = apply_rope(cfg, q.reshape(B, T, cfg.n_heads, cfg.d_head), pos)
+    k = apply_rope(cfg, k.reshape(B, T, cfg.n_kv_heads, cfg.d_head), pos)
+    return q, k, v.reshape(B, T, cfg.n_kv_heads, cfg.d_head)
+
+
+def out_split(cfg: ArchConfig, p, blocks, row):
+    """The input-dim split's out projection: ``blocks`` a list of (shard,
+    o (B, t, H, dh)) row blocks in order; feature block j of every row
+    block goes to shard j for wo's input block j, the partial outputs
+    summed on shard 0 (whole on shard 0 where H * dh does not divide)."""
+    m = row.m
+    F = cfg.n_heads * cfg.d_head
     if F % m == 0:
-        # feature block j of every row block to shard j, for wo's input block j
         parts = []
         for j in range(m):
-            o_j = [row.move(o.reshape(B, o.shape[1], F)[..., j * F // m:(j + 1) * F // m],
+            o_j = [row.move(o.reshape(o.shape[0], o.shape[1], F)[..., j * F // m:(j + 1) * F // m],
                             src, j, "partial_sum") for src, o in blocks]
             o_j = o_j[0] if len(o_j) == 1 else torch.cat(o_j, dim=1)
             parts.append(o_j @ row.fetch(p["wo"], j, dim=0))
         return row.reduce(parts, "partial_sum")
     o = torch.cat([row.move(o, src, 0, "partial_sum") for src, o in blocks], dim=1)
-    return o.reshape(B, T, F) @ row.fetch(p["wo"], 0)
+    return o.reshape(o.shape[0], o.shape[1], F) @ row.fetch(p["wo"], 0)
+
+
+def attention_mp_prefill(cfg: ArchConfig, p, h, t0: int, window, row, buf=None,
+                         need_whole=False):
+    """A serving prefill's attention sublayer (forward only) over one data
+    group's h (B, S, d) on shard 0 of ``row``, queries at positions
+    t0..t0+S-1 over keys 0..t0+S-1, ``attention_prefill`` (``flash_prefill``
+    on the card) on each shard's heads, or over query rows split over
+    "model" where the heads do not divide (the reference's
+    ``_maybe_seq_shard``) -> (out on
+    shard 0, ks, vs, q_lasts, whole): the K/V of the whole context and the
+    last query, per shard under Megatron's layout (shard j's heads), else
+    one each on shard 0; ``whole`` the prompt's K/V joined on shard 0 when
+    ``need_whole``. ``buf`` (an extension): the (k, v) buffers on shard 0
+    holding the first t0 tokens, into which the suffix's K/V is written."""
+    m = row.m
+    B, S, _ = h.shape
+    t1 = t0 + S
+    if heads_divide(cfg, m):
+        local = local_cfg(cfg, m)
+        kvh = cfg.n_kv_heads // m
+        hs = row.broadcast(h, "partial_sum")
+        parts, ks, vs, qls = [], [], [], []
+        for j in range(m):
+            w = megatron_weights(p, row, j)
+            dev = row.device(j)
+            q_pos, kv_pos = _positions(B, t0, t1, dev), _positions(B, 0, t1, dev)
+            q, k, v = qkv_proj(local, w, hs[j], q_pos)
+            if buf is not None:
+                sl = slice(j * kvh, (j + 1) * kvh)
+                for b_, new in zip(buf, (k, v)):
+                    b_[:, t0:t1, sl].copy_(row.move(new, j, 0, "state"))
+                k = torch.cat([row.move(buf[0][:, :t0, sl], 0, j, "state"), k], dim=1)
+                v = torch.cat([row.move(buf[1][:, :t0, sl], 0, j, "state"), v], dim=1)
+            o = attention_prefill(local, q, k, v, q_pos, kv_pos, window=window)
+            parts.append(out_proj(local, w, o))
+            ks.append(k)
+            vs.append(v)
+            qls.append(q[:, -1].contiguous())
+        whole = None
+        if need_whole:
+            whole = tuple(torch.cat([row.move(t, j, 0, "state") for j, t in enumerate(ts)], dim=2)
+                          for ts in (ks, vs))
+        return row.reduce(parts, "partial_sum"), ks, vs, qls, whole
+    pos0 = _positions(B, t0, t1, h.device)
+    q, k, v = qkv_split(cfg, p, h, pos0, row)
+    if buf is not None:
+        buf[0][:, t0:t1].copy_(k)
+        buf[1][:, t0:t1].copy_(v)
+        k, v = buf[0][:, :t1], buf[1][:, :t1]
+    if S % m == 0 and m > 1:
+        # query rows: shard j attends rows block j to the keys they see
+        n = S // m
+        blocks = []
+        for j in range(m):
+            dev = row.device(j)
+            hi = t0 + (j + 1) * n
+            qj = row.move(q[:, j * n:(j + 1) * n], 0, j, "partial_sum")
+            kj, vj = (row.move(t[:, :hi], 0, j, "partial_sum") for t in (k, v))
+            blocks.append((j, attention_prefill(
+                cfg, qj, kj, vj, _positions(B, t0 + j * n, hi, dev),
+                _positions(B, 0, hi, dev), window=window)))
+    else:
+        blocks = [(0, attention_prefill(cfg, q, k, v, pos0, _positions(
+            B, 0, t1, h.device), window=window))]
+    whole = (k, v) if need_whole else None
+    return out_split(cfg, p, blocks, row), [k], [v], [q[:, -1].contiguous()], whole

@@ -16,12 +16,15 @@ with dense, MoE or no FFNs, encoder-decoder stacks and a frontend prefix
   serve_step_spec(cfg, fkv, params, state, loop, sampler)
   decode_window_spec(cfg, fkv, params, state, loop, sampler, n_max)
 
-Every serving entry point also takes ``mesh`` (``launch/mesh.make_tp_mesh``):
-with one, each attention layer's retrieval runs per KV-head group on its
-shard's device (``core/sharded_retrieval``) and the backbone runs once, on
-the params' device. ``forward_train`` takes a ("data", "model") ``mesh``
-(``launch/mesh.make_host_mesh``) and params placed on it: model-parallel
-training.
+Every serving entry point also takes ``mesh``. Serving TP's
+(``launch/mesh.make_tp_mesh``): each attention layer's retrieval runs per
+KV-head group on its shard's device (``core/sharded_retrieval``) and the
+backbone runs once, on the params' device. A ("data", "model") compute mesh
+(``launch/mesh.make_host_mesh``) with params placed by ``sharding/rules
+.place_serving_params``: the backbone of each data group on its model
+shards, forward only (the section "serving under a compute mesh" below).
+``forward_train`` takes a compute mesh and params placed on it
+(``rules.shard_params``): model-parallel training.
 
 Params are nested dicts of tensors, dense weights in the ``x @ W``
 orientation ``(d_in, d_out)``: ``{"embed": {"tok", "head"?}, "final_norm":
@@ -72,6 +75,7 @@ centroid index's upkeep reads ``pos_host`` (``centroid_index
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -81,8 +85,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL, DENSE, MAMBA, MLSTM, MOE, NONE,
                                       SLSTM, ArchConfig, FreeKVConfig)
-from repro_torch.core.retrieval import StreamingRetriever, make_retriever
-from repro_torch.core.sharded_retrieval import TPGroupShardedRetriever, tp_group_size
+from repro_torch.core.retrieval import (SHARDED_PATHS, StreamingRetriever, make_retriever,
+                                        use_sharded)
+from repro_torch.core.sharded_retrieval import (PageShardedRetriever, TPGroupShardedRetriever,
+                                                tp_group_size)
+from repro_torch.launch.mesh import TPMesh, is_compute_mesh
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe, ssm, xlstm
@@ -100,8 +107,14 @@ SHARD_STAT_KEYS = ("shard_sync_pages", "shard_async_pages")
 
 def stat_keys(mesh=None) -> tuple:
     """The keys of a decode step's stats: ``DECODE_STAT_KEYS``, each (B,),
-    and with a ``mesh`` ``SHARD_STAT_KEYS``, each (tp, B)."""
-    return DECODE_STAT_KEYS + (SHARD_STAT_KEYS if mesh is not None else ())
+    and under serving TP's mesh ``SHARD_STAT_KEYS``, each (tp, B)."""
+    return DECODE_STAT_KEYS + (SHARD_STAT_KEYS if shard_stats(mesh) else ())
+
+
+def shard_stats(mesh) -> bool:
+    """Whether a step's stats carry each KV-head-group shard's counts:
+    under serving TP's ``TPMesh``, not under a compute mesh."""
+    return mesh is not None and not is_compute_mesh(mesh)
 
 # leaves the reference keeps float32 whatever the params' dtype: the MoE
 # router (``moe_init``) and Mamba's ``A_log`` and ``D`` (``mamba_init``)
@@ -149,7 +162,12 @@ def retrievers(cfg: ArchConfig, fkv: FreeKVConfig, mesh=None) -> list:
     ``make_retriever``, ``ATTN_LOCAL`` -> the sliding window with no sink,
     a recurrent mixer -> None. Layers of one kind share one object. Under
     serving TP (``mesh``) both attention kinds run per KV-head group, the
-    sliding window too."""
+    sliding window too. A compute mesh's retrievers are per data group
+    (``_retriever_table``); the paths that ask here for one layer list
+    (speculative decoding's verify and rollback) do not run under it."""
+    if is_compute_mesh(mesh):
+        raise NotImplementedError("speculative decoding under a (\"data\", \"model\") mesh is "
+                                  f"{MESH_TODO} (the engine serves draft_len 0 there)")
     by_kind = {ATTN: make_retriever(cfg, fkv, mesh), MAMBA: None, MLSTM: None, SLSTM: None}
     if any(m == ATTN_LOCAL for m, _ in cfg.layers):
         def local(c):
@@ -610,6 +628,8 @@ def init_decode_state(cfg: ArchConfig, fkv: FreeKVConfig, batch_size: int,
     ``device``."""
     check_supported(cfg)
     dev = resolve_device(device)
+    if is_compute_mesh(mesh):
+        return _init_mesh_state(cfg, fkv, batch_size, max_len, dtype, dev, mesh)
     out = {"layers": [_layer_state(cfg, layer, r, batch_size, max_len, dtype, dev)
                       for layer, r in zip(cfg.layers, retrievers(cfg, fkv, mesh))],
            "pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
@@ -623,7 +643,7 @@ def init_decode_state(cfg: ArchConfig, fkv: FreeKVConfig, batch_size: int,
 @torch.no_grad()
 def prefill(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, max_len: int,
             state_dtype=torch.bfloat16, into=None, return_kv=False, build_state=True,
-            mesh=None):
+            mesh=None, group=None):
     """batch {"tokens": (B, T) on the params' device} -> (last-position
     logits (B, padded_vocab), decode state). Each layer's retriever state is
     built right after the layer runs, so only one layer's K/V is alive.
@@ -655,8 +675,15 @@ def prefill(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, max_len: int,
 
     ``mesh``: serving TP (``core/sharded_retrieval``). The backbone runs
     once, on the params' device; each attention layer's retriever state is
-    built per KV-head group on its shard's device."""
+    built per KV-head group on its shard's device. A ("data", "model")
+    compute mesh takes params placed by ``sharding/rules
+    .place_serving_params`` and runs ``_prefill_mesh`` (``group``: the data
+    group that runs a batch, a slot's; None splits the rows over "data"
+    where they divide)."""
     check_supported(cfg)
+    if is_compute_mesh(mesh):
+        return _prefill_mesh(cfg, fkv, params, batch, max_len, state_dtype, into, return_kv,
+                             build_state, mesh, group)
     x, positions = _embed_inputs(cfg, params, batch)
     B, T = x.shape[:2]
     dev = x.device
@@ -774,7 +801,7 @@ def _new_state(states, B, length, dev):
 @torch.no_grad()
 def prefill_extend(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, kv, prefix_len: int,
                    max_len: int, state_dtype=torch.bfloat16, build_state=True, into=None,
-                   mesh=None):
+                   mesh=None, group=None):
     """Prefill ``batch["tokens"]`` (B, S) as the continuation of a prefix of
     Tp = ``prefix_len`` tokens (reference ``model.py:578``). ``kv`` holds
     the per-layer post-RoPE K/V, a list with one ``(k, v)`` pair a layer:
@@ -793,12 +820,16 @@ def prefill_extend(cfg: ArchConfig, fkv: FreeKVConfig, params, batch, kv, prefix
 
     Returns (logits, state); the suffix's K/V is left in ``kv``. Only
     for ``supports_kv_extend`` stacks (no recurrent layer, encoder or
-    frontend prefix). ``mesh``: serving TP, as ``prefill``'s."""
+    frontend prefix). ``mesh`` and ``group`` as ``prefill``'s; under a
+    compute mesh the buffers live on the group's model shard 0."""
     check_supported(cfg)
     if not supports_kv_extend(cfg):
         raise NotImplementedError(f"{cfg.name}: a recurrent state, a cross-attention state or "
                                   "a frontend prefix cannot be extended over cached K/V "
                                   "(supports_kv_extend)")
+    if is_compute_mesh(mesh):
+        return _prefill_mesh(cfg, fkv, params, batch, max_len, state_dtype, into, False,
+                             build_state, mesh, group, kv=kv, prefix_len=prefix_len)
     tokens = batch["tokens"]
     x = L.embed_tokens(cfg, params["embed"], tokens)
     B, S = tokens.shape
@@ -864,7 +895,10 @@ def serve_step(cfg: ArchConfig, fkv: FreeKVConfig, params, state, tokens,
     (``mesh``) the backbone runs once, on the primary device, each
     attention layer's retrieval step runs per KV-head group
     (``core/sharded_retrieval``), its attention output gathered back, and
-    ``stats`` also hold each shard's transfer counts (``stat_keys``)."""
+    ``stats`` also hold each shard's transfer counts (``stat_keys``). A
+    compute mesh runs ``_serve_step_mesh``."""
+    if is_compute_mesh(mesh):
+        return _serve_step_mesh(cfg, fkv, params, state, tokens, collect_stats, mesh)
     x = L.embed_tokens(cfg, params["embed"], tokens)
     B = x.shape[0]
     dev = x.device
@@ -1006,9 +1040,10 @@ def supports_spec_decode(cfg: ArchConfig, fkv: FreeKVConfig) -> bool:
     the retriever needs a rewindable selection buffer (the FreeKV family;
     the local layers of gemma2 are streaming rings), over a stack that
     ``supports_kv_extend`` (no recurrent layer, no encoder-decoder, no
-    frontend prefix) with dense FFNs only."""
-    return (fkv.draft_len > 0 and fkv.method in SPEC_METHODS and supports_kv_extend(cfg)
-            and all(f == DENSE for _, f in cfg.layers))
+    frontend prefix) with dense FFNs only; the page-sharded fused step keeps
+    its own selection schedule and is excluded (``fkv.sharded_retrieval``)."""
+    return (fkv.draft_len > 0 and fkv.method in SPEC_METHODS and not fkv.sharded_retrieval
+            and supports_kv_extend(cfg) and all(f == DENSE for _, f in cfg.layers))
 
 
 @torch.no_grad()
@@ -1189,3 +1224,378 @@ def decode_window_spec(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, 
                                 + (B,), device=z.device) for k in stats}, finite)
     return (state, loop, torch.stack(toks), torch.stack(emits),
             {k: torch.stack(v) for k, v in stats.items()}, finite)
+
+
+# ---------------------------------------------------------------------------
+# serving under a ("data", "model") compute mesh
+# ---------------------------------------------------------------------------
+# A compute mesh (``launch/mesh.make_host_mesh``) runs the backbone of each
+# data group on its model shards (``sharding/transfer.MeshRow``), with the
+# params of ``sharding/rules.place_serving_params`` (one tree a data group,
+# each weight held in the layout its shards compute with, so a step fetches
+# none unless ``inference_fsdp`` keeps the FSDP dim).
+# The batch's rows split over "data" where they divide (``serving_groups``),
+# and group g's activations live on its shard (g, 0) between sublayers. The
+# attention sublayer is Megatron's where the model axis divides both head
+# counts (column-parallel wq/wk/wv, each shard its own heads, row-parallel
+# wo), else the input-dim split of the reference's ``_gather_for_compute``
+# with prefill attention over query rows split over "model"
+# (``_maybe_seq_shard``); the MLP column/row-parallel, the MoE
+# expert-parallel, the embedding and the logits vocab-parallel, as in
+# training, forward only. Each attention layer's retrieval state takes one
+# of three layouts in each data group (``mesh_layout``):
+#   "groups"  KV-head groups, shard j the KV heads its projections made
+#             (``TPGroupShardedRetriever.decode_parts``): nothing crosses
+#             shards but the row-parallel sums;
+#   "pages"   the page-sharded fused step (``PageShardedRetriever``) where
+#             ``retrieval.use_sharded`` holds;
+#   "whole"   the plain retriever on the group's shard 0, where the KV heads
+#             do not divide the model axis (the reference stores such state
+#             by page over "model" and lets its partitioner move it; a
+#             difference by design).
+# A layer's state is one flat dict keyed ``"<group>:<shard>/<leaf>"``; the
+# positions stay whole on the primary device. A 1 x 1 mesh computes what no
+# mesh does, op for op: the same tokens, bit for bit.
+def serving_groups(cfg: ArchConfig, mesh, batch_size: int) -> int:
+    """The data groups a serving batch of ``batch_size`` rows runs on: all
+    of "data" where the rows divide (``rules.batch_shardings``), else one,
+    group 0 running every row (the reference replicates such a batch over
+    "data"); one as well where a MoE's experts do not divide the model axis,
+    whose replicated branch routes the call's rows together, as
+    ``forward_train``."""
+    n = mesh.shape["data"]
+    if batch_size % n:
+        return 1
+    if any(f == MOE for _, f in cfg.layers) and cfg.n_experts % mesh.shape["model"]:
+        return 1
+    return n
+
+
+def check_mesh_serving(cfg: ArchConfig, mesh):
+    """Raises where ``cfg`` cannot serve under ``mesh`` (above 1 x 1: the
+    recurrent mixers and the encoder-decoder, ``MESH_TODO``)."""
+    if mesh.size > 1 and (cfg.is_encoder_decoder or any(m in RECURRENT for m, _ in cfg.layers)):
+        raise NotImplementedError(
+            f"{cfg.name}: the recurrent mixers and the encoder-decoder serve on one device or "
+            f"a 1 x 1 mesh only; a {mesh.dims} mesh is {MESH_TODO}")
+
+
+def mesh_layout(cfg: ArchConfig, fkv: FreeKVConfig, layer, model_parallel: int,
+                max_len: int = None, state=None) -> str:
+    """An attention layer's retrieval layout in a data group of
+    ``model_parallel`` shards ("groups", "pages" or "whole", see above),
+    from ``max_len`` when its state is made, or from a group's ``state``
+    (a page shard beyond 0 holds pages and no sink)."""
+    m = model_parallel
+    if layer[0] == ATTN:
+        if state is not None and m > 1:
+            fused = "1/pool" in state and "1/sink_k" not in state
+        else:             # one shard divides any state: the flags alone decide
+            fused = use_sharded(cfg, fkv, m, max_len or fkv.page_size)
+        if fused:
+            return "pages"
+    return "groups" if attn.heads_divide(cfg, m) else "whole"
+
+
+def _retriever_table(cfg: ArchConfig, fkv: FreeKVConfig, mesh):
+    """``get(g, mixer, layout)``: the retriever of one layer kind in data
+    group g under ``layout``, made once a call (as ``retrievers``' one a
+    kind)."""
+    table = {}
+
+    def get(g, mixer, layout):
+        key = (g, mixer, layout)
+        if key not in table:
+            table[key] = _make_mesh_retriever(cfg, fkv, mesh, g, mixer, layout)
+        return table[key]
+    return get
+
+
+def _make_mesh_retriever(cfg, fkv, mesh, g, mixer, layout):
+    row = MeshRow(mesh, g)
+    if layout == "pages":
+        return PageShardedRetriever(cfg, fkv, row, speculative=fkv.method == "freekv")
+    devs = tuple(row.device(j) for j in range(row.m)) if layout == "groups" else (row.device(0),)
+
+    def make(c):
+        if mixer == ATTN_LOCAL:
+            return StreamingRetriever(c, fkv, window=cfg.sliding_window, n_sink=0)
+        return make_retriever(c, fkv)
+    return TPGroupShardedRetriever(cfg, TPMesh(devs), make)
+
+
+def _gsub(st, g):
+    """Data group g's entries of a layer's state, its prefix dropped."""
+    pre = f"{g}:"
+    return {k[len(pre):]: v for k, v in st.items() if k.startswith(pre)}
+
+
+def _gput(st, g, sub):
+    """Group g's entries of ``st`` become ``sub``'s, in place."""
+    pre = f"{g}:"
+    for k in [k for k in st if k.startswith(pre) and k[len(pre):] not in sub]:
+        del st[k]
+    st.update({pre + k: v for k, v in sub.items()})
+
+
+def state_groups(layer_state) -> list:
+    """The data groups a layer's state under a compute mesh holds rows of."""
+    return sorted({int(k.split(":", 1)[0]) for k in layer_state})
+
+
+def _init_mesh_state(cfg, fkv, batch_size, max_len, dtype, dev, mesh):
+    check_mesh_serving(cfg, mesh)
+    n_g = serving_groups(cfg, mesh, batch_size)
+    b = batch_size // n_g
+    m = mesh.shape["model"]
+    retriever = _retriever_table(cfg, fkv, mesh)
+    layers = []
+    for layer in cfg.layers:
+        st = {}
+        for g in range(n_g):
+            at = mesh.device((g, 0))
+            if layer[0] in RECURRENT:
+                sub = {"0/" + k: v for k, v in
+                       _recurrent_state(cfg, layer[0], b, dtype, at).items()}
+            else:
+                r = retriever(g, layer[0], mesh_layout(cfg, fkv, layer, m, max_len=max_len))
+                sub = r.init_state(b, max_len, dtype, at)
+                if cfg.is_encoder_decoder:
+                    shape = (b, cfg.n_frontend_tokens, cfg.n_kv_heads, cfg.d_head)
+                    sub.update({"0/" + key: torch.zeros(shape, dtype=dtype, device=at)
+                                for key in CROSS_KEYS})
+            st.update({f"{g}:{k}": v for k, v in sub.items()})
+        layers.append(st)
+    return {"layers": layers, "pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
+            "pos_host": torch.zeros((batch_size,), dtype=torch.int32)}
+
+
+def _mesh_info(r, infos, row):
+    """The KV-head groups' infos as one, on shard 0 (counters moved as
+    ``stats``)."""
+    moved = [infos[0]] + [{k: row.move(v, j, 0, "stats") if isinstance(v, torch.Tensor) else v
+                           for k, v in info.items()} for j, info in enumerate(infos) if j]
+    return r.merge_info(moved, row.device(0))
+
+
+def _mesh_attn_decode(cfg, p, h, pos, r, layout, sub, row, length_host, q_proxy):
+    """A decode step's attention sublayer in group ``row``: h (B, 1, d) and
+    pos (B,) on shard 0, the group's retrieval state ``sub`` in place ->
+    (out on shard 0, sub, info on shard 0, this layer's query whole on
+    shard 0 for the next layer's ``q_proxy``, or None where none is read)."""
+    m = row.m
+    B = h.shape[0]
+    H, dh = cfg.n_heads, cfg.d_head
+    if attn.heads_divide(cfg, m):
+        local = attn.local_cfg(cfg, m)
+        hl = H // m
+        hs = row.broadcast(h, "partial_sum")
+        ws, qs, kns, vns = [], [], [], []
+        for j in range(m):
+            w = attn.megatron_weights(p, row, j)
+            pj = pos if j == 0 else row.move(pos, 0, j, "attn_in")
+            q, k, v = attn.qkv_proj(local, w, hs[j], pj[:, None])
+            ws.append(w)
+            qs.append(q[:, 0].contiguous())
+            kns.append(k[:, 0])
+            vns.append(v[:, 0])
+
+        def joined(ts):
+            return torch.cat([row.move(t, j, 0, "attn_in") for j, t in enumerate(ts)], dim=1)
+        if layout == "pages":
+            o, sub, info = r.decode(sub, joined(qs), joined(kns), joined(vns))
+            outs = [row.move(o[:, j * hl:(j + 1) * hl], 0, j, "attn_out") for j in range(m)]
+        else:
+            qps = None if q_proxy is None else [
+                row.move(q_proxy[:, j * hl:(j + 1) * hl].contiguous(), 0, j, "attn_in")
+                for j in range(m)]
+            outs, sub, infos = r.decode_parts(sub, qs, kns, vns, length_host=length_host,
+                                              q_proxies=qps)
+            info = _mesh_info(r, infos, row)
+        out = row.reduce([attn.out_proj(local, ws[j], outs[j][:, None]) for j in range(m)],
+                         "partial_sum")
+        return out, sub, info, (joined(qs) if q_proxy is not None else None)
+    q, k, v = attn.qkv_split(cfg, p, h, pos[:, None], row)
+    q, kn, vn = q[:, 0].contiguous(), k[:, 0], v[:, 0]
+    if layout == "pages":
+        o, sub, info = r.decode(sub, q, kn, vn)
+    else:
+        outs, sub, infos = r.decode_parts(sub, [q], [kn], [vn], length_host=length_host,
+                                          q_proxies=None if q_proxy is None else [q_proxy])
+        o, info = outs[0], _mesh_info(r, infos, row)
+    return attn.out_split(cfg, p, [(0, o.reshape(B, 1, H, dh))], row), sub, info, q
+
+
+def _join_vocab(row, blocks):
+    """``L.lm_logits``' vocab blocks (block j on shard j) as one tensor on
+    shard 0."""
+    return torch.cat([row.move(t, j, 0, "vocab") for j, t in enumerate(blocks)], dim=-1)
+
+
+def _moe_blocks(mesh, n_groups, n_tokens) -> int:
+    """A MoE call's data blocks in a group's flat tokens, as ``forward_train``."""
+    n_data = mesh.shape["data"]
+    return n_data // n_groups if (n_tokens * n_groups) % n_data == 0 else 1
+
+
+def _prefill_mesh(cfg, fkv, params, batch, max_len, state_dtype, into, return_kv, build_state,
+                  mesh, group, kv=None, prefix_len=0):
+    """``prefill`` (``kv`` None) and ``prefill_extend`` under a compute mesh:
+    each data group's rows through its model shards, its retrieval state
+    built in the layer's layout on its shards, the logits back on the
+    primary device and the K/V the caller keeps (per layer) there too, or
+    on the group's shard 0 when one ``group`` ran."""
+    check_mesh_serving(cfg, mesh)
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    groups = [group] if group is not None else list(range(serving_groups(cfg, mesh, B)))
+    b = B // len(groups)
+    m = mesh.shape["model"]
+    ext = kv is not None
+    t0 = int(prefix_len)
+    retriever = _retriever_table(cfg, fkv, mesh)
+    states = [{} for _ in cfg.layers]
+    kvs = [[] for _ in cfg.layers]
+    logits_parts = []
+    T = None
+    for gi, g in enumerate(groups):
+        row, prm, at = MeshRow(mesh, g), params[g], (g, 0)
+        grp = {k: transfer.move(mesh, v if len(groups) == 1 else v[gi * b:(gi + 1) * b],
+                                HOME, at, "data") for k, v in batch.items()}
+        if ext:
+            x = L.embed_tokens(cfg, prm["embed"], grp["tokens"], row=row)
+        else:
+            x, positions = _embed_inputs(cfg, prm, grp, row)
+        S = x.shape[1]
+        T = t0 + S
+        n_blocks = _moe_blocks(mesh, len(groups), b * S)
+        enc = (_encode(cfg, {"embed": prm["embed"], "encoder": row.whole(prm["encoder"])},
+                       grp["frontend"]) if cfg.is_encoder_decoder else None)
+        for i, lp in enumerate(prm["layers"]):
+            layer = cfg.layers[i]
+            h = L.apply_norm(cfg, _whole(row, lp["norm1"]), x)
+            if layer[0] in RECURRENT:                     # a 1 x 1 mesh: whole on shard 0
+                o, st = _FORWARD[layer[0]](cfg, row.whole(lp["mixer"]), h, return_state=True)
+                x = _ffn_aux(cfg, layer, lp, _residual(cfg, lp, x, o, "1", row), row,
+                             n_blocks)[0]
+                if build_state:
+                    states[i].update({f"{g}:0/{k}": v for k, v in st.items()})
+                kvs[i].append(None)
+                continue
+            buf = None
+            if ext:
+                buf = tuple(t if len(groups) == 1 else t[gi * b:(gi + 1) * b] for t in kv[i])
+            out, ks, vs, qls, whole = attn.attention_mp_prefill(
+                cfg, lp["mixer"], h, t0, _window(cfg, layer), row, buf,
+                need_whole=return_kv and not ext)
+            x = _residual(cfg, lp, x, out, "1", row)
+            if enc is not None:
+                xp = row.whole(lp)
+                xk, xv = _enc_kv(cfg, xp, enc)
+                x = _cross(cfg, xp, x, positions, xk, xv)
+            x = _ffn_aux(cfg, layer, lp, x, row, n_blocks)[0]
+            kvs[i].append(whole)
+            if not build_state:
+                continue
+            layout = mesh_layout(cfg, fkv, layer, m, max_len=max_len)
+            r = retriever(g, layer[0], layout)
+            st = _gsub(into[i], g) if into is not None else r.init_state(b, max_len, state_dtype,
+                                                                         row.device(0))
+            rows = {key: st.pop("0/" + key) for key in CROSS_KEYS if "0/" + key in st}
+            if layout == "pages":
+                k, v, ql = (ts[0] if len(ts) == 1 else
+                            torch.cat([row.move(t, j, 0, "state") for j, t in enumerate(ts)],
+                                      dim=axis)
+                            for ts, axis in ((ks, 2), (vs, 2), (qls, 1)))
+                st = r.prefill(st, k, v, ql)
+            else:
+                st = r.prefill_parts(st, ks, vs, qls)
+            if enc is not None:
+                for key, t in zip(CROSS_KEYS, (xk, xv)):
+                    st["0/" + key] = (rows[key].copy_(t) if key in rows else t.to(state_dtype))
+            states[i].update({f"{g}:{k}": v for k, v in st.items()})
+            del ks, vs, qls, h
+        x = L.apply_norm(cfg, _whole(row, prm["final_norm"]), x)
+        lg = _join_vocab(row, L.lm_logits(cfg, prm["embed"], x[:, -1], row=row))
+        logits_parts.append(transfer.move(mesh, lg, at, HOME, "data"))
+    logits = logits_parts[0] if len(groups) == 1 else torch.cat(logits_parts)
+    state = _new_state(states, B, T, mesh.primary) if build_state else None
+    if return_kv:
+        if len(groups) > 1:
+            kvs = [None if parts[0] is None else tuple(
+                torch.cat([transfer.move(mesh, p_[c], (g, 0), HOME, "state")
+                           for g, p_ in zip(groups, parts)]) for c in range(2))
+                for parts in kvs]
+        else:
+            kvs = [parts[0] for parts in kvs]
+        return logits, state, kvs
+    return logits, state
+
+
+def _serve_step_mesh(cfg, fkv, params, state, tokens, collect_stats, mesh):
+    """``serve_step`` under a compute mesh: each data group's rows through
+    its model shards, each attention layer's retrieval step in its layout,
+    the logits and the stats back on the primary device."""
+    check_mesh_serving(cfg, mesh)
+    B = tokens.shape[0]
+    groups = state_groups(state["layers"][0])
+    b = B // len(groups)
+    m = mesh.shape["model"]
+    pos, pos_host = state["pos"], state["pos_host"]
+    infinigen = fkv.method == "infinigen"
+    retriever = _retriever_table(cfg, fkv, mesh)
+    logits_parts, stats_parts = [], []
+    for gi, g in enumerate(groups):
+        row, prm, at = MeshRow(mesh, g), params[g], (g, 0)
+        sl = slice(gi * b, (gi + 1) * b)
+        tok = transfer.move(mesh, tokens[sl], HOME, at, "data")
+        pos_g = transfer.move(mesh, pos[sl], HOME, at, "data")
+        x = L.embed_tokens(cfg, prm["embed"], tok, row=row)
+        dev = x.device
+        n_blocks = _moe_blocks(mesh, len(groups), b)
+        q_proxy = (torch.zeros((b, cfg.n_heads, cfg.d_head), dtype=x.dtype, device=dev)
+                   if infinigen else None)
+        stats = {k: torch.zeros((b,), dtype=torch.float32, device=dev) for k in DECODE_STAT_KEYS}
+        for i, lp in enumerate(prm["layers"]):
+            layer = cfg.layers[i]
+            st = state["layers"][i]
+            sub = _gsub(st, g)
+            h = L.apply_norm(cfg, _whole(row, lp["norm1"]), x)
+            if layer[0] in RECURRENT:                     # a 1 x 1 mesh: whole on shard 0
+                rec = {k[2:]: v for k, v in sub.items()}
+                o, _ = _DECODE_STEP[layer[0]](cfg, row.whole(lp["mixer"]), h, rec)
+                _gput(st, g, {"0/" + k: v for k, v in rec.items()})
+                x = _ffn_aux(cfg, layer, lp, _residual(cfg, lp, x, o, "1", row), row,
+                             n_blocks)[0]
+                continue
+            cross = {key: sub.pop("0/" + key) for key in CROSS_KEYS if "0/" + key in sub}
+            layout = mesh_layout(cfg, fkv, layer, m, state=sub)
+            r = retriever(g, layer[0], layout)
+            out, sub, info, q_now = _mesh_attn_decode(cfg, lp["mixer"], h, pos_g, r, layout, sub,
+                                                      row, pos_host[sl], q_proxy)
+            if infinigen:
+                q_proxy = q_now
+            sub.update({"0/" + key: t for key, t in cross.items()})
+            _gput(st, g, sub)
+            if layer[0] == ATTN and fkv.sharded_retrieval:
+                SHARDED_PATHS["fused" if layout == "pages" else "fallback"] += 1
+            x = _residual(cfg, lp, x, out, "1", row)
+            if cross:
+                x = _cross(cfg, row.whole(lp), x, pos_g[:, None], cross["xk"], cross["xv"])
+            x = _ffn_aux(cfg, layer, lp, x, row, n_blocks)[0]
+            if collect_stats and layer[0] == ATTN:
+                s = _info_stats(info, b, dev)
+                stats = {key: stats[key] + s[key] for key in stats}
+        x = L.apply_norm(cfg, _whole(row, prm["final_norm"]), x)
+        lg = _join_vocab(row, L.lm_logits(cfg, prm["embed"], x[:, -1], row=row))
+        logits_parts.append(transfer.move(mesh, lg, at, HOME, "data"))
+        stats_parts.append({k: transfer.move(mesh, v, at, HOME, "stats")
+                            for k, v in stats.items()})
+    logits = logits_parts[0] if len(groups) == 1 else torch.cat(logits_parts)
+    state["pos"] = pos + 1
+    state["pos_host"] = pos_host + 1
+    if collect_stats:
+        stats = {k: (stats_parts[0][k] if len(groups) == 1 else
+                     torch.cat([sp[k] for sp in stats_parts])) for k in DECODE_STAT_KEYS}
+        return logits, state, stats
+    return logits, state

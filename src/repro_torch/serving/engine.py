@@ -76,6 +76,21 @@ device (``device``, the mesh's first), and the greedy tokens equal tp=1's.
 One process drives every shard: one engine, one scheduler, one slot pool
 whose rows span the shards. ``tp`` must divide both head counts; it
 composes with speculative decoding.
+
+``mesh`` a ("data", "model") compute mesh (``launch/mesh.make_host_mesh``,
+told from serving TP's ``TPMesh`` by its "data" axis): the reference's
+compute-mesh serving (``engine.py:196-290``, ``model.py:118-126``). The
+params (plain tensors) are placed by ``sharding/rules
+.place_serving_params``: split over "model" only, in the layout the
+shards compute with, a copy in each data group, unless ``inference_fsdp``
+keeps the FSDP dim. The slots split over
+the data groups (``SlotPool``), each request is prefilled by its slot's
+group, and every decode step runs each group's rows on its model shards
+(``models/model``), each attention layer's retrieval in KV-head groups,
+page-sharded under ``fkv.sharded_retrieval`` (the fused step) or whole on
+the group's shard 0. Speculative decoding is off under a compute mesh.
+The bytes the shards move count on ``mesh.moved`` by kind; the decode
+steps' share lands in ``EngineMetrics``' mesh section.
 """
 from __future__ import annotations
 
@@ -91,10 +106,13 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import MOE, ArchConfig, FreeKVConfig
 from repro_torch.core.recall_pipeline import RecallFlightTracker
 from repro_torch.core.sharded_retrieval import tp_group_size
-from repro_torch.launch.mesh import indexed_device, make_tp_mesh
-from repro_torch.models.model import (DECODE_STAT_KEYS, decode_window, decode_window_spec,
-                                      frontend_prefix, prefill, prefill_extend, serve_step,
-                                      supports_kv_extend, supports_spec_decode)
+from repro_torch.launch.mesh import indexed_device, is_compute_mesh, make_tp_mesh
+from repro_torch.models.model import (DECODE_STAT_KEYS, check_mesh_serving, decode_window,
+                                      decode_window_spec, frontend_prefix, prefill,
+                                      prefill_extend, serve_step, supports_kv_extend,
+                                      supports_spec_decode)
+from repro_torch.sharding import rules
+from repro_torch.sharding.transfer import KINDS
 from repro_torch.obs import Observability
 from repro_torch.quant.accounting import page_block_bytes, page_block_bytes_dense
 from repro_torch.serving.kv_slots import SlotPool
@@ -171,7 +189,8 @@ class PrefillJob:
         if engine.prefix_cache is not None:
             tp, parts = engine._cache_lookup(self.seq)
             if tp:
-                self._kv = engine._load_prefix(parts, len(self.seq))
+                self._kv = engine._load_prefix(parts, len(self.seq), engine._group_device(
+                    pool.group_of(slot) if pool is not None else 0))
                 self.pos = self.hit = tp
 
     @property
@@ -188,6 +207,9 @@ class PrefillJob:
         ``prefill_one`` returns."""
         assert not self.done and budget > 0
         eng = self.engine
+        # under a compute mesh the slot's data group runs the prefill
+        group = (self.pool.group_of(self.slot) if eng.compute_mesh and self.pool is not None
+                 else None)
         n = min(int(budget), self.remaining)
         last = n == self.remaining
         into = self.pool.claim(self.slot) if last and self.pool is not None else None
@@ -197,6 +219,8 @@ class PrefillJob:
             batch.update(eng._frontend_batch([self.req]))
         common = dict(max_len=eng.max_len, state_dtype=eng.state_dtype, build_state=last,
                       into=into, mesh=eng.mesh)
+        if eng.compute_mesh:
+            common["group"] = group
         if self.pos == 0:
             keep = not last or eng.prefix_cache is not None  # for later chunks or the cache
             out = prefill(eng.cfg, eng.fkv, eng.params, batch, return_kv=keep, **common)
@@ -204,7 +228,8 @@ class PrefillJob:
             if keep and last:
                 self._kv = out[2]
             elif keep:
-                self._kv = eng._kv_buffers(len(self.seq), out[2][0][0].dtype)
+                self._kv = eng._kv_buffers(len(self.seq), out[2][0][0].dtype,
+                                           out[2][0][0].device)
                 for (bk, bv), (k, v) in zip(self._kv, out[2]):
                     bk[:, :n].copy_(k)
                     bv[:, :n].copy_(v)
@@ -240,7 +265,18 @@ class ServeEngine:
         self.device = resolve_device(device)
         if mesh is not None and tp > 1:
             raise ValueError("pass either mesh= or tp=, not both")
-        if mesh is not None or tp > 1:
+        self.compute_mesh = is_compute_mesh(mesh)
+        if fkv.sharded_retrieval and (tp > 1 or (mesh is not None and not self.compute_mesh)):
+            # reference ``engine.py:214``
+            raise ValueError("tp serving and the page-sharded fused step are exclusive")
+        if self.compute_mesh:
+            check_mesh_serving(cfg, mesh)
+            if indexed_device(self.device) != mesh.primary:
+                raise ValueError(f"the engine's device {self.device} must be the mesh's first, "
+                                 f"{mesh.primary}")
+            if not isinstance(params, list):
+                params = rules.place_serving_params(cfg, params, mesh)
+        elif mesh is not None or tp > 1:
             # the reference's checks (``engine.py:206-218``), then the mesh:
             # by default cuda:0 .. cuda:tp-1, which raises with fewer cards
             tp = tp if mesh is None else tp_group_size(mesh)
@@ -256,7 +292,8 @@ class ServeEngine:
         # it cannot be exact the engine serves draft_len=0 (reference
         # ``engine.py:222-232``): the same tokens, one a step
         if fkv.draft_len > 0 and not (scheduler == "continuous" and fkv.sample_on_device
-                                      and supports_spec_decode(cfg, fkv)):
+                                      and supports_spec_decode(cfg, fkv)
+                                      and not self.compute_mesh):
             fkv = dataclasses.replace(fkv, draft_len=0)
         self.spec_decode = fkv.draft_len > 0
         self.draft_len = fkv.draft_len
@@ -285,6 +322,9 @@ class ServeEngine:
         self.recall_tracker = RecallFlightTracker(shards=self.tp)
         # whether every live lane's logits of the last generate() were finite
         self.last_logits_finite: Optional[bool] = None
+        # under a compute mesh: the bytes the decode steps moved, by kind
+        self.mesh_decode_bytes = dict.fromkeys(KINDS, 0)
+        self.mesh_decode_steps = 0
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -337,8 +377,38 @@ class ServeEngine:
                         self.device, self.mesh)
 
     def step(self, state, tokens):
-        return serve_step(self.cfg, self.fkv, self.params, state, tokens.long(),
-                          collect_stats=True, mesh=self.mesh)
+        before = self._moved()
+        out = serve_step(self.cfg, self.fkv, self.params, state, tokens.long(),
+                         collect_stats=True, mesh=self.mesh)
+        self._count_decode(before, 1)
+        return out
+
+    def _moved(self):
+        return dict(self.mesh.moved.bytes) if self.compute_mesh else None
+
+    def _count_decode(self, before, n_steps: int):
+        """Add the bytes moved since ``before`` to the decode steps'."""
+        if before is None:
+            return
+        for k, v in self.mesh.moved.bytes.items():
+            self.mesh_decode_bytes[k] += v - before[k]
+        self.mesh_decode_steps += n_steps
+
+    def _apply_mesh_metrics(self, em: EngineMetrics, moved_at_start):
+        """The run's mesh section: the decode steps' bytes by kind, and the
+        rest (the prefills') from the mesh's counter."""
+        if not self.compute_mesh:
+            return
+        em.mesh_shape = dict(self.mesh.shape)
+        em.mesh_decode_bytes = dict(self.mesh_decode_bytes)
+        em.mesh_decode_steps = self.mesh_decode_steps
+        em.mesh_other_bytes = {k: v - moved_at_start[k] - self.mesh_decode_bytes[k]
+                               for k, v in self.mesh.moved.bytes.items()}
+
+    def _reset_mesh_counts(self):
+        self.mesh_decode_bytes = dict.fromkeys(KINDS, 0)
+        self.mesh_decode_steps = 0
+        return self._moved()
 
     @property
     def rows_meet(self) -> bool:
@@ -357,8 +427,11 @@ class ServeEngine:
         if self.spec_decode:
             return decode_window_spec(self.cfg, self.fkv, self.params, state, loop,
                                       self.sampler, n_steps, stop_turnover, mesh=self.mesh)
-        return decode_window(self.cfg, self.fkv, self.params, state, loop, self.sampler,
-                             n_steps, stop_turnover, read_finishes, mesh=self.mesh)
+        before = self._moved()
+        out = decode_window(self.cfg, self.fkv, self.params, state, loop, self.sampler,
+                            n_steps, stop_turnover, read_finishes, mesh=self.mesh)
+        self._count_decode(before, out[2].shape[0])
+        return out
 
     def sample_lanes(self, logits, keys, counts):
         """Per-slot sampling outside the window (the synchronous path): token
@@ -433,19 +506,25 @@ class ServeEngine:
         tp = len(seq) - suffix
         return (tp if tp >= max(b, self.fkv.page_size) else 0), parts
 
-    def _kv_buffers(self, n_tokens: int, dtype):
+    def _kv_buffers(self, n_tokens: int, dtype, device=None):
         shape = (1, n_tokens, self.cfg.n_kv_heads, self.cfg.d_head)
-        return [tuple(torch.empty(shape, dtype=dtype, device=self.device) for _ in range(2))
+        device = self.device if device is None else device
+        return [tuple(torch.empty(shape, dtype=dtype, device=device) for _ in range(2))
                 for _ in self.cfg.layers]
+
+    def _group_device(self, g: int):
+        """Data group g's shard 0 under a compute mesh (where a request's
+        K/V buffers live), else the engine's device."""
+        return self.mesh.device((g, 0)) if self.compute_mesh else self.device
 
     @staticmethod
     def _flat(kv):
         return [t[0] for pair in kv for t in pair]
 
-    def _load_prefix(self, parts, n_tokens: int):
+    def _load_prefix(self, parts, n_tokens: int, device=None):
         """K/V buffers for an ``n_tokens`` prompt holding the matched pieces
         in their leading tokens, copied from the (pinned) host."""
-        kv = self._kv_buffers(n_tokens, parts[0][0].dtype)
+        kv = self._kv_buffers(n_tokens, parts[0][0].dtype, device)
         copy_parts(parts, self._flat(kv))
         return kv
 
@@ -461,6 +540,7 @@ class ServeEngine:
         if self.scheduler == "continuous":
             return self._generate_continuous(requests, seed)
         t0 = time.perf_counter()
+        moved_at_start = self._reset_mesh_counts()
         em = EngineMetrics(num_slots=self.batch_size, scheduler="static", tp=self.tp,
                            sample_on_device=False)
         out: List[Completion] = []
@@ -469,6 +549,7 @@ class ServeEngine:
             out.extend(self._generate_batch(requests[i: i + self.batch_size], seed + i, em,
                                             t0))
         self._apply_quant_metrics(em)
+        self._apply_mesh_metrics(em, moved_at_start)
         em.wall_s = time.perf_counter() - t0
         em.requests = [c.metrics for c in out]
         for rm in em.requests:
@@ -485,9 +566,11 @@ class ServeEngine:
         else:
             self._pool.reset_all()
         self.recall_tracker = RecallFlightTracker(shards=self.tp)
+        moved_at_start = self._reset_mesh_counts()
         sched = ContinuousScheduler(self, self._pool)
         tracked, em = sched.run(requests, seed, service=service)
         self._apply_quant_metrics(em)
+        self._apply_mesh_metrics(em, moved_at_start)
         if self.prefix_cache is not None:
             em.prefix_cache = self.prefix_cache.stats()
         self.last_metrics = em
@@ -565,9 +648,7 @@ class ServeEngine:
             if all(done):
                 break
             ts = time.perf_counter()
-            logits, state, stats = serve_step(cfg, fkv, self.params, state,
-                                              cur[:, None].long(), collect_stats=True,
-                                              mesh=self.mesh)
+            logits, state, stats = self.step(state, cur[:, None])
             key = fold_in(key, step)
             cur = sample(logits, self.sampler, key)
             finite &= torch.isfinite(logits).all()

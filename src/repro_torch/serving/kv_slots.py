@@ -27,6 +27,14 @@ shard's device (``core/sharded_retrieval``): every operation above acts on
 each leaf's rows, so on every shard's, and the pool accounting and the
 pinned check count every shard's pool.
 
+Under a ("data", "model") compute mesh the slots split over the data
+groups where they divide (``models.model.serving_groups``): slot s is row
+s % b of group s // b (b slots a group), and a layer's leaves are keyed
+``"<group>:<shard>/<key>"`` on that group's shards. Every operation above
+acts on the slot's group's leaves at its row there; ``claim`` hands out
+those views under their keys, and ``insert``/``swap_in`` write a state
+made in any group into the slot's group (``group_of``).
+
 Every write first makes the current stream wait for each layer's staged
 recall (``recall_pipeline.wait_staged``): the side stream writes the
 ``sel_k``/``sel_v`` tensors and reads the pool rows. Writes and reads of the
@@ -41,7 +49,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import offload, paging
 from repro_torch.core.recall_pipeline import wait_staged
-from repro_torch.models.model import init_decode_state
+from repro_torch.launch.mesh import is_compute_mesh
+from repro_torch.models.model import init_decode_state, serving_groups
 from repro_torch.quant.accounting import pool_bytes_detail
 from repro_torch.sharding.rules import base_key
 
@@ -77,6 +86,10 @@ class SlotPool:
         self.device = resolve_device(device)
         self.state = init_decode_state(cfg, fkv, num_slots, max_len, state_dtype, self.device,
                                        mesh)
+        # a compute mesh's data groups: slot s is row s % b of group s // b
+        self._grouped = is_compute_mesh(mesh)
+        self.n_groups = serving_groups(cfg, mesh, num_slots) if self._grouped else 1
+        self.group_rows = num_slots // self.n_groups
         # every leaf of an empty state is one constant (zeros, or -1 for
         # the position and page-id leaves, -1e9 for RaaS's timestamps,
         # -1e30 for the mLSTM's m, 1 for the sLSTM's n; whisper's xk/xv
@@ -124,6 +137,27 @@ class SlotPool:
         self._free.append(slot)
         self._dirty.add(slot)
 
+    def group_of(self, slot: int) -> int:
+        """The data group whose shards hold ``slot`` (0 without a compute
+        mesh)."""
+        return slot // self.group_rows if self._grouped else 0
+
+    def _rows(self, layer, slot: int):
+        """(key, leaf, row) for each leaf of ``layer`` that holds ``slot``:
+        every leaf at row ``slot``, or under a compute mesh the slot's
+        group's leaves at its row there."""
+        if not self._grouped:
+            return [(k, t, slot) for k, t in _tensors(layer).items()]
+        g, r = divmod(slot, self.group_rows)
+        pre = f"{g}:"
+        return [(k, t, r) for k, t in _tensors(layer).items() if k.startswith(pre)]
+
+    def _key_in(self, key: str, slot: int) -> str:
+        """``key`` of a state made in any data group as the slot's group's."""
+        if not self._grouped:
+            return key
+        return f"{self.group_of(slot)}:{key.split(':', 1)[1]}"
+
     def pool_bytes(self) -> int:
         """Physical host-tier bytes (packed payload + scales), all slots."""
         return self.pool_bytes_detail()["physical"]
@@ -147,9 +181,9 @@ class SlotPool:
     def _reset_row(self, slot: int):
         """Row ``slot`` to the empty state, all but the pool pages."""
         for layer, fill in zip(self.state["layers"], self._fill):
-            for k, t in _tensors(layer).items():
+            for k, t, r in self._rows(layer, slot):
                 if base_key(k) not in POOL_KEYS:
-                    paging.slot_read_leaf(t, slot).fill_(fill[base_key(k)])
+                    paging.slot_read_leaf(t, r).fill_(fill[base_key(k)])
         for k in self._top():
             self.state[k][slot] = _TOP_FILL[k]
 
@@ -171,15 +205,16 @@ class SlotPool:
         ``prefill(into=...)``."""
         self._settle()
         self._reset_row(slot)
-        return [{k: paging.slot_read_leaf(t, slot) for k, t in _tensors(layer).items()}
+        return [{k: paging.slot_read_leaf(t, r) for k, t, r in self._rows(layer, slot)}
                 for layer in self.state["layers"]]
 
     def insert(self, src_state, slot: int):
         """Write a B=1 decode state into row ``slot``."""
         self._settle()
+        r = slot - self.group_of(slot) * self.group_rows if self._grouped else slot
         for dst, src in zip(self.state["layers"], src_state["layers"]):
             for k, t in _tensors(src).items():
-                paging.slot_write_leaf(dst[k], t, slot)
+                paging.slot_write_leaf(dst[self._key_in(k, slot)], t, r)
         for k in self._top():
             if k in src_state:
                 paging.slot_write_leaf(self.state[k], src_state[k], slot)
@@ -187,8 +222,8 @@ class SlotPool:
     def extract(self, slot: int):
         """Row ``slot`` as a B=1 state of copies (tests, migration)."""
         self._settle()
-        return {"layers": [{k: paging.slot_read_leaf(t, slot).clone()
-                            for k, t in _tensors(layer).items()}
+        return {"layers": [{k: paging.slot_read_leaf(t, r).clone()
+                            for k, t, r in self._rows(layer, slot)}
                            for layer in self.state["layers"]],
                 **{k: paging.slot_read_leaf(self.state[k], slot).clone() for k in self._top()}}
 
@@ -201,7 +236,7 @@ class SlotPool:
         ``pos_host`` and the drafter's ``draft_tab``)."""
         self._settle()
         return offload.swap_state_to_host(
-            {"layers": [{k: paging.slot_read_leaf(t, slot) for k, t in _tensors(layer).items()}
+            {"layers": [{k: paging.slot_read_leaf(t, r) for k, t, r in self._rows(layer, slot)}
                         for layer in self.state["layers"]],
              **{k: paging.slot_read_leaf(self.state[k], slot) for k in self._top()}})
 
@@ -212,9 +247,10 @@ class SlotPool:
         stream; host rows (the pinned pool) are copied on the host after
         ``_settle``."""
         self._settle()
+        r = slot - self.group_of(slot) * self.group_rows if self._grouped else slot
         for dst, src in zip(self.state["layers"], host_state["layers"]):
             for k, t in src.items():
-                paging.slot_read_leaf(dst[k], slot).copy_(t, non_blocking=True)
+                paging.slot_read_leaf(dst[self._key_in(k, slot)], r).copy_(t, non_blocking=True)
         for k in self._top():
             paging.slot_read_leaf(self.state[k], slot).copy_(host_state[k], non_blocking=True)
 

@@ -183,6 +183,14 @@ class EngineMetrics:
     # even split of the totals
     tp: int = 1
     shard_pages: Dict[str, List[float]] = field(default_factory=dict)
+    # serving under a ("data", "model") compute mesh (empty without one):
+    # its shape, the bytes the decode steps moved between its shards by
+    # kind (``sharding/transfer.KINDS``), their count, and the rest of the
+    # run's moves (the prefills')
+    mesh_shape: Dict[str, int] = field(default_factory=dict)
+    mesh_decode_bytes: Dict[str, float] = field(default_factory=dict)
+    mesh_decode_steps: int = 0
+    mesh_other_bytes: Dict[str, float] = field(default_factory=dict)
     # decode steps per host read (models.model.decode_window); with
     # sample_on_device nothing crosses the host boundary between reads, so
     # nonsync_host_bytes stays 0; the synchronous path reads every step
@@ -310,6 +318,23 @@ class EngineMetrics:
         link, from its own counters: "sync"/"async"/"dropped" -> one a
         shard (empty where the run had no mesh)."""
         return {k: [n * self.page_block_bytes for n in v] for k, v in self.shard_pages.items()}
+
+    @property
+    def mesh_summary(self) -> dict:
+        """The serving collective term: bytes a decode step moved between
+        the mesh's shards by kind, their sum, and that sum over NVLink's
+        data-sheet rate (``roofline.NVLINK_BPS``), computed, not measured;
+        the prefills' bytes beside them. Empty without a compute mesh."""
+        if not self.mesh_shape:
+            return {}
+        from repro_torch.launch.roofline import NVLINK_BPS
+        n = max(self.mesh_decode_steps, 1)
+        per = {k: v / n for k, v in self.mesh_decode_bytes.items()}
+        total = sum(per.values())
+        return {"shape": dict(self.mesh_shape), "decode_steps": self.mesh_decode_steps,
+                "bytes_per_step": per, "bytes_per_step_total": total,
+                "nvlink_ms_per_step": 1e3 * total / NVLINK_BPS, "nvlink_ms_computed": True,
+                "prefill_bytes": dict(self.mesh_other_bytes)}
 
     @property
     def transfer_bytes_saved(self) -> float:
@@ -495,6 +520,7 @@ class EngineMetrics:
                                      if self.pool_bytes_physical else 1.0),
             },
             "prefix_cache": dict(self.prefix_cache),
+            **({"mesh": self.mesh_summary} if self.mesh_shape else {}),
         }
 
 

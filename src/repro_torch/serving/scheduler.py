@@ -109,7 +109,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.paging import state_bytes
-from repro_torch.models.model import DECODE_STAT_KEYS
+from repro_torch.models.model import DECODE_STAT_KEYS, shard_stats
 from repro_torch.obs.trace import (SPAN_DECODE_STEP, SPAN_DECODE_WINDOW, SPAN_PREFILL_CHUNK,
                                    SPAN_SCHED_CANCEL, SPAN_SCHED_PREEMPT, SPAN_SCHED_RESUME,
                                    SPAN_SPEC_VERIFY)
@@ -292,7 +292,7 @@ class ContinuousScheduler:
         # each tensor-parallel shard's own sync/async page counts, where the
         # steps carry them (a mesh, ``models.model.SHARD_STAT_KEYS``)
         shard_pages = ({k: np.zeros(flight.shards) for k in ("sync", "async")}
-                       if getattr(backend, "mesh", None) is not None else {})
+                       if shard_stats(getattr(backend, "mesh", None)) else {})
         active: Dict[int, _Tracked] = {}
         prefilling: Dict[int, _Tracked] = {}    # slot -> request with an open chunked prefill
         chunk = int(backend.prefill_chunk_tokens)

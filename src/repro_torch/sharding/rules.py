@@ -70,12 +70,13 @@ def batch_axes(mesh) -> Tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
 
 
-def param_spec(mesh, path: str, shape: Sequence[int]) -> Spec:
+def param_spec(mesh, path: str, shape: Sequence[int], fsdp_shard: bool = True) -> Spec:
     """The reference's ``param_spec`` for the leaf at ``path`` ("/"-joined
     keys) of ``shape``, as one tuple of axis names a dim (() where the dim
-    is whole)."""
+    is whole). ``fsdp_shard=False`` (the serving layout under
+    ``inference_fsdp`` False) splits no dim over the batch axes."""
     nd = len(shape)
-    fsdp = batch_axes(mesh)
+    fsdp = batch_axes(mesh) if fsdp_shard else ()
     if nd <= 1:
         return ((),) * nd
     if "embed/tok" in path:
@@ -91,6 +92,21 @@ def param_spec(mesh, path: str, shape: Sequence[int]) -> Spec:
     # the two trailing matrix dims (a stacked period axis ahead stays whole)
     return ((),) * (nd - 2) + (fsdp if _div(shape[-2], mesh, fsdp) else (),
                                ("model",) if _div(shape[-1], mesh, ("model",)) else ())
+
+
+def inference_fsdp(cfg, mesh, hbm_budget_frac: float = 0.25, hbm_bytes: float = None) -> bool:
+    """The serving weight layout (reference ``rules.py:87-94``): True keeps
+    the FSDP dim (a model's bf16 weights over its model shards exceed
+    ``hbm_budget_frac`` of a device's ``hbm_bytes``), False stores them
+    split over "model" only, a copy in every data group, so a decode step
+    gathers no weight. The reference's budget is a TPU's 16e9 bytes; the
+    port's default is the H100's ``roofline.CARD_BYTES``."""
+    if hbm_bytes is None:
+        from repro_torch.launch.roofline import CARD_BYTES
+        hbm_bytes = CARD_BYTES
+    mp = mesh.shape["model"] if "model" in mesh.axis_names else 1
+    per_dev = cfg.param_counts()["total"] * 2 / mp
+    return per_dev > hbm_budget_frac * hbm_bytes
 
 
 def batch_shardings(cfg, mesh, batch) -> dict:
@@ -109,10 +125,10 @@ class Sharded:
     ``mesh`` by ``spec``: dim d is cut into ``grid[d]`` equal blocks, and
     ``pieces`` lists the blocks in row-major grid order, each on its owner
     shard's device (``owner``)."""
-    __slots__ = ("pieces", "spec", "shape", "mesh", "grid")
+    __slots__ = ("pieces", "spec", "shape", "mesh", "grid", "home")
 
-    def __init__(self, pieces, spec: Spec, shape, mesh):
-        self.pieces, self.spec, self.mesh = tuple(pieces), spec, mesh
+    def __init__(self, pieces, spec: Spec, shape, mesh, home: int = 0):
+        self.pieces, self.spec, self.mesh, self.home = tuple(pieces), spec, mesh, home
         self.shape = torch.Size(shape)
         for axes in spec:
             assert len(axes) <= 1 and set(axes) <= {"data", "model"}, spec
@@ -135,16 +151,18 @@ class Sharded:
 
     def owner(self, k: int) -> Tuple[int, int]:
         """The (data, model) shard that holds piece ``k``."""
-        at = {"data": 0, "model": 0}
+        at = {"data": self.home, "model": 0}
         for axes, c in zip(self.spec, self._coords(k)):
             for a in axes:
                 at[a] = c
         return at["data"], at["model"]
 
     @classmethod
-    def place(cls, full: torch.Tensor, spec: Spec, mesh) -> "Sharded":
-        """``full`` cut by ``spec``, each piece copied to its owner's device."""
-        s = cls((), spec, full.shape, mesh)
+    def place(cls, full: torch.Tensor, spec: Spec, mesh, home: int = 0) -> "Sharded":
+        """``full`` cut by ``spec``, each piece copied to its owner's device;
+        a spec that does not split "data" puts every piece in data group
+        ``home``."""
+        s = cls((), spec, full.shape, mesh, home)
         pieces = []
         for k in range(math.prod(s.grid)):
             sl = tuple(slice(c * (n // g), (c + 1) * (n // g))
@@ -155,7 +173,7 @@ class Sharded:
 
     def like(self, pieces) -> "Sharded":
         """Other pieces (a gradient's, a moment's) in this leaf's layout."""
-        return Sharded(pieces, self.spec, self.shape, self.mesh)
+        return Sharded(pieces, self.spec, self.shape, self.mesh, self.home)
 
     def full(self, device=None) -> torch.Tensor:
         """A copy of the whole leaf on ``device`` (the mesh's primary by
@@ -217,10 +235,210 @@ def shard_params(cfg, params, mesh):
         t.detach(), param_spec(mesh, _path_str(path), t.shape), mesh), params)
 
 
+class Copies:
+    """A serving weight that every model shard of data group ``home``
+    computes with whole (the MoE router, which each expert shard routes
+    with): one copy on each shard, so no step fetches it. ``block`` and
+    ``full`` read like a ``Sharded`` leaf's."""
+    __slots__ = ("pieces", "shape", "mesh", "home")
+
+    def __init__(self, full: torch.Tensor, mesh, home: int):
+        self.mesh, self.home, self.shape = mesh, home, full.shape
+        self.pieces = tuple(full.to(mesh.device((home, j)), copy=True).contiguous()
+                            for j in range(mesh.shape["model"]))
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.pieces[0].dtype
+
+    def full(self, device=None) -> torch.Tensor:
+        device = self.mesh.primary if device is None else device
+        return self.pieces[0].detach().to(device, copy=True)
+
+    def block(self, box, dst, kind: str) -> torch.Tensor:
+        assert dst[0] == self.home, (dst, self.home)
+        piece = self.pieces[dst[1]]
+        if any(a != 0 or b != n for (a, b), n in zip(box, self.shape)):
+            piece = piece[tuple(slice(a, b) for a, b in box)]
+        return piece
+
+
+def serving_spec(cfg, mesh, path: str, shape: Sequence[int]):
+    """The layout a data group's model shards compute with the leaf at
+    ``path`` in (the forward-only mesh forms of ``models/attention``,
+    ``models/layers`` and ``models/moe``), where ``inference_fsdp`` is
+    False: a ``Spec`` splitting over "model" the dim whose block j shard j
+    multiplies by, whole (on shard 0) where the form computes with the whole
+    leaf there, or "copies" where every shard computes with it whole. So a
+    decode step fetches no weight. The reference stores by ``param_spec(
+    fsdp_shard=False)`` and lets its compiler re-lay wo and down out for
+    the row-parallel products; the port places them so once.
+
+      attention wq/wk/wv  columns (KV-head groups, where m divides both head
+                          counts), else rows (the input-dim split, where d
+                          divides), else whole
+      attention wo        rows where the heads or H * d_head divide, else whole
+      MLP up/gate, down   columns, rows (the hidden width divides), else whole
+      MoE wg/wu/wd        by expert (E divides), else whole; the router copies
+      embed tok, head     by vocab row, column (the padded vocab divides),
+                          else whole
+    Other leaves (norms, the recurrent mixers, which a mesh above 1 x 1
+    does not serve) take ``param_spec(fsdp_shard=False)``."""
+    m = mesh.shape["model"]
+    nd = len(shape)
+    key = path.rsplit("/", 1)[-1]
+    whole = ((),) * nd
+    if m == 1 or nd < 2:
+        return whole
+    rows = (("model",),) + ((),) * (nd - 1)
+    cols = ((),) * (nd - 1) + (("model",),)
+    if "mixer/" in path and key in ("wq", "wk", "wv", "wo"):
+        if cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0:
+            return rows if key == "wo" else cols
+        return rows if shape[0] % m == 0 else whole
+    if "ffn/" in path and key in ("up", "gate", "down"):
+        hidden = shape[0] if key == "down" else shape[1]
+        # a MoE whose experts do not divide runs whole, its shared experts too
+        if hidden % m or ("ffn/shared/" in path and cfg.n_experts % m):
+            return whole
+        return rows if key == "down" else cols
+    if "ffn/" in path and key in ("wg", "wu", "wd", "router"):
+        if cfg.n_experts % m:
+            return whole
+        return "copies" if key == "router" else rows
+    if path.startswith("embed/") and key in ("tok", "head"):
+        if cfg.padded_vocab() % m:
+            return whole
+        return rows if key == "tok" else cols
+    return param_spec(mesh, path, shape, fsdp_shard=False)
+
+
+def place_serving_params(cfg, params, mesh, fsdp=None) -> list:
+    """The serving layout of ``params`` (plain tensors) on ``mesh``: one
+    tree a data group. ``fsdp`` None takes ``inference_fsdp(cfg, mesh)``.
+    Without FSDP every data group holds its own copy on its own model shards
+    (the reference's leaves are replicated over "data"), each leaf in the
+    layout its shards compute with (``serving_spec``), so a step fetches no
+    weight. With it the groups share one placement by ``param_spec``, each
+    element held once, and a group fetches the blocks it lacks
+    (``weight_gather``)."""
+    if fsdp is None:
+        fsdp = inference_fsdp(cfg, mesh)
+    if fsdp:
+        one = map_leaves(lambda path, t: Sharded.place(
+            t.detach(), param_spec(mesh, _path_str(path), t.shape), mesh), params)
+        return [one] * mesh.shape["data"]
+
+    def place(home, path, t):
+        spec = serving_spec(cfg, mesh, _path_str(path), t.shape)
+        if spec == "copies":
+            return Copies(t.detach(), mesh, home)
+        return Sharded.place(t.detach(), spec, mesh, home)
+    return [map_leaves(lambda path, t: place(g, path, t), params)
+            for g in range(mesh.shape["data"])]
+
+
 def gather_params(params, device=None):
     """The inverse of ``shard_params``: every ``Sharded`` leaf whole on
     ``device`` (its mesh's primary by default); other leaves unchanged."""
-    return map_leaves(lambda _, t: t.full(device) if isinstance(t, Sharded) else t, params)
+    return map_leaves(lambda _, t: t.full(device) if isinstance(t, (Sharded, Copies)) else t,
+                      params)
+
+
+# ---------------------------------------------------------------------------
+# decode state under a mesh
+# ---------------------------------------------------------------------------
+def decode_state_spec(cfg, mesh, path: str, shape: Sequence[int], fkv=None) -> Spec:
+    """The reference's ``decode_state_spec`` (``rules.py:113-186``) for the
+    decode-state leaf at ``path`` ("/"-joined keys, the reference's stacked
+    ``pattern`` leaves with their leading periods axis) of ``shape``, as
+    one tuple of axis names a dim. Batch over the batch axes where it
+    divides; under ``fkv.sharded_retrieval`` the pool, its scales and the
+    summaries split by page and the selection buffers by slot over "model";
+    otherwise the KV-head dim over "model" where it divides, else the page
+    dim (over every axis at a batch that does not divide, the sequence-
+    parallel form); the centroid index, ShadowKV's and RaaS's leaves, the
+    rings and ``qprev`` by head; Mamba and the mLSTM by channel; the rest
+    whole.
+
+    The port stores by this table where its layout is the same: the
+    KV-head groups of ``core/sharded_retrieval`` and the fused step's page
+    and slot ranges. Where neither applies the port keeps a data group's
+    retrieval state whole on its model shard 0 (a difference by design,
+    ROADMAP)."""
+    ba = batch_axes(mesh)
+    shape = tuple(shape)
+    nd = len(shape)
+    lead = 0
+    if "pattern" in path and nd >= 2:        # (n_periods, B, ...)
+        lead, shape, nd = 1, shape[1:], nd - 1
+    b_ok = _div(shape[0], mesh, ba)
+    b_spec = ba if b_ok else ()
+
+    def out(*rest):
+        return ((),) * lead + (b_spec,) + tuple(() if r is None else
+                                                (r,) if isinstance(r, str) else tuple(r)
+                                                for r in rest)
+
+    key = path.rsplit("/", 1)[-1]
+    model = ("model",)
+    kv_div = _div(cfg.n_kv_heads, mesh, model)
+    kvm = "model" if kv_div else None
+    if fkv is not None and fkv.sharded_retrieval:
+        if key in ("pool", "pool_scale", "summ") and _div(shape[1], mesh, model):
+            return out("model", *([None] * (nd - 2)))
+        if key in ("sel_k", "sel_v") and _div(shape[2], mesh, model):
+            return out(None, "model", None, None)
+        if key == "sel_idx" and _div(shape[2], mesh, model):
+            return out(None, "model")
+    if key in ("pool", "pool_scale", "summ"):          # (B, n_pages, kv, ...)
+        if kv_div:
+            return out(None, "model", *([None] * (nd - 3)))
+        page_axes = model if b_ok else tuple(a for a in ("pod", "data", "model")
+                                             if a in mesh.axis_names)
+        if _div(shape[1], mesh, page_axes):
+            return out(page_axes, *([None] * (nd - 2)))
+        return out(*([None] * (nd - 1)))
+    if key in ("cent", "cent_mean", "cent_assign", "cent_count"):
+        return out(None, kvm, *([None] * (nd - 3)))
+    if key in ("sel_k", "sel_v"):                      # (B, kv, n_sel, p, d)
+        return out(kvm, None, None, None)
+    if key == "sel_idx":
+        return out(kvm, None)
+    if key in ("sink_k", "sink_v", "win_k", "win_v", "k", "v", "xk", "xv"):
+        return out(None, kvm, None)                    # (B, T, kv, d)
+    if key in ("k_u", "k_w"):                          # (B, kv, T, r)
+        return out(kvm, None, None)
+    if key in ("keep_k", "keep_v"):
+        return out(kvm, None, None, None)
+    if key in ("keep_idx", "last_used"):
+        return out(kvm, None)
+    if key == "qprev":                                 # (B, H, d)
+        return out("model" if _div(cfg.n_heads, mesh, model) else None, None)
+    if key == "h" and nd == 3:                         # mamba (B, di, ds)
+        return out("model" if _div(shape[1], mesh, model) else None, None)
+    if key == "conv":                                  # (B, dk-1, di)
+        return out(None, "model" if _div(shape[2], mesh, model) else None)
+    if key == "C":                                     # mlstm (B, nh, dqk, dv)
+        return out(None, None, "model" if _div(shape[3], mesh, model) else None)
+    if key == "n" and nd == 3:
+        return out(None, None)
+    # scalars and the rest (length, pos, m, win_pos, the sLSTM's h/c/n/m)
+    return out(*([None] * (nd - 1)))
+
+
+def model_block(spec: Spec, t: torch.Tensor, m: int, j: int) -> torch.Tensor:
+    """Model shard j's block of ``t`` (one of ``m``) along the dim ``spec``
+    splits over "model" (a ``decode_state_spec``); raises where none does."""
+    dims = [d for d, axes in enumerate(spec) if "model" in axes]
+    if len(dims) != 1:
+        raise ValueError(f"spec {spec} splits no single dim over 'model'")
+    n = t.shape[dims[0]] // m
+    return t.narrow(dims[0], j * n, n)
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,9 @@ again in the backward and count again.
 Kinds:
   weight_gather  a weight's pieces brought to the shard that computes with
                  them: the FSDP dim over "data", and the compute re-layout of
-                 the reference's ``_gather_for_compute``
+                 the reference's ``_gather_for_compute`` (training; serving
+                 places its weights in the compute layout, so only its FSDP
+                 form fetches)
   partial_sum    the row-parallel and input-dim-split reductions, with the
                  broadcast of their input to the model shards (an
                  all-reduce's two halves) and the query-row attention's
@@ -23,6 +25,22 @@ Kinds:
   vocab          the vocab-parallel embedding, logits and cross-entropy
   expert_sum     the expert-parallel MoE's input broadcast and output sum
   data           batch blocks to their data group, and the loss's terms back
+                 (serving: the step's tokens and positions out, the logits back)
+
+and, serving under a mesh (``models/model``, ``core/sharded_retrieval``):
+  attn_in        a decode step's query and new K/V brought to the shards
+                 that attend with them (the page shards of the fused step,
+                 or shard 0 where the heads were made on other shards)
+  attn_out       the attention output handed back to the shards of a
+                 row-parallel out projection
+  lse            the fused step's (output, log-sum-exp) partials and the
+                 selected ids its telemetry reads
+  overselect     the fused step's candidate scores and kept masks
+                 (``sharded_overselect``)
+  state          retrieval state and K/V moved whole between shards at a
+                 prefill (the fused step's page and slot ranges, K/V joined
+                 for the prefix cache or split for an extension)
+  stats          a decode step's retrieval counters brought to shard 0
 
 ``MeshRow`` is the model shards of one data group, with the moves the
 model code makes inside it.
@@ -33,7 +51,8 @@ from typing import Callable, List
 
 import torch
 
-KINDS = ("weight_gather", "partial_sum", "vocab", "expert_sum", "data")
+KINDS = ("weight_gather", "partial_sum", "vocab", "expert_sum", "data", "attn_in", "attn_out",
+         "lse", "overselect", "state", "stats")
 
 
 class Moved:
@@ -100,8 +119,8 @@ class MeshRow:
 
     def fetch(self, leaf, j: int, dim=None) -> torch.Tensor:
         """Shard j's compute block of a placed weight (``sharding/rules
-        .Sharded``): block j of ``m`` along ``dim``, or the whole leaf when
-        ``dim`` is None."""
+        .Sharded`` or ``Copies``): block j of ``m`` along ``dim``, or the
+        whole leaf when ``dim`` is None."""
         box = [(0, n) for n in leaf.shape]
         if dim is not None:
             n = leaf.shape[dim] // self.m

@@ -183,12 +183,20 @@ def test_cuda_request_without_built_library_raises(monkeypatch):
         lambda: ops.complete_page(torch.randn(1, 24, 2, 64), torch.randn(1, 24, 2, 64),
                                   torch.tensor([16], dtype=torch.int32),
                                   torch.zeros(1, 4, 2, 2, 64), torch.zeros(1, 4, 2, 2, 8, 64)),
+        lambda: ops.paged_attention_lse(q, kp, kp, pos, cur, scale=0.25),
+        lambda: ops.select_pages_shard(q, torch.randn(1, 3, 1, 2, 16),
+                                       torch.tensor([24], dtype=torch.int32), page_lo=1,
+                                       n_sel=2, scale=0.25, page_size=8, n_sink=0, n_window=0),
+        lambda: ops.complete_page_shard(torch.randn(1, 24, 2, 64), torch.randn(1, 24, 2, 64),
+                                        torch.tensor([16], dtype=torch.int32),
+                                        torch.zeros(1, 2, 2, 2, 64),
+                                        torch.zeros(1, 2, 2, 2, 8, 64), page_lo=1),
     ]
     assert len(calls) == len(ops.KERNELS)
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()
-    assert [fn.launches for fn in ops.KERNELS] == [0] * 13
+    assert [fn.launches for fn in ops.KERNELS] == [0] * len(ops.KERNELS)
 
 
 def test_other_devices_raise():

@@ -264,7 +264,13 @@ def test_cpu_dispatch_counts_no_launch():
     ops.complete_page(torch.randn(1, 24, 1, 16), torch.randn(1, 24, 1, 16),
                       torch.tensor([16], dtype=torch.int32), torch.zeros(1, 4, 1, 2, 16),
                       torch.zeros(1, 4, 1, 2, 8, 16))
-    assert [fn.launches for fn in ops.KERNELS] == [0] * 13
+    ops.paged_attention_lse(q, kp, kp, pos, torch.tensor([15], dtype=torch.int32), scale=0.25)
+    ops.select_pages_shard(q, torch.randn(1, 3, 1, 2, 16), length, page_lo=1, n_sel=2,
+                           scale=0.25, page_size=8, n_sink=0, n_window=0)
+    ops.complete_page_shard(torch.randn(1, 24, 1, 16), torch.randn(1, 24, 1, 16),
+                            torch.tensor([16], dtype=torch.int32), torch.zeros(1, 2, 1, 2, 16),
+                            torch.zeros(1, 2, 1, 2, 8, 16), page_lo=1)
+    assert [fn.launches for fn in ops.KERNELS] == [0] * len(ops.KERNELS)
 
 
 @pytest.mark.parametrize("sms", [1, 8, 108, 132])

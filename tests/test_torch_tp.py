@@ -292,17 +292,17 @@ def models():
 
 def test_engine_rejects_bad_tp(models):
     """The reference's refusals: a tp that does not divide both head counts,
-    tp beside the page-sharded fused step (which the port's config cannot
-    ask for), tp beside a mesh; and a mesh whose first device is not the
-    backbone's."""
+    tp beside the page-sharded fused step (``engine.py:214``), tp beside a
+    mesh; and a mesh whose first device is not the backbone's."""
     _, cfg, _, p = models
     fkv = FreeKVConfig(**FKV)
     with pytest.raises(ValueError, match="divide"):
         ServeEngine(cfg, fkv, p, max_len=96, batch_size=1, tp=3, device="cpu")
     with pytest.raises(ValueError, match="divide"):
         ServeEngine(cfg, fkv, p, max_len=96, batch_size=1, mesh=_mesh(3), device="cpu")
-    with pytest.raises(TypeError, match="sharded_retrieval"):
-        FreeKVConfig(**FKV, sharded_retrieval=True)
+    with pytest.raises(ValueError, match="exclusive"):
+        ServeEngine(cfg, FreeKVConfig(**FKV, sharded_retrieval=True), p, max_len=96,
+                    batch_size=1, tp=2, device="cpu")
     with pytest.raises(ValueError, match="not both"):
         ServeEngine(cfg, fkv, p, max_len=96, batch_size=1, tp=2, mesh=_mesh(2), device="cpu")
     with pytest.raises(ValueError, match="first"):
