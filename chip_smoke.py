@@ -89,7 +89,12 @@ their time is linear in the layers.
      of a prefill at T = 2048 beside their bounds. One xlstm-350m mLSTM and
      one sLSTM layer (d 1024, 4 heads, d_inner 2048) likewise ([xlstm]:
      256 chained steps against the forward within 1e-4, a decode step at
-     B = 4 with no host sync, decode and T = 2048 prefill ms beside bounds
+     B = 4 with no host sync, decode and T = 2048 prefill ms beside bounds;
+     [mixer-mesh]: the mesh forms (jamba's Mamba at (1, 4), xlstm-350m's
+     mLSTM and sLSTM at (1, 2), every shard on cuda:0, float32) against the
+     whole forms over a 64-token prefill and 8 decode steps, outputs and
+     state within TOL, no weight fetched, a step's ms beside the whole
+     form's
      counting bf16 products at the bf16 peak and float32 ones at
      float32's).
   4. main path: ServeEngine(scheduler="continuous"), the default, serving
@@ -196,6 +201,18 @@ their time is linear in the layers.
      busy share beside phase 4's; with two cards or more the none case
      runs on cuda:0 and cuda:1 too. Its launches are the kernels line's
      tp_launches.
+ 4g. serving over a ("data", "model") compute mesh, every shard on cuda:0
+     (mesh_phase): (a) llama31-8b at (2, 2), (b) the fused step at (1, 4),
+     (c) smollm-360m at (1, 2), (h) smollm-360m at (1, 2) with draft_len 4
+     and hints, its tokens (c)'s, (d) deepseek-moe-16b cut to 4 layers at
+     (1, 4); (e) xlstm-350m at full depth at (1, 2) (256-token prompts),
+     (f) whisper-tiny at (1, 2), (g) jamba-1.5-large-398b-smoke at (2, 2),
+     each also at 1 x 1 (tokens and launches equal no mesh's) and request
+     0 greedy in float32 (logits within 2e-4 of the largest |logit| of no
+     mesh's, xlstm-350m cut to one mLSTM and one sLSTM layer; bf16 flips
+     reported with their margins); then the 1 x 1 gate,
+     the float32 gate and the fused step card against CPU. Its launches
+     are the kernels line's mesh_launches.
   5. kernel path == plain path: granite-3-8b-smoke at float32 gives the same
      greedy tokens on the card (kernels) and on the CPU (plain versions):
      static, freekv and shadowkv under kv_quant none, int8 and int4,
@@ -256,7 +273,13 @@ their time is linear in the layers.
      tokens; and deepseek-moe-16b-smoke, llama4-scout-17b-a16e-smoke,
      smollm-360m-smoke and gemma2-2b-smoke trained 3 steps on (2, 2) and
      (1, 4) meshes, four shards on cuda:0 against four on the CPU, losses
-     within 1e-4 (the (2, 2) runs route the MoE per data block).
+     within 1e-4 (the (2, 2) runs route the MoE per data block). Phase 6c
+     also trains xlstm-350m (one mLSTM and one sLSTM layer, B=2, T=256) and
+     whisper-tiny (B=2, T=448, seeded frames) at full width, 2 steps at
+     (1, 1) and (1, 2), losses within 2e-5 (xlstm's first step: AdamW's
+     first update turns gradients that round to either side of 0 into
+     steps of lr apart) and the first batch's gradients within 1e-4
+     relative L2 leaf by leaf.
 Then one JSON line with the kernels' numbers and, last, the ok line.
 """
 import argparse
@@ -2119,6 +2142,106 @@ def xlstm_layer_phase(dev):
                                    "sync_free": True, "state_bytes_a_row": s_bytes // Bd},
                      "prefill_t2048": {"ms": pre_ms, "call_ms": pre_call, **pre_bound}}
         del p, xs, xp, s
+        torch.cuda.empty_cache()
+    return out
+
+
+# phase 3b, the recurrent mixers' model-parallel forms (models/ssm, models/xlstm,
+# models/model._recurrent_forward), every shard on the card: each held
+# against its whole form on the same float32 inputs, a prefill of
+# MIXER_MESH_T tokens and MIXER_MESH_STEPS decode steps from its state
+MIXER_MESH_T, MIXER_MESH_STEPS, MIXER_MESH_B = 64, 8, 2
+# (arch, layer index, mesh): jamba's Mamba at (1, 4), xlstm-350m's mLSTM
+# (layer 0) and sLSTM (layer 5) at (1, 2)
+MIXER_MESH = (("jamba-1.5-large-398b", 0, (1, 4)), ("xlstm-350m", 0, (1, 2)),
+              ("xlstm-350m", 5, (1, 2)))
+
+
+def _placed_mixer(cfg, i, p, mesh):
+    """Layer i's mixer params placed on data group 0 as serving places them
+    (``rules.serving_spec``)."""
+    from repro_torch.sharding import rules
+    out = {}
+    for k, t in p.items():
+        spec = rules.serving_spec(cfg, mesh, f"layers/{i}/mixer/{k}", t.shape)
+        out[k] = (rules.Halves(t, mesh, 0) if spec == "halves"
+                  else rules.Sharded.place(t, spec, mesh, 0))
+    return out
+
+
+def mixer_mesh_phase(dev):
+    """Each ``MIXER_MESH`` layer at full width with seeded float32 weights,
+    B = MIXER_MESH_B: the mesh form (Mamba split by d_inner, the mLSTM by
+    head, the sLSTM whole on shard 0) over a mesh of shards on ``dev``
+    against the whole form on the same inputs: the prefill's output and
+    state, then each decode step's output and the final state, within
+    TOL[float32] (each state block joined back); the mesh form fetches no
+    weight (the serving placement). Device ms of a mesh and of a whole
+    decode step, and the bytes a mesh step moves between shards."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.sharding.transfer import MeshRow
+    out = {}
+    for arch, i, dims in MIXER_MESH:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        mixer = cfg.layers[i][0]
+        gen = torch.Generator(device=dev).manual_seed(37 + i)
+        init = {"mamba": ssm.mamba_init, "mlstm": xlstm.mlstm_init,
+                "slstm": xlstm.slstm_init}[mixer]
+        p = init(cfg, _seeded_normal(gen, dev), torch.float32)
+        mesh = _mesh(dims, dev)
+        row = MeshRow(mesh, 0)
+        placed = _placed_mixer(cfg, i, p, mesh)
+        T, S, Bm = MIXER_MESH_T, MIXER_MESH_STEPS, MIXER_MESH_B
+        x = 0.5 * torch.randn(Bm, T + S, cfg.d_model, generator=gen, device=dev)
+        y, st = M._FORWARD[mixer](cfg, p, x[:, :T], return_state=True)
+        mesh.moved.reset()
+        ym, sts = M._recurrent_forward(cfg, mixer, placed, x[:, :T], row, return_state=True)
+        split = M._STATE_SPLIT.get(mixer, {})
+
+        def joined(blocks):
+            if len(blocks) == 1:
+                return blocks[0]
+            return {k: torch.cat([b[k].to(dev) for b in blocks], dim=split[k])
+                    for k in blocks[0]}
+        errs = {"prefill_y": (ym - y).abs().max().item()}
+        ok = torch.allclose(ym, y, **TOL[torch.float32])
+        for k, v in joined(sts).items():
+            errs["prefill_" + k] = (v - st[k]).abs().max().item()
+            ok = ok and torch.allclose(v, st[k], **TOL[torch.float32])
+        worst = 0.0
+        for t in range(S):
+            xt = x[:, T + t:T + t + 1]
+            yw = M._DECODE_STEP[mixer](cfg, p, xt, st)[0]
+            yt = M._recurrent_step(cfg, mixer, placed, xt, sts, row)
+            worst = max(worst, (yt - yw).abs().max().item())
+            ok = ok and torch.allclose(yt, yw, **TOL[torch.float32])
+        errs["decode_y"] = worst
+        for k, v in joined(sts).items():
+            errs["final_" + k] = (v - st[k]).abs().max().item()
+            ok = ok and torch.allclose(v, st[k], **TOL[torch.float32])
+        run = f"[mixer-mesh] {arch} layer {i} {mixer} {dims[0]}x{dims[1]}"
+        require(ok, f"{run}: the mesh form against the whole form, max |err| {errs}, "
+                f"tolerance {TOL[torch.float32]}")
+        require(mesh.moved.bytes["weight_gather"] == 0, f"{run}: fetched weights "
+                f"{mesh.moved.bytes['weight_gather']} B")
+        xs = x[:, T:T + 1]
+        mesh.moved.reset()
+        M._recurrent_step(cfg, mixer, placed, xs, sts, row)
+        moved = {k: v for k, v in mesh.moved.bytes.items() if v}
+        mesh_ms, mesh_call = time_ms(lambda x: M._recurrent_step(cfg, mixer, placed, x, sts,
+                                                                  row), [(xs,)], iters=10)
+        whole_ms, whole_call = time_ms(lambda x: M._DECODE_STEP[mixer](cfg, p, x, st), [(xs,)],
+                                       iters=10)
+        out[f"{arch} {mixer} {dims[0]}x{dims[1]}"] = {
+            "shards_holding_state": len(sts), "batch": Bm, "prefill_tokens": T,
+            "decode_steps": S, "max_abs_err": errs, "tol": TOL[torch.float32],
+            "mesh_step_ms": mesh_ms, "mesh_step_call_ms": mesh_call, "whole_step_ms": whole_ms,
+            "whole_step_call_ms": whole_call, "moved_bytes_per_step": moved,
+            "s": time.perf_counter() - t0}
+        del p, placed, x, y, st, ym, sts
         torch.cuda.empty_cache()
     return out
 
@@ -4065,12 +4188,13 @@ def mesh_run(dev, ops, label, cfg, params, fkv, dims, reqs, max_len, kind, profi
     return info, launches, tokens
 
 
-def _greedy_logits(cfg, fkv, params, toks, max_len, steps, mesh):
+def _greedy_logits(cfg, fkv, params, toks, max_len, steps, mesh, state_dtype=torch.float32):
     """prefill, then ``steps`` greedy serve_steps: the logits of each
-    (steps + 1, B, V) on the primary device, each run fed its own tokens."""
+    (steps + 1, B, V) on the primary device, each run fed its own tokens.
+    ``toks`` the prompt tokens, or a batch dict (with a frontend's frames)."""
     from repro_torch.models.model import prefill, serve_step
-    logits, st = prefill(cfg, fkv, params, {"tokens": toks}, max_len,
-                         state_dtype=torch.float32, mesh=mesh)
+    batch = toks if isinstance(toks, dict) else {"tokens": toks}
+    logits, st = prefill(cfg, fkv, params, batch, max_len, state_dtype=state_dtype, mesh=mesh)
     rows = [logits]
     for _ in range(steps):
         logits, st = serve_step(cfg, fkv, params, st, logits.argmax(-1)[:, None], mesh=mesh)
@@ -4108,18 +4232,33 @@ def mesh_f32_gate(dev, ops):
     placed = rules.place_serving_params(cfg, params, mesh)
     meshed = _greedy_logits(cfg, fkv, placed, toks, max_len, ARCH_NEW, mesh)
     del placed, params
-    # the real vocabulary: the padding's logits are float32's min in both
-    plain, meshed = plain[..., :cfg.vocab_size], meshed[..., :cfg.vocab_size]
-    live = torch.ones(B, dtype=torch.bool, device=dev)
+    worst, flips, live = _hold_logits(cfg, plain, meshed, MESH_LOGIT_RTOL, "f32 gate")
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "dtype": "float32", "mesh": [2, 2],
+            "steps": ARCH_NEW, "max_rel_logit_err": worst, "rtol": MESH_LOGIT_RTOL,
+            "flips": flips, "requests_compared_to_the_end": live,
+            "s": time.perf_counter() - t0}
+
+
+def _hold_logits(cfg, plain, meshed, rtol, what):
+    """Two ``_greedy_logits`` runs over the real vocabulary (the padding's
+    logits are the dtype's min in both): each step's logits within ``rtol``
+    of the largest |logit| (None: reported, not gated). A request whose
+    token flips at a near tie (its top-2 margin logged) leaves the
+    comparison from that step on: the two runs no longer decode the same
+    sequence. Returns (the largest error over the largest |logit|, the
+    flips, the requests compared to the end)."""
+    plain, meshed = plain[..., :cfg.vocab_size].float(), meshed[..., :cfg.vocab_size].float()
+    live = torch.ones(plain.shape[1], dtype=torch.bool, device=plain.device)
     worst, flips = 0.0, []
-    for step in range(ARCH_NEW + 1):
+    for step in range(plain.shape[0]):
         a, b = plain[step], meshed[step]
         scale = a[live].abs().max().item() if bool(live.any()) else 1.0
         err = (a - b).abs().amax(dim=-1)
-        bad = live & (err > MESH_LOGIT_RTOL * scale)
-        require(not bool(bad.any()), f"f32 gate step {step}: logits of rows "
+        bad = live & (err > rtol * scale) if rtol is not None else live & False
+        require(not bool(bad.any()), f"{what} step {step}: logits of rows "
                 f"{bad.nonzero().flatten().tolist()} differ by {err[bad].tolist()}, over "
-                f"{MESH_LOGIT_RTOL} x {scale}")
+                f"{rtol} x {scale}")
         if bool(live.any()):
             worst = max(worst, (err[live] / scale).max().item())
         flip = live & (a.argmax(-1) != b.argmax(-1))
@@ -4127,15 +4266,10 @@ def mesh_f32_gate(dev, ops):
             top2 = a[r].topk(2).values
             margin = (top2[0] - top2[1]).item()
             flips.append({"request": r, "step": step, "top2_margin": margin})
-            log(f"[mesh] f32 gate: request {r}'s token flips at step {step} at a top-2 margin "
-                f"of {margin:.3g} (tolerance {MESH_LOGIT_RTOL * scale:.3g}); it leaves the "
-                "comparison")
+            log(f"[mesh] {what}: request {r}'s token flips at step {step} at a top-2 margin "
+                f"of {margin:.3g} (largest |logit| {scale:.3g}); it leaves the comparison")
         live &= ~flip
-    torch.cuda.empty_cache()
-    return {"arch": cfg.name, "layers": cfg.n_layers, "dtype": "float32", "mesh": [2, 2],
-            "steps": ARCH_NEW, "max_rel_logit_err": worst, "rtol": MESH_LOGIT_RTOL,
-            "flips": flips, "requests_compared_to_the_end": int(live.sum()),
-            "s": time.perf_counter() - t0}
+    return worst, flips, int(live.sum())
 
 
 def mesh_bit_gate(dev, ops):
@@ -4257,18 +4391,211 @@ def mesh_fused_gate(dev, ops):
             "s": time.perf_counter() - t0}
 
 
+# phase 4g (e)-(g): the recurrent mixers and the encoder-decoder under a mesh,
+# (label, arch, mesh, the four requests' prompt tokens, whether its float32
+# logit gate runs at ``mixer_cut``'s depth). xlstm-350m's prompts stay at one
+# sLSTM scan chunk (its prefill is a Python loop over time). jamba's smoke
+# width serves (the full model is ~398 B parameters)
+MESH_X_NEW = 8
+MESH_X_RUNS = (("(e)", "xlstm-350m", (1, 2), (256, 256, 256, 256), True),
+               ("(f)", "whisper-tiny", (1, 2), (3072, 2560, 2048, 2816), False),
+               ("(g)", "jamba-1.5-large-398b-smoke", (2, 2), (512, 448, 384, 480), False))
+
+
+def mixer_cut(cfg):
+    """xlstm-350m cut to one mLSTM and one sLSTM layer at full width, for
+    its float32 gates (4g (e), 6c): with seeded weights its runs of five
+    mLSTM layers amplify float rounding, with no mesh as with one, so that
+    two summation orders of the whole period land at about the gate's 2e-4
+    of the largest |logit|; the cut still runs both mixers' mesh forms."""
+    return dataclasses.replace(cfg, n_layers=2, n_periods=1,
+                               pattern=(("mlstm", "none"), ("slstm", "none")))
+MESH_SPEC_DRAFT = 4                        # (h)'s draft_len
+
+
+def _xmesh_expect(cfg, m, n_groups, reqs, steps):
+    """The launches a phase-4g (e)-(g) run implies: its decoder attention
+    layers' KV-head groups (``_mesh_expect``) and each encoder layer's
+    bidirectional flash_prefill on each of the m shards an admission."""
+    from repro_torch.configs.base import ATTN
+    n_attn = sum(mx == ATTN for mx, _ in cfg.layers)
+    if not n_attn:
+        return {fn: 0 for fn in _mesh_expect("groups", m, n_groups, 1, reqs, steps)}
+    want = _mesh_expect("groups", m, n_groups, n_attn, reqs, steps)
+    if cfg.is_encoder_decoder:
+        want["flash_prefill"] += cfg.n_encoder_layers * m * reqs
+    return want
+
+
+def xmesh_run(dev, ops, label, arch, dims, prompts, gate_cut=False):
+    """One phase-4g run of a recurrent or encoder-decoder arch at full
+    width and depth (seeded bf16 weights, freekv, the pinned pool, 4 slots,
+    4 needle requests x MESH_X_NEW greedy tokens with seeded frontends):
+    ``ServeEngine`` with no mesh, on a 1 x 1 mesh and on ``dims`` (every
+    shard on ``dev``), the launches counted from 0 just before each. The
+    1 x 1 mesh gives no mesh's tokens and launches bit for bit; the
+    ``dims`` run launches what its layout implies (``_xmesh_expect``);
+    its tokens beside no mesh's, reported. Then request 0 alone, greedy
+    from its prefill, the stack cut by ``mixer_cut`` under ``gate_cut``: in
+    float32 every step's logits within MESH_LOGIT_RTOL of the largest
+    |logit| of no mesh's (gated), in bf16 the flips and their margins
+    (reported). Returns (info, the dims run's launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.data.synthetic import needle_stream
+    from repro_torch.models.model import init_params, recurrent_shards, serving_groups
+    from repro_torch.obs import Observability
+    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.sharding import rules
+    t_run = time.perf_counter()
+    cfg = get_config(arch)
+    fkv = FreeKVConfig(method="freekv", offload="host")
+    rng = np.random.default_rng(43)
+    reqs = [Request(uid=i, tokens=next(needle_stream(cfg.vocab_size, n, fkv.page_size,
+                                                     seed=30 + i)).tokens,
+                    max_new_tokens=MESH_X_NEW, frontend=_frontend(cfg, rng))
+            for i, n in enumerate(prompts)]
+    max_len = max(prompts) + MESH_X_NEW + P
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    runs = {}
+    for dm in (None, (1, 1), dims):
+        mesh = None if dm is None else _mesh(dm, dev)
+        eng = ServeEngine(cfg, fkv, params, max_len=max_len, batch_size=B,
+                          state_dtype=torch.bfloat16, obs=Observability(enabled=True),
+                          device=dev, mesh=mesh)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        outs = eng.generate(reqs)
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+        em = eng.last_metrics
+        s = em.summary()
+        run = f"{label} {arch} {dm}"
+        require(eng.last_logits_finite, f"non-finite logits ({run})")
+        for o, r in zip(outs, reqs):
+            require(len(o.tokens) == r.max_new_tokens
+                    and all(0 <= t < cfg.vocab_size for t in o.tokens),
+                    f"{run}: request {o.uid} made {len(o.tokens)} tokens or a bad one")
+        lat = s["latency"]["decode_step_s"]
+        gen_tokens = sum(len(o.tokens) for o in outs)
+        info = {"decode_ms_per_step": 1e3 * lat["sum"] / lat["count"],
+                "decode_steps": em.steps, "ttft_s": [o.metrics.ttft_s for o in outs],
+                "tokens_per_s": gen_tokens / wall, "wall_s": wall,
+                "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+        if dm is not None:
+            ms = s["mesh"]
+            info.update(moved_bytes_per_step=ms["bytes_per_step"],
+                        nvlink_ms_per_step_computed=ms["nvlink_ms_per_step"],
+                        moved_prefill_bytes=ms["prefill_bytes"])
+        runs[dm] = ({o.uid: o.tokens for o in outs}, launches, info, em.steps)
+        del eng, outs
+        torch.cuda.empty_cache()
+    require(runs[None][:2] == runs[(1, 1)][:2], f"{label} {arch}: a 1 x 1 mesh's tokens or "
+            f"launches differ from no mesh's: {runs[None][:2]} vs {runs[(1, 1)][:2]}")
+    toks, launches, info, steps = runs[dims]
+    mesh = _mesh(dims, dev)
+    want = _xmesh_expect(cfg, dims[1], serving_groups(cfg, mesh, B), len(reqs), steps)
+    for name, n in want.items():
+        require(launches[name] == n, f"{label} {arch} {dims}: {name} launched "
+                f"{launches[name]} times, the path implies {n}")
+    require(all(launches[n] == 0 for n in OFF_PATH), f"{label} {arch}: an off-path kernel "
+            f"launched: {launches}")
+    plain = runs[None][0]
+    info["first_differing_token_vs_no_mesh"] = {
+        uid: next((i for i, (x, y) in enumerate(zip(t, plain[uid])) if x != y), None)
+        for uid, t in toks.items()}
+    # request 0 alone, greedy: float32 gated, bf16 reported
+    one = {"tokens": torch.from_numpy(reqs[0].tokens[None]).long().to(dev)}
+    if reqs[0].frontend is not None:
+        one["frontend"] = torch.from_numpy(reqs[0].frontend[None]).to(dev)
+    logit_gates = {}
+    del params
+    gcfg = mixer_cut(cfg) if gate_cut else cfg
+    for dt, rtol in ((torch.float32, MESH_LOGIT_RTOL), (torch.bfloat16, None)):
+        p = init_params(gcfg, seed=0, device=dev, dtype=dt)
+        a = _greedy_logits(gcfg, fkv, p, one, max_len, MESH_X_NEW, None, state_dtype=dt)
+        placed = rules.place_serving_params(gcfg, p, mesh)
+        b = _greedy_logits(gcfg, fkv, placed, one, max_len, MESH_X_NEW, mesh, state_dtype=dt)
+        worst, flips, _ = _hold_logits(gcfg, a, b, rtol, f"{label} {arch} {str(dt)[6:]}")
+        logit_gates[str(dt)[6:]] = {"max_rel_logit_err": worst, "rtol": rtol, "flips": flips}
+        del p, placed, a, b
+        torch.cuda.empty_cache()
+    info.update(run=label, arch=arch, layers=cfg.n_layers, mesh=list(dims),
+                prompt_tokens=list(prompts), no_mesh=runs[None][2],
+                bit_1x1={"tokens_equal": True, "launches_equal": True},
+                logit_gates=logit_gates, logit_gate_layers=gcfg.n_layers,
+                state_shards={mx: recurrent_shards(cfg, mx, dims[1])
+                              for mx in {m_ for m_, _ in cfg.layers} if mx != "attn"},
+                launches={k: v for k, v in launches.items() if v},
+                run_s=time.perf_counter() - t_run)
+    torch.cuda.empty_cache()
+    return info, launches
+
+
+def mesh_spec_run(dev, ops, cfg, params, dims, base_reqs, base_tokens, steps0):
+    """Phase 4g (h): ``base_reqs`` again through ``ServeEngine(mesh=dims,
+    draft_len=MESH_SPEC_DRAFT)``, each request's ``draft_hint`` its prompt's
+    last token and run (c)'s output: the engine speculates, every token
+    equals run (c)'s draft_len 0 tokens (``base_tokens``), launches counted
+    from 0 just before it. Returns (info, launches)."""
+    from repro_torch.configs.base import FreeKVConfig
+    from repro_torch.serving.engine import Request, ServeEngine
+    t_run = time.perf_counter()
+    fkv = FreeKVConfig(method="freekv", offload="host", draft_len=MESH_SPEC_DRAFT)
+    reqs = [Request(uid=r.uid, tokens=r.tokens, max_new_tokens=r.max_new_tokens,
+                    draft_hint=np.concatenate([r.tokens[-1:],
+                                               np.asarray(base_tokens[r.uid], np.int32)]))
+            for r in base_reqs]
+    mesh = _mesh(dims, dev)
+    eng = ServeEngine(cfg, fkv, params, max_len=max(len(r.tokens) for r in reqs) + ARCH_NEW + P,
+                      batch_size=B, state_dtype=torch.bfloat16, device=dev, mesh=mesh)
+    require(eng.spec_decode, f"(h) {cfg.name} {dims}: speculative decoding fell back")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    em = eng.last_metrics
+    sd = em.summary()["specdec"]
+    require(eng.last_logits_finite, f"non-finite logits ((h) {cfg.name})")
+    toks = {o.uid: o.tokens for o in outs}
+    require(toks == base_tokens, f"(h) {cfg.name} {dims} draft_len {MESH_SPEC_DRAFT}: tokens "
+            f"{toks} differ from run (c)'s draft_len 0 tokens {base_tokens}")
+    require(launches["paged_attention"] > 0 and launches["recall_gather"] > 0,
+            f"(h): the retrieval kernels never launched: {launches}")
+    gen_tokens = sum(len(o.tokens) for o in outs)
+    committed = gen_tokens - len(outs)          # the first tokens come from the prefills
+    decode_s = wall - sum(o.prefill_s for o in outs)
+    info = {"run": "(h)", "arch": cfg.name, "layers": cfg.n_layers, "mesh": list(dims),
+            "draft_len": MESH_SPEC_DRAFT, "hinted": True, "tokens_equal_run_c": True,
+            "accept_rate": sd["accept_rate"], "tokens_per_target_step": sd["tokens_per_step"],
+            "verify_steps": sd["verify_steps"], "idle_iterations": sd["idle_iterations"],
+            "decode_ms_per_committed_token": 1e3 * decode_s / committed,
+            "run_c_decode_steps": steps0, "wall_s": wall,
+            "moved_bytes_per_step": em.summary()["mesh"]["bytes_per_step"],
+            "launches": {k: v for k, v in launches.items() if v},
+            "run_s": time.perf_counter() - t_run}
+    del eng, outs
+    torch.cuda.empty_cache()
+    return info, launches
+
+
 def mesh_phase(dev, ops, cfg, params, phase4):
     """Phase 4g: (a) llama31-8b at full width and depth on a (2, 2) mesh,
     freekv/none on phase 4's traffic (KV-head groups: 8 KV heads over 2);
     (b) llama31-8b at half depth on (1, 4) with the fused step
     (sharded_retrieval, sharded_overselect 2, pool_pad_pages 4); (c)
     smollm-360m on (1, 2) (15/5 heads: the input-dim split, the state whole
-    on shard 0), phase 4c's traffic; (d) deepseek-moe-16b cut to
-    MESH_DEEPSEEK_LAYERS on (1, 4) (expert-parallel), phase 4c's traffic;
-    then the 1 x 1 bit gate, the float32 gate and the fused step's card
-    against CPU gate (``mesh_fused_gate``). (a)'s tokens and prefill
-    logits beside phase 4's no-mesh run, printed, not gated. Returns
-    (infos, gates, the summed launches)."""
+    on shard 0), phase 4c's traffic; (h) smollm-360m on (1, 2) with
+    speculative decoding (``mesh_spec_run``), its tokens (c)'s; (d)
+    deepseek-moe-16b cut to MESH_DEEPSEEK_LAYERS on (1, 4)
+    (expert-parallel), phase 4c's traffic; (e)-(g) the recurrent and
+    encoder-decoder archs (``xmesh_run``, ``MESH_X_RUNS``); then the 1 x 1
+    bit gate, the float32 gate and the fused step's card against CPU gate
+    (``mesh_fused_gate``). (a)'s tokens and prefill logits beside phase 4's
+    no-mesh run, printed, not gated. Returns (infos, gates, the summed
+    launches)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import FreeKVConfig
     from repro_torch.models.model import init_params, prefill
@@ -4320,10 +4647,15 @@ def mesh_phase(dev, ops, cfg, params, phase4):
     t0 = time.perf_counter()
     smol = get_config(MESH_SMOLLM)
     sp = init_params(smol, seed=0, device=dev, dtype=torch.bfloat16)
-    info, launches, _ = mesh_run(dev, ops, "(c)", smol, sp, fkv, (1, 2),
-                                 _arch_requests(smol, fkv), max(ARCH_PROMPTS) + ARCH_NEW + P,
-                                 "whole", MESH_PROFILE_CONTEXT)
+    smol_reqs = _arch_requests(smol, fkv)
+    info, launches, smol_toks = mesh_run(dev, ops, "(c)", smol, sp, fkv, (1, 2), smol_reqs,
+                                         max(ARCH_PROMPTS) + ARCH_NEW + P, "whole",
+                                         MESH_PROFILE_CONTEXT)
     info["run_s"] = time.perf_counter() - t0
+    infos.append(info)
+    add(launches)
+    info, launches = mesh_spec_run(dev, ops, smol, sp, (1, 2), smol_reqs, smol_toks,
+                                   info["decode_steps"])
     infos.append(info)
     add(launches)
     del sp
@@ -4341,6 +4673,10 @@ def mesh_phase(dev, ops, cfg, params, phase4):
     add(launches)
     del dp
     torch.cuda.empty_cache()
+    for label, arch, dims, prompts, gate_cut in MESH_X_RUNS:
+        info, launches = xmesh_run(dev, ops, label, arch, dims, prompts, gate_cut)
+        infos.append(info)
+        add(launches)
     gates = {"bit_1x1": mesh_bit_gate(dev, ops), "f32_2x2": mesh_f32_gate(dev, ops),
              "fused_card_vs_cpu": mesh_fused_gate(dev, ops)}
     return infos, gates, total
@@ -4367,6 +4703,18 @@ MP_STEPS = 2
 MP_SMOLLM = (TRAIN_ARCH, (1, 2), TRAIN_B, TRAIN_T)
 MP_DEEPSEEK = ("deepseek-moe-16b", ((1, 1), (1, 4)), 2, 2048)
 MP_DEEPSEEK_LAYERS = 4          # the dense prelude layer and 3 MoE periods
+# the recurrent and encoder-decoder archs at full width, (arch, B, T, whether
+# cut by ``mixer_cut``, as phase 4g (e)'s gate, the leading steps whose
+# losses are held) at (1, 1) and (1, 2): those losses within MP_X_RTOL of
+# each other, and the first batch's gradients leaf by leaf within
+# MP_GRAD_RTOL relative L2 (the CPU tests' tolerance against the
+# reference). xlstm-350m holds its first step's loss: AdamW's first update
+# is lr times the gradient's sign, so the elements whose gradient rounds to
+# either side of 0 in the two summation orders step apart (its second
+# step's loss move is logged)
+MP_XARCH = (("xlstm-350m", 2, 256, True, 1), ("whisper-tiny", 2, 448, False, 2))
+MP_GRAD_RTOL, MP_GRAD_ATOL = 1e-4, 1e-6
+MP_X_RTOL = 2e-5
 # phase 6d's meshes for the smoke archs, card == CPU
 MP_SMOKE = ("deepseek-moe-16b-smoke", "llama4-scout-17b-a16e-smoke", "smollm-360m-smoke",
             "gemma2-2b-smoke")
@@ -4620,13 +4968,57 @@ def _mesh(dims, device):
     return make_host_mesh(dims[1], (str(device),) * (dims[0] * dims[1]))
 
 
+def _mp_batches(cfg, B, T, dev):
+    """lm_batches(seed=0) on ``dev``, each with seeded frames for a
+    frontend arch (as _smoke_batches')."""
+    from repro_torch.data.synthetic import lm_batches
+    data = lm_batches(cfg.vocab_size, T, B, seed=0)
+    rng = np.random.default_rng(0)
+    while True:
+        batch = {"tokens": torch.from_numpy(next(data)).to(dev)}
+        if cfg.frontend:
+            batch["frontend"] = torch.from_numpy((0.1 * rng.standard_normal(
+                (B, cfg.n_frontend_tokens, cfg.d_model))).astype(np.float32)).to(dev)
+        yield batch
+
+
+def mp_grad_gate(dev, cfg, B, T):
+    """The first batch's loss gradients of ``cfg`` (seeded float32 params) at
+    (1, 1) and at (1, 2), shards on ``dev``: every leaf within MP_GRAD_RTOL
+    relative L2 (MP_GRAD_ATOL absolute below a norm of MP_GRAD_ATOL).
+    Returns the worst relative error and its leaf."""
+    from repro_torch.models.model import forward_train, init_params
+    from repro_torch.sharding.rules import gather_params, shard_params
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    host = init_params(cfg, seed=0, device=dev)
+    batch = next(_mp_batches(cfg, B, T, dev))
+    grads = []
+    for dims in ((1, 1), (1, 2)):
+        mesh = _mesh(dims, dev)
+        sp = shard_params(cfg, host, mesh)
+        leaves = [p.requires_grad_(True) for _, p in tree_leaves(sp)]
+        loss, _ = forward_train(cfg, sp, batch, mesh=mesh)
+        g = iter(torch.autograd.grad(loss, leaves))
+        grads.append(tree_leaves(gather_params(tree_map(lambda _: next(g), sp), dev)))
+        del sp, leaves, loss, g
+    worst = (0.0, None)
+    for (path, a), (_, b) in zip(*grads):
+        norm, err = a.norm().item(), (a - b).norm().item()
+        rel = err if norm < MP_GRAD_ATOL else err / norm
+        require(rel <= (MP_GRAD_ATOL if norm < MP_GRAD_ATOL else MP_GRAD_RTOL),
+                f"{cfg.name} (1, 2): gradient {path} {rel:.3g} from (1, 1)'s")
+        worst = max(worst, (rel, "/".join(map(str, path))))
+    del host, grads
+    torch.cuda.empty_cache()
+    return {"max_rel_l2": worst[0], "leaf": worst[1], "rtol": MP_GRAD_RTOL}
+
+
 def train_mp_run(dev, ops, cfg, dims, B, T, opt_cfg):
     """``MP_STEPS`` train steps of ``cfg`` on a ``dims`` mesh of shards all on
     ``dev``, from init_train's seeded params and lm_batches(seed=0); in a
     freed allocator (what earlier phases leave allocated is reported
     beside the peak). Returns each step's loss, grad norm, seconds and
     bytes moved between shards by kind."""
-    from repro_torch.data.synthetic import lm_batches
     from repro_torch.training.optimizer import tree_leaves
     from repro_torch.training.train_step import init_train, make_train_step
     mesh = _mesh(dims, dev)
@@ -4636,14 +5028,14 @@ def train_mp_run(dev, ops, cfg, dims, B, T, opt_cfg):
     t_run = time.perf_counter()
     params, opt = init_train(cfg, opt_cfg, seed=0, device=dev, mesh=mesh)
     step = make_train_step(cfg, opt_cfg, mesh=mesh)
-    data = lm_batches(cfg.vocab_size, T, B, seed=0)
+    data = _mp_batches(cfg, B, T, dev)
     ops.reset_launches()
     rows = []
     for i in range(MP_STEPS):
-        tokens = torch.from_numpy(next(data)).to(dev)
+        batch = next(data)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, opt, m = step(params, opt, {"tokens": tokens})
+        params, opt, m = step(params, opt, batch)
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         dt = time.perf_counter() - t0
         require(math.isfinite(loss) and math.isfinite(gnorm),
@@ -4672,15 +5064,19 @@ def train_mp_phase(dev, ops, phase6a):
     """Phase 6c: smollm-360m at full width on a (1, 2) mesh, held against
     phase 6a's first two steps (same AdamW, data and seed); deepseek-moe-16b
     at full width, depth cut to ``MP_DEEPSEEK_LAYERS``, at (1, 1) and (1, 4),
-    held against each other. Losses and grad norms within 1e-4."""
+    held against each other. Losses and grad norms within 1e-4. Then
+    ``MP_XARCH`` (xlstm-350m cut by ``mixer_cut``: the mLSTM by head, the
+    sLSTM whole on shard 0, its first step's loss held; whisper-tiny: the encoder and the cross-attention by
+    KV-head group) at (1, 1) and (1, 2), losses within MP_X_RTOL and the
+    first batch's gradients within MP_GRAD_RTOL (``mp_grad_gate``)."""
     from repro_torch.configs import get_config
 
-    def hold(info, steps, against):
-        """``info``'s losses and grad norms within 1e-4 of ``steps``'."""
-        want = [{k: w[k] for k in ("loss", "grad_norm")} for w in steps[:MP_STEPS]]
+    def hold(info, steps, against, keys=("loss", "grad_norm"), rtol=TRAIN_LOSS_RTOL):
+        """``info``'s ``keys`` within ``rtol`` of ``steps``'."""
+        want = [{k: w[k] for k in keys} for w in steps[:MP_STEPS]]
         for r, w in zip(info["steps"], want):
             for k, v in w.items():
-                require(abs(r[k] - v) <= TRAIN_LOSS_RTOL * abs(v),
+                require(abs(r[k] - v) <= rtol * abs(v),
                         f"{info['arch']} {info['mesh']} step {r['step']}: {k} {r[k]} against "
                         f"{against}'s {v}")
         info["against"] = {against: want}
@@ -4694,8 +5090,18 @@ def train_mp_phase(dev, ops, phase6a):
                               n_periods=MP_DEEPSEEK_LAYERS - len(full.prelude))
     one, four = (train_mp_run(dev, ops, cfg, dims, B, T, _train_opt(MP_STEPS))
                  for dims in meshes)
-    return [hold(smollm, phase6a["steps"], "phase 6a (1 x 1)"), one,
-            hold(four, one["steps"], str(meshes[0]))]
+    out = [hold(smollm, phase6a["steps"], "phase 6a (1 x 1)"), one,
+           hold(four, one["steps"], str(meshes[0]))]
+    for arch, B, T, cut, held in MP_XARCH:
+        xcfg = mixer_cut(get_config(arch)) if cut else get_config(arch)
+        x1, x2 = (train_mp_run(dev, ops, xcfg, dims, B, T, _train_opt(MP_STEPS))
+                  for dims in ((1, 1), (1, 2)))
+        x2 = hold(x2, x1["steps"][:held], "(1, 1)", keys=("loss",), rtol=MP_X_RTOL)
+        x2["loss_rel_moves"] = [abs(a["loss"] - b["loss"]) / abs(a["loss"])
+                                for a, b in zip(x1["steps"], x2["steps"])]
+        x2["first_step_grads"] = mp_grad_gate(dev, xcfg, B, T)
+        out += [x1, x2]
+    return out
 
 
 def log_mesh_phase(dev, ops, cfg, params, phase4, smi):
@@ -4704,7 +5110,36 @@ def log_mesh_phase(dev, ops, cfg, params, phase4, smi):
     mesh_infos, mesh_gates, mesh_launches = mesh_phase(dev, ops, cfg, params, phase4)
     for info in mesh_infos:
         log("[mesh] " + json.dumps(info))
-        pr, mv = info["profile"], info["moved_bytes_per_step"]
+        mv = info["moved_bytes_per_step"]
+        moved = (", ".join(f"{k} {v:.0f} B" for k, v in mv.items() if v) or "nothing")
+        if info["run"] == "(h)":
+            log(f"[mesh] {smi} | (h) {info['arch']} {info['layers']} layers mesh "
+                f"{info['mesh'][0]}x{info['mesh'][1]}, draft_len {info['draft_len']} with "
+                f"hints (shards on {dev}): tokens equal run (c)'s draft_len 0; accept rate "
+                f"{info['accept_rate']:.3f}, {info['tokens_per_target_step']:.2f} tokens a "
+                f"target step, {info['verify_steps']} verify steps + {info['idle_iterations']} "
+                f"idle, decode {info['decode_ms_per_committed_token']:.2f} ms a committed "
+                f"token; moved a step {moved}; run {info['run_s']:.1f} s")
+            continue
+        if "logit_gates" in info:
+            g = info["logit_gates"]
+            log(f"[mesh] {smi} | {info['run']} {info['arch']} {info['layers']} layers mesh "
+                f"{info['mesh'][0]}x{info['mesh'][1]} (state shards "
+                f"{json.dumps(info['state_shards'])}; shards on {dev}): 1 x 1 == no mesh "
+                f"(tokens, launches); decode {info['decode_ms_per_step']:.2f} ms/step (no mesh "
+                f"{info['no_mesh']['decode_ms_per_step']:.2f}), TTFT "
+                f"{min(info['ttft_s']):.3f}-{max(info['ttft_s']):.3f} s (no mesh "
+                f"{min(info['no_mesh']['ttft_s']):.3f}-{max(info['no_mesh']['ttft_s']):.3f}), "
+                f"peak {info['peak_device_gib']:.2f} GiB; request 0 at "
+                f"{info['logit_gate_layers']} layers: float32 logits within "
+                f"{g['float32']['max_rel_logit_err']:.3g} of the largest |logit| (gate "
+                f"{MESH_LOGIT_RTOL}, {len(g['float32']['flips'])} near-tie flips), bf16 "
+                f"{g['bfloat16']['max_rel_logit_err']:.3g} with flips "
+                f"{json.dumps(g['bfloat16']['flips'])}; first token differing from no mesh by "
+                f"request {json.dumps(info['first_differing_token_vs_no_mesh'])}; moved a step "
+                f"{moved}; run {info['run_s']:.1f} s")
+            continue
+        pr = info["profile"]
         log(f"[mesh] {smi} | {info['run']} {info['arch']} {info['layers']} layers mesh "
             f"{info['mesh'][0]}x{info['mesh'][1]} ({info['layout']}"
             + (f", fused step, overselect {info['sharded_overselect']}"
@@ -4714,8 +5149,7 @@ def log_mesh_phase(dev, ops, cfg, params, phase4, smi):
             f"{info['tokens_per_s']:.2f} tokens/s, peak {info['peak_device_gib']:.2f} GiB; "
             f"eager step {pr['wall_ms_per_step_unprofiled']:.2f} ms, "
             f"{pr['cpu_ops_per_step']} host ops, busy share {pr['device_busy_share']:.3f}; "
-            f"moved a step " + ", ".join(f"{k} {v:.0f} B" for k, v in mv.items() if v)
-            + f", {info['nvlink_ms_per_step_computed']:.4f} ms over NVLink at "
+            f"moved a step {moved}, {info['nvlink_ms_per_step_computed']:.4f} ms over NVLink at "
             f"{rl.NVLINK_BPS / 1e9:.0f} GB/s (computed, not measured); run "
             f"{info['run_s']:.1f} s")
     a = mesh_infos[0]
@@ -4941,6 +5375,19 @@ def main():
                 f"mode \"error\"; prefill T=2048 {pre['ms']:.4f} ms (call {pre['call_ms']:.4f} "
                 f"ms) vs bound {pre['bound_ms']:.4f} ms by {pre['bound_by']}")
         log(f"[xlstm] {time.perf_counter() - t0:.1f} s for both layers")
+        t0 = time.perf_counter()
+        mixers = mixer_mesh_phase(dev)
+        log("[mixer-mesh] " + json.dumps(mixers))
+        for key, r in mixers.items():
+            log(f"[mixer-mesh] {smi} | {key} (float32, B={r['batch']}, state on "
+                f"{r['shards_holding_state']} shard(s), every shard on {dev}): prefill of "
+                f"{r['prefill_tokens']} tokens and {r['decode_steps']} decode steps against the "
+                f"whole form max|err| {json.dumps(r['max_abs_err'])} (TOL {r['tol']}); decode "
+                f"step {r['mesh_step_ms']:.4f} ms (call {r['mesh_step_call_ms']:.4f} ms) against "
+                f"the whole form's {r['whole_step_ms']:.4f} ms (call "
+                f"{r['whole_step_call_ms']:.4f} ms); moved a step "
+                f"{json.dumps(r['moved_bytes_per_step'])} B, no weight; {r['s']:.1f} s")
+        log(f"[mixer-mesh] {time.perf_counter() - t0:.1f} s for the three layers")
         mark("phase 3b")
         # phase 4: main path at full width: the static path, then every
         # retriever and pool tier through the continuous scheduler
@@ -5179,6 +5626,10 @@ def main():
                 f"losses {[round(r['loss'], 5) for r in info['steps']]}, grad norms "
                 f"{[round(r['grad_norm'], 5) for r in info['steps']]}"
                 + (f" against {json.dumps(info['against'])}" if "against" in info else "")
+                + (f" (losses' relative moves {info['loss_rel_moves']}; the first batch's "
+                   f"gradients within {info['first_step_grads']['max_rel_l2']:.3g} relative L2, "
+                   f"worst {info['first_step_grads']['leaf']})"
+                   if "first_step_grads" in info else "")
                 + f"; {info['s_per_step_after_first']:.3f} s/step after the first "
                 f"({info['steps'][0]['s']:.3f} s the first), {info['tokens_per_s']:.0f} tokens/s,"
                 f" peak {info['peak_device_gib']:.2f} GiB ({info['resident_before_gib']:.2f} "

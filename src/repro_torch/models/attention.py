@@ -167,10 +167,11 @@ def _positions(B: int, t0: int, t1: int, device):
     return torch.arange(t0, t1, device=device)[None].expand(B, t1 - t0)
 
 
-def attention_mp(cfg: ArchConfig, p, h, window, row):
-    """Causal self-attention of a training layer over one data group's ``h``
-    (B, T, d) on shard 0 of ``row``, placed weights ``p`` -> the sublayer's
-    output (B, T, d) on shard 0 (before any post-norm).
+def attention_mp(cfg: ArchConfig, p, h, window, row, causal=True):
+    """Self-attention of a training layer over one data group's ``h`` (B,
+    T, d) on shard 0 of ``row``, placed weights ``p`` -> the sublayer's
+    output (B, T, d) on shard 0 (before any post-norm); causal, or
+    bidirectional (``causal=False``, an encoder layer).
 
     Where the model axis divides both head counts, the projections are
     Megatron's: shard j takes query heads [j H/m, (j+1) H/m) and KV heads
@@ -194,7 +195,7 @@ def attention_mp(cfg: ArchConfig, p, h, window, row):
             w = megatron_weights(p, row, j)
             pos = _positions(B, 0, T, row.device(j))
             q, k, v = qkv_proj(local, w, hs[j], pos)
-            o = attention_auto(local, q, k, v, pos, pos, causal=True, window=window)
+            o = attention_auto(local, q, k, v, pos, pos, causal=causal, window=window)
             parts.append(out_proj(local, w, o))
         return row.reduce(parts, "partial_sum")
 
@@ -209,9 +210,9 @@ def attention_mp(cfg: ArchConfig, p, h, window, row):
             blocks.append((j, attention_auto(cfg, qj, ks[j], vs[j],
                                              _positions(B, j * n, (j + 1) * n, row.device(j)),
                                              _positions(B, 0, T, row.device(j)),
-                                             causal=True, window=window)))
+                                             causal=causal, window=window)))
     else:
-        blocks = [(0, attention_auto(cfg, q, k, v, pos, pos, causal=True, window=window))]
+        blocks = [(0, attention_auto(cfg, q, k, v, pos, pos, causal=causal, window=window))]
     return out_split(cfg, p, blocks, row)
 
 
@@ -237,19 +238,25 @@ def megatron_weights(p, row, j: int) -> dict:
     return w
 
 
-def qkv_split(cfg: ArchConfig, p, h, pos, row):
-    """The input-dim split's q, k, v (B, T, H|kv, dh) on shard 0, RoPE'd at
-    ``pos``: input block j of wq/wk/wv on shard j, the partial products
-    summed on shard 0 (whole on shard 0 where d_model does not divide)."""
+def proj_split(ws, h, row) -> list:
+    """``[h @ w for w in ws]`` on shard 0 by the input-dim split: input
+    block j of each w on shard j, the partial products summed on shard 0
+    (whole on shard 0 where d_model does not divide)."""
     m = row.m
-    B, T, d = h.shape
+    d = h.shape[-1]
     if d % m == 0:
         hs = [row.move(h[..., j * d // m:(j + 1) * d // m], 0, j, "partial_sum")
               for j in range(m)]
-        q, k, v = (row.reduce([hs[j] @ row.fetch(p[key], j, dim=0) for j in range(m)],
-                              "partial_sum") for key in ("wq", "wk", "wv"))
-    else:
-        q, k, v = (h @ row.fetch(p[key], 0) for key in ("wq", "wk", "wv"))
+        return [row.reduce([hs[j] @ row.fetch(w, j, dim=0) for j in range(m)], "partial_sum")
+                for w in ws]
+    return [h @ row.fetch(w, 0) for w in ws]
+
+
+def qkv_split(cfg: ArchConfig, p, h, pos, row):
+    """The input-dim split's q, k, v (B, T, H|kv, dh) on shard 0, RoPE'd at
+    ``pos`` (``proj_split``)."""
+    B, T, _ = h.shape
+    q, k, v = proj_split([p["wq"], p["wk"], p["wv"]], h, row)
     q = apply_rope(cfg, q.reshape(B, T, cfg.n_heads, cfg.d_head), pos)
     k = apply_rope(cfg, k.reshape(B, T, cfg.n_kv_heads, cfg.d_head), pos)
     return q, k, v.reshape(B, T, cfg.n_kv_heads, cfg.d_head)
@@ -275,13 +282,14 @@ def out_split(cfg: ArchConfig, p, blocks, row):
 
 
 def attention_mp_prefill(cfg: ArchConfig, p, h, t0: int, window, row, buf=None,
-                         need_whole=False):
+                         need_whole=False, causal=True):
     """A serving prefill's attention sublayer (forward only) over one data
     group's h (B, S, d) on shard 0 of ``row``, queries at positions
     t0..t0+S-1 over keys 0..t0+S-1, ``attention_prefill`` (``flash_prefill``
     on the card) on each shard's heads, or over query rows split over
     "model" where the heads do not divide (the reference's
-    ``_maybe_seq_shard``) -> (out on
+    ``_maybe_seq_shard``); ``causal=False`` (an encoder layer, t0 = 0) lets
+    every query see every key -> (out on
     shard 0, ks, vs, q_lasts, whole): the K/V of the whole context and the
     last query, per shard under Megatron's layout (shard j's heads), else
     one each on shard 0; ``whole`` the prompt's K/V joined on shard 0 when
@@ -306,7 +314,7 @@ def attention_mp_prefill(cfg: ArchConfig, p, h, t0: int, window, row, buf=None,
                     b_[:, t0:t1, sl].copy_(row.move(new, j, 0, "state"))
                 k = torch.cat([row.move(buf[0][:, :t0, sl], 0, j, "state"), k], dim=1)
                 v = torch.cat([row.move(buf[1][:, :t0, sl], 0, j, "state"), v], dim=1)
-            o = attention_prefill(local, q, k, v, q_pos, kv_pos, window=window)
+            o = attention_prefill(local, q, k, v, q_pos, kv_pos, window=window, causal=causal)
             parts.append(out_proj(local, w, o))
             ks.append(k)
             vs.append(v)
@@ -328,14 +336,14 @@ def attention_mp_prefill(cfg: ArchConfig, p, h, t0: int, window, row, buf=None,
         blocks = []
         for j in range(m):
             dev = row.device(j)
-            hi = t0 + (j + 1) * n
+            hi = t0 + (j + 1) * n if causal else t1
             qj = row.move(q[:, j * n:(j + 1) * n], 0, j, "partial_sum")
             kj, vj = (row.move(t[:, :hi], 0, j, "partial_sum") for t in (k, v))
             blocks.append((j, attention_prefill(
-                cfg, qj, kj, vj, _positions(B, t0 + j * n, hi, dev),
-                _positions(B, 0, hi, dev), window=window)))
+                cfg, qj, kj, vj, _positions(B, t0 + j * n, t0 + (j + 1) * n, dev),
+                _positions(B, 0, hi, dev), window=window, causal=causal)))
     else:
         blocks = [(0, attention_prefill(cfg, q, k, v, pos0, _positions(
-            B, 0, t1, h.device), window=window))]
+            B, 0, t1, h.device), window=window, causal=causal))]
     whole = (k, v) if need_whole else None
     return out_split(cfg, p, blocks, row), [k], [v], [q[:, -1].contiguous()], whole

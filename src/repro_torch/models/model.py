@@ -24,7 +24,12 @@ backbone runs once, on the params' device. A ("data", "model") compute mesh
 .place_serving_params``: the backbone of each data group on its model
 shards, forward only (the section "serving under a compute mesh" below).
 ``forward_train`` takes a compute mesh and params placed on it
-(``rules.shard_params``): model-parallel training.
+(``rules.shard_params``): model-parallel training. Under a compute mesh
+Mamba splits d_inner and the mLSTM its heads over a data group's model
+shards, the sLSTM runs whole on the group's shard 0, and an
+encoder-decoder's encoder and cross-attention split by KV-head group
+(``_recurrent_forward``, ``_encode``, ``_cross_mp``), in training and in
+serving.
 
 Params are nested dicts of tensors, dense weights in the ``x @ W``
 orientation ``(d_in, d_out)``: ``{"embed": {"tok", "head"?}, "final_norm":
@@ -163,11 +168,8 @@ def retrievers(cfg: ArchConfig, fkv: FreeKVConfig, mesh=None) -> list:
     a recurrent mixer -> None. Layers of one kind share one object. Under
     serving TP (``mesh``) both attention kinds run per KV-head group, the
     sliding window too. A compute mesh's retrievers are per data group
-    (``_retriever_table``); the paths that ask here for one layer list
-    (speculative decoding's verify and rollback) do not run under it."""
-    if is_compute_mesh(mesh):
-        raise NotImplementedError("speculative decoding under a (\"data\", \"model\") mesh is "
-                                  f"{MESH_TODO} (the engine serves draft_len 0 there)")
+    and layout (``_retriever_table``, ``_spec_units``), not asked for
+    here."""
     by_kind = {ATTN: make_retriever(cfg, fkv, mesh), MAMBA: None, MLSTM: None, SLSTM: None}
     if any(m == ATTN_LOCAL for m, _ in cfg.layers):
         def local(c):
@@ -348,12 +350,15 @@ def _train_layer(cfg, layer, lp, x, positions, enc, row=None, n_blocks=1):
 
     Under ``row`` (one data group's model shards, ``sharding/transfer
     .MeshRow``) ``lp`` is placed and ``x`` lives on the row's shard 0: the
-    attention is ``attn.attention_mp``, the FFN column/row- or
-    expert-parallel (``_ffn_aux``), and the norms, a recurrent mixer and the
-    cross-attention take their weights whole on shard 0."""
+    attention is ``attn.attention_mp``, a recurrent mixer its model-parallel
+    form or whole on shard 0 (``_recurrent_forward``), the cross-attention
+    per KV-head group (``_cross_mp``), the FFN column/row- or
+    expert-parallel (``_ffn_aux``), and the norms take their weights whole
+    on shard 0."""
     h = L.apply_norm(cfg, _whole(row, lp["norm1"]), x)
     if layer[0] in RECURRENT:
-        o = _FORWARD[layer[0]](cfg, _whole(row, lp["mixer"]), h)
+        o = (_FORWARD[layer[0]](cfg, lp["mixer"], h) if row is None else
+             _recurrent_forward(cfg, layer[0], lp["mixer"], h, row))
     elif row is not None:
         o = attn.attention_mp(cfg, lp["mixer"], h, _window(cfg, layer), row)
     else:
@@ -363,9 +368,8 @@ def _train_layer(cfg, layer, lp, x, positions, enc, row=None, n_blocks=1):
         o = attn.out_proj(cfg, lp["mixer"], o)
     x = _residual(cfg, lp, x, o, "1", row)
     if enc is not None:
-        xp = _whole(row, lp)
-        xk, xv = _enc_kv(cfg, xp, enc)
-        x = _cross(cfg, xp, x, positions, xk, xv)
+        xks, xvs = _enc_kv_mp(cfg, lp, enc, row)
+        x = _cross_mp(cfg, lp, x, positions, xks, xvs, row)
     return _ffn_aux(cfg, layer, lp, x, row, n_blocks)
 
 
@@ -402,22 +406,19 @@ def forward_train(cfg: ArchConfig, params, batch, mesh=None, remat=True):
     expert-parallel MoE and the vocab-parallel logits and cross-entropy. A
     MoE call is one data block of the flat tokens (n_data blocks where
     B * T divides), so the loss depends on the data axis as the reference's
-    does. Each period is rematerialised with its moves inside; the loss's
-    terms and each layer's ``aux`` come back to shard (0, 0). Under a mesh
-    above 1 x 1 the recurrent mixers and the encoder-decoder raise
-    (``MESH_TODO``); at 1 x 1 their layers run whole, and a 1 x 1 mesh
-    gives the loss and gradients of no mesh bit for bit."""
+    does. Mamba splits d_inner and the mLSTM its heads over the model
+    shards (the sLSTM runs whole on shard 0), and an encoder-decoder's
+    encoder runs on each group's shards over the group's frames, its
+    cross-attention split by KV-head group. Each period is rematerialised
+    with its moves inside; the loss's terms and each layer's ``aux`` come
+    back to shard (0, 0). A 1 x 1 mesh gives the loss and gradients of no
+    mesh bit for bit."""
     check_supported(cfg)
     tokens = batch["tokens"]
     B = tokens.shape[0]
     if mesh is None:
         rows, groups, n_data = [None], [batch], 1
     else:
-        if mesh.size > 1 and (cfg.is_encoder_decoder or any(m in RECURRENT
-                                                            for m, _ in cfg.layers)):
-            raise NotImplementedError(
-                f"{cfg.name}: the recurrent mixers and the encoder-decoder train on one "
-                f"device or a 1 x 1 mesh only; a {mesh.dims} mesh is {MESH_TODO}")
         n_data = mesh.shape["data"]
         n_groups = rules.axsize(mesh, rules.batch_shardings(cfg, mesh, batch)["tokens"][0])
         if any(f == MOE for _, f in cfg.layers) and cfg.n_experts % mesh.shape["model"]:
@@ -434,10 +435,8 @@ def forward_train(cfg: ArchConfig, params, batch, mesh=None, remat=True):
     n_front = T - tokens.shape[1]
     # the MoE's data blocks in each group's flat tokens
     n_blocks = n_data // len(rows) if (B * T) % n_data == 0 else 1
-    enc = (_encode(cfg, {"embed": params["embed"],
-                         "encoder": _whole(rows[0], params["encoder"])},
-                   groups[0]["frontend"], attn.attention_auto)
-           if cfg.is_encoder_decoder else None)
+    encs = ([_encode(cfg, params, grp["frontend"], train=True, row=row)
+             for grp, row in zip(groups, rows)] if cfg.is_encoder_decoder else [None] * len(rows))
     layers = params["layers"]
     n_pre, n_pat = len(cfg.prelude), len(cfg.pattern)
     home = xs[0].device
@@ -446,7 +445,7 @@ def forward_train(cfg: ArchConfig, params, batch, mesh=None, remat=True):
     def layer_step(layer, lp, xs):
         """One layer over every data group -> (xs, aux's mean on (0, 0) or None)."""
         outs = [_train_layer(cfg, layer, lp, x, pos, enc, row, n_blocks)
-                for x, pos, row in zip(xs, poss, rows)]
+                for x, pos, enc, row in zip(xs, poss, encs, rows)]
         aux = None if outs[0][1] is None else _to_home(rows, [a for _, a in outs]).mean()
         return [x for x, _ in outs], aux
 
@@ -521,7 +520,6 @@ def _cross_entropy(logits, tgt, row=None):
 # ---------------------------------------------------------------------------
 # training under a ("data", "model") mesh
 # ---------------------------------------------------------------------------
-MESH_TODO = "ROADMAP queue 1 item 2"
 HOME = (0, 0)                  # the shard that holds the batch, the loss and aux
 
 
@@ -603,6 +601,52 @@ def _recurrent_state(cfg, mixer, batch, dtype, dev):
 _FORWARD = {MAMBA: ssm.mamba_forward, MLSTM: xlstm.mlstm_forward, SLSTM: xlstm.slstm_forward}
 _DECODE_STEP = {MAMBA: ssm.mamba_decode_step, MLSTM: xlstm.mlstm_decode_step,
                 SLSTM: xlstm.slstm_decode_step}
+# their model-parallel forms over a data group's model shards
+_FORWARD_MP = {MAMBA: ssm.mamba_forward_mp, MLSTM: xlstm.mlstm_forward_mp}
+_DECODE_STEP_MP = {MAMBA: ssm.mamba_decode_step_mp, MLSTM: xlstm.mlstm_decode_step_mp}
+# a split mixer's state: each leaf's dim over the model shards (the
+# reference's ``decode_state_spec`` for Mamba; by head for the mLSTM)
+_STATE_SPLIT = {MAMBA: {"h": 1, "conv": 2}, MLSTM: {"C": 1, "n": 1, "m": 1}}
+
+
+def recurrent_shards(cfg: ArchConfig, mixer, m: int) -> int:
+    """The model shards that hold a recurrent layer's state in a data group
+    of m: m where its model-parallel form splits it (Mamba's d_inner, the
+    mLSTM's heads), else 1, the group's shard 0 (the sLSTM always: its
+    ``R`` and state are replicated in the reference)."""
+    split = ((mixer == MAMBA and ssm.mamba_splits(cfg, m))
+             or (mixer == MLSTM and xlstm.mlstm_splits(cfg, m)))
+    return m if split else 1
+
+
+def _recurrent_forward(cfg, mixer, p, h, row, return_state=False):
+    """A recurrent mixer over a sequence under ``row``: its model-parallel
+    form where it splits, else whole on shard 0 -> y on shard 0 [, the
+    state, one dict a shard that holds it (``recurrent_shards``)]."""
+    if recurrent_shards(cfg, mixer, row.m) > 1:
+        return _FORWARD_MP[mixer](cfg, p, h, row, return_state=return_state)
+    out = _FORWARD[mixer](cfg, row.whole(p), h, return_state=return_state)
+    return (out[0], [out[1]]) if return_state else out
+
+
+def _recurrent_step(cfg, mixer, p, h, states, row):
+    """A recurrent mixer's decode step under ``row``, ``states`` one dict a
+    shard that holds it, updated in place -> y (B, 1, d) on shard 0."""
+    if len(states) > 1:
+        return _DECODE_STEP_MP[mixer](cfg, p, h, states, row)[0]
+    return _DECODE_STEP[mixer](cfg, row.whole(p), h, states[0])[0]
+
+
+def _recurrent_state_blocks(cfg, mixer, batch, dtype, row):
+    """A recurrent layer's empty state in a data group: shard j's block on
+    its device, one dict a shard that holds it."""
+    n = recurrent_shards(cfg, mixer, row.m)
+    whole = _recurrent_state(cfg, mixer, batch, dtype, row.device(0))
+    if n == 1:
+        return [whole]
+    dims = _STATE_SPLIT[mixer]
+    return [{k: t.chunk(n, dims[k])[j].contiguous().to(row.device(j)) for k, t in whole.items()}
+            for j in range(n)]
 
 
 def _layer_state(cfg, layer, r, batch, max_len, dtype, dev):
@@ -744,12 +788,19 @@ def _embed_inputs(cfg: ArchConfig, params, batch, row=None):
     return x, torch.arange(T, device=x.device)[None].expand(B, T)
 
 
-def _encode(cfg: ArchConfig, params, frontend, attention=attn.attention_prefill):
+def _encode(cfg: ArchConfig, params, frontend, train=False, row=None):
     """The encoder (reference ``model.py:293``): RoPE'd bidirectional
     self-attention over the frontend's F frames at positions 0..F-1
-    (``attention``: ``attention_prefill``, i.e. ``flash_prefill(causal=False)``
-    on the card, when serving; ``attention_auto`` in training, as the
-    reference), a dense FFN, the encoder's final norm -> (B, F, d).
+    (``attention_prefill``, i.e. ``flash_prefill(causal=False)`` on the
+    card, when serving; ``attention_auto`` in training, as the reference), a
+    dense FFN, the encoder's final norm -> (B, F, d).
+
+    Under ``row`` (one data group's model shards, ``params`` placed, the
+    frames on shard 0) each layer's attention runs on the shards by KV-head
+    group, each shard's heads bidirectional (``attn.attention_mp_prefill``
+    serving, ``attn.attention_mp`` training), or by the input-dim split with
+    query rows over the shards where the heads do not divide; the FFN is
+    column/row-parallel; the output lives on shard 0.
 
     The frames are cast to the weights' dtype. The reference runs its
     encoder at the frames' dtype (float32 from the engine), promoting bf16
@@ -759,13 +810,20 @@ def _encode(cfg: ArchConfig, params, frontend, attention=attn.attention_prefill)
     B, F_ = x.shape[:2]
     pos = torch.arange(F_, device=x.device)[None].expand(B, F_)
     for lp in enc["layers"]:
-        h = L.apply_norm(cfg, lp["norm1"], x)
-        q, k, v = attn.qkv_proj(cfg, lp["mixer"], h, pos)
-        o = attention(cfg, q, k, v, pos, pos, causal=False)
-        x = x + attn.out_proj(cfg, lp["mixer"], o)
-        x = _ffn(cfg, (ATTN, DENSE), lp, x)
-        del q, k, v, o, h
-    return L.apply_norm(cfg, enc["final_norm"], x)
+        h = L.apply_norm(cfg, _whole(row, lp["norm1"]), x)
+        if row is not None:
+            x = x + (attn.attention_mp(cfg, lp["mixer"], h, None, row, causal=False) if train
+                     else attn.attention_mp_prefill(cfg, lp["mixer"], h, 0, None, row,
+                                                    causal=False)[0])
+        else:
+            attention = attn.attention_auto if train else attn.attention_prefill
+            q, k, v = attn.qkv_proj(cfg, lp["mixer"], h, pos)
+            o = attention(cfg, q, k, v, pos, pos, causal=False)
+            x = x + attn.out_proj(cfg, lp["mixer"], o)
+            del q, k, v, o
+        x = _ffn_aux(cfg, (ATTN, DENSE), lp, x, row)[0]
+        del h
+    return L.apply_norm(cfg, _whole(row, enc["final_norm"]), x)
 
 
 def _enc_kv(cfg: ArchConfig, lp, enc):
@@ -774,6 +832,66 @@ def _enc_kv(cfg: ArchConfig, lp, enc):
     B, F_ = enc.shape[:2]
     shape = (B, F_, cfg.n_kv_heads, cfg.d_head)
     return (enc @ lp["xattn"]["wk"]).reshape(shape), (enc @ lp["xattn"]["wv"]).reshape(shape)
+
+
+def _cross_layer(row, lp):
+    """The cross-attention sublayer's weights whole on the row's shard 0."""
+    return {key: _whole(row, lp[key]) for key in ("xnorm", "xattn")}
+
+
+def _enc_kv_mp(cfg: ArchConfig, lp, enc, row):
+    """``_enc_kv`` under ``row`` (``enc`` on shard 0) -> (xks, xvs), one
+    entry a shard that holds them: by KV-head group where the model axis
+    divides both head counts (shard j's heads projected on shard j by its
+    column blocks of wk/wv, the reference's ``decode_state_spec`` for
+    ``xk``/``xv``), else whole on shard 0 by the input-dim split. With no
+    mesh or one model shard, the whole K/V."""
+    if row is None or row.m == 1:
+        xk, xv = _enc_kv(cfg, _cross_layer(row, lp), enc)
+        return [xk], [xv]
+    p = lp["xattn"]
+    B, F_ = enc.shape[:2]
+    if attn.heads_divide(cfg, row.m):
+        kvl = cfg.n_kv_heads // row.m
+        encs = row.broadcast(enc, "partial_sum")
+        return tuple([(encs[j] @ row.fetch(p[key], j, dim=1)).reshape(B, F_, kvl, cfg.d_head)
+                      for j in range(row.m)] for key in ("wk", "wv"))
+    xk, xv = attn.proj_split([p["wk"], p["wv"]], enc, row)
+    shape = (B, F_, cfg.n_kv_heads, cfg.d_head)
+    return [xk.reshape(shape)], [xv.reshape(shape)]
+
+
+def _cross_mp(cfg: ArchConfig, lp, x, pos, xks, xvs, row):
+    """``_cross`` under ``row`` over ``_enc_kv_mp``'s K/V, x on shard 0:
+    each KV-head group's queries on its shard (column blocks of wq), its
+    output through its row block of wo, the partial sums reduced on shard
+    0; or, with the K/V whole on shard 0, the input-dim split of wq and wo
+    around the attention there. With no mesh or one model shard, ``_cross``
+    itself."""
+    if row is None or row.m == 1:
+        return _cross(cfg, _cross_layer(row, lp), x, pos, xks[0], xvs[0])
+    p = lp["xattn"]
+    h = L.apply_norm(cfg, row.whole(lp["xnorm"]), x)
+    B, T = h.shape[:2]
+    F_ = xks[0].shape[1]
+    if len(xks) == 1:
+        (q,) = attn.proj_split([p["wq"]], h, row)
+        q = q.reshape(B, T, cfg.n_heads, cfg.d_head)
+        epos = torch.arange(F_, device=h.device)[None].expand(B, F_)
+        o = attn.attention_dense(cfg, q, xks[0], xvs[0], pos, epos, causal=False)
+        return x + attn.out_split(cfg, p, [(0, o)], row)
+    local = attn.local_cfg(cfg, row.m)
+    hs = row.broadcast(h, "partial_sum")
+    parts = []
+    for j in range(row.m):
+        dev = row.device(j)
+        q = (hs[j] @ row.fetch(p["wq"], j, dim=1)).reshape(B, T, local.n_heads, cfg.d_head)
+        epos = torch.arange(F_, device=dev)[None].expand(B, F_)
+        # a bidirectional mask reads only the keys' positions
+        qpos = torch.zeros((B, T), dtype=torch.long, device=dev)
+        o = attn.attention_dense(local, q, xks[j], xvs[j], qpos, epos, causal=False)
+        parts.append(attn.out_proj(local, {"wo": row.fetch(p["wo"], j, dim=0)}, o))
+    return x + row.reduce(parts, "partial_sum")
 
 
 def _cross(cfg: ArchConfig, lp, x, pos, xk, xv):
@@ -1060,22 +1178,54 @@ def serve_step_verify(cfg: ArchConfig, fkv: FreeKVConfig, params, state, tokens,
     their pre-block values for ``rewind_state``.
 
     Returns (logits (B, S, V), state, stats_rows {key: (S, B)}, undo), undo
-    a layer's ``(ring_snapshot, [draft_probe of each row])``."""
+    a retrieval state's ``(ring_snapshot, [draft_probe of each row])`` in
+    ``_spec_units``' order. Under a compute mesh each data group's
+    retrievers snapshot and probe that group's rows on its shards."""
     S = tokens.shape[1]
-    retrs = retrievers(cfg, fkv, mesh)
+    units = _spec_units(cfg, fkv, state, mesh)
     pos, pos_host = state["pos"], state["pos_host"]
-    undo = [(r.ring_snapshot(st, S), []) for r, st in zip(retrs, state["layers"])]
+    undo = [(r.ring_snapshot(view(state), S), []) for _, _, r, view, _ in units]
     logits, stats = [], []
     for j in range(S):
         lg, state, s = serve_step(cfg, fkv, params, state, tokens[:, j:j + 1],
                                   collect_stats=True, mesh=mesh)
         logits.append(lg)
         stats.append(s)
-        for r, st, (_, probes) in zip(retrs, state["layers"], undo):
-            probes.append(r.draft_probe(st))
+        for (_, _, r, view, _), (_, probes) in zip(units, undo):
+            probes.append(r.draft_probe(view(state)))
     state["pos"], state["pos_host"] = pos, pos_host
     return (torch.stack(logits, dim=1), state,
             {k: torch.stack([s[k] for s in stats]) for k in stat_keys(mesh)}, undo)
+
+
+def _spec_units(cfg: ArchConfig, fkv: FreeKVConfig, state, mesh):
+    """The retrieval states speculative decoding rolls back, as (rows, at,
+    retriever, view, put): ``rows`` the batch rows (a slice), ``at`` the
+    shard their scalars go to, ``view(state)`` the state the retriever
+    reads and ``put(state, sub)`` writes it back. One a layer without a
+    compute mesh (``retrievers``); under one, one a layer and data group,
+    the group's retriever in its layout (``_retriever_table``) over the
+    group's entries, on its shard 0. (A speculative stack has only
+    attention layers, ``supports_spec_decode``.)"""
+    if not is_compute_mesh(mesh):
+        return [(slice(None), HOME, r, lambda st, i=i: st["layers"][i],
+                 lambda st, sub, i=i: st["layers"].__setitem__(i, sub))
+                for i, r in enumerate(retrievers(cfg, fkv, mesh))]
+    get = _retriever_table(cfg, fkv, mesh)
+    m = mesh.shape["model"]
+    groups = state_groups(state["layers"][0])
+    b = state["pos"].shape[0] // len(groups)
+    units = []
+    for i, layer in enumerate(cfg.layers):
+        for gi, g in enumerate(groups):
+            def view(st, i=i, g=g):
+                return _gsub(st["layers"][i], g)
+
+            def put(st, sub, i=i, g=g):
+                _gput(st["layers"][i], g, sub)
+            r = get(g, layer[0], mesh_layout(cfg, fkv, layer, m, state=view(state)))
+            units.append((slice(gi * b, (gi + 1) * b), (g, 0), r, view, put))
+    return units
 
 
 def rewind_state(cfg: ArchConfig, fkv: FreeKVConfig, state, undo, m, mesh=None):
@@ -1085,20 +1235,20 @@ def rewind_state(cfg: ArchConfig, fkv: FreeKVConfig, state, undo, m, mesh=None):
     the last committed row (one recall, ``draft_rewind``), and the ring
     writes of the rejected rows are undone (``ring_restore``). A slot with
     m = 0 (finished) keeps its pre-block state. Under serving TP
-    (``mesh``) each shard's probes and ring are rolled back on its device."""
-    B = m.shape[0]
-    bidx = torch.arange(B, device=m.device)
+    (``mesh``) each shard's probes and ring are rolled back on its device;
+    under a compute mesh each data group's, from its rows."""
     last = (m - 1).clamp(0, None).long()
     keep_len = state["pos"] + m
+    for (rows, at, r, view, put), (snap, probes) in zip(_spec_units(cfg, fkv, state, mesh),
+                                                         undo):
+        lst, keep, m_g = (_to_group(mesh, t, rows, at) for t in (last, keep_len, m))
+        bidx = torch.arange(lst.shape[0], device=lst.device)
 
-    def pick(rows):                    # (S, B, ...) -> each slot's last committed row
-        return rows[last.to(rows.device), bidx.to(rows.device)]
-
-    for i, r in enumerate(retrievers(cfg, fkv, mesh)):
-        snap, probes = undo[i]
+        def pick(stacked):             # (S, b, ...) -> each slot's last committed row
+            return stacked[lst.to(stacked.device), bidx.to(stacked.device)]
         probe = tuple(pick(torch.stack([p[c] for p in probes])) for c in range(len(probes[0])))
-        st = r.draft_rewind(state["layers"][i], keep_len, probe)
-        state["layers"][i] = r.ring_restore(st, snap, m)
+        st = r.draft_rewind(view(state), keep, probe)
+        put(state, r.ring_restore(st, snap, m_g))
     state["pos"] = keep_len
     return state
 
@@ -1124,7 +1274,9 @@ def serve_step_spec(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sam
     B = loop["cur"].shape[0]
     S = fkv.draft_len + 1
     cur = loop["cur"]
-    drafted = drafter.propose(state["draft_tab"], cur, fkv.draft_len)
+    tabs = _draft_tabs(state, mesh)
+    drafted = _join_rows(mesh, [(at, drafter.propose(tab, _to_group(mesh, cur, sl, at),
+                                                    fkv.draft_len)) for sl, at, tab in tabs])
     toks = torch.cat([cur[:, None], drafted], dim=1)                  # (B, S)
     logits, state, stats_rows, undo = serve_step_verify(cfg, fkv, params, state, toks.long(),
                                                         mesh)
@@ -1152,8 +1304,32 @@ def serve_step_spec(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, sam
     loop = dict(loop, cur=torch.where(any_, e_last, cur), count=count, fin=fin)
     stream = torch.cat([cur[:, None], e.T], dim=1)                     # (B, S + 1)
     emit_ext = torch.cat([live0[:, None], emit.T], dim=1)
-    drafter.update(state["draft_tab"], stream, emit_ext)
+    for sl, at, tab in tabs:
+        drafter.update(tab, _to_group(mesh, stream, sl, at), _to_group(mesh, emit_ext, sl, at))
     return state, loop, e, emit, stats_rows, finite
+
+
+def _draft_tabs(state, mesh):
+    """(rows, shard, table) of each drafter table: the one (B, vocab) table,
+    or under a compute mesh each data group's on its shard 0."""
+    tabs = state["draft_tab"]
+    if not isinstance(tabs, dict):
+        return [(slice(None), HOME, tabs)]
+    n = len(tabs)
+    b = state["pos"].shape[0] // n
+    return [(slice(g * b, (g + 1) * b), (g, 0), tabs[f"{g}:0/draft_tab"]) for g in range(n)]
+
+
+def _to_group(mesh, t, rows, at):
+    """Rows ``rows`` of ``t`` (on the primary device) on shard ``at``."""
+    return t[rows] if at == HOME else transfer.move(mesh, t[rows], HOME, at, "data")
+
+
+def _join_rows(mesh, parts):
+    """(shard, rows) parts back on the primary device, joined in order."""
+    if len(parts) == 1 and parts[0][0] == HOME:
+        return parts[0][1]
+    return torch.cat([transfer.move(mesh, t, at, HOME, "data") for at, t in parts])
 
 
 @torch.no_grad()
@@ -1253,8 +1429,14 @@ def decode_window_spec(cfg: ArchConfig, fkv: FreeKVConfig, params, state, loop, 
 #             do not divide the model axis (the reference stores such state
 #             by page over "model" and lets its partitioner move it; a
 #             difference by design).
-# A layer's state is one flat dict keyed ``"<group>:<shard>/<leaf>"``; the
-# positions stay whole on the primary device. A 1 x 1 mesh computes what no
+# A recurrent layer's state sits on the shards of its model-parallel form
+# (``recurrent_shards``: Mamba's d_inner blocks, the mLSTM's heads) or whole
+# on shard 0 (the sLSTM); an encoder-decoder layer's cross-attention
+# ``xk``/``xv`` by KV-head group where the heads divide, else whole on shard
+# 0 (``_enc_kv_mp``). A layer's state is one flat dict keyed
+# ``"<group>:<shard>/<leaf>"``; the positions stay whole on the primary
+# device, and under speculative decoding each group's drafter table
+# (``"<group>:0/draft_tab"``) on its shard 0. A 1 x 1 mesh computes what no
 # mesh does, op for op: the same tokens, bit for bit.
 def serving_groups(cfg: ArchConfig, mesh, batch_size: int) -> int:
     """The data groups a serving batch of ``batch_size`` rows runs on: all
@@ -1269,15 +1451,6 @@ def serving_groups(cfg: ArchConfig, mesh, batch_size: int) -> int:
     if any(f == MOE for _, f in cfg.layers) and cfg.n_experts % mesh.shape["model"]:
         return 1
     return n
-
-
-def check_mesh_serving(cfg: ArchConfig, mesh):
-    """Raises where ``cfg`` cannot serve under ``mesh`` (above 1 x 1: the
-    recurrent mixers and the encoder-decoder, ``MESH_TODO``)."""
-    if mesh.size > 1 and (cfg.is_encoder_decoder or any(m in RECURRENT for m, _ in cfg.layers)):
-        raise NotImplementedError(
-            f"{cfg.name}: the recurrent mixers and the encoder-decoder serve on one device or "
-            f"a 1 x 1 mesh only; a {mesh.dims} mesh is {MESH_TODO}")
 
 
 def mesh_layout(cfg: ArchConfig, fkv: FreeKVConfig, layer, model_parallel: int,
@@ -1344,7 +1517,6 @@ def state_groups(layer_state) -> list:
 
 
 def _init_mesh_state(cfg, fkv, batch_size, max_len, dtype, dev, mesh):
-    check_mesh_serving(cfg, mesh)
     n_g = serving_groups(cfg, mesh, batch_size)
     b = batch_size // n_g
     m = mesh.shape["model"]
@@ -1353,21 +1525,34 @@ def _init_mesh_state(cfg, fkv, batch_size, max_len, dtype, dev, mesh):
     for layer in cfg.layers:
         st = {}
         for g in range(n_g):
-            at = mesh.device((g, 0))
+            row = MeshRow(mesh, g)
             if layer[0] in RECURRENT:
-                sub = {"0/" + k: v for k, v in
-                       _recurrent_state(cfg, layer[0], b, dtype, at).items()}
+                sub = {f"{j}/{k}": v for j, blk in enumerate(
+                    _recurrent_state_blocks(cfg, layer[0], b, dtype, row)) for k, v in blk.items()}
             else:
                 r = retriever(g, layer[0], mesh_layout(cfg, fkv, layer, m, max_len=max_len))
-                sub = r.init_state(b, max_len, dtype, at)
+                sub = r.init_state(b, max_len, dtype, row.device(0))
                 if cfg.is_encoder_decoder:
-                    shape = (b, cfg.n_frontend_tokens, cfg.n_kv_heads, cfg.d_head)
-                    sub.update({"0/" + key: torch.zeros(shape, dtype=dtype, device=at)
-                                for key in CROSS_KEYS})
+                    groups = attn.heads_divide(cfg, m)
+                    shape = (b, cfg.n_frontend_tokens,
+                             cfg.n_kv_heads // m if groups else cfg.n_kv_heads, cfg.d_head)
+                    sub.update({f"{j}/{key}": torch.zeros(shape, dtype=dtype, device=row.device(j))
+                                for j in range(m if groups else 1) for key in CROSS_KEYS})
             st.update({f"{g}:{k}": v for k, v in sub.items()})
         layers.append(st)
-    return {"layers": layers, "pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
-            "pos_host": torch.zeros((batch_size,), dtype=torch.int32)}
+    out = {"layers": layers, "pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
+           "pos_host": torch.zeros((batch_size,), dtype=torch.int32)}
+    if fkv.draft_len > 0:               # each data group's drafter lanes
+        from repro_torch.core import drafter
+        out["draft_tab"] = {f"{g}:0/draft_tab": drafter.init_draft_tab(
+            b, cfg.vocab_size, mesh.device((g, 0))) for g in range(n_g)}
+    return out
+
+
+def _pop_cross(st) -> dict:
+    """A layer's cross-attention leaves (every shard's) taken out of its
+    state, which the retriever never sees."""
+    return {k: st.pop(k) for k in [k for k in st if k.rsplit("/", 1)[-1] in CROSS_KEYS]}
 
 
 def _mesh_info(r, infos, row):
@@ -1445,7 +1630,6 @@ def _prefill_mesh(cfg, fkv, params, batch, max_len, state_dtype, into, return_kv
     built in the layer's layout on its shards, the logits back on the
     primary device and the K/V the caller keeps (per layer) there too, or
     on the group's shard 0 when one ``group`` ran."""
-    check_mesh_serving(cfg, mesh)
     tokens = batch["tokens"]
     B = tokens.shape[0]
     groups = [group] if group is not None else list(range(serving_groups(cfg, mesh, B)))
@@ -1469,17 +1653,18 @@ def _prefill_mesh(cfg, fkv, params, batch, max_len, state_dtype, into, return_kv
         S = x.shape[1]
         T = t0 + S
         n_blocks = _moe_blocks(mesh, len(groups), b * S)
-        enc = (_encode(cfg, {"embed": prm["embed"], "encoder": row.whole(prm["encoder"])},
-                       grp["frontend"]) if cfg.is_encoder_decoder else None)
+        enc = _encode(cfg, prm, grp["frontend"], row=row) if cfg.is_encoder_decoder else None
         for i, lp in enumerate(prm["layers"]):
             layer = cfg.layers[i]
             h = L.apply_norm(cfg, _whole(row, lp["norm1"]), x)
-            if layer[0] in RECURRENT:                     # a 1 x 1 mesh: whole on shard 0
-                o, st = _FORWARD[layer[0]](cfg, row.whole(lp["mixer"]), h, return_state=True)
+            if layer[0] in RECURRENT:
+                o, sts = _recurrent_forward(cfg, layer[0], lp["mixer"], h, row,
+                                            return_state=True)
                 x = _ffn_aux(cfg, layer, lp, _residual(cfg, lp, x, o, "1", row), row,
                              n_blocks)[0]
                 if build_state:
-                    states[i].update({f"{g}:0/{k}": v for k, v in st.items()})
+                    states[i].update({f"{g}:{j}/{k}": v for j, st in enumerate(sts)
+                                      for k, v in st.items()})
                 kvs[i].append(None)
                 continue
             buf = None
@@ -1490,9 +1675,8 @@ def _prefill_mesh(cfg, fkv, params, batch, max_len, state_dtype, into, return_kv
                 need_whole=return_kv and not ext)
             x = _residual(cfg, lp, x, out, "1", row)
             if enc is not None:
-                xp = row.whole(lp)
-                xk, xv = _enc_kv(cfg, xp, enc)
-                x = _cross(cfg, xp, x, positions, xk, xv)
+                xks, xvs = _enc_kv_mp(cfg, lp, enc, row)
+                x = _cross_mp(cfg, lp, x, positions, xks, xvs, row)
             x = _ffn_aux(cfg, layer, lp, x, row, n_blocks)[0]
             kvs[i].append(whole)
             if not build_state:
@@ -1501,7 +1685,7 @@ def _prefill_mesh(cfg, fkv, params, batch, max_len, state_dtype, into, return_kv
             r = retriever(g, layer[0], layout)
             st = _gsub(into[i], g) if into is not None else r.init_state(b, max_len, state_dtype,
                                                                          row.device(0))
-            rows = {key: st.pop("0/" + key) for key in CROSS_KEYS if "0/" + key in st}
+            rows = _pop_cross(st)
             if layout == "pages":
                 k, v, ql = (ts[0] if len(ts) == 1 else
                             torch.cat([row.move(t, j, 0, "state") for j, t in enumerate(ts)],
@@ -1511,8 +1695,10 @@ def _prefill_mesh(cfg, fkv, params, batch, max_len, state_dtype, into, return_kv
             else:
                 st = r.prefill_parts(st, ks, vs, qls)
             if enc is not None:
-                for key, t in zip(CROSS_KEYS, (xk, xv)):
-                    st["0/" + key] = (rows[key].copy_(t) if key in rows else t.to(state_dtype))
+                for j, pair in enumerate(zip(xks, xvs)):
+                    for key, t in zip(CROSS_KEYS, pair):
+                        k_ = f"{j}/{key}"
+                        st[k_] = rows[k_].copy_(t) if k_ in rows else t.to(state_dtype)
             states[i].update({f"{g}:{k}": v for k, v in st.items()})
             del ks, vs, qls, h
         x = L.apply_norm(cfg, _whole(row, prm["final_norm"]), x)
@@ -1536,7 +1722,6 @@ def _serve_step_mesh(cfg, fkv, params, state, tokens, collect_stats, mesh):
     """``serve_step`` under a compute mesh: each data group's rows through
     its model shards, each attention layer's retrieval step in its layout,
     the logits and the stats back on the primary device."""
-    check_mesh_serving(cfg, mesh)
     B = tokens.shape[0]
     groups = state_groups(state["layers"][0])
     b = B // len(groups)
@@ -1561,27 +1746,30 @@ def _serve_step_mesh(cfg, fkv, params, state, tokens, collect_stats, mesh):
             st = state["layers"][i]
             sub = _gsub(st, g)
             h = L.apply_norm(cfg, _whole(row, lp["norm1"]), x)
-            if layer[0] in RECURRENT:                     # a 1 x 1 mesh: whole on shard 0
-                rec = {k[2:]: v for k, v in sub.items()}
-                o, _ = _DECODE_STEP[layer[0]](cfg, row.whole(lp["mixer"]), h, rec)
-                _gput(st, g, {"0/" + k: v for k, v in rec.items()})
+            if layer[0] in RECURRENT:                     # updated in place
+                n_sh = recurrent_shards(cfg, layer[0], m)
+                recs = [{k.split("/", 1)[1]: v for k, v in sub.items() if k.startswith(f"{j}/")}
+                        for j in range(n_sh)]
+                o = _recurrent_step(cfg, layer[0], lp["mixer"], h, recs, row)
                 x = _ffn_aux(cfg, layer, lp, _residual(cfg, lp, x, o, "1", row), row,
                              n_blocks)[0]
                 continue
-            cross = {key: sub.pop("0/" + key) for key in CROSS_KEYS if "0/" + key in sub}
+            cross = _pop_cross(sub)
             layout = mesh_layout(cfg, fkv, layer, m, state=sub)
             r = retriever(g, layer[0], layout)
             out, sub, info, q_now = _mesh_attn_decode(cfg, lp["mixer"], h, pos_g, r, layout, sub,
                                                       row, pos_host[sl], q_proxy)
             if infinigen:
                 q_proxy = q_now
-            sub.update({"0/" + key: t for key, t in cross.items()})
+            sub.update(cross)
             _gput(st, g, sub)
             if layer[0] == ATTN and fkv.sharded_retrieval:
                 SHARDED_PATHS["fused" if layout == "pages" else "fallback"] += 1
             x = _residual(cfg, lp, x, out, "1", row)
             if cross:
-                x = _cross(cfg, row.whole(lp), x, pos_g[:, None], cross["xk"], cross["xv"])
+                n_x = len(cross) // 2
+                x = _cross_mp(cfg, lp, x, pos_g[:, None], [cross[f"{j}/xk"] for j in range(n_x)],
+                              [cross[f"{j}/xv"] for j in range(n_x)], row)
             x = _ffn_aux(cfg, layer, lp, x, row, n_blocks)[0]
             if collect_stats and layer[0] == ATTN:
                 s = _info_stats(info, b, dev)

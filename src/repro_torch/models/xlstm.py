@@ -10,6 +10,8 @@ up-projection to (xm, z), the mixer over xm, and a down-projection of
   mlstm_decode_step(cfg, p, x, state)      -> (y (B, 1, d), state)
   slstm_init / slstm_forward / slstm_init_state / slstm_decode_step, the same
   for the sLSTM, whose state is {"h", "c", "n", "m"}.
+  mlstm_splits(cfg, m), mlstm_forward_mp(cfg, p, x, row, return_state),
+  mlstm_decode_step_mp(cfg, p, x, states, row): the mLSTM over m shards.
 
 The reference's arithmetic and dtypes: the gate weights and biases (``wi``,
 ``wf``, ``bf``; ``W``, ``R``, ``b``) are float32 whatever the other leaves'
@@ -26,6 +28,21 @@ pre-activations, which do move the state); the port steps them too, so its
 state, and the tokens decoded from it, are the reference's. A decode step
 writes the new state into the state's tensors in place, so a slot's rows
 stay where the slot pool put them. Nothing reads the card from the host.
+
+**The mLSTM's model-parallel form** (``mlstm_forward_mp``,
+``mlstm_decode_step_mp``) runs over the m model shards of one data group
+(``sharding/transfer.MeshRow``), split by head where m divides the heads
+(``mlstm_splits``): shard j holds heads [j nh / m, (j + 1) nh / m) and the
+inner channels they make. ``up`` is column-parallel (block j of its ``xm``
+half and of its ``z`` half); the ``xm`` blocks are gathered on every shard,
+since each head's q, k, v and gates read all of ``xm``; ``wq``, ``wk``,
+``wv``, ``wi``, ``wf`` and ``bf`` are split by head, so the recurrence runs
+locally and moves nothing; ``down`` is row-parallel, reduced on shard 0.
+Shard j's state is its heads' ``C``, ``n`` and ``m``. The reference's
+``decode_state_spec`` splits ``C`` by dv and keeps ``n`` and ``m`` whole:
+a difference by design (ROADMAP). The sLSTM has no such form: its ``R``
+and its state are replicated in the reference, and the port runs it whole
+on the group's shard 0.
 """
 from __future__ import annotations
 
@@ -83,8 +100,11 @@ def mlstm_init(cfg: ArchConfig, normal, dtype=torch.float32):
 
 
 def _mlstm_qkvif(cfg, p, xm):
+    """xm (B, T, di) -> q, k (B, T, nh, dqk), v (B, T, nh, dv), the gates'
+    log_i, log_f (B, T, nh) float32, for the nh heads ``p`` holds."""
     B, T, _ = xm.shape
-    _, nh, dv, dqk = xlstm_dims(cfg)
+    _, _, dv, dqk = xlstm_dims(cfg)
+    nh = p["wi"].shape[1]
     q = (xm @ p["wq"]).reshape(B, T, nh, dqk) / math.sqrt(dqk)
     k = (xm @ p["wk"]).reshape(B, T, nh, dqk)
     v = (xm @ p["wv"]).reshape(B, T, nh, dv)
@@ -96,16 +116,27 @@ def _mlstm_qkvif(cfg, p, xm):
 
 def mlstm_forward(cfg: ArchConfig, p, x, return_state=False, chunk=256):
     """x (B, T, d) -> (B, T, d) [, the state after the last token]."""
-    B, T, _ = x.shape
-    di, nh, dv, dqk = xlstm_dims(cfg)
+    di = xlstm_dims(cfg)[0]
     xm, z = torch.split(x @ p["up"], di, dim=-1)
-    q, k, v, log_i, log_f = _mlstm_qkvif(cfg, p, xm)
+    h, state = _mlstm_chunks(*_mlstm_qkvif(cfg, p, xm), chunk, x.dtype)
+    out = (h * F.silu(z)) @ p["down"]
+    if return_state:
+        return out, state
+    return out
+
+
+def _mlstm_chunks(q, k, v, log_i, log_f, chunk, dtype):
+    """The chunkwise stabilized mLSTM over the heads of q/k/v (B, T, nh,
+    ...) -> (h (B, T, nh * dv) at ``dtype``, the state after the last
+    token)."""
+    B, T, nh, dqk = q.shape
+    dv = v.shape[-1]
     pad = (-T) % chunk
     if pad:                       # log_i = -1e30: padded steps update nothing
         q, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (q, k, v))
         log_i = F.pad(log_i, (0, 0, 0, pad), value=NEG_INF)
         log_f = F.pad(log_f, (0, 0, 0, pad))
-    dev = x.device
+    dev = q.device
     idx = torch.arange(chunk, device=dev)
     causal = (idx[:, None] >= idx[None, :])[None, :, :, None]    # (1, t, s, 1): s <= t
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
@@ -134,7 +165,7 @@ def mlstm_forward(cfg: ArchConfig, p, x, return_state=False, chunk=256):
         num = num + torch.einsum("bthd,bhde,bth->bthe", qf, C, wI)
         den = den + torch.einsum("bthd,bhd->bth", qf, n) * wI
         h = num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None]
-        hs.append(h.to(x.dtype))
+        hs.append(h.to(dtype))
         # the state at the chunk's end
         bL = b[:, -1, :]                                          # (B, nh)
         m_state = torch.maximum(bL + m, (bL[:, None] - b + ic).amax(dim=1))
@@ -143,11 +174,7 @@ def mlstm_forward(cfg: ArchConfig, p, x, return_state=False, chunk=256):
         C = carry[:, :, None, None] * C + torch.einsum("bsh,bshd,bshe->bhde", wS, kf, vf)
         n = carry[:, :, None] * n + torch.einsum("bsh,bshd->bhd", wS, kf)
         m = m_state
-    h = torch.cat(hs, dim=1)[:, :T].reshape(B, T, di)
-    out = (h * F.silu(z)) @ p["down"]
-    if return_state:
-        return out, {"C": C, "n": n, "m": m}
-    return out
+    return torch.cat(hs, dim=1)[:, :T].reshape(B, T, nh * dv), {"C": C, "n": n, "m": m}
 
 
 def mlstm_init_state(cfg: ArchConfig, batch: int, device="cuda"):
@@ -162,10 +189,16 @@ def mlstm_decode_step(cfg: ArchConfig, p, x, state):
     """x (B, 1, d); state {"C" (B, nh, dqk, dv), "n" (B, nh, dqk), "m" (B,
     nh)}, float32 -> (y (B, 1, d), state), the state updated in place: the
     stabilized recurrent update."""
-    B = x.shape[0]
     di = xlstm_dims(cfg)[0]
     xm, z = torch.split(x @ p["up"], di, dim=-1)
-    q, k, v, log_i, log_f = _mlstm_qkvif(cfg, p, xm)
+    h = _mlstm_step(*_mlstm_qkvif(cfg, p, xm), state, x.dtype)
+    return ((h * F.silu(z[:, 0])) @ p["down"])[:, None, :], state
+
+
+def _mlstm_step(q, k, v, log_i, log_f, state, dtype):
+    """One stabilized recurrent update of the heads of q/k/v (B, 1, nh, ...)
+    -> h (B, nh * dv) at ``dtype``; ``state`` written in place."""
+    B = q.shape[0]
     q, k, v = q[:, 0], k[:, 0], v[:, 0]
     log_i, log_f = log_i[:, 0], log_f[:, 0]                       # (B, nh)
     m_new = torch.maximum(log_f + state["m"], log_i)
@@ -177,12 +210,68 @@ def mlstm_decode_step(cfg: ArchConfig, p, x, state):
     qf = q.float()
     num = torch.einsum("bhd,bhde->bhe", qf, C)
     den = torch.maximum(torch.einsum("bhd,bhd->bh", qf, n).abs(), torch.exp(-m_new))
-    h = (num / den[..., None]).reshape(B, di).to(x.dtype)
-    out = ((h * F.silu(z[:, 0])) @ p["down"])[:, None, :]
+    h = (num / den[..., None]).reshape(B, -1).to(dtype)
     state["C"].copy_(C)
     state["n"].copy_(n)
     state["m"].copy_(m_new)
-    return out, state
+    return h
+
+
+# ---------------------------------------------------------------------------
+# the mLSTM's model-parallel form: heads split over a data group's shards
+# ---------------------------------------------------------------------------
+def mlstm_splits(cfg: ArchConfig, m: int) -> bool:
+    """Whether m model shards split the mLSTM's heads (else it runs whole on
+    the group's shard 0)."""
+    return m > 1 and xlstm_dims(cfg)[1] % m == 0
+
+
+def _head_block(cfg, p, row, j):
+    """Shard j's heads of the placed weights ``p`` on its device: ``in_x``/
+    ``in_z`` the columns of up's two halves, the projections and gates by
+    head, ``down`` by row."""
+    di = xlstm_dims(cfg)[0]
+    n = di // row.m
+    w = {"in_x": row.span(p["up"], j, 1, j * n, (j + 1) * n),
+         "in_z": row.span(p["up"], j, 1, di + j * n, di + (j + 1) * n)}
+    for key, dim in (("wq", 1), ("wk", 1), ("wv", 1), ("wi", 1), ("wf", 1), ("bf", 0),
+                     ("down", 0)):
+        w[key] = row.fetch(p[key], j, dim=dim)
+    return w
+
+
+def _mp_inputs(cfg, p, x, row):
+    """x on shard 0 -> each shard's (weights, z block, xm gathered whole)."""
+    xs = row.broadcast(x, "partial_sum")
+    ws = [_head_block(cfg, p, row, j) for j in range(row.m)]
+    xms = [xs[j] @ w["in_x"] for j, w in enumerate(ws)]
+    gathered = [torch.cat([row.move(t, i, j, "partial_sum") for i, t in enumerate(xms)], dim=-1)
+                for j in range(row.m)]
+    return [(w, xs[j] @ w["in_z"], gathered[j]) for j, w in enumerate(ws)]
+
+
+def mlstm_forward_mp(cfg: ArchConfig, p, x, row, return_state=False, chunk=256):
+    """``mlstm_forward`` over ``row``'s m shards (``mlstm_splits``): x (B,
+    T, d) on shard 0, ``p`` placed -> y (B, T, d) on shard 0 [, each
+    shard's heads' state, on its device]."""
+    parts, states = [], []
+    for w, z, xm in _mp_inputs(cfg, p, x, row):
+        h, st = _mlstm_chunks(*_mlstm_qkvif(cfg, w, xm), chunk, x.dtype)
+        parts.append((h * F.silu(z)) @ w["down"])
+        states.append(st)
+    out = row.reduce(parts, "partial_sum")
+    return (out, states) if return_state else out
+
+
+def mlstm_decode_step_mp(cfg: ArchConfig, p, x, states, row):
+    """``mlstm_decode_step`` over ``row``'s m shards: x (B, 1, d) on shard 0,
+    ``states[j]`` shard j's heads' {"C", "n", "m"} -> (y (B, 1, d) on shard
+    0, states), each updated in place."""
+    parts = []
+    for (w, z, xm), st in zip(_mp_inputs(cfg, p, x, row), states):
+        h = _mlstm_step(*_mlstm_qkvif(cfg, w, xm), st, x.dtype)
+        parts.append((h * F.silu(z[:, 0])) @ w["down"])
+    return row.reduce(parts, "partial_sum")[:, None, :], states
 
 
 # ---------------------------------------------------------------------------

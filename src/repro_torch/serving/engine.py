@@ -88,7 +88,9 @@ the data groups (``SlotPool``), each request is prefilled by its slot's
 group, and every decode step runs each group's rows on its model shards
 (``models/model``), each attention layer's retrieval in KV-head groups,
 page-sharded under ``fkv.sharded_retrieval`` (the fused step) or whole on
-the group's shard 0. Speculative decoding is off under a compute mesh.
+the group's shard 0. Speculative decoding composes with a compute mesh:
+each data group verifies and rolls back its rows on its shards, its
+drafter table on its shard 0.
 The bytes the shards move count on ``mesh.moved`` by kind; the decode
 steps' share lands in ``EngineMetrics``' mesh section.
 """
@@ -107,7 +109,7 @@ from repro_torch.configs.base import MOE, ArchConfig, FreeKVConfig
 from repro_torch.core.recall_pipeline import RecallFlightTracker
 from repro_torch.core.sharded_retrieval import tp_group_size
 from repro_torch.launch.mesh import indexed_device, is_compute_mesh, make_tp_mesh
-from repro_torch.models.model import (DECODE_STAT_KEYS, check_mesh_serving, decode_window,
+from repro_torch.models.model import (DECODE_STAT_KEYS, decode_window,
                                       decode_window_spec, frontend_prefix, prefill,
                                       prefill_extend, serve_step, supports_kv_extend,
                                       supports_spec_decode)
@@ -242,7 +244,8 @@ class PrefillJob:
             if eng.prefix_cache is not None:
                 eng._cache_insert(self.seq, self._kv)
             self._kv = None
-            self.result = (logits, eng._attach_draft_tab(state, self.seq, self.req.draft_hint),
+            self.result = (logits, eng._attach_draft_tab(state, self.seq, self.req.draft_hint,
+                                                         group or 0),
                            self.hit, len(self.seq))
         return n
 
@@ -270,7 +273,6 @@ class ServeEngine:
             # reference ``engine.py:214``
             raise ValueError("tp serving and the page-sharded fused step are exclusive")
         if self.compute_mesh:
-            check_mesh_serving(cfg, mesh)
             if indexed_device(self.device) != mesh.primary:
                 raise ValueError(f"the engine's device {self.device} must be the mesh's first, "
                                  f"{mesh.primary}")
@@ -292,8 +294,7 @@ class ServeEngine:
         # it cannot be exact the engine serves draft_len=0 (reference
         # ``engine.py:222-232``): the same tokens, one a step
         if fkv.draft_len > 0 and not (scheduler == "continuous" and fkv.sample_on_device
-                                      and supports_spec_decode(cfg, fkv)
-                                      and not self.compute_mesh):
+                                      and supports_spec_decode(cfg, fkv)):
             fkv = dataclasses.replace(fkv, draft_len=0)
         self.spec_decode = fkv.draft_len > 0
         self.draft_len = fkv.draft_len
@@ -424,10 +425,13 @@ class ServeEngine:
         Under speculative decoding, at most ``n_steps`` verify iterations
         (``decode_window_spec``'s window rule), and the blocks are (n, 1 +
         draft_len, B)."""
-        if self.spec_decode:
-            return decode_window_spec(self.cfg, self.fkv, self.params, state, loop,
-                                      self.sampler, n_steps, stop_turnover, mesh=self.mesh)
         before = self._moved()
+        if self.spec_decode:
+            out = decode_window_spec(self.cfg, self.fkv, self.params, state, loop,
+                                     self.sampler, n_steps, stop_turnover, mesh=self.mesh)
+            # a verify iteration is 1 + draft_len decode steps
+            self._count_decode(before, out[2].shape[0] * out[2].shape[1])
+            return out
         out = decode_window(self.cfg, self.fkv, self.params, state, loop, self.sampler,
                             n_steps, stop_turnover, read_finishes, mesh=self.mesh)
         self._count_decode(before, out[2].shape[0])
@@ -444,10 +448,12 @@ class ServeEngine:
         return self.sample_lanes(logits, keys, torch.full((1,), count, dtype=torch.int32,
                                                           device=logits.device))
 
-    def _attach_draft_tab(self, state, seq, hint=None):
+    def _attach_draft_tab(self, state, seq, hint=None, group: int = 0):
         """Seed the B=1 state's drafter table from the padded prompt, its
         bigrams overlaid by the hint's (reference ``engine.py:394``); a
-        no-op without speculative decoding."""
+        no-op without speculative decoding. Under a compute mesh the table
+        lives on shard 0 of the data group that prefilled it, the slot's
+        (``"<group>:0/draft_tab"``)."""
         if not self.spec_decode or state is None:
             return state
         from repro_torch.core import drafter
@@ -455,7 +461,11 @@ class ServeEngine:
         if hint is not None and len(hint) >= 2:
             h = drafter.seed_from_prompt(self.cfg.vocab_size, np.asarray(hint, np.int64))
             tab = np.where(h >= 0, h, tab)
-        state["draft_tab"] = torch.from_numpy(tab).to(self.device)
+        tab = torch.from_numpy(tab)
+        if self.compute_mesh:
+            state["draft_tab"] = {f"{group}:0/draft_tab": tab.to(self._group_device(group))}
+        else:
+            state["draft_tab"] = tab.to(self.device)
         return state
 
     def _frontend_batch(self, reqs: List[Request]) -> dict:

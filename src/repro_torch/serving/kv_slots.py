@@ -33,7 +33,11 @@ s % b of group s // b (b slots a group), and a layer's leaves are keyed
 ``"<group>:<shard>/<key>"`` on that group's shards. Every operation above
 acts on the slot's group's leaves at its row there; ``claim`` hands out
 those views under their keys, and ``insert``/``swap_in`` write a state
-made in any group into the slot's group (``group_of``).
+made in any group into the slot's group (``group_of``). The recurrent
+layers' state blocks (``"<group>:<shard>/h"``, ...), the cross-attention's
+``xk``/``xv`` and, under speculative decoding, the drafter's table (a dict
+of each group's, ``"<group>:0/draft_tab"``) ride the same per-leaf
+operations.
 
 Every write first makes the current stream wait for each layer's staged
 recall (``recall_pipeline.wait_staged``): the side stream writes the
@@ -186,9 +190,18 @@ class SlotPool:
                     paging.slot_read_leaf(t, r).fill_(fill[base_key(k)])
         for k in self._top():
             self.state[k][slot] = _TOP_FILL[k]
+        for k in self._grouped_top():
+            for _, t, r in self._rows(self.state[k], slot):
+                paging.slot_read_leaf(t, r).fill_(_TOP_FILL[k])
 
     def _top(self):
-        return [k for k in TOP_LANES if k in self.state]
+        """The top-level lanes held as one (B, ...) tensor."""
+        return [k for k in TOP_LANES if isinstance(self.state.get(k), torch.Tensor)]
+
+    def _grouped_top(self):
+        """The top-level lanes held per data group (a compute mesh's drafter
+        tables), a dict keyed like a layer's leaves."""
+        return [k for k in TOP_LANES if isinstance(self.state.get(k), dict)]
 
     def flush_resets(self):
         """Reset the slots freed since the last flush and not refilled, so
@@ -218,6 +231,9 @@ class SlotPool:
         for k in self._top():
             if k in src_state:
                 paging.slot_write_leaf(self.state[k], src_state[k], slot)
+        for k in self._grouped_top():
+            for key, t in src_state.get(k, {}).items():
+                paging.slot_write_leaf(self.state[k][self._key_in(key, slot)], t, r)
 
     def extract(self, slot: int):
         """Row ``slot`` as a B=1 state of copies (tests, migration)."""
@@ -225,7 +241,10 @@ class SlotPool:
         return {"layers": [{k: paging.slot_read_leaf(t, r).clone()
                             for k, t, r in self._rows(layer, slot)}
                            for layer in self.state["layers"]],
-                **{k: paging.slot_read_leaf(self.state[k], slot).clone() for k in self._top()}}
+                **{k: paging.slot_read_leaf(self.state[k], slot).clone() for k in self._top()},
+                **{k: {key: paging.slot_read_leaf(t, r).clone()
+                       for key, t, r in self._rows(self.state[k], slot)}
+                   for k in self._grouped_top()}}
 
     def swap_out(self, slot: int):
         """Row ``slot``'s whole B=1 state as host tensors at their stored
@@ -238,7 +257,9 @@ class SlotPool:
         return offload.swap_state_to_host(
             {"layers": [{k: paging.slot_read_leaf(t, r) for k, t, r in self._rows(layer, slot)}
                         for layer in self.state["layers"]],
-             **{k: paging.slot_read_leaf(self.state[k], slot) for k in self._top()}})
+             **{k: paging.slot_read_leaf(self.state[k], slot) for k in self._top()},
+             **{k: {key: paging.slot_read_leaf(t, r) for key, t, r in
+                    self._rows(self.state[k], slot)} for k in self._grouped_top()}})
 
     def swap_in(self, host_state, slot: int):
         """Write a ``swap_out`` state into row ``slot`` (allocated by the
@@ -253,6 +274,10 @@ class SlotPool:
                 paging.slot_read_leaf(dst[self._key_in(k, slot)], r).copy_(t, non_blocking=True)
         for k in self._top():
             paging.slot_read_leaf(self.state[k], slot).copy_(host_state[k], non_blocking=True)
+        for k in self._grouped_top():
+            for key, t in host_state[k].items():
+                paging.slot_read_leaf(self.state[k][self._key_in(key, slot)], r).copy_(
+                    t, non_blocking=True)
 
     def reset_all(self):
         self._settle()

@@ -267,6 +267,55 @@ class Copies:
         return piece
 
 
+class Halves:
+    """A (d, 2 n) serving weight that two column halves make, Mamba's
+    ``in_proj`` (``xm``, ``z``) or an mLSTM's ``up``, placed so that model
+    shard j of data group ``home`` holds column block j of both halves: the
+    d_inner- or head-split forms (``models/ssm``, ``models/xlstm``) then
+    fetch nothing. ``param_spec``'s column split would give shard 0 the
+    first half's columns only. ``block`` and ``full`` read like a
+    ``Sharded`` leaf's."""
+    __slots__ = ("halves", "shape", "mesh", "home")
+
+    def __init__(self, full: torch.Tensor, mesh, home: int):
+        n = full.shape[1] // 2
+        cols = ((), ("model",))
+        self.mesh, self.home, self.shape = mesh, home, full.shape
+        self.halves = (Sharded.place(full[:, :n], cols, mesh, home),
+                       Sharded.place(full[:, n:], cols, mesh, home))
+
+    @property
+    def pieces(self):
+        return self.halves[0].pieces + self.halves[1].pieces
+
+    @property
+    def ndim(self) -> int:
+        return 2
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.halves[0].dtype
+
+    def full(self, device=None) -> torch.Tensor:
+        return torch.cat([h.full(device) for h in self.halves], dim=1)
+
+    def block(self, box, dst, kind: str) -> torch.Tensor:
+        n = self.shape[1] // 2
+        (r0, r1), (a, b) = box
+        parts = [h.block(((r0, r1), (max(a, off) - off, min(b, off + n) - off)), dst, kind)
+                 for h, off in zip(self.halves, (0, n)) if a < off + n and b > off]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def _mixer_kind(cfg, path: str):
+    """The mixer a ``layers/<i>/mixer/...`` path belongs to (None for other
+    paths: the encoder's layers and the cross-attention are attention)."""
+    keys = path.split("/")
+    if len(keys) > 2 and keys[0] == "layers" and keys[2] == "mixer":
+        return cfg.layers[int(keys[1])][0]
+    return None
+
+
 def serving_spec(cfg, mesh, path: str, shape: Sequence[int]):
     """The layout a data group's model shards compute with the leaf at
     ``path`` in (the forward-only mesh forms of ``models/attention``,
@@ -286,17 +335,38 @@ def serving_spec(cfg, mesh, path: str, shape: Sequence[int]):
       MoE wg/wu/wd        by expert (E divides), else whole; the router copies
       embed tok, head     by vocab row, column (the padded vocab divides),
                           else whole
-    Other leaves (norms, the recurrent mixers, which a mesh above 1 x 1
-    does not serve) take ``param_spec(fsdp_shard=False)``."""
+      Mamba               in_proj "halves" (``Halves``), conv_w, dt_w by
+                          column, x_proj, A_log, out_proj by row and
+                          conv_b, dt_b, D by channel, where d_inner divides;
+                          else whole
+      mLSTM               up "halves", wq/wk/wv/wi/wf by column and bf by
+                          head, down by row, where the heads divide; else
+                          whole
+      sLSTM               whole (it runs on the group's shard 0)
+    The cross-attention's wq/wk/wv/wo and the encoder's layers take the
+    attention and MLP rules. Other leaves take ``param_spec(fsdp_shard=
+    False)`` (norms and 1-D biases: whole on shard 0)."""
+    from repro_torch.configs.base import MAMBA, MLSTM, SLSTM
+    from repro_torch.models.ssm import mamba_splits
+    from repro_torch.models.xlstm import mlstm_splits
     m = mesh.shape["model"]
     nd = len(shape)
     key = path.rsplit("/", 1)[-1]
     whole = ((),) * nd
-    if m == 1 or nd < 2:
-        return whole
     rows = (("model",),) + ((),) * (nd - 1)
     cols = ((),) * (nd - 1) + (("model",),)
-    if "mixer/" in path and key in ("wq", "wk", "wv", "wo"):
+    mixer = _mixer_kind(cfg, path)
+    if m > 1 and mixer in (MAMBA, MLSTM, SLSTM):
+        split = {MAMBA: mamba_splits, MLSTM: mlstm_splits}.get(mixer, lambda *_: False)(cfg, m)
+        if not split:
+            return whole
+        if key in ("in_proj", "up"):
+            return "halves"
+        by_col = ("conv_w", "dt_w") if mixer == MAMBA else ("wq", "wk", "wv", "wi", "wf")
+        return cols if key in by_col else rows
+    if m == 1 or nd < 2:
+        return whole
+    if ("mixer/" in path or "xattn/" in path) and key in ("wq", "wk", "wv", "wo"):
         if cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0:
             return rows if key == "wo" else cols
         return rows if shape[0] % m == 0 else whole
@@ -337,6 +407,8 @@ def place_serving_params(cfg, params, mesh, fsdp=None) -> list:
         spec = serving_spec(cfg, mesh, _path_str(path), t.shape)
         if spec == "copies":
             return Copies(t.detach(), mesh, home)
+        if spec == "halves":
+            return Halves(t.detach(), mesh, home)
         return Sharded.place(t.detach(), spec, mesh, home)
     return [map_leaves(lambda path, t: place(g, path, t), params)
             for g in range(mesh.shape["data"])]
@@ -345,8 +417,8 @@ def place_serving_params(cfg, params, mesh, fsdp=None) -> list:
 def gather_params(params, device=None):
     """The inverse of ``shard_params``: every ``Sharded`` leaf whole on
     ``device`` (its mesh's primary by default); other leaves unchanged."""
-    return map_leaves(lambda _, t: t.full(device) if isinstance(t, (Sharded, Copies)) else t,
-                      params)
+    return map_leaves(lambda _, t: t.full(device) if isinstance(t, (Sharded, Copies, Halves))
+                      else t, params)
 
 
 # ---------------------------------------------------------------------------

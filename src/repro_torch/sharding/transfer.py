@@ -20,8 +20,8 @@ Kinds:
                  form fetches)
   partial_sum    the row-parallel and input-dim-split reductions, with the
                  broadcast of their input to the model shards (an
-                 all-reduce's two halves) and the query-row attention's
-                 moves
+                 all-reduce's two halves), the query-row attention's
+                 moves and the mLSTM's all-gather of its inner input
   vocab          the vocab-parallel embedding, logits and cross-entropy
   expert_sum     the expert-parallel MoE's input broadcast and output sum
   data           batch blocks to their data group, and the loss's terms back
@@ -119,12 +119,20 @@ class MeshRow:
 
     def fetch(self, leaf, j: int, dim=None) -> torch.Tensor:
         """Shard j's compute block of a placed weight (``sharding/rules
-        .Sharded`` or ``Copies``): block j of ``m`` along ``dim``, or the
-        whole leaf when ``dim`` is None."""
+        .Sharded``, ``Copies`` or ``Halves``): block j of ``m`` along
+        ``dim``, or the whole leaf when ``dim`` is None."""
         box = [(0, n) for n in leaf.shape]
         if dim is not None:
             n = leaf.shape[dim] // self.m
             box[dim] = (j * n, (j + 1) * n)
+        return leaf.block(box, (self.g, j), "weight_gather")
+
+    def span(self, leaf, j: int, dim: int, lo: int, hi: int) -> torch.Tensor:
+        """Elements [lo, hi) along ``dim`` of a placed weight, whole along
+        its other dims, on shard j (one half's block of a fused (d, 2 n)
+        projection)."""
+        box = [(0, n) for n in leaf.shape]
+        box[dim] = (lo, hi)
         return leaf.block(box, (self.g, j), "weight_gather")
 
     def whole(self, tree, j: int = 0):

@@ -3,15 +3,18 @@
 and placement, the transfer counter, AdamW and checkpoints on pieces, the
 launcher's ``--model-parallel``) held against the JAX package.
 
-The oracle is one module-scoped subprocess that runs the reference's
+The oracle is a module-scoped set of subprocesses, one an arch group,
+started with the module's first test (so the tests that need no oracle
+run meanwhile; they come first in the file), that run the reference's
 ``jax.value_and_grad(forward_train(mesh=))`` with four forced XLA host
 devices on a ``jax.sharding.Mesh`` built here from them (not
 ``make_host_mesh``, whose ``jax.make_mesh`` axes make the reference's
 ``_bshard`` raise under the installed JAX), T 64: B 2 at (1, 2) and
 (2, 1), B 4 at (2, 2) and (1, 4), and deepseek at (2, 2) with B 3, whose
-MoE data blocks cut through rows. It writes every loss and gradient to an
-``.npz`` file. The port runs the same numpy-seeded params
-(``params_from_jax``) and tokens on ``("cpu",) * n`` meshes and is held at
+MoE data blocks cut through rows. They write every loss and gradient, the
+reference's params and its unsharded MoE losses to ``.npz`` files. The
+port runs the same numpy-seeded params (``params_from_jax``) and tokens
+on ``("cpu",) * n`` meshes and is held at
 ``test_torch_train_archs``' tolerances: the loss within 2e-5 relative,
 every gradient leaf within 1e-4 relative L2 (1e-6 absolute where the
 reference's norm is below 1e-6). A MoE with a data axis above 1 routes each
@@ -130,29 +133,61 @@ def _rel(a, b):
 
 
 # ---------------------------------------------------------------------------
-# the reference's mesh runs (one subprocess, four forced host devices)
+# the reference's mesh runs (subprocesses, four forced host devices)
 # ---------------------------------------------------------------------------
-@pytest.fixture(scope="module")
-def jax_mesh_runs(tmp_path_factory):
-    out = tmp_path_factory.mktemp("mesh_train") / "runs.npz"
+# the reference's cases in subprocesses by arch, each arch's params made in one
+PARTS = [[c for c in CASES if c[0] == a] for a in ("deepseek-moe-16b-smoke",
+                                                  "llama4-scout-17b-a16e-smoke")]
+PARTS.append([c for c in CASES if c not in PARTS[0] + PARTS[1]])
+N_PARTS = len(PARTS)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _ref_procs(tmp_path_factory):
+    """The reference's runs, started with the module's first test in
+    ``N_PARTS`` subprocesses at once."""
+    out = tmp_path_factory.mktemp("mesh_train")
     env = dict(os.environ)
     env["XLA_FLAGS"] = env.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=4"
     env["PYTHONPATH"] = os.pathsep.join([os.path.join(REPO, "src"), env.get("PYTHONPATH", "")])
     env["JAX_PLATFORMS"] = "cpu"
-    subprocess.run([sys.executable, os.path.abspath(__file__), str(out)], check=True,
-                   timeout=600, env=env, cwd=REPO)
-    with np.load(out) as data:
-        return {k: data[k] for k in data.files}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               str(out / f"part{i}.npz"), str(i)], env=env, cwd=REPO)
+             for i in range(N_PARTS)]
+    yield out, procs
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
 
 
-def _reference_mesh_runs(out_path):
-    """Every case of ``CASES`` through the reference (run as a script)."""
+@pytest.fixture(scope="module")
+def jax_mesh_runs(_ref_procs):
+    out, procs = _ref_procs
+    for p in procs:
+        assert p.wait(timeout=600) == 0, p.args
+    runs = {}
+    for i in range(N_PARTS):
+        with np.load(out / f"part{i}.npz") as data:
+            runs.update({k: data[k] for k in data.files})
+    return runs
+
+
+def _reference_mesh_runs(out_path, part):
+    """Part ``part`` of ``CASES`` through the reference (run as a script),
+    with each arch's params and, where a MoE's data blocks move the loss,
+    its unsharded loss."""
     from jax.sharding import Mesh
     assert len(jax.devices()) >= 4, jax.devices()
-    flat = {}
-    for arch, dm, B in CASES:
+    assert sorted(c for p in PARTS for c in p) == sorted(CASES)
+    flat, made = {}, {}
+    for arch, dm, B in PARTS[part]:
         cfg = jget_config(arch)
-        params = jmodel.init_params(cfg, jax.random.PRNGKey(0))
+        if arch not in made:
+            made[arch] = jmodel.init_params(cfg, jax.random.PRNGKey(0))
+            for path, leaf in jax.tree_util.tree_flatten_with_path(made[arch])[0]:
+                name = "/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+                flat[f"params|{arch}|{name}"] = np.asarray(leaf)
+        params = made[arch]
         batch = {k: jnp.asarray(v) for k, v in _batch(cfg, B).items()}
         mesh = Mesh(np.asarray(jax.devices()[:dm[0] * dm[1]]).reshape(dm), ("data", "model"))
         with mesh:
@@ -164,52 +199,14 @@ def _reference_mesh_runs(out_path):
         for path, g in jax.tree_util.tree_flatten_with_path(grads)[0]:
             name = "/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path)
             flat[f"{key}|grad/{name}"] = np.asarray(g)
+        if cfg.n_experts and dm[0] > 1 and f"plain|{arch}|B{B}" not in flat:
+            flat[f"plain|{arch}|B{B}"] = np.asarray(jax.jit(
+                lambda p, b: jmodel.forward_train(cfg, p, b)[0])(params, batch))
     np.savez(out_path, **flat)
 
 
-_PLAIN = {}
-
-
-def _reference_plain_loss(arch, B):
-    """The reference's unsharded loss on the same params and batch."""
-    if (arch, B) not in _PLAIN:
-        cfg = jget_config(arch)
-        params = jmodel.init_params(cfg, jax.random.PRNGKey(0))
-        batch = {k: jnp.asarray(v) for k, v in _batch(cfg, B).items()}
-        _PLAIN[arch, B] = float(jax.jit(lambda p, b: jmodel.forward_train(cfg, p, b)[0])(
-            params, batch))
-    return _PLAIN[arch, B]
-
-
-@pytest.mark.parametrize("arch,dm,B", CASES, ids=[_key(*c) for c in CASES])
-def test_mesh_train_matches_reference_mesh(arch, dm, B, jax_mesh_runs):
-    cfg = get_config(arch)
-    key = _key(arch, dm, B)
-    jp = jax.tree.map(np.asarray, jmodel.init_params(jget_config(arch), jax.random.PRNGKey(0)))
-    batch = _batch(cfg, B)
-    loss, m, grads = _port_loss_grads(cfg, model.params_from_jax(cfg, jp, device="cpu"),
-                                      batch, _cpu_mesh(dm))
-    want_loss = float(jax_mesh_runs[key + "|loss"])
-    assert _rel(float(loss), want_loss) <= LOSS_RTOL, (key, float(loss), want_loss)
-    assert int(m["tokens"]) == B * (T - 1)
-    ref_grads = _unflatten({k.split("|grad/")[1]: v for k, v in jax_mesh_runs.items()
-                            if k.startswith(key + "|grad/")})
-    ref_grads.setdefault("prelude", ())
-    _assert_grads_close(cfg, grads, model.params_from_jax(cfg, ref_grads, device="cpu"), key)
-    if cfg.n_experts and dm[0] > 1:
-        # the data blocks' own capacity and aux move the loss off the
-        # unsharded one, in the reference and in the port alike
-        ref_plain = _reference_plain_loss(arch, B)
-        port_plain, _, _ = _port_loss_grads(cfg, model.params_from_jax(cfg, jp, device="cpu"),
-                                            batch, None)
-        assert _rel(want_loss, ref_plain) > 10 * LOSS_RTOL, (key, want_loss, ref_plain)
-        moved = float(loss) - float(port_plain)
-        assert abs(moved - (want_loss - ref_plain)) <= LOSS_RTOL * abs(want_loss), (
-            key, moved, want_loss - ref_plain)
-
-
 # ---------------------------------------------------------------------------
-# 1 x 1 is no mesh; the recurrent mixers and the encoder-decoder wait
+# 1 x 1 is no mesh; the recurrent mixers and the encoder-decoder under a mesh
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_one_by_one_mesh_is_no_mesh_bit_for_bit(arch):
@@ -251,12 +248,20 @@ def test_meshes_that_divide_nothing_run_whole(arch, dm, B):
 @pytest.mark.parametrize("arch", ["xlstm-350m-smoke", "jamba-1.5-large-398b-smoke",
                                   "whisper-tiny-smoke"])
 def test_recurrent_and_encoder_decoder_raise_under_a_mesh(arch):
+    """The recurrent mixers and the encoder-decoder train under a mesh
+    above 1 x 1: one train step at (1, 2) gives the 1 x 1 step's loss to
+    float rounding (``tests/test_torch_mesh_recurrent.py`` holds them
+    against the reference's mesh runs)."""
     cfg = get_config(arch)
-    mesh = _cpu_mesh((1, 2))
-    params = rules.shard_params(cfg, model.init_params(cfg, seed=0, device="cpu"), mesh)
-    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, 2).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
-        model.forward_train(cfg, params, batch, mesh=mesh)
+    opt_cfg = AdamWConfig()
+    tb = {k: torch.from_numpy(v) for k, v in _batch(cfg, 2).items()}
+    losses = {}
+    for dm in ((1, 1), (1, 2)):
+        mesh = _cpu_mesh(dm)
+        params, opt = init_train(cfg, opt_cfg, seed=0, device="cpu", mesh=mesh)
+        losses[dm] = float(make_train_step(cfg, opt_cfg, mesh=mesh)(params, opt, tb)[2]["loss"])
+        assert mesh.moved.bytes["partial_sum"] > 0 or dm == (1, 1)
+    assert _rel(losses[(1, 2)], losses[(1, 1)]) <= LOSS_RTOL, losses
 
 
 # ---------------------------------------------------------------------------
@@ -455,5 +460,38 @@ def test_mesh_train_steps_equal_unsharded_steps():
     assert runs[None][-1] < runs[None][0]
 
 
+# ---------------------------------------------------------------------------
+# against the reference's mesh runs (last: the tests above run while they
+# compute)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch,dm,B", CASES, ids=[_key(*c) for c in CASES])
+def test_mesh_train_matches_reference_mesh(arch, dm, B, jax_mesh_runs):
+    cfg = get_config(arch)
+    key = _key(arch, dm, B)
+    pre = f"params|{arch}|"
+    jp = _unflatten({k[len(pre):]: v for k, v in jax_mesh_runs.items() if k.startswith(pre)})
+    jp.setdefault("prelude", ())
+    batch = _batch(cfg, B)
+    loss, m, grads = _port_loss_grads(cfg, model.params_from_jax(cfg, jp, device="cpu"),
+                                      batch, _cpu_mesh(dm))
+    want_loss = float(jax_mesh_runs[key + "|loss"])
+    assert _rel(float(loss), want_loss) <= LOSS_RTOL, (key, float(loss), want_loss)
+    assert int(m["tokens"]) == B * (T - 1)
+    ref_grads = _unflatten({k.split("|grad/")[1]: v for k, v in jax_mesh_runs.items()
+                            if k.startswith(key + "|grad/")})
+    ref_grads.setdefault("prelude", ())
+    _assert_grads_close(cfg, grads, model.params_from_jax(cfg, ref_grads, device="cpu"), key)
+    if cfg.n_experts and dm[0] > 1:
+        # the data blocks' own capacity and aux move the loss off the
+        # unsharded one, in the reference and in the port alike
+        ref_plain = float(jax_mesh_runs[f"plain|{arch}|B{B}"])
+        port_plain, _, _ = _port_loss_grads(cfg, model.params_from_jax(cfg, jp, device="cpu"),
+                                            batch, None)
+        assert _rel(want_loss, ref_plain) > 10 * LOSS_RTOL, (key, want_loss, ref_plain)
+        moved = float(loss) - float(port_plain)
+        assert abs(moved - (want_loss - ref_plain)) <= LOSS_RTOL * abs(want_loss), (
+            key, moved, want_loss - ref_plain)
+
+
 if __name__ == "__main__":
-    _reference_mesh_runs(sys.argv[1])
+    _reference_mesh_runs(sys.argv[1], int(sys.argv[2]))

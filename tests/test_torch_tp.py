@@ -490,17 +490,29 @@ def test_tp2_http_front_end_serves_unchanged(models, runs):
 
 
 # ---------------------------------------------------------------------------
-# against the reference's tp=2 run (one subprocess, two forced host devices)
+# against the reference's tp=2 run (one subprocess, two forced host devices,
+# started with the module)
 # ---------------------------------------------------------------------------
-@pytest.fixture(scope="module")
-def jax_tp2(tmp_path_factory):
+@pytest.fixture(scope="module", autouse=True)
+def _tp2_proc(tmp_path_factory):
+    """The reference's tp=2 run, started with the module's first test, so the
+    tests before it run meanwhile."""
     out = tmp_path_factory.mktemp("tp_serving") / "report.json"
     env = dict(os.environ)
     env["XLA_FLAGS"] = env.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=2"
     env["PYTHONPATH"] = os.pathsep.join([os.path.join(REPO, "src"), env.get("PYTHONPATH", "")])
     env["JAX_PLATFORMS"] = "cpu"
-    subprocess.run([sys.executable, os.path.abspath(__file__), str(out)], check=True,
-                   timeout=600, env=env, cwd=REPO)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), str(out)], env=env,
+                            cwd=REPO)
+    yield out, proc
+    if proc.poll() is None:
+        proc.kill()
+
+
+@pytest.fixture(scope="module")
+def jax_tp2(_tp2_proc):
+    out, proc = _tp2_proc
+    assert proc.wait(timeout=600) == 0, proc.args
     return json.loads(out.read_text())
 
 
